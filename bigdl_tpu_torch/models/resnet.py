@@ -1,0 +1,101 @@
+"""ResNet (port of ``bigdl_tpu/models/resnet.py``).
+
+Both recipes of the reference: the CIFAR-10 basic-block ResNet and the
+ImageNet bottleneck ResNet-50 (1000 classes, 224x224, NCHW).  Convs
+carry MSRA init and no bias; BN starts at gamma 1, beta 0, running mean
+0 and variance 1.  The factories return placeholder weights: call
+``.initialize(generator)`` or load weights before use.  The reference's
+``remat`` and ``format="NHWC"`` options come with the training slice.
+"""
+
+from __future__ import annotations
+
+from bigdl_tpu_torch import nn
+from bigdl_tpu_torch.nn.initialization import MsraFiller
+
+
+def _conv_bn(in_c, out_c, k, stride, pad, name):
+    return (nn.Sequential(name=name)
+            .add(nn.SpatialConvolution(
+                in_c, out_c, k, k, stride, stride, pad, pad,
+                with_bias=False, weight_init=MsraFiller(),
+                name=f"{name}_conv"))
+            .add(nn.SpatialBatchNormalization(out_c, name=f"{name}_bn")))
+
+
+def _residual(main, shortcut):
+    return (nn.Sequential()
+            .add(nn.ConcatTable().add(main).add(shortcut))
+            .add(nn.CAddTable())
+            .add(nn.ReLU()))
+
+
+def basic_block(in_c, out_c, stride):
+    """3x3+3x3 residual block (reference basicBlock, shortcut type B)."""
+    main = (nn.Sequential()
+            .add(_conv_bn(in_c, out_c, 3, stride, 1, "a"))
+            .add(nn.ReLU())
+            .add(_conv_bn(out_c, out_c, 3, 1, 1, "b")))
+    if stride != 1 or in_c != out_c:
+        shortcut = _conv_bn(in_c, out_c, 1, stride, 0, "sc")
+    else:
+        shortcut = nn.Identity()
+    return _residual(main, shortcut)
+
+
+def bottleneck(in_c, mid_c, stride):
+    """1x1 -> 3x3 -> 1x1 bottleneck (reference bottleneck; expansion 4)."""
+    out_c = mid_c * 4
+    main = (nn.Sequential()
+            .add(_conv_bn(in_c, mid_c, 1, 1, 0, "a"))
+            .add(nn.ReLU())
+            .add(_conv_bn(mid_c, mid_c, 3, stride, 1, "b"))
+            .add(nn.ReLU())
+            .add(_conv_bn(mid_c, out_c, 1, 1, 0, "c")))
+    if stride != 1 or in_c != out_c:
+        shortcut = _conv_bn(in_c, out_c, 1, stride, 0, "sc")
+    else:
+        shortcut = nn.Identity()
+    return _residual(main, shortcut)
+
+
+def resnet_cifar(depth: int = 20, class_num: int = 10) -> nn.Sequential:
+    """CIFAR-10 ResNet: 3 stages of n = (depth-2)/6 basic blocks at
+    widths 16/32/64."""
+    if (depth - 2) % 6 != 0:
+        raise ValueError(f"depth must be 6n+2, got {depth}")
+    n = (depth - 2) // 6
+    model = (nn.Sequential(name=f"ResNet{depth}")
+             .add(_conv_bn(3, 16, 3, 1, 1, "stem"))
+             .add(nn.ReLU()))
+    in_c = 16
+    for si, w in enumerate([16, 32, 64]):
+        for bi in range(n):
+            stride = 2 if (si > 0 and bi == 0) else 1
+            model.add(basic_block(in_c, w, stride))
+            in_c = w
+    model.add(nn.SpatialAveragePooling(8, 8, 8, 8))
+    model.add(nn.Reshape((64,)))
+    model.add(nn.Linear(64, class_num))
+    model.add(nn.LogSoftMax())
+    return model
+
+
+def resnet50(class_num: int = 1000) -> nn.Sequential:
+    """ImageNet ResNet-50: stem 7x7/2 + maxpool, stages [3,4,6,3]
+    bottlenecks at 64/128/256/512 — 53 convolutions and one Linear."""
+    model = (nn.Sequential(name="ResNet50")
+             .add(_conv_bn(3, 64, 7, 2, 3, "stem"))
+             .add(nn.ReLU())
+             .add(nn.SpatialMaxPooling(3, 3, 2, 2, 1, 1)))
+    in_c = 64
+    for mid, blocks, first_stride in [(64, 3, 1), (128, 4, 2), (256, 6, 2),
+                                      (512, 3, 2)]:
+        for bi in range(blocks):
+            model.add(bottleneck(in_c, mid, first_stride if bi == 0 else 1))
+            in_c = mid * 4
+    model.add(nn.SpatialAveragePooling(7, 7, 7, 7))
+    model.add(nn.Reshape((2048,)))
+    model.add(nn.Linear(2048, class_num))
+    model.add(nn.LogSoftMax())
+    return model

@@ -1,0 +1,177 @@
+"""Post-training int8 quantization (port of ``bigdl_tpu/nn/quantized.py``).
+
+Scheme, as in the reference:
+
+- weights: symmetric per output channel (``scale_o = max|W_o| / 127``),
+  computed with the reference's numpy math, so the int8 panels and scales
+  are bitwise-equal to JAX's;
+- activations, per layer ``mode`` (``Config.int8_activation_mode``
+  default, ``quantize(model, mode=...)`` override): ``"weight_only"``
+  keeps f32/bf16 activations; ``"dynamic"`` quantizes them per tensor on
+  the fly (``ops.int8_gemm.dyn_quantize``);
+- f32 bias added after dequantization, in the same rounding as the scale.
+
+Every ``n_group == 1`` convolution reduces onto the int8 GEMM on both
+devices through im2col.  In dynamic mode the activation scale is taken over the conv's
+whole input before im2col, as the reference's direct conv simulation
+(``_apply_sim``) takes it.  Grouped convolutions keep that simulation.
+The recurrent cells' quantized twins wait for their slice.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from bigdl_tpu_torch.nn.layers import Linear, SpatialConvolution, conv_pads
+from bigdl_tpu_torch.nn.module import Container, Module
+from bigdl_tpu_torch.ops.int8_gemm import (MODES, fma_f32, int8_gemm,
+                                           int8_matmul, prepare_operands)
+
+
+def _default_mode(mode: Optional[str]) -> str:
+    """explicit arg > ``Config.int8_activation_mode`` (env
+    ``BIGDL_TPU_INT8_ACTIVATION_MODE``) > "weight_only"."""
+    if mode is None:
+        from bigdl_tpu_torch.utils.config import get_config
+        mode = get_config().int8_activation_mode
+    if mode not in MODES:
+        raise ValueError(
+            f"int8 activation mode must be one of {MODES}, got {mode!r}")
+    return mode
+
+
+def _quantize_symmetric(w: np.ndarray, axis=None):
+    """Return (int8 values, f32 scale) with symmetric range mapping."""
+    amax = np.max(np.abs(w), axis=axis, keepdims=axis is not None)
+    scale = np.maximum(amax, 1e-8) / 127.0
+    q = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
+    return q, np.asarray(scale, np.float32)
+
+
+def _register_quantized(mod: Module, wq, ws, bias, device) -> None:
+    mod.register_buffer("weight_q", torch.from_numpy(wq).to(device))
+    mod.register_buffer("weight_scale", torch.from_numpy(ws).to(device))
+    mod.register_buffer("bias", None if bias is None
+                        else bias.detach().clone().float())
+
+
+class QuantizedLinear(Module):
+    """int8 Linear: buffers ``weight_q`` (out, in) int8, ``weight_scale``
+    (out, 1) f32 and an optional f32 ``bias``."""
+
+    def __init__(self, weight_q: np.ndarray, weight_scale: np.ndarray,
+                 bias: Optional[torch.Tensor], name: Optional[str] = None,
+                 mode: Optional[str] = None, device="cpu"):
+        super().__init__(name)
+        _register_quantized(self, weight_q, weight_scale, bias, device)
+        self.mode = _default_mode(mode)
+
+    @staticmethod
+    def from_linear(m: Linear, mode: Optional[str] = None
+                    ) -> "QuantizedLinear":
+        w = m.weight.detach()
+        wq, ws = _quantize_symmetric(w.cpu().numpy(), axis=1)
+        return QuantizedLinear(wq, ws, m.bias, name=m.name, mode=mode,
+                               device=w.device)
+
+    def forward(self, x):
+        return int8_matmul(x, self.weight_q, self.weight_scale, self.bias,
+                           mode=self.mode)
+
+
+def _im2col(x: torch.Tensor, kernel, stride, dilation) -> torch.Tensor:
+    """(N*Ho*Wo, C*kh*kw) patch rows of an already padded NCHW ``x``, in
+    (n, ho, wo) row order with channel-major features: the layout of
+    ``F.unfold`` / ``lax.conv_general_dilated_patches``, matching
+    ``OIHW.reshape(O, -1)``.  Built from strided views, so it takes int8
+    as well as float."""
+    (kh, kw), (sh, sw), (dh, dw) = kernel, stride, dilation
+    n, c = x.shape[:2]
+    p = x.unfold(2, (kh - 1) * dh + 1, sh).unfold(3, (kw - 1) * dw + 1, sw)
+    p = p[..., ::dh, ::dw]  # (N, C, Ho, Wo, kh, kw)
+    ho, wo = p.shape[2:4]
+    return p.permute(0, 2, 3, 1, 4, 5).reshape(n * ho * wo, c * kh * kw), ho, wo
+
+
+class QuantizedSpatialConvolution(Module):
+    """int8 conv: buffers ``weight_q`` OIHW int8, ``weight_scale``
+    (O, 1, 1, 1) f32 and an optional f32 ``bias``."""
+
+    def __init__(self, conv: SpatialConvolution, weight_q, weight_scale,
+                 bias, name: Optional[str] = None,
+                 mode: Optional[str] = None, device="cpu"):
+        super().__init__(name or conv.name)
+        self.kernel = conv.kernel
+        self.stride = conv.stride
+        self.pad = conv.pad
+        self.dilation = conv.dilation
+        self.n_group = conv.n_group
+        _register_quantized(self, weight_q, weight_scale, bias, device)
+        self.mode = _default_mode(mode)
+
+    @staticmethod
+    def from_conv(m: SpatialConvolution, mode: Optional[str] = None
+                  ) -> "QuantizedSpatialConvolution":
+        w = m.weight.detach()
+        wq, ws = _quantize_symmetric(w.cpu().numpy(), axis=(1, 2, 3))
+        return QuantizedSpatialConvolution(m, wq, ws, m.bias, mode=mode,
+                                           device=w.device)
+
+    def forward(self, x):
+        if self.n_group != 1:
+            return self._apply_sim(x)
+        O = self.weight_q.shape[0]
+        xin, scale_row = prepare_operands(x, self.weight_scale, self.mode)
+        t, b, l, r = conv_pads(self, x.shape[2:])
+        if t or b or l or r:
+            xin = F.pad(xin, (l, r, t, b))
+        rows, ho, wo = _im2col(xin, self.kernel, self.stride, self.dilation)
+        y = int8_gemm(rows, self.weight_q.reshape(O, -1), scale_row,
+                      self.bias)
+        return y.reshape(x.shape[0], ho, wo, O).permute(0, 3, 1, 2)
+
+    def _apply_sim(self, x):
+        """Grouped conv: the reference's direct-conv simulation of the same
+        quantized math.  The integer sum of dynamic mode is exact in
+        float64; weight_only accumulates in f32."""
+        xin, scale_row = prepare_operands(x, self.weight_scale, self.mode)
+        t, b, l, r = conv_pads(self, x.shape[2:])
+        xin = F.pad(xin, (l, r, t, b))
+        dt = torch.float64 if self.mode == "dynamic" else torch.float32
+        acc = F.conv2d(xin.to(dt), self.weight_q.to(dt), stride=self.stride,
+                       dilation=self.dilation, groups=self.n_group).float()
+        bias = None if self.bias is None else self.bias[None, :, None, None]
+        return fma_f32(acc, scale_row[None, :, None, None], bias)
+
+
+def quantize(model: Module, mode: Optional[str] = None) -> Module:
+    """Post-training quantization: returns a NEW module tree in eval mode
+    in which every Linear and SpatialConvolution is its int8 twin and
+    every other layer a copy; the original is untouched.  ``mode`` is
+    stamped on every converted layer (None = the config default).
+    Idempotent: already-quantized layers are copied as they are."""
+    mode = _default_mode(mode)
+
+    def convert(m: Module) -> Module:
+        if isinstance(m, Container):
+            out = copy.copy(m)
+            out._modules = {k: convert(c) for k, c in m._modules.items()}
+            return out
+        if isinstance(m, Linear):
+            return QuantizedLinear.from_linear(m, mode)
+        if type(m) is SpatialConvolution:
+            return QuantizedSpatialConvolution.from_conv(m, mode)
+        return copy.deepcopy(m)
+
+    return convert(model).eval()
+
+
+def is_quantized(model: torch.nn.Module) -> bool:
+    """Whether any int8 twin is in the tree (the ``weights_dtype`` tag)."""
+    return any(isinstance(m, (QuantizedLinear, QuantizedSpatialConvolution))
+               for m in model.modules())

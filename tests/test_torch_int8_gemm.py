@@ -1,0 +1,161 @@
+"""Port of the int8 GEMM (kernel B4): the plain version against the JAX
+reference (the kernel itself is held to the plain version on the card in
+``test_torch_gpu.py``).
+
+Tolerances:
+- dynamic: BITWISE.  The int8 x int8 sum is exact in both packages, and
+  both epilogues round once (XLA on the CPU contracts ``acc*scale+bias``
+  into an FMA; the port emulates that FMA from float64).
+- weight_only: ``rtol=1e-5, atol=1e-5*max|y|``.  The port's plain product
+  is float64, the reference sums in f32; the measured relative error is
+  below 1e-6 at these shapes.
+"""
+
+from fractions import Fraction
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")  # the reference; absent on the card
+import jax.numpy as jnp
+
+from bigdl_tpu.ops.pallas_int8_gemm import dyn_quantize as jax_dyn_quantize
+from bigdl_tpu.ops.pallas_int8_gemm import int8_matmul as jax_int8_matmul
+from bigdl_tpu_torch.ops import int8_gemm
+from bigdl_tpu_torch.ops.int8_gemm import dyn_quantize, fma_f32, int8_matmul
+
+# (N, K, O): the ResNet-50 stem's ragged K=147/O=64 at 1, 3 and 37 rows,
+# 128-aligned shapes the Pallas kernel takes, and a ragged O like the FC's
+RAGGED = [(1, 147, 64), (3, 147, 64), (37, 147, 64), (5, 64, 1000)]
+ALIGNED = [(8, 256, 128), (37, 128, 128)]
+
+
+def _operands(n, k, o, seed=0):
+    rng = np.random.default_rng(seed + n * 7919 + k * 31 + o)
+    x = rng.normal(0, 1, (n, k)).astype(np.float32)
+    wq = rng.integers(-127, 128, (o, k)).astype(np.int8)
+    ws = rng.uniform(0.001, 0.02, (o, 1)).astype(np.float32)
+    b = rng.normal(0, 1, (o,)).astype(np.float32)
+    return x, wq, ws, b
+
+
+def _jax(x, wq, ws, b, mode, impl):
+    fn = jax.jit(lambda x, wq, ws, b: jax_int8_matmul(
+        x, wq, ws, b, mode=mode, impl=impl,
+        interpret=True if impl == "pallas" else None))
+    return np.asarray(fn(x, wq, ws, b))
+
+
+def _port(x, wq, ws, b, mode):
+    t = (lambda a: None if a is None else torch.from_numpy(a))
+    return int8_matmul(t(x), t(wq), t(ws), t(b), mode=mode).numpy()
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("mode", ["dynamic", "weight_only"])
+@pytest.mark.parametrize("shape", RAGGED + ALIGNED,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_plain_matches_jax_xla(shape, mode, bias):
+    x, wq, ws, b = _operands(*shape)
+    b = b if bias else None
+    want = _jax(x, wq, ws, b, mode, "xla")
+    got = _port(x, wq, ws, b, mode)
+    assert got.shape == want.shape and got.dtype == np.float32
+    if mode == "dynamic":
+        np.testing.assert_array_equal(got, want)
+    else:
+        _close(got, want)
+
+
+@pytest.mark.parametrize("mode", ["dynamic", "weight_only"])
+@pytest.mark.parametrize("shape", ALIGNED, ids=lambda s: "x".join(map(str, s)))
+def test_plain_matches_pallas_interpret(shape, mode):
+    x, wq, ws, b = _operands(*shape, seed=1)
+    want = _jax(x, wq, ws, b, mode, "pallas")
+    got = _port(x, wq, ws, b, mode)
+    if mode == "dynamic":
+        np.testing.assert_array_equal(got, want)
+    else:
+        _close(got, want)
+
+
+def test_bf16_weight_only_within_tolerance():
+    x, wq, ws, b = _operands(37, 147, 64, seed=2)
+    want = np.asarray(jax.jit(lambda x, wq, ws, b: jax_int8_matmul(
+        x.astype(jnp.bfloat16), wq, ws, b, mode="weight_only",
+        impl="xla"))(x, wq, ws, b))
+    got = int8_matmul(torch.from_numpy(x).bfloat16(), torch.from_numpy(wq),
+                      torch.from_numpy(ws), torch.from_numpy(b)).numpy()
+    _close(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dyn_quantize_bitwise(dtype):
+    """Swept over amax magnitudes: a true ``amax / 127`` differs from the
+    jitted reference (``amax * f32(1/127)``) for about 5% of f32 amax."""
+    rng = np.random.default_rng(3)
+    fn = jax.jit(jax_dyn_quantize)
+    for i in range(60):
+        x = (rng.normal(0, 1, (8, 33)) * np.exp(rng.uniform(-6, 6))
+             ).astype(np.float32)
+        if i == 0:
+            x[0, :4] = [0.5, -0.5, 1.5, 2.5]  # ties: round half to even
+        qj, sj = fn(jnp.asarray(x).astype(dtype))
+        qt, st = dyn_quantize(torch.from_numpy(x).to(getattr(torch, dtype)))
+        np.testing.assert_array_equal(np.asarray(qj), qt.numpy())
+        assert float(np.asarray(sj, np.float32)) == float(st.float())
+
+
+def _exact_fma_f32(a, b, c):
+    """Round the exact a*b+c to the nearest f32, ties to even."""
+    exact = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    f = np.float32(float(exact))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f,
+             np.nextafter(f, np.float32(np.inf))]
+    dist = [abs(Fraction(float(v)) - exact) for v in cands]
+    best = min(dist)
+    winners = [v for v, d in zip(cands, dist) if d == best]
+    return min(winners, key=lambda v: int(np.float32(v).view(np.int32)) & 1)
+
+
+def test_fma_emulation_rounds_once():
+    # 4097*4097 = 2**24 + 8193 is an exact f32 midpoint; a tiny c must
+    # push it up or down — plain float64 rounding would land on the tie
+    a = np.array([4097, 4097, 4097, 3, 1], np.float32)
+    b = np.array([4097, 4097, 4097, 1 / 3, 1e-8], np.float32)
+    c = np.array([2.0 ** -30, -2.0 ** -30, 0, 1e-9, 1], np.float32)
+    rng = np.random.default_rng(4)
+    a = np.concatenate([a, rng.normal(0, 1e3, 300).astype(np.float32)])
+    b = np.concatenate([b, rng.normal(0, 1e-2, 300).astype(np.float32)])
+    c = np.concatenate([c, rng.normal(0, 1e-4, 300).astype(np.float32)])
+    got = fma_f32(torch.from_numpy(a), torch.from_numpy(b),
+                  torch.from_numpy(c)).numpy()
+    want = np.array([_exact_fma_f32(*v) for v in zip(a, b, c)], np.float32)
+    np.testing.assert_array_equal(got, want)
+    assert got[0] == np.float32(16785410) and got[1] == np.float32(16785408)
+
+
+def test_wrapper_refuses_bad_inputs():
+    x, wq, ws, b = (torch.from_numpy(a) for a in _operands(3, 8, 4))
+    with pytest.raises(ValueError, match="mode"):
+        int8_matmul(x, wq, ws, b, mode="static")
+    with pytest.raises(TypeError, match="f32/bf16"):
+        int8_matmul(x.double(), wq, ws, b)
+    with pytest.raises(ValueError, match=r"\(N, K\)"):
+        int8_matmul(x[:, :5], wq, ws, b)
+    with pytest.raises(RuntimeError, match="no version"):
+        int8_matmul(x.to("meta"), wq.to("meta"), ws.to("meta"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        int8_gemm.launch(x, wq, ws.reshape(-1), b)
+
+
+def test_cpu_path_does_not_count_launches():
+    before = int8_gemm.launches
+    _port(*_operands(3, 147, 64), "dynamic")
+    assert int8_gemm.launches == before
