@@ -1,0 +1,12 @@
+"""Training data pipeline of the port (``bigdl_tpu.dataset`` twins)."""
+
+from bigdl_tpu_torch.dataset.dataset import (AbstractDataSet, DataSet,
+                                             LocalDataSet, TransformedDataSet)
+from bigdl_tpu_torch.dataset.sample import MiniBatch, Sample, batch_samples
+from bigdl_tpu_torch.dataset.transformer import (ChainedTransformer,
+                                                 SampleToMiniBatch,
+                                                 Transformer)
+
+__all__ = ["AbstractDataSet", "ChainedTransformer", "DataSet",
+           "LocalDataSet", "MiniBatch", "Sample", "SampleToMiniBatch",
+           "TransformedDataSet", "Transformer", "batch_samples"]

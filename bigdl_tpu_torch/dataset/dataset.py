@@ -1,0 +1,103 @@
+"""DataSet, the training-data container (port of
+``bigdl_tpu/dataset/dataset.py``, the local part).
+
+``data(train=True)`` is an infinite iterator over a permuted index array;
+``shuffle()`` moves to the next epoch's permutation.  The permutation of
+epoch E is a pure function of ``(seed, E)`` — ``np.random.default_rng((seed,
+E))``, epoch 0 in insertion order — so it is the reference's order exactly.
+The per-host sharded ``DistributedDataSet`` comes with the multi-card
+slice.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Sequence
+
+import numpy as np
+
+from bigdl_tpu_torch.dataset.transformer import Transformer
+
+
+class AbstractDataSet:
+    def data(self, train: bool) -> Iterator:
+        """Infinite shuffled iterator when ``train``, one pass when not."""
+        raise NotImplementedError
+
+    def size(self) -> int:
+        raise NotImplementedError
+
+    def shuffle(self) -> None:
+        raise NotImplementedError
+
+    def transform(self, transformer: Transformer) -> "TransformedDataSet":
+        return TransformedDataSet(self, transformer)
+
+    def __rshift__(self, transformer: Transformer) -> "TransformedDataSet":
+        return self.transform(transformer)
+
+
+class LocalDataSet(AbstractDataSet):
+    """In-memory dataset; ``shuffle`` re-permutes indices only."""
+
+    def __init__(self, data: Sequence, seed: int = 1):
+        self._data = data
+        self._seed = seed
+        self._epoch = 0  # shuffles so far; epoch 0 = insertion order
+        self._indexes = np.arange(len(data))
+
+    def size(self) -> int:
+        return len(self._data)
+
+    def _permutation(self, epoch: int) -> np.ndarray:
+        if epoch == 0:
+            return np.arange(len(self._data))
+        return np.random.default_rng(
+            (self._seed, epoch)).permutation(len(self._data))
+
+    def shuffle(self) -> None:
+        self._epoch += 1
+        self._indexes = self._permutation(self._epoch)
+
+    def data(self, train: bool) -> Iterator:
+        if train:
+            def infinite():
+                i = 0
+                n = len(self._data)
+                while True:
+                    yield self._data[self._indexes[i % n]]
+                    i += 1
+            return infinite()
+        return iter(self._data)
+
+
+class TransformedDataSet(AbstractDataSet):
+    """A dataset with a transformer pipeline attached."""
+
+    def __init__(self, base: AbstractDataSet, transformer: Transformer):
+        self.base = base
+        self.transformer = transformer
+
+    def size(self) -> int:
+        return self.base.size()
+
+    def shuffle(self) -> None:
+        self.base.shuffle()
+
+    def data(self, train: bool) -> Iterator:
+        return self.transformer(self.base.data(train))
+
+    def transform(self, transformer: Transformer) -> "TransformedDataSet":
+        return TransformedDataSet(self.base, self.transformer >> transformer)
+
+
+class DataSet:
+    """Factory namespace."""
+
+    @staticmethod
+    def array(data: Sequence, distributed: bool = False,
+              seed: int = 1) -> AbstractDataSet:
+        if distributed:
+            raise NotImplementedError(
+                "DistributedDataSet is not ported yet: it comes with the "
+                "multi-card slice")
+        return LocalDataSet(data, seed=seed)

@@ -1,0 +1,46 @@
+"""Transformers: composable iterator stages (port of
+``bigdl_tpu/dataset/transformer.py``, this slice's part).  Compose with
+``>>``: ``DataSet.array(samples) >> SampleToMiniBatch(20)``."""
+
+from __future__ import annotations
+
+from typing import Iterator
+
+from bigdl_tpu_torch.dataset.sample import batch_samples
+
+
+class Transformer:
+    """Iterator -> Iterator stage."""
+
+    def __call__(self, it: Iterator) -> Iterator:
+        raise NotImplementedError
+
+    def __rshift__(self, other: "Transformer") -> "ChainedTransformer":
+        return ChainedTransformer(self, other)
+
+
+class ChainedTransformer(Transformer):
+    def __init__(self, first: Transformer, second: Transformer):
+        self.first, self.second = first, second
+
+    def __call__(self, it):
+        return self.second(self.first(it))
+
+
+class SampleToMiniBatch(Transformer):
+    """Group Samples into MiniBatches of ``batch_size``; a short last
+    batch is dropped unless ``drop_remainder=False``."""
+
+    def __init__(self, batch_size: int, drop_remainder: bool = True):
+        self.batch_size = batch_size
+        self.drop_remainder = drop_remainder
+
+    def __call__(self, it):
+        buf = []
+        for s in it:
+            buf.append(s)
+            if len(buf) == self.batch_size:
+                yield batch_samples(buf)
+                buf = []
+        if buf and not self.drop_remainder:
+            yield batch_samples(buf)

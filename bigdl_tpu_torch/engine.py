@@ -1,4 +1,5 @@
-"""Process-wide defaults (port of ``bigdl_tpu/engine.py``, serving part).
+"""Process-wide defaults (port of ``bigdl_tpu/engine.py``: the serving
+defaults and the training driver's ``steps_per_dispatch``).
 
 The reference's tuned-config layer (``tuned_configs.json``) is not ported:
 its entries were measured on a TPU or a CPU, and none applies to an H100.
@@ -6,7 +7,20 @@ its entries were measured on a TPU or a CPU, and none applies to an H100.
 
 from __future__ import annotations
 
+import torch
+
 from bigdl_tpu_torch.utils.config import get_config
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device must exist — there
+    is no quiet move to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but CUDA is not available; "
+            "pass device='cpu' to run on the CPU")
+    return dev
 
 
 class Engine:
@@ -22,3 +36,10 @@ class Engine:
             "queue_capacity": cfg.serving_queue_capacity,
             "row_buckets": cfg.serving_row_buckets,
         }
+
+    @classmethod
+    def steps_per_dispatch(cls) -> int:
+        """How many train steps the driver enqueues per block when the
+        optimizer sets none: ``configure()``/``BIGDL_TPU_STEPS_PER_DISPATCH``
+        > ``Config.steps_per_dispatch``."""
+        return max(1, int(get_config().steps_per_dispatch))

@@ -1,5 +1,6 @@
 """Model factories of the port."""
 
 from bigdl_tpu_torch.models.resnet import resnet50, resnet_cifar
+from bigdl_tpu_torch.models.rnn import ptb_model, simple_rnn
 
-__all__ = ["resnet50", "resnet_cifar"]
+__all__ = ["ptb_model", "resnet50", "resnet_cifar", "simple_rnn"]

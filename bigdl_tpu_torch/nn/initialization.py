@@ -53,3 +53,14 @@ class RandomUniform(InitializationMethod):
             lo, hi = self.lower, self.upper
         return torch.empty(shape, dtype=torch.float32).uniform_(
             lo, hi, generator=generator)
+
+
+class RandomNormal(InitializationMethod):
+    """N(mean, stdv)."""
+
+    def __init__(self, mean: float = 0.0, stdv: float = 1.0):
+        self.mean, self.stdv = mean, stdv
+
+    def init(self, generator, shape, fan_in, fan_out):
+        return self.mean + self.stdv * torch.randn(
+            shape, generator=generator, dtype=torch.float32)

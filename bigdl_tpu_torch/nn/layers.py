@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.initialization import (InitializationMethod,
-                                               RandomUniform)
+                                               RandomNormal, RandomUniform)
 from bigdl_tpu_torch.nn.module import Module
 
 
@@ -222,3 +222,62 @@ class SpatialBatchNormalization(Module):
         shape[1] = self.n_output
         return x * scale.to(x.dtype).reshape(shape) \
             + shift.to(x.dtype).reshape(shape)
+
+
+class Dropout(Module):
+    """Inverted dropout: scales kept values by 1/(1-p) in training mode,
+    identity in eval mode or at ``p == 0``.  The mask is drawn from
+    ``self.generator``, a ``torch.Generator`` on the input's device that
+    the caller (``LocalOptimizer`` for its training copy) sets; training
+    with ``p > 0`` and no generator raises, as the reference raises
+    without an rng."""
+
+    def __init__(self, init_p: float = 0.5, name: Optional[str] = None):
+        super().__init__(name)
+        self.p = init_p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training or self.p <= 0.0:
+            return x
+        if self.generator is None:
+            raise ValueError("Dropout in training mode needs a generator")
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class LookupTable(Module):
+    """Embedding lookup; weight (n_index, n_output).  Indices are 0-based
+    (the Torch original is 1-based); ``padding_value``'s row is zeroed at
+    initialization; ``max_norm`` renormalizes rows in the forward."""
+
+    def __init__(self, n_index: int, n_output: int,
+                 padding_value: Optional[int] = None,
+                 max_norm: Optional[float] = None,
+                 weight_init: Optional[InitializationMethod] = None,
+                 name: Optional[str] = None):
+        super().__init__(name)
+        self.n_index = n_index
+        self.n_output = n_output
+        self.padding_value = padding_value
+        self.max_norm = max_norm
+        self.weight_init = weight_init or RandomNormal(0.0, 1.0)
+        self.weight = torch.nn.Parameter(torch.zeros(n_index, n_output),
+                                         requires_grad=False)
+
+    def reset_parameters(self, generator):
+        w = self.weight_init.init(generator, self.weight.shape,
+                                  self.n_index, self.n_output)
+        if self.padding_value is not None:
+            w[self.padding_value] = 0.0
+        self.weight.data.copy_(w)
+
+    def forward(self, x):
+        w = self.weight
+        if self.max_norm is not None:
+            norms = torch.linalg.vector_norm(w, dim=1, keepdim=True)
+            w = w * torch.clamp(self.max_norm / torch.clamp(norms, min=1e-7),
+                                max=1.0)
+        return F.embedding(x.long(), w)

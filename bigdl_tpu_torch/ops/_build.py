@@ -11,7 +11,8 @@ reuses a library that is already there.  A failed build raises
 
 Flags: ``-O3`` and ``-Xptxas -v`` (register, shared-memory and spill
 report, kept in :data:`ptxas_report`).  Never ``--use_fast_math``: the
-int8 GEMM's epilogue relies on IEEE division and a single-rounding FMA.
+int8 GEMM's epilogue relies on IEEE division and a single-rounding FMA,
+and the LSTM cell's gates on the accurate ``expf``/``tanhf``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 # library name -> source file under csrc/
-SOURCES = {"int8_gemm": "int8_gemm.cu"}
+SOURCES = {"int8_gemm": "int8_gemm.cu", "lstm_cell": "lstm_cell.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

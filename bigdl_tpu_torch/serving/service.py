@@ -35,6 +35,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from bigdl_tpu_torch.engine import resolve_device
 from bigdl_tpu_torch.serving.batcher import (
     RequestBatcher, RequestSpecError, ServiceClosed, ServiceOverloaded,
     _Request, settle_future,
@@ -179,17 +180,6 @@ def pad_rows(x, target: int):
         return np.pad(leaf, widths)
 
     return _tree_map(pad, x)
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device must exist — there
-    is no quiet move to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(device)!r} requested but CUDA is not available; "
-            "pass device='cpu' to serve on the CPU")
-    return dev
 
 
 def _weights_dtype(model: torch.nn.Module) -> str:

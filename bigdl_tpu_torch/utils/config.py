@@ -1,4 +1,4 @@
-"""Typed configuration: the fields the serving slice reads.
+"""Typed configuration: the fields the serving and training slices read.
 
 Port of ``bigdl_tpu/utils/config.py`` cut to this slice's fields, with the
 same names and the same ``BIGDL_TPU_*`` environment variables.
@@ -31,6 +31,13 @@ class Config:
     # "weight_only" (int8 weights, f32/bf16 activations, f32 accumulate)
     # or "dynamic" (per-tensor int8 activations, exact integer sum)
     int8_activation_mode: str = "weight_only"
+    # training driver: K consecutive train steps enqueued back to back as
+    # one block, with no host sync inside it; blocks end early at epoch
+    # and trigger boundaries, so results do not depend on K
+    steps_per_dispatch: int = 1
+    # seed of an optimizer's run (Optimizer.set_seed overrides it): the
+    # Dropout generators of its training copy are drawn from it
+    seed: int = 1
 
     @classmethod
     def from_env(cls) -> "Config":

@@ -1,37 +1,52 @@
 """Smoke test of the PyTorch/CUDA port (``bigdl_tpu_torch``) on one NVIDIA card.
 
-Drives the port's main path — an int8-quantized ResNet-50 (1000 classes,
-224x224, NCHW, random weights from a seed) served by ``ModelRegistry`` with
-``quantize=True`` (weight_only) and ``quantize="dynamic"`` — and holds every
-kernel of that path against its plain PyTorch version:
+Drives the port's two main paths and holds every kernel of them against
+its plain PyTorch version.  Serving: an int8-quantized ResNet-50 (1000
+classes, 224x224, NCHW, random weights from a seed) served by
+``ModelRegistry`` with ``quantize=True`` (weight_only) and
+``quantize="dynamic"`` (kernel B4).  Training: PTB-medium (vocab 10000,
+650x2 LSTM, T=35, batch 20, f32) trained through ``LocalOptimizer`` in
+K=8-step blocks with SGD at lr 1.0 and global-norm clipping at 5.0, layer
+0's LSTM cell running kernels B2f and B2b.  Phases, each printing its
+seconds:
 
 1. the card: name, count, ``nvidia-smi`` name and power limit;
-2. the kernels, built from ``bigdl_tpu_torch/csrc`` (build seconds and the
-   ``-Xptxas -v`` report);
-3. kernel phase: every distinct GEMM of a batch-32 ResNet-50 forward (and
-   the same K, O at 1 and 37 rows), in both modes, with and without bias,
-   weight_only in f32 and bf16, against ``int8_matmul_reference`` on the
-   card (dynamic bitwise, weight_only within ``rtol=1e-5,
+2. the kernels, built from ``bigdl_tpu_torch/csrc`` (one ``nvcc`` a
+   source, in parallel; build seconds and the ``-Xptxas -v`` report);
+3. int8 kernel phase: every distinct GEMM of a batch-32 ResNet-50 forward
+   (and the same K, O at 1 and 37 rows), in both modes, with and without
+   bias, weight_only in f32 and bf16, against ``int8_matmul_reference``
+   on the card (dynamic bitwise, weight_only within ``rtol=1e-5,
    atol=1e-5*max|y|``), then kernel, plain and library times with CUDA
    events and the least time the card could take (the bound);
-4. profile phase, per mode: device time by kernel of one batch-32
+4. int8 profile phase, per mode: device time by kernel of one batch-32
    forward (torch.profiler) against its wall time;
 5. serving phase, per mode: 8 client threads x 16 requests of 1-4 rows,
    then 4 sampled requests served alone that must agree with the same
    model run on the CPU through the plain versions within 1e-5 of
    max|y|, a limit that two planted faults must exceed; the kernel's launch
-   count must equal 54 x dispatches and warmup must not grow.
+   count must equal 54 x dispatches and warmup must not grow;
+6. LSTM kernel phase: B2f and B2b against their plain versions at four
+   (N, H) shapes, f32 and bf16, forget_bias 0 and 1, then their times at
+   (20, 650) f32 beside the bound, the plain version and PyTorch's fused
+   cell;
+7. training phase: one K=8 block on the card against the same steps on
+   the CPU through the plain versions (within ``TRAIN_TOL``, a limit two
+   planted faults must exceed); four timed blocks (words/s, ms per step,
+   peak memory, the loss must fall) whose kernel launches must equal 35 x
+   steps each; one step under torch.profiler (device idle share).
 
 The last two lines are the kernel table and the result as JSON; any
 failed check raises and the script exits non-zero.  Without a CUDA card it
 fails at once.  Run from the repository root:
 
-    python3 chip_smoke.py [--seed N] [--json-out PATH]
+    python3 chip_smoke.py [--seed N] [--json-out PATH] [--phases resnet,lstm]
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import subprocess
 import sys
@@ -41,13 +56,17 @@ import time
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.models import resnet50
-from bigdl_tpu_torch.nn import quantize
+from bigdl_tpu_torch import nn, optim
+from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
+from bigdl_tpu_torch.dataset.text import Dictionary
+from bigdl_tpu_torch.models import ptb_model, resnet50
+from bigdl_tpu_torch.nn import quantize, recurrent
 from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,
                                           QuantizedSpatialConvolution)
-from bigdl_tpu_torch.ops import _build, int8_gemm
+from bigdl_tpu_torch.ops import _build, int8_gemm, lstm_cell
 from bigdl_tpu_torch.ops.int8_gemm import (int8_matmul_reference,
                                            prepare_operands)
+from bigdl_tpu_torch.optim import LocalOptimizer
 from bigdl_tpu_torch.serving import ModelRegistry
 
 # H100 SXM data sheet, dense, at the 700 W limit
@@ -65,6 +84,41 @@ KERNEL = {"route": "cuda", "source": "bigdl_tpu_torch/csrc/int8_gemm.cu",
 # between the sound reading and the readings of the planted faults below,
 # which the run measures and requires to exceed it.
 SERVE_TOL = {"weight_only": 1e-5, "dynamic": 1e-5}
+
+# PTB-medium (bench.py's ptb_lstm workload): vocab 10000, embed and hidden
+# 650, 2 LSTM layers, T=35, batch 20, dropout 0, f32, K=8 steps a block
+PTB = {"vocab": 10000, "embed": 650, "hidden": 650, "layers": 2, "T": 35,
+       "batch": 20, "K": 8}
+PTB_BATCHES = 64   # batches per epoch of the synthetic corpus
+TIMED_BLOCKS = 3   # K-step blocks timed after one warm-up block
+LSTM_KERNELS = {
+    "lstm_cell_fwd": {"route": "cuda",
+                      "source": "bigdl_tpu_torch/csrc/lstm_cell.cu",
+                      "replaces": "bigdl_tpu/ops/pallas_lstm.py:153"},
+    "lstm_cell_bwd": {"route": "cuda",
+                      "source": "bigdl_tpu_torch/csrc/lstm_cell.cu",
+                      "replaces": "bigdl_tpu/ops/pallas_lstm.py:181"},
+}
+CELL_SHAPES = [(20, 650), (1, 64), (5, 130), (37, 650)]
+# elementwise operations per hidden unit (transcendentals counted as one)
+CELL_EW_OPS = {"lstm_cell_fwd": 20, "lstm_cell_bwd": 36}
+# kernel against plain version (rtol = atol): bf16 results within one bf16
+# ulp of values up to 2; f32 results within 1e-5 (expf/tanhf within ulps
+# of PyTorch's), except the forward's at H=650, where the recurrent product
+# sums 650 terms in another order than cuBLAS: 1e-4 there, the JAX cell
+# test's own forward tolerance at that shape (tests/test_pallas_kernels.py)
+CELL_TOL = {"bfloat16": 8e-3, "float32": 1e-5, "float32 long sum": 1e-4}
+
+
+def cell_tol(kernel, H, dtype) -> float:
+    if dtype == torch.bfloat16:
+        return CELL_TOL["bfloat16"]
+    long_sum = kernel == "lstm_cell_fwd" and H > 130
+    return CELL_TOL["float32 long sum" if long_sum else "float32"]
+# card training against the same steps on the CPU (train_reading): above
+# the sound reading, below the two planted faults that every run measures
+# and requires to exceed it
+TRAIN_TOL = 1e-4
 
 
 def card_line() -> str:
@@ -130,6 +184,26 @@ def cuda_ms(fn, budget_ms=30.0):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, calls=50):
+    """Device milliseconds of one call of ``fn``: the device time of the
+    kernels it launches (torch.profiler), summed over ``calls`` calls after
+    a warmup and divided by ``calls``.  The host's gaps between launches
+    are left out; for a call of a few microseconds of device work they are
+    most of what :func:`cuda_ms` measures."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    busy_ms = device_time(prof)[0]
+    if busy_ms == 0:
+        raise AssertionError("the profiler saw no device time")
+    return busy_ms / calls
+
+
 def bound(M, K, O, bias, xdtype):
     """(least ms, "bytes" | "operations", peak used) for one GEMM: each
     input read once, the output written once, against the card's memory
@@ -145,21 +219,26 @@ def bound(M, K, O, bias, xdtype):
 def library_call(xin, wq, scale, b, xdtype):
     """One PyTorch call for the same product, or None where its shape
     rules refuse: addmm/mm on dequantized weights (weight_only), _int_mm
-    (dynamic, int32 product only).  A yardstick; the port never calls it."""
+    (dynamic, int32 product only).  _int_mm wants K a multiple of 8, so a
+    ragged K (the stem's 147) is padded with zero columns on both sides,
+    outside the timed call: they leave the integer product unchanged.  A
+    yardstick; the port never calls it."""
     if xdtype != "int8":
         w = (wq.float() * scale[:, None]).T
         x = xin.float()
         return (lambda: torch.addmm(b, x, w)) if b is not None \
             else (lambda: torch.mm(x, w))
     M, K = xin.shape
-    if M <= 16 or K % 8 or wq.shape[0] % 8:
+    if M <= 16 or wq.shape[0] % 8:
         return None
-    wt = wq.T
+    pad = -K % 8
+    xp = torch.nn.functional.pad(xin, (0, pad))
+    wt = torch.nn.functional.pad(wq, (0, pad)).T
     try:
-        torch._int_mm(xin, wt)
+        torch._int_mm(xp, wt)
     except RuntimeError:
         return None
-    return lambda: torch._int_mm(xin, wt)
+    return lambda: torch._int_mm(xp, wt)
 
 
 def kernel_phase(shapes, device, card, report):
@@ -233,11 +312,29 @@ def kernel_phase(shapes, device, card, report):
     return totals
 
 
+def device_time(prof):
+    """(device busy ms, kernels, ops) of a torch.profiler run, each of the
+    two a [(name, device ms, calls)] list by time.  Busy is the sum over
+    the kernel-side events (each launch counted once).  The ops are the
+    host-side aten operations that launched kernels and carry the same
+    device time; the port's own kernels, launched through ctypes, appear
+    only among the kernels."""
+    from torch.autograd import DeviceType
+    events = prof.key_averages()
+
+    def by_time(kind):
+        return sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                       for e in events if e.device_type == kind
+                       and e.self_device_time_total > 0),
+                      key=lambda t: -t[1])
+    kernels = by_time(DeviceType.CUDA)
+    return sum(ms for _, ms, _ in kernels), kernels, by_time(DeviceType.CPU)
+
+
 def profile_phase(mode, seed, device, card, report):
     """Where one batch-32 forward's time goes: torch.profiler's device
     time by kernel over one forward after a warmup, against the forward's
     host-clock wall time (device idle share = 1 - busy / wall)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     model = quantize(resnet50().initialize(seed), mode=mode).to(device)
     x = torch.randn((BATCH,) + SPEC[0], device=device)
@@ -250,16 +347,8 @@ def profile_phase(mode, seed, device, card, report):
             model(x)
             torch.cuda.synchronize()
             wall_ms = (time.monotonic() - t0) * 1e3
-    events = prof.key_averages()
-    # kernel-side events only (each launch counted once); the aten ops
-    # that launched them carry the same time, used below for attribution
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    gemm_ms = sum(e.self_device_time_total for e in kernels
-                  if "gemm_" in e.key) / 1e3
-    ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                  for e in events if e.device_type == DeviceType.CPU
-                  and e.self_device_time_total > 0), key=lambda t: -t[1])
+    busy_ms, kernels, ops = device_time(prof)
+    gemm_ms = sum(ms for name, ms, _ in kernels if "gemm_" in name)
     if busy_ms == 0:
         print(f"profile {mode}: the profiler saw no device time; device "
               f"breakdown not measured (wall_ms={wall_ms:.2f}) [{card}]")
@@ -393,12 +482,327 @@ def planted_fault_errors(model, mode, samples, wants, device):
     return out
 
 
+# ------------------------------------------------------------- LSTM cell
+def cell_operands(N, H, dtype, gen, device):
+    """zx, h, c, w_t, dh, dc at (N, H), N(0, 0.5^2), in ``dtype``."""
+    mk = lambda *s: (0.5 * torch.randn(*s, generator=gen,  # noqa: E731
+                                       device=device)).to(dtype)
+    return (mk(N, 4 * H), mk(N, H), mk(N, H), mk(H, 4 * H), mk(N, H),
+            mk(N, H))
+
+
+def cell_bound(N, H, dtype, kernel):
+    """(least ms, "bytes" | "operations") of one launch: each input read
+    once and each output written once, against the card's memory rate and
+    the f32 CUDA-core peak.  Operations: the forward's recurrent product
+    (2*N*H*4H) plus the elementwise chain, counted as CELL_EW_OPS per
+    hidden unit (a transcendental function counts as one)."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    NH, G = N * H, 4 * N * H
+    if kernel == "lstm_cell_fwd":  # zx, h, c, w_t in; h', c', z out
+        nbytes = es * (G + 2 * NH + 4 * H * H) + es * 2 * NH + 4 * G
+        ops = 2 * NH * 4 * H + CELL_EW_OPS[kernel] * NH
+    else:  # z, c, dh, dc in; dz, dc_prev out
+        nbytes = 4 * G + es * 3 * NH + 4 * G + es * NH
+        ops = CELL_EW_OPS[kernel] * NH
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / PEAK_F32 * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def lstm_kernel_phase(device, card, report):
+    """B2f and B2b against their plain versions at every shape, dtype and
+    forget_bias of CELL_SHAPES, then kernel, plain and library times at
+    PTB-medium's (20, 650) f32, W_t warm in L2 as the 35 steps of a
+    sequence find it: device time per call (torch.profiler) and, beside
+    it, a CUDA-event-timed loop that includes the host's launch gaps."""
+    gen = torch.Generator(device=device).manual_seed(4321)
+    errs = {(k, d): 0.0 for k in LSTM_KERNELS for d in ("float32",
+                                                       "bfloat16")}
+    n_checked = 0
+    for N, H in CELL_SHAPES:
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            for fb in (0.0, 1.0):
+                zx, h, c, w_t, dh, dc = cell_operands(N, H, dtype, gen, device)
+                got = lstm_cell.launch_fwd(zx, h, c, w_t, fb)
+                want = lstm_cell.lstm_cell_fwd_reference(zx, h, c, w_t, fb)
+                # the backward of both from the kernel's own z
+                got_b = lstm_cell.launch_bwd(got[2], c, dh, dc, fb)
+                want_b = lstm_cell.lstm_cell_bwd_reference(got[2], c, dh, dc,
+                                                           fb)
+                torch.cuda.synchronize()
+                for kernel, gs, ws in (("lstm_cell_fwd", got, want),
+                                       ("lstm_cell_bwd", got_b, want_b)):
+                    for g, w in zip(gs, ws):
+                        tol = cell_tol(kernel, H, g.dtype)
+                        torch.testing.assert_close(
+                            g.float(), w.float(), rtol=tol, atol=tol,
+                            msg=lambda e: f"{kernel} N={N} H={H} {dname} "
+                                          f"fb={fb}: {e}")
+                        errs[kernel, dname] = max(
+                            errs[kernel, dname],
+                            (g.float() - w.float()).abs().max().item())
+                n_checked += 1
+    print(f"lstm kernel check: B2f and B2b at {n_checked} (shape, dtype, "
+          f"forget_bias) cases vs their plain versions; max abs err "
+          + ", ".join(f"{k} {d} {v:.3e}" for (k, d), v in errs.items())
+          + f" (tol {CELL_TOL}) [{card}]")
+
+    N, H = PTB["batch"], PTB["hidden"]
+    zx, h, c, w_t, dh, dc = cell_operands(N, H, torch.float32, gen, device)
+    # PyTorch's fused cell takes both biases or neither (its CUDA version
+    # reads the hidden bias's strides when the input bias is given);
+    # forget_bias, 0 here, would go in the input bias's f segment
+    ib, hb = torch.zeros(4 * H, device=device), torch.zeros(4 * H, device=device)
+    _, _, z = lstm_cell.launch_fwd(zx, h, c, w_t, 0.0)
+    hy, cy, ws = torch.ops.aten._thnn_fused_lstm_cell(zx, h @ w_t, c, ib, hb)
+    ref = lstm_cell.lstm_cell_fwd_reference(zx, h, c, w_t, 0.0)
+    torch.testing.assert_close((hy, cy), ref[:2], rtol=1e-5, atol=1e-5)
+    fns = {
+        "lstm_cell_fwd": (
+            lambda: lstm_cell.launch_fwd(zx, h, c, w_t, 0.0),
+            lambda: lstm_cell.lstm_cell_fwd_reference(zx, h, c, w_t, 0.0),
+            lambda: torch.ops.aten._thnn_fused_lstm_cell(
+                zx, torch.mm(h, w_t), c, ib, hb),
+            "2 calls: torch.mm(h, w_t) + torch._thnn_fused_lstm_cell"),
+        "lstm_cell_bwd": (
+            lambda: lstm_cell.launch_bwd(z, c, dh, dc, 0.0),
+            lambda: lstm_cell.lstm_cell_bwd_reference(z, c, dh, dc, 0.0),
+            lambda: torch.ops.aten._thnn_fused_lstm_cell_backward_impl(
+                dh, dc, c, cy, ws, True),
+            "torch._thnn_fused_lstm_cell_backward_impl (workspace of "
+            "activated gates, not z)")}
+    rows = {}
+    for kernel, (k_fn, p_fn, l_fn, l_what) in fns.items():
+        # ms: device time per call; event_ms: a loop of calls timed with
+        # CUDA events, host launch gaps included
+        k_ms, p_ms, l_ms = (device_ms(f) for f in (k_fn, p_fn, l_fn))
+        k_ev, p_ev, l_ev = (cuda_ms(f) for f in (k_fn, p_fn, l_fn))
+        b_ms, b_by = cell_bound(N, H, torch.float32, kernel)
+        rows[kernel] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                        "library_call": l_what, "bound_ms": b_ms,
+                        "bound_by": b_by,
+                        "max_abs_err": errs[kernel, "float32"],
+                        "max_abs_err_bf16": errs[kernel, "bfloat16"],
+                        "event_ms": k_ev, "plain_event_ms": p_ev,
+                        "library_event_ms": l_ev}
+        beats = " (faster than its HBM bound: W_t is read from L2)" \
+            if k_ms < b_ms else ""
+        print(f"{kernel} N={N} H={H} f32, device ms per call: "
+              f"kernel_ms={k_ms:.5f} plain_ms={p_ms:.5f} "
+              f"library_ms={l_ms:.5f} [{l_what}] bound_ms={b_ms:.5f} "
+              f"({b_by}){beats}; event-timed loop with host launch gaps: "
+              f"kernel {k_ev:.5f} plain {p_ev:.5f} library {l_ev:.5f} "
+              f"[{card}]")
+    report["lstm_kernels"] = rows
+    return rows
+
+
+# ------------------------------------------------------- PTB-medium training
+def ptb_samples(seed):
+    """(x, next-word) windows of T words from the synthetic Zipf corpus of
+    examples/languagemodel/train_ptb.py at vocab 10000: PTB_BATCHES
+    batches of 20 per epoch."""
+    rng = np.random.default_rng(seed)
+    n = PTB["batch"] * PTB["T"] * PTB_BATCHES + 1
+    words = [f"w{min(int(z), PTB['vocab'] - 2)}" for z in rng.zipf(1.4, n)]
+    ids = Dictionary([words], vocab_size=PTB["vocab"]).encode(words)
+    T = PTB["T"]
+    xs, ys = ids[:-1].reshape(-1, T), ids[1:].reshape(-1, T)
+    return [Sample(x, y) for x, y in zip(xs, ys)]
+
+
+def ptb_train(model, device, steps, samples, seed):
+    """Train ``model`` in place for ``steps`` steps of the PTB-medium recipe
+    through LocalOptimizer; (per-step losses, optimizer, wall seconds)."""
+    losses = []
+
+    class Recording(LocalOptimizer):
+        def _log_train_iteration(self, lr):
+            losses.append(self.state["loss"])
+
+    opt = (Recording(model, DataSet.array(samples, seed=seed)
+                     >> SampleToMiniBatch(PTB["batch"]),
+                     nn.TimeDistributedCriterion(nn.ClassNLLCriterion()),
+                     device=device)
+           .set_optim_method(optim.SGD(learning_rate=1.0))
+           .set_gradient_clipping_by_l2_norm(5.0)
+           .set_steps_per_dispatch(PTB["K"])
+           .set_seed(seed)
+           .set_end_when(optim.max_iteration(steps)))
+    t0 = time.monotonic()
+    opt.optimize()
+    return losses, opt, time.monotonic() - t0
+
+
+def flat_params(model):
+    return {k: p.detach().cpu().double() for k, p in model.named_parameters()}
+
+
+def train_reading(losses, model, want_losses, want, init):
+    """How far a run is from the CPU run: the larger of the largest
+    relative loss difference over the steps and, over the parameter
+    arrays, the largest difference as a share of the largest change that
+    training made to that array on the CPU."""
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+    got = flat_params(model)
+    param_err = max(((got[k] - want[k]).abs().max()
+                     / (want[k] - init[k]).abs().max()).item() for k in want)
+    return max(loss_err, param_err)
+
+
+def planted_lstm_fault(fault):
+    """A wrapper of the fused cell as the LSTM layer calls it, planting
+    ``fault`` on the card run: layer 0's W_t scaled by 127/128, or one
+    time step's layer-0 dz (the gradient reaching zx_t) scaled by 127/128
+    through a tensor hook."""
+    sound = recurrent.lstm_cell
+    calls = [0]
+
+    def cell(zx, h, c, w_t, **kw):
+        if fault == "w_t_127_128":
+            return sound(zx, h, c, w_t * (127 / 128), **kw)
+        calls[0] += 1
+        if calls[0] % PTB["T"] == PTB["T"] // 2:
+            zx.register_hook(lambda g: g * (127 / 128))
+        return sound(zx, h, c, w_t, **kw)
+    return cell
+
+
+def training_phase(seed, device, card, report):
+    """PTB-medium trained through LocalOptimizer on the card: one K=8
+    block against the same steps on the CPU (and two planted faults), then
+    timed blocks, the launch counts, peak memory and one profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+    samples = ptb_samples(seed)
+    init = ptb_model(PTB["vocab"], PTB["embed"], PTB["hidden"],
+                     PTB["layers"]).initialize(seed)
+    start = flat_params(init)
+    K = PTB["K"]
+
+    t0 = time.monotonic()
+    cpu_model = copy.deepcopy(init)
+    cpu_losses, _, cpu_s = ptb_train(cpu_model, "cpu", K, samples, seed)
+    want = flat_params(cpu_model)
+    card_model = copy.deepcopy(init)
+    card_losses, _, _ = ptb_train(card_model, device, K, samples, seed)
+    sound = train_reading(card_losses, card_model, cpu_losses, want, start)
+    faults = {}
+    for fault in ("w_t_127_128", "one_step_dz_127_128"):
+        m = copy.deepcopy(init)
+        recurrent.lstm_cell = planted_lstm_fault(fault)
+        try:
+            losses, _, _ = ptb_train(m, device, K, samples, seed)
+        finally:
+            recurrent.lstm_cell = lstm_cell.lstm_cell
+        faults[fault] = train_reading(losses, m, cpu_losses, want, start)
+    print(f"train-vs-cpu check, {K} steps: sound {sound:.3e}, planted faults "
+          + ", ".join(f"{k} {v:.3e}" for k, v in faults.items())
+          + f" (tol {TRAIN_TOL}); cpu losses {cpu_losses[0]:.4f} -> "
+          f"{cpu_losses[-1]:.4f} in {cpu_s:.1f} s [{card}]")
+    if not sound <= TRAIN_TOL:
+        raise AssertionError(f"card training is {sound:.3e} from the CPU, "
+                             f"over the limit {TRAIN_TOL}")
+    for fault, err in faults.items():
+        if not err > TRAIN_TOL:
+            raise AssertionError(
+                f"planted fault {fault} reads {err:.3e}, inside the training "
+                f"tolerance {TRAIN_TOL}: the check is blind")
+    print(f"phase train-vs-cpu: {time.monotonic() - t0:.1f} s")
+
+    t0 = time.monotonic()
+    ptb_train(copy.deepcopy(init), device, K, samples, seed)  # warm-up
+    _, _, one_s = ptb_train(copy.deepcopy(init), device, K, samples, seed)
+    steps = K * (1 + TIMED_BLOCKS)
+    torch.cuda.reset_peak_memory_stats()
+    lstm_cell.fwd_launches = lstm_cell.bwd_launches = 0
+    losses, opt, all_s = ptb_train(copy.deepcopy(init), device, steps,
+                                   samples, seed)
+    launches = {"lstm_cell_fwd": lstm_cell.fwd_launches,
+                "lstm_cell_bwd": lstm_cell.bwd_launches}
+    peak = torch.cuda.max_memory_allocated()
+    for kernel, n in launches.items():
+        if n != PTB["T"] * steps:
+            raise AssertionError(f"{kernel} launched {n} times in {steps} "
+                                 f"steps (want {PTB['T']} a step)")
+    if not np.mean(losses[-K:]) < np.mean(losses[:K]):
+        raise AssertionError(f"the loss did not fall: {losses}")
+    step_s = (all_s - one_s) / (steps - K)
+    words = PTB["batch"] * PTB["T"]
+    print(f"train ptb-medium K={K}: {steps} steps in {all_s:.3f} s, {K} in "
+          f"{one_s:.3f} s (each run includes the model's copy to and from "
+          f"the card); the {TIMED_BLOCKS} later blocks: "
+          f"ms_per_step={step_s * 1e3:.3f} words_per_s={words / step_s:.1f} "
+          f"max_memory_allocated={peak} loss {np.mean(losses[:K]):.4f} -> "
+          f"{np.mean(losses[-K:]):.4f}; launches {launches} "
+          f"(allow_tf32 False) [{card}]")
+    print(f"phase train-timed: {time.monotonic() - t0:.1f} s")
+
+    # one step of the same recipe, profiled after a warm-up step
+    net = copy.deepcopy(init).to(device).train()
+    params = dict(net.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    crit = nn.TimeDistributedCriterion(nn.ClassNLLCriterion())
+    sgd = optim.SGD(learning_rate=1.0)
+    x = torch.from_numpy(np.stack([s.feature for s in samples[:20]])).to(
+        device)
+    y = torch.from_numpy(np.stack([s.label for s in samples[:20]])).to(
+        device)
+
+    def step():
+        for p in params.values():
+            p.grad = None
+        crit.apply(net(x), y).backward()
+        grads = optim.clip_by_global_norm(
+            {k: p.grad for k, p in params.items()}, 5.0)
+        sgd.update(grads, params, {}, 1.0, 0)
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.monotonic()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t1) * 1e3
+    busy_ms, kernels, ops = device_time(prof)
+    n_kernels = sum(n for _, _, n in kernels)
+    idle = "not measured (the profiler saw no device time)" if busy_ms == 0 \
+        else f"{max(0.0, 1 - busy_ms / wall_ms):.3f}"
+    print(f"profile train step: wall_ms={wall_ms:.2f} device_busy_ms="
+          f"{busy_ms:.2f} idle_share={idle} kernel_launches={n_kernels} "
+          f"[{card}]")
+    for name, ms, n in kernels[:6] + [("--- aten ops ---", 0.0, 0)] + ops[:6]:
+        share = 100 * ms / busy_ms if busy_ms else 0.0
+        print(f"  {ms:8.3f} ms {share:5.1f}% x{n:<5d} {name[:90]}")
+    report["training"] = {
+        "sound": sound, "planted_faults": faults, "tol": TRAIN_TOL,
+        "cpu_losses": cpu_losses, "card_losses": card_losses,
+        "timed_losses": losses, "steps": steps, "all_s": all_s,
+        "one_block_s": one_s, "ms_per_step": step_s * 1e3,
+        "words_per_s": words / step_s, "max_memory_allocated": peak,
+        "launches": launches, "profile": {
+            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "kernel_launches": n_kernels,
+            "kernels": [list(k) for k in kernels[:20]],
+            "ops": [list(o) for o in ops[:20]]}}
+    del net, params
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json-out", default=None,
                     help="also write the full report to this JSON file")
+    ap.add_argument("--phases", default="resnet,lstm",
+                    help="comma-separated subset of resnet,lstm (default: "
+                         "both; the kernels line lists the phases run)")
     args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
+    if not phases <= {"resnet", "lstm"}:
+        ap.error(f"unknown phases {sorted(phases - {'resnet', 'lstm'})}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
               "False); the port's smoke test runs only on the card",
@@ -411,12 +815,14 @@ def main(argv=None) -> int:
           f"{torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.monotonic()
-    _build.load("int8_gemm")
-    print(f"build: {time.monotonic() - t0:.1f} s (nvcc "
-          f"{_build.build_seconds:.1f} s)")
+    for lib in _build.SOURCES:  # the first load builds every library
+        _build.load(lib)
+    print(f"build: {time.monotonic() - t0:.1f} s (nvcc, one process a "
+          f"source, {_build.build_seconds:.1f} s)")
     for lib, text in _build.ptxas_report.items():
         for line in text.splitlines():
             print(f"ptxas[{lib}]: {line.strip()}")
+    print(f"phase build: {time.monotonic() - t0:.1f} s")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -425,34 +831,51 @@ def main(argv=None) -> int:
 
     report = {"card": card, "device": name, "shapes": [], "serving": {},
               "profile": {}}
-    probe = quantize(resnet50().initialize(args.seed)).to(device)
-    shapes = gemm_shapes(probe, device)
-    del probe
-    if len(shapes) != 54:
-        raise AssertionError(f"ResNet-50 forward ran {len(shapes)} GEMMs")
-    print(f"resnet50 batch {BATCH}: {len(shapes)} GEMM launches per forward, "
-          f"{len(set(shapes))} distinct shapes")
-    totals = kernel_phase(shapes, device, card, report)
-    torch.cuda.empty_cache()
-
-    for mode in ("weight_only", "dynamic"):
-        profile_phase(mode, args.seed, device, card, report)
-    torch.cuda.empty_cache()
-
-    launches = {m: serving_phase(m, args.seed, device, card, report)
-                for m in ("weight_only", "dynamic")}
-
     kernels = []
-    for mode in ("weight_only", "dynamic"):
-        t = totals[mode]
-        kernels.append({
-            "name": f"int8_gemm[{mode}]", **KERNEL,
-            "launches": launches[mode], "max_abs_err": t["max_abs_err"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"],
-            "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
-            else "operations",
-            "library_ms": t["library_ms"]})
+    if "resnet" in phases:
+        t0 = time.monotonic()
+        probe = quantize(resnet50().initialize(args.seed)).to(device)
+        shapes = gemm_shapes(probe, device)
+        del probe
+        if len(shapes) != 54:
+            raise AssertionError(f"ResNet-50 forward ran {len(shapes)} GEMMs")
+        print(f"resnet50 batch {BATCH}: {len(shapes)} GEMM launches per "
+              f"forward, {len(set(shapes))} distinct shapes")
+        totals = kernel_phase(shapes, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase int8-kernels: {time.monotonic() - t0:.1f} s")
+
+        t0 = time.monotonic()
+        for mode in ("weight_only", "dynamic"):
+            profile_phase(mode, args.seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase int8-profile: {time.monotonic() - t0:.1f} s")
+
+        t0 = time.monotonic()
+        launches = {m: serving_phase(m, args.seed, device, card, report)
+                    for m in ("weight_only", "dynamic")}
+        torch.cuda.empty_cache()
+        print(f"phase serving: {time.monotonic() - t0:.1f} s")
+        for mode in ("weight_only", "dynamic"):
+            t = totals[mode]
+            kernels.append({
+                "name": f"int8_gemm[{mode}]", **KERNEL,
+                "launches": launches[mode], "max_abs_err": t["max_abs_err"],
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"],
+                "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
+                else "operations",
+                "library_ms": t["library_ms"]})
+
+    if "lstm" in phases:
+        t0 = time.monotonic()
+        rows = lstm_kernel_phase(device, card, report)
+        print(f"phase lstm-kernels: {time.monotonic() - t0:.1f} s")
+        launches = training_phase(args.seed, device, card, report)
+        torch.cuda.empty_cache()
+        for kernel, row in rows.items():
+            kernels.append({"name": kernel, **LSTM_KERNELS[kernel],
+                            "launches": launches[kernel], **row})
     report["kernels"] = kernels
     if args.json_out:
         with open(args.json_out, "w") as f:

@@ -1,7 +1,9 @@
 """Import hygiene of the port: ``bigdl_tpu_torch`` and ``chip_smoke.py``
-load neither JAX nor the reference package, neither importing them nor
-running the plain versions on the CPU builds or loads a kernel, and a
-kernel build that fails raises."""
+load neither JAX nor the reference package and import with neither JAX nor
+``triton`` installed; neither importing them nor running the plain
+versions on the CPU (an int8 GEMM, an LSTM cell step and back, one
+training step of a tiny PTB model) builds or loads a kernel; and a kernel
+build that fails raises."""
 
 import json
 import os
@@ -16,7 +18,18 @@ import bigdl_tpu_torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = """
-import importlib, json, pkgutil, sys
+import importlib, importlib.abc, json, pkgutil, sys
+
+
+class Absent(importlib.abc.MetaPathFinder):
+    # as if jax, triton and the reference package were not installed
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "triton", "bigdl_tpu"):
+            raise ImportError(f"{name} is absent in this probe")
+        return None
+
+
+sys.meta_path.insert(0, Absent())
 import torch
 import bigdl_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(bigdl_tpu_torch.__path__,
@@ -28,6 +41,22 @@ from bigdl_tpu_torch.ops import _build, int8_gemm
 x = torch.ones(3, 8)
 int8_gemm.int8_matmul(x, torch.ones(4, 8, dtype=torch.int8), torch.ones(4),
                       mode="dynamic")
+from bigdl_tpu_torch import nn, optim
+from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
+from bigdl_tpu_torch.models import ptb_model
+from bigdl_tpu_torch.ops import lstm_cell
+args = [torch.rand(2, 8 * k, requires_grad=True) for k in (4, 1, 1, 4)]
+args[3] = torch.rand(8, 32, requires_grad=True)
+h, c = lstm_cell.lstm_cell(*args)
+(h.sum() + c.sum()).backward()
+samples = [Sample(torch.arange(5).numpy() % 7, torch.arange(5).numpy() % 7)
+           for _ in range(4)]
+(optim.LocalOptimizer(ptb_model(7, 4, 8, 2).initialize(0),
+                      DataSet.array(samples) >> SampleToMiniBatch(2),
+                      nn.TimeDistributedCriterion(nn.ClassNLLCriterion()),
+                      device="cpu")
+ .set_end_when(optim.max_iteration(1)).optimize())
+assert lstm_cell.fwd_launches == lstm_cell.bwd_launches == 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("jaxlib") or m == "bigdl_tpu"
              or m.startswith("bigdl_tpu."))
