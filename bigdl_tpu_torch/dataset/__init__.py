@@ -2,11 +2,13 @@
 
 from bigdl_tpu_torch.dataset.dataset import (AbstractDataSet, DataSet,
                                              LocalDataSet, TransformedDataSet)
+from bigdl_tpu_torch.dataset.prefetch import MTSampleToMiniBatch
 from bigdl_tpu_torch.dataset.sample import MiniBatch, Sample, batch_samples
 from bigdl_tpu_torch.dataset.transformer import (ChainedTransformer,
                                                  SampleToMiniBatch,
                                                  Transformer)
 
 __all__ = ["AbstractDataSet", "ChainedTransformer", "DataSet",
-           "LocalDataSet", "MiniBatch", "Sample", "SampleToMiniBatch",
-           "TransformedDataSet", "Transformer", "batch_samples"]
+           "LocalDataSet", "MTSampleToMiniBatch", "MiniBatch", "Sample",
+           "SampleToMiniBatch", "TransformedDataSet", "Transformer",
+           "batch_samples"]

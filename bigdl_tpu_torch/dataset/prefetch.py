@@ -1,5 +1,14 @@
-"""Device staging of K-step training blocks (port of ``DeviceBlockStager``
-from ``bigdl_tpu/dataset/prefetch.py``).
+"""Multi-worker batch assembly and device staging of K-step training
+blocks (port of ``bigdl_tpu/dataset/prefetch.py``: ``MTSampleToMiniBatch``
+and ``DeviceBlockStager``).
+
+:class:`MTSampleToMiniBatch` fans a per-sample transform (an augmentation
+pipeline) out over a thread pool (numpy releases the GIL in its kernels)
+and buffers assembled MiniBatches in a bounded queue, so batch i+1 is
+assembled while the card trains on batch i.  Each transform call runs
+under :func:`~bigdl_tpu_torch.utils.imgops.sample_key` with the sample's
+stream position and the transformer's pass counter, so its random draws,
+and the batches, are the reference's exactly, whichever worker runs it.
 
 The stager pulls MiniBatches from the host pipeline, stacks up to K of them
 along a new leading step axis, and puts the stack on the training device.
@@ -13,12 +22,18 @@ CPU the stack is used as it is.
 
 from __future__ import annotations
 
-from typing import Iterator, List, Optional
+import itertools
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Iterator, List, Optional
 
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.dataset.sample import MiniBatch
+from bigdl_tpu_torch.dataset.sample import MiniBatch, Sample
+from bigdl_tpu_torch.dataset.transformer import Transformer
+from bigdl_tpu_torch.utils.imgops import sample_key
 
 
 class StagedBlock:
@@ -113,3 +128,126 @@ class DeviceBlockStager:
             event = torch.cuda.Event()
             event.record(self._stream)
         return out[0], out[1], event
+
+
+def _stack(samples) -> MiniBatch:
+    feats = np.stack([s.feature for s in samples])
+    if samples[0].label is None:
+        return MiniBatch(feats, None)
+    return MiniBatch(feats, np.stack([np.asarray(s.label)
+                                      for s in samples]))
+
+
+class MTSampleToMiniBatch(Transformer):
+    """Parallel per-sample transform, batch assembly and prefetch.
+
+    ``transform`` maps one Sample to a Sample and runs on ``workers``
+    threads; up to ``prefetch`` assembled batches wait ahead of the
+    consumer.  A consumer that stops early (``close()``) stops the
+    producer and its workers; a worker's error reaches the consumer."""
+
+    def __init__(self, batch_size: int,
+                 transform: Optional[Callable[[Sample], Sample]] = None,
+                 workers: int = 4, prefetch: int = 2,
+                 drop_remainder: bool = True):
+        self.batch_size = batch_size
+        self.transform = transform
+        self.workers = workers
+        self.prefetch = max(1, prefetch)
+        self.drop_remainder = drop_remainder
+        # pass counter folded into the sample key: each call (an epoch)
+        # draws fresh augmentation, run-to-run deterministic
+        self._passes = itertools.count()
+
+    def __call__(self, it: Iterator[Sample]) -> Iterator[MiniBatch]:
+        out_q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        end = object()
+        failure: list = [None]  # the producer's error, out of band
+        pass_ix = next(self._passes)
+
+        def put_or_stop(item) -> bool:
+            while not stop.is_set():
+                try:
+                    out_q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def keyed_transform(ix_sample):
+            ix, sample = ix_sample
+            with sample_key((pass_ix << 40) | ix):
+                return self.transform(sample)
+
+        def producer():
+            pool = None
+            stream_ix = 0
+            try:
+                pool = ThreadPoolExecutor(max_workers=self.workers)
+                buf = []
+                src = iter(it)
+                while not stop.is_set():
+                    chunk = list(itertools.islice(src, self.batch_size))
+                    if not chunk:
+                        break
+                    if self.transform is not None:
+                        chunk = list(pool.map(
+                            keyed_transform,
+                            enumerate(chunk, start=stream_ix)))
+                    stream_ix += len(chunk)
+                    buf.extend(chunk)
+                    while len(buf) >= self.batch_size:
+                        if not put_or_stop(_stack(buf[:self.batch_size])):
+                            return
+                        buf = buf[self.batch_size:]
+                    if len(chunk) < self.batch_size:
+                        break
+                if buf and not self.drop_remainder:
+                    put_or_stop(_stack(buf))
+            except BaseException as e:  # re-raised by the consumer
+                failure[0] = e
+                put_or_stop(e)
+            finally:
+                if pool is not None:
+                    pool.shutdown(wait=False, cancel_futures=True)
+                close = getattr(it, "close", None)
+                if close is not None:
+                    try:
+                        close()
+                    except Exception:  # must not mask the end marker
+                        pass
+                put_or_stop(end)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                try:
+                    item = out_q.get(timeout=0.2)
+                except queue.Empty:
+                    if t.is_alive() or not out_q.empty():
+                        continue
+                    if failure[0] is not None:
+                        raise failure[0]
+                    raise RuntimeError("batch-assembly producer thread died "
+                                       "without an end marker or an error")
+                if item is end:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            # drain so the producer sees `stop`, then reap it
+            while True:
+                try:
+                    out_q.get_nowait()
+                except queue.Empty:
+                    break
+            t.join(timeout=5.0)
+            while True:
+                try:
+                    out_q.get_nowait()
+                except queue.Empty:
+                    break

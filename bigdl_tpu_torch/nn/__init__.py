@@ -4,7 +4,7 @@ from bigdl_tpu_torch.nn.activations import LogSoftMax, ReLU
 from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion, Criterion,
                                           CrossEntropyCriterion,
                                           TimeDistributedCriterion)
-from bigdl_tpu_torch.nn.layers import (Dropout, Linear, LookupTable,
+from bigdl_tpu_torch.nn.layers import (BatchNormalization, Dropout, Linear, LookupTable,
                                        SpatialAveragePooling,
                                        SpatialBatchNormalization,
                                        SpatialConvolution, SpatialMaxPooling)
@@ -17,7 +17,7 @@ from bigdl_tpu_torch.nn.recurrent import (LSTM, Cell, MultiRNNCell,
                                           Recurrent, RnnCell, TimeDistributed)
 from bigdl_tpu_torch.nn.shape_ops import CAddTable, Reshape
 
-__all__ = ["CAddTable", "Cell", "ClassNLLCriterion", "ConcatTable",
+__all__ = ["BatchNormalization", "CAddTable", "Cell", "ClassNLLCriterion", "ConcatTable",
            "Container", "Criterion", "CrossEntropyCriterion", "Dropout",
            "Identity", "LSTM", "Linear", "LogSoftMax", "LookupTable",
            "Module", "MultiRNNCell", "QuantizedLinear",

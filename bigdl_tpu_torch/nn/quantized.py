@@ -117,6 +117,10 @@ class QuantizedSpatialConvolution(Module):
     @staticmethod
     def from_conv(m: SpatialConvolution, mode: Optional[str] = None
                   ) -> "QuantizedSpatialConvolution":
+        if m.format != "NCHW":
+            raise NotImplementedError(
+                "quantizing an NHWC SpatialConvolution is not ported; "
+                "quantize the NCHW model")
         w = m.weight.detach()
         wq, ws = _quantize_symmetric(w.cpu().numpy(), axis=(1, 2, 3))
         return QuantizedSpatialConvolution(m, wq, ws, m.bias, mode=mode,

@@ -4,14 +4,22 @@ from bigdl_tpu_torch.optim.optim_method import SGD, Adam, OptimMethod
 from bigdl_tpu_torch.optim.optimizer import (LocalOptimizer, Optimizer,
                                              clip_by_global_norm,
                                              clip_by_value, global_norm)
-from bigdl_tpu_torch.optim.schedules import Default, LearningRateSchedule
+from bigdl_tpu_torch.optim.schedules import (Default, EpochDecay,
+                                             EpochDecayWithWarmUp,
+                                             EpochSchedule, EpochStep,
+                                             Exponential, LearningRateSchedule,
+                                             MultiStep, NaturalExp, Poly,
+                                             SequentialSchedule, Step, Warmup)
 from bigdl_tpu_torch.optim.trigger import (Trigger, every_epoch, max_epoch,
                                            max_iteration, max_score,
                                            min_loss, probe_fire_step,
                                            several_iteration)
 
-__all__ = ["Adam", "Default", "LearningRateSchedule", "LocalOptimizer",
-           "OptimMethod", "Optimizer", "SGD", "Trigger",
+__all__ = ["Adam", "Default", "EpochDecay", "EpochDecayWithWarmUp",
+           "EpochSchedule", "EpochStep", "Exponential",
+           "LearningRateSchedule", "LocalOptimizer", "MultiStep",
+           "NaturalExp", "OptimMethod", "Optimizer", "Poly", "SGD",
+           "SequentialSchedule", "Step", "Trigger", "Warmup",
            "clip_by_global_norm", "clip_by_value", "every_epoch",
            "global_norm", "max_epoch", "max_iteration", "max_score",
            "min_loss", "probe_fire_step", "several_iteration"]

@@ -15,15 +15,19 @@ Driver-loop design, as in the reference:
   after block b+1 is enqueued: the loss fetch runs one block behind.
 
 The step is eager PyTorch: autograd over the model, then the optimizer's
-in-place update under ``torch.no_grad()``.  Gradient clipping
+in-place update under ``torch.no_grad()``.  With ``set_compute_dtype(
+torch.bfloat16)`` the forward and backward run in bf16 on bf16 casts of
+the f32 parameters, and the gradients and the update stay f32
+(``utils/precision.py``).  BatchNorm's running statistics are buffers of
+the training copy, updated in place by every step of a block.  Gradient clipping
 (:func:`clip_by_value`, :func:`clip_by_global_norm`) stays on the card.
 The training runs on a copy of the user's model on ``device``; the trained
 weights are written back into the user's model at the end.
 
 Not ported yet, each raising ``NotImplementedError`` where the reference
 has the API: validation, checkpointing and resume, summaries, telemetry,
-the numeric guard, activation-memory policies, mixed precision
-(``set_compute_dtype``) and ``DistriOptimizer``.
+the numeric guard, activation-memory policies, compute dtypes other than
+f32 and bf16, and ``DistriOptimizer``.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from bigdl_tpu_torch.nn.layers import Dropout
 from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
 from bigdl_tpu_torch.optim.trigger import Trigger, max_epoch, probe_fire_step
 from bigdl_tpu_torch.utils.config import get_config
+from bigdl_tpu_torch.utils.precision import mixed_precision_loss_fn
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
 
@@ -92,6 +97,7 @@ class Optimizer:
         self.grad_clip: Optional[Callable[[Tensors], Tensors]] = None
         self.seed: Optional[int] = None  # None = Config.seed
         self.steps_per_dispatch: Optional[int] = None  # None = Engine's
+        self.compute_dtype: Optional[torch.dtype] = None  # None = f32
         self.state: dict = {"epoch": 0, "neval": 0,
                             "records_processed_this_epoch": 0}
         self._stager: Optional[DeviceBlockStager] = None
@@ -162,8 +168,15 @@ class Optimizer:
     def set_activation_memory(self, *a, **kw):
         _not_ported("activation-memory policies (set_activation_memory)")
 
-    def set_compute_dtype(self, *a, **kw):
-        _not_ported("mixed precision (set_compute_dtype)")
+    def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> "Optimizer":
+        """Mixed precision: forward and backward in ``dtype`` (bf16 for
+        the tensor cores); parameters, gradients, optimizer state and the
+        update stay f32.  ``None`` and ``torch.float32`` compute in f32."""
+        if dtype not in (None, torch.float32, torch.bfloat16):
+            _not_ported(f"compute dtype {dtype} (set_compute_dtype takes "
+                        f"None, torch.float32 or torch.bfloat16)")
+        self.compute_dtype = dtype
+        return self
 
     @staticmethod
     def create(model, dataset, criterion, distributed: bool = False, **kw):
@@ -301,11 +314,20 @@ class LocalOptimizer(Optimizer):
         ostate = self.optim_method.init_state(params)
         criterion, optim, clip = self.criterion, self.optim_method, \
             self.grad_clip
+        if self.compute_dtype in (None, torch.float32):
+            def loss_fn(x, y):
+                return criterion.apply(net(x), y)
+        else:
+            mixed = mixed_precision_loss_fn(net, criterion,
+                                            self.compute_dtype)
+
+            def loss_fn(x, y):
+                return mixed(params, x, y)
 
         def step_fn(x, y, lr, step):
             for p in params.values():
                 p.grad = None
-            loss = criterion.apply(net(x), y)
+            loss = loss_fn(x, y)
             loss.backward()
             grads = {k: p.grad for k, p in params.items()}
             if clip is not None:

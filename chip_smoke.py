@@ -1,14 +1,17 @@
 """Smoke test of the PyTorch/CUDA port (``bigdl_tpu_torch``) on one NVIDIA card.
 
-Drives the port's two main paths and holds every kernel of them against
+Drives the port's three main paths and holds every kernel of them against
 its plain PyTorch version.  Serving: an int8-quantized ResNet-50 (1000
 classes, 224x224, NCHW, random weights from a seed) served by
 ``ModelRegistry`` with ``quantize=True`` (weight_only) and
 ``quantize="dynamic"`` (kernel B4).  Training: PTB-medium (vocab 10000,
 650x2 LSTM, T=35, batch 20, f32) trained through ``LocalOptimizer`` in
 K=8-step blocks with SGD at lr 1.0 and global-norm clipping at 5.0, layer
-0's LSTM cell running kernels B2f and B2b.  Phases, each printing its
-seconds:
+0's LSTM cell running kernels B2f and B2b; and ResNet-50 (1000 classes,
+224x224, NHWC, bf16 compute, batch 256) trained through ``LocalOptimizer``
+in K=4 blocks with the ImageNet recipe's SGD, schedule and augmentation
+pipeline, the stem max pool's backward running kernel B1.  Phases, each
+printing its seconds:
 
 1. the card: name, count, ``nvidia-smi`` name and power limit;
 2. the kernels, built from ``bigdl_tpu_torch/csrc`` (one ``nvcc`` a
@@ -34,13 +37,33 @@ seconds:
    the CPU through the plain versions (within ``TRAIN_TOL``, a limit two
    planted faults must exceed); four timed blocks (words/s, ms per step,
    peak memory, the loss must fall) whose kernel launches must equal 35 x
-   steps each; one step under torch.profiler (device idle share).
+   steps each; one step under torch.profiler (device idle share);
+8. pool-kernel phase: B1 against its plain version, bitwise, at 16
+   geometries (``POOL_CASES``: every branch of the kernel), then at the
+   ResNet-50 stem in bf16 and f32 its error on the timed inputs and its
+   time beside the bound, the plain version and PyTorch's
+   ``max_pool2d_with_indices_backward``;
+9. resnet-train timed phase: the recipe twice, 16 steps each, through its
+   own pipeline (8 worker threads) and over batches augmented beforehand
+   (images/s, ms per step, block losses that must be finite and fall,
+   peak memory, B1 launches that must equal the steps and all be bf16),
+   then one profiled step;
+10. resnet-train check phase, f32, batch 8, card against CPU: one K=2
+   block with the residual gammas at 0 (``grad_reading``), and each of
+   the 53 conv+BatchNorm units alone at the model's init
+   (``unit_reading``), both within ``RESNET_TRAIN_TOL``, a limit three
+   planted faults must exceed.
 
-The last two lines are the kernel table and the result as JSON; any
+The last lines are the card, the kernel table and the result as JSON; any
 failed check raises and the script exits non-zero.  Without a CUDA card it
 fails at once.  Run from the repository root:
 
-    python3 chip_smoke.py [--seed N] [--json-out PATH] [--phases resnet,lstm]
+    python3 chip_smoke.py [--seed N] [--json-out PATH]
+                          [--phases resnet,lstm,resnet-train]
+
+``--phases resnet-conditioning`` adds a diagnostic that is not run by
+default: the check phase's path reading at residual gammas 0 to 1, beside
+the CPU's own reading on reordered batches.
 """
 
 from __future__ import annotations
@@ -57,17 +80,20 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch import nn, optim
-from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
+from bigdl_tpu_torch.dataset import (DataSet, MTSampleToMiniBatch, Sample,
+                                     SampleToMiniBatch)
 from bigdl_tpu_torch.dataset.text import Dictionary
 from bigdl_tpu_torch.models import ptb_model, resnet50
 from bigdl_tpu_torch.nn import quantize, recurrent
 from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,
                                           QuantizedSpatialConvolution)
-from bigdl_tpu_torch.ops import _build, int8_gemm, lstm_cell
+from bigdl_tpu_torch.ops import _build, int8_gemm, lstm_cell, maxpool
 from bigdl_tpu_torch.ops.int8_gemm import (int8_matmul_reference,
                                            prepare_operands)
 from bigdl_tpu_torch.optim import LocalOptimizer
 from bigdl_tpu_torch.serving import ModelRegistry
+from bigdl_tpu_torch.transform import vision as V
+from bigdl_tpu_torch.utils.precision import mixed_precision_loss_fn
 
 # H100 SXM data sheet, dense, at the 700 W limit
 PEAK_F32 = 67e12       # FLOP/s on the CUDA cores (weight_only's FMAs)
@@ -184,12 +210,13 @@ def cuda_ms(fn, budget_ms=30.0):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, calls=50):
+def device_ms(fn, calls=50, split=None):
     """Device milliseconds of one call of ``fn``: the device time of the
     kernels it launches (torch.profiler), summed over ``calls`` calls after
     a warmup and divided by ``calls``.  The host's gaps between launches
     are left out; for a call of a few microseconds of device work they are
-    most of what :func:`cuda_ms` measures."""
+    most of what :func:`cuda_ms` measures.  A ``split`` list receives
+    (kernel, ms per call) of each kernel."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -198,9 +225,11 @@ def device_ms(fn, calls=50):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    busy_ms = device_time(prof)[0]
+    busy_ms, kernels, _ = device_time(prof)
     if busy_ms == 0:
         raise AssertionError("the profiler saw no device time")
+    if split is not None:
+        split += [(name, ms / calls) for name, ms, _ in kernels]
     return busy_ms / calls
 
 
@@ -329,6 +358,37 @@ def device_time(prof):
                       key=lambda t: -t[1])
     kernels = by_time(DeviceType.CUDA)
     return sum(ms for _, ms, _ in kernels), kernels, by_time(DeviceType.CPU)
+
+
+def profile_step(step, label, card, top):
+    """One call of ``step`` (a training step) under torch.profiler after a
+    warm-up call: prints wall ms, device busy ms, the idle share, kernel
+    launches and the ``top`` device kernels and aten operations, and returns
+    them."""
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.monotonic()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t1) * 1e3
+    busy_ms, kernels, ops = device_time(prof)
+    n_kernels = sum(n for _, _, n in kernels)
+    idle = "not measured (the profiler saw no device time)" if busy_ms == 0 \
+        else f"{max(0.0, 1 - busy_ms / wall_ms):.3f}"
+    print(f"profile {label}: wall_ms={wall_ms:.2f} device_busy_ms="
+          f"{busy_ms:.2f} idle_share={idle} kernel_launches={n_kernels} "
+          f"[{card}]")
+    for name, ms, n in (kernels[:top] + [("--- aten ops ---", 0.0, 0)]
+                        + ops[:top]):
+        share = 100 * ms / busy_ms if busy_ms else 0.0
+        print(f"  {ms:8.3f} ms {share:5.1f}% x{n:<5d} {name[:90]}")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "kernel_launches": n_kernels,
+            "kernels": [list(k) for k in kernels[:20]],
+            "ops": [list(o) for o in ops[:20]]}
 
 
 def profile_phase(mode, seed, device, card, report):
@@ -673,7 +733,6 @@ def training_phase(seed, device, card, report):
     """PTB-medium trained through LocalOptimizer on the card: one K=8
     block against the same steps on the CPU (and two planted faults), then
     timed blocks, the launch counts, peak memory and one profiled step."""
-    from torch.profiler import ProfilerActivity, profile
     samples = ptb_samples(seed)
     init = ptb_model(PTB["vocab"], PTB["embed"], PTB["hidden"],
                      PTB["layers"]).initialize(seed)
@@ -758,37 +817,658 @@ def training_phase(seed, device, card, report):
             {k: p.grad for k, p in params.items()}, 5.0)
         sgd.update(grads, params, {}, 1.0, 0)
 
-    step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.monotonic()
-        step()
-        torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t1) * 1e3
-    busy_ms, kernels, ops = device_time(prof)
-    n_kernels = sum(n for _, _, n in kernels)
-    idle = "not measured (the profiler saw no device time)" if busy_ms == 0 \
-        else f"{max(0.0, 1 - busy_ms / wall_ms):.3f}"
-    print(f"profile train step: wall_ms={wall_ms:.2f} device_busy_ms="
-          f"{busy_ms:.2f} idle_share={idle} kernel_launches={n_kernels} "
-          f"[{card}]")
-    for name, ms, n in kernels[:6] + [("--- aten ops ---", 0.0, 0)] + ops[:6]:
-        share = 100 * ms / busy_ms if busy_ms else 0.0
-        print(f"  {ms:8.3f} ms {share:5.1f}% x{n:<5d} {name[:90]}")
+    prof = profile_step(step, "train step", card, 6)
     report["training"] = {
         "sound": sound, "planted_faults": faults, "tol": TRAIN_TOL,
         "cpu_losses": cpu_losses, "card_losses": card_losses,
         "timed_losses": losses, "steps": steps, "all_s": all_s,
         "one_block_s": one_s, "ms_per_step": step_s * 1e3,
         "words_per_s": words / step_s, "max_memory_allocated": peak,
-        "launches": launches, "profile": {
-            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "kernel_launches": n_kernels,
-            "kernels": [list(k) for k in kernels[:20]],
-            "ops": [list(o) for o in ops[:20]]}}
+        "launches": launches, "profile": prof}
     del net, params
     return launches
+
+
+# ------------------------------------------------------------- max-pool B1
+POOL_KERNEL = {"route": "cuda", "source": "bigdl_tpu_torch/csrc/maxpool_bwd.cu",
+               "replaces": "bigdl_tpu/ops/pallas_pool.py:165"}
+# (name, (N, C, H, W), kernel, stride, pad, ceil_mode, format, dtype, input),
+# kernel, stride and pad an int or (h, w): ResNet-50's stem at batch 256 in
+# both formats and dtypes, its post-ReLU case, LeNet/VGG's 2x2/2, Inception's
+# 3x3/1 pad 1, a ceil-mode odd size, ragged channel counts, and the kernel's
+# other branches: a 5x3 window with unequal pads and a 1x1/2 (the loops), a
+# 16x16 window (int32 offsets), and a view whose storage spans 2^31 elements
+# or more (64-bit indices), at the stem's window and at the loops'.  "ints":
+# integer values in [-4, 4], so windows hold exact ties; "relu": max(N(0,
+# 1), 0), half of it an exact 0; "wide": ints in a strided view of a 2^31 +
+# N*H*W*C element buffer.
+POOL_CASES = [
+    ("stem_nhwc_f32", (256, 64, 112, 112), 3, 2, 1, False, "NHWC",
+     torch.float32, "ints"),
+    ("stem_nhwc_bf16", (256, 64, 112, 112), 3, 2, 1, False, "NHWC",
+     torch.bfloat16, "ints"),
+    ("stem_nchw_f32", (256, 64, 112, 112), 3, 2, 1, False, "NCHW",
+     torch.float32, "ints"),
+    ("stem_nhwc_bf16_relu", (256, 64, 112, 112), 3, 2, 1, False, "NHWC",
+     torch.bfloat16, "relu"),
+    ("2x2s2_nchw_f32", (32, 64, 56, 56), 2, 2, 0, False, "NCHW",
+     torch.float32, "ints"),
+    ("3x3s1p1_nhwc_bf16", (32, 192, 28, 28), 3, 1, 1, False, "NHWC",
+     torch.bfloat16, "ints"),
+    ("3x3s2_ceil_odd_nhwc_f32", (8, 64, 27, 27), 3, 2, 0, True, "NHWC",
+     torch.float32, "ints"),
+    ("3x3s2p1_c3_nhwc_f32", (8, 3, 33, 33), 3, 2, 1, False, "NHWC",
+     torch.float32, "ints"),
+    ("3x3s2p1_c160_nhwc_bf16", (8, 160, 14, 14), 3, 2, 1, False, "NHWC",
+     torch.bfloat16, "ints"),
+    ("5x3s2p2x1_nhwc_f32", (8, 64, 29, 30), (5, 3), 2, (2, 1), False, "NHWC",
+     torch.float32, "ints"),
+    ("5x3s2p2x1_nchw_bf16", (8, 64, 29, 30), (5, 3), 2, (2, 1), False,
+     "NCHW", torch.bfloat16, "ints"),
+    ("1x1s2_nhwc_bf16", (8, 64, 28, 28), 1, 2, 0, False, "NHWC",
+     torch.bfloat16, "ints"),
+    ("16x16s8_nhwc_f32", (4, 64, 64, 64), 16, 8, 0, False, "NHWC",
+     torch.float32, "ints"),
+    ("16x16s8_ceil_nchw_bf16", (4, 32, 61, 61), 16, 8, 0, True, "NCHW",
+     torch.bfloat16, "ints"),
+    ("3x3s2p1_wide_nhwc_bf16", (2, 64, 28, 28), 3, 2, 1, False, "NHWC",
+     torch.bfloat16, "wide"),
+    ("5x3s2p2x1_wide_nhwc_bf16", (2, 64, 28, 28), (5, 3), 2, (2, 1), False,
+     "NHWC", torch.bfloat16, "wide"),
+]
+
+
+def pair(v):
+    return tuple(v) if isinstance(v, tuple) else (v, v)
+
+
+def pool_operands(shape, k, s, p, ceil, fmt, dtype, kind, gen, device):
+    """x (NCHW-indexed; for NHWC the channels_last view of an NHWC tensor),
+    its pool output y, a gradient g, the pads, the kernel and the stride,
+    for one case."""
+    N, C, H, W = shape
+    (kh, kw), (sh, sw), (ph, pw) = pair(k), pair(s), pair(p)
+    dims = (N, H, W, C) if fmt == "NHWC" else shape
+    if kind == "relu":
+        x = torch.relu(torch.randn(dims, generator=gen, device=device))
+    else:
+        x = torch.randint(-4, 5, dims, generator=gen, device=device).float()
+    x = x.to(dtype)
+    if kind == "wide":  # sample n at n * 2^31 // (N - 1) of a wide buffer
+        step = -(-2 ** 31 // (N - 1))
+        buf = torch.empty(step * (N - 1) + x[0].numel(), dtype=dtype,
+                          device=device)
+        wide = buf.as_strided(dims, (step,) + x.stride()[1:])
+        wide.copy_(x)
+        x = wide
+    if fmt == "NHWC":
+        x = x.permute(0, 3, 1, 2)
+    pads = nn.SpatialMaxPooling(kw, kh, sw, sh, pw, ph,
+                                ceil_mode=ceil)._pads((H, W))
+    with torch.no_grad():
+        y = maxpool.maxpool2d(x, (kh, kw), (sh, sw), pads)
+    g = torch.randn(y.shape, generator=gen, device=device).to(dtype)
+    if fmt == "NHWC":
+        g = g.contiguous(memory_format=torch.channels_last)
+    return x, y, g, pads, (kh, kw), (sh, sw)
+
+
+def kernel_pass(name):
+    """B1's pass that a profiled kernel name belongs to."""
+    return next((p for p in ("first_match", "scatter_first") if p in name),
+                name[:40])
+
+
+def pool_bound(shape, y_shape, dtype):
+    """(least ms, "bytes"): x, y and g read once, gi written once, at the
+    card's memory rate; about one comparison per covered position, far
+    below the card's rate for them."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    nbytes = es * (2 * int(np.prod(shape)) + 2 * int(np.prod(y_shape)))
+    return nbytes / HBM_BPS * 1e3, "bytes", nbytes
+
+
+def pool_kernel_phase(device, card, report):
+    """B1 against its plain version at every case of POOL_CASES, bitwise
+    (both add the same terms in the same order and dtype), then, at the
+    ResNet-50 stem (NHWC, batch 256) in bf16 (the training path's type) and
+    f32: kernel, plain and library times beside the bound."""
+    gen = torch.Generator(device=device).manual_seed(2718)
+    for name, shape, k, s, p, ceil, fmt, dtype, kind in POOL_CASES:
+        x, y, g, pads, k, s = pool_operands(shape, k, s, p, ceil, fmt, dtype,
+                                            kind, gen, device)
+        got = maxpool.launch(x, y, g, k, s, pads)
+        want = maxpool.maxpool_bwd_reference(x, y, g, k, s, pads)
+        torch.cuda.synchronize()
+        # a view that is not dense gets a dense gradient (empty_like's rule)
+        layout = torch.empty_like(x).stride()
+        if not torch.equal(got, want) or got.stride() != layout:
+            err = (got.float() - want.float()).abs().max().item()
+            raise AssertionError(f"B1 {name}: not bitwise equal to its plain "
+                                 f"version (max abs err {err}, strides "
+                                 f"{got.stride()} vs {layout})")
+        ties = (y == 0).float().mean().item() if kind == "relu" else None
+        print(f"pool check {name}: x {tuple(x.shape)} strides {x.stride()} "
+              f"{fmt} {dtype} kernel {k} stride {s} pads {pads}: bitwise "
+              f"equal" + (f" (windows with an all-zero max: {ties:.3f})"
+                          if ties is not None else ""))
+        del x, y, g, got, want
+        torch.cuda.empty_cache()
+    rows = {}
+    for name, dtype in (("stem_nhwc_bf16", torch.bfloat16),
+                        ("stem_nhwc_f32", torch.float32)):
+        case = next(c for c in POOL_CASES if c[0] == name)
+        shape, k, s, p, ceil, fmt = case[1:7]
+        x, y, g, pads, kk, ss = pool_operands(shape, k, s, p, ceil, fmt,
+                                              dtype, "relu", gen, device)
+        # the library's own first-match pair: indices from the forward,
+        # then the backward that scatters through them
+        _, ind = torch.nn.functional.max_pool2d(x, k, s, p,
+                                                return_indices=True)
+        geo = (kk, ss, pads)
+        fns = (lambda: maxpool.launch(x, y, g, *geo),
+               lambda: maxpool.maxpool_bwd_reference(x, y, g, *geo),
+               lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                   g, x, [k, k], [s, s], [p, p], [1, 1], False, ind))
+        # the timed inputs too: bitwise against the plain version
+        got, want = fns[0](), fns[1]()
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(f"B1 {name} on the timed inputs: max abs "
+                                 f"err {err} against its plain version")
+        # the same function: the library sums a position's (at most 4)
+        # window gradients in f32 in another order and rounds once, B1
+        # rounds to x's dtype after each add: they agree within one ulp of
+        # a partial sum (at most 4 max|g|) for each of the 4 adds
+        lib = fns[2]()
+        ulp = 2.0 ** -23 if dtype == torch.float32 else 2.0 ** -7
+        torch.testing.assert_close(lib.float(), got.float(), rtol=0,
+                                   atol=16 * ulp * g.abs().max().item())
+        del got, want
+        passes = []
+        k_ms = device_ms(fns[0], calls=20, split=passes)
+        l_ms = device_ms(fns[2], calls=20)
+        k_ev, p_ev, l_ev = (cuda_ms(f, budget_ms=100.0) for f in fns)
+        b_ms, b_by, nbytes = pool_bound(shape, y.shape, dtype)
+        rows[name] = {"ms": k_ms, "plain_ms": p_ev, "library_ms": l_ms,
+                      "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                      "max_abs_err": err, "event_ms": k_ev,
+                      "library_event_ms": l_ev,
+                      "library_call": "aten.max_pool2d_with_indices_backward "
+                                      "(indices from max_pool2d)",
+                      "passes": passes}
+        print(f"maxpool_bwd {name} x {tuple(x.shape)}: max_abs_err={err} "
+              f"against the plain version; device ms per call "
+              f"kernel_ms={k_ms:.4f} library_ms={l_ms:.4f}; event-timed "
+              f"kernel {k_ev:.4f} plain {p_ev:.4f} library {l_ev:.4f}; "
+              f"bound_ms={b_ms:.4f} ({b_by}: {nbytes / 1e9:.3f} GB at "
+              f"{HBM_BPS / 1e12:.2f} TB/s); by kernel: "
+              + ", ".join(f"{kernel_pass(n)} {ms:.4f}" for n, ms in passes)
+              + f" [{card}]")
+        del x, y, g, ind, lib
+    report["pool_kernel"] = rows
+    return rows["stem_nhwc_bf16"]
+
+
+# ------------------------------------------------------ ResNet-50 training
+# the ImageNet recipe (examples/resnet/train_imagenet.py) on one card:
+# NHWC, bf16 compute, batch 256, SGD momentum 0.9 / dampening 0 / weight
+# decay 1e-4 with EpochDecayWithWarmUp (5 warm-up epochs, /10 at 30/60/80),
+# max_lr scaled linearly from its batch-8192 3.2 to 0.1 at batch 256, K=4.
+# The recipe's synthetic stand-in images, 1024 of them (4 steps an epoch, so
+# a K=4 block is an epoch).
+RESNET = {"batch": 256, "K": 4, "size": 224, "classes": 1000,
+          "samples": 1024, "workers": 8, "timed_blocks": 3, "max_lr": 0.1,
+          "warmup_epochs": 5, "check_batch": 8, "check_steps": 2}
+# the card against the CPU (grad_reading: the losses and the first step's
+# per-layer gradients; unit_reading: each conv+BN unit's per-layer
+# gradients): above the sound readings, below the three planted faults
+# that every run measures and requires to exceed it
+RESNET_TRAIN_TOL = 1e-3
+
+
+def recipe_samples(n, size, classes, seed=0):
+    """The recipe's synthetic stand-in (train_imagenet.py:80-88): uint8 HWC
+    images, a class-coloured patch on noise."""
+    rng = np.random.default_rng(seed)
+    samples = []
+    for y in rng.integers(0, classes, n):
+        img = rng.integers(0, 60, (size, size, 3)).astype(np.uint8)
+        r, c = divmod(int(y) % 16, 4)
+        q = size // 4
+        img[r * q:(r + 1) * q, c * q:(c + 1) * q, int(y) % 3] += 150
+        samples.append(Sample(img, np.int32(y)))
+    return samples
+
+
+def recipe_augment(size):
+    """The recipe's per-sample augmentation, NHWC."""
+    aug = (V.RandomAlterAspect(target_size=size) >> V.HFlip()
+           >> V.ChannelNormalize((123.68, 116.78, 103.94),
+                                 (58.4, 57.1, 57.4))
+           >> V.ImageFrameToSample(to_chw=False))
+    return lambda s: aug(V.ImageFeature(s.feature, s.label))["sample"]
+
+
+def pre_augmented(samples, batch, size):
+    """The recipe's pipeline run once over ``samples``: the augmented
+    Samples, in order."""
+    out = []
+    it = (DataSet.array(samples) >> MTSampleToMiniBatch(
+        batch, recipe_augment(size), workers=RESNET["workers"])).data(
+            train=False)
+    for b in it:
+        out += [Sample(f, t) for f, t in zip(b.input, b.target)]
+    return out
+
+
+class RecordingSGD(optim.SGD):
+    """SGD that keeps a float64 CPU copy of every step's gradients."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.grads = []
+
+    def update(self, grads, params, state, lr, step):
+        self.grads.append({k: g.detach().double().cpu()
+                           for k, g in grads.items()})
+        super().update(grads, params, state, lr, step)
+
+
+def recipe_sgd(iters_per_epoch, cls=optim.SGD):
+    warm = RESNET["warmup_epochs"] * iters_per_epoch
+    max_lr = RESNET["max_lr"]
+    base_lr = max_lr / warm
+    return cls(learning_rate=base_lr, momentum=0.9, dampening=0.0,
+               weight_decay=1e-4,
+               learning_rate_schedule=optim.EpochDecayWithWarmUp(
+                   warm, (max_lr - base_lr) / warm,
+                   lambda e: sum(1 for d in (30, 60, 80) if e >= d)))
+
+
+def resnet_train(model, dataset, device, steps, k, compute, iters_per_epoch,
+                 sgd=None):
+    """Train ``model`` in place through LocalOptimizer with the recipe's
+    SGD (or ``sgd``); (per-step losses, per-step host clock at replay,
+    optimizer, wall seconds)."""
+    losses, clock = [], []
+
+    class Recording(LocalOptimizer):
+        def _log_train_iteration(self, lr):
+            losses.append(self.state["loss"])
+            clock.append(time.perf_counter())
+
+    opt = (Recording(model, dataset, nn.ClassNLLCriterion(), device=device)
+           .set_optim_method(sgd or recipe_sgd(iters_per_epoch))
+           .set_compute_dtype(compute)
+           .set_steps_per_dispatch(k)
+           .set_end_when(optim.max_iteration(steps)))
+    t0 = time.monotonic()
+    opt.optimize()
+    return losses, clock, opt, time.monotonic() - t0
+
+
+def planted_b1_fault():
+    """A wrapper of B1 whose first launch returns its result x127/128."""
+    sound = maxpool.launch
+    calls = [0]
+
+    def launch(*args):
+        calls[0] += 1
+        gi = sound(*args)
+        return gi * (127 / 128) if calls[0] == 1 else gi
+    return launch
+
+
+def zero_init_residual(model):
+    """``model`` with the last BatchNorm's gamma of every residual block's
+    main path at 0 (the large-batch ImageNet recipe's init, Goyal et al.
+    2017): each block starts as its shortcut."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.ConcatTable):
+                main = m[0]
+                main[len(main) - 1][1].weight.zero_()
+    return model
+
+
+def unit_grads(unit, a, seed, device, fault=None):
+    """One conv+BatchNorm unit's gradients (parameters, and ``input``) on
+    ``device`` for the input ``a`` and a seeded N(0, 1) gradient at its
+    output; ``fault`` edits the unit's copy first."""
+    u = copy.deepcopy(unit).to(device).train()
+    if fault is not None:
+        fault(u)
+    params = dict(u.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    a = a.to(device, copy=True).requires_grad_(True)
+    out = u(a)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(seed))
+    (out * g.to(device)).sum().backward()
+    grads = {k: p.grad.double().cpu() for k, p in params.items()}
+    grads["input.x"] = a.grad.double().cpu()
+    return grads
+
+
+def layer_shares(got, ref, prefix=""):
+    """Per layer (parameters grouped by module), the largest difference of
+    ``got`` from ``ref`` as a share of the layer's largest value in ``ref``
+    (a layer that is all zero in ``ref`` must be all zero in ``got``):
+    [(share, layer)]."""
+    layers = {}
+    for k in ref:
+        layers.setdefault(k.rsplit(".", 1)[0], []).append(k)
+    rows = []
+    for layer, keys in layers.items():
+        scale = max(ref[k].abs().max().item() for k in keys)
+        diff = max((got[k] - ref[k]).abs().max().item() for k in keys)
+        rows.append((diff / scale if scale > 0 else
+                     (0.0 if diff == 0 else float("inf")), prefix + layer))
+    return rows
+
+
+def unit_reading(model, x, device):
+    """Every conv+BatchNorm unit of ``model`` (53 in ResNet-50: the stem,
+    3 a block, 4 shortcuts; f32, training mode) on the card against the
+    CPU, each from its input in the CPU's forward of ``x`` and a seeded
+    gradient at its output: (largest share, its four largest (share,
+    layer), the planted fault's reading).  No ReLU lies inside a unit, so
+    rounding cannot flip a mask between the devices.  The fault is block
+    8's 3x3 conv weight x127/128 on the card (the BatchNorm after it
+    cancels the scale in the forward; the weight's gradient grows by
+    128/127)."""
+    net = copy.deepcopy(model).train()
+    units = {name: m for name, m in net.named_modules()
+             if isinstance(m, nn.Sequential) and len(m) == 2
+             and isinstance(m[0], nn.SpatialConvolution)
+             and isinstance(m[1], nn.SpatialBatchNormalization)}
+    inputs = {}
+    for name, m in units.items():
+        m.register_forward_pre_hook(
+            lambda mod, args, name=name: inputs.__setitem__(name, args[0]))
+    with torch.no_grad():
+        net(x)
+    rows, fault = [], None
+    for seed, (name, unit) in enumerate(units.items()):
+        unit = copy.deepcopy(unit)
+        unit._forward_pre_hooks.clear()
+        want = unit_grads(unit, inputs[name], seed, "cpu")
+        rows += layer_shares(unit_grads(unit, inputs[name], seed, device),
+                             want, f"{name}.")
+        if name == "8.0.0.2":
+            fault = max(layer_shares(unit_grads(
+                unit, inputs[name], seed, device,
+                lambda u: u[0].weight.data.mul_(127 / 128)), want,
+                f"{name}."))
+    rows.sort(reverse=True)
+    return rows[0][0], rows[:4], fault, len(units)
+
+
+def resnet_check_phase(seed, device, card, report):
+    """ResNet-50 (224x224, 1000 classes, NHWC, f32) on the card against the
+    CPU, in two readings, each against RESNET_TRAIN_TOL with planted faults
+    that must read above it:
+
+    - the path: RESNET["check_steps"] steps of batch 8 in one block through
+      LocalOptimizer, from the same seeded weights and the same augmented
+      batches, residual gammas at 0 (:func:`grad_reading`); faults: the
+      stem conv's weight x127/128 and B1's first result x127/128;
+    - every conv+BatchNorm unit at the model's own init (gammas 1), each
+      from its input in the CPU's forward of the first batch
+      (:func:`unit_reading`); fault: block 8's 3x3 conv weight x127/128.
+
+    Why two: whole-model f32 gradients of this model at batch 8 are
+    ill-conditioned whenever gradient reaches the blocks' inner layers:
+    the card and the CPU then differ by percents of a layer's largest
+    gradient, as much as the CPU differs from itself when a batch's samples
+    are reversed (``--phases resnet-conditioning`` measures both).  At
+    gamma 0 the path is well conditioned, but the inner layers get no
+    gradient at the first step and a fault there reads nothing; the unit
+    reading holds them, one conv and its BatchNorm at a time.  (Whole
+    blocks are ill-conditioned too: a ReLU whose input lies within
+    rounding of 0 on one device and not the other sends a different
+    gradient through that position.)"""
+    B, steps = RESNET["check_batch"], RESNET["check_steps"]
+    data = pre_augmented(recipe_samples(B * steps, RESNET["size"],
+                                        RESNET["classes"], seed),
+                         B, RESNET["size"])
+    plain = resnet50(RESNET["classes"], format="NHWC").initialize(seed)
+    init = zero_init_residual(copy.deepcopy(plain))
+
+    def run(dev, model=None):
+        sgd = recipe_sgd(steps, RecordingSGD)
+        losses = resnet_train(model or copy.deepcopy(init),
+                              DataSet.array(data) >> SampleToMiniBatch(B),
+                              dev, steps, steps, None, steps, sgd)[0]
+        return losses, sgd.grads
+
+    t0 = time.monotonic()
+    want = run("cpu")
+    cpu_s = time.monotonic() - t0
+    maxpool.launches = 0
+    got = run(device)
+    if maxpool.launches != steps:
+        raise AssertionError(f"B1 launched {maxpool.launches} times in "
+                             f"{steps} steps")
+    sound, worst, later = grad_reading(got, want)
+    faults, fault_worst = {}, {}
+    m = copy.deepcopy(init)
+    with torch.no_grad():
+        m[0][0].weight.mul_(127 / 128)  # the stem conv
+    faults["stem_weight_127_128"], fault_worst["stem_weight_127_128"], _ = \
+        grad_reading(run(device, m), want)
+    sound_launch = maxpool.launch
+    maxpool.launch = planted_b1_fault()
+    try:
+        faults["b1_one_step_127_128"], fault_worst["b1_one_step_127_128"], \
+            _ = grad_reading(run(device), want)
+    finally:
+        maxpool.launch = sound_launch
+
+    x = torch.from_numpy(np.stack([s.feature for s in data[:B]]))
+    units, units_worst, unit_fault, n_units = unit_reading(plain, x, device)
+    faults["block8_conv2_weight_127_128"] = unit_fault[0]
+    fault_worst["block8_conv2_weight_127_128"] = [unit_fault]
+    print(f"resnet50 train-vs-cpu largest shares (share, layer): path "
+          f"{worst}, later steps (not gated) {later}; units "
+          f"{units_worst}; "
+          + "; ".join(f"{k} {v}" for k, v in fault_worst.items()))
+    print(f"resnet50 train-vs-cpu check, NHWC f32: path ({steps} steps of "
+          f"batch {B} in one block, residual gammas at 0) {sound:.3e}, "
+          f"conv+BN units ({n_units}, gammas 1, batch {B}) {units:.3e}, "
+          f"planted faults "
+          + ", ".join(f"{k} {v:.3e}" for k, v in faults.items())
+          + f" (tol {RESNET_TRAIN_TOL}); cpu losses "
+          + ", ".join(f"{v:.6f}" for v in want[0]) + "; card losses "
+          + ", ".join(f"{v:.6f}" for v in got[0])
+          + f"; the CPU's block took {cpu_s:.1f} s [{card}]")
+    report["resnet_check"] = {"sound": sound, "largest": worst,
+                              "later_steps": later, "units": units,
+                              "units_largest": units_worst,
+                              "planted_faults": faults,
+                              "planted_largest": fault_worst,
+                              "tol": RESNET_TRAIN_TOL,
+                              "cpu_losses": want[0], "card_losses": got[0]}
+    for name, err in (("training", sound), ("conv+BN units", units)):
+        if not err <= RESNET_TRAIN_TOL:
+            raise AssertionError(f"ResNet-50 on the card ({name}) is "
+                                 f"{err:.3e} from the CPU, over the limit "
+                                 f"{RESNET_TRAIN_TOL}")
+    for fault, err in faults.items():
+        if not err > RESNET_TRAIN_TOL:
+            raise AssertionError(
+                f"planted fault {fault} reads {err:.3e}, inside the ResNet-50 "
+                f"training tolerance {RESNET_TRAIN_TOL}: the check is blind")
+
+
+def resnet_conditioning_phase(seed, device, card, report):
+    """Why the check phase holds the conv+BN units one at a time (not run by
+    default): the path reading (:func:`grad_reading`) of its K=2 block at
+    residual gammas 0, 0.001, 0.1 and 1, card against CPU, beside the
+    CPU's own reading of the same steps with each batch's samples in
+    reverse order (the same sums in another order)."""
+    B, steps = RESNET["check_batch"], RESNET["check_steps"]
+    data = pre_augmented(recipe_samples(B * steps, RESNET["size"],
+                                        RESNET["classes"], seed),
+                         B, RESNET["size"])
+    rev = [s for i in range(0, len(data), B) for s in data[i:i + B][::-1]]
+    plain = resnet50(RESNET["classes"], format="NHWC").initialize(seed)
+    out = {}
+    for gamma in (0.0, 0.001, 0.1, 1.0):
+        init = copy.deepcopy(plain)
+        with torch.no_grad():
+            for m in init.modules():
+                if isinstance(m, nn.ConcatTable):
+                    m[0][len(m[0]) - 1][1].weight.fill_(gamma)
+
+        def run(dev, d):
+            sgd = recipe_sgd(steps, RecordingSGD)
+            losses = resnet_train(copy.deepcopy(init), DataSet.array(d)
+                                  >> SampleToMiniBatch(B), dev, steps, steps,
+                                  None, steps, sgd)[0]
+            return losses, sgd.grads
+        want = run("cpu", data)
+        card_r = grad_reading(run(device, data), want)
+        cpu_r = grad_reading(run("cpu", rev), want)
+        out[gamma] = {"card": card_r[:2], "cpu_reversed": cpu_r[:2]}
+        print(f"resnet50 conditioning, residual gammas {gamma}: card vs cpu "
+              f"{card_r[0]:.3e} {card_r[1][:2]}; cpu on reversed batches vs "
+              f"cpu {cpu_r[0]:.3e} {cpu_r[1][:2]} [{card}]")
+    report["resnet_conditioning"] = out
+
+
+def grad_reading(run, want):
+    """How far a training run ``(losses, per-step gradients)`` is from the
+    CPU's: the larger of the relative loss difference over the steps and,
+    per layer, the largest difference of the first step's gradients as a
+    share of the layer's largest gradient on the CPU (a layer whose CPU
+    gradient is all zero must be all zero on the card too).  Returns the
+    reading, its four largest (share, layer) and, not gated, the largest
+    share of each later step.
+
+    Per layer, not per array: a BatchNorm bias's gradient sums the gradient
+    at the layer's output over N*H*W positions, a sum that nearly cancels,
+    and is held to the scale of the weight's gradient, which sums the same
+    terms times x_hat.  First step only: later steps start from weights
+    that already differ in their last bits, and their gradients depend on
+    them ill-conditionedly, so those steps are held by their losses."""
+    (losses, grads), (want_losses, want_grads) = run, want
+    rows = [(abs(a - b) / abs(b), f"step {j} loss")
+            for j, (a, b) in enumerate(zip(losses, want_losses))]
+    rows += layer_shares(grads[0], want_grads[0])
+    later = [max(layer_shares(g, w))
+             for g, w in zip(grads[1:], want_grads[1:])]
+    rows.sort(reverse=True)
+    return rows[0][0], rows[:4], later
+
+
+def resnet_profile_step(init, batch, device, card):
+    """One bf16 step of the recipe (forward, backward, SGD update) under
+    torch.profiler after a warm-up step: wall ms, device busy ms, idle share,
+    kernel launches and the top device operations."""
+    net = copy.deepcopy(init).to(device).train()
+    params = dict(net.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    sgd = recipe_sgd(RESNET["samples"] // RESNET["batch"])
+    ostate = sgd.init_state(params)
+    loss_fn = mixed_precision_loss_fn(net, nn.ClassNLLCriterion(),
+                                      torch.bfloat16)
+    x = torch.from_numpy(np.stack([s.feature for s in batch])).to(device)
+    y = torch.from_numpy(np.stack([s.label for s in batch])).to(device)
+
+    def step():
+        for p in params.values():
+            p.grad = None
+        loss_fn(params, x, y).backward()
+        sgd.update({k: p.grad for k, p in params.items()}, params, ostate,
+                   0.01, 0)
+
+    return profile_step(step, f"resnet50 train step (bf16, batch "
+                        f"{len(batch)})", card, 8)
+
+
+def resnet_timed_phase(seed, device, card, report):
+    """The recipe on the card, timed twice: through its own pipeline
+    (MTSampleToMiniBatch, 8 workers) and over batches augmented beforehand.
+    Each run: a warm-up block then RESNET["timed_blocks"] K=4 blocks;
+    images/s and ms per step from the host clock at which each block's
+    losses came back; per-block loss (finite, falling); peak memory; B1's
+    launches (one a step).  Then one profiled step."""
+    B, K, size = RESNET["batch"], RESNET["K"], RESNET["size"]
+    steps = K * (1 + RESNET["timed_blocks"])
+    per_epoch = RESNET["samples"] // B
+    samples = recipe_samples(RESNET["samples"], size, RESNET["classes"])
+    init = resnet50(RESNET["classes"], format="NHWC").initialize(seed)
+    t0 = time.monotonic()
+    augmented = pre_augmented(samples, B, size)
+    print(f"pre-augmented {len(augmented)} samples in "
+          f"{time.monotonic() - t0:.1f} s (8 workers)")
+    datasets = {
+        "pipeline": lambda: DataSet.array(samples) >> MTSampleToMiniBatch(
+            B, recipe_augment(size), workers=RESNET["workers"]),
+        "pre_augmented": lambda: DataSet.array(augmented)
+        >> SampleToMiniBatch(B)}
+    out, launches = {}, {}
+    sound_launch = maxpool.launch
+    for name, make in datasets.items():
+        t0 = time.monotonic()
+        model = copy.deepcopy(init)
+        torch.cuda.reset_peak_memory_stats()
+        maxpool.launches = 0
+        dtypes = []  # of every B1 launch: the stem's activation is bf16
+
+        def launch(x, *a):
+            dtypes.append(x.dtype)
+            return sound_launch(x, *a)
+        maxpool.launch = launch
+        try:
+            losses, clock, opt, wall = resnet_train(
+                model, make(), device, steps, K, torch.bfloat16, per_epoch)
+        finally:
+            maxpool.launch = sound_launch
+        launches[name] = maxpool.launches
+        peak = torch.cuda.max_memory_allocated()
+        if launches[name] != steps or opt.state["neval"] != steps:
+            raise AssertionError(f"{name}: B1 launched {launches[name]} "
+                                 f"times in {opt.state['neval']} steps")
+        if set(dtypes) != {torch.bfloat16}:
+            raise AssertionError(f"{name}: B1 ran on {set(dtypes)}, not on "
+                                 f"the bf16 compute dtype")
+        blocks = [float(np.mean(losses[i:i + K]))
+                  for i in range(0, steps, K)]
+        if not (np.all(np.isfinite(losses)) and blocks[-1] < blocks[0]):
+            raise AssertionError(f"{name}: the loss is not finite and "
+                                 f"falling: {blocks}")
+        # block b's losses come back after block b+1 is enqueued: the
+        # clock at the last step of each block marks that block's end
+        ends = [clock[i + K - 1] for i in range(0, steps, K)]
+        step_s = (ends[-1] - ends[0]) / (steps - K)
+        out[name] = {"ms_per_step": step_s * 1e3,
+                     "images_per_s": B / step_s, "block_losses": blocks,
+                     "losses": losses, "max_memory_allocated": peak,
+                     "launches": launches[name], "wall_s": wall,
+                     "epoch": opt.state["epoch"]}
+        print(f"train resnet50 {name} NHWC bf16 batch {B} K={K}: {steps} "
+              f"steps, the {RESNET['timed_blocks']} blocks after the first: "
+              f"ms_per_step={step_s * 1e3:.2f} images_per_s={B / step_s:.1f} "
+              f"max_memory_allocated={peak} block losses "
+              + ", ".join(f"{v:.4f}" for v in blocks)
+              + f"; B1 launches {launches[name]} for {steps} steps, all "
+              f"bf16; "
+              f"final: epoch={opt.state['epoch']} "
+              f"loss={opt.state['loss']:.4f}; run {time.monotonic() - t0:.1f} "
+              f"s [{card}]")
+        del model, opt
+        torch.cuda.empty_cache()
+    out["profile"] = resnet_profile_step(init, augmented[:B], device, card)
+    report["resnet_train"] = out
+    return launches["pipeline"]
+
+
+PHASES = ("resnet", "lstm", "resnet-train")
+EXTRA_PHASES = ("resnet-conditioning",)  # run only when named
 
 
 def main(argv=None) -> int:
@@ -796,13 +1476,16 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json-out", default=None,
                     help="also write the full report to this JSON file")
-    ap.add_argument("--phases", default="resnet,lstm",
-                    help="comma-separated subset of resnet,lstm (default: "
-                         "both; the kernels line lists the phases run)")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of "
+                         + ",".join(PHASES + EXTRA_PHASES) + " (default: "
+                         + ",".join(PHASES) + "; the kernels line lists the "
+                           "phases run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
-    if not phases <= {"resnet", "lstm"}:
-        ap.error(f"unknown phases {sorted(phases - {'resnet', 'lstm'})}")
+    if not phases <= set(PHASES + EXTRA_PHASES):
+        ap.error(f"unknown phases "
+                 f"{sorted(phases - set(PHASES + EXTRA_PHASES))}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
               "False); the port's smoke test runs only on the card",
@@ -876,6 +1559,29 @@ def main(argv=None) -> int:
         for kernel, row in rows.items():
             kernels.append({"name": kernel, **LSTM_KERNELS[kernel],
                             "launches": launches[kernel], **row})
+
+    if "resnet-train" in phases:
+        t0 = time.monotonic()
+        row = pool_kernel_phase(device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase pool-kernel: {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        launches = resnet_timed_phase(args.seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase resnet-train-timed: {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        resnet_check_phase(args.seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase resnet-train-vs-cpu: {time.monotonic() - t0:.1f} s")
+        kernels.append({"name": "maxpool_bwd", **POOL_KERNEL,
+                        "launches": launches,
+                        **{k: row[k] for k in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")}})
+    if "resnet-conditioning" in phases:
+        t0 = time.monotonic()
+        resnet_conditioning_phase(args.seed, device, card, report)
+        print(f"phase resnet-conditioning: {time.monotonic() - t0:.1f} s")
     report["kernels"] = kernels
     if args.json_out:
         with open(args.json_out, "w") as f:

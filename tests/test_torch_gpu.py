@@ -1,6 +1,7 @@
-"""The port on the card: the hand-written int8 GEMM and LSTM cell kernels
-against their plain versions, the quantized serving slice and one PTB
-training block against the same model on the CPU.  Every test here needs a CUDA card and skips without one; on the card
+"""The port on the card: the hand-written int8 GEMM, LSTM cell and max-pool
+backward kernels against their plain versions, the quantized serving slice,
+one PTB training block and a small NHWC ResNet's training against the same
+model on the CPU.  Every test here needs a CUDA card and skips without one; on the card
 run ``python -m pytest -m gpu tests/test_torch_*.py``.  This file imports
 no JAX, so it runs where the reference package is not installed.
 
@@ -12,7 +13,9 @@ weight_only ``1e-4`` and dynamic ``1e-3`` of ``max|y|`` — see
 ``rtol=atol=1e-5`` (the recurrent product summed in another order; the
 gates' expf/tanhf within ulps of PyTorch's); bf16 outputs within one bf16
 ulp (``rtol=atol=8e-3``).  Training on the card against the CPU: losses
-``rtol=1e-4``, parameters ``1e-4`` of each array's largest value.
+``rtol=1e-4``, parameters ``1e-4`` of each array's largest value.  The
+max-pool backward is BITWISE against its plain version (the same terms
+added in the same order and dtype).
 """
 
 import numpy as np
@@ -23,7 +26,8 @@ from bigdl_tpu_torch import nn, optim
 from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
 from bigdl_tpu_torch.interop import to_jax_params
 from bigdl_tpu_torch.models import ptb_model, resnet_cifar
-from bigdl_tpu_torch.ops import _build, int8_gemm, lstm_cell
+from bigdl_tpu_torch.models import resnet as tresnet
+from bigdl_tpu_torch.ops import _build, int8_gemm, lstm_cell, maxpool
 from bigdl_tpu_torch.ops.int8_gemm import dyn_quantize, int8_matmul_reference
 from bigdl_tpu_torch.serving import ModelRegistry
 
@@ -191,3 +195,152 @@ def test_ptb_training_on_card_matches_cpu(cuda):
     for (k, a), (_, b) in zip(flat(pg), flat(pc)):
         np.testing.assert_allclose(a, b, rtol=1e-4,
                                    atol=1e-4 * np.abs(b).max(), err_msg=k)
+
+
+# (x shape (N, C, H, W), kernel, stride, pad, ceil_mode, format, dtype);
+# kernel, stride and pad an int or (h, w).  After the stem, LeNet/VGG,
+# Inception, ceil-mode and ragged-C cases, the kernel's other branches: a
+# 5x3 window with unequal pads and a 1x1/2 (the loops), a 16x16 window
+# (int32 offsets).
+POOLS = [((4, 64, 32, 32), 3, 2, 1, False, "NHWC", torch.float32),
+         ((4, 64, 32, 32), 3, 2, 1, False, "NHWC", torch.bfloat16),
+         ((4, 64, 32, 32), 3, 2, 1, False, "NCHW", torch.float32),
+         ((2, 16, 12, 12), 2, 2, 0, False, "NCHW", torch.float32),
+         ((2, 32, 14, 14), 3, 1, 1, False, "NHWC", torch.bfloat16),
+         ((2, 8, 27, 27), 3, 2, 0, True, "NHWC", torch.float32),
+         ((2, 3, 33, 33), 3, 2, 1, False, "NHWC", torch.float32),
+         ((2, 160, 14, 14), 3, 2, 1, False, "NHWC", torch.bfloat16),
+         ((2, 16, 29, 30), (5, 3), 2, (2, 1), False, "NHWC", torch.float32),
+         ((2, 16, 29, 30), (5, 3), 2, (2, 1), False, "NCHW", torch.bfloat16),
+         ((2, 16, 28, 28), 1, 2, 0, False, "NHWC", torch.bfloat16),
+         ((2, 8, 64, 64), 16, 8, 0, False, "NHWC", torch.float32),
+         ((2, 8, 61, 61), 16, 8, 0, True, "NCHW", torch.bfloat16)]
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, tuple) else (v, v)
+
+
+def _pool_id(c):
+    part = lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v)
+    return "_".join(map(part, (*c[0], c[1], c[2], c[3], c[4], c[5],
+                               str(c[6])[6:])))
+
+
+def _pool_operands(case, relu, cuda, wide=False):
+    """x (NCHW-indexed; for NHWC the channels_last view of an NHWC
+    tensor; with ``wide`` a strided view of a buffer of 2^31 + elements, so
+    that the kernel takes 64-bit indices), y, g, kernel, stride, pads."""
+    (N, C, H, W), k, s, p, ceil, fmt, dtype = case
+    (kh, kw), (sh, sw), (ph, pw) = _pair(k), _pair(s), _pair(p)
+    rng = np.random.default_rng(N * C + H)
+    shape = (N, H, W, C) if fmt == "NHWC" else (N, C, H, W)
+    x = rng.normal(0, 1, shape) if relu else rng.integers(-4, 5, shape)
+    x = torch.from_numpy(np.maximum(x, 0) if relu else x).to(cuda, dtype)
+    if wide:
+        step = -(-2 ** 31 // (N - 1))
+        buf = torch.empty(step * (N - 1) + x[0].numel(), dtype=dtype,
+                          device=cuda)
+        x = buf.as_strided(shape, (step,) + x.stride()[1:]).copy_(x)
+    if fmt == "NHWC":
+        x = x.permute(0, 3, 1, 2)
+    pads = nn.SpatialMaxPooling(kw, kh, sw, sh, pw, ph, ceil_mode=ceil)._pads(
+        (H, W))
+    y = maxpool.maxpool2d(x, (kh, kw), (sh, sw), pads)
+    g = torch.from_numpy(rng.normal(0, 1, tuple(y.shape))).to(cuda, dtype)
+    return x, y, g, (kh, kw), (sh, sw), pads
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["ints", "relu"])
+@pytest.mark.parametrize("case", POOLS, ids=_pool_id)
+def test_maxpool_bwd_kernel_matches_plain(cuda, case, relu):
+    x, y, g, k, s, pads = _pool_operands(case, relu, cuda)
+    before = maxpool.launches
+    got = maxpool.launch(x, y, g, k, s, pads)
+    want = maxpool.maxpool_bwd_reference(x, y, g, k, s, pads)
+    torch.cuda.synchronize()
+    assert maxpool.launches == before + 1
+    assert got.stride() == x.stride()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", [
+    ((2, 16, 28, 28), 3, 2, 1, False, "NHWC", torch.bfloat16),
+    ((2, 16, 28, 28), (5, 3), 2, (2, 1), False, "NHWC", torch.bfloat16)],
+    ids=_pool_id)
+def test_maxpool_bwd_kernel_64bit_indices(cuda, case):
+    """A view whose storage spans 2^31 elements or more takes the kernel's
+    64-bit index arithmetic, at the stem's window and at the loops'."""
+    x, y, g, k, s, pads = _pool_operands(case, False, cuda, wide=True)
+    got = maxpool.launch(x, y, g, k, s, pads)
+    want = maxpool.maxpool_bwd_reference(x, y, g, k, s, pads)
+    torch.cuda.synchronize()
+    assert x.stride()[0] >= 2 ** 31
+    assert torch.equal(got, want)
+
+
+def test_maxpool_bwd_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros(1, 2, 6, 6, device=cuda)
+    y = torch.zeros(1, 2, 3, 3, device=cuda)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        maxpool.launch(x.double(), y.double(), y.double(), (2, 2), (2, 2),
+                       ((0, 0), (0, 0)))
+    with pytest.raises(TypeError, match="is torch.float32 on cpu"):
+        maxpool.launch(x, y.cpu(), y, (2, 2), (2, 2), ((0, 0), (0, 0)))
+    with pytest.raises(ValueError, match="expected"):
+        maxpool.launch(x, y[:, :1], y[:, :1], (2, 2), (2, 2),
+                       ((0, 0), (0, 0)))
+
+
+def _tiny_resnet():
+    fmt = "NHWC"
+    return (nn.Sequential()
+            .add(tresnet._conv_bn(3, 16, 3, 1, 1, "stem", fmt))
+            .add(nn.ReLU())
+            .add(nn.SpatialMaxPooling(3, 3, 2, 2, 1, 1, format=fmt))
+            .add(tresnet.bottleneck(16, 8, 1, fmt))
+            .add(tresnet.bottleneck(32, 8, 2, fmt))
+            .add(nn.SpatialAveragePooling(8, 8, 8, 8, format=fmt))
+            .add(nn.Reshape((32,)))
+            .add(nn.Linear(32, 10))
+            .add(nn.LogSoftMax()))
+
+
+def test_resnet_training_on_card_matches_cpu(cuda):
+    """A small NHWC ResNet (the stem max pool through B1) trained for two
+    K=2 blocks with the recipe's SGD on the card against the CPU in f32;
+    then in bf16 compute on the card: finite losses, one B1 launch a
+    step."""
+    rng = np.random.default_rng(0)
+    samples = [Sample(rng.normal(0, 1, (32, 32, 3)).astype(np.float32),
+                      np.int32(i % 10)) for i in range(16)]
+    steps = 4
+
+    def run(dev, compute=None):
+        model = _tiny_resnet().initialize(0)
+        opt = (optim.LocalOptimizer(
+            model, DataSet.array(samples) >> SampleToMiniBatch(4),
+            nn.ClassNLLCriterion(), device=dev)
+            .set_optim_method(optim.SGD(learning_rate=0.05, momentum=0.9,
+                                        dampening=0.0, weight_decay=1e-4))
+            .set_compute_dtype(compute)
+            .set_steps_per_dispatch(2)
+            .set_end_when(optim.max_iteration(steps)))
+        losses = []
+        opt._log_train_iteration = lambda lr: losses.append(opt.state["loss"])
+        maxpool.launches = 0
+        opt.optimize()
+        return losses, model, maxpool.launches
+
+    lc, mc, nc = run("cpu")
+    lg, mg, ng = run(cuda)
+    assert (nc, ng) == (0, steps)
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    for (k, a), (_, b) in zip(mg.state_dict().items(),
+                              mc.state_dict().items()):
+        if a.is_floating_point():
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                       atol=1e-4 * b.abs().max().item(),
+                                       err_msg=k)
+    lb, _, nb = run(cuda, torch.bfloat16)
+    assert nb == steps and np.all(np.isfinite(lb))

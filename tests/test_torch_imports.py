@@ -2,8 +2,9 @@
 load neither JAX nor the reference package and import with neither JAX nor
 ``triton`` installed; neither importing them nor running the plain
 versions on the CPU (an int8 GEMM, an LSTM cell step and back, one
-training step of a tiny PTB model) builds or loads a kernel; and a kernel
-build that fails raises."""
+training step of a tiny PTB model, one bf16 step of a small NHWC ResNet
+behind a max pool fed by the image pipeline) builds or loads a kernel; and
+a kernel build that fails raises."""
 
 import json
 import os
@@ -57,6 +58,26 @@ samples = [Sample(torch.arange(5).numpy() % 7, torch.arange(5).numpy() % 7)
                       device="cpu")
  .set_end_when(optim.max_iteration(1)).optimize())
 assert lstm_cell.fwd_launches == lstm_cell.bwd_launches == 0
+import numpy as np
+from bigdl_tpu_torch.dataset import MTSampleToMiniBatch
+from bigdl_tpu_torch.models import resnet_cifar
+from bigdl_tpu_torch.ops import maxpool
+from bigdl_tpu_torch.transform import vision as V
+imgs = [Sample(np.full((70, 70, 3), i, np.uint8), np.int32(i % 10))
+        for i in range(4)]
+aug = V.RandomAlterAspect(target_size=64) >> V.HFlip() >> \
+    V.ImageFrameToSample(to_chw=False)
+pool_net = (nn.Sequential().add(nn.SpatialMaxPooling(3, 3, 2, 2, 1, 1,
+                                                     format="NHWC"))
+            .add(resnet_cifar(8, format="NHWC")))
+(optim.LocalOptimizer(pool_net.initialize(0),
+                      DataSet.array(imgs) >> MTSampleToMiniBatch(
+                          2, lambda s: aug(V.ImageFeature(
+                              s.feature, s.label))["sample"], workers=2),
+                      nn.ClassNLLCriterion(), device="cpu")
+ .set_compute_dtype(torch.bfloat16)
+ .set_end_when(optim.max_iteration(1)).optimize())
+assert maxpool.launches == 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("jaxlib") or m == "bigdl_tpu"
              or m.startswith("bigdl_tpu."))

@@ -101,10 +101,77 @@ def test_batchnorm_eval_with_running_stats():
     _close(yt, yj)
 
 
-def test_batchnorm_training_mode_not_ported():
-    bn = nn.SpatialBatchNormalization(3)
-    with pytest.raises(NotImplementedError, match="training"):
-        bn(torch.zeros(2, 3, 4, 4))
+# BatchNorm in training mode against the reference's apply(training=True):
+# forward, the gradients of sum(y * w) and the new running statistics.
+# f32: rtol=1e-5 (outputs, statistics; the sums over N*H*W in another
+# order) and 1e-4 for the gradients (the backward through the statistics
+# subtracts nearly equal sums).  bf16 input: the folded scale and shift are
+# rounded to bf16 on both sides, but PyTorch rounds x*scale and then the
+# add while XLA fuses them: y and dx within 2^-6 relative (two bf16 ulps);
+# a parameter gradient is a sum of bf16 products that cancel, so it is held
+# within 2^-6 of the sum of its terms' magnitudes, per channel; the
+# statistics, taken in f32 from the same bf16 values, within 1e-5.
+BN_CASES = {
+    "spatial_nchw": (lambda m: m.SpatialBatchNormalization(5), (4, 5, 3, 3)),
+    "spatial_nhwc": (lambda m: m.SpatialBatchNormalization(5, format="NHWC"),
+                     (4, 3, 3, 5)),
+    "1d": (lambda m: m.BatchNormalization(6), (8, 6)),
+}
+
+
+def _bn_reference(jmod, params, state, x, w):
+    def f(p, xx):
+        y, new_state = jmod.apply(p, state, xx, training=True)
+        return jax.numpy.sum(y.astype(np.float32) * w), (y, new_state)
+    (_, (y, ns)), (dp, dx) = jax.value_and_grad(
+        f, argnums=(0, 1), has_aux=True)(params, x)
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return (f32(y), f32(dx), {k: f32(v) for k, v in dp.items()},
+            {k: f32(v) for k, v in ns.items()})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(BN_CASES))
+def test_batchnorm_training_matches_jax(case, dtype):
+    make, shape = BN_CASES[case]
+    rng = np.random.default_rng(11)
+    tm = _random_bn_stats(make(nn), rng).train()
+    params, state = to_jax_params(tm)
+    x = (rng.normal(0.5, 2.0, shape)).astype(np.float32)
+    w = rng.normal(0, 1, shape).astype(np.float32)
+    jx = jax.numpy.asarray(x, getattr(jax.numpy, dtype))
+    y_j, dx_j, dp_j, ns_j = _bn_reference(make(jnn), params, state, jx, w)
+
+    xt = torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_(True)
+    y = tm(xt)
+    assert y.dtype == xt.dtype
+    (y.float() * torch.from_numpy(w)).sum().backward()
+    got = {"y": y.detach().float().numpy(), "dx": xt.grad.float().numpy(),
+           "weight": tm.weight.grad.numpy(), "bias": tm.bias.grad.numpy(),
+           "running_mean": tm.running_mean.numpy(),
+           "running_var": tm.running_var.numpy()}
+    assert tm.running_mean.dtype == tm.running_var.dtype == torch.float32
+    want = {"y": y_j, "dx": dx_j, **dp_j, **ns_j}
+    # per channel, the sum of |w * x_hat| and of |w|: the terms of the
+    # weight and bias gradients
+    axes = tuple(i for i in range(x.ndim) if i != tm._channel_axis(x.ndim))
+    xf = np.asarray(jx, np.float32)
+    xhat = (xf - xf.mean(axes, keepdims=True)) / xf.std(axes, keepdims=True)
+    terms = {"weight": np.abs(w * xhat).sum(axes), "bias": np.abs(w).sum(axes)}
+    for k, v in want.items():
+        if k.startswith("running"):
+            rtol, atol = 1e-5, 1e-6 * np.abs(v).max()
+        elif dtype == "float32":
+            rtol = 1e-5 if k == "y" else 1e-4
+            atol = 1e-5 * np.abs(v).max()
+        elif k in ("y", "dx"):
+            rtol, atol = 2 ** -6, 2 ** -6 * np.abs(v).max()
+        else:
+            err = np.abs(got[k] - v)
+            assert np.all(err <= 2 ** -6 * terms[k]), (k, err, terms[k])
+            continue
+        np.testing.assert_allclose(got[k], v, rtol=rtol, atol=atol,
+                                   err_msg=k)
 
 
 POOLS = [
@@ -157,6 +224,58 @@ def test_resnet_cifar_float_forward():
     yj, yt = _pair(jax_resnet_cifar(8), resnet_cifar(8),
                    _x((3, 3, 32, 32)), seed=3)
     _close(yt, yj)
+
+
+NHWC_LAYERS = [
+    ("conv_3x3_s2_p1", lambda m: m.SpatialConvolution(
+        6, 8, 3, 3, 2, 2, 1, 1, format="NHWC"), (2, 10, 10, 6)),
+    ("conv_same_s2", lambda m: m.SpatialConvolution(
+        4, 6, 3, 3, 2, 2, -1, -1, with_bias=False, format="NHWC"),
+     (2, 10, 11, 4)),
+    ("max_ceil", lambda m: m.SpatialMaxPooling(
+        3, 3, 2, 2, ceil_mode=True, format="NHWC"), (2, 8, 8, 3)),
+    ("avg_excl_pad_ceil", lambda m: m.SpatialAveragePooling(
+        3, 3, 2, 2, 1, 1, ceil_mode=True, count_include_pad=False,
+        format="NHWC"), (2, 8, 8, 3)),
+    ("bn_eval", lambda m: m.SpatialBatchNormalization(5, format="NHWC"),
+     (3, 4, 4, 5)),
+]
+
+
+@pytest.mark.parametrize("name,make,shape", NHWC_LAYERS,
+                         ids=[c[0] for c in NHWC_LAYERS])
+def test_nhwc_layers(name, make, shape):
+    """NHWC layers take and return (N, H, W, C), as the reference's do;
+    the conv weight stays OIHW (channels_last in memory)."""
+    yj, yt = _pair(make(jnn), make(nn), _x(shape))
+    assert yt.shape == yj.shape
+    _close(yt, yj)
+    layer = make(nn)
+    if name.startswith("conv"):
+        assert layer.weight.shape[1:] == (shape[3], 3, 3)
+        assert layer.weight.is_contiguous(memory_format=torch.channels_last)
+
+
+def test_resnet_cifar_nhwc_forward():
+    yj, yt = _pair(jax_resnet_cifar(8, format="NHWC"),
+                   resnet_cifar(8, format="NHWC"), _x((3, 32, 32, 3)), seed=3)
+    _close(yt, yj)
+
+
+def test_resnet50_nhwc_state_dict_and_remat():
+    params, state = jax.eval_shape(jax_resnet50(format="NHWC").init,
+                                   jax.random.PRNGKey(0))
+    want = {}
+    for tree in (params, state):
+        for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+            want[".".join(p.key for p in path)] = tuple(leaf.shape)
+    got = {k: tuple(v.shape)
+           for k, v in resnet50(format="NHWC").state_dict().items()}
+    assert got == want
+    with pytest.raises(NotImplementedError, match="remat"):
+        resnet50(remat="tails")
+    with pytest.raises(ValueError, match="format"):
+        nn.SpatialConvolution(3, 4, 3, 3, format="HWCN")
 
 
 def test_resnet50_state_dict_matches_jax_pytree():
@@ -234,3 +353,33 @@ def test_golden_fixture_forward(name):
     with torch.no_grad():
         out = model(torch.from_numpy(z["x"].astype(np.float32)))
     np.testing.assert_allclose(out.numpy(), z["out"], rtol=2e-4, atol=2e-5)
+
+
+# the reference replay's training-mode and max-pool fixtures, forward and
+# backward (gradients of sum(out)), at its tolerance
+TRAIN_FIXTURES = {
+    "spatial_batch_norm_train": lambda: nn.SpatialBatchNormalization(3),
+    "batch_norm_1d_train": lambda: nn.BatchNormalization(6),
+    "spatial_max_pooling_ceil":
+        lambda: nn.SpatialMaxPooling(3, 3, 2, 2, ceil_mode=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TRAIN_FIXTURES))
+def test_golden_fixture_train_forward_backward(name):
+    z = np.load(os.path.join(DATA_DIR, f"{name}.npz"))
+    params = {k[2:]: z[k] for k in z.files if k.startswith("p_")}
+    state = {k[2:]: z[k] for k in z.files if k.startswith("s_")}
+    model = load_jax_params(TRAIN_FIXTURES[name](), params, state).train()
+    x = torch.from_numpy(z["x"].astype(np.float32)).requires_grad_(True)
+    out = model(x)
+    out.sum().backward()
+    tol = dict(rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(out.detach().numpy(), z["out"], **tol)
+    np.testing.assert_allclose(x.grad.numpy(), z["dx"], **tol)
+    for k, p in model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), z[f"dp_{k}"], **tol,
+                                   err_msg=k)
+    for k, b in model.named_buffers():
+        np.testing.assert_allclose(b.numpy(), z[f"ns_{k}"], **tol,
+                                   err_msg=k)
