@@ -3,12 +3,15 @@
 from bigdl_tpu_torch.dataset.dataset import (AbstractDataSet, DataSet,
                                              LocalDataSet, TransformedDataSet)
 from bigdl_tpu_torch.dataset.prefetch import MTSampleToMiniBatch
-from bigdl_tpu_torch.dataset.sample import MiniBatch, Sample, batch_samples
+from bigdl_tpu_torch.dataset.sample import (MiniBatch, Sample, SparseMiniBatch,
+                                            SparseSample, batch_samples,
+                                            batch_sparse_samples)
 from bigdl_tpu_torch.dataset.transformer import (ChainedTransformer,
                                                  SampleToMiniBatch,
                                                  Transformer)
 
 __all__ = ["AbstractDataSet", "ChainedTransformer", "DataSet",
            "LocalDataSet", "MTSampleToMiniBatch", "MiniBatch", "Sample",
-           "SampleToMiniBatch", "TransformedDataSet", "Transformer",
-           "batch_samples"]
+           "SampleToMiniBatch", "SparseMiniBatch", "SparseSample",
+           "TransformedDataSet", "Transformer", "batch_samples",
+           "batch_sparse_samples"]

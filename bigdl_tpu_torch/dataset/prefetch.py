@@ -12,7 +12,11 @@ and the batches, are the reference's exactly, whichever worker runs it.
 
 The stager pulls MiniBatches from the host pipeline, stacks up to K of them
 along a new leading step axis, and puts the stack on the training device.
-On a CUDA device the stack goes to pinned host memory and is copied with a
+Inputs and targets may be trees (tuples, lists, dicts and ``COOBatch`` es,
+as the Wide&Deep input ``(coo, deep_ids, dense)``): every leaf is stacked,
+and a block breaks where the structure, a static ``dense_shape`` or a
+leaf's shape or dtype (a COO pipeline's nnz bucket) changes.  On a CUDA
+device each stacked leaf goes to pinned host memory and is copied with a
 non-blocking copy on a side stream; an event marks the copy's end, and the
 block's consumer makes the training stream wait on that event
 (:meth:`StagedBlock.wait`).  A driver that stages block b+1 right after
@@ -36,28 +40,87 @@ from bigdl_tpu_torch.dataset.transformer import Transformer
 from bigdl_tpu_torch.utils.imgops import sample_key
 
 
+def _node(x):
+    """``(kind, static metadata, children)`` of a tree node, or None for a
+    leaf.  Nodes: tuples, lists, dicts and ``COOBatch`` (its three
+    tensors; ``dense_shape`` is static)."""
+    from bigdl_tpu_torch.nn.sparse import COOBatch
+    if isinstance(x, COOBatch):
+        return COOBatch, x.dense_shape, (x.row, x.col, x.values)
+    if isinstance(x, (tuple, list)):
+        return type(x), len(x), tuple(x)
+    if isinstance(x, dict):
+        keys = tuple(x)
+        return dict, keys, tuple(x[k] for k in keys)
+    return None
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of
+    ``rest``, trees of the same structure), rebuilt in its structure;
+    None stays None (the reference's ``jax.tree_util.tree_map`` over the
+    port's input structures)."""
+    if tree is None:
+        return None
+    node = _node(tree)
+    if node is None:
+        return fn(tree, *rest)
+    kind, meta, kids = node
+    others = [_node(r)[2] for r in rest]
+    out = [tree_map(fn, k, *(o[i] for o in others))
+           for i, k in enumerate(kids)]
+    if kind is dict:
+        return dict(zip(meta, out))
+    if kind in (tuple, list):
+        return kind(out)
+    return kind(*out, meta)
+
+
+def tree_signature(tree):
+    """Structure, static metadata and per-leaf shape and dtype: batches
+    stack into one block only when theirs agree (a ragged last batch or a
+    new nnz bucket of a COO pipeline starts a new block)."""
+    if tree is None:
+        return None
+    node = _node(tree)
+    if node is None:
+        return np.shape(tree), np.asarray(tree).dtype
+    kind, meta, kids = node
+    return kind.__name__, meta, tuple(tree_signature(k) for k in kids)
+
+
 class StagedBlock:
-    """A staged block: ``xs``/``ys`` with a leading step axis (``ys`` None
-    for unlabelled batches), the batch ``sizes``, and the copy's event."""
+    """A staged block: ``xs``/``ys`` trees whose leaves carry a leading
+    step axis (``ys`` None for unlabelled batches), the batch ``sizes``,
+    the copy's event and the device."""
 
-    __slots__ = ("xs", "ys", "event", "sizes")
+    __slots__ = ("xs", "ys", "event", "sizes", "device")
 
-    def __init__(self, xs, ys, event, sizes: List[int]):
+    def __init__(self, xs, ys, event, sizes: List[int], device):
         self.xs, self.ys, self.event, self.sizes = xs, ys, event, sizes
+        self.device = device
 
     def wait(self) -> None:
         """Make the current stream wait until the block has landed."""
         if self.event is not None:
-            torch.cuda.current_stream(self.xs.device).wait_event(self.event)
+            torch.cuda.current_stream(self.device).wait_event(self.event)
+
+    def step(self, j: int):
+        """Step ``j``'s ``(input, target)``: every leaf's slice ``j``."""
+        take = lambda a: a[j]  # noqa: E731
+        return tree_map(take, self.xs), tree_map(take, self.ys)
 
 
 def _signature(b: MiniBatch):
-    meta = lambda a: None if a is None else (np.shape(a), np.asarray(a).dtype)  # noqa: E731
-    return meta(b.input), meta(b.target)
+    return tree_signature(b.input), tree_signature(b.target)
+
+
+def _stack_leaves(*leaves):
+    return np.stack([np.asarray(a) for a in leaves])
 
 
 class DeviceBlockStager:
-    """Stage blocks of consecutive same-shape batches on ``device``."""
+    """Stage blocks of consecutive same-signature batches on ``device``."""
 
     def __init__(self, batch_iter: Iterator, device):
         self._it = batch_iter
@@ -76,7 +139,7 @@ class DeviceBlockStager:
         self._held = None
 
     def take(self, k: int, records_budget: int) -> StagedBlock:
-        """Stage up to ``k`` consecutive same-shape batches whose total
+        """Stage up to ``k`` consecutive same-signature batches whose total
         size stays within ``records_budget`` (the batch that reaches it is
         included).  Raises StopIteration if the iterator is exhausted with
         nothing staged: training iterators must be infinite."""
@@ -102,32 +165,31 @@ class DeviceBlockStager:
         if not batches:
             raise StopIteration("training data iterator exhausted mid-epoch: "
                                 "train=True iterators must be infinite")
-        xs = np.stack([np.asarray(b.input) for b in batches])
+        xs = tree_map(_stack_leaves, *[b.input for b in batches])
         ys = None if batches[0].target is None else \
-            np.stack([np.asarray(b.target) for b in batches])
+            tree_map(_stack_leaves, *[b.target for b in batches])
         sizes = [b.size() for b in batches]
         if self._stream is None:
-            return StagedBlock(torch.from_numpy(xs),
-                               None if ys is None else torch.from_numpy(ys),
-                               None, sizes)
-        return StagedBlock(*self._to_device(xs, ys), sizes)
+            return StagedBlock(tree_map(torch.from_numpy, xs),
+                               tree_map(torch.from_numpy, ys), None, sizes,
+                               self._device)
+        return StagedBlock(*self._to_device(xs, ys), sizes, self._device)
 
     def _to_device(self, xs, ys):
         main = torch.cuda.current_stream(self._device)
-        out = []
+
+        def copy(a):
+            t = torch.from_numpy(a).pin_memory().to(self._device,
+                                                    non_blocking=True)
+            # allocated on the side stream, used on the training one
+            t.record_stream(main)
+            return t
+
         with torch.cuda.stream(self._stream):
-            for a in (xs, ys):
-                if a is None:
-                    out.append(None)
-                    continue
-                t = torch.from_numpy(a).pin_memory().to(self._device,
-                                                        non_blocking=True)
-                # allocated on the side stream, used on the training one
-                t.record_stream(main)
-                out.append(t)
+            xs, ys = tree_map(copy, xs), tree_map(copy, ys)
             event = torch.cuda.Event()
             event.record(self._stream)
-        return out[0], out[1], event
+        return xs, ys, event
 
 
 def _stack(samples) -> MiniBatch:

@@ -1,12 +1,13 @@
-"""Sample and MiniBatch (port of ``bigdl_tpu/dataset/sample.py``, the dense
-part).  Host-side data is numpy; the training driver stages it on the
-device.  Padding of ragged samples (``PaddingParam``) and the sparse
-samples are not ported yet.
+"""Sample and MiniBatch (port of ``bigdl_tpu/dataset/sample.py``).
+Host-side data is numpy; the training driver stages it on the device.
+Sparse samples batch into one batch-COO :class:`SparseMiniBatch` whose
+``COOBatch`` holds CPU tensors.  Padding of ragged samples
+(``PaddingParam``) is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -47,3 +48,93 @@ def batch_samples(samples: Sequence[Sample]) -> MiniBatch:
     if samples[0].label is None:
         return MiniBatch(feats, None)
     return MiniBatch(feats, np.stack([np.asarray(s.label) for s in samples]))
+
+
+class SparseSample:
+    """One example whose feature is a sparse 1-D vector in COO form
+    (reference ``Sample`` over ``SparseTensor``): ``indices[k]`` holds
+    ``values[k]``, dense width ``size``.  ``dense`` optionally carries
+    dense feature arrays alongside (the Wide&Deep layout)."""
+
+    __slots__ = ("indices", "values", "size", "dense", "label")
+
+    def __init__(self, indices, values, size: int, dense=None, label=None):
+        self.indices = np.asarray(indices, np.int32).reshape(-1)
+        self.values = np.asarray(values, np.float32).reshape(-1)
+        assert self.indices.shape == self.values.shape
+        self.size = int(size)
+        if dense is not None and not isinstance(dense, (list, tuple)):
+            dense = [dense]  # one dense side-feature, not a list of parts
+        self.dense = dense
+        self.label = None if label is None else np.asarray(label)
+
+    @property
+    def nnz(self) -> int:
+        return len(self.indices)
+
+    def __repr__(self):
+        return (f"SparseSample(nnz={self.nnz}, size={self.size}, "
+                f"dense={None if self.dense is None else 'yes'})")
+
+
+class SparseMiniBatch(MiniBatch):
+    """MiniBatch whose ``input`` is a batch-COO ``COOBatch``, or ``(coo,
+    *dense_parts)`` when the samples carried dense features (reference
+    ``SparseMiniBatch``).  ``slice`` raises: a flat COO stream has no
+    per-sample alignment."""
+
+    def size(self) -> int:
+        coo = self.input[0] if isinstance(self.input, tuple) else self.input
+        return coo.dense_shape[0]
+
+    def slice(self, offset, length):
+        raise TypeError("SparseMiniBatch does not support slice(); "
+                        "shard the batch instead")
+
+
+def batch_sparse_samples(samples: Sequence[SparseSample],
+                         nnz_buckets: Optional[Sequence[int]] = None
+                         ) -> SparseMiniBatch:
+    """Collate sparse samples into one batch-COO ``SparseMiniBatch``.
+
+    The flat non-zero stream is padded to a fixed length, the smallest
+    fitting value of ``nnz_buckets`` or else the next power of two, so
+    that consecutive batches share a shape and stack into one block; the
+    padding entries are (row 0, col 0, value 0) and add nothing."""
+    import torch
+
+    from bigdl_tpu_torch.nn.sparse import COOBatch
+
+    n = len(samples)
+    total = sum(s.nnz for s in samples)
+    if nnz_buckets is not None:
+        fitting = [b for b in sorted(nnz_buckets) if b >= total]
+        if not fitting:
+            raise ValueError(f"batch nnz {total} exceeds the largest "
+                             f"bucket {max(nnz_buckets)}")
+        cap = fitting[0]
+    else:
+        cap = 1 if total == 0 else 1 << (total - 1).bit_length()
+    row = np.zeros(cap, np.int32)
+    col = np.zeros(cap, np.int32)
+    val = np.zeros(cap, np.float32)
+    pos = 0
+    width = samples[0].size
+    for i, s in enumerate(samples):
+        assert s.size == width, "all sparse samples must share a width"
+        row[pos:pos + s.nnz] = i
+        col[pos:pos + s.nnz] = s.indices
+        val[pos:pos + s.nnz] = s.values
+        pos += s.nnz
+    coo = COOBatch(torch.from_numpy(row), torch.from_numpy(col),
+                   torch.from_numpy(val), (n, width))
+    if samples[0].dense is not None:
+        dense = [np.stack([np.asarray(s.dense[i]) for s in samples])
+                 for i in range(len(samples[0].dense))]
+        inp = (coo, *dense)
+    else:
+        inp = coo
+    label = None
+    if samples[0].label is not None:
+        label = np.stack([s.label for s in samples])
+    return SparseMiniBatch(inp, label)

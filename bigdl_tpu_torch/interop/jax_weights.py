@@ -8,7 +8,11 @@ one difference is the recurrent wrappers: the reference's ``Recurrent`` and
 port's hold it as a child (``cell``, ``layer``).  The functions here skip
 that child's name both ways, so JAX ``params["2"]["0"]["weight"]`` (layer 0
 of a ``Recurrent(MultiRNNCell)``) is the port's ``"2.cell.0.weight"``;
-``MultiRNNCell``, like the reference's, keeps no state of its own.
+``MultiRNNCell``, like the reference's, keeps no state of its own.  A
+model with named parts keys them by name in both: ``WideAndDeep``'s
+``params["wide"]["weight"]`` (the ``SparseLinear`` weight, (wide_dim, 1)),
+``params["embed0"]["weight"]`` and ``params["deep"]["0"]["bias"]`` are the
+port's ``wide.weight``, ``embed0.weight`` and ``deep.0.bias``.
 The dicts hold numpy arrays (convert JAX arrays with ``np.asarray``):
 this module imports neither JAX nor the reference package.
 """
@@ -112,9 +116,13 @@ def to_jax_params(model: torch.nn.Module):
                 return params, {}
             return params, {str(i): s for i, (_, s) in enumerate(pairs)}
         # copies: the arrays must not alias weights trained in place later
-        return ({k: v.detach().cpu().numpy().copy()
-                 for k, v in m.named_parameters(recurse=False)},
-                {k: v.detach().cpu().numpy().copy()
-                 for k, v in m.named_buffers(recurse=False)})
+        params = {k: v.detach().cpu().numpy().copy()
+                  for k, v in m.named_parameters(recurse=False)}
+        state = {k: v.detach().cpu().numpy().copy()
+                 for k, v in m.named_buffers(recurse=False)}
+        # a model with named parts (WideAndDeep: wide, embed{i}, deep)
+        for k, c in m.named_children():
+            params[k], state[k] = walk(c)
+        return params, state
 
     return walk(model)

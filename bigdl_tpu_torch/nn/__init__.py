@@ -1,7 +1,9 @@
 """Layers of the port (``bigdl_tpu.nn`` twins)."""
 
 from bigdl_tpu_torch.nn.activations import LogSoftMax, ReLU
-from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion, Criterion,
+from bigdl_tpu_torch.nn.criterion import (BCECriterion,
+                                          BCEWithLogitsCriterion,
+                                          ClassNLLCriterion, Criterion,
                                           CrossEntropyCriterion,
                                           TimeDistributedCriterion)
 from bigdl_tpu_torch.nn.layers import (BatchNormalization, Dropout, Linear, LookupTable,
@@ -16,13 +18,19 @@ from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,
 from bigdl_tpu_torch.nn.recurrent import (LSTM, Cell, MultiRNNCell,
                                           Recurrent, RnnCell, TimeDistributed)
 from bigdl_tpu_torch.nn.shape_ops import CAddTable, Reshape
+from bigdl_tpu_torch.nn.sparse import (COOBatch, DenseToSparse,
+                                       LookupTableSparse, SparseJoinTable,
+                                       SparseLinear)
 
-__all__ = ["BatchNormalization", "CAddTable", "Cell", "ClassNLLCriterion", "ConcatTable",
+__all__ = ["BCECriterion", "BCEWithLogitsCriterion", "BatchNormalization",
+           "CAddTable", "COOBatch", "Cell", "ClassNLLCriterion", "ConcatTable",
            "Container", "Criterion", "CrossEntropyCriterion", "Dropout",
-           "Identity", "LSTM", "Linear", "LogSoftMax", "LookupTable",
+           "DenseToSparse", "Identity", "LSTM", "Linear", "LogSoftMax",
+           "LookupTable", "LookupTableSparse",
            "Module", "MultiRNNCell", "QuantizedLinear",
            "QuantizedSpatialConvolution", "ReLU", "Recurrent", "Reshape",
            "RnnCell", "Sequential", "SpatialAveragePooling",
            "SpatialBatchNormalization", "SpatialConvolution",
-           "SpatialMaxPooling", "TimeDistributed",
+           "SparseJoinTable", "SparseLinear", "SpatialMaxPooling",
+           "TimeDistributed",
            "TimeDistributedCriterion", "quantize"]

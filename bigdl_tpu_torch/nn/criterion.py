@@ -1,4 +1,4 @@
-"""Criteria (port of ``bigdl_tpu/nn/criterion.py``, this slice's part).
+"""Criteria (port of ``bigdl_tpu/nn/criterion.py``, the ported part).
 
 ``apply(input, target) -> scalar`` is plain tensor code, differentiated by
 autograd.  Class targets are 0-based integer tensors.  ``size_average``
@@ -33,6 +33,10 @@ class Criterion:
         with torch.enable_grad():
             (self.grad_input,) = torch.autograd.grad(self.apply(x, target), x)
         return self.grad_input
+
+    def _reduce(self, losses):
+        """Mean when ``size_average`` (the reference default), else sum."""
+        return torch.mean(losses) if self.size_average else torch.sum(losses)
 
 
 class ClassNLLCriterion(Criterion):
@@ -99,3 +103,38 @@ class TimeDistributedCriterion(Criterion):
         if getattr(self.critrn, "size_average", True):
             return loss if self.size_average else loss * T
         return loss / T if self.size_average else loss
+
+
+class BCECriterion(Criterion):
+    """Binary cross entropy on probabilities (reference
+    ``BCECriterion.scala``), in f32; the input is clamped to ``[eps, 1 -
+    eps]`` with the f32 eps (1 - 1e-12 is 1.0 in f32, and a saturated
+    sigmoid would give log(0))."""
+
+    def __init__(self, weights: Optional[torch.Tensor] = None,
+                 size_average: bool = True):
+        self.weights = None if weights is None \
+            else torch.as_tensor(weights, dtype=torch.float32)
+        self.size_average = size_average
+
+    def apply(self, input, target):
+        eps = torch.finfo(torch.promote_types(input.dtype,
+                                              torch.float32)).eps
+        x = torch.clamp(input.float(), eps, 1.0 - eps)
+        loss = -(target * torch.log(x) + (1.0 - target) * torch.log1p(-x))
+        if self.weights is not None:
+            loss = loss * self.weights.to(loss.device)
+        return self._reduce(loss)
+
+
+class BCEWithLogitsCriterion(Criterion):
+    """Binary cross entropy on logits, in the stable form
+    ``max(x, 0) - x * t + log1p(exp(-|x|))``."""
+
+    def __init__(self, size_average: bool = True):
+        self.size_average = size_average
+
+    def apply(self, input, target):
+        loss = torch.clamp(input, min=0) - input * target + torch.log1p(
+            torch.exp(-input.abs()))
+        return self._reduce(loss)

@@ -12,8 +12,9 @@ reuses a library that is already there.  A failed build raises
 Flags: ``-O3`` and ``-Xptxas -v`` (register, shared-memory and spill
 report, kept in :data:`ptxas_report`).  Never ``--use_fast_math``: the
 int8 GEMM's epilogue relies on IEEE division and a single-rounding FMA,
-the LSTM cell's gates on the accurate ``expf``/``tanhf``, and the max-pool
-backward on IEEE adds in the reference's order.
+the LSTM cell's gates on the accurate ``expf``/``tanhf``, the max-pool
+backward on IEEE adds in the reference's order, and the embedding bag on
+``__fmaf_rn`` in the reference's order.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 # library name -> source file under csrc/
 SOURCES = {"int8_gemm": "int8_gemm.cu", "lstm_cell": "lstm_cell.cu",
-           "maxpool_bwd": "maxpool_bwd.cu"}
+           "maxpool_bwd": "maxpool_bwd.cu", "embed_bag": "embed_bag.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

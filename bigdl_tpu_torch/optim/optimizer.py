@@ -15,7 +15,9 @@ Driver-loop design, as in the reference:
   after block b+1 is enqueued: the loss fetch runs one block behind.
 
 The step is eager PyTorch: autograd over the model, then the optimizer's
-in-place update under ``torch.no_grad()``.  With ``set_compute_dtype(
+in-place update under ``torch.no_grad()``.  Inputs and targets may be
+nested (tuples, dicts and ``COOBatch`` es, as Wide&Deep's ``(coo, deep_ids,
+dense)``): step j of a block is every leaf's slice j.  With ``set_compute_dtype(
 torch.bfloat16)`` the forward and backward run in bf16 on bf16 casts of
 the f32 parameters, and the gradients and the update stay f32
 (``utils/precision.py``).  BatchNorm's running statistics are buffers of
@@ -193,8 +195,7 @@ class Optimizer:
         """Enqueue one block's steps; returns their losses, still on the
         card, as one (k,) tensor."""
         staged.wait()
-        losses = [step_fn(staged.xs[j], None if staged.ys is None
-                          else staged.ys[j], lrs[j], first_step + j)
+        losses = [step_fn(*staged.step(j), lrs[j], first_step + j)
                   for j in range(len(staged.sizes))]
         return torch.stack(losses)
 

@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (``bigdl_tpu_torch``) on one NVIDIA card.
 
-Drives the port's three main paths and holds every kernel of them against
+Drives the port's four main paths and holds every kernel of them against
 its plain PyTorch version.  Serving: an int8-quantized ResNet-50 (1000
 classes, 224x224, NCHW, random weights from a seed) served by
 ``ModelRegistry`` with ``quantize=True`` (weight_only) and
@@ -10,8 +10,12 @@ K=8-step blocks with SGD at lr 1.0 and global-norm clipping at 5.0, layer
 0's LSTM cell running kernels B2f and B2b; and ResNet-50 (1000 classes,
 224x224, NHWC, bf16 compute, batch 256) trained through ``LocalOptimizer``
 in K=4 blocks with the ImageNet recipe's SGD, schedule and augmentation
-pipeline, the stem max pool's backward running kernel B1.  Phases, each
-printing its seconds:
+pipeline, the stem max pool's backward running kernel B1; and the census
+Wide&Deep (wide table 100,000 x 1, deep fields 10000/1000/100/100/50 at
+embed 16, 13 dense features, MLP (100, 50), batch 8192 with 8 wide ids a
+sample, f32) trained through ``LocalOptimizer`` in K=8 blocks with Adam at
+lr 0.01 on batch-COO ``SparseMiniBatch`` es, the wide part's forward and
+its weight gradient running kernel B3.  Phases, each printing its seconds:
 
 1. the card: name, count, ``nvidia-smi`` name and power limit;
 2. the kernels, built from ``bigdl_tpu_torch/csrc`` (one ``nvcc`` a
@@ -52,14 +56,28 @@ printing its seconds:
    block with the residual gammas at 0 (``grad_reading``), and each of
    the 53 conv+BatchNorm units alone at the model's init
    (``unit_reading``), both within ``RESNET_TRAIN_TOL``, a limit three
-   planted faults must exceed.
+   planted faults must exceed;
+11. bag-kernel phase: B3 against its plain version, bitwise, forward and
+   the swapped-role weight gradient, at the 9 cases of ``BAG_CASES`` (the
+   census shape, D 16/128/129, unsorted rows with empty rows and the
+   padding tail, bf16, a single row, 64-bit offsets), then at the census
+   shape its device time apart from the sort that feeds it, beside the
+   bound, the plain version and ``F.embedding_bag``;
+12. wide-deep timed phase: the census Wide&Deep twice, 32 steps each,
+   through the recipe's feed (``SparseSample`` >> ``batch_sparse_samples``)
+   and over batches built beforehand (records/s, ms per step, peak
+   memory, block losses that must fall on a planted teacher's labels, B3
+   launches that must equal 2 a step), then one profiled step;
+13. wide-deep check phase, card against CPU: one K=8 block step by step
+   (``wd_step_reading``) within ``WD_TRAIN_TOL``, a limit three planted
+   faults must exceed.
 
 The last lines are the card, the kernel table and the result as JSON; any
 failed check raises and the script exits non-zero.  Without a CUDA card it
 fails at once.  Run from the repository root:
 
     python3 chip_smoke.py [--seed N] [--json-out PATH]
-                          [--phases resnet,lstm,resnet-train]
+                          [--phases resnet,lstm,resnet-train,wide-deep]
 
 ``--phases resnet-conditioning`` adds a diagnostic that is not run by
 default: the check phase's path reading at residual gammas 0 to 1, beside
@@ -70,6 +88,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import itertools
 import json
 import subprocess
 import sys
@@ -81,13 +100,16 @@ import torch
 
 from bigdl_tpu_torch import nn, optim
 from bigdl_tpu_torch.dataset import (DataSet, MTSampleToMiniBatch, Sample,
-                                     SampleToMiniBatch)
+                                     SampleToMiniBatch, SparseMiniBatch,
+                                     SparseSample, Transformer,
+                                     batch_sparse_samples)
 from bigdl_tpu_torch.dataset.text import Dictionary
-from bigdl_tpu_torch.models import ptb_model, resnet50
+from bigdl_tpu_torch.models import WideAndDeep, ptb_model, resnet50
 from bigdl_tpu_torch.nn import quantize, recurrent
 from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,
                                           QuantizedSpatialConvolution)
-from bigdl_tpu_torch.ops import _build, int8_gemm, lstm_cell, maxpool
+from bigdl_tpu_torch.ops import (_build, embed_bag, int8_gemm, lstm_cell,
+                                 maxpool)
 from bigdl_tpu_torch.ops.int8_gemm import (int8_matmul_reference,
                                            prepare_operands)
 from bigdl_tpu_torch.optim import LocalOptimizer
@@ -1467,7 +1489,536 @@ def resnet_timed_phase(seed, device, card, report):
     return launches["pipeline"]
 
 
-PHASES = ("resnet", "lstm", "resnet-train")
+# ------------------------------------------------------- Wide&Deep, B3
+BAG_KERNEL = {"route": "cuda", "source": "bigdl_tpu_torch/csrc/embed_bag.cu",
+              "replaces": "bigdl_tpu/ops/pallas_embed.py:151"}
+# the census Wide&Deep of bench.py's _wide_deep_measure: wide table
+# 100,000 x 1, deep fields 10000/1000/100/100/50 at embed 16, 13 dense
+# features, MLP (100, 50), batch 8192 with 8 wide ids a sample (nnz 65,536),
+# f32; K=8 (bench.py PRODUCTION_K["wide_deep"]); Adam at lr 0.01, the
+# recipe's --sparse-coo optimizer (examples/recommender/train_wide_deep.py)
+WD = {"wide": 100_000, "fields": (10_000, 1_000, 100, 100, 50), "embed": 16,
+      "dense": 13, "hidden": (100, 50), "batch": 8192, "nnz_per": 8, "K": 8,
+      "lr": 0.01, "timed_blocks": 3}
+# (name, N, V, D, nnz, table dtype, values dtype, layout): the census wide
+# path, D 16, 128 and a ragged 129, unsorted rows with duplicates, empty
+# rows and the padding tail, bf16 table and values, a single row, and a
+# table of 2^31 elements or more (64-bit offsets).  "census": 8 ids a
+# sample in row order; "unsorted": rows drawn at random from 90% of the
+# rows, then an nnz/16 padding tail of (0, 0, 0.0).
+BAG_CASES = [
+    ("census", 8192, 100_000, 1, 65_536, torch.float32, torch.float32,
+     "census"),
+    ("d16", 2048, 50_000, 16, 16_384, torch.float32, torch.float32,
+     "unsorted"),
+    ("d128", 1024, 20_000, 128, 8192, torch.float32, torch.float32,
+     "unsorted"),
+    ("d129_ragged", 1000, 5000, 129, 8000, torch.float32, torch.float32,
+     "unsorted"),
+    ("unsorted_pad_d1", 8192, 100_000, 1, 65_536, torch.float32,
+     torch.float32, "unsorted"),
+    ("bf16", 4096, 30_000, 16, 32_768, torch.bfloat16, torch.bfloat16,
+     "unsorted"),
+    ("bf16_table_f32_values", 4096, 30_000, 16, 32_768, torch.bfloat16,
+     torch.float32, "unsorted"),
+    ("single_row", 1, 1000, 8, 64, torch.float32, torch.float32, "unsorted"),
+    ("offsets_64bit", 64, 2 ** 24 + 1, 128, 4096, torch.bfloat16,
+     torch.bfloat16, "unsorted"),
+]
+# the card's K=8 block against the CPU (wd_step_reading): above the sound
+# reading and below the three planted faults that every run measures and
+# requires to exceed it
+WD_TRAIN_TOL = 3e-5
+
+
+def bag_operands(case, gen, device):
+    """rows, cols, values, table and an output gradient g for one case."""
+    _, N, V, D, nnz, tdtype, vdtype, layout = case
+    if layout == "census":
+        rows = torch.arange(N, device=device, dtype=torch.int32) \
+            .repeat_interleave(nnz // N)
+        cols = torch.randint(0, V, (nnz,), generator=gen, device=device,
+                             dtype=torch.int32)
+        vals = torch.ones(nnz, device=device)
+    else:
+        pad = nnz // 16
+        live = torch.nonzero(torch.rand(N, generator=gen, device=device)
+                             > 0.1).flatten() if N > 1 else \
+            torch.zeros(1, dtype=torch.long, device=device)
+        pick = torch.randint(0, live.numel(), (nnz - pad,), generator=gen,
+                             device=device)
+        z = torch.zeros(pad, dtype=torch.int32, device=device)
+        rows = torch.cat([live[pick].to(torch.int32), z])
+        lo = V - 4096 if V > 2 ** 24 else 0  # reach the table's far end
+        cols = torch.cat([torch.randint(lo, V, (nnz - pad,), generator=gen,
+                                        device=device, dtype=torch.int32), z])
+        vals = torch.cat([torch.randn(nnz - pad, generator=gen,
+                                      device=device),
+                          torch.zeros(pad, device=device)])
+    table = torch.empty((V, D), dtype=tdtype, device=device)
+    table.normal_(generator=gen)
+    g = torch.randn((N, D), generator=gen, device=device)
+    return rows, cols, vals.to(vdtype), table, g
+
+
+def bag_bound(rows, cols, table, out_rows, out_dtype):
+    """(least ms, "bytes" | "operations", bytes): rows, cols and values
+    read once, the table rows this stream names read once, the output
+    written once, at the card's memory rate; one FMA (2 operations) per
+    entry and column at the f32 rate."""
+    D, es = table.shape[1], table.element_size()
+    n_rows_read = int(torch.unique(cols).numel())
+    out_es = torch.tensor([], dtype=out_dtype).element_size()
+    nbytes = 12 * rows.numel() + n_rows_read * D * es + out_rows * D * out_es
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = 2.0 * rows.numel() * D / PEAK_F32 * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations", nbytes
+
+
+def library_bag(rows, cols, vals, table, n_rows):
+    """One PyTorch call for the same bag sum, over the row-sorted stream:
+    ``F.embedding_bag(..., mode="sum", per_sample_weights=...)`` (a
+    yardstick; the port never calls it)."""
+    perm, offsets = embed_bag.row_index(rows, n_rows)
+    idx, w = cols[perm].long(), vals[perm].to(table.dtype)
+    starts = offsets[:-1].contiguous()
+    return lambda: torch.nn.functional.embedding_bag(
+        idx, table, starts, mode="sum", per_sample_weights=w)
+
+
+def bag_kernel_phase(device, card, report):
+    """B3 against its plain version, bitwise, at every case of BAG_CASES,
+    forward and the swapped-role weight gradient; then at the census
+    shape the kernel's device time (the bag kernel apart from the sort and
+    offsets that feed it), an event-timed loop of the whole wrapper, the
+    plain version and ``F.embedding_bag``, beside the bound, for the
+    forward and for the weight gradient."""
+    gen = torch.Generator(device=device).manual_seed(3141)
+    err = 0.0
+    for case in BAG_CASES:
+        name, N, V = case[:3]
+        rows, cols, vals, table, g = bag_operands(case, gen, device)
+        got = embed_bag.launch(rows, cols, vals, table, N)
+        want = embed_bag.embedding_bag_coo_reference(rows, cols, vals, table,
+                                                     N)
+        got_t = embed_bag.launch(cols, rows, vals, g, V)
+        want_t = embed_bag.embedding_bag_coo_reference(cols, rows, vals, g, V)
+        torch.cuda.synchronize()
+        same = [torch.equal(got, want), torch.equal(got_t, want_t)]
+        # the difference only where they differ: the 64-bit case's table
+        # gradient alone is 8.6 GB
+        errs = [0.0 if eq else (a.float() - b.float()).abs().max().item()
+                for eq, (a, b) in zip(same, ((got, want), (got_t, want_t)))]
+        err = max([err] + errs)
+        if not all(same):
+            raise AssertionError(f"B3 {name}: not bitwise equal to its "
+                                 f"plain version (max abs err forward "
+                                 f"{errs[0]}, table gradient {errs[1]})")
+        if got.dtype != torch.result_type(table, vals):
+            raise AssertionError(f"B3 {name}: output dtype {got.dtype}")
+        empty = N - int(torch.unique(rows).numel())
+        print(f"bag check {name}: N={N} V={V} D={table.shape[1]} nnz="
+              f"{rows.numel()} table {table.dtype} values {vals.dtype}, "
+              f"{empty} empty rows: forward and table gradient bitwise equal")
+        del rows, cols, vals, table, g, got, want, got_t, want_t
+        torch.cuda.empty_cache()
+
+    rows, cols, vals, table, g = bag_operands(BAG_CASES[0], gen, device)
+    N, V = BAG_CASES[0][1:3]
+    out = {}
+    for role, args, n_out in (("forward", (rows, cols, vals, table, N), N),
+                              ("table_grad", (cols, rows, vals, g, V), V)):
+        r, c, v, t, n = args
+        fns = (lambda: embed_bag.launch(*args),
+               lambda: embed_bag.embedding_bag_coo_reference(*args),
+               library_bag(r, c, v, t, n))
+        got, want, lib = (f() for f in fns)
+        e = (got - want).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(f"B3 {role} on the timed inputs: max abs "
+                                 f"err {e} against its plain version")
+        # the library sums each bag in its own order: within rounding
+        torch.testing.assert_close(lib.float(), got.float(), rtol=1e-5,
+                                   atol=1e-5 * got.abs().max().item())
+        err = max(err, e)
+        split = []
+        total = device_ms(fns[0], calls=50, split=split)
+        k_ms = sum(ms for name, ms in split if "bag_kernel" in name)
+        l_ms = device_ms(fns[2], calls=50)
+        k_ev, p_ev, l_ev = (cuda_ms(f) for f in fns)
+        b_ms, b_by, nbytes = bag_bound(r, c, t, n_out, got.dtype)
+        out[role] = {"ms": k_ms, "sort_ms": total - k_ms, "event_ms": k_ev,
+                     "plain_ms": p_ev, "library_ms": l_ms,
+                     "library_event_ms": l_ev, "bound_ms": b_ms,
+                     "bound_by": b_by, "bytes": nbytes, "max_abs_err": e,
+                     "split": split}
+        print(f"embed_bag {role} N={n_out} nnz={r.numel()} "
+              f"D={t.shape[1]}: device ms per call kernel_ms={k_ms:.5f} "
+              f"sort_and_offsets_ms={total - k_ms:.5f} library_ms="
+              f"{l_ms:.5f}; event-timed wrapper {k_ev:.5f} plain {p_ev:.5f} "
+              f"library {l_ev:.5f}; bound_ms={b_ms:.6f} ({b_by}: {nbytes} B "
+              f"at {HBM_BPS / 1e12:.2f} TB/s); by kernel: "
+              + ", ".join(f"{n[:40]} {ms:.5f}" for n, ms in split)
+              + f" [{card}]")
+        del got, want, lib
+    report["bag_kernel"] = out
+    row = dict(out["forward"])
+    row["max_abs_err"] = err
+    return row
+
+
+def wd_model(seed):
+    return WideAndDeep(WD["wide"], list(WD["fields"]), WD["dense"],
+                       WD["embed"], WD["hidden"]).initialize(seed)
+
+
+def wd_data(n, seed):
+    """n census-shaped records as numpy columns: 8 wide ids a record with
+    value 1, one id per deep field, 13 N(0, 1) dense features, and a
+    label from a planted teacher: the sign of the sum of an N(0, 1) weight
+    per wide id and per field-0 id, so that the loss can fall."""
+    rng = np.random.default_rng(seed)
+    k = WD["nnz_per"]
+    wide = rng.integers(0, WD["wide"], (n, k)).astype(np.int32)
+    deep = np.stack([rng.integers(0, c, n) for c in WD["fields"]],
+                    axis=1).astype(np.int32)
+    dense = rng.normal(0, 1, (n, WD["dense"])).astype(np.float32)
+    w_wide = rng.normal(0, 1, WD["wide"])
+    w_f0 = rng.normal(0, 1, WD["fields"][0])
+    logit = w_wide[wide].sum(1) / np.sqrt(k) + w_f0[deep[:, 0]]
+    return wide, deep, dense, (logit > 0).astype(np.float32)
+
+
+def wd_samples(cols):
+    """The records as the recipe's SparseSamples."""
+    wide, deep, dense, y = cols
+    ones = np.ones(WD["nnz_per"], np.float32)
+    return [SparseSample(wide[i], ones, WD["wide"], dense=[deep[i], dense[i]],
+                         label=y[i]) for i in range(len(y))]
+
+
+def wd_batches(cols):
+    """The records as SparseMiniBatches of WD["batch"], built from the
+    columns (the same arrays batch_sparse_samples gives)."""
+    wide, deep, dense, y = cols
+    B, k = WD["batch"], WD["nnz_per"]
+    row = np.repeat(np.arange(B, dtype=np.int32), k)
+    ones = torch.ones(B * k)
+    out = []
+    for s in range(0, len(y) - B + 1, B):
+        coo = nn.COOBatch(torch.from_numpy(row),
+                          torch.from_numpy(wide[s:s + B].reshape(-1)), ones,
+                          (B, WD["wide"]))
+        out.append(SparseMiniBatch((coo, deep[s:s + B], dense[s:s + B]),
+                                   y[s:s + B]))
+    return out
+
+
+class SparseToMiniBatch(Transformer):
+    """The recipe's feed: SparseSamples in batches of WD["batch"] through
+    batch_sparse_samples at the census nnz."""
+
+    def __call__(self, it):
+        buf = []
+        for s in it:
+            buf.append(s)
+            if len(buf) == WD["batch"]:
+                yield batch_sparse_samples(buf, [WD["batch"] * WD["nnz_per"]])
+                buf = []
+
+
+class Prebuilt(Transformer):
+    """Batches built beforehand, in turn, one for every WD["batch"]
+    records the dataset yields (the records themselves are not read)."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def __call__(self, it):
+        for i in itertools.count():
+            for _ in range(WD["batch"]):
+                next(it)
+            yield self.batches[i % len(self.batches)]
+
+
+class SqueezedBCE:
+    """BCE on the (N, 1) score's column (bench.py's _SqueezeBCE)."""
+
+    def __init__(self):
+        self.bce = nn.BCECriterion()
+
+    def apply(self, out, y):
+        return self.bce.apply(out[:, 0], y)
+
+
+def wd_train(model, dataset, device, steps, method=None):
+    """Train ``model`` in place through LocalOptimizer with the recipe's
+    Adam (or ``method``) in K=8 blocks: (per-step losses, per-step host
+    clock at replay, optimizer, wall seconds)."""
+    losses, clock = [], []
+
+    class Recording(LocalOptimizer):
+        def _log_train_iteration(self, lr):
+            losses.append(self.state["loss"])
+            clock.append(time.perf_counter())
+
+    opt = (Recording(model, dataset, SqueezedBCE(), device=device)
+           .set_optim_method(method or optim.Adam(learning_rate=WD["lr"]))
+           .set_steps_per_dispatch(WD["K"])
+           .set_end_when(optim.max_iteration(steps)))
+    t0 = time.monotonic()
+    opt.optimize()
+    return losses, clock, opt, time.monotonic() - t0
+
+
+def planted_bag_fault(role, step):
+    """A wrapper of B3's launch that scales its result by 127/128 at one
+    training step: the forward's (``role="forward"``, the launch over the
+    batch's rows) or the table gradient's (``"table_grad"``, the launch
+    over the wide table's rows)."""
+    sound = embed_bag.launch
+    calls = {"forward": 0, "table_grad": 0}
+
+    def launch(rows, cols, values, table, n_rows):
+        out = sound(rows, cols, values, table, n_rows)
+        kind = "forward" if n_rows == WD["batch"] else "table_grad"
+        calls[kind] += 1
+        return out * (127 / 128) if kind == role and calls[kind] == step + 1 \
+            else out
+    return launch
+
+
+WD_FAULT_STEP = 3  # of the K=8 block's steps 0..7
+
+
+class RecordingAdam(optim.Adam):
+    """Adam that keeps float64 CPU copies of every step's parameters (as
+    the step found them) and gradients."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.steps = []
+
+    def update(self, grads, params, state, lr, step):
+        self.steps.append(({k: p.detach().double().cpu()
+                            for k, p in params.items()},
+                           {k: g.detach().double().cpu()
+                            for k, g in grads.items()}))
+        super().update(grads, params, state, lr, step)
+
+
+def wd_cpu_step(init, params, batch):
+    """The loss and the gradients of one training step on the CPU (the
+    plain versions), from ``params`` on ``batch``."""
+    m = copy.deepcopy(init)
+    with torch.no_grad():
+        for k, p in m.named_parameters():
+            p.copy_(params[k])
+            p.requires_grad_(True)
+    coo, deep, dense = batch.input
+    loss = SqueezedBCE().apply(
+        m((coo, torch.from_numpy(deep), torch.from_numpy(dense))),
+        torch.from_numpy(batch.target))
+    loss.backward()
+    return loss.item(), {k: p.grad.double() for k, p in m.named_parameters()}
+
+
+def wd_step_reading(losses, steps, init, batches):
+    """How far a K-step card run is from the CPU, step by step: the weights
+    the card started from against ``init`` (per array, the largest
+    difference as a share of its largest value), and for each step j the
+    relative difference of its loss and, per array, of its gradient (as a
+    share of the array's largest gradient on the CPU) from the same step
+    on the CPU from the card's own weights of step j.  (reading, its four
+    largest (share, what)).  Per array, not per layer as in
+    :func:`grad_reading`: no gradient here is a sum that nearly cancels
+    (the sound readings of the card runs are a few 1e-7), and the wide
+    weight's own gradient is held apart from the bias's.
+
+    Step by step, not over the trained weights (the PTB check's reading,
+    :func:`train_reading`, printed beside it): Adam moves each weight by
+    about lr times the sign of its gradient, so a gradient within rounding
+    of 0 on one device moves the other way on the other, and the trained
+    weights of two sound runs differ by a share of training's change that
+    swings from run to run with the signs that flip."""
+    start = flat_params(init)
+    rows = [(((steps[0][0][k] - w).abs().max() / w.abs().max()).item(),
+             f"start {k}") for k, w in start.items()]
+    for j, (params, grads) in enumerate(steps):
+        loss, want = wd_cpu_step(init, params, batches[j])
+        rows.append((abs(losses[j] - loss) / abs(loss), f"step {j} loss"))
+        rows += [(((grads[k] - w).abs().max() / w.abs().max()).item(),
+                  f"step {j} {k}") for k, w in want.items()]
+    rows.sort(reverse=True)
+    return rows[0][0], rows[:4]
+
+
+def wd_check_phase(seed, device, card, report):
+    """One K=8 block at the census dims on the card through LocalOptimizer
+    against the CPU, step by step (:func:`wd_step_reading`), from the same
+    port init and the same batches; and three planted faults on the card
+    that must read above WD_TRAIN_TOL: the wide weight x127/128 at init,
+    B3's forward result x127/128 at step WD_FAULT_STEP, and B3's table
+    gradient x127/128 at that step.  The PTB check's reading of the trained
+    weights (:func:`train_reading`) against a whole CPU run is printed
+    beside it, not gated."""
+    K, B = WD["K"], WD["batch"]
+    batches = wd_batches(wd_data(K * B, seed + 1))
+    init = wd_model(seed)
+
+    def dataset():
+        return DataSet.array(np.zeros(K * B)) >> Prebuilt(batches)
+
+    def card_run(model, fault=None):
+        adam = RecordingAdam(learning_rate=WD["lr"])
+        sound_launch = embed_bag.launch
+        if fault is not None:
+            embed_bag.launch = planted_bag_fault(fault, WD_FAULT_STEP)
+        try:
+            losses = wd_train(model, dataset(), device, K, adam)[0]
+        finally:
+            embed_bag.launch = sound_launch
+        return losses, adam.steps
+
+    t0 = time.monotonic()
+    cpu_model = copy.deepcopy(init)
+    cpu_losses = wd_train(cpu_model, dataset(), "cpu", K)[0]
+    cpu_s = time.monotonic() - t0
+    card_model = copy.deepcopy(init)
+    embed_bag.launches = 0
+    card_losses, card_steps = card_run(card_model)
+    if embed_bag.launches != 2 * K:
+        raise AssertionError(f"B3 launched {embed_bag.launches} times in "
+                             f"{K} steps (want 2 a step)")
+    sound, worst = wd_step_reading(card_losses, card_steps, init, batches)
+    weights_reading = train_reading(card_losses, card_model, cpu_losses,
+                                    flat_params(cpu_model), flat_params(init))
+    faults, fault_worst = {}, {}
+    m = copy.deepcopy(init)
+    with torch.no_grad():
+        m.wide.weight.mul_(127 / 128)
+    runs = {"wide_weight_127_128": (m, None)}
+    for role in ("forward", "table_grad"):
+        runs[f"b3_{role}_step{WD_FAULT_STEP}_127_128"] = (
+            copy.deepcopy(init), role)
+    for name, (m, role) in runs.items():
+        faults[name], fault_worst[name] = wd_step_reading(
+            *card_run(m, role), init, batches)
+    print(f"wide-deep train-vs-cpu largest shares (share, what): sound "
+          f"{worst}; " + "; ".join(f"{k} {v}" for k, v in
+                                   fault_worst.items()))
+    print(f"wide-deep train-vs-cpu check, {K} steps of batch {B} step by "
+          f"step: sound {sound:.3e}, planted faults "
+          + ", ".join(f"{k} {v:.3e}" for k, v in faults.items())
+          + f" (tol {WD_TRAIN_TOL}); trained weights against a whole CPU "
+          f"run (train_reading, not gated) {weights_reading:.3e}; cpu "
+          f"losses " + ", ".join(f"{v:.6f}" for v in cpu_losses)
+          + "; card losses " + ", ".join(f"{v:.6f}" for v in card_losses)
+          + f"; the CPU's block took {cpu_s:.1f} s [{card}]")
+    report["wide_deep_check"] = {"sound": sound, "largest": worst,
+                                 "planted_faults": faults,
+                                 "planted_largest": fault_worst,
+                                 "weights_reading": weights_reading,
+                                 "tol": WD_TRAIN_TOL,
+                                 "cpu_losses": cpu_losses,
+                                 "card_losses": card_losses}
+    if not sound <= WD_TRAIN_TOL:
+        raise AssertionError(f"Wide&Deep training on the card is "
+                             f"{sound:.3e} from the CPU, over the limit "
+                             f"{WD_TRAIN_TOL}")
+    for fault, err in faults.items():
+        if not err > WD_TRAIN_TOL:
+            raise AssertionError(
+                f"planted fault {fault} reads {err:.3e}, inside the "
+                f"Wide&Deep training tolerance {WD_TRAIN_TOL}: the check is "
+                f"blind")
+
+
+def wd_profile_step(init, batch, device, card):
+    """One training step (forward, backward, Adam update) of the census
+    Wide&Deep under torch.profiler after a warm-up step."""
+    net = copy.deepcopy(init).to(device).train()
+    params = dict(net.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    adam = optim.Adam(learning_rate=WD["lr"])
+    ostate = adam.init_state(params)
+    coo, deep, dense = batch.input
+    x = (coo.to(device), torch.from_numpy(deep).to(device),
+         torch.from_numpy(dense).to(device))
+    y = torch.from_numpy(batch.target).to(device)
+    crit = SqueezedBCE()
+
+    def step():
+        for p in params.values():
+            p.grad = None
+        crit.apply(net(x), y).backward()
+        adam.update({k: p.grad for k, p in params.items()}, params, ostate,
+                    WD["lr"], 0)
+
+    return profile_step(step, f"wide-deep train step (f32, batch "
+                        f"{WD['batch']})", card, 8)
+
+
+def wd_timed_phase(seed, device, card, report):
+    """The census Wide&Deep on the card, timed twice: through the recipe's
+    feed (SparseSamples >> SparseToMiniBatch, batch_sparse_samples in
+    Python) and over batches built beforehand.  Each run: a warm-up block
+    then WD["timed_blocks"] K=8 blocks; records/s and ms per step from the
+    host clock at which each block's losses came back; B3's launches (2 a
+    step); peak memory; block losses that must be finite and fall.  Then
+    one profiled step."""
+    K, B = WD["K"], WD["batch"]
+    steps = K * (1 + WD["timed_blocks"])
+    t0 = time.monotonic()
+    cols = wd_data(steps * B, seed)
+    samples = wd_samples(cols)
+    batches = wd_batches(cols)
+    print(f"wide-deep data: {len(samples)} records as SparseSamples and "
+          f"{len(batches)} batches in {time.monotonic() - t0:.1f} s")
+    init = wd_model(seed)
+    datasets = {
+        "recipe_feed": lambda: DataSet.array(samples) >> SparseToMiniBatch(),
+        "prebuilt": lambda: DataSet.array(samples) >> Prebuilt(batches)}
+    out, launches = {}, {}
+    for name, make in datasets.items():
+        t0 = time.monotonic()
+        model = copy.deepcopy(init)
+        torch.cuda.reset_peak_memory_stats()
+        embed_bag.launches = 0
+        losses, clock, opt, wall = wd_train(model, make(), device, steps)
+        launches[name] = embed_bag.launches
+        peak = torch.cuda.max_memory_allocated()
+        if launches[name] != 2 * steps or opt.state["neval"] != steps:
+            raise AssertionError(f"{name}: B3 launched {launches[name]} "
+                                 f"times in {opt.state['neval']} steps "
+                                 f"(want 2 a step)")
+        blocks = [float(np.mean(losses[i:i + K]))
+                  for i in range(0, steps, K)]
+        if not (np.all(np.isfinite(losses)) and blocks[-1] < blocks[0]):
+            raise AssertionError(f"{name}: the loss is not finite and "
+                                 f"falling: {blocks}")
+        ends = [clock[i + K - 1] for i in range(0, steps, K)]
+        step_s = (ends[-1] - ends[0]) / (steps - K)
+        out[name] = {"ms_per_step": step_s * 1e3,
+                     "records_per_s": B / step_s, "block_losses": blocks,
+                     "losses": losses, "max_memory_allocated": peak,
+                     "launches": launches[name], "wall_s": wall}
+        print(f"train wide-deep {name} f32 batch {B} K={K}: {steps} steps, "
+              f"the {WD['timed_blocks']} blocks after the first: "
+              f"ms_per_step={step_s * 1e3:.3f} records_per_s="
+              f"{B / step_s:.1f} max_memory_allocated={peak} block losses "
+              + ", ".join(f"{v:.4f}" for v in blocks)
+              + f"; B3 launches {launches[name]} for {steps} steps; run "
+              f"{time.monotonic() - t0:.1f} s [{card}]")
+        del model, opt
+    out["profile"] = wd_profile_step(init, batches[0], device, card)
+    report["wide_deep_train"] = out
+    return launches["recipe_feed"]
+
+
+PHASES = ("resnet", "lstm", "resnet-train", "wide-deep")
 EXTRA_PHASES = ("resnet-conditioning",)  # run only when named
 
 
@@ -1578,6 +2129,28 @@ def main(argv=None) -> int:
                         **{k: row[k] for k in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms")}})
+    if "wide-deep" in phases:
+        t0 = time.monotonic()
+        row = bag_kernel_phase(device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase bag-kernel: {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        launches = wd_timed_phase(args.seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase wide-deep-timed: {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        wd_check_phase(args.seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase wide-deep-vs-cpu: {time.monotonic() - t0:.1f} s")
+        kernels.append({"name": "embed_bag", **BAG_KERNEL,
+                        "launches": launches,
+                        **{k: row[k] for k in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")},
+                        "sort_ms": row["sort_ms"],
+                        "table_grad": {k: report["bag_kernel"]["table_grad"][k]
+                                       for k in ("ms", "sort_ms", "plain_ms",
+                                                 "bound_ms", "library_ms")}})
     if "resnet-conditioning" in phases:
         t0 = time.monotonic()
         resnet_conditioning_phase(args.seed, device, card, report)

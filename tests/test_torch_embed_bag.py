@@ -1,0 +1,214 @@
+"""The port's COO embedding-bag (kernel B3's plain version,
+``ops/embed_bag.py``) on the CPU against the reference's Pallas kernel
+``pallas_embed.embedding_bag_coo`` run in interpret mode, and against the
+XLA chain it replaces (``take`` -> multiply -> ``segment_sum``).
+
+Cases: the reference test's five (``tests/test_pallas_kernels.py``:
+aligned, wide_d1, odd_d, single_row, bf16) and its unsorted-rows case with
+duplicates, empty rows and the ``(0, 0, 0.0)`` padding tail.
+
+Tolerances:
+- forward against the Pallas kernel: BITWISE.  Both add each row's
+  entries in nnz order with one single-rounding FMA each (XLA on the CPU
+  contracts the kernel's ``acc + v * t``), from 0, in f32, then cast.
+- forward against the XLA chain, which rounds the product and the sum
+  apart: ``rtol = atol = 1e-5`` in f32 (one ulp of each product); with a
+  bf16 table and bf16 values the chain multiplies and sums in bf16 while
+  both kernels sum in f32, so 5e-2, the reference test's own bf16 bound.
+- gradients against ``jax.grad`` of the Pallas path, whose backward is
+  XLA's scatter-add (product and sum rounded apart, its own order):
+  ``d_table`` and ``d_values`` within ``1e-5`` of the largest value
+  (f32), one bf16 ulp of it for bf16 cotangents.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")  # the reference; absent on the card
+
+import jax.numpy as jnp  # noqa: E402
+
+from bigdl_tpu.ops import pallas_embed  # noqa: E402
+from bigdl_tpu_torch.ops import embed_bag  # noqa: E402
+
+CASES = {
+    # name: (N, V, D, nnz, dtype)
+    "aligned": (4, 64, 128, 9, "float32"),
+    "wide_d1": (8, 100, 1, 40, "float32"),
+    "odd_d": (5, 30, 10, 17, "float32"),
+    "single_row": (1, 20, 8, 5, "float32"),
+    "bf16": (6, 50, 16, 32, "bfloat16"),
+}
+JT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# unsorted rows, a duplicate (row, col) pair, empty rows 2 and 4, and
+# the padding tail of batch_sparse_samples
+UNSORTED = (np.array([3, 0, 3, 1, 0, 0, 0], np.int32),
+            np.array([2, 5, 2, 1, 0, 0, 0], np.int32),
+            np.array([1.0, 2.0, 0.5, -1.0, 3.0, 0.0, 0.0], np.float32), 5)
+
+
+def _inputs(name):
+    N, V, D, nnz, dtype = CASES[name]
+    rng = np.random.default_rng(sorted(CASES).index(name) + 17)
+    rows = rng.integers(0, N, nnz).astype(np.int32)
+    cols = rng.integers(0, V, nnz).astype(np.int32)
+    vals = rng.normal(0, 1, nnz).astype(np.float32)
+    table = rng.normal(0, 1, (V, D)).astype(np.float32)
+    return rows, cols, vals, table, N, dtype
+
+
+def _to_torch(rows, cols, vals, table, dtype, vals_dtype="float32"):
+    t = torch.from_numpy(table).to(TT[dtype])
+    return (torch.from_numpy(rows), torch.from_numpy(cols),
+            torch.from_numpy(vals).to(TT[vals_dtype]), t)
+
+
+def _to_jax(rows, cols, vals, table, dtype, vals_dtype="float32"):
+    return (jnp.asarray(rows), jnp.asarray(cols),
+            jnp.asarray(vals).astype(JT[vals_dtype]),
+            jnp.asarray(table).astype(JT[dtype]))
+
+
+def _pallas(r, c, v, t, n):
+    return pallas_embed.embedding_bag_coo(r, c, v, t, n, interpret=True)
+
+
+def _xla_chain(r, c, v, t, n):
+    g = jnp.take(t, c, axis=0) * v[:, None]
+    return jax.ops.segment_sum(g, r, num_segments=n)
+
+
+def _f32(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.float32)) \
+        if not isinstance(a, torch.Tensor) else a.float().numpy()
+
+
+# every case with f32 values; bf16 values on the bf16 table (bf16 out) and
+# on an f32 table (f32 out)
+FORWARD = [(n, "float32") for n in sorted(CASES)] + [
+    ("bf16", "bfloat16"), ("wide_d1", "bfloat16")]
+
+
+@pytest.mark.parametrize("name,vals_dtype", FORWARD)
+def test_forward_matches_pallas_bitwise_and_xla(name, vals_dtype):
+    rows, cols, vals, table, N, dtype = _inputs(name)
+    got = embed_bag.embedding_bag_coo(*_to_torch(rows, cols, vals, table,
+                                                 dtype, vals_dtype), N)
+    jin = _to_jax(rows, cols, vals, table, dtype, vals_dtype)
+    want = _pallas(*jin, N)
+    chain = _xla_chain(*jin, N)
+    assert str(got.dtype).split(".")[1] == str(want.dtype) == \
+        str(chain.dtype)
+    assert np.array_equal(_f32(got), _f32(want))
+    tol = 5e-2 if str(chain.dtype) == "bfloat16" else 1e-5
+    np.testing.assert_allclose(_f32(got), _f32(chain), rtol=tol, atol=tol)
+    assert embed_bag.launches == 0
+
+
+def test_unsorted_rows_duplicates_and_padding():
+    rows, cols, vals, n = UNSORTED
+    table = np.random.default_rng(0).normal(0, 1, (8, 4)).astype(np.float32)
+    got = embed_bag.embedding_bag_coo(*_to_torch(rows, cols, vals, table,
+                                                 "float32"), n)
+    want = _pallas(*_to_jax(rows, cols, vals, table, "float32"), n)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    # rows 2 and 4 hold no entry: an exact 0
+    assert not got[2].any() and not got[4].any()
+    # row 3: the duplicate pair adds twice, in nnz order
+    t2 = torch.from_numpy(table[2])
+    assert torch.equal(got[3], (t2 * 1.0 + t2 * 0.5))
+
+
+def _grads_port(rows, cols, vals, table, N, dtype):
+    r, c, v, t = _to_torch(rows, cols, vals, table, dtype)
+    v.requires_grad_(True)
+    t.requires_grad_(True)
+    out = embed_bag.embedding_bag_coo(r, c, v, t, N)
+    (out.float() ** 2).sum().backward()
+    return v.grad, t.grad
+
+
+def _grads_ref(rows, cols, vals, table, N, dtype):
+    r, c, v, t = _to_jax(rows, cols, vals, table, dtype)
+
+    def loss(v, t):
+        return (_pallas(r, c, v, t, N).astype(jnp.float32) ** 2).sum()
+
+    return jax.grad(loss, argnums=(0, 1))(v, t)
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["unsorted"])
+def test_gradients_match_jax_grad(name):
+    if name == "unsorted":
+        rows, cols, vals, N = UNSORTED
+        table = np.random.default_rng(0).normal(0, 1, (8, 4)).astype(
+            np.float32)
+        dtype = "float32"
+    else:
+        rows, cols, vals, table, N, dtype = _inputs(name)
+    dv, dt = _grads_port(rows, cols, vals, table, N, dtype)
+    jdv, jdt = _grads_ref(rows, cols, vals, table, N, dtype)
+    assert dv.dtype == torch.float32 and dt.dtype == TT[dtype]
+    for got, want in ((dv, jdv), (dt, jdt)):
+        want = _f32(want)
+        scale = np.abs(want).max()
+        tol = 2.0 ** -7 if got.dtype == torch.bfloat16 else 1e-5
+        np.testing.assert_allclose(_f32(got), want, rtol=tol,
+                                   atol=tol * scale)
+    # ids no entry names get an exact 0 in the table's gradient
+    unused = np.setdiff1d(np.arange(table.shape[0]), cols)
+    assert not dt[torch.from_numpy(unused)].any()
+
+
+def test_table_gradient_is_the_swapped_bag():
+    """d_table is B3 with rows and cols swapped, bitwise: the same plain
+    version, called as the backward calls it."""
+    rows, cols, vals, table, N, _ = _inputs("odd_d")
+    r, c, v, t = _to_torch(rows, cols, vals, table, "float32")
+    t.requires_grad_(True)
+    g = torch.from_numpy(np.random.default_rng(3).normal(
+        0, 1, (N, table.shape[1])).astype(np.float32))
+    embed_bag.embedding_bag_coo(r, c, v, t, N).backward(g)
+    want = embed_bag.embedding_bag_coo_reference(c, r, v, g, table.shape[0])
+    assert torch.equal(t.grad, want)
+
+
+def test_row_index_is_stable_and_drops_outside_rows():
+    rows = torch.tensor([2, 0, 2, 5, -1, 0, 2], dtype=torch.int32)
+    perm, offsets = embed_bag.row_index(rows, 4)
+    assert perm.tolist() == [4, 1, 5, 0, 2, 6, 3]
+    # row 0: perm[1:3]; row 1: empty; row 2: perm[3:6]; row 3: empty; -1
+    # and 5 lie outside every bound
+    assert offsets.tolist() == [1, 3, 3, 6, 6]
+
+
+def test_launch_needs_cuda():
+    rows, cols, vals, table, N, dtype = _inputs("wide_d1")
+    with pytest.raises(RuntimeError, match="runs on CUDA"):
+        embed_bag.launch(*_to_torch(rows, cols, vals, table, dtype), N)
+
+
+@functools.lru_cache(maxsize=None)
+def _census_cut():
+    """The census wide path's shape, cut: batch 64, 8 ids a sample from a
+    1000 x 1 table, plus a padding tail."""
+    rng = np.random.default_rng(8)
+    rows = np.concatenate([np.repeat(np.arange(64, dtype=np.int32), 8),
+                           np.zeros(16, np.int32)])
+    cols = np.concatenate([rng.integers(0, 1000, 512).astype(np.int32),
+                           np.zeros(16, np.int32)])
+    vals = np.concatenate([np.ones(512, np.float32), np.zeros(16, np.float32)])
+    table = rng.uniform(-0.03, 0.03, (1000, 1)).astype(np.float32)
+    return rows, cols, vals, table
+
+
+def test_census_shape_cut_bitwise():
+    rows, cols, vals, table = _census_cut()
+    got = embed_bag.embedding_bag_coo(*_to_torch(rows, cols, vals, table,
+                                                 "float32"), 64)
+    want = _pallas(*_to_jax(rows, cols, vals, table, "float32"), 64)
+    assert np.array_equal(got.numpy(), np.asarray(want))

@@ -15,7 +15,8 @@ gates' expf/tanhf within ulps of PyTorch's); bf16 outputs within one bf16
 ulp (``rtol=atol=8e-3``).  Training on the card against the CPU: losses
 ``rtol=1e-4``, parameters ``1e-4`` of each array's largest value.  The
 max-pool backward is BITWISE against its plain version (the same terms
-added in the same order and dtype).
+added in the same order and dtype), and so is the embedding bag, forward
+and swapped-role weight gradient (the same FMAs in the same order).
 """
 
 import numpy as np
@@ -23,11 +24,14 @@ import pytest
 import torch
 
 from bigdl_tpu_torch import nn, optim
-from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
+from bigdl_tpu_torch.dataset import (DataSet, Sample, SampleToMiniBatch,
+                                     SparseSample, Transformer,
+                                     batch_sparse_samples)
 from bigdl_tpu_torch.interop import to_jax_params
-from bigdl_tpu_torch.models import ptb_model, resnet_cifar
+from bigdl_tpu_torch.models import WideAndDeep, ptb_model, resnet_cifar
 from bigdl_tpu_torch.models import resnet as tresnet
-from bigdl_tpu_torch.ops import _build, int8_gemm, lstm_cell, maxpool
+from bigdl_tpu_torch.ops import (_build, embed_bag, int8_gemm, lstm_cell,
+                                 maxpool)
 from bigdl_tpu_torch.ops.int8_gemm import dyn_quantize, int8_matmul_reference
 from bigdl_tpu_torch.serving import ModelRegistry
 
@@ -344,3 +348,161 @@ def test_resnet_training_on_card_matches_cpu(cuda):
                                        err_msg=k)
     lb, _, nb = run(cuda, torch.bfloat16)
     assert nb == steps and np.all(np.isfinite(lb))
+
+
+# -------------------------------------------------------- embedding bag B3
+# (name, N, V, D, nnz, table dtype, values dtype): the census wide path
+# (8 ids a sample), D 16, 128 and a ragged 129, bf16 tables with bf16 and
+# f32 values, a single row
+BAGS = [("census", 8192, 100_000, 1, 65_536, "float32", "float32"),
+        ("d16", 512, 1000, 16, 4096, "float32", "float32"),
+        ("d128", 256, 500, 128, 2048, "float32", "float32"),
+        ("d129", 100, 300, 129, 800, "float32", "float32"),
+        ("bf16", 300, 2000, 16, 2400, "bfloat16", "bfloat16"),
+        ("bf16_table", 300, 2000, 16, 2400, "bfloat16", "float32"),
+        ("single_row", 1, 50, 8, 20, "float32", "float32")]
+
+
+def _bag_operands(case, device, seed=9):
+    """Unsorted rows with duplicates, a tenth of the rows left empty, and
+    a padding tail of (0, 0, 0.0) entries."""
+    _, N, V, D, nnz, tdtype, vdtype = case
+    rng = np.random.default_rng(seed + N + D)
+    live = np.arange(N) if N == 1 else np.arange(N)[rng.random(N) > 0.1]
+    pad = nnz // 16
+    rows = np.concatenate([rng.choice(live, nnz - pad),
+                           np.zeros(pad, np.int64)]).astype(np.int32)
+    cols = np.concatenate([rng.integers(0, V, nnz - pad),
+                           np.zeros(pad, np.int64)]).astype(np.int32)
+    vals = np.concatenate([rng.normal(0, 1, nnz - pad),
+                           np.zeros(pad)]).astype(np.float32)
+    table = rng.normal(0, 1, (V, D)).astype(np.float32)
+    g = rng.normal(0, 1, (N, D)).astype(np.float32)
+    return (torch.from_numpy(rows).to(device),
+            torch.from_numpy(cols).to(device),
+            torch.from_numpy(vals).to(device, getattr(torch, vdtype)),
+            torch.from_numpy(table).to(device, getattr(torch, tdtype)),
+            torch.from_numpy(g).to(device), N)
+
+
+@pytest.mark.parametrize("case", BAGS, ids=lambda c: c[0])
+def test_embed_bag_kernel_matches_plain(cuda, case):
+    """Forward and the swapped-role weight gradient, bitwise."""
+    rows, cols, vals, table, g, N = _bag_operands(case, cuda)
+    before = embed_bag.launches
+    got = embed_bag.launch(rows, cols, vals, table, N)
+    d_table = embed_bag.launch(cols, rows, vals, g, table.shape[0])
+    want = embed_bag.embedding_bag_coo_reference(rows, cols, vals, table, N)
+    want_dt = embed_bag.embedding_bag_coo_reference(cols, rows, vals, g,
+                                                    table.shape[0])
+    torch.cuda.synchronize()
+    assert embed_bag.launches == before + 2
+    assert got.dtype == want.dtype == torch.result_type(table, vals)
+    assert torch.equal(got, want)
+    assert torch.equal(d_table, want_dt)
+
+
+def test_embed_bag_kernel_64bit_offsets(cuda):
+    """A table of V * D >= 2^31 elements takes the kernel's 64-bit index
+    arithmetic."""
+    V, D, N, nnz = 2 ** 24 + 1, 128, 64, 512
+    table = torch.empty((V, D), dtype=torch.bfloat16, device=cuda).normal_()
+    rng = np.random.default_rng(4)
+    cols = rng.integers(V - 4096, V, nnz).astype(np.int32)
+    cols[:8] = V - 1
+    rows = torch.from_numpy(rng.integers(0, N, nnz).astype(np.int32)).to(cuda)
+    cols = torch.from_numpy(cols).to(cuda)
+    vals = torch.from_numpy(rng.normal(0, 1, nnz).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    got = embed_bag.launch(rows, cols, vals, table, N)
+    want = embed_bag.embedding_bag_coo_reference(rows, cols, vals, table, N)
+    torch.cuda.synchronize()
+    assert V * D >= 2 ** 31 and torch.equal(got, want)
+
+
+def test_embed_bag_autograd_on_card_matches_cpu(cuda):
+    """``embedding_bag_coo`` on the card: two launches (forward, and the
+    table's gradient), both gradients equal to the CPU's bitwise (D = 1:
+    d_values is one product per entry)."""
+    rows, cols, vals, table, g, N = _bag_operands(BAGS[0], "cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        v = vals.to(dev, copy=True).requires_grad_(True)
+        t = table.to(dev, copy=True).requires_grad_(True)
+        before = embed_bag.launches
+        y = embed_bag.embedding_bag_coo(rows.to(dev), cols.to(dev), v, t, N)
+        y.backward(g.to(dev))
+        out[str(dev)] = (y.cpu(), v.grad.cpu(), t.grad.cpu(),
+                         embed_bag.launches - before)
+    (y0, dv0, dt0, n0), (y1, dv1, dt1, n1) = out["cpu"], out[str(cuda)]
+    assert (n0, n1) == (0, 2)
+    assert torch.equal(y0, y1) and torch.equal(dt0, dt1)
+    assert torch.equal(dv0, dv1)
+
+
+def test_embed_bag_kernel_refuses_what_it_does_not_take(cuda):
+    rows = torch.zeros(4, dtype=torch.int32, device=cuda)
+    vals = torch.ones(4, device=cuda)
+    table = torch.ones(10, 3, device=cuda)
+    with pytest.raises(RuntimeError, match="is on cpu"):
+        embed_bag.launch(rows.cpu(), rows, vals, table, 2)
+    with pytest.raises(TypeError, match="int32"):
+        embed_bag.launch(rows.long(), rows, vals, table, 2)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        embed_bag.launch(rows, rows, vals, table.double(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        embed_bag.launch(rows, rows, vals, table.T, 2)
+    with pytest.raises(ValueError, match="one length"):
+        embed_bag.launch(rows, rows[:3], vals, table, 2)
+    with pytest.raises(ValueError, match="one length"):
+        embed_bag.launch(rows, rows, torch.ones(8, device=cuda)[::2], table,
+                         2)
+
+
+def test_wide_deep_training_on_card_matches_cpu(cuda):
+    """A small Wide&Deep trained for a K=4 block on batch-COO input, on the
+    card (B3, two launches a step) and on the CPU from the same weights:
+    losses ``rtol=1e-4``, parameters within ``1e-4`` of each array's
+    largest value (Adam over 4 steps)."""
+    rng = np.random.default_rng(0)
+    samples = [SparseSample(rng.choice(300, 3, replace=False), np.ones(3),
+                            300, dense=[rng.integers(0, 20, 2).astype(
+                                np.int32), rng.normal(0, 1, 5).astype(
+                                np.float32)], label=np.float32(i % 2))
+               for i in range(64)]
+
+    class ToCOO(Transformer):
+        def __call__(self, it):
+            buf = []
+            for s in it:
+                buf.append(s)
+                if len(buf) == 16:
+                    yield batch_sparse_samples(buf, [64])
+                    buf = []
+
+    class Squeezed(nn.BCECriterion):
+        def apply(self, out, y):
+            return super().apply(out[:, 0], y)
+
+    def run(dev):
+        model = WideAndDeep(300, [20, 20], 5, 8, (16, 8)).initialize(0)
+        opt = (optim.LocalOptimizer(model, DataSet.array(samples) >> ToCOO(),
+                                    Squeezed(), device=dev)
+               .set_optim_method(optim.Adam(learning_rate=0.01))
+               .set_steps_per_dispatch(4)
+               .set_end_when(optim.max_iteration(4)))
+        losses = []
+        opt._log_train_iteration = lambda lr: losses.append(opt.state["loss"])
+        embed_bag.launches = 0
+        opt.optimize()
+        return losses, model, embed_bag.launches
+
+    lc, mc, nc = run("cpu")
+    lg, mg, ng = run(cuda)
+    assert (nc, ng) == (0, 8)
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    for (k, a), (_, b) in zip(mg.state_dict().items(),
+                              mc.state_dict().items()):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4 * b.abs().max().item(),
+                                   err_msg=k)

@@ -3,8 +3,9 @@ load neither JAX nor the reference package and import with neither JAX nor
 ``triton`` installed; neither importing them nor running the plain
 versions on the CPU (an int8 GEMM, an LSTM cell step and back, one
 training step of a tiny PTB model, one bf16 step of a small NHWC ResNet
-behind a max pool fed by the image pipeline) builds or loads a kernel; and
-a kernel build that fails raises."""
+behind a max pool fed by the image pipeline, a K=2 block of a tiny
+Wide&Deep on batch-COO crossed MovieLens features) builds or loads a
+kernel; and a kernel build that fails raises."""
 
 import json
 import os
@@ -78,6 +79,41 @@ pool_net = (nn.Sequential().add(nn.SpatialMaxPooling(3, 3, 2, 2, 1, 1,
  .set_compute_dtype(torch.bfloat16)
  .set_end_when(optim.max_iteration(1)).optimize())
 assert maxpool.launches == 0
+from bigdl_tpu_torch.dataset import SparseSample, Transformer, \
+    batch_sparse_samples
+from bigdl_tpu_torch.dataset import datamining, movielens
+from bigdl_tpu_torch.models import WideAndDeep
+from bigdl_tpu_torch.ops import embed_bag
+ratings = movielens.synthetic_ratings(6, 5, 8)
+wide = datamining.CrossCol(50)([[str(r[0]) for r in ratings],
+                                [str(r[1]) for r in ratings]])
+sparse = [SparseSample(wide.col[wide.row == i].numpy(), [1.0], 50,
+                       dense=[r[:2] - 1, np.ones(3, np.float32)],
+                       label=np.float32(r[2] >= 4))
+          for i, r in enumerate(ratings)]
+
+
+class ToCOO(Transformer):
+    def __call__(self, it):
+        buf = []
+        for s in it:
+            buf.append(s)
+            if len(buf) == 4:
+                yield batch_sparse_samples(buf, [8])
+                buf = []
+
+
+class Squeezed(nn.BCECriterion):
+    def apply(self, out, y):
+        return super().apply(out[:, 0], y)
+
+
+(optim.LocalOptimizer(WideAndDeep(50, [6, 5], 3, 4, (8,)).initialize(0),
+                      DataSet.array(sparse) >> ToCOO(), Squeezed(),
+                      device="cpu")
+ .set_optim_method(optim.Adam(0.01)).set_steps_per_dispatch(2)
+ .set_end_when(optim.max_iteration(2)).optimize())
+assert embed_bag.launches == 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("jaxlib") or m == "bigdl_tpu"
              or m.startswith("bigdl_tpu."))
