@@ -12,26 +12,47 @@
 //
 // The epilogue is __fmaf_rn(acc, scale, bias): one rounding, which is what XLA
 // on the CPU gives the reference (it contracts acc*scale+bias into one FMA).
-// In dynamic mode the int32 sum is exact, so the kernel is bitwise-equal to
-// the plain version int8_matmul_reference (float64 product + round-to-odd FMA
-// emulation).  Build without --use_fast_math: it would break that parity.
+// In dynamic mode the int32 sum is exact in any order, so every variant is
+// bitwise-equal to the plain version int8_matmul_reference (float64 product +
+// round-to-odd FMA emulation).  Build without --use_fast_math: it would break
+// that parity.
 //
 // What bounds it on an H100 at ResNet-50's shapes.  weight_only runs f32 FMAs
 // on the CUDA cores (peak 67 TFLOP/s, ridge about 20 flop/byte at 3.35 TB/s).
 // At batch 32 the 3x3 convs and the late-stage 1x1 GEMMs (K >= 256) sit well
 // above that ridge and are bound by operations; the K=64 1x1 convs of stage 1
-// (M=100,352, K=64, O=64: about 16 flop/byte on the f32 input) sit at or below
-// it and are bound by bytes.  dynamic mode issues __dp4a (4 int8 products per
-// instruction) against an int8 peak of 1,979 TOP/s on the tensor cores, so its
-// bound is the bytes: the f32 output (4 bytes per result) dominates.
+// sit at or below it and are bound by bytes.  dynamic mode's products belong on
+// the tensor cores (1,979 TOP/s int8), where every ResNet-50 shape is bound by
+// its bytes: the f32 output (4 bytes per result) is most of them, and the
+// operands are re-read from L2 once per output tile that needs them.
 //
-// Design: one block computes a 64x64 output tile with 256 threads, 4x4 results
-// per thread held in registers; K is walked in shared-memory tiles (16 f32
-// values, or 64 int8 values packed as 16 words, per row).  Tiles are loaded
-// with bounds checks and zero fill, so ragged M, K and O need no padding by
-// the caller (the stem's K=147, the FC's O=1000).  This is the simple correct
-// kernel; cp.async/TMA pipelining and s8 wgmma are later work.
+// Design, dynamic mode (gemm_dynamic_wgmma): one block computes a BM x BN
+// output tile (128x128, 128x64 or 64x64; one consumer warpgroup per 64 rows),
+// the host choosing the largest tile that still gives the card's 132 SMs a
+// tile each.  A producer warp streams K in 128-byte slices of x and
+// wq with TMA (cp.async.bulk.tensor, 128-byte swizzle) into a ring of up to 4
+// stages guarded by mbarriers; the consumer warpgroups run
+// wgmma.mma_async.m64nBNk32.s32.s8.s8 straight from shared memory (both
+// operands K-major, as x (M, K) and wq (O, K) already are) with the int32 sums
+// in registers, keeping one wgmma group in flight while the next stage lands.
+// TMA's out-of-bounds zero fill masks ragged M, O and K (the FC's M=32 and
+// O=1000, K=64 against a 128-byte box), so the caller pads nothing.  The
+// epilogue stages the int32 tile through shared memory (reusing the ring) and
+// writes f32 rows with 16-byte stores.  The tensor maps are encoded on the
+// host per launch with cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint (no -lcuda), and passed as __grid_constant__.
+//
+// TMA needs 16-byte global row strides and bases: a K that is not a multiple
+// of 16 (ResNet-50's stem, K=147) or an unaligned view goes to gemm_dynamic,
+// the SIMT kernel (__dp4a, 64x64 tiles, bounds-checked loads).  The C entry
+// point chooses by stride and alignment alone and reports its choice.
+//
+// weight_only (gemm_weight_only): one block computes a 64x64 tile with 256
+// threads, 4x4 results per thread, K walked in shared-memory tiles with f32
+// FMAs; bounds-checked loads with zero fill.  wgmma after an in-register bf16
+// upcast is later work.
 
+#include <cuda.h>  // CUtensorMap and its enums only: libcuda is reached at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -187,14 +208,412 @@ __global__ void __launch_bounds__(THREADS)
   store_tile<HAS_BIAS>(accf, scale, bias, y, row0, col0, M, O);
 }
 
+
+// ---------------------------------------------------------------------------
+// dynamic: s8 wgmma fed by TMA.
+
+constexpr int BK8 = 128;      // int8 values of a row per stage: one 128-byte swizzle row
+constexpr int MAX_STAGES = 4;
+constexpr int SMEM_PER_BLOCK = 113 * 1024;  // so that two blocks share an SM
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` of `bar` has completed.  A wait
+// that never ends (a broken pipeline) traps, so the launch fails instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  uint32_t spins = 0;
+  do {
+    if (++spins == (1u << 30)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 2D TMA tile (box {BK8, rows} at column k, row `row`) into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int k,
+                                         int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k), "r"(row)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile of 128-byte rows in the 128-byte swizzle
+// (8-row atoms of 1024 bytes, so the stride byte offset is 1024; the leading
+// byte offset is unused for this layout).  The tile must be 1024-byte aligned.
+// Adding 2 (32 bytes >> 4) steps one k32 slice along the row.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d[0..31] += A(64x32, smem desc a) * B(64x32, smem desc b)^T, int8 -> int32
+__device__ __forceinline__ void wgmma_m64n64k32(int (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d[0..63] += A(64x32, smem desc a) * B(128x32, smem desc b)^T, int8 -> int32
+__device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tile(int (&d)[N / 2], uint64_t a, uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_tile<64>(int (&d)[32], uint64_t a, uint64_t b) {
+  wgmma_m64n64k32(d, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_tile<128>(int (&d)[64], uint64_t a, uint64_t b) {
+  wgmma_m64n128k32(d, a, b);
+}
+
+// Keeps the compiler from moving accumulator reads or writes across wgmma's
+// asynchronous window.
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void consumers_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+}
+
+// Bytes of dynamic shared memory a block of this shape asks for.
+__host__ __device__ constexpr int wgmma_stage_bytes(int nwg, int bn) {
+  return (64 * nwg + bn) * BK8;
+}
+__host__ __device__ constexpr int wgmma_staging_bytes(int nwg, int bn) {
+  return 64 * nwg * (bn + 8) * 4;
+}
+__host__ __device__ inline int wgmma_area(int nwg, int bn, int stages) {
+  const int ring = stages * wgmma_stage_bytes(nwg, bn);
+  const int staging = wgmma_staging_bytes(nwg, bn);
+  return ring > staging ? ring : staging;
+}
+__host__ __device__ inline int wgmma_smem_bytes(int nwg, int bn, int stages) {
+  return 1024 + wgmma_area(nwg, bn, stages) + 2 * MAX_STAGES * 8;
+}
+
+// Block: NWG consumer warpgroups (warps 0 .. 4*NWG-1, 64 output rows each),
+// then one producer warp.  Grid: one block per output tile, the O tile
+// fastest, so neighbouring blocks share an x tile in L2.
+template <int NWG, int BN, bool HAS_BIAS>
+__global__ void __launch_bounds__(NWG * 128 + 32)
+    gemm_dynamic_wgmma(const __grid_constant__ CUtensorMap map_x,
+                       const __grid_constant__ CUtensorMap map_w, const float* __restrict__ scale,
+                       const float* __restrict__ bias, float* __restrict__ y, int M, int K, int O,
+                       int stages, int tiles_o, int vec) {
+  constexpr int BM = 64 * NWG;
+  constexpr int A_BYTES = BM * BK8;
+  constexpr int STAGE_BYTES = wgmma_stage_bytes(NWG, BN);
+  constexpr int PITCH = BN + 8;  // staging row pitch (int32): conflict-free 8-byte stores
+  constexpr int CONSUMERS = NWG * 128;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + wgmma_area(NWG, BN, stages));
+  uint64_t* empty = full + MAX_STAGES;
+  const int n0 = (blockIdx.x % tiles_o) * BN;
+  const int m0 = (blockIdx.x / tiles_o) * BM;
+  const int ktiles = (K + BK8 - 1) / BK8;
+  const int warp = threadIdx.x / 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * NWG) {  // producer: one thread keeps the ring full
+    if (threadIdx.x % 32 == 0) {
+      int s = 0, phase = 0;
+      for (int kt = 0; kt < ktiles; ++kt) {
+        mbar_wait(&empty[s], phase ^ 1);
+        mbar_expect_tx(&full[s], STAGE_BYTES);  // out-of-bounds fill counts in full
+        uint8_t* a = smem + s * STAGE_BYTES;
+        tma_load(a, &map_x, &full[s], kt * BK8, m0);
+        tma_load(a + A_BYTES, &map_w, &full[s], kt * BK8, n0);
+        if (++s == stages) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns output rows 64*wg .. 64*wg+63 of the tile
+  const int wg = warp / 4;
+  int acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+  const uint64_t desc_a = sw128_desc(smem + wg * 64 * BK8);
+  const uint64_t desc_b = sw128_desc(smem + A_BYTES);
+  int s = 0, phase = 0, prev = -1;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    mbar_wait(&full[s], phase);
+    const uint64_t off = static_cast<uint64_t>(s * STAGE_BYTES) >> 4;
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < BK8 / 32; ++kk)
+      wgmma_tile<BN>(acc, desc_a + off + 2 * kk, desc_b + off + 2 * kk);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // the previous stage's products are done: hand its buffers back
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    fence_acc(acc);
+    if (prev >= 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[prev]);
+    prev = s;
+    if (++s == stages) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(acc);
+
+  // epilogue: every consumer is done with the ring, so it becomes the staging
+  // tile; accumulator layout of m64nBN: thread (warp w, lane l) holds rows
+  // 16w + l/4 (+8) and columns 8j + 2(l%4) (+1)
+  consumers_sync(CONSUMERS);
+  int* st = reinterpret_cast<int*>(smem);
+  {
+    const int t = threadIdx.x % 128;
+    const int r = 64 * wg + 16 * (t / 32) + (t % 32) / 4;
+    const int c = 2 * (t % 4);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      *reinterpret_cast<int2*>(&st[r * PITCH + 8 * j + c]) = make_int2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<int2*>(&st[(r + 8) * PITCH + 8 * j + c]) =
+          make_int2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+  consumers_sync(CONSUMERS);
+  // four neighbouring columns a thread, rows across the block
+  constexpr int TPR = BN / 4;
+  const int c = (threadIdx.x % TPR) * 4;
+  const int gc = n0 + c;
+  if (gc >= O) return;
+  float sc[4], bi[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    sc[e] = gc + e < O ? scale[gc + e] : 0.f;
+    bi[e] = HAS_BIAS && gc + e < O ? bias[gc + e] : 0.f;
+  }
+  const bool full_vec = vec && gc + 3 < O;
+  for (int r = threadIdx.x / TPR; r < BM; r += CONSUMERS / TPR) {
+    const int gr = m0 + r;
+    if (gr >= M) break;
+    const int4 a = *reinterpret_cast<const int4*>(&st[r * PITCH + c]);
+    const int av[4] = {a.x, a.y, a.z, a.w};
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float f = __int2float_rn(av[e]);
+      v[e] = HAS_BIAS ? __fmaf_rn(f, sc[e], bi[e]) : __fmul_rn(f, sc[e]);
+    }
+    float* out = y + static_cast<size_t>(gr) * O + gc;
+    if (full_vec) {
+      *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (gc + e < O) out[e] = v[e];
+    }
+  }
+}
+
+}  // namespace
+
+namespace {
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is driver API; the runtime hands out its entry point,
+// so the library needs no -lcuda.
+EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A (rows, K) row-major int8 matrix cut in boxes of box_rows x 128 bytes,
+// 128-byte swizzle, zeros out of bounds.
+bool encode_s8(CUtensorMap* map, const void* base, int rows, int K, int box_rows) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(BK8), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// Can TMA describe x (M, K) and wq (O, K)?  16-byte row strides and bases.
+bool tma_ok(const void* x, const void* wq, int K) {
+  return K % 16 == 0 && aligned16(x) && aligned16(wq);
+}
+
+template <int NWG, int BN, bool HAS_BIAS>
+int launch_wgmma(const void* x, const void* wq, const float* sc, const float* b, float* y, int M,
+                 int K, int O, cudaStream_t s, int* info) {
+  constexpr int BM = 64 * NWG;
+  const int ktiles = (K + BK8 - 1) / BK8;
+  // as deep a ring as K needs and two blocks an SM allow
+  int stages = 1;
+  while (stages < MAX_STAGES && stages < ktiles &&
+         wgmma_smem_bytes(NWG, BN, stages + 1) <= SMEM_PER_BLOCK)
+    ++stages;
+  const int smem = wgmma_smem_bytes(NWG, BN, stages);
+  CUtensorMap map_x, map_w;
+  if (!encode_s8(&map_x, x, M, K, BM) || !encode_s8(&map_w, wq, O, K, BN))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = gemm_dynamic_wgmma<NWG, BN, HAS_BIAS>;
+  // the attribute is per function and device: set once for each device
+  static unsigned long long sized = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(sized & bit)) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_PER_BLOCK);
+    if (e != cudaSuccess) return (int)e;
+    sized |= bit;
+  }
+  const int tiles_o = (O + BN - 1) / BN;
+  const int tiles = tiles_o * ((M + BM - 1) / BM);
+  const int vec = O % 4 == 0 && aligned16(y) && aligned16(sc) && (b == nullptr || aligned16(b));
+  kernel<<<tiles, NWG * 128 + 32, smem, s>>>(map_x, map_w, sc, b, y, M, K, O, stages, tiles_o,
+                                             vec);
+  info[0] = 2;
+  info[1] = BM;
+  info[2] = BN;
+  info[3] = stages;
+  info[4] = tiles;
+  return (int)cudaGetLastError();
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
+}
+
+// The tile of the wgmma variant: the largest of 128x128, 128x64 and 64x64
+// (rows x columns) that still gives every SM a block, never wider than O or
+// taller than M needs; 64x64 when none does.
+template <bool HAS_BIAS>
+int dispatch_wgmma(const void* x, const void* wq, const float* sc, const float* b, float* y,
+                   int M, int K, int O, cudaStream_t s, int* info) {
+  const long tiles_m128 = (M + 127) / 128;
+  if (M > 64) {
+    if (O > 64 && tiles_m128 * ((O + 127) / 128) >= sm_count())
+      return launch_wgmma<2, 128, HAS_BIAS>(x, wq, sc, b, y, M, K, O, s, info);
+    if (tiles_m128 * ((O + 63) / 64) >= sm_count())
+      return launch_wgmma<2, 64, HAS_BIAS>(x, wq, sc, b, y, M, K, O, s, info);
+  }
+  return launch_wgmma<1, 64, HAS_BIAS>(x, wq, sc, b, y, M, K, O, s, info);
+}
+
 }  // namespace
 
 // mode: 0 weight_only, 1 dynamic.  x_dtype: 0 f32, 1 bf16, 2 int8.
 // Launches on `stream` and returns cudaGetLastError() (0 on success); an
 // unsupported mode/dtype pair returns cudaErrorInvalidValue without launching.
+// info (5 ints) receives the variant that ran: {0 SIMT weight_only | 1 SIMT
+// dynamic | 2 wgmma dynamic, tile rows, tile columns, stages (0 for SIMT),
+// blocks}.  Dynamic mode takes the wgmma variant whenever TMA can describe the
+// operands (K a multiple of 16, 16-byte-aligned bases), the SIMT one otherwise.
 extern "C" int bigdl_int8_gemm(int mode, int x_dtype, int has_bias, const void* x, const void* wq,
                                const void* scale, const void* bias, void* y, int M, int K, int O,
-                               void* stream) {
+                               void* stream, int* info) {
   if (M <= 0 || K <= 0 || O <= 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((M + BM - 1) / BM, (O + BN - 1) / BN);
   const dim3 block(THREADS);
@@ -203,6 +622,15 @@ extern "C" int bigdl_int8_gemm(int mode, int x_dtype, int has_bias, const void* 
   const float* sc = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
   float* out = static_cast<float*>(y);
+  info[0] = mode == 0 ? 0 : 1;
+  info[1] = BM;
+  info[2] = BN;
+  info[3] = 0;
+  info[4] = (int)(grid.x * grid.y);
+  if (mode == 1 && x_dtype == 2 && tma_ok(x, wq, K)) {
+    return has_bias ? dispatch_wgmma<true>(x, wq, sc, b, out, M, K, O, s, info)
+                    : dispatch_wgmma<false>(x, wq, sc, b, out, M, K, O, s, info);
+  }
   if (mode == 0 && x_dtype == 0) {
     const float* xp = static_cast<const float*>(x);
     if (has_bias)

@@ -304,12 +304,17 @@ class MTSampleToMiniBatch(Transformer):
             # drain so the producer sees `stop`, then reap it
             while True:
                 try:
+                    # drained items are DATA batches discarded so the
+                    # producer can observe `stop` — no futures ride
+                    # this queue; graftlint: disable=GL203
                     out_q.get_nowait()
                 except queue.Empty:
                     break
             t.join(timeout=5.0)
-            while True:
+            while True:  # items put during the join window
                 try:
+                    # same deliberate discard as above
+                    # graftlint: disable=GL203
                     out_q.get_nowait()
                 except queue.Empty:
                     break

@@ -23,7 +23,13 @@ matmul on the card, which is one more reason the plain product is float64:
 for int8 operands it is exact up to K ~ 2**53 / 127**2.
 
 ``launches`` counts kernel launches (never plain-version calls), so a run
-can show that its main path went through the kernel.
+can show that its main path went through the kernel.  The C entry point
+picks one of three variants and says which: ``simt_weight_only``,
+``simt_dynamic`` (dynamic mode where TMA cannot describe the operands: K
+not a multiple of 16, as at ResNet-50's stem, or an unaligned base) and
+``wgmma_dynamic`` (s8 ``wgmma`` fed by TMA).  ``variant_launches`` counts
+each beside ``launches``, and ``last_variant`` holds the last launch's
+``(variant, tile rows, tile columns, stages, blocks)``.
 """
 
 from __future__ import annotations
@@ -39,6 +45,12 @@ MODES = ("weight_only", "dynamic")
 
 #: kernel launches since the last reset (plain int; reset by assigning 0)
 launches = 0
+VARIANTS = ("simt_weight_only", "simt_dynamic", "wgmma_dynamic")
+#: launches of each variant since the last reset (reset with
+#: :func:`reset_counts`)
+variant_launches = dict.fromkeys(VARIANTS, 0)
+#: (variant, tile rows, tile columns, stages, blocks) of the last launch
+last_variant = None
 
 # int32 accumulator: K * 127 * 127 must stay below 2**31
 _MAX_K_DYNAMIC = (2 ** 31 - 1) // (127 * 127)
@@ -150,6 +162,14 @@ def int8_gemm(xin: torch.Tensor, wq: torch.Tensor, scale_row: torch.Tensor,
     raise RuntimeError(f"the int8 GEMM has no version for {xin.device}")
 
 
+def reset_counts() -> None:
+    """Set ``launches`` and every ``variant_launches`` count to 0."""
+    global launches
+    launches = 0
+    for v in VARIANTS:
+        variant_launches[v] = 0
+
+
 def _kernel_fn():
     """The kernel's C entry point with its ctypes signature, resolved on
     first use (that builds the library) and kept."""
@@ -158,7 +178,7 @@ def _kernel_fn():
         fn = _build.load("int8_gemm").bigdl_int8_gemm
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
         _fn = fn
     return _fn
 
@@ -168,7 +188,7 @@ def launch(xin: torch.Tensor, wq: torch.Tensor, scale_row: torch.Tensor,
     """Launch the CUDA kernel on prepared operands (what
     :func:`int8_matmul_reference` takes); the mode follows ``xin``'s dtype
     (int8 = dynamic).  Raises on anything the kernel does not take."""
-    global launches
+    global launches, last_variant
     dev = xin.device
     if dev.type != "cuda":
         raise RuntimeError(f"the int8 GEMM kernel runs on CUDA, not {dev}")
@@ -197,14 +217,18 @@ def launch(xin: torch.Tensor, wq: torch.Tensor, scale_row: torch.Tensor,
     xin = xin.contiguous()
     wq = wq.contiguous()
     fn = _kernel_fn()
+    info = (ctypes.c_int * 5)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(mode, _X_DTYPE_CODE[xin.dtype], int(bias_row is not None),
                  xin.data_ptr(), wq.data_ptr(), scale_row.data_ptr(),
                  None if bias_row is None else bias_row.data_ptr(),
-                 y.data_ptr(), M, K, O, stream)
+                 y.data_ptr(), M, K, O, stream, info)
     if err != 0:
         raise RuntimeError(f"int8 GEMM kernel launch failed: cudaError {err} "
                            f"(M={M}, K={K}, O={O}, x {xin.dtype})")
     launches += 1
+    variant = VARIANTS[info[0]]
+    variant_launches[variant] += 1
+    last_variant = (variant,) + tuple(info[1:])
     return y

@@ -17,6 +17,9 @@ H and N themselves.
 
 ``fwd_launches`` and ``bwd_launches`` count kernel launches (never
 plain-version calls), so a run can show that its path went through them.
+``last_fwd_shape`` holds the last forward launch's ``(CTAs, cluster size,
+copy width in bytes, batch rows a cluster)``: the forward spreads the
+recurrent product's K=H over a cluster of CTAs.
 """
 
 from __future__ import annotations
@@ -30,6 +33,9 @@ from bigdl_tpu_torch.ops import _build
 #: kernel launches since the last reset (plain ints; reset by assigning 0)
 fwd_launches = 0
 bwd_launches = 0
+#: (CTAs, cluster size, copy width in bytes, batch rows a cluster) of the
+#: last forward launch
+last_fwd_shape = None
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fns = {}  # C entry points, see _kernel_fn
@@ -73,7 +79,8 @@ def _kernel_fn(name: str):
         fn.restype = ctypes.c_int
         n_ptr = {"fwd": 7, "bwd": 6}[name]  # tensors, then N, H, bias, stream
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptr
-                       + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
+                       + [ctypes.c_void_p] * (name == "fwd"))  # fwd: info
         _fns[name] = fn
     return fn
 
@@ -89,12 +96,12 @@ def _check(tensors, shapes, dtypes, dev):
                             + ("" if t.is_contiguous() else " strided"))
 
 
-def _launch(name, code, args, N, H, forget_bias, dev):
+def _launch(name, code, args, N, H, forget_bias, dev, *extra):
     fn = _kernel_fn(name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(code, *(t.data_ptr() for t in args), N, H,
-                 float(forget_bias), stream)
+                 float(forget_bias), stream, *extra)
     if err != 0:
         raise RuntimeError(f"LSTM cell {name} kernel launch failed: cudaError "
                            f"{err} (N={N}, H={H})")
@@ -103,7 +110,7 @@ def _launch(name, code, args, N, H, forget_bias, dev):
 def launch_fwd(zx, h, c, w_t, forget_bias: float = 0.0):
     """Launch the forward kernel (what :func:`lstm_cell_fwd_reference`
     takes and returns).  Raises on anything the kernel does not take."""
-    global fwd_launches
+    global fwd_launches, last_fwd_shape
     dev = zx.device
     if dev.type != "cuda":
         raise RuntimeError(f"the LSTM cell kernel runs on CUDA, not {dev}")
@@ -116,9 +123,11 @@ def launch_fwd(zx, h, c, w_t, forget_bias: float = 0.0):
     c_new = torch.empty_like(c)
     z = torch.empty((N, 4 * H), dtype=torch.float32, device=dev)
     if N:
+        info = (ctypes.c_int * 4)()
         _launch("fwd", _DTYPE_CODE[zx.dtype], (zx, h, c, w_t, h_new, c_new, z),
-                N, H, forget_bias, dev)
+                N, H, forget_bias, dev, info)
         fwd_launches += 1
+        last_fwd_shape = tuple(info)
     return h_new, c_new, z
 
 

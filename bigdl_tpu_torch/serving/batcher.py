@@ -200,7 +200,7 @@ class RequestBatcher:
         # detection one poll
         return (self._thread is not None
                 and not self._thread.is_alive()
-                and not self._closed)
+                and not self._closed)  # graftlint: disable=GL201
 
     def close(self, drain: bool = True,
               timeout: Optional[float] = None) -> int:

@@ -10,6 +10,7 @@ scaling is needed.  The reference's ``stochastic_round`` (and SGD's bf16
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
@@ -18,9 +19,17 @@ from torch.func import functional_call
 
 def cast_floating(tree, dtype: torch.dtype):
     """Cast only the floating tensors of a tensor, or of a dict, list or
-    tuple of them, to ``dtype``; others pass through.  The cast is
-    differentiable: the gradient of a downcast comes back in the
-    original dtype."""
+    tuple of them, to ``dtype``; others pass through.  A
+    :class:`~bigdl_tpu_torch.nn.sparse.COOBatch` is walked as the
+    reference's pytree registration walks it: its ``values`` are cast, its
+    ``row``, ``col`` and ``dense_shape`` kept.  The cast is
+    differentiable: the gradient of a downcast comes back in the original
+    dtype."""
+    # imported here: nn/ imports utils/, so a module-level import cycles
+    from bigdl_tpu_torch.nn.sparse import COOBatch
+    if isinstance(tree, COOBatch):
+        return dataclasses.replace(
+            tree, values=cast_floating(tree.values, dtype))
     if isinstance(tree, dict):
         return {k: cast_floating(v, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

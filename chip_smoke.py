@@ -24,19 +24,24 @@ its weight gradient running kernel B3.  Phases, each printing its seconds:
    (and the same K, O at 1 and 37 rows), in both modes, with and without
    bias, weight_only in f32 and bf16, against ``int8_matmul_reference``
    on the card (dynamic bitwise, weight_only within ``rtol=1e-5,
-   atol=1e-5*max|y|``), then kernel, plain and library times with CUDA
-   events and the least time the card could take (the bound);
+   atol=1e-5*max|y|``) and the variant each dynamic GEMM took (the SIMT
+   kernel where TMA cannot describe the rows, the wgmma one elsewhere),
+   then per shape and summed per forward the kernel's and the library
+   call's device time (torch.profiler), event-timed loops of kernel, plain
+   version and library call, and the least time the card could take (the
+   bound);
 4. int8 profile phase, per mode: device time by kernel of one batch-32
    forward (torch.profiler) against its wall time;
 5. serving phase, per mode: 8 client threads x 16 requests of 1-4 rows,
    then 4 sampled requests served alone that must agree with the same
    model run on the CPU through the plain versions within 1e-5 of
    max|y|, a limit that two planted faults must exceed; the kernel's launch
-   count must equal 54 x dispatches and warmup must not grow;
-6. LSTM kernel phase: B2f and B2b against their plain versions at four
-   (N, H) shapes, f32 and bf16, forget_bias 0 and 1, then their times at
-   (20, 650) f32 beside the bound, the plain version and PyTorch's fused
-   cell;
+   count must equal 54 x dispatches (in dynamic mode 1 SIMT, the stem, and
+   53 wgmma) and warmup must not grow;
+6. LSTM kernel phase: B2f and B2b against their plain versions at the
+   six (N, H) shapes of ``CELL_SHAPES``, f32 and bf16, forget_bias 0 and
+   1, then their times at (20, 650) f32 beside the bound, the plain
+   version and PyTorch's fused cell, with B2f's CTAs and cluster size;
 7. training phase: one K=8 block on the card against the same steps on
    the CPU through the plain versions (within ``TRAIN_TOL``, a limit two
    planted faults must exceed); four timed blocks (words/s, ms per step,
@@ -147,7 +152,10 @@ LSTM_KERNELS = {
                       "source": "bigdl_tpu_torch/csrc/lstm_cell.cu",
                       "replaces": "bigdl_tpu/ops/pallas_lstm.py:181"},
 }
-CELL_SHAPES = [(20, 650), (1, 64), (5, 130), (37, 650)]
+# (N, H): PTB-medium's, tiny, ragged, N above one 32-row batch tile (37, 64),
+# and an odd H (333) that the forward's eight K slices do not divide and whose
+# bf16 rows take its plain-load copies
+CELL_SHAPES = [(20, 650), (1, 64), (5, 130), (37, 650), (64, 650), (20, 333)]
 # elementwise operations per hidden unit (transcendentals counted as one)
 CELL_EW_OPS = {"lstm_cell_fwd": 20, "lstm_cell_bwd": 36}
 # kernel against plain version (rtol = atol): bf16 results within one bf16
@@ -232,27 +240,99 @@ def cuda_ms(fn, budget_ms=30.0):
     return start.elapsed_time(end) / iters
 
 
+def sentinel():
+    """A short spin kernel at the head of a profiled window, waited for:
+    the trace can miss a session's first launches, and these it may miss.
+    :func:`device_time` leaves it out."""
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+def per_call_ms(kernels, calls):
+    """{kernel: device ms per call} from a trace of ``calls`` calls: each
+    kernel's mean time over the launches the trace holds, times its
+    launches per call (a kernel seen fewer than calls / 2 times is no part
+    of a call).  The trace can drop a launch or two of a long session, so
+    a plain sum over the trace would read a little low."""
+    return {name: ms / n * round(n / calls)
+            for name, ms, n in kernels if round(n / calls) > 0}
+
+
+def profiled_kernels(run, tries=3):
+    """The kernels list (:func:`device_time`) of one torch.profiler session
+    around ``run()``, after the :func:`sentinel`.  Now and then a session's
+    trace holds no kernel at all; such a session is taken again, up to
+    ``tries`` times, then fails."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sentinel()
+            run()
+            torch.cuda.synchronize()
+        _, kernels, _ = device_time(prof)
+        if kernels:
+            return kernels
+        print("profiler: a trace held no kernel; taken again")
+    raise AssertionError(f"the profiler saw no device time in {tries} "
+                         f"sessions")
+
+
 def device_ms(fn, calls=50, split=None):
     """Device milliseconds of one call of ``fn``: the device time of the
-    kernels it launches (torch.profiler), summed over ``calls`` calls after
-    a warmup and divided by ``calls``.  The host's gaps between launches
-    are left out; for a call of a few microseconds of device work they are
-    most of what :func:`cuda_ms` measures.  A ``split`` list receives
-    (kernel, ms per call) of each kernel."""
-    from torch.profiler import ProfilerActivity, profile
+    kernels it launches (torch.profiler) over ``calls`` calls after a
+    warmup, per call (:func:`per_call_ms`).  The host's gaps between
+    launches are left out; for a call of a few microseconds of device
+    work they are most of what :func:`cuda_ms` measures.  A ``split``
+    list receives (kernel, ms per call) of each kernel."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    busy_ms, kernels, _ = device_time(prof)
-    if busy_ms == 0:
-        raise AssertionError("the profiler saw no device time")
+
+    for _ in range(3):  # a trace that lost most launches is taken again
+        per_call = per_call_ms(profiled_kernels(run), calls)
+        if per_call:
+            break
+        print("profiler: a trace lost most launches; taken again")
+    else:
+        raise AssertionError("the profiler saw no kernel of every call")
     if split is not None:
-        split += [(name, ms / calls) for name, ms, _ in kernels]
-    return busy_ms / calls
+        split += list(per_call.items())
+    return sum(per_call.values())
+
+
+def gemm_device_ms(k_fn, l_fn, calls=20):
+    """(kernel, library) device milliseconds a call: ``calls`` calls of each
+    after a warmup, in one torch.profiler session, per call
+    (:func:`per_call_ms`), the port's kernels told from the library's by
+    name (``gemm_dynamic*``, ``gemm_weight_only``); library None when
+    ``l_fn`` is None."""
+    fns = [k_fn] + ([l_fn] if l_fn is not None else [])
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for fn in fns:
+            for _ in range(calls):
+                fn()
+
+    def ours(name):
+        return "gemm_dynamic" in name or "gemm_weight_only" in name
+
+    for _ in range(3):  # a trace that lost the kernel's launches: again
+        per_call = per_call_ms(profiled_kernels(run), calls)
+        mine = sum(ms for name, ms in per_call.items() if ours(name))
+        if mine > 0:
+            break
+        print("profiler: a trace lost the kernel's launches; taken again")
+    else:
+        raise AssertionError("the profiler saw no device time of the kernel")
+    lib = sum(per_call.values()) - mine
+    return mine, (lib if l_fn is not None else None)
 
 
 def bound(M, K, O, bias, xdtype):
@@ -299,6 +379,7 @@ def kernel_phase(shapes, device, card, report):
         counts[s] = counts.get(s, 0) + 1
     errs = {"float32": 0.0, "bfloat16": 0.0, "int8": 0.0}
     n_checked = 0
+    variants = {}  # (m, K, O, xdtype) -> the variant the C entry point took
     for (M, K, O, _) in counts:
         for m in (M, 1, 37):
             for xdtype in ("float32", "bfloat16", "int8"):
@@ -306,6 +387,7 @@ def kernel_phase(shapes, device, card, report):
                     xin, wq, scale, b = operands(m, K, O, xdtype, bias, gen,
                                                  device)
                     got = int8_gemm.launch(xin, wq, scale, b)
+                    variants[m, K, O, xdtype] = int8_gemm.last_variant
                     want = int8_matmul_reference(xin, wq, scale, b)
                     torch.cuda.synchronize()
                     err = (got - want).abs().max().item()
@@ -325,39 +407,66 @@ def kernel_phase(shapes, device, card, report):
     print(f"kernel check: {n_checked} GEMMs vs int8_matmul_reference; "
           f"dynamic bitwise; max abs err f32 {errs['float32']:.3e} "
           f"bf16 {errs['bfloat16']:.3e} int8 {errs['int8']:.3e}")
+    taken = {}
+    for (m, K, O, xdtype), v in variants.items():
+        if xdtype == "int8":
+            taken.setdefault(v[0], []).append(f"{m}x{K}x{O}")
+    for v, cases in sorted(taken.items()):
+        print(f"  dynamic variant {v}: {len(cases)} checked GEMMs "
+              f"({', '.join(cases[:6])}{', ...' if len(cases) > 6 else ''})")
 
     totals = {}
     for (M, K, O, bias), n in counts.items():
         for xdtype in ("float32", "int8"):
             mode = "dynamic" if xdtype == "int8" else "weight_only"
             xin, wq, scale, b = operands(M, K, O, xdtype, bias, gen, device)
-            k_ms = cuda_ms(lambda: int8_gemm.launch(xin, wq, scale, b))
-            p_ms = cuda_ms(lambda: int8_matmul_reference(xin, wq, scale, b),
-                           budget_ms=10.0)
+            k_fn = lambda: int8_gemm.launch(xin, wq, scale, b)  # noqa: E731
             lib = library_call(xin, wq, scale, b, xdtype)
-            l_ms = cuda_ms(lib) if lib is not None else None
+            # device time (torch.profiler): the kernel and the library call
+            # in one session, told apart by the kernels' names
+            k_ms, l_ms = gemm_device_ms(k_fn, lib)
+            variant = int8_gemm.last_variant
+            # event-timed loops, the host's launch gaps included
+            k_ev = cuda_ms(k_fn)
+            p_ev = cuda_ms(lambda: int8_matmul_reference(xin, wq, scale, b),
+                           budget_ms=10.0)
+            l_ev = cuda_ms(lib) if lib is not None else None
             b_ms, b_by, peak = bound(M, K, O, bias, xdtype)
             row = {"mode": mode, "M": M, "K": K, "O": O, "bias": bias,
-                   "launches_per_forward": n, "kernel_ms": k_ms,
-                   "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+                   "launches_per_forward": n, "variant": list(variant),
+                   "kernel_ms": k_ms, "library_ms": l_ms,
+                   "kernel_event_ms": k_ev, "plain_event_ms": p_ev,
+                   "library_event_ms": l_ev, "bound_ms": b_ms,
                    "bound_by": b_by, "peak": peak}
             report["shapes"].append(row)
-            lib_txt = "n/a" if l_ms is None else f"{l_ms:.4f}"
+            fmt = lambda v: "n/a" if v is None else f"{v:.4f}"  # noqa: E731
             print(f"gemm {mode:11s} M={M:6d} K={K:4d} O={O:4d} "
-                  f"bias={int(bias)} x{n}: kernel_ms={k_ms:.4f} "
-                  f"plain_ms={p_ms:.4f} library_ms={lib_txt} "
-                  f"bound_ms={b_ms:.4f} ({b_by}, peak {peak / 1e12:.0f}T) "
-                  f"[{card}]")
+                  f"bias={int(bias)} x{n} {variant[0]} tile {variant[1]}x"
+                  f"{variant[2]} stages {variant[3]} blocks {variant[4]}: "
+                  f"device ms kernel={k_ms:.4f} library={fmt(l_ms)} "
+                  f"bound={b_ms:.4f} ({b_by}, peak {peak / 1e12:.0f}T); "
+                  f"event-timed kernel={k_ev:.4f} plain={p_ev:.4f} "
+                  f"library={fmt(l_ev)} [{card}]")
             t = totals.setdefault(mode, {
-                "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0})
+                "ms": 0.0, "event_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "library_ms": 0.0, "library_event_ms": 0.0, "bytes_ms": 0.0,
+                "ops_ms": 0.0, "variants": {}})
             t["ms"] += n * k_ms
-            t["plain_ms"] += n * p_ms
+            t["event_ms"] += n * k_ev
+            t["plain_ms"] += n * p_ev
             t["bound_ms"] += n * b_ms
-            t["library_ms"] = (None if l_ms is None or t["library_ms"] is None
-                               else t["library_ms"] + n * l_ms)
+            for key, v in (("library_ms", l_ms), ("library_event_ms", l_ev)):
+                t[key] = None if v is None or t[key] is None \
+                    else t[key] + n * v
             t["bytes_ms" if b_by == "bytes" else "ops_ms"] += n * b_ms
+            t["variants"][variant[0]] = t["variants"].get(variant[0], 0) + n
             del xin, wq, scale, b
+    for mode, t in totals.items():
+        lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+        print(f"gemm {mode} per batch-{BATCH} forward ({sum(counts.values())} "
+              f"launches: {t['variants']}): device ms kernel={t['ms']:.4f} "
+              f"library={lib} bound={t['bound_ms']:.4f}; event-timed kernel="
+              f"{t['event_ms']:.4f} plain={t['plain_ms']:.4f} [{card}]")
     for mode, t in totals.items():
         t["max_abs_err"] = errs["int8" if mode == "dynamic" else "float32"]
     return totals
@@ -369,14 +478,16 @@ def device_time(prof):
     the kernel-side events (each launch counted once).  The ops are the
     host-side aten operations that launched kernels and carry the same
     device time; the port's own kernels, launched through ctypes, appear
-    only among the kernels."""
+    only among the kernels.  The :func:`sentinel` spin is left out."""
     from torch.autograd import DeviceType
     events = prof.key_averages()
 
     def by_time(kind):
         return sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                        for e in events if e.device_type == kind
-                       and e.self_device_time_total > 0),
+                       and e.self_device_time_total > 0
+                       and "spin_kernel" not in e.key
+                       and e.key != "aten::_sleep"),
                       key=lambda t: -t[1])
     kernels = by_time(DeviceType.CUDA)
     return sum(ms for _, ms, _ in kernels), kernels, by_time(DeviceType.CPU)
@@ -473,7 +584,7 @@ def serving_phase(mode, seed, device, card, report):
             except Exception as e:  # re-raised below
                 errors.append(e)
 
-        int8_gemm.launches = 0
+        int8_gemm.reset_counts()
         threads = [threading.Thread(target=client, args=(t,))
                    for t in range(8)]
         t0 = time.monotonic()
@@ -493,11 +604,19 @@ def serving_phase(mode, seed, device, card, report):
                               + SPEC[0]).astype(np.float32) for _ in range(4)]
         served = [reg.predict("resnet50", x, timeout=300) for x in samples]
         launches = int8_gemm.launches
+        variants = {v: n for v, n in int8_gemm.variant_launches.items() if n}
         dispatches = svc.stats()["dispatch_count"]
         peak_mem = torch.cuda.max_memory_allocated()
     if launches != 54 * dispatches or dispatches == 0:
         raise AssertionError(f"{mode}: {launches} kernel launches for "
                              f"{dispatches} dispatches (want 54 each)")
+    # dynamic: the stem's K=147 rows are no 16-byte multiple, so it takes the
+    # SIMT variant; the 53 others the wgmma one
+    want = ({"simt_weight_only": launches} if mode == "weight_only" else
+            {"simt_dynamic": dispatches, "wgmma_dynamic": 53 * dispatches})
+    if variants != want:
+        raise AssertionError(f"{mode}: variant launches {variants}, want "
+                             f"{want}")
     if stats["compile_count"] != warm or stats["requests_failed"]:
         raise AssertionError(f"{mode}: warmup grew or requests failed: "
                              f"{stats}")
@@ -521,7 +640,8 @@ def serving_phase(mode, seed, device, card, report):
     lat = stats["latency_ms"]
     print(f"serve {mode}: {stats['requests_completed']} rows in "
           f"{stats['dispatch_count']} coalesced dispatches + 4 lone; "
-          f"{launches} kernel launches for {dispatches} dispatches, "
+          f"{launches} kernel launches for {dispatches} dispatches "
+          f"({variants}), "
           f"throughput_rps={stats['throughput_rps']} "
           f"p50_ms={lat['p50']} p99_ms={lat['p99']} "
           f"occupancy={stats['mean_batch_occupancy']} "
@@ -529,7 +649,8 @@ def serving_phase(mode, seed, device, card, report):
           f"wall_s={wall:.2f} max_memory_allocated={peak_mem} "
           f"cpu_rel_err={worst:.3e} (tol {SERVE_TOL[mode]}) [{card}]")
     report["serving"][mode] = {
-        "stats": stats, "launches": launches, "deploy_s": deploy_s,
+        "stats": stats, "launches": launches, "variant_launches": variants,
+        "deploy_s": deploy_s,
         "wall_s": wall, "max_memory_allocated": peak_mem,
         "cpu_rel_err": worst, "planted_fault_rel_err": faults}
     return launches
@@ -668,9 +789,16 @@ def lstm_kernel_phase(device, card, report):
                         "max_abs_err_bf16": errs[kernel, "bfloat16"],
                         "event_ms": k_ev, "plain_event_ms": p_ev,
                         "library_event_ms": l_ev}
+        grid = ""
+        if kernel == "lstm_cell_fwd":
+            ctas, cluster, copy_bytes, tile = lstm_cell.last_fwd_shape
+            rows[kernel].update(ctas=ctas, cluster=cluster,
+                                copy_bytes=copy_bytes)
+            grid = (f" [{ctas} CTAs in clusters of {cluster}, "
+                    f"{copy_bytes}-byte copies, batch tile {tile}]")
         beats = " (faster than its HBM bound: W_t is read from L2)" \
             if k_ms < b_ms else ""
-        print(f"{kernel} N={N} H={H} f32, device ms per call: "
+        print(f"{kernel} N={N} H={H} f32{grid}, device ms per call: "
               f"kernel_ms={k_ms:.5f} plain_ms={p_ms:.5f} "
               f"library_ms={l_ms:.5f} [{l_what}] bound_ms={b_ms:.5f} "
               f"({b_by}){beats}; event-timed loop with host launch gaps: "
@@ -2099,7 +2227,11 @@ def main(argv=None) -> int:
                 "bound_ms": t["bound_ms"],
                 "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
                 else "operations",
-                "library_ms": t["library_ms"]})
+                "library_ms": t["library_ms"],
+                "variant_launches": report["serving"][mode][
+                    "variant_launches"],
+                "event_ms": t["event_ms"],
+                "library_event_ms": t["library_event_ms"]})
 
     if "lstm" in phases:
         t0 = time.monotonic()

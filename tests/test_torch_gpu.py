@@ -37,10 +37,23 @@ from bigdl_tpu_torch.serving import ModelRegistry
 
 pytestmark = pytest.mark.gpu
 
-# (M, K, O): the stem's ragged K=147/O=64 at 1, 3 and 37 rows, the FC's
-# O=1000, aligned shapes, and a stage-1 3x3 conv with several row blocks
+# (M, K, O): the stem's ragged K=147/O=64 at 1, 3 and 37 rows (the SIMT
+# variant in dynamic mode: TMA cannot describe a 147-byte row), the FC's
+# O=1000, aligned shapes, and a stage-1 3x3 conv with several row blocks;
+# then, for the wgmma variant, stage 4's long K (1568, 4608, 512), the FC's
+# K=2048 against O=1000 at 1, 37 and 32 rows, K=64 (half of one 128-byte K
+# box) and a K >= 1024 shape whose M and O fill no whole tile
 SHAPES = [(1, 147, 64), (3, 147, 64), (37, 147, 64), (5, 64, 1000),
-          (8, 256, 128), (37, 128, 128), (300, 576, 64)]
+          (8, 256, 128), (37, 128, 128), (300, 576, 64),
+          (1568, 4608, 512), (1, 2048, 1000), (37, 2048, 1000),
+          (32, 2048, 1000), (300, 64, 256), (1001, 1152, 200)]
+
+
+def _variant(K, xdtype):
+    """The variant the C entry point takes for contiguous operands."""
+    if xdtype != "int8":
+        return "simt_weight_only"
+    return "wgmma_dynamic" if K % 16 == 0 else "simt_dynamic"
 
 
 @pytest.fixture
@@ -73,15 +86,32 @@ def _operands(M, K, O, xdtype, bias, device, seed=5):
 def test_kernel_matches_plain(cuda, shape, bias, xdtype):
     xin, wq, scale, b = _operands(*shape, xdtype, bias, cuda)
     before = int8_gemm.launches
+    variant = _variant(shape[1], xdtype)
+    before_v = int8_gemm.variant_launches[variant]
     got = int8_gemm.launch(xin, wq, scale, b)
     torch.cuda.synchronize()
     assert int8_gemm.launches == before + 1
+    assert int8_gemm.variant_launches[variant] == before_v + 1
+    assert int8_gemm.last_variant[0] == variant
     want = int8_matmul_reference(xin, wq, scale, b)
     if xdtype == "int8":
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=1e-5,
                                    atol=1e-5 * want.abs().max().item())
+
+
+def test_unaligned_base_takes_simt(cuda):
+    """A K that TMA could describe but a base off a 16-byte boundary goes
+    to the SIMT variant, bitwise all the same."""
+    xin, wq, scale, b = _operands(37, 256, 128, "int8", True, cuda)
+    buf = torch.empty(xin.numel() + 1, dtype=torch.int8, device=cuda)
+    shifted = buf[1:].view(xin.shape)
+    shifted.copy_(xin)
+    got = int8_gemm.launch(shifted, wq, scale, b)
+    torch.cuda.synchronize()
+    assert int8_gemm.last_variant[0] == "simt_dynamic"
+    assert torch.equal(got, int8_matmul_reference(xin, wq, scale, b))
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
@@ -116,7 +146,10 @@ def test_served_on_card_matches_cpu(cuda, quantize):
                                atol=tol * np.abs(want).max())
 
 
-CELL_SHAPES = [(20, 650), (1, 64), (5, 130), (37, 650)]
+# (N, H): PTB-medium's, tiny, ragged, N above one 32-row batch tile (37,
+# 64), and an odd H that the forward's eight K slices do not divide (its bf16
+# rows take the plain-load copies)
+CELL_SHAPES = [(20, 650), (1, 64), (5, 130), (37, 650), (64, 650), (20, 333)]
 
 
 @pytest.mark.parametrize("fb", [0.0, 1.0], ids=["fb0", "fb1"])
@@ -140,6 +173,10 @@ def test_lstm_cell_kernels_match_plain(cuda, shape, dtype, fb):
     torch.cuda.synchronize()
     assert (lstm_cell.fwd_launches, lstm_cell.bwd_launches) == \
         (before[0] + 1, before[1] + 1)
+    # the forward's K=H spread over clusters of 8 CTAs: 16 hidden units and
+    # up to 32 batch rows a cluster
+    ctas, cluster = lstm_cell.last_fwd_shape[:2]
+    assert cluster == 8 and ctas == -(-H // 16) * 8 * -(-N // 32)
     # f32 results within 1e-5, the forward's at H=650 within 1e-4 (its
     # recurrent product sums 650 terms in another order than cuBLAS; the
     # JAX cell test's forward tolerance at that shape); bf16 within 8e-3

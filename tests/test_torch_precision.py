@@ -80,6 +80,33 @@ def test_cast_floating():
     assert jout["w"].dtype == jnp.bfloat16 and jout["i"].dtype != jnp.bfloat16
 
 
+def test_cast_floating_coo_batch_matches_reference():
+    """A COOBatch is cast as the reference's pytree cast casts it: the
+    floating ``values`` to the compute dtype, bit for bit the same bf16,
+    and ``row``, ``col`` and ``dense_shape`` untouched."""
+    from bigdl_tpu.nn.sparse import COOBatch as JCOOBatch
+    rng = np.random.default_rng(11)
+    row = rng.integers(0, 6, 40).astype(np.int32)
+    col = rng.integers(0, 50, 40).astype(np.int32)
+    values = rng.normal(0, 3, 40).astype(np.float32)
+    coo = nn.COOBatch(torch.from_numpy(row), torch.from_numpy(col),
+                      torch.from_numpy(values), (6, 50))
+    out, x = precision.cast_floating((coo, torch.ones(2)), torch.bfloat16)
+    jout = jprecision.cast_floating(
+        JCOOBatch(jnp.asarray(row), jnp.asarray(col), jnp.asarray(values),
+                  (6, 50)), jnp.bfloat16)
+    assert isinstance(out, nn.COOBatch) and x.dtype == torch.bfloat16
+    assert out.values.dtype == torch.bfloat16
+    assert jout.values.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(
+        out.values.view(torch.int16).numpy(),
+        np.asarray(jout.values).view(np.int16))
+    assert out.row is coo.row and out.col is coo.col
+    assert out.dense_shape == jout.dense_shape == (6, 50)
+    np.testing.assert_array_equal(np.asarray(jout.row), row)
+    np.testing.assert_array_equal(np.asarray(jout.col), col)
+
+
 def _small_model(m):
     # no conv bias: BN cancels it, so its gradient is rounding noise
     return (m.Sequential()

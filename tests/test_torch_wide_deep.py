@@ -228,6 +228,60 @@ def test_local_optimizer_matches_reference(port_runs):
     assert np.mean(topt.losses[-3:]) < np.mean(topt.losses[:3])
 
 
+# a bf16 block against the reference's: both round the forward and the
+# backward to bf16 (8 bits of mantissa, about 4e-3 relative), but at other
+# places (PyTorch's bf16 matmul accumulates in f32 and rounds once, XLA's
+# CPU dot may round its partial sums), so they agree to a few bf16 ulps,
+# not bitwise.  Adam's first steps move a weight by about lr * sign(g), so
+# where g is within rounding of 0 the update's size is rounding's choice:
+# the largest reading, deep.0.weight, is 1.7e-2 of its largest update
+# (the losses 5e-4)
+BF16_TOL = 3e-2
+
+
+def test_bf16_step_matches_reference():
+    """Under ``set_compute_dtype(bf16)`` the wide part computes in bf16 in
+    both packages (the COO values are cast with the batch), and a K=2
+    block of Adam steps agrees with the reference within BF16_TOL."""
+    steps = 2
+
+    tmodel, jmodel, start = _models(4)
+    seen = []  # the dtype of the COO values the wide part receives
+    tmodel.wide.register_forward_pre_hook(
+        lambda m, args: seen.append(args[0].values.dtype))
+    topt = (_recording(optim.LocalOptimizer)(
+        tmodel, DataSet.array(_samples(SparseSample), seed=3)
+        >> _SparseToMiniBatch(batch_sparse_samples),
+        _SqueezedBCE(nn.BCECriterion()), device="cpu")
+        .set_optim_method(optim.Adam(learning_rate=0.01))
+        .set_compute_dtype(torch.bfloat16)
+        .set_steps_per_dispatch(steps)
+        .set_end_when(optim.max_iteration(steps)))
+    topt.optimize()
+    assert seen and set(seen) == {torch.bfloat16}, seen
+    jmodel._params = jax.tree_util.tree_map(jnp.asarray, start[0])
+    jmodel._state = start[1]
+    jopt = (_recording(joptim.LocalOptimizer)(
+        jmodel, JDataSet.array(_samples(JSparseSample), seed=3)
+        >> _SparseToMiniBatch(jbatch), _SqueezedBCE(jnn.BCECriterion()))
+        .set_optim_method(joptim.Adam(learning_rate=0.01))
+        .set_compute_dtype(jnp.bfloat16)
+        .set_steps_per_dispatch(steps)
+        .set_end_when(joptim.max_iteration(steps)))
+    jopt.optimize()
+    assert len(topt.losses) == len(jopt.losses) == steps
+    np.testing.assert_allclose(topt.losses, jopt.losses, rtol=BF16_TOL)
+    tflat = _flat(to_jax_params(tmodel)[0])
+    jflat = _flat(jax.tree_util.tree_map(np.asarray, jmodel._params))
+    sflat = _flat(start[0])
+    assert tflat.keys() == jflat.keys()
+    for key, want in jflat.items():
+        # Adam moves each weight by about lr: compare the update
+        np.testing.assert_allclose(
+            tflat[key] - sflat[key], want - sflat[key], rtol=BF16_TOL,
+            atol=BF16_TOL * np.abs(want - sflat[key]).max(), err_msg=key)
+
+
 def test_k1_and_k4_bitwise(port_runs):
     (_, o1, p1), (_, o4, p4) = port_runs[1], port_runs[4]
     assert o1.losses == o4.losses
