@@ -17,40 +17,67 @@
 // round-to-odd FMA emulation).  Build without --use_fast_math: it would break
 // that parity.
 //
-// What bounds it on an H100 at ResNet-50's shapes.  weight_only runs f32 FMAs
-// on the CUDA cores (peak 67 TFLOP/s, ridge about 20 flop/byte at 3.35 TB/s).
-// At batch 32 the 3x3 convs and the late-stage 1x1 GEMMs (K >= 256) sit well
-// above that ridge and are bound by operations; the K=64 1x1 convs of stage 1
-// sit at or below it and are bound by bytes.  dynamic mode's products belong on
-// the tensor cores (1,979 TOP/s int8), where every ResNet-50 shape is bound by
-// its bytes: the f32 output (4 bytes per result) is most of them, and the
-// operands are re-read from L2 once per output tile that needs them.
+// What bounds it on an H100 at ResNet-50's shapes.  Both modes' products
+// belong on the tensor cores.  dynamic mode's are int8 (1,979 TOP/s), where
+// every ResNet-50 shape is bound by its bytes: the f32 output (4 bytes per
+// result) is most of them, and the operands are re-read from L2 once per
+// output tile that needs them.  weight_only's are exact in bf16 (989 TFLOP/s):
+// an int8 weight is a bf16 value, and an f32 activation is the exact sum of
+// three bf16 terms (below), each of whose products with a weight is exact in
+// f32.  Three bf16 passes then bound the large-K shapes, the f32 bytes the
+// others; on the CUDA cores' f32 FMAs (67 TFLOP/s) the large-K shapes would be
+// bound three times higher.
 //
-// Design, dynamic mode (gemm_dynamic_wgmma): one block computes a BM x BN
-// output tile (128x128, 128x64 or 64x64; one consumer warpgroup per 64 rows),
-// the host choosing the largest tile that still gives the card's 132 SMs a
-// tile each.  A producer warp streams K in 128-byte slices of x and
-// wq with TMA (cp.async.bulk.tensor, 128-byte swizzle) into a ring of up to 4
-// stages guarded by mbarriers; the consumer warpgroups run
-// wgmma.mma_async.m64nBNk32.s32.s8.s8 straight from shared memory (both
-// operands K-major, as x (M, K) and wq (O, K) already are) with the int32 sums
-// in registers, keeping one wgmma group in flight while the next stage lands.
-// TMA's out-of-bounds zero fill masks ragged M, O and K (the FC's M=32 and
-// O=1000, K=64 against a 128-byte box), so the caller pads nothing.  The
-// epilogue stages the int32 tile through shared memory (reusing the ring) and
-// writes f32 rows with 16-byte stores.  The tensor maps are encoded on the
-// host per launch with cuTensorMapEncodeTiled, reached through
+// Design of the two tensor-core variants (gemm_dynamic_wgmma,
+// gemm_weight_only_wgmma): one block computes a BM x BN output tile (128x128,
+// 128x64 or 64x64; one consumer warpgroup per 64 rows), the host choosing the
+// largest tile that still gives the card's 132 SMs a tile each (weight_only
+// takes 128x128 once it covers 70% of them).  A producer warp streams K with
+// TMA (cp.async.bulk.tensor) into a ring of up to 4 stages guarded by
+// mbarriers.  TMA's out-of-bounds zero fill masks ragged M, O and K
+// (the FC's M=32 and O=1000, K=64 against a 128-byte box), so the caller pads
+// nothing.  The epilogue stages the tile through shared memory (reusing the
+// ring) and writes f32 rows with 16-byte stores.  The tensor maps are encoded
+// on the host per launch with cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint (no -lcuda), and passed as __grid_constant__.
 //
-// TMA needs 16-byte global row strides and bases: a K that is not a multiple
-// of 16 (ResNet-50's stem, K=147) or an unaligned view goes to gemm_dynamic,
-// the SIMT kernel (__dp4a, 64x64 tiles, bounds-checked loads).  The C entry
-// point chooses by stride and alignment alone and reports its choice.
+// dynamic: 128-byte slices of x and wq per stage (128-byte swizzle); the
+// consumers run wgmma.mma_async.m64nBNk32.s32.s8.s8 straight from shared
+// memory (both operands K-major, as x (M, K) and wq (O, K) already are), the
+// int32 sums in registers, one wgmma group in flight while the next stage lands.
 //
-// weight_only (gemm_weight_only): one block computes a 64x64 tile with 256
-// threads, 4x4 results per thread, K walked in shared-memory tiles with f32
-// FMAs; bounds-checked loads with zero fill.  wgmma after an in-register bf16
-// upcast is later work.
+// weight_only: 64 values of K per stage: x's 64 f32 (two 128-byte-swizzled
+// boxes) or 64 bf16 (one), and wq's 64 int8 (plain 64-byte rows).  The
+// consumers first upcast the stage's int8 tile once into a bf16 K-major tile
+// in the 128-byte swizzle (two such tiles alternate, so one warpgroup's writes
+// never meet another's wgmma reads), fence it into the async proxy, and meet
+// at a named barrier.  Each thread then reads its A fragments of x from the
+// swizzled tile and, for f32, splits every value in registers into three bf16
+// terms: hi = x with the low 16 bits of its pattern cleared, r = x - hi,
+// mid = r truncated the same way, lo = r - mid truncated the same way.  Every
+// step is exact in f32, and lo is exact in bf16 for |x| >= 2^-110 (below that
+// the three are off by less than 2^-133, bf16's least subnormal); truncation,
+// unlike rounding, cannot carry hi past bf16's largest value near f32's, and
+// it is an integer mask, not work for the SM's slow conversion unit, as is the
+// int8 upcast (a byte in the mantissa of 2^23, less 2^23).  ops/int8_gemm.py's
+// split_bf16x3 is the same arithmetic.  wgmma.m64nBNk16.f32.bf16.bf16 with A
+// from registers then runs the three passes (one for bf16 x) against the one
+// bf16 weight tile, splitting slice k16+1 while the tensor cores multiply
+// slice k16.  The tensor cores' f32 accumulation is not an IEEE add per
+// product, so each stage's 12 (or 4) products go into a fresh accumulator that
+// is then added into the tile's running sum with IEEE adds, which bounds the
+// tensor cores' share of the error to one stage's partial sum.  (Were every
+// k16 add truncated, one accumulator over K=4608 would reach the kernel
+// check's limit, while the stage sums stay under a tenth of it:
+// tests/test_torch_int8_gemm.py emulates both.)
+//
+// TMA needs 16-byte global row strides and bases.  wq's int8 rows need K % 16
+// == 0 (x's f32 or bf16 rows need less), so a K that is not a multiple of 16
+// (ResNet-50's stem, K=147) or an unaligned view goes to the SIMT kernels:
+// gemm_weight_only (64x64 tiles, 4x4 results per thread, f32 FMAs on the CUDA
+// cores) and gemm_dynamic (__dp4a), both with bounds-checked loads and zero
+// fill.  The C entry point chooses by stride and alignment alone and reports
+// its choice.
 
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is reached at run time
 #include <cuda_bf16.h>
@@ -329,12 +356,22 @@ __device__ __forceinline__ void wgmma_tile<128>(int (&d)[64], uint64_t a, uint64
   wgmma_m64n128k32(d, a, b);
 }
 
-// Keeps the compiler from moving accumulator reads or writes across wgmma's
-// asynchronous window.
+// Keeps the compiler from moving reads or writes of registers that a wgmma
+// uses (accumulators, A fragments) across its asynchronous window.
 template <int N>
 __device__ __forceinline__ void fence_acc(int (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __device__ __forceinline__ void consumers_sync(int threads) {
@@ -357,6 +394,81 @@ __host__ __device__ inline int wgmma_smem_bytes(int nwg, int bn, int stages) {
   return 1024 + wgmma_area(nwg, bn, stages) + 2 * MAX_STAGES * 8;
 }
 
+__device__ __forceinline__ void put2(int* p, int a, int b) {
+  *reinterpret_cast<int2*>(p) = make_int2(a, b);
+}
+__device__ __forceinline__ void put2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ float4 get4(const int* p) {
+  const int4 a = *reinterpret_cast<const int4*>(p);
+  return make_float4(__int2float_rn(a.x), __int2float_rn(a.y), __int2float_rn(a.z),
+                     __int2float_rn(a.w));
+}
+__device__ __forceinline__ float4 get4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Epilogue of both wgmma kernels, run by the NWG*128 consumer threads once
+// every consumer is done with the ring, which becomes the staging tile.  The
+// accumulator layout of m64nBN: thread (warp w, lane l) of warpgroup wg holds
+// rows 64wg + 16w + l/4 (+8) and columns 8j + 2(l%4) (+1).  The tile goes
+// through shared memory, then each thread writes four neighbouring columns of
+// rows across the block, y = f32(acc) * scale (+ bias), with 16-byte stores.
+template <int NWG, int BN, bool HAS_BIAS, typename AT>
+__device__ __forceinline__ void store_wgmma_tile(const AT (&acc)[BN / 2], uint8_t* smem,
+                                                 const float* __restrict__ scale,
+                                                 const float* __restrict__ bias,
+                                                 float* __restrict__ y, int M, int O, int m0,
+                                                 int n0, int vec) {
+  constexpr int BM = 64 * NWG;
+  constexpr int PITCH = BN + 8;  // staging row pitch (32-bit): conflict-free 8-byte stores
+  constexpr int CONSUMERS = NWG * 128;
+  consumers_sync(CONSUMERS);
+  AT* st = reinterpret_cast<AT*>(smem);
+  {
+    const int wg = threadIdx.x / 128;
+    const int t = threadIdx.x % 128;
+    const int r = 64 * wg + 16 * (t / 32) + (t % 32) / 4;
+    const int c = 2 * (t % 4);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      put2(&st[r * PITCH + 8 * j + c], acc[4 * j], acc[4 * j + 1]);
+      put2(&st[(r + 8) * PITCH + 8 * j + c], acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+  consumers_sync(CONSUMERS);
+  constexpr int TPR = BN / 4;
+  const int c = (threadIdx.x % TPR) * 4;
+  const int gc = n0 + c;
+  if (gc >= O) return;
+  float sc[4], bi[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    sc[e] = gc + e < O ? scale[gc + e] : 0.f;
+    bi[e] = HAS_BIAS && gc + e < O ? bias[gc + e] : 0.f;
+  }
+  const bool full_vec = vec && gc + 3 < O;
+  for (int r = threadIdx.x / TPR; r < BM; r += CONSUMERS / TPR) {
+    const int gr = m0 + r;
+    if (gr >= M) break;
+    const float4 a = get4(&st[r * PITCH + c]);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = HAS_BIAS ? __fmaf_rn(av[e], sc[e], bi[e]) : __fmul_rn(av[e], sc[e]);
+    float* out = y + static_cast<size_t>(gr) * O + gc;
+    if (full_vec) {
+      *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (gc + e < O) out[e] = v[e];
+    }
+  }
+}
+
 // Block: NWG consumer warpgroups (warps 0 .. 4*NWG-1, 64 output rows each),
 // then one producer warp.  Grid: one block per output tile, the O tile
 // fastest, so neighbouring blocks share an x tile in L2.
@@ -369,8 +481,6 @@ __global__ void __launch_bounds__(NWG * 128 + 32)
   constexpr int BM = 64 * NWG;
   constexpr int A_BYTES = BM * BK8;
   constexpr int STAGE_BYTES = wgmma_stage_bytes(NWG, BN);
-  constexpr int PITCH = BN + 8;  // staging row pitch (int32): conflict-free 8-byte stores
-  constexpr int CONSUMERS = NWG * 128;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -438,55 +548,292 @@ __global__ void __launch_bounds__(NWG * 128 + 32)
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
   fence_acc(acc);
 
-  // epilogue: every consumer is done with the ring, so it becomes the staging
-  // tile; accumulator layout of m64nBN: thread (warp w, lane l) holds rows
-  // 16w + l/4 (+8) and columns 8j + 2(l%4) (+1)
-  consumers_sync(CONSUMERS);
-  int* st = reinterpret_cast<int*>(smem);
-  {
-    const int t = threadIdx.x % 128;
-    const int r = 64 * wg + 16 * (t / 32) + (t % 32) / 4;
-    const int c = 2 * (t % 4);
+  store_wgmma_tile<NWG, BN, HAS_BIAS>(acc, smem, scale, bias, y, M, O, m0, n0, vec);
+}
+
+// ---------------------------------------------------------------------------
+// weight_only: bf16 wgmma over the exact three-way split of f32 activations.
+
+constexpr int WO_BK = 64;  // K values per stage: one 128-byte row of bf16 weights
+
+// d[0..31] (+)= A(64x16 bf16, registers a[0..3]) * B(64x16 bf16, smem desc b)^T,
+// f32 accumulate; scale_d == 0 overwrites d
+__device__ __forceinline__ void wgmma_bf16_m64n64k16(float (&d)[32], const uint32_t* a,
+                                                      uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d[0..63] (+)= A(64x16 bf16, registers a[0..3]) * B(128x16 bf16, smem desc b)^T,
+// f32 accumulate; scale_d == 0 overwrites d
+__device__ __forceinline__ void wgmma_bf16_m64n128k16(float (&d)[64], const uint32_t* a,
+                                                      uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], const uint32_t* a, uint64_t b,
+                                           int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], const uint32_t* a, uint64_t b,
+                                               int scale_d) {
+  wgmma_bf16_m64n64k16(d, a, b, scale_d);
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], const uint32_t* a, uint64_t b,
+                                                int scale_d) {
+  wgmma_bf16_m64n128k16(d, a, b, scale_d);
+}
+
+// The high halves of two f32 patterns as a bf16x2 (x0 in the low half):
+// each value truncated to bf16, exact where it has 8 significant bits.
+__device__ __forceinline__ uint32_t high_halves(float x0, float x1) {
+  return __byte_perm(__float_as_uint(x0), __float_as_uint(x1), 0x7632);
+}
+
+// Two neighbouring f32 values (x0 in the low half, x1 in the high) as three
+// bf16x2 terms whose sum is exact (see the head of the file; split_bf16x3 in
+// ops/int8_gemm.py is the same arithmetic).  An infinite x is its own hi.
+// Only integer and f32 adds: the SM's conversion unit, far slower, is not used.
+__device__ __forceinline__ void split3(float2 v, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
+  const float h0 = __uint_as_float(__float_as_uint(v.x) & 0xffff0000u);
+  const float h1 = __uint_as_float(__float_as_uint(v.y) & 0xffff0000u);
+  const float r0 = v.x == h0 ? 0.f : __fsub_rn(v.x, h0);
+  const float r1 = v.y == h1 ? 0.f : __fsub_rn(v.y, h1);
+  const float m0 = __uint_as_float(__float_as_uint(r0) & 0xffff0000u);
+  const float m1 = __uint_as_float(__float_as_uint(r1) & 0xffff0000u);
+  hi = high_halves(v.x, v.y);
+  mid = high_halves(r0, r1);
+  lo = high_halves(__fsub_rn(r0, m0), __fsub_rn(r1, m1));
+}
+
+// Four int8 values (one word) as two bf16x2, exactly, without the conversion
+// unit: each byte with its sign bit flipped (v + 128) becomes the mantissa of
+// 2^23, so the f32 2^23 + 128 + v less 2^23 + 128 is v, and v's f32 pattern's
+// high half is its bf16.
+__device__ __forceinline__ uint2 bf16x4_of_s8(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  constexpr float MAGIC = 8388736.0f;  // 2^23 + 128
+  float f[4];
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      *reinterpret_cast<int2*>(&st[r * PITCH + 8 * j + c]) = make_int2(acc[4 * j], acc[4 * j + 1]);
-      *reinterpret_cast<int2*>(&st[(r + 8) * PITCH + 8 * j + c]) =
-          make_int2(acc[4 * j + 2], acc[4 * j + 3]);
+  for (int k = 0; k < 4; ++k)
+    f[k] = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4b000000u, 0x7540 | k)), MAGIC);
+  return make_uint2(high_halves(f[0], f[1]), high_halves(f[2], f[3]));
+}
+
+// Byte offset of element `col` (of `bytes` bytes each) of row `row` in a tile
+// of 128-byte rows in the 128-byte swizzle (16-byte chunks XORed with row % 8;
+// the tile is 1024-byte aligned, as TMA and wgmma lay it out).
+__device__ __forceinline__ int sw128_offset(int row, int col, int bytes) {
+  const int b = col * bytes;
+  return row * 128 + ((((b >> 4) ^ row) & 7) << 4) + (b & 15);
+}
+
+// Bytes of one stage (x then wq's int8), of one bf16 weight tile, and of the
+// block's dynamic shared memory.
+template <typename XT>
+__host__ __device__ constexpr int wo_stage_bytes(int nwg, int bn) {
+  return (64 * nwg * static_cast<int>(sizeof(XT)) + bn) * WO_BK;
+}
+__host__ __device__ constexpr int wo_wbf_bytes(int bn) { return bn * WO_BK * 2; }
+template <typename XT>
+__host__ __device__ inline int wo_area(int nwg, int bn, int stages) {
+  const int ring = stages * wo_stage_bytes<XT>(nwg, bn) + 2 * wo_wbf_bytes(bn);
+  const int staging = wgmma_staging_bytes(nwg, bn);
+  return ring > staging ? ring : staging;
+}
+template <typename XT>
+__host__ __device__ inline int wo_smem_bytes(int nwg, int bn, int stages) {
+  return 1024 + wo_area<XT>(nwg, bn, stages) + 2 * MAX_STAGES * 8;
+}
+
+// A fragments of k16 slice kk of a stage's x tile (BM rows): registers
+// (ra, c), (ra + 8, c), (ra, c + 8), (ra + 8, c + 8), c = 16 kk + t2, two
+// values each; f32 x split into the hi, mid and lo passes, bf16 x as it is.
+template <bool F32, int PASSES, int BM>
+__device__ __forceinline__ void load_fragments(const uint8_t* xs, int kk, int ra, int t2,
+                                               uint32_t* f) {
+  const int rows[4] = {ra, ra + 8, ra, ra + 8};
+  if constexpr (F32) {
+    const uint8_t* box = xs + (kk >> 1) * BM * 128;  // 32 f32 values a row
+    const int c = (kk & 1) * 16 + t2;
+    const int cols[4] = {c, c, c + 8, c + 8};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 v = *reinterpret_cast<const float2*>(box + sw128_offset(rows[j], cols[j], 4));
+      split3(v, f[j], f[4 + j], f[8 + j]);
+    }
+  } else {
+    const int c = kk * 16 + t2;
+    const int cols[4] = {c, c, c + 8, c + 8};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[j] = *reinterpret_cast<const uint32_t*>(xs + sw128_offset(rows[j], cols[j], 2));
+  }
+}
+
+// Block: NWG consumer warpgroups (64 output rows each), then one producer
+// warp; grid as in gemm_dynamic_wgmma.  Per stage the consumers (1) upcast
+// wq's int8 tile into the bf16 tile kt % 2, fence it and meet, (2) for each
+// k16 slice run the passes into the stage's fresh accumulator while they
+// read and split the next slice's A fragments, (3) hand the ring slot back,
+// wait, and add the accumulator into the running sum.  Two alternatives
+// measured slower on an H100 a batch-32 ResNet-50 forward (PERF.md): the
+// next stage's upcast and first split moved under this stage's last slices,
+// and A from shared memory, the three terms written as tiles while the stage
+// before runs, one commit a stage.
+template <typename XT, int NWG, int BN, bool HAS_BIAS>
+__global__ void __launch_bounds__(NWG * 128 + 32)
+    gemm_weight_only_wgmma(const __grid_constant__ CUtensorMap map_x,
+                           const __grid_constant__ CUtensorMap map_w,
+                           const float* __restrict__ scale, const float* __restrict__ bias,
+                           float* __restrict__ y, int M, int K, int O, int stages, int tiles_o,
+                           int vec) {
+  constexpr bool F32 = sizeof(XT) == 4;
+  constexpr int PASSES = F32 ? 3 : 1;
+  constexpr int BM = 64 * NWG;
+  constexpr int X_BYTES = BM * WO_BK * static_cast<int>(sizeof(XT));
+  constexpr int STAGE_BYTES = wo_stage_bytes<XT>(NWG, BN);
+  constexpr int WBF_BYTES = wo_wbf_bytes(BN);
+  constexpr int CONSUMERS = NWG * 128;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* wbf0 = smem + stages * STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + wo_area<XT>(NWG, BN, stages));
+  uint64_t* empty = full + MAX_STAGES;
+  const int n0 = (blockIdx.x % tiles_o) * BN;
+  const int m0 = (blockIdx.x / tiles_o) * BM;
+  const int ktiles = (K + WO_BK - 1) / WO_BK;
+  const int warp = threadIdx.x / 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * NWG) {  // producer: one thread keeps the ring full
+    if (threadIdx.x % 32 == 0) {
+      int s = 0, phase = 0;
+      for (int kt = 0; kt < ktiles; ++kt) {
+        mbar_wait(&empty[s], phase ^ 1);
+        mbar_expect_tx(&full[s], STAGE_BYTES);  // out-of-bounds fill counts in full
+        uint8_t* a = smem + s * STAGE_BYTES;
+        tma_load(a, &map_x, &full[s], kt * WO_BK, m0);  // f32: two 32-value boxes
+        if (F32) tma_load(a + BM * 128, &map_x, &full[s], kt * WO_BK + 32, m0);
+        tma_load(a + X_BYTES, &map_w, &full[s], kt * WO_BK, n0);
+        if (++s == stages) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: thread (warp w, lane l) of warpgroup wg holds A's rows ra, rb
+  // and columns 2(l%4) (+1), (+8) of each k16 slice
+  const int wg = warp / 4;
+  const int lane = threadIdx.x % 32;
+  const int ra = 64 * wg + 16 * (warp % 4) + lane / 4;
+  const int t2 = 2 * (lane % 4);
+  float acc[BN / 2], sum[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = sum[i] = 0.f;
+  // A fragments of two k16 slices, [pass][register]: one slice is split
+  // while the tensor cores multiply the other
+  uint32_t a0[PASSES * 4], a1[PASSES * 4];
+  int s = 0, phase = 0;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    mbar_wait(&full[s], phase);
+    const uint8_t* xs = smem + s * STAGE_BYTES;
+    const uint8_t* w8 = xs + X_BYTES;
+    uint8_t* wbf = wbf0 + (kt & 1) * WBF_BYTES;
+    // wq's int8 rows (64 bytes) -> bf16 rows (128 bytes, swizzled); every
+    // warpgroup is past the wgmmas that last read this tile (two stages ago)
+    for (int i = threadIdx.x; i < BN * 8; i += CONSUMERS) {
+      const int r = i >> 3, c = i & 7;
+      const uint2 v = *reinterpret_cast<const uint2*>(w8 + r * WO_BK + c * 8);
+      const uint2 lo = bf16x4_of_s8(v.x), hi = bf16x4_of_s8(v.y);
+      *reinterpret_cast<uint4*>(wbf + sw128_offset(r, 8 * c, 2)) =
+          make_uint4(lo.x, lo.y, hi.x, hi.y);
+    }
+    // the bf16 tile into the async proxy, whole before any warpgroup reads it
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    consumers_sync(CONSUMERS);
+    const uint64_t desc_b = sw128_desc(wbf);
+    load_fragments<F32, PASSES, BM>(xs, 0, ra, t2, a0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t* cur = kk % 2 == 0 ? a0 : a1;
+      // hi, mid, lo of slice kk into the stage's fresh accumulator
+      fence_acc(a0);
+      fence_acc(a1);
+      fence_acc(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int p = 0; p < PASSES; ++p)
+        wgmma_bf16<BN>(acc, cur + 4 * p, desc_b + 2 * kk, kk + p > 0);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      if (kk < 3) {
+        // slice kk-1's products are done: its registers take slice kk+1
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        fence_acc(a0);
+        fence_acc(a1);
+        load_fragments<F32, PASSES, BM>(xs, kk + 1, ra, t2, kk % 2 == 0 ? a1 : a0);
+      }
+    }
+    // this warpgroup is done reading the stage's x: hand the slot back
+    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+    if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    fence_acc(a0);
+    fence_acc(a1);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sum[i] = __fadd_rn(sum[i], acc[i]);
+    if (++s == stages) {
+      s = 0;
+      phase ^= 1;
     }
   }
-  consumers_sync(CONSUMERS);
-  // four neighbouring columns a thread, rows across the block
-  constexpr int TPR = BN / 4;
-  const int c = (threadIdx.x % TPR) * 4;
-  const int gc = n0 + c;
-  if (gc >= O) return;
-  float sc[4], bi[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    sc[e] = gc + e < O ? scale[gc + e] : 0.f;
-    bi[e] = HAS_BIAS && gc + e < O ? bias[gc + e] : 0.f;
-  }
-  const bool full_vec = vec && gc + 3 < O;
-  for (int r = threadIdx.x / TPR; r < BM; r += CONSUMERS / TPR) {
-    const int gr = m0 + r;
-    if (gr >= M) break;
-    const int4 a = *reinterpret_cast<const int4*>(&st[r * PITCH + c]);
-    const int av[4] = {a.x, a.y, a.z, a.w};
-    float v[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float f = __int2float_rn(av[e]);
-      v[e] = HAS_BIAS ? __fmaf_rn(f, sc[e], bi[e]) : __fmul_rn(f, sc[e]);
-    }
-    float* out = y + static_cast<size_t>(gr) * O + gc;
-    if (full_vec) {
-      *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (gc + e < O) out[e] = v[e];
-    }
-  }
+
+  store_wgmma_tile<NWG, BN, HAS_BIAS>(sum, smem, scale, bias, y, M, O, m0, n0, vec);
 }
 
 }  // namespace
@@ -515,25 +862,50 @@ EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// A (rows, K) row-major int8 matrix cut in boxes of box_rows x 128 bytes,
-// 128-byte swizzle, zeros out of bounds.
-bool encode_s8(CUtensorMap* map, const void* base, int rows, int K, int box_rows) {
+// A (rows, K) row-major matrix of `elem`-byte values cut in boxes of
+// box_rows x box_k values, zeros out of bounds.
+bool encode_2d(CUtensorMap* map, const void* base, CUtensorMapDataType type, int elem, int rows,
+               int K, int box_k, int box_rows, CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(BK8), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_k), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// int8 rows in 128-byte boxes, 128-byte swizzle (dynamic mode's x and wq)
+bool encode_s8(CUtensorMap* map, const void* base, int rows, int K, int box_rows) {
+  return encode_2d(map, base, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, rows, K, BK8, box_rows,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-// Can TMA describe x (M, K) and wq (O, K)?  16-byte row strides and bases.
+// Can TMA describe x (M, K) and wq (O, K)?  16-byte row strides and bases;
+// wq's int8 rows make that K % 16 == 0 in both modes.
 bool tma_ok(const void* x, const void* wq, int K) {
   return K % 16 == 0 && aligned16(x) && aligned16(wq);
+}
+
+// cudaFuncSetAttribute is per function and device: done once for each device
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, unsigned long long& sized) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (sized & bit) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) sized |= bit;
+  return e;
+}
+
+int vec_ok(const float* y, const float* sc, const float* b, int O) {
+  return O % 4 == 0 && aligned16(y) && aligned16(sc) && (b == nullptr || aligned16(b));
 }
 
 template <int NWG, int BN, bool HAS_BIAS>
@@ -551,23 +923,56 @@ int launch_wgmma(const void* x, const void* wq, const float* sc, const float* b,
   if (!encode_s8(&map_x, x, M, K, BM) || !encode_s8(&map_w, wq, O, K, BN))
     return (int)cudaErrorInvalidValue;
   auto kernel = gemm_dynamic_wgmma<NWG, BN, HAS_BIAS>;
-  // the attribute is per function and device: set once for each device
   static unsigned long long sized = 0;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (!(sized & bit)) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_PER_BLOCK);
-    if (e != cudaSuccess) return (int)e;
-    sized |= bit;
-  }
+  const cudaError_t e = allow_smem(kernel, SMEM_PER_BLOCK, sized);
+  if (e != cudaSuccess) return (int)e;
   const int tiles_o = (O + BN - 1) / BN;
   const int tiles = tiles_o * ((M + BM - 1) / BM);
-  const int vec = O % 4 == 0 && aligned16(y) && aligned16(sc) && (b == nullptr || aligned16(b));
   kernel<<<tiles, NWG * 128 + 32, smem, s>>>(map_x, map_w, sc, b, y, M, K, O, stages, tiles_o,
-                                             vec);
+                                             vec_ok(y, sc, b, O));
   info[0] = 2;
+  info[1] = BM;
+  info[2] = BN;
+  info[3] = stages;
+  info[4] = tiles;
+  return (int)cudaGetLastError();
+}
+
+// weight_only's shared memory: a block of two warpgroups holds one SM by its
+// registers (two f32 accumulators a thread), so it may take most of the SM's
+// shared memory; a one-warpgroup block keeps to two blocks an SM
+constexpr int WO_SMEM_TWO_WG = 200 * 1024;
+
+template <typename XT, int NWG, int BN, bool HAS_BIAS>
+int launch_weight_only(const void* x, const void* wq, const float* sc, const float* b, float* y,
+                       int M, int K, int O, cudaStream_t s, int* info) {
+  constexpr int BM = 64 * NWG;
+  constexpr int CAP = NWG == 2 ? WO_SMEM_TWO_WG : SMEM_PER_BLOCK;
+  constexpr bool F32 = sizeof(XT) == 4;
+  const int ktiles = (K + WO_BK - 1) / WO_BK;
+  int stages = 1;
+  while (stages < MAX_STAGES && stages < ktiles &&
+         wo_smem_bytes<XT>(NWG, BN, stages + 1) <= CAP)
+    ++stages;
+  const int smem = wo_smem_bytes<XT>(NWG, BN, stages);
+  CUtensorMap map_x, map_w;
+  const bool ok =
+      F32 ? encode_2d(&map_x, x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, M, K, 32, BM,
+                      CU_TENSOR_MAP_SWIZZLE_128B)
+          : encode_2d(&map_x, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, 64, BM,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!ok || !encode_2d(&map_w, wq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, O, K, WO_BK, BN,
+                        CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = gemm_weight_only_wgmma<XT, NWG, BN, HAS_BIAS>;
+  static unsigned long long sized = 0;
+  const cudaError_t e = allow_smem(kernel, CAP, sized);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles_o = (O + BN - 1) / BN;
+  const int tiles = tiles_o * ((M + BM - 1) / BM);
+  kernel<<<tiles, NWG * 128 + 32, smem, s>>>(map_x, map_w, sc, b, y, M, K, O, stages, tiles_o,
+                                             vec_ok(y, sc, b, O));
+  info[0] = 3;
   info[1] = BM;
   info[2] = BN;
   info[3] = stages;
@@ -586,20 +991,46 @@ int sm_count() {
   return n;
 }
 
-// The tile of the wgmma variant: the largest of 128x128, 128x64 and 64x64
-// (rows x columns) that still gives every SM a block, never wider than O or
-// taller than M needs; 64x64 when none does.
+// The tile of a wgmma variant: the largest of 128x128 (0), 128x64 (1) and
+// 64x64 (2) (rows x columns) that still gives every SM a block, never wider
+// than O or taller than M needs; 64x64 when none does.
+int tile_choice(int M, int O) {
+  const long tiles_m128 = (M + 127) / 128;
+  if (M > 64) {
+    if (O > 64 && tiles_m128 * ((O + 127) / 128) >= sm_count()) return 0;
+    if (tiles_m128 * ((O + 63) / 64) >= sm_count()) return 1;
+  }
+  return 2;
+}
+
 template <bool HAS_BIAS>
 int dispatch_wgmma(const void* x, const void* wq, const float* sc, const float* b, float* y,
                    int M, int K, int O, cudaStream_t s, int* info) {
-  const long tiles_m128 = (M + 127) / 128;
-  if (M > 64) {
-    if (O > 64 && tiles_m128 * ((O + 127) / 128) >= sm_count())
-      return launch_wgmma<2, 128, HAS_BIAS>(x, wq, sc, b, y, M, K, O, s, info);
-    if (tiles_m128 * ((O + 63) / 64) >= sm_count())
-      return launch_wgmma<2, 64, HAS_BIAS>(x, wq, sc, b, y, M, K, O, s, info);
+  switch (tile_choice(M, O)) {
+    case 0: return launch_wgmma<2, 128, HAS_BIAS>(x, wq, sc, b, y, M, K, O, s, info);
+    case 1: return launch_wgmma<2, 64, HAS_BIAS>(x, wq, sc, b, y, M, K, O, s, info);
+    default: return launch_wgmma<1, 64, HAS_BIAS>(x, wq, sc, b, y, M, K, O, s, info);
   }
-  return launch_wgmma<1, 64, HAS_BIAS>(x, wq, sc, b, y, M, K, O, s, info);
+}
+
+// weight_only's tile: 128x128 whenever its blocks cover at least 70% of the
+// SMs (a thread's split of x and its share of the weight upcast cost the same
+// for 64 columns as for 128, so 64-column tiles leave the tensor cores
+// waiting), else tile_choice's.
+int wo_tile_choice(int M, int O) {
+  const long tiles = ((M + 127) / 128) * ((O + 127) / 128);
+  if (M > 64 && O > 64 && 10 * tiles >= 7 * sm_count()) return 0;
+  return tile_choice(M, O);
+}
+
+template <typename XT, bool HAS_BIAS>
+int dispatch_weight_only(const void* x, const void* wq, const float* sc, const float* b,
+                         float* y, int M, int K, int O, cudaStream_t s, int* info) {
+  switch (wo_tile_choice(M, O)) {
+    case 0: return launch_weight_only<XT, 2, 128, HAS_BIAS>(x, wq, sc, b, y, M, K, O, s, info);
+    case 1: return launch_weight_only<XT, 2, 64, HAS_BIAS>(x, wq, sc, b, y, M, K, O, s, info);
+    default: return launch_weight_only<XT, 1, 64, HAS_BIAS>(x, wq, sc, b, y, M, K, O, s, info);
+  }
 }
 
 }  // namespace
@@ -608,9 +1039,10 @@ int dispatch_wgmma(const void* x, const void* wq, const float* sc, const float* 
 // Launches on `stream` and returns cudaGetLastError() (0 on success); an
 // unsupported mode/dtype pair returns cudaErrorInvalidValue without launching.
 // info (5 ints) receives the variant that ran: {0 SIMT weight_only | 1 SIMT
-// dynamic | 2 wgmma dynamic, tile rows, tile columns, stages (0 for SIMT),
-// blocks}.  Dynamic mode takes the wgmma variant whenever TMA can describe the
-// operands (K a multiple of 16, 16-byte-aligned bases), the SIMT one otherwise.
+// dynamic | 2 wgmma dynamic | 3 wgmma weight_only, tile rows, tile columns,
+// stages (0 for SIMT), blocks}.  Either mode takes its wgmma variant whenever
+// TMA can describe the operands (K a multiple of 16, 16-byte-aligned bases),
+// its SIMT one otherwise.
 extern "C" int bigdl_int8_gemm(int mode, int x_dtype, int has_bias, const void* x, const void* wq,
                                const void* scale, const void* bias, void* y, int M, int K, int O,
                                void* stream, int* info) {
@@ -630,6 +1062,15 @@ extern "C" int bigdl_int8_gemm(int mode, int x_dtype, int has_bias, const void* 
   if (mode == 1 && x_dtype == 2 && tma_ok(x, wq, K)) {
     return has_bias ? dispatch_wgmma<true>(x, wq, sc, b, out, M, K, O, s, info)
                     : dispatch_wgmma<false>(x, wq, sc, b, out, M, K, O, s, info);
+  }
+  if (mode == 0 && x_dtype == 0 && tma_ok(x, wq, K)) {
+    return has_bias ? dispatch_weight_only<float, true>(x, wq, sc, b, out, M, K, O, s, info)
+                    : dispatch_weight_only<float, false>(x, wq, sc, b, out, M, K, O, s, info);
+  }
+  if (mode == 0 && x_dtype == 1 && tma_ok(x, wq, K)) {
+    return has_bias
+               ? dispatch_weight_only<__nv_bfloat16, true>(x, wq, sc, b, out, M, K, O, s, info)
+               : dispatch_weight_only<__nv_bfloat16, false>(x, wq, sc, b, out, M, K, O, s, info);
   }
   if (mode == 0 && x_dtype == 0) {
     const float* xp = static_cast<const float*>(x);

@@ -24,11 +24,13 @@ for int8 operands it is exact up to K ~ 2**53 / 127**2.
 
 ``launches`` counts kernel launches (never plain-version calls), so a run
 can show that its main path went through the kernel.  The C entry point
-picks one of three variants and says which: ``simt_weight_only``,
-``simt_dynamic`` (dynamic mode where TMA cannot describe the operands: K
-not a multiple of 16, as at ResNet-50's stem, or an unaligned base) and
-``wgmma_dynamic`` (s8 ``wgmma`` fed by TMA).  ``variant_launches`` counts
-each beside ``launches``, and ``last_variant`` holds the last launch's
+picks one of four variants and says which: ``wgmma_dynamic`` (s8 ``wgmma``
+fed by TMA) and ``wgmma_weight_only`` (bf16 ``wgmma`` over the exact
+three-way split of f32 activations, :func:`split_bf16x3`; one pass for
+bf16 activations) wherever TMA can describe the operands, else
+``simt_dynamic`` and ``simt_weight_only`` (K not a multiple of 16, as at
+ResNet-50's stem, or an unaligned base).  ``variant_launches`` counts each
+beside ``launches``, and ``last_variant`` holds the last launch's
 ``(variant, tile rows, tile columns, stages, blocks)``.
 """
 
@@ -45,7 +47,8 @@ MODES = ("weight_only", "dynamic")
 
 #: kernel launches since the last reset (plain int; reset by assigning 0)
 launches = 0
-VARIANTS = ("simt_weight_only", "simt_dynamic", "wgmma_dynamic")
+VARIANTS = ("simt_weight_only", "simt_dynamic", "wgmma_dynamic",
+            "wgmma_weight_only")
 #: launches of each variant since the last reset (reset with
 #: :func:`reset_counts`)
 variant_launches = dict.fromkeys(VARIANTS, 0)
@@ -96,6 +99,27 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor,
     toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
     s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
     return s.float()
+
+
+def split_bf16x3(x: torch.Tensor):
+    """``(hi, mid, lo)`` bf16 tensors whose sum is the f32 ``x``: the
+    per-element arithmetic of the ``wgmma_weight_only`` kernel, kept here so
+    that the CPU can test it (no main path calls it).  ``hi`` is ``x`` with
+    the low 16 bits of its pattern cleared (truncation, so ``hi`` never
+    overflows near f32's largest value), ``r = x - hi`` (0 where ``x`` is
+    its own ``hi``, as an infinity is), ``mid`` is ``r`` truncated the same
+    way, and ``lo`` is ``r - mid`` truncated the same way.  Each subtraction
+    is exact in f32, and ``lo`` is exact in bf16 for ``|x| >= 2**-110`` and
+    0; below that the three are off by less than ``2**-133``, bf16's least
+    subnormal."""
+    def truncated(t):
+        return (t.view(torch.int32) & -65536).view(torch.float32)
+
+    x = x.float()
+    hi = truncated(x)
+    r = torch.where(x == hi, torch.zeros_like(x), x - hi)
+    mid = truncated(r)
+    return hi.bfloat16(), mid.bfloat16(), truncated(r - mid).bfloat16()
 
 
 def int8_matmul_reference(xin: torch.Tensor, wq: torch.Tensor,

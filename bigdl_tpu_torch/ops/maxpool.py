@@ -21,7 +21,16 @@ Tensors here are indexed ``(N, C, H, W)``; an NHWC layer passes its
 gets its gradient back in the same layout.
 
 ``launches`` counts kernel launches (never plain-version calls), so a run
-can show that its path went through the kernel.
+can show that its path went through the kernel.  The C entry point picks
+one of two variants by layout, alignment and window size alone and says
+which: ``tiled_nhwc`` (one launch, no scratch, whole 16-byte channel
+vectors a thread: channels-innermost tensors whose channel rows split into
+16-byte vectors, 16-byte-aligned bases, 32-bit offsets, windows of fewer
+than 255 positions, as at ResNet's NHWC stem) and ``two_pass`` (everything
+else: NCHW, ragged C, unaligned views, 64-bit offsets).
+``variant_launches`` counts each beside ``launches``, and ``last_variant``
+holds the last launch's ``(variant, gi positions a tile, channel vectors a
+block, blocks)``.
 """
 
 from __future__ import annotations
@@ -36,11 +45,18 @@ from bigdl_tpu_torch.ops import _build
 
 #: kernel launches since the last reset (a plain int; reset by assigning 0)
 launches = 0
+VARIANTS = ("two_pass", "tiled_nhwc")
+#: launches of each variant since the last reset (reset with
+#: :func:`reset_counts`)
+variant_launches = dict.fromkeys(VARIANTS, 0)
+#: (variant, gi positions a tile, channel vectors a block, blocks) of the
+#: last launch
+last_variant = None
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]  # ((h_lo, h_hi), (w_lo, w_hi))
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None  # the C entry point, see _kernel_fn
+_fns = None  # the C entry points, see _kernel_fns
 
 
 def maxpool_bwd_reference(x, y, g, kernel, stride, pads: Pads):
@@ -81,24 +97,35 @@ def maxpool_bwd_reference(x, y, g, kernel, stride, pads: Pads):
     return gi
 
 
-def _kernel_fn():
-    """The kernel's C entry point with its ctypes signature, resolved on
-    first use (that builds the libraries) and kept."""
-    global _fn
-    if _fn is None:
-        fn = _build.load("maxpool_bwd").bigdl_maxpool_bwd
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                       + [ctypes.POINTER(ctypes.c_longlong)] * 2
-                       + [ctypes.c_int, ctypes.c_void_p])
-        _fn = fn
-    return _fn
+def reset_counts() -> None:
+    """Set ``launches`` and every ``variant_launches`` count to 0."""
+    global launches
+    launches = 0
+    for v in VARIANTS:
+        variant_launches[v] = 0
+
+
+def _kernel_fns():
+    """``(variant chooser, kernel)``: the C entry points with their ctypes
+    signatures, resolved on first use (that builds the libraries) and
+    kept."""
+    global _fns
+    if _fns is None:
+        lib = _build.load("maxpool_bwd")
+        pick, fn = lib.bigdl_maxpool_bwd_variant, lib.bigdl_maxpool_bwd
+        geometry = [ctypes.POINTER(ctypes.c_longlong)] * 2 + [ctypes.c_int]
+        pick.restype = fn.restype = ctypes.c_int
+        pick.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + geometry
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + geometry
+                       + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+        _fns = (pick, fn)
+    return _fns
 
 
 def launch(x, y, g, kernel, stride, pads: Pads):
     """Launch the kernel (what :func:`maxpool_bwd_reference` takes and
     returns).  Raises on anything the kernel does not take."""
-    global launches
+    global launches, last_variant
     dev = x.device
     if dev.type != "cuda":
         raise RuntimeError(f"the max-pool backward kernel runs on CUDA, not "
@@ -120,26 +147,33 @@ def launch(x, y, g, kernel, stride, pads: Pads):
     gi = torch.empty_like(x)  # x's layout when x is dense, else contiguous
     if x.numel() == 0 or y.numel() == 0:
         return gi.zero_()
-    # scratch: the first-match offset of every window (pass 1 -> pass 2)
-    idx = torch.empty(y.numel(), device=dev,
-                      dtype=torch.uint8 if kh * kw < 255 else torch.int32)
-    channels_last = x.stride(1) == 1 and x.shape[1] > 1
+    channels_last = int(x.stride(1) == 1 and x.shape[1] > 1)
     dims = (ctypes.c_longlong * 12)(*x.shape, *y.shape[2:], kh, kw, sh, sw,
                                     ph, pw)
     strides = (ctypes.c_longlong * 16)(*x.stride(), *y.stride(), *g.stride(),
                                        *gi.stride())
-    fn = _kernel_fn()
+    ptrs = (x.data_ptr(), y.data_ptr(), g.data_ptr(), gi.data_ptr())
+    pick, fn = _kernel_fns()
+    code = _DTYPE_CODE[x.dtype]
+    variant = pick(code, *ptrs, dims, strides, channels_last)
+    # two_pass's scratch: the first-match offset of every window
+    idx = None if variant == 1 else torch.empty(
+        y.numel(), device=dev,
+        dtype=torch.uint8 if kh * kw < 255 else torch.int32)
+    info = (ctypes.c_int * 4)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(),
-                 g.data_ptr(), gi.data_ptr(), idx.data_ptr(), dims, strides,
-                 int(channels_last), stream)
+        err = fn(code, *ptrs, None if idx is None else idx.data_ptr(), dims,
+                 strides, channels_last, stream, info)
     if err != 0:
         raise RuntimeError(f"max-pool backward kernel launch failed: "
                            f"cudaError {err} (x {tuple(x.shape)}, y "
                            f"{tuple(y.shape)}, kernel {kernel}, stride "
                            f"{stride}, pads {pads})")
     launches += 1
+    name = VARIANTS[info[0]]
+    variant_launches[name] += 1
+    last_variant = (name,) + tuple(info[1:])
     return gi
 
 

@@ -24,19 +24,19 @@ its weight gradient running kernel B3.  Phases, each printing its seconds:
    (and the same K, O at 1 and 37 rows), in both modes, with and without
    bias, weight_only in f32 and bf16, against ``int8_matmul_reference``
    on the card (dynamic bitwise, weight_only within ``rtol=1e-5,
-   atol=1e-5*max|y|``) and the variant each dynamic GEMM took (the SIMT
-   kernel where TMA cannot describe the rows, the wgmma one elsewhere),
-   then per shape and summed per forward the kernel's and the library
-   call's device time (torch.profiler), event-timed loops of kernel, plain
-   version and library call, and the least time the card could take (the
-   bound);
+   atol=1e-5*max|y|``) and the variant each GEMM took in each mode (the
+   SIMT kernel where TMA cannot describe the rows, the wgmma one
+   elsewhere), then per shape and summed per forward the kernel's and the
+   library call's device time (torch.profiler), event-timed loops of
+   kernel, plain version and library call, and the least time the card
+   could take (the bound; weight_only's also on the CUDA cores alone);
 4. int8 profile phase, per mode: device time by kernel of one batch-32
    forward (torch.profiler) against its wall time;
 5. serving phase, per mode: 8 client threads x 16 requests of 1-4 rows,
    then 4 sampled requests served alone that must agree with the same
    model run on the CPU through the plain versions within 1e-5 of
    max|y|, a limit that two planted faults must exceed; the kernel's launch
-   count must equal 54 x dispatches (in dynamic mode 1 SIMT, the stem, and
+   count must equal 54 x dispatches (in both modes 1 SIMT, the stem, and
    53 wgmma) and warmup must not grow;
 6. LSTM kernel phase: B2f and B2b against their plain versions at the
    six (N, H) shapes of ``CELL_SHAPES``, f32 and bf16, forget_bias 0 and
@@ -48,15 +48,15 @@ its weight gradient running kernel B3.  Phases, each printing its seconds:
    peak memory, the loss must fall) whose kernel launches must equal 35 x
    steps each; one step under torch.profiler (device idle share);
 8. pool-kernel phase: B1 against its plain version, bitwise, at 16
-   geometries (``POOL_CASES``: every branch of the kernel), then at the
-   ResNet-50 stem in bf16 and f32 its error on the timed inputs and its
-   time beside the bound, the plain version and PyTorch's
-   ``max_pool2d_with_indices_backward``;
+   geometries (``POOL_CASES``: every branch of both variants), each taking
+   the variant ``TILED_CASES`` says, then at the ResNet-50 stem in bf16 and
+   f32 its error on the timed inputs and its time beside the bound, the
+   plain version and PyTorch's ``max_pool2d_with_indices_backward``;
 9. resnet-train timed phase: the recipe twice, 16 steps each, through its
    own pipeline (8 worker threads) and over batches augmented beforehand
    (images/s, ms per step, block losses that must be finite and fall,
-   peak memory, B1 launches that must equal the steps and all be bf16),
-   then one profiled step;
+   peak memory, B1 launches that must equal the steps, all bf16 and all
+   ``tiled_nhwc``), then one profiled step;
 10. resnet-train check phase, f32, batch 8, card against CPU: one K=2
    block with the residual gammas at 0 (``grad_reading``), and each of
    the 53 conv+BatchNorm units alone at the model's init
@@ -123,7 +123,8 @@ from bigdl_tpu_torch.transform import vision as V
 from bigdl_tpu_torch.utils.precision import mixed_precision_loss_fn
 
 # H100 SXM data sheet, dense, at the 700 W limit
-PEAK_F32 = 67e12       # FLOP/s on the CUDA cores (weight_only's FMAs)
+PEAK_F32 = 67e12       # FLOP/s on the CUDA cores
+PEAK_BF16 = 989e12     # FLOP/s on the tensor cores (weight_only's products)
 PEAK_INT8 = 1979e12    # OP/s on the tensor cores (dynamic's int8 products)
 HBM_BPS = 3.35e12      # bytes/s
 BATCH = 32
@@ -335,14 +336,25 @@ def gemm_device_ms(k_fn, l_fn, calls=20):
     return mine, (lib if l_fn is not None else None)
 
 
-def bound(M, K, O, bias, xdtype):
+def bound(M, K, O, bias, xdtype, cuda_cores=False):
     """(least ms, "bytes" | "operations", peak used) for one GEMM: each
     input read once, the output written once, against the card's memory
-    rate and the peak rate of the operations' type."""
+    rate and the peak rate of the operations.  int8 x: int8 products on
+    the tensor cores.  f32 x: three exact bf16 products a term on the
+    tensor cores (each f32 value is the sum of three bf16 terms, the
+    kernel's split), bf16 x one; with ``cuda_cores`` instead one f32 FMA a
+    term on the CUDA cores."""
     xbytes = {"float32": 4, "bfloat16": 2, "int8": 1}[xdtype]
     nbytes = M * K * xbytes + O * K + 4 * O * (2 if bias else 1) + 4 * M * O
-    peak = PEAK_INT8 if xdtype == "int8" else PEAK_F32
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, 2.0 * M * K * O / peak * 1e3
+    ops = 2.0 * M * K * O
+    if xdtype == "int8":
+        peak = PEAK_INT8
+    elif cuda_cores:
+        peak = PEAK_F32
+    else:
+        peak = PEAK_BF16
+        ops *= 3 if xdtype == "float32" else 1
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", peak)
 
@@ -409,10 +421,9 @@ def kernel_phase(shapes, device, card, report):
           f"bf16 {errs['bfloat16']:.3e} int8 {errs['int8']:.3e}")
     taken = {}
     for (m, K, O, xdtype), v in variants.items():
-        if xdtype == "int8":
-            taken.setdefault(v[0], []).append(f"{m}x{K}x{O}")
-    for v, cases in sorted(taken.items()):
-        print(f"  dynamic variant {v}: {len(cases)} checked GEMMs "
+        taken.setdefault((xdtype, v[0]), []).append(f"{m}x{K}x{O}")
+    for (xdtype, v), cases in sorted(taken.items()):
+        print(f"  x {xdtype} variant {v}: {len(cases)} checked shapes "
               f"({', '.join(cases[:6])}{', ...' if len(cases) > 6 else ''})")
 
     totals = {}
@@ -432,29 +443,36 @@ def kernel_phase(shapes, device, card, report):
                            budget_ms=10.0)
             l_ev = cuda_ms(lib) if lib is not None else None
             b_ms, b_by, peak = bound(M, K, O, bias, xdtype)
+            c_ms = bound(M, K, O, bias, xdtype, cuda_cores=True)[0]
             row = {"mode": mode, "M": M, "K": K, "O": O, "bias": bias,
                    "launches_per_forward": n, "variant": list(variant),
                    "kernel_ms": k_ms, "library_ms": l_ms,
                    "kernel_event_ms": k_ev, "plain_event_ms": p_ev,
                    "library_event_ms": l_ev, "bound_ms": b_ms,
                    "bound_by": b_by, "peak": peak}
+            if mode == "weight_only":
+                row["bound_cuda_cores_ms"] = c_ms
             report["shapes"].append(row)
             fmt = lambda v: "n/a" if v is None else f"{v:.4f}"  # noqa: E731
+            cores = (f", CUDA cores {c_ms:.4f}" if mode == "weight_only"
+                     else "")
             print(f"gemm {mode:11s} M={M:6d} K={K:4d} O={O:4d} "
                   f"bias={int(bias)} x{n} {variant[0]} tile {variant[1]}x"
                   f"{variant[2]} stages {variant[3]} blocks {variant[4]}: "
                   f"device ms kernel={k_ms:.4f} library={fmt(l_ms)} "
-                  f"bound={b_ms:.4f} ({b_by}, peak {peak / 1e12:.0f}T); "
-                  f"event-timed kernel={k_ev:.4f} plain={p_ev:.4f} "
-                  f"library={fmt(l_ev)} [{card}]")
+                  f"bound={b_ms:.4f} ({b_by}, peak {peak / 1e12:.0f}T"
+                  f"{cores}); event-timed kernel={k_ev:.4f} "
+                  f"plain={p_ev:.4f} library={fmt(l_ev)} [{card}]")
             t = totals.setdefault(mode, {
                 "ms": 0.0, "event_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                "library_ms": 0.0, "library_event_ms": 0.0, "bytes_ms": 0.0,
-                "ops_ms": 0.0, "variants": {}})
+                "bound_cuda_cores_ms": 0.0, "library_ms": 0.0,
+                "library_event_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                "variants": {}})
             t["ms"] += n * k_ms
             t["event_ms"] += n * k_ev
             t["plain_ms"] += n * p_ev
             t["bound_ms"] += n * b_ms
+            t["bound_cuda_cores_ms"] += n * c_ms
             for key, v in (("library_ms", l_ms), ("library_event_ms", l_ev)):
                 t[key] = None if v is None or t[key] is None \
                     else t[key] + n * v
@@ -463,10 +481,13 @@ def kernel_phase(shapes, device, card, report):
             del xin, wq, scale, b
     for mode, t in totals.items():
         lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+        cores = (f" (CUDA cores alone {t['bound_cuda_cores_ms']:.4f})"
+                 if mode == "weight_only" else "")
         print(f"gemm {mode} per batch-{BATCH} forward ({sum(counts.values())} "
               f"launches: {t['variants']}): device ms kernel={t['ms']:.4f} "
-              f"library={lib} bound={t['bound_ms']:.4f}; event-timed kernel="
-              f"{t['event_ms']:.4f} plain={t['plain_ms']:.4f} [{card}]")
+              f"library={lib} bound={t['bound_ms']:.4f}{cores}; event-timed "
+              f"kernel={t['event_ms']:.4f} plain={t['plain_ms']:.4f} "
+              f"[{card}]")
     for mode, t in totals.items():
         t["max_abs_err"] = errs["int8" if mode == "dynamic" else "float32"]
     return totals
@@ -610,10 +631,9 @@ def serving_phase(mode, seed, device, card, report):
     if launches != 54 * dispatches or dispatches == 0:
         raise AssertionError(f"{mode}: {launches} kernel launches for "
                              f"{dispatches} dispatches (want 54 each)")
-    # dynamic: the stem's K=147 rows are no 16-byte multiple, so it takes the
-    # SIMT variant; the 53 others the wgmma one
-    want = ({"simt_weight_only": launches} if mode == "weight_only" else
-            {"simt_dynamic": dispatches, "wgmma_dynamic": 53 * dispatches})
+    # the stem's K=147 int8 weight rows are no 16-byte multiple, so it takes
+    # the SIMT variant; the 53 others the wgmma one
+    want = {f"simt_{mode}": dispatches, f"wgmma_{mode}": 53 * dispatches}
     if variants != want:
         raise AssertionError(f"{mode}: variant launches {variants}, want "
                              f"{want}")
@@ -1026,6 +1046,14 @@ POOL_CASES = [
     ("5x3s2p2x1_wide_nhwc_bf16", (2, 64, 28, 28), (5, 3), 2, (2, 1), False,
      "NHWC", torch.bfloat16, "wide"),
 ]
+# the cases that take B1's tiled_nhwc variant: NHWC, C a whole number of
+# 16-byte vectors, 16-byte-aligned bases, 32-bit offsets and windows of
+# fewer than 255 positions; the others (NCHW, C=3, the 16x16 windows, the
+# 2^31-element views) take two_pass
+TILED_CASES = {"stem_nhwc_f32", "stem_nhwc_bf16", "stem_nhwc_bf16_relu",
+               "3x3s1p1_nhwc_bf16", "3x3s2_ceil_odd_nhwc_f32",
+               "3x3s2p1_c160_nhwc_bf16", "5x3s2p2x1_nhwc_f32",
+               "1x1s2_nhwc_bf16"}
 
 
 def pair(v):
@@ -1064,9 +1092,10 @@ def pool_operands(shape, k, s, p, ceil, fmt, dtype, kind, gen, device):
 
 
 def kernel_pass(name):
-    """B1's pass that a profiled kernel name belongs to."""
-    return next((p for p in ("first_match", "scatter_first") if p in name),
-                name[:40])
+    """B1's kernel (a variant's, or a pass of two_pass) that a profiled
+    kernel name belongs to."""
+    return next((p for p in ("maxpool_bwd_tiled", "first_match",
+                             "scatter_first") if p in name), name[:40])
 
 
 def pool_bound(shape, y_shape, dtype):
@@ -1080,14 +1109,20 @@ def pool_bound(shape, y_shape, dtype):
 
 def pool_kernel_phase(device, card, report):
     """B1 against its plain version at every case of POOL_CASES, bitwise
-    (both add the same terms in the same order and dtype), then, at the
-    ResNet-50 stem (NHWC, batch 256) in bf16 (the training path's type) and
-    f32: kernel, plain and library times beside the bound."""
+    (both add the same terms in the same order and dtype), each in the
+    variant that TILED_CASES names, then, at the ResNet-50 stem (NHWC,
+    batch 256) in bf16 (the training path's type) and f32: kernel, plain
+    and library times beside the bound."""
     gen = torch.Generator(device=device).manual_seed(2718)
     for name, shape, k, s, p, ceil, fmt, dtype, kind in POOL_CASES:
         x, y, g, pads, k, s = pool_operands(shape, k, s, p, ceil, fmt, dtype,
                                             kind, gen, device)
         got = maxpool.launch(x, y, g, k, s, pads)
+        variant = maxpool.last_variant
+        want_variant = "tiled_nhwc" if name in TILED_CASES else "two_pass"
+        if variant[0] != want_variant:
+            raise AssertionError(f"B1 {name}: took {variant}, want "
+                                 f"{want_variant}")
         want = maxpool.maxpool_bwd_reference(x, y, g, k, s, pads)
         torch.cuda.synchronize()
         # a view that is not dense gets a dense gradient (empty_like's rule)
@@ -1099,9 +1134,11 @@ def pool_kernel_phase(device, card, report):
                                  f"{got.stride()} vs {layout})")
         ties = (y == 0).float().mean().item() if kind == "relu" else None
         print(f"pool check {name}: x {tuple(x.shape)} strides {x.stride()} "
-              f"{fmt} {dtype} kernel {k} stride {s} pads {pads}: bitwise "
-              f"equal" + (f" (windows with an all-zero max: {ties:.3f})"
-                          if ties is not None else ""))
+              f"{fmt} {dtype} kernel {k} stride {s} pads {pads}: "
+              f"{variant[0]} (tile of {variant[1]}, vectors {variant[2]}, "
+              f"blocks {variant[3]}) bitwise equal"
+              + (f" (windows with an all-zero max: {ties:.3f})"
+                 if ties is not None else ""))
         del x, y, g, got, want
         torch.cuda.empty_cache()
     rows = {}
@@ -1122,6 +1159,9 @@ def pool_kernel_phase(device, card, report):
                    g, x, [k, k], [s, s], [p, p], [1, 1], False, ind))
         # the timed inputs too: bitwise against the plain version
         got, want = fns[0](), fns[1]()
+        variant = maxpool.last_variant
+        if variant[0] != "tiled_nhwc":
+            raise AssertionError(f"B1 {name}: the stem took {variant}")
         err = (got.float() - want.float()).abs().max().item()
         if not torch.equal(got, want):
             raise AssertionError(f"B1 {name} on the timed inputs: max abs "
@@ -1146,8 +1186,10 @@ def pool_kernel_phase(device, card, report):
                       "library_event_ms": l_ev,
                       "library_call": "aten.max_pool2d_with_indices_backward "
                                       "(indices from max_pool2d)",
-                      "passes": passes}
-        print(f"maxpool_bwd {name} x {tuple(x.shape)}: max_abs_err={err} "
+                      "passes": passes, "variant": list(variant)}
+        print(f"maxpool_bwd {name} x {tuple(x.shape)} {variant[0]} (tile of "
+              f"{variant[1]}, vectors {variant[2]}, blocks {variant[3]}): "
+              f"max_abs_err={err} "
               f"against the plain version; device ms per call "
               f"kernel_ms={k_ms:.4f} library_ms={l_ms:.4f}; event-timed "
               f"kernel {k_ev:.4f} plain {p_ev:.4f} library {l_ev:.4f}; "
@@ -1566,7 +1608,7 @@ def resnet_timed_phase(seed, device, card, report):
         t0 = time.monotonic()
         model = copy.deepcopy(init)
         torch.cuda.reset_peak_memory_stats()
-        maxpool.launches = 0
+        maxpool.reset_counts()
         dtypes = []  # of every B1 launch: the stem's activation is bf16
 
         def launch(x, *a):
@@ -1586,6 +1628,10 @@ def resnet_timed_phase(seed, device, card, report):
         if set(dtypes) != {torch.bfloat16}:
             raise AssertionError(f"{name}: B1 ran on {set(dtypes)}, not on "
                                  f"the bf16 compute dtype")
+        if maxpool.variant_launches["tiled_nhwc"] != steps:
+            raise AssertionError(f"{name}: B1 variants "
+                                 f"{maxpool.variant_launches}, want "
+                                 f"{steps} tiled_nhwc")
         blocks = [float(np.mean(losses[i:i + K]))
                   for i in range(0, steps, K)]
         if not (np.all(np.isfinite(losses)) and blocks[-1] < blocks[0]):
@@ -1606,7 +1652,7 @@ def resnet_timed_phase(seed, device, card, report):
               f"max_memory_allocated={peak} block losses "
               + ", ".join(f"{v:.4f}" for v in blocks)
               + f"; B1 launches {launches[name]} for {steps} steps, all "
-              f"bf16; "
+              f"bf16 tiled_nhwc; "
               f"final: epoch={opt.state['epoch']} "
               f"loss={opt.state['loss']:.4f}; run {time.monotonic() - t0:.1f} "
               f"s [{card}]")
@@ -2227,6 +2273,8 @@ def main(argv=None) -> int:
                 "bound_ms": t["bound_ms"],
                 "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
                 else "operations",
+                **({"bound_cuda_cores_ms": t["bound_cuda_cores_ms"]}
+                   if mode == "weight_only" else {}),
                 "library_ms": t["library_ms"],
                 "variant_launches": report["serving"][mode][
                     "variant_launches"],
@@ -2260,7 +2308,10 @@ def main(argv=None) -> int:
                         "launches": launches,
                         **{k: row[k] for k in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
-                            "bound_by", "library_ms")}})
+                            "bound_by", "library_ms", "variant")},
+                        "f32": {k: report["pool_kernel"]["stem_nhwc_f32"][k]
+                                for k in ("ms", "plain_ms", "bound_ms",
+                                          "library_ms")}})
     if "wide-deep" in phases:
         t0 = time.monotonic()
         row = bag_kernel_phase(device, card, report)

@@ -7,7 +7,8 @@ no JAX, so it runs where the reference package is not installed.
 
 Tolerances: dynamic mode is BITWISE (exact integer sums, one-rounding FMA
 epilogue on both sides); weight_only ``rtol=1e-5, atol=1e-5*max|y|``
-(f32 sums on the card, float64 in the plain version).  Served models:
+(f32 sums on the card, float64 in the plain version; the wgmma variant's
+products are exact, its sums f32 in another order).  Served models:
 weight_only ``1e-4`` and dynamic ``1e-3`` of ``max|y|`` — see
 ``test_torch_serving.py`` for why dynamic mode needs more.  LSTM cell, f32:
 ``rtol=atol=1e-5`` (the recurrent product summed in another order; the
@@ -38,22 +39,27 @@ from bigdl_tpu_torch.serving import ModelRegistry
 pytestmark = pytest.mark.gpu
 
 # (M, K, O): the stem's ragged K=147/O=64 at 1, 3 and 37 rows (the SIMT
-# variant in dynamic mode: TMA cannot describe a 147-byte row), the FC's
+# variants: TMA cannot describe a 147-byte int8 weight row), the FC's
 # O=1000, aligned shapes, and a stage-1 3x3 conv with several row blocks;
-# then, for the wgmma variant, stage 4's long K (1568, 4608, 512), the FC's
+# then, for the wgmma variants, stage 4's long K (1568, 4608, 512), the FC's
 # K=2048 against O=1000 at 1, 37 and 32 rows, K=64 (half of one 128-byte K
-# box) and a K >= 1024 shape whose M and O fill no whole tile
+# box) and a K >= 1024 shape whose M and O fill no whole tile; then K=64
+# and K=4608 against O=1000 at 1, 32 and 37 rows (weight_only's shortest
+# and longest sums), and two shapes large enough for the two-warpgroup
+# tiles (128 rows against 128 or 64 columns)
 SHAPES = [(1, 147, 64), (3, 147, 64), (37, 147, 64), (5, 64, 1000),
           (8, 256, 128), (37, 128, 128), (300, 576, 64),
           (1568, 4608, 512), (1, 2048, 1000), (37, 2048, 1000),
-          (32, 2048, 1000), (300, 64, 256), (1001, 1152, 200)]
+          (32, 2048, 1000), (300, 64, 256), (1001, 1152, 200),
+          (1, 64, 1000), (32, 64, 1000), (37, 64, 1000), (1, 4608, 1000),
+          (32, 4608, 1000), (37, 4608, 1000), (12544, 576, 128),
+          (12544, 256, 64)]
 
 
 def _variant(K, xdtype):
     """The variant the C entry point takes for contiguous operands."""
-    if xdtype != "int8":
-        return "simt_weight_only"
-    return "wgmma_dynamic" if K % 16 == 0 else "simt_dynamic"
+    mode = "dynamic" if xdtype == "int8" else "weight_only"
+    return ("wgmma_" if K % 16 == 0 else "simt_") + mode
 
 
 @pytest.fixture
@@ -112,6 +118,22 @@ def test_unaligned_base_takes_simt(cuda):
     torch.cuda.synchronize()
     assert int8_gemm.last_variant[0] == "simt_dynamic"
     assert torch.equal(got, int8_matmul_reference(xin, wq, scale, b))
+
+
+@pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
+def test_unaligned_weight_only_base_takes_simt(cuda, xdtype):
+    """weight_only activations off a 16-byte boundary go to the SIMT
+    variant, within the same tolerance."""
+    xin, wq, scale, b = _operands(37, 256, 128, xdtype, True, cuda)
+    buf = torch.empty(xin.numel() + 1, dtype=xin.dtype, device=cuda)
+    shifted = buf[1:].view(xin.shape)
+    shifted.copy_(xin)
+    got = int8_gemm.launch(shifted, wq, scale, b)
+    torch.cuda.synchronize()
+    assert int8_gemm.last_variant[0] == "simt_weight_only"
+    want = int8_matmul_reference(xin, wq, scale, b)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
@@ -268,10 +290,11 @@ def _pool_id(c):
                                str(c[6])[6:])))
 
 
-def _pool_operands(case, relu, cuda, wide=False):
+def _pool_operands(case, relu, cuda, wide=False, g_channels_last=False):
     """x (NCHW-indexed; for NHWC the channels_last view of an NHWC
     tensor; with ``wide`` a strided view of a buffer of 2^31 + elements, so
-    that the kernel takes 64-bit indices), y, g, kernel, stride, pads."""
+    that the kernel takes 64-bit indices), y, g (contiguous, or
+    channels_last with ``g_channels_last``), kernel, stride, pads."""
     (N, C, H, W), k, s, p, ceil, fmt, dtype = case
     (kh, kw), (sh, sw), (ph, pw) = _pair(k), _pair(s), _pair(p)
     rng = np.random.default_rng(N * C + H)
@@ -289,6 +312,8 @@ def _pool_operands(case, relu, cuda, wide=False):
         (H, W))
     y = maxpool.maxpool2d(x, (kh, kw), (sh, sw), pads)
     g = torch.from_numpy(rng.normal(0, 1, tuple(y.shape))).to(cuda, dtype)
+    if g_channels_last:
+        g = g.contiguous(memory_format=torch.channels_last)
     return x, y, g, (kh, kw), (sh, sw), pads
 
 
@@ -301,7 +326,61 @@ def test_maxpool_bwd_kernel_matches_plain(cuda, case, relu):
     want = maxpool.maxpool_bwd_reference(x, y, g, k, s, pads)
     torch.cuda.synchronize()
     assert maxpool.launches == before + 1
+    # g is contiguous NCHW here, so no case has every tensor channels-last
+    assert maxpool.last_variant[0] == "two_pass"
     assert got.stride() == x.stride()
+    assert torch.equal(got, want)
+
+
+# NHWC cases whose four tensors split into 16-byte channel vectors: the
+# ResNet-50 stem's geometry at batch 8, a ragged last channel slice (C=160
+# bf16: 20 vectors, 16 a block), a 5x3 window with unequal pads, a 1x1/2
+# window that leaves positions uncovered, a ceil-mode odd size, a 3x3/1
+# window (10 covering windows a tile side)
+TILED_POOLS = [((8, 64, 112, 112), 3, 2, 1, False, "NHWC"),
+               ((2, 160, 14, 14), 3, 2, 1, False, "NHWC"),
+               ((2, 16, 29, 30), (5, 3), 2, (2, 1), False, "NHWC"),
+               ((2, 16, 28, 28), 1, 2, 0, False, "NHWC"),
+               ((2, 8, 27, 27), 3, 2, 0, True, "NHWC"),
+               ((2, 32, 14, 14), 3, 1, 1, False, "NHWC")]
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["ints", "relu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", TILED_POOLS, ids=lambda c: _pool_id(
+    c + (torch.float32,))[:-8])
+def test_maxpool_bwd_tiled_variant_matches_plain(cuda, case, dtype, relu):
+    """The tiled_nhwc variant, bitwise against the plain version; the
+    "ints" inputs (values in [-4, 4]) put exact ties in most windows."""
+    x, y, g, k, s, pads = _pool_operands(case + (dtype,), relu, cuda,
+                                         g_channels_last=True)
+    before = maxpool.variant_launches["tiled_nhwc"]
+    got = maxpool.launch(x, y, g, k, s, pads)
+    want = maxpool.maxpool_bwd_reference(x, y, g, k, s, pads)
+    torch.cuda.synchronize()
+    assert maxpool.last_variant[0] == "tiled_nhwc"
+    assert maxpool.variant_launches["tiled_nhwc"] == before + 1
+    assert got.stride() == x.stride()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", [
+    ((4, 64, 32, 32), 3, 2, 1, False, "NCHW", torch.float32),
+    ((2, 3, 33, 33), 3, 2, 1, False, "NHWC", torch.float32),
+    ((2, 20, 16, 16), 3, 2, 1, False, "NHWC", torch.bfloat16),
+    ((2, 8, 64, 64), 16, 8, 0, False, "NHWC", torch.float32)],
+    ids=_pool_id)
+def test_maxpool_bwd_generic_cases_take_two_pass(cuda, case):
+    """NCHW, a ragged channel row (C=3 f32, C=20 bf16: no whole 16-byte
+    vectors) and a 256-position window go to two_pass even with g
+    channels-last, bitwise all the same."""
+    x, y, g, k, s, pads = _pool_operands(case, False, cuda,
+                                         g_channels_last=case[5] == "NHWC")
+    got = maxpool.launch(x, y, g, k, s, pads)
+    want = maxpool.maxpool_bwd_reference(x, y, g, k, s, pads)
+    torch.cuda.synchronize()
+    assert maxpool.last_variant[0] == "two_pass"
     assert torch.equal(got, want)
 
 

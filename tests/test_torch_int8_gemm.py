@@ -23,7 +23,10 @@ import jax.numpy as jnp
 from bigdl_tpu.ops.pallas_int8_gemm import dyn_quantize as jax_dyn_quantize
 from bigdl_tpu.ops.pallas_int8_gemm import int8_matmul as jax_int8_matmul
 from bigdl_tpu_torch.ops import int8_gemm
-from bigdl_tpu_torch.ops.int8_gemm import dyn_quantize, fma_f32, int8_matmul
+from bigdl_tpu_torch.ops.int8_gemm import (dyn_quantize, fma_f32,
+                                           int8_matmul,
+                                           int8_matmul_reference,
+                                           split_bf16x3)
 
 # (N, K, O): the ResNet-50 stem's ragged K=147/O=64 at 1, 3 and 37 rows,
 # 128-aligned shapes the Pallas kernel takes, and a ragged O like the FC's
@@ -159,3 +162,118 @@ def test_cpu_path_does_not_count_launches():
     before = int8_gemm.launches
     _port(*_operands(3, 147, 64), "dynamic")
     assert int8_gemm.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The wgmma_weight_only kernel's three-way split of f32 activations (its
+# arithmetic kept on the CPU as ``split_bf16x3``).
+
+def _split_sum(x):
+    parts = split_bf16x3(torch.from_numpy(x))
+    assert all(p.dtype == torch.bfloat16 for p in parts)
+    return sum(p.double() for p in parts).numpy()
+
+
+def test_split_bf16x3_is_exact():
+    """hi + mid + lo == x exactly, summed in float64, for every f32 of
+    magnitude 2^-110 or more and for +-0: random normals, every power of
+    two, random values across the whole range with both signs, and the
+    values next to f32's largest (where rounding hi to nearest would
+    overflow bf16)."""
+    rng = np.random.default_rng(6)
+    fmax = np.finfo(np.float32).max
+    pow2 = np.exp2(np.arange(-110.0, 128.0))
+    wide = (rng.uniform(1, 2, 8192) * np.exp2(rng.integers(-110, 127, 8192))
+            * rng.choice([-1.0, 1.0], 8192))
+    near_max = np.array([fmax, -fmax, 3.39e38, -3.3e38, 2.0 ** 127 * 1.99])
+    x = np.concatenate([rng.normal(0, 1, 8192), pow2, -pow2, wide, near_max,
+                        [np.nextafter(np.float32(fmax), np.float32(0))],
+                        [0.0, -0.0]]).astype(np.float32)
+    assert np.isfinite(x).all()
+    np.testing.assert_array_equal(_split_sum(x), x.astype(np.float64))
+
+
+def test_split_bf16x3_below_2_pow_minus_110():
+    """Subnormals and normals below 2^-110 split within less than 2^-133
+    (bf16's least subnormal; no three bf16 values can hold every bit of
+    them); infinities are their own hi and NaN stays NaN."""
+    rng = np.random.default_rng(7)
+    tiny = np.concatenate([
+        rng.uniform(1, 2, 4096) * np.exp2(rng.integers(-126, -110, 4096)),
+        rng.uniform(0, 2.0 ** -126, 4096),
+        [1e-45, -1e-45, 2.0 ** -149, 2.0 ** -126 * (1 - 2.0 ** -23)]]
+    ).astype(np.float32)
+    err = np.abs(_split_sum(tiny) - tiny.astype(np.float64))
+    assert err.max() < 2.0 ** -133
+    hi, mid, lo = split_bf16x3(torch.tensor([np.inf, -np.inf, np.nan]))
+    assert hi[0] == np.inf and hi[1] == -np.inf and torch.isnan(hi[2])
+    assert torch.equal(mid[:2], torch.zeros(2, dtype=torch.bfloat16))
+    assert torch.equal(lo[:2], torch.zeros(2, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+def test_split_products_within_kernel_limit(bias):
+    """The kernel's sum at K=4608 (stage 4 of ResNet-50): for each 64-wide
+    stage, each k16 slice's hi, mid and lo products with the int8 weights
+    (each product exact in f32, each slice's sum rounded once, as the
+    tensor cores' at best) added into a fresh f32 accumulator, which is
+    added into the running sum; then the one-rounding epilogue.  Within
+    the kernel check's limit (``rtol=1e-5, atol=1e-5*max|y|``) of the plain
+    version ``int8_matmul_reference``."""
+    M, K, O = 37, 4608, 64
+    x, wq, ws, b = (torch.from_numpy(a) for a in _operands(M, K, O, seed=8))
+    scale = ws.reshape(-1).contiguous()
+    b = b if bias else None
+    terms = split_bf16x3(x)
+    w = wq.double()
+    total = torch.zeros(M, O)
+    for k0 in range(0, K, 64):
+        acc = torch.zeros(M, O)
+        for kk in range(k0, k0 + 64, 16):
+            for t in terms:
+                acc = acc + (t[:, kk:kk + 16].double()
+                             @ w[:, kk:kk + 16].T).float()
+        total = total + acc
+    got = fma_f32(total, scale, b)
+    want = int8_matmul_reference(x, wq, scale, b)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+    # the hi terms alone (bf16 activations' one pass) are not enough
+    lone = fma_f32(terms[0].double().matmul(w.T).float(), scale, b)
+    assert (lone - want).abs().max() > 1e-5 * want.abs().max()
+
+
+def _round_toward_zero(d: torch.Tensor) -> torch.Tensor:
+    """float64 -> f32, truncated toward zero."""
+    f = d.float()
+    over = f.double().abs() > d.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def test_stage_sums_bound_a_truncating_accumulator():
+    """Why the kernel adds each 64-wide stage's products into a fresh
+    accumulator and then into the tile's sum with IEEE adds: the tensor
+    cores' f32 accumulation is not an IEEE add, and were each k16 add
+    truncated toward zero, one accumulator over K=4608 would reach the
+    kernel check's limit, while fresh stage accumulators stay far inside
+    it (the limit as in ``test_split_products_within_kernel_limit``)."""
+    M, K, O = 37, 4608, 64
+    x, wq, ws, _ = (torch.from_numpy(a) for a in _operands(M, K, O, seed=0))
+    scale = ws.reshape(-1).contiguous()
+    want = int8_matmul_reference(x, wq, scale, None)
+    limit = 1e-5 * want.abs() + 1e-5 * want.abs().max()
+    terms, w = split_bf16x3(x), wq.double()
+    one = torch.zeros(M, O)
+    total = torch.zeros(M, O)
+    for k0 in range(0, K, 64):
+        acc = torch.zeros(M, O)
+        for kk in range(k0, k0 + 64, 16):
+            for t in terms:
+                part = t[:, kk:kk + 16].double() @ w[:, kk:kk + 16].T
+                one = _round_toward_zero(one.double() + part)
+                acc = _round_toward_zero(acc.double() + part)
+        total = total + acc
+    ratio = {name: ((fma_f32(v, scale, None) - want).abs() / limit).max()
+             for name, v in (("one", one), ("stages", total))}
+    assert ratio["one"] > 0.5
+    assert ratio["stages"] < 0.1
