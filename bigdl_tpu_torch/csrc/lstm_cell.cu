@@ -22,7 +22,9 @@
 // sequence every step reads the same W_t, so after the first step a launch finds it in
 // the 50 MB L2 and is bound by how fast the SMs can pull it from there and by latency,
 // not by HBM: the work has to be spread over every SM, with the copies overlapped.  The
-// backward is elementwise, 0.62 MB at that shape, and bound by bytes too.
+// backward is elementwise, 0.62 MB at that shape: 0.19 us at 3.35 TB/s, below the fixed
+// cost of any launch, so the least time it can take is that of an empty kernel of its grid
+// (bigdl_lstm_cell_bwd_empty measures it).
 //
 // Design, forward.  A thread-block cluster of S=8 CTAs owns J=16 hidden units (the four
 // gate columns j, H+j, 2H+j, 3H+j of each: 64 columns of z) and up to 32 batch rows; each
@@ -43,8 +45,13 @@
 // no atomics) and finishes the gates, c', h' and z.  What bounds it now: the start, when
 // all 328 CTAs pull their first chunks from L2 at once (the slowest wait several µs),
 // and the cluster barrier, which waits for the slowest CTA of the cluster.  A persistent
-// kernel that keeps W_t on chip across the 35 steps is later work.  Backward: one thread
-// per (n, j).
+// kernel that keeps W_t on chip across the 35 steps is later work.
+//
+// Design, backward.  A 2-D grid of batch rows by runs of 128 hidden units (PTB-medium:
+// 6 x 20 = 120 blocks, one an SM), so every block lands on an SM of its own and no thread
+// divides; a thread issues its seven loads (four z gates, c, dh, dc) before its first
+// expf.  What is left above an empty kernel of the same grid is one dependent chain:
+// the parameters, the loads, the gates, tanh(c'), the stores.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -255,30 +262,50 @@ __global__ void __cluster_dims__(S, 1, 1) __launch_bounds__(MAX_THREADS)
   }
 }
 
+// Backward (B2b): a 2-D grid, batch row (blockIdx.y, striding past the grid's y limit)
+// by runs of BWD_THREADS hidden units (blockIdx.x), one a thread, so no thread divides
+// and every index within a row is 32-bit.  All seven loads of a unit are issued,
+// read-only, before the first transcendental.  Two units a thread with 8-byte loads of
+// the z gate blocks is slower on an H100 (the longer per-thread chain costs more than the
+// wider loads save), and so is any other block size of 32 to 256 threads.
+constexpr int BWD_THREADS = 128;
+
+__device__ __forceinline__ float load_ro(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_ro(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
 template <typename T>
-__global__ void lstm_cell_bwd(const float* __restrict__ z, const T* __restrict__ c,
-                              const T* __restrict__ dh, const T* __restrict__ dc,
-                              float* __restrict__ dz, T* __restrict__ dc_prev, int N, int H,
-                              float forget_bias) {
-  const long total = (long)N * H;
-  for (long e = blockIdx.x * (long)blockDim.x + threadIdx.x; e < total;
-       e += (long)gridDim.x * blockDim.x) {
-    const long n = e / H, j = e % H;
-    const long row = n * 4L * H;
-    const float ig = sigmoid(z[row + j]);
-    const float fg = sigmoid(z[row + H + j] + forget_bias);
-    const float gg = tanhf(z[row + 2L * H + j]);
-    const float og = sigmoid(z[row + 3L * H + j]);
-    const float cv = to_f32(c[e]), dhv = to_f32(dh[e]);
+__global__ void __launch_bounds__(BWD_THREADS)
+    lstm_cell_bwd(const float* __restrict__ z, const T* __restrict__ c,
+                  const T* __restrict__ dh, const T* __restrict__ dc, float* __restrict__ dz,
+                  T* __restrict__ dc_prev, int N, int H, float forget_bias) {
+  const int j = blockIdx.x * BWD_THREADS + threadIdx.x;
+  if (j >= H) return;
+  for (int n = blockIdx.y; n < N; n += gridDim.y) {
+    const size_t zrow = (size_t)n * (4 * (size_t)H), row = (size_t)n * H;
+    const float* zr = z + zrow + j;
+    const float zi = __ldg(zr), zf = __ldg(zr + H), zg = __ldg(zr + 2 * H),
+                zo = __ldg(zr + 3 * H);
+    const float cv = load_ro(c + row + j), dhv = load_ro(dh + row + j),
+                dcv = load_ro(dc + row + j);
+    const float ig = sigmoid(zi);
+    const float fg = sigmoid(zf + forget_bias);
+    const float gg = tanhf(zg);
+    const float og = sigmoid(zo);
     const float tc = tanhf(fg * cv + ig * gg);
-    const float dct = to_f32(dc[e]) + dhv * og * (1.0f - tc * tc);
-    dz[row + j] = dct * gg * ig * (1.0f - ig);
-    dz[row + H + j] = dct * cv * fg * (1.0f - fg);
-    dz[row + 2L * H + j] = dct * ig * (1.0f - gg * gg);
-    dz[row + 3L * H + j] = dhv * tc * og * (1.0f - og);
-    store(&dc_prev[e], dct * fg);
+    const float dct = dcv + dhv * og * (1.0f - tc * tc);
+    float* dzr = dz + zrow + j;
+    dzr[0] = dct * gg * ig * (1.0f - ig);
+    dzr[H] = dct * cv * fg * (1.0f - fg);
+    dzr[2 * H] = dct * ig * (1.0f - gg * gg);
+    dzr[3 * H] = dhv * tc * og * (1.0f - og);
+    store(&dc_prev[row + j], dct * fg);
   }
 }
+
+// B2b's grid with nothing in it: what a launch of that shape costs on its own.
+__global__ void __launch_bounds__(BWD_THREADS) lstm_cell_bwd_empty() {}
 
 }  // namespace
 
@@ -339,29 +366,55 @@ extern "C" int bigdl_lstm_cell_fwd(int dtype, const void* zx, const void* h, con
   }
 }
 
-// dtype: 0 f32, 1 bf16 (c, dh, dc, dc_prev); z and dz are f32.
+namespace {
+
+// the backward's grid: runs of BWD_THREADS units x batch rows (at most 65,535, the y
+// limit; the kernel strides past it); info (2 ints) receives {blocks, threads a block}
+dim3 bwd_grid(int N, int H, int* info) {
+  const dim3 grid((H + BWD_THREADS - 1) / BWD_THREADS, N < 65535 ? N : 65535);
+  info[0] = (int)(grid.x * grid.y);
+  info[1] = BWD_THREADS;
+  return grid;
+}
+
+}  // namespace
+
+// dtype: 0 f32, 1 bf16 (c, dh, dc, dc_prev); z and dz are f32.  Launches on `stream` and
+// returns cudaGetLastError() (0 on success); a bad dtype or size returns
+// cudaErrorInvalidValue without launching.  info (2 ints) receives the launch's shape:
+// {blocks, threads a block}.
 extern "C" int bigdl_lstm_cell_bwd(int dtype, const void* z, const void* c, const void* dh,
                                    const void* dc, void* dz, void* dc_prev, int N, int H,
-                                   float forget_bias, void* stream) {
-  if (N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  const long total = (long)N * H;
-  const int threads = 256;
-  const int blocks = (int)((total + threads - 1) / threads < 65535 ? (total + threads - 1) / threads
-                                                                   : 65535);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* zp = static_cast<const float*>(z);
-  float* dzp = static_cast<float*>(dz);
-  if (dtype == 0) {
-    lstm_cell_bwd<float><<<blocks, threads, 0, s>>>(
-        zp, static_cast<const float*>(c), static_cast<const float*>(dh),
-        static_cast<const float*>(dc), dzp, static_cast<float*>(dc_prev), N, H, forget_bias);
-  } else if (dtype == 1) {
-    using B = __nv_bfloat16;
-    lstm_cell_bwd<B><<<blocks, threads, 0, s>>>(
-        zp, static_cast<const B*>(c), static_cast<const B*>(dh), static_cast<const B*>(dc), dzp,
-        static_cast<B*>(dc_prev), N, H, forget_bias);
-  } else {
+                                   float forget_bias, void* stream, int* info) {
+  if (N <= 0 || H <= 0 || H > (1 << 28) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid = bwd_grid(N, H, info);
+  if (dtype == 0)
+    lstm_cell_bwd<float><<<grid, BWD_THREADS, 0, s>>>(
+        static_cast<const float*>(z), static_cast<const float*>(c),
+        static_cast<const float*>(dh), static_cast<const float*>(dc), static_cast<float*>(dz),
+        static_cast<float*>(dc_prev), N, H, forget_bias);
+  else {
+    using B = __nv_bfloat16;
+    lstm_cell_bwd<B><<<grid, BWD_THREADS, 0, s>>>(
+        static_cast<const float*>(z), static_cast<const B*>(c), static_cast<const B*>(dh),
+        static_cast<const B*>(dc), static_cast<float*>(dz), static_cast<B*>(dc_prev), N, H,
+        forget_bias);
   }
+  return (int)cudaGetLastError();
+}
+
+// An empty kernel launched with the grid and block bigdl_lstm_cell_bwd would launch for the
+// same arguments (its launch floor); writes nothing.  Same arguments and info.
+extern "C" int bigdl_lstm_cell_bwd_empty(int dtype, const void* z, const void* c,
+                                         const void* dh, const void* dc, void* dz,
+                                         void* dc_prev, int N, int H, float forget_bias,
+                                         void* stream, int* info) {
+  (void)z, (void)c, (void)dh, (void)dc, (void)dz, (void)dc_prev, (void)forget_bias;
+  if (N <= 0 || H <= 0 || H > (1 << 28) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  lstm_cell_bwd_empty<<<bwd_grid(N, H, info), BWD_THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }

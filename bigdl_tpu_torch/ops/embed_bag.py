@@ -16,8 +16,14 @@ single-rounding FMA ``acc = fma(v, t, acc)`` each, into an f32 accumulator
 that starts at 0.  That is what the reference's Pallas kernel does under the
 interpreter on the CPU (XLA contracts its ``acc + v * t``), so the kernel,
 the plain version and the reference agree bitwise.  The kernel gets the
-order from a stable sort of ``rows`` and CSR row offsets built from it
-(:func:`row_index`: index bookkeeping on library calls, no float math).
+order from a stable sort of ``rows`` and CSR row offsets built from it:
+on the card from three hand-written passes of a two-digit counting sort
+over the known row range (:func:`group_index`, sized by
+:func:`group_plan`; no library kernel, no host read-back), in the plain
+version from library calls (:func:`row_index`).  Both give the same
+``offsets`` and the same ``perm`` over every row's bounds; they differ only
+in how they order the entries whose row lies outside ``[0, n_rows)``,
+which no bound covers (:func:`group_index`).
 
 The device of the tensor picks the version.  A CUDA tensor launches the
 hand-written Hopper kernel (``csrc/embed_bag.cu``, :func:`launch`) or
@@ -28,24 +34,71 @@ included), f32 and bf16 tables and values, and 64-bit offsets where
 ``V * D`` or ``n_rows * D`` reaches 2^31.  The reference's 128-lane and
 VMEM-budget limits are TPU facts and are not copied.
 
-``launches`` counts kernel launches (never plain-version calls), so a run
-can show that its path went through the kernel.
+``launches`` counts calls of the kernel, one a :func:`launch` whatever
+the number of passes it launches (never plain-version calls), so a run can
+show that its path went through the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from bigdl_tpu_torch.ops import _build
 from bigdl_tpu_torch.ops.int8_gemm import fma_f32
 
-#: kernel launches since the last reset (a plain int; reset by assigning 0)
+#: kernel calls since the last reset (a plain int; reset by assigning 0)
 launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None  # the C entry point, see _kernel_fn
+_fns = {}  # the C entry points, see _kernel_fn
+
+# the grouping passes' sizes, as csrc/embed_bag.cu has them
+TILE = 1024          # entries a block of passes 1 and 2 takes at a time
+MAX_CHUNKS = 128     # a chunk grows by whole tiles beyond this many
+COARSE_BITS = 8      # at most 256 coarse buckets
+MAX_KEYS = 2 ** 31   # every int32 key >= 0 lies below it
+
+
+class GroupPlan(NamedTuple):
+    """The sizes of :func:`group_index` for ``nnz`` keys in ``[0,
+    n_keys)`` (:func:`group_plan`)."""
+    shift: int            # fine bits: coarse bucket = domain key >> shift
+    buckets: int          # coarse buckets
+    chunk: int            # entries a block of passes 1 and 2 (whole tiles)
+    chunks: int           # blocks of passes 1 and 2
+    index_dtype: torch.dtype  # of perm and offsets: int32 below 2^31 entries
+    scratch_bytes: int    # passes 1-3's scratch, one buffer
+
+
+def _align256(n: int) -> int:
+    return -(-n // 256) * 256
+
+
+def group_plan(nnz: int, n_keys: int) -> GroupPlan:
+    """Sizes of the grouping passes, from the shapes alone.  Keys map to
+    the domain ``[0, n_keys + 2)`` (below 0 -> 0, k -> k + 1, n_keys and
+    above -> n_keys + 1); its top ``COARSE_BITS`` bits are the coarse
+    digit, the rest the fine one.  The scratch holds, each region on a
+    256-byte boundary: the chunks x buckets histogram, the bucket starts
+    (buckets + 1) and the coarse-ordered entries (a domain key and a
+    stream index each, in the index dtype's width)."""
+    if nnz < 0 or not 1 <= n_keys <= MAX_KEYS:
+        raise ValueError(f"the grouping takes nnz >= 0 and 1 <= n_keys <= "
+                         f"2^31, got nnz {nnz}, n_keys {n_keys}")
+    bits = (n_keys + 1).bit_length()  # of the largest domain key, n_keys + 1
+    shift = max(0, bits - COARSE_BITS)
+    buckets = ((n_keys + 1) >> shift) + 1
+    chunk = TILE * max(1, -(-nnz // (TILE * MAX_CHUNKS)))
+    chunks = max(1, -(-nnz // chunk))
+    wide = nnz >= 2 ** 31
+    es = 8 if wide else 4
+    scratch = sum(_align256(n) for n in (chunks * buckets * es,
+                                         (buckets + 1) * es, nnz * 2 * es))
+    return GroupPlan(shift, buckets, chunk, chunks,
+                     torch.int64 if wide else torch.int32, scratch)
 
 
 def row_index(rows: torch.Tensor, n_rows: int):
@@ -83,25 +136,74 @@ def embedding_bag_coo_reference(rows, cols, values, table, n_rows: int):
     return acc.to(out_dtype)
 
 
-def _kernel_fn():
-    """The kernel's C entry point with its ctypes signature, resolved on
-    first use (that builds the libraries) and kept."""
-    global _fn
-    if _fn is None:
-        fn = _build.load("embed_bag").bigdl_embed_bag
+_ARGTYPES = {
+    # wide, keys, nnz, n_keys, shift, buckets, chunk, chunks, scratch,
+    # scratch_bytes, perm, offsets, stream
+    "bigdl_embed_bag_group": (
+        [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_longlong] * 2
+        + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2
+        + [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 3),
+    # table dtype, values dtype, wide, offsets, perm, cols, values, table,
+    # out, n_rows, n_table, D, stream
+    "bigdl_embed_bag": ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
+                        + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]),
+}
+
+
+def _kernel_fn(name: str):
+    """A C entry point with its ctypes signature, resolved on first use
+    (that builds the libraries) and kept."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load("embed_bag"), name)
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
-                       + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
-        _fn = fn
-    return _fn
+        fn.argtypes = _ARGTYPES[name]
+        _fns[name] = fn
+    return fn
+
+
+def group_index(keys: torch.Tensor, n_keys: int):
+    """The hand-written passes 1-3 of ``csrc/embed_bag.cu`` on the card:
+    ``(perm, offsets)`` in ``group_plan(...).index_dtype`` (int32 below 2^31
+    entries).  ``offsets`` equals :func:`row_index`'s, and so does ``perm``
+    over ``[offsets[0], offsets[n_keys])``, the span the bag walk reads.
+    Keys below 0 fill ``perm``'s head and keys at or above ``n_keys`` its
+    tail, each side in nnz order (``row_index`` orders them by key).  ``keys``
+    is a contiguous int32 CUDA stream.  Allocates with ``torch.empty``
+    only: no library kernel, no host sync.  Not counted in ``launches``
+    (:func:`launch` counts its calls)."""
+    dev = keys.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"the grouping passes run on CUDA, not {dev}")
+    if keys.dtype != torch.int32 or keys.dim() != 1 \
+            or not keys.is_contiguous():
+        raise TypeError(f"keys must be a contiguous 1-D int32 stream, got "
+                        f"{keys.dtype} {tuple(keys.shape)}")
+    nnz, n_keys = keys.numel(), int(n_keys)
+    plan = group_plan(nnz, n_keys)
+    perm = torch.empty(nnz, dtype=plan.index_dtype, device=dev)
+    offsets = torch.empty(n_keys + 1, dtype=plan.index_dtype, device=dev)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _kernel_fn("bigdl_embed_bag_group")(
+            int(plan.index_dtype == torch.int64), keys.data_ptr(), nnz,
+            n_keys, plan.shift, plan.buckets, plan.chunk, plan.chunks,
+            scratch.data_ptr(), plan.scratch_bytes, perm.data_ptr(),
+            offsets.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"embedding-bag grouping launch failed: cudaError "
+                           f"{err} (nnz {nnz}, n_keys {n_keys}, {plan})")
+    return perm, offsets
 
 
 def launch(rows, cols, values, table, n_rows: int):
-    """Launch the kernel (what :func:`embedding_bag_coo_reference` takes
-    and returns).  Raises on anything the kernel does not take: tensors off
-    CUDA or on different cards, rows or cols not int32, values or table not
-    f32/bf16, a table that is not a contiguous (V, D), streams of unequal
-    length or not contiguous."""
+    """Launch the kernel: the grouping passes, then the bag walk (what
+    :func:`embedding_bag_coo_reference` takes and returns).  Raises on
+    anything the kernel does not take: tensors off CUDA or on different
+    cards, rows or cols not int32, values or table not f32/bf16, a table
+    that is not a contiguous (V, D), streams of unequal length or not
+    contiguous."""
     global launches
     dev = table.device
     if dev.type != "cuda":
@@ -128,14 +230,14 @@ def launch(rows, cols, values, table, n_rows: int):
                       device=dev)
     if out.numel() == 0:
         return out
-    perm, offsets = row_index(rows, n_rows)
-    fn = _kernel_fn()
+    perm, offsets = group_index(rows, n_rows)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(_DTYPE_CODE[table.dtype], _DTYPE_CODE[values.dtype],
-                 offsets.data_ptr(), perm.data_ptr(), cols.data_ptr(),
-                 values.data_ptr(), table.data_ptr(), out.data_ptr(), n_rows,
-                 V, D, stream)
+        err = _kernel_fn("bigdl_embed_bag")(
+            _DTYPE_CODE[table.dtype], _DTYPE_CODE[values.dtype],
+            int(perm.dtype == torch.int64), offsets.data_ptr(),
+            perm.data_ptr(), cols.data_ptr(), values.data_ptr(),
+            table.data_ptr(), out.data_ptr(), n_rows, V, D, stream)
     if err != 0:
         raise RuntimeError(f"embedding-bag kernel launch failed: cudaError "
                            f"{err} (nnz {rows.numel()}, n_rows {n_rows}, "

@@ -19,7 +19,11 @@ H and N themselves.
 plain-version calls), so a run can show that its path went through them.
 ``last_fwd_shape`` holds the last forward launch's ``(CTAs, cluster size,
 copy width in bytes, batch rows a cluster)``: the forward spreads the
-recurrent product's K=H over a cluster of CTAs.
+recurrent product's K=H over a cluster of CTAs.  ``last_bwd_shape`` holds
+the last backward launch's ``(blocks, threads a block)``: a 2-D grid of
+batch rows by runs of hidden units, one a thread.
+:func:`launch_bwd_empty` launches an empty kernel of the backward's grid,
+the floor under the backward's time.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ bwd_launches = 0
 #: (CTAs, cluster size, copy width in bytes, batch rows a cluster) of the
 #: last forward launch
 last_fwd_shape = None
+#: (blocks, threads a block) of the last backward launch
+last_bwd_shape = None
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fns = {}  # C entry points, see _kernel_fn
@@ -77,10 +83,10 @@ def _kernel_fn(name: str):
     if fn is None:
         fn = getattr(_build.load("lstm_cell"), f"bigdl_lstm_cell_{name}")
         fn.restype = ctypes.c_int
-        n_ptr = {"fwd": 7, "bwd": 6}[name]  # tensors, then N, H, bias, stream
+        n_ptr = 7 if name == "fwd" else 6  # tensors, N, H, bias, stream, info
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptr
-                       + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
-                       + [ctypes.c_void_p] * (name == "fwd"))  # fwd: info
+                       + [ctypes.c_int] * 2
+                       + [ctypes.c_float] + [ctypes.c_void_p] * 2)
         _fns[name] = fn
     return fn
 
@@ -131,10 +137,7 @@ def launch_fwd(zx, h, c, w_t, forget_bias: float = 0.0):
     return h_new, c_new, z
 
 
-def launch_bwd(z, c, dh, dc, forget_bias: float = 0.0):
-    """Launch the backward kernel (what :func:`lstm_cell_bwd_reference`
-    takes and returns).  Raises on anything the kernel does not take."""
-    global bwd_launches
+def _bwd_args(z, c, dh, dc):
     dev = z.device
     if dev.type != "cuda":
         raise RuntimeError(f"the LSTM cell kernel runs on CUDA, not {dev}")
@@ -144,13 +147,36 @@ def launch_bwd(z, c, dh, dc, forget_bias: float = 0.0):
     _check((("z", z), ("c", c), ("dh", dh), ("dc", dc)),
            ((N, 4 * H), (N, H), (N, H), (N, H)),
            (torch.float32,) + (c.dtype,) * 3, dev)
+    return dev, N, H
+
+
+def launch_bwd(z, c, dh, dc, forget_bias: float = 0.0):
+    """Launch the backward kernel (what :func:`lstm_cell_bwd_reference`
+    takes and returns).  Raises on anything the kernel does not take."""
+    global bwd_launches, last_bwd_shape
+    dev, N, H = _bwd_args(z, c, dh, dc)
     dz = torch.empty_like(z)
     dc_prev = torch.empty_like(c)
     if N:
+        info = (ctypes.c_int * 2)()
         _launch("bwd", _DTYPE_CODE[c.dtype], (z, c, dh, dc, dz, dc_prev),
-                N, H, forget_bias, dev)
+                N, H, forget_bias, dev, info)
         bwd_launches += 1
+        last_bwd_shape = tuple(info)
     return dz, dc_prev
+
+
+def launch_bwd_empty(z, c, dh, dc):
+    """An empty kernel launched with the grid and block that
+    :func:`launch_bwd` would launch for these tensors (its launch floor);
+    returns that ``(blocks, threads a block)``.
+    Not counted in ``bwd_launches``."""
+    dev, N, H = _bwd_args(z, c, dh, dc)
+    info = (ctypes.c_int * 2)()
+    if N:  # z and c stand in for the outputs, fresh tensors of their kind
+        _launch("bwd_empty", _DTYPE_CODE[c.dtype], (z, c, dh, dc, z, c), N,
+                H, 0.0, dev, info)
+    return tuple(info)
 
 
 def _fwd(zx, h, c, w_t, forget_bias):

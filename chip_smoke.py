@@ -41,7 +41,9 @@ its weight gradient running kernel B3.  Phases, each printing its seconds:
 6. LSTM kernel phase: B2f and B2b against their plain versions at the
    six (N, H) shapes of ``CELL_SHAPES``, f32 and bf16, forget_bias 0 and
    1, then their times at (20, 650) f32 beside the bound, the plain
-   version and PyTorch's fused cell, with B2f's CTAs and cluster size;
+   version and PyTorch's fused cell, with B2f's CTAs and cluster size and
+   B2b's grid beside the floor of its launches (an empty kernel of the
+   same grid);
 7. training phase: one K=8 block on the card against the same steps on
    the CPU through the plain versions (within ``TRAIN_TOL``, a limit two
    planted faults must exceed); four timed blocks (words/s, ms per step,
@@ -63,11 +65,18 @@ its weight gradient running kernel B3.  Phases, each printing its seconds:
    (``unit_reading``), both within ``RESNET_TRAIN_TOL``, a limit three
    planted faults must exceed;
 11. bag-kernel phase: B3 against its plain version, bitwise, forward and
-   the swapped-role weight gradient, at the 9 cases of ``BAG_CASES`` (the
+   the swapped-role weight gradient, at the 10 cases of ``BAG_CASES`` (the
    census shape, D 16/128/129, unsorted rows with empty rows and the
-   padding tail, bf16, a single row, 64-bit offsets), then at the census
-   shape its device time apart from the sort that feeds it, beside the
-   bound, the plain version and ``F.embedding_bag``;
+   padding tail, bf16, a single row, 64-bit offsets, every entry on one
+   key), its grouping passes' (perm, offsets) bitwise against the
+   library's ``row_index`` there in both roles and alone at the 7
+   ``GROUP_EDGE_CASES`` (keys below 0 and at or above n_keys: offsets in
+   full, perm over the bounds, the keys outside each on its side in nnz
+   order), then at the
+   census shape one call with host syncs made errors, the whole call's
+   device time split by kernel (only ``csrc/embed_bag.cu``'s), beside the
+   bound, the plain version, ``F.embedding_bag`` on the pre-sorted stream
+   and the library route (sort, searchsorted, ``F.embedding_bag``);
 12. wide-deep timed phase: the census Wide&Deep twice, 32 steps each,
    through the recipe's feed (``SparseSample`` >> ``batch_sparse_samples``)
    and over batches built beforehand (records/s, ms per step, peak
@@ -816,6 +825,17 @@ def lstm_kernel_phase(device, card, report):
                                 copy_bytes=copy_bytes)
             grid = (f" [{ctas} CTAs in clusters of {cluster}, "
                     f"{copy_bytes}-byte copies, batch tile {tile}]")
+        else:  # the floor: an empty kernel of B2b's grid, timed alike
+            blocks, threads = lstm_cell.last_bwd_shape
+            if lstm_cell.launch_bwd_empty(z, c, dh, dc) != (blocks, threads):
+                raise AssertionError("the empty kernel's grid is not B2b's")
+            f_ms = device_ms(lambda: lstm_cell.launch_bwd_empty(z, c, dh,
+                                                                dc))
+            rows[kernel].update(blocks=blocks, threads=threads,
+                                floor_ms=f_ms)
+            grid = (f" [{blocks} blocks of {threads} threads, one hidden "
+                    f"unit a thread; floor_ms={f_ms:.5f} (an empty kernel "
+                    f"of that grid), kernel/floor {k_ms / f_ms:.3f}]")
         beats = " (faster than its HBM bound: W_t is read from L2)" \
             if k_ms < b_ms else ""
         print(f"{kernel} N={N} H={H} f32{grid}, device ms per call: "
@@ -1676,10 +1696,12 @@ WD = {"wide": 100_000, "fields": (10_000, 1_000, 100, 100, 50), "embed": 16,
       "lr": 0.01, "timed_blocks": 3}
 # (name, N, V, D, nnz, table dtype, values dtype, layout): the census wide
 # path, D 16, 128 and a ragged 129, unsorted rows with duplicates, empty
-# rows and the padding tail, bf16 table and values, a single row, and a
-# table of 2^31 elements or more (64-bit offsets).  "census": 8 ids a
-# sample in row order; "unsorted": rows drawn at random from 90% of the
-# rows, then an nnz/16 padding tail of (0, 0, 0.0).
+# rows and the padding tail, bf16 table and values, a single row, a table
+# of 2^31 elements or more (64-bit offsets; its table gradient groups 2^24+1
+# keys, more than one window of the fine pass a bucket), and every entry on
+# one key in both roles.  "census": 8 ids a sample in row order; "unsorted":
+# rows drawn at random from 90% of the rows, then an nnz/16 padding tail of
+# (0, 0, 0.0); "one_key": every row 0, every col one value.
 BAG_CASES = [
     ("census", 8192, 100_000, 1, 65_536, torch.float32, torch.float32,
      "census"),
@@ -1698,7 +1720,30 @@ BAG_CASES = [
     ("single_row", 1, 1000, 8, 64, torch.float32, torch.float32, "unsorted"),
     ("offsets_64bit", 64, 2 ** 24 + 1, 128, 4096, torch.bfloat16,
      torch.bfloat16, "unsorted"),
+    ("one_key", 8192, 100_000, 1, 65_536, torch.float32, torch.float32,
+     "one_key"),
 ]
+# B3's grouping passes alone (not the bag walk: these keys would index the
+# table or g out of range) against row_index (check_grouping): (name, nnz,
+# n_keys, low, high) with keys uniform in [low, high), so some lie below 0
+# and at or above n_keys; then the stream's first entries set to int32's
+# extremes.
+# The census shapes of both roles, keys all below 0, all above, an empty
+# stream, a stream of chunks of 23 tiles (above 1024 x 128 entries), and
+# keys over all of int32 into 2^27 keys (1024 windows of the fine pass a
+# bucket).
+GROUP_EDGE_CASES = [
+    ("census_rows_out_of_range", 65_536, 8192, -3000, 8192 + 3000),
+    ("census_cols_out_of_range", 65_536, 100_000, -5000, 105_000),
+    ("all_below_0", 4096, 1000, -2 ** 31, 0),
+    ("all_at_or_above_n_keys", 4096, 1000, 1000, 2 ** 31),
+    ("empty_stream", 0, 1000, 0, 1000),
+    ("multi_tile_chunks", 3_000_000, 100_000, -10, 100_010),
+    ("int32_range", 65_536, 2 ** 27, -2 ** 31, 2 ** 31),
+]
+# the kernels of one B3 call, each from csrc/embed_bag.cu: the grouping
+# passes 1-3, then the bag walk
+BAG_PASSES = ("bag_hist", "bag_coarse", "bag_fine", "bag_walk")
 # the card's K=8 block against the CPU (wd_step_reading): above the sound
 # reading and below the three planted faults that every run measures and
 # requires to exceed it
@@ -1714,6 +1759,11 @@ def bag_operands(case, gen, device):
         cols = torch.randint(0, V, (nnz,), generator=gen, device=device,
                              dtype=torch.int32)
         vals = torch.ones(nnz, device=device)
+    elif layout == "one_key":
+        rows = torch.zeros(nnz, device=device, dtype=torch.int32)
+        cols = torch.randint(0, V, (1,), generator=gen, device=device,
+                             dtype=torch.int32).expand(nnz).contiguous()
+        vals = torch.randn(nnz, generator=gen, device=device)
     else:
         pad = nnz // 16
         live = torch.nonzero(torch.rand(N, generator=gen, device=device)
@@ -1761,18 +1811,91 @@ def library_bag(rows, cols, vals, table, n_rows):
         idx, table, starts, mode="sum", per_sample_weights=w)
 
 
+def library_route(rows, cols, vals, table, n_rows):
+    """The whole call on library calls from the unsorted stream: a stable
+    ``torch.sort``, ``searchsorted``, the gathers and ``F.embedding_bag``
+    (a yardstick; the port never calls it)."""
+    def run():
+        perm, offsets = embed_bag.row_index(rows, n_rows)
+        return torch.nn.functional.embedding_bag(
+            cols[perm].long(), table, offsets[:-1], mode="sum",
+            per_sample_weights=vals[perm].to(table.dtype))
+    return run
+
+
+def check_grouping(keys, n_keys, what):
+    """B3's grouping passes against row_index, bitwise, in the plan's
+    index dtype: offsets in full, perm over [offsets[0], offsets[n_keys])
+    (what the bag walk reads); before it the entries with keys below 0 and
+    after it those at or above n_keys, each in nnz order (row_index orders
+    these by key)."""
+    perm, offsets = embed_bag.group_index(keys, n_keys)
+    want_perm, want_offsets = embed_bag.row_index(keys, n_keys)
+    dtype = embed_bag.group_plan(keys.numel(), n_keys).index_dtype
+    torch.cuda.synchronize()
+    if perm.dtype != dtype or offsets.dtype != dtype:
+        raise AssertionError(f"B3 grouping {what}: {perm.dtype} / "
+                             f"{offsets.dtype}, want {dtype}")
+    if not torch.equal(offsets.long(), want_offsets):
+        bad = torch.nonzero(offsets.long() != want_offsets)[:5].flatten()
+        raise AssertionError(f"B3 grouping {what}: offsets differ from "
+                             f"row_index's first at {bad.tolist()}")
+    lo, hi = int(want_offsets[0]), int(want_offsets[-1])
+    k = keys.long()
+    for part, got, want in (
+            ("below 0", perm[:lo], torch.nonzero(k < 0).flatten()),
+            ("in range", perm[lo:hi], want_perm[lo:hi]),
+            ("at or above n_keys", perm[hi:],
+             torch.nonzero(k >= n_keys).flatten())):
+        if not torch.equal(got.long(), want):
+            raise AssertionError(f"B3 grouping {what}: perm's entries {part} "
+                                 f"differ from the stream's")
+
+
+def grouping_split(keys, n_keys, card):
+    """Device ms of B3's grouping passes alone on ``keys`` into ``n_keys``,
+    split by pass: at 2^24+1 keys each of the fine pass's 129 buckets walks
+    its 2^17 keys in 1024-key windows and writes that many offsets."""
+    split = []
+    ms = device_ms(lambda: embed_bag.group_index(keys, n_keys), calls=10,
+                   split=split)
+    by_pass = {p: sum(t for name, t in split if p in name)
+               for p in BAG_PASSES[:3]}
+    plan = embed_bag.group_plan(keys.numel(), n_keys)
+    print(f"bag grouping alone nnz={keys.numel()} n_keys={n_keys} "
+          f"({plan.buckets} buckets, shift {plan.shift}: "
+          f"{-(-(1 << plan.shift) // 1024)} windows a bucket): device ms "
+          f"{ms:.5f} (" + ", ".join(f"{p} {t:.5f}" for p, t in by_pass.items())
+          + f") [{card}]")
+    return {"n_keys": n_keys, "nnz": keys.numel(), "ms": ms,
+            "split": by_pass}
+
+
+def group_edge_keys(nnz, low, high, gen, device):
+    keys = torch.randint(low, high, (nnz,), generator=gen, device=device,
+                         dtype=torch.int64)
+    keys[:4] = torch.tensor([-2 ** 31, 2 ** 31 - 1, -1, 0])[:nnz]
+    return keys.clamp(low, high - 1).to(torch.int32)
+
+
 def bag_kernel_phase(device, card, report):
     """B3 against its plain version, bitwise, at every case of BAG_CASES,
-    forward and the swapped-role weight gradient; then at the census
-    shape the kernel's device time (the bag kernel apart from the sort and
-    offsets that feed it), an event-timed loop of the whole wrapper, the
-    plain version and ``F.embedding_bag``, beside the bound, for the
-    forward and for the weight gradient."""
+    forward and the swapped-role weight gradient, with its grouping passes'
+    (perm, offsets) bitwise against row_index in both roles; the grouping
+    alone at GROUP_EDGE_CASES, and timed by pass at the widest key range
+    (offsets_64bit's 2^24+1 keys); then at the census shape, for the forward
+    and for the weight gradient: one call with host syncs made errors, the
+    call's device time split by kernel (each one of BAG_PASSES), an
+    event-timed loop of the whole wrapper, the plain version, the library
+    route (sort, searchsorted, ``F.embedding_bag``) and ``F.embedding_bag``
+    alone on the pre-sorted stream, beside the bound."""
     gen = torch.Generator(device=device).manual_seed(3141)
-    err = 0.0
+    err, wide_keys = 0.0, None
     for case in BAG_CASES:
         name, N, V = case[:3]
         rows, cols, vals, table, g = bag_operands(case, gen, device)
+        check_grouping(rows, N, f"{name} forward")
+        check_grouping(cols, V, f"{name} table gradient")
         got = embed_bag.launch(rows, cols, vals, table, N)
         want = embed_bag.embedding_bag_coo_reference(rows, cols, vals, table,
                                                      N)
@@ -1794,9 +1917,23 @@ def bag_kernel_phase(device, card, report):
         empty = N - int(torch.unique(rows).numel())
         print(f"bag check {name}: N={N} V={V} D={table.shape[1]} nnz="
               f"{rows.numel()} table {table.dtype} values {vals.dtype}, "
-              f"{empty} empty rows: forward and table gradient bitwise equal")
+              f"{empty} empty rows: grouping (perm, offsets) of both roles "
+              f"equal to row_index's, forward and table gradient bitwise "
+              f"equal")
+        if V > 2 ** 24:  # the widest key range: the fine pass's windows
+            wide_keys = grouping_split(cols, V, card)
         del rows, cols, vals, table, g, got, want, got_t, want_t
         torch.cuda.empty_cache()
+    for name, nnz, n_keys, low, high in GROUP_EDGE_CASES:
+        keys = group_edge_keys(nnz, low, high, gen, device)
+        check_grouping(keys, n_keys, name)
+        plan = embed_bag.group_plan(nnz, n_keys)
+        outside = int(((keys < 0) | (keys >= n_keys)).sum())
+        print(f"bag grouping check {name}: nnz={nnz} n_keys={n_keys}, "
+              f"{outside} keys outside [0, n_keys): perm and offsets equal "
+              f"to row_index's ({plan.buckets} buckets, shift "
+              f"{plan.shift}, chunk {plan.chunk})")
+        del keys
 
     rows, cols, vals, table, g = bag_operands(BAG_CASES[0], gen, device)
     N, V = BAG_CASES[0][1:3]
@@ -1806,36 +1943,55 @@ def bag_kernel_phase(device, card, report):
         r, c, v, t, n = args
         fns = (lambda: embed_bag.launch(*args),
                lambda: embed_bag.embedding_bag_coo_reference(*args),
-               library_bag(r, c, v, t, n))
-        got, want, lib = (f() for f in fns)
+               library_bag(r, c, v, t, n), library_route(r, c, v, t, n))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # a host sync would raise
+        try:
+            got = fns[0]()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        want, lib, route = (f() for f in fns[1:])
         e = (got - want).abs().max().item()
         if not torch.equal(got, want):
             raise AssertionError(f"B3 {role} on the timed inputs: max abs "
                                  f"err {e} against its plain version")
         # the library sums each bag in its own order: within rounding
-        torch.testing.assert_close(lib.float(), got.float(), rtol=1e-5,
-                                   atol=1e-5 * got.abs().max().item())
+        for y in (lib, route):
+            torch.testing.assert_close(y.float(), got.float(), rtol=1e-5,
+                                       atol=1e-5 * got.abs().max().item())
         err = max(err, e)
         split = []
-        total = device_ms(fns[0], calls=50, split=split)
-        k_ms = sum(ms for name, ms in split if "bag_kernel" in name)
-        l_ms = device_ms(fns[2], calls=50)
-        k_ev, p_ev, l_ev = (cuda_ms(f) for f in fns)
+        k_ms = device_ms(fns[0], calls=50, split=split)
+        by_pass = {p: sum(ms for name, ms in split if p in name)
+                   for p in BAG_PASSES}
+        foreign = [name for name, _ in split
+                   if not any(p in name for p in BAG_PASSES)]
+        if foreign or not all(by_pass.values()):
+            raise AssertionError(f"B3 {role}: a call launched {foreign} "
+                                 f"beside csrc/embed_bag.cu's kernels, or "
+                                 f"not each of {BAG_PASSES}: {split}")
+        l_ms, route_ms = (device_ms(f, calls=50) for f in fns[2:])
+        k_ev, p_ev, l_ev, route_ev = (cuda_ms(f) for f in fns)
         b_ms, b_by, nbytes = bag_bound(r, c, t, n_out, got.dtype)
-        out[role] = {"ms": k_ms, "sort_ms": total - k_ms, "event_ms": k_ev,
-                     "plain_ms": p_ev, "library_ms": l_ms,
-                     "library_event_ms": l_ev, "bound_ms": b_ms,
+        out[role] = {"ms": k_ms, "split": by_pass,
+                     "group_ms": k_ms - by_pass["bag_walk"],
+                     "event_ms": k_ev, "plain_ms": p_ev, "library_ms": l_ms,
+                     "library_event_ms": l_ev, "library_route_ms": route_ms,
+                     "library_route_event_ms": route_ev, "bound_ms": b_ms,
                      "bound_by": b_by, "bytes": nbytes, "max_abs_err": e,
-                     "split": split}
-        print(f"embed_bag {role} N={n_out} nnz={r.numel()} "
-              f"D={t.shape[1]}: device ms per call kernel_ms={k_ms:.5f} "
-              f"sort_and_offsets_ms={total - k_ms:.5f} library_ms="
-              f"{l_ms:.5f}; event-timed wrapper {k_ev:.5f} plain {p_ev:.5f} "
-              f"library {l_ev:.5f}; bound_ms={b_ms:.6f} ({b_by}: {nbytes} B "
-              f"at {HBM_BPS / 1e12:.2f} TB/s); by kernel: "
-              + ", ".join(f"{n[:40]} {ms:.5f}" for n, ms in split)
-              + f" [{card}]")
-        del got, want, lib
+                     "plan": embed_bag.group_plan(r.numel(), n)._asdict()}
+        print(f"embed_bag {role} N={n_out} nnz={r.numel()} D={t.shape[1]}: "
+              f"device ms per call, whole call kernel_ms={k_ms:.5f} ("
+              + ", ".join(f"{p} {ms:.5f}" for p, ms in by_pass.items())
+              + f"; only csrc/embed_bag.cu's kernels, no host sync) "
+              f"library_ms={l_ms:.5f} [F.embedding_bag, pre-sorted] "
+              f"library_route_ms={route_ms:.5f} [sort + searchsorted + "
+              f"F.embedding_bag]; event-timed wrapper {k_ev:.5f} plain "
+              f"{p_ev:.5f} library {l_ev:.5f} route {route_ev:.5f}; "
+              f"bound_ms={b_ms:.6f} ({b_by}: {nbytes} B at "
+              f"{HBM_BPS / 1e12:.2f} TB/s) [{card}]")
+        del got, want, lib, route
+    out["wide_keys_grouping"] = wide_keys
     report["bag_kernel"] = out
     row = dict(out["forward"])
     row["max_abs_err"] = err
@@ -2330,10 +2486,12 @@ def main(argv=None) -> int:
                         **{k: row[k] for k in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms")},
-                        "sort_ms": row["sort_ms"],
+                        "split": row["split"],
+                        "library_route_ms": row["library_route_ms"],
                         "table_grad": {k: report["bag_kernel"]["table_grad"][k]
-                                       for k in ("ms", "sort_ms", "plain_ms",
-                                                 "bound_ms", "library_ms")}})
+                                       for k in ("ms", "split", "plain_ms",
+                                                 "bound_ms", "library_ms",
+                                                 "library_route_ms")}})
     if "resnet-conditioning" in phases:
         t0 = time.monotonic()
         resnet_conditioning_phase(args.seed, device, card, report)

@@ -5,7 +5,9 @@ XLA chain it replaces (``take`` -> multiply -> ``segment_sum``).
 
 Cases: the reference test's five (``tests/test_pallas_kernels.py``:
 aligned, wide_d1, odd_d, single_row, bf16) and its unsorted-rows case with
-duplicates, empty rows and the ``(0, 0, 0.0)`` padding tail.
+duplicates, empty rows and the ``(0, 0, 0.0)`` padding tail.  Beside them,
+without JAX: the sizes of the card's grouping passes (``group_plan``) and
+the plain grouping (``row_index``) with keys outside ``[0, n_keys)``.
 
 Tolerances:
 - forward against the Pallas kernel: BITWISE.  Both add each row's
@@ -27,12 +29,17 @@ import numpy as np
 import pytest
 import torch
 
-jax = pytest.importorskip("jax")  # the reference; absent on the card
+from bigdl_tpu_torch.ops import embed_bag
 
-import jax.numpy as jnp  # noqa: E402
-
-from bigdl_tpu.ops import pallas_embed  # noqa: E402
-from bigdl_tpu_torch.ops import embed_bag  # noqa: E402
+try:  # JAX, the reference's framework; absent on the card
+    import jax
+    import jax.numpy as jnp
+except ImportError:
+    jax = jnp = pallas_embed = None
+else:  # a broken reference fails here, at collection
+    from bigdl_tpu.ops import pallas_embed
+needs_jax = pytest.mark.skipif(jax is None,
+                               reason="compares with the JAX reference")
 
 CASES = {
     # name: (N, V, D, nnz, dtype)
@@ -42,7 +49,6 @@ CASES = {
     "single_row": (1, 20, 8, 5, "float32"),
     "bf16": (6, 50, 16, 32, "bfloat16"),
 }
-JT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # unsorted rows, a duplicate (row, col) pair, empty rows 2 and 4, and
 # the padding tail of batch_sparse_samples
@@ -69,8 +75,8 @@ def _to_torch(rows, cols, vals, table, dtype, vals_dtype="float32"):
 
 def _to_jax(rows, cols, vals, table, dtype, vals_dtype="float32"):
     return (jnp.asarray(rows), jnp.asarray(cols),
-            jnp.asarray(vals).astype(JT[vals_dtype]),
-            jnp.asarray(table).astype(JT[dtype]))
+            jnp.asarray(vals).astype(getattr(jnp, vals_dtype)),
+            jnp.asarray(table).astype(getattr(jnp, dtype)))
 
 
 def _pallas(r, c, v, t, n):
@@ -93,6 +99,7 @@ FORWARD = [(n, "float32") for n in sorted(CASES)] + [
     ("bf16", "bfloat16"), ("wide_d1", "bfloat16")]
 
 
+@needs_jax
 @pytest.mark.parametrize("name,vals_dtype", FORWARD)
 def test_forward_matches_pallas_bitwise_and_xla(name, vals_dtype):
     rows, cols, vals, table, N, dtype = _inputs(name)
@@ -109,6 +116,7 @@ def test_forward_matches_pallas_bitwise_and_xla(name, vals_dtype):
     assert embed_bag.launches == 0
 
 
+@needs_jax
 def test_unsorted_rows_duplicates_and_padding():
     rows, cols, vals, n = UNSORTED
     table = np.random.default_rng(0).normal(0, 1, (8, 4)).astype(np.float32)
@@ -141,6 +149,7 @@ def _grads_ref(rows, cols, vals, table, N, dtype):
     return jax.grad(loss, argnums=(0, 1))(v, t)
 
 
+@needs_jax
 @pytest.mark.parametrize("name", sorted(CASES) + ["unsorted"])
 def test_gradients_match_jax_grad(name):
     if name == "unsorted":
@@ -186,10 +195,75 @@ def test_row_index_is_stable_and_drops_outside_rows():
     assert offsets.tolist() == [1, 3, 3, 6, 6]
 
 
+def test_row_index_leaves_outside_keys_out_of_every_bound():
+    """Keys below 0 sort before every row and keys at or above n_rows after,
+    by key (a stable sort of the raw keys), int32's extremes included; no
+    bound covers them."""
+    rows = torch.tensor([3, -7, 9, 0, -1, 4, 3, -2 ** 31, 2 ** 31 - 1, 0],
+                        dtype=torch.int32)
+    perm, offsets = embed_bag.row_index(rows, 4)
+    assert perm.tolist() == [7, 1, 4, 3, 9, 0, 6, 5, 2, 8]
+    assert offsets.tolist() == [3, 5, 5, 5, 7]
+
+
 def test_launch_needs_cuda():
     rows, cols, vals, table, N, dtype = _inputs("wide_d1")
     with pytest.raises(RuntimeError, match="runs on CUDA"):
         embed_bag.launch(*_to_torch(rows, cols, vals, table, dtype), N)
+    with pytest.raises(RuntimeError, match="run on CUDA"):
+        embed_bag.group_index(torch.from_numpy(rows), N)
+
+
+# the stream lengths and key counts of the sizing test: one, the census
+# batch (8192) and wide table (100,000), the 64-bit case's table (2^24 + 1)
+# and both sides of 2^31
+EDGES = [1, 8192, 100_000, 2 ** 24 + 1, 2 ** 31 - 1, 2 ** 31]
+
+
+@pytest.mark.parametrize("n_keys", EDGES, ids=lambda n: f"keys{n}")
+@pytest.mark.parametrize("nnz", EDGES, ids=lambda n: f"nnz{n}")
+def test_group_plan_sizes(nnz, n_keys):
+    """The grouping passes' sizes from the shapes alone: the least shift
+    that keeps the coarse digit of every domain key (0 .. n_keys + 1) under
+    256 buckets; chunks of whole 1024-entry tiles, at most 128 of them,
+    covering the stream with none empty; int32 perm and offsets below 2^31
+    entries; the scratch as csrc/embed_bag.cu carves it."""
+    plan = embed_bag.group_plan(nnz, n_keys)
+    top = n_keys + 1  # the largest domain key: keys at or above n_keys
+    assert plan.buckets == (top >> plan.shift) + 1 <= 256
+    assert plan.shift == 0 or (top >> (plan.shift - 1)) + 1 > 256
+    assert plan.buckets << plan.shift > top
+    assert plan.chunk % 1024 == 0 and 1 <= plan.chunks <= 128
+    assert plan.chunks * plan.chunk >= nnz > (plan.chunks - 1) * plan.chunk
+    assert plan.chunk == 1024 or plan.chunks * plan.chunk < nnz + 128 * 1024
+    wide = nnz >= 2 ** 31
+    assert plan.index_dtype == (torch.int64 if wide else torch.int32)
+    es = 8 if wide else 4
+
+    def aligned(n):
+        return (n + 255) // 256 * 256
+    assert plan.scratch_bytes == (aligned(plan.chunks * plan.buckets * es)
+                                  + aligned((plan.buckets + 1) * es)
+                                  + aligned(nnz * 2 * es))
+
+
+@pytest.mark.parametrize("nnz,n_keys,want", [
+    (65_536, 8192, (6, 129, 1024, 64)),      # census forward
+    (65_536, 100_000, (9, 196, 1024, 64)),   # census table gradient
+    (4096, 2 ** 24 + 1, (17, 129, 1024, 4)),  # the 64-bit case's gradient
+    (0, 1000, (2, 251, 1024, 1)),            # an empty stream: one chunk
+    (3_000_000, 100_000, (9, 196, 23 * 1024, 128)),
+])
+def test_group_plan_at_known_shapes(nnz, n_keys, want):
+    plan = embed_bag.group_plan(nnz, n_keys)
+    assert (plan.shift, plan.buckets, plan.chunk, plan.chunks) == want
+
+
+@pytest.mark.parametrize("nnz,n_keys", [(10, 0), (10, 2 ** 31 + 1),
+                                        (-1, 10)])
+def test_group_plan_refuses_what_the_passes_do_not_take(nnz, n_keys):
+    with pytest.raises(ValueError, match="grouping takes"):
+        embed_bag.group_plan(nnz, n_keys)
 
 
 @functools.lru_cache(maxsize=None)
@@ -206,6 +280,7 @@ def _census_cut():
     return rows, cols, vals, table
 
 
+@needs_jax
 def test_census_shape_cut_bitwise():
     rows, cols, vals, table = _census_cut()
     got = embed_bag.embedding_bag_coo(*_to_torch(rows, cols, vals, table,

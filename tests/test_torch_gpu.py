@@ -17,7 +17,10 @@ ulp (``rtol=atol=8e-3``).  Training on the card against the CPU: losses
 ``rtol=1e-4``, parameters ``1e-4`` of each array's largest value.  The
 max-pool backward is BITWISE against its plain version (the same terms
 added in the same order and dtype), and so is the embedding bag, forward
-and swapped-role weight gradient (the same FMAs in the same order).
+and swapped-role weight gradient (the same FMAs in the same order); its
+hand-written grouping passes give ``row_index``'s offsets and its ``perm``
+over every bound exactly (entries outside every bound: on their side, in
+nnz order).
 """
 
 import numpy as np
@@ -196,9 +199,11 @@ def test_lstm_cell_kernels_match_plain(cuda, shape, dtype, fb):
     assert (lstm_cell.fwd_launches, lstm_cell.bwd_launches) == \
         (before[0] + 1, before[1] + 1)
     # the forward's K=H spread over clusters of 8 CTAs: 16 hidden units and
-    # up to 32 batch rows a cluster
+    # up to 32 batch rows a cluster; the backward a grid of batch rows by
+    # runs of 128 hidden units, one a thread
     ctas, cluster = lstm_cell.last_fwd_shape[:2]
     assert cluster == 8 and ctas == -(-H // 16) * 8 * -(-N // 32)
+    assert lstm_cell.last_bwd_shape == (-(-H // 128) * N, 128)
     # f32 results within 1e-5, the forward's at H=650 within 1e-4 (its
     # recurrent product sums 650 terms in another order than cuBLAS; the
     # JAX cell test's forward tolerance at that shape); bf16 within 8e-3
@@ -208,6 +213,38 @@ def test_lstm_cell_kernels_match_plain(cuda, shape, dtype, fb):
         t = 8e-3 if g.dtype == torch.bfloat16 else \
             1e-4 if fwd and H > 130 else 1e-5
         torch.testing.assert_close(g.float(), w.float(), rtol=t, atol=t)
+
+
+def test_lstm_cell_bwd_rows_beyond_the_grid(cuda):
+    """N above the grid's 65,535 rows: the backward's blocks stride over the
+    batch rows; f32 within 1e-5 of the plain version."""
+    N, H = 70_000, 3
+    rng = np.random.default_rng(7)
+    z, c, dh, dc = (torch.from_numpy(rng.normal(0, 0.5, s).astype(
+        np.float32)).to(cuda) for s in ((N, 4 * H), (N, H), (N, H), (N, H)))
+    got = lstm_cell.launch_bwd(z, c, dh, dc, 1.0)
+    want = lstm_cell.lstm_cell_bwd_reference(z, c, dh, dc, 1.0)
+    torch.cuda.synchronize()
+    assert lstm_cell.last_bwd_shape == (65_535, 128)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_lstm_cell_bwd_floor_takes_the_backward_grid(cuda):
+    """The empty kernel launched for the floor has the backward's grid and
+    writes nothing."""
+    rng = np.random.default_rng(8)
+    z, c, dh, dc = (torch.from_numpy(rng.normal(0, 0.5, s).astype(
+        np.float32)).to(cuda) for s in ((20, 2600), (20, 650), (20, 650),
+                                        (20, 650)))
+    before = [t.clone() for t in (z, c, dh, dc)]
+    n = lstm_cell.bwd_launches
+    lstm_cell.launch_bwd(z, c, dh, dc)
+    shape = lstm_cell.launch_bwd_empty(z, c, dh, dc)
+    torch.cuda.synchronize()
+    assert shape == lstm_cell.last_bwd_shape == (120, 128)
+    assert lstm_cell.bwd_launches == n + 1
+    assert all(torch.equal(a, b) for a, b in zip(before, (z, c, dh, dc)))
 
 
 def test_lstm_cell_kernel_refuses_what_it_does_not_take(cuda):
@@ -476,13 +513,15 @@ BAGS = [("census", 8192, 100_000, 1, 65_536, "float32", "float32"),
         ("d129", 100, 300, 129, 800, "float32", "float32"),
         ("bf16", 300, 2000, 16, 2400, "bfloat16", "bfloat16"),
         ("bf16_table", 300, 2000, 16, 2400, "bfloat16", "float32"),
-        ("single_row", 1, 50, 8, 20, "float32", "float32")]
+        ("single_row", 1, 50, 8, 20, "float32", "float32"),
+        ("one_key", 512, 1000, 1, 4096, "float32", "float32")]
 
 
 def _bag_operands(case, device, seed=9):
     """Unsorted rows with duplicates, a tenth of the rows left empty, and
-    a padding tail of (0, 0, 0.0) entries."""
-    _, N, V, D, nnz, tdtype, vdtype = case
+    a padding tail of (0, 0, 0.0) entries; for ``one_key`` every row 0 and
+    every col one value."""
+    name, N, V, D, nnz, tdtype, vdtype = case
     rng = np.random.default_rng(seed + N + D)
     live = np.arange(N) if N == 1 else np.arange(N)[rng.random(N) > 0.1]
     pad = nnz // 16
@@ -490,6 +529,9 @@ def _bag_operands(case, device, seed=9):
                            np.zeros(pad, np.int64)]).astype(np.int32)
     cols = np.concatenate([rng.integers(0, V, nnz - pad),
                            np.zeros(pad, np.int64)]).astype(np.int32)
+    if name == "one_key":
+        rows[:] = 0
+        cols[:] = V // 3
     vals = np.concatenate([rng.normal(0, 1, nnz - pad),
                            np.zeros(pad)]).astype(np.float32)
     table = rng.normal(0, 1, (V, D)).astype(np.float32)
@@ -516,6 +558,57 @@ def test_embed_bag_kernel_matches_plain(cuda, case):
     assert got.dtype == want.dtype == torch.result_type(table, vals)
     assert torch.equal(got, want)
     assert torch.equal(d_table, want_dt)
+
+
+def _check_grouping(keys, n_keys):
+    """offsets in full and perm over the bounds equal row_index's; keys
+    below 0 before them and at or above n_keys after, each in nnz order."""
+    perm, offsets = embed_bag.group_index(keys, n_keys)
+    want_perm, want_offsets = embed_bag.row_index(keys, n_keys)
+    torch.cuda.synchronize()
+    dtype = embed_bag.group_plan(keys.numel(), n_keys).index_dtype
+    assert perm.dtype == offsets.dtype == dtype
+    assert torch.equal(offsets.long(), want_offsets)
+    lo, hi = int(want_offsets[0]), int(want_offsets[-1])
+    k = keys.long()
+    assert torch.equal(perm[lo:hi].long(), want_perm[lo:hi])
+    assert torch.equal(perm[:lo].long(), torch.nonzero(k < 0).flatten())
+    assert torch.equal(perm[hi:].long(),
+                       torch.nonzero(k >= n_keys).flatten())
+
+
+@pytest.mark.parametrize("case", BAGS, ids=lambda c: c[0])
+def test_embed_bag_grouping_matches_row_index(cuda, case):
+    """The hand-written passes' (perm, offsets) equal the library's stable
+    sort and searchsorted, in both roles (rows into N, cols into V)."""
+    rows, cols, _, table, _, N = _bag_operands(case, cuda)
+    _check_grouping(rows, N)
+    _check_grouping(cols, table.shape[0])
+
+
+# (nnz, n_keys, low, high): keys uniform in [low, high), with int32's
+# extremes at the head where they lie in range: keys below 0 and at or
+# above n_keys, all below, all above, an empty stream, chunks of several
+# tiles (above 1024 x 128 entries), one key, and a key range that takes
+# several windows of the fine pass (2^20 keys: 4096 a bucket)
+GROUP_EDGES = [(65_536, 8192, -3000, 11_192), (65_536, 100_000, -5000,
+                                                105_000),
+               (4096, 1000, -2 ** 31, 0), (4096, 1000, 1000, 2 ** 31),
+               (0, 1000, 0, 1000), (400_000, 5000, -10, 5010),
+               (20_000, 7, 3, 4), (65_536, 2 ** 20, -100, 2 ** 20 + 100)]
+
+
+@pytest.mark.parametrize("edge", GROUP_EDGES, ids=lambda e: "_".join(
+    map(str, e[:2])))
+def test_embed_bag_grouping_outside_keys(cuda, edge):
+    """Keys outside [0, n_keys) fall outside every bound, as with
+    row_index, and sort to either end in nnz order; bookkeeping only (the
+    bag walk would index out of range)."""
+    nnz, n_keys, low, high = edge
+    rng = np.random.default_rng(nnz + n_keys)
+    keys = rng.integers(low, high, nnz)
+    keys[:2] = np.clip([-2 ** 31, 2 ** 31 - 1], low, high - 1)[:nnz]
+    _check_grouping(torch.from_numpy(keys.astype(np.int32)).to(cuda), n_keys)
 
 
 def test_embed_bag_kernel_64bit_offsets(cuda):

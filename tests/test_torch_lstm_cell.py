@@ -108,3 +108,11 @@ def test_kernel_launch_refuses_cpu_tensors():
         port.launch_fwd(zx, h, c, w)
     with pytest.raises(RuntimeError, match="runs on CUDA"):
         port.launch_bwd(torch.zeros(2, 32), c, h, c)
+
+
+def test_backward_floor_launch_refuses_cpu_tensors():
+    """The empty kernel of B2b's grid (the floor chip_smoke.py measures) is
+    a card launch like the backward's: CPU tensors raise."""
+    zx, h, c, w = (torch.from_numpy(a) for a in _inputs(2, 8, 0))
+    with pytest.raises(RuntimeError, match="runs on CUDA"):
+        port.launch_bwd_empty(torch.zeros(2, 32), c, h, c)
