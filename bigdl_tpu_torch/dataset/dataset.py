@@ -4,9 +4,10 @@
 ``data(train=True)`` is an infinite iterator over a permuted index array;
 ``shuffle()`` moves to the next epoch's permutation.  The permutation of
 epoch E is a pure function of ``(seed, E)`` — ``np.random.default_rng((seed,
-E))``, epoch 0 in insertion order — so it is the reference's order exactly.
-The per-host sharded ``DistributedDataSet`` comes with the multi-card
-slice.
+E))``, epoch 0 in insertion order — so it is the reference's order exactly,
+and a checkpoint records it as one number (:meth:`position_state`) from
+which a resumed run re-derives the same order.  The per-host sharded
+``DistributedDataSet`` comes with the multi-card slice.
 """
 
 from __future__ import annotations
@@ -28,6 +29,14 @@ class AbstractDataSet:
 
     def shuffle(self) -> None:
         raise NotImplementedError
+
+    def position_state(self) -> dict:
+        """JSON-able shuffle position for a checkpoint (empty when this
+        dataset has no shuffle state)."""
+        return {}
+
+    def restore_position(self, state: dict) -> None:
+        """Re-derive the shuffle order saved by :meth:`position_state`."""
 
     def transform(self, transformer: Transformer) -> "TransformedDataSet":
         return TransformedDataSet(self, transformer)
@@ -58,6 +67,13 @@ class LocalDataSet(AbstractDataSet):
         self._epoch += 1
         self._indexes = self._permutation(self._epoch)
 
+    def position_state(self) -> dict:
+        return {"shuffle_epoch": self._epoch}
+
+    def restore_position(self, state: dict) -> None:
+        self._epoch = int(state.get("shuffle_epoch", 0))
+        self._indexes = self._permutation(self._epoch)
+
     def data(self, train: bool) -> Iterator:
         if train:
             def infinite():
@@ -82,6 +98,12 @@ class TransformedDataSet(AbstractDataSet):
 
     def shuffle(self) -> None:
         self.base.shuffle()
+
+    def position_state(self) -> dict:
+        return self.base.position_state()
+
+    def restore_position(self, state: dict) -> None:
+        self.base.restore_position(state)
 
     def data(self, train: bool) -> Iterator:
         return self.transformer(self.base.data(train))

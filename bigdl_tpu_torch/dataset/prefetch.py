@@ -192,6 +192,30 @@ class DeviceBlockStager:
         return xs, ys, event
 
 
+def fast_forward_records(batch_iter, skip: int) -> int:
+    """Advance a fresh epoch iterator past exactly ``skip`` records (the
+    mid-epoch resume).  Raises when the epoch runs out first or the batch
+    boundaries cannot land on ``skip``: overshooting would replay the
+    epoch from a position the interrupted run never visited."""
+    skipped = 0
+    while skipped < skip:
+        try:
+            skipped += next(batch_iter).size()
+        except StopIteration:
+            raise ValueError(
+                f"dataset fast-forward: epoch exhausted after "
+                f"{skipped} records while seeking {skip} — the "
+                f"dataset shrank since the snapshot was written"
+            ) from None
+    if skipped != skip:
+        raise ValueError(
+            f"dataset fast-forward: batch boundaries land on {skipped} "
+            f"records, not the {skip} the snapshot recorded — batch "
+            f"size or dataset layout changed since the snapshot was "
+            f"written")
+    return skipped
+
+
 def _stack(samples) -> MiniBatch:
     feats = np.stack([s.feature for s in samples])
     if samples[0].label is None:

@@ -1,5 +1,7 @@
 """Weight interchange with the reference package."""
 
-from bigdl_tpu_torch.interop.jax_weights import load_jax_params, to_jax_params
+from bigdl_tpu_torch.interop.jax_weights import (from_jax_tree, jax_tree,
+                                                 load_jax_params,
+                                                 to_jax_params)
 
-__all__ = ["load_jax_params", "to_jax_params"]
+__all__ = ["from_jax_tree", "jax_tree", "load_jax_params", "to_jax_params"]

@@ -13,8 +13,11 @@ model with named parts keys them by name in both: ``WideAndDeep``'s
 ``params["wide"]["weight"]`` (the ``SparseLinear`` weight, (wide_dim, 1)),
 ``params["embed0"]["weight"]`` and ``params["deep"]["0"]["bias"]`` are the
 port's ``wide.weight``, ``embed0.weight`` and ``deep.0.bias``.
-The dicts hold numpy arrays (convert JAX arrays with ``np.asarray``):
-this module imports neither JAX nor the reference package.
+The dicts hold numpy arrays (convert JAX arrays with ``np.asarray``) or
+CPU tensors (bf16 ones too): this module imports neither JAX nor the
+reference package.  :func:`jax_tree` and :func:`from_jax_tree` carry any
+dict keyed by the port's parameter names (an optimizer's momentum) to
+and from the same layout; snapshots use them (``checkpoint/``).
 """
 
 from __future__ import annotations
@@ -25,14 +28,14 @@ import numpy as np
 import torch
 
 
-def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
+def _flatten(tree, prefix="") -> Dict[str, object]:
     out = {}
     for k, v in tree.items():
         key = f"{prefix}{k}"
         if isinstance(v, dict):
             out.update(_flatten(v, key + "."))
         else:
-            out[key] = np.asarray(v)
+            out[key] = v if isinstance(v, torch.Tensor) else np.asarray(v)
     return out
 
 
@@ -85,11 +88,13 @@ def load_jax_params(model: torch.nn.Module, params: dict,
                 raise KeyError(f"{kind} key {key!r} has no counterpart in "
                                f"{type(model).__name__}")
             dst = targets[kind][names[key]]
-            if tuple(dst.shape) != arr.shape:
-                raise ValueError(f"{key}: shape {arr.shape} does not fit "
-                                 f"{tuple(dst.shape)}")
+            if tuple(dst.shape) != tuple(arr.shape):
+                raise ValueError(f"{key}: shape {tuple(arr.shape)} does not "
+                                 f"fit {tuple(dst.shape)}")
+            src = arr if isinstance(arr, torch.Tensor) \
+                else torch.from_numpy(np.array(arr))
             with torch.no_grad():
-                dst.copy_(torch.from_numpy(np.array(arr)))
+                dst.copy_(src)
             covered.add(names[key])
     missing = sorted(set(targets["params"]) - covered)
     if missing:
@@ -97,32 +102,59 @@ def load_jax_params(model: torch.nn.Module, params: dict,
     return model
 
 
+def jax_tree(model: torch.nn.Module, named: Dict[str, object],
+             kind: str = "params") -> dict:
+    """``named`` (values keyed by the port's parameter names, ``kind=
+    "params"``, or buffer names, ``"state"``) as a nested dict in the
+    reference's layout of ``model``: containers keyed by child index, a
+    layer's own entries under their names, ``{}`` for a layer without
+    any."""
+    from bigdl_tpu_torch.nn.module import Container
+    from bigdl_tpu_torch.nn.recurrent import MultiRNNCell
+
+    def walk(m, prefix):
+        inner = _wrapped(m)
+        if inner is not None:
+            name = next(k for k, c in m.named_children() if c is inner)
+            return walk(inner, f"{prefix}{name}.")
+        if isinstance(m, (Container, MultiRNNCell)):
+            if isinstance(m, MultiRNNCell) and kind == "state":
+                return {}
+            return {str(i): walk(c, f"{prefix}{k}.")
+                    for i, (k, c) in enumerate(m.named_children())}
+        own = m.named_parameters(recurse=False) if kind == "params" \
+            else m.named_buffers(recurse=False)
+        out = {k: named[f"{prefix}{k}"] for k, _ in own}
+        # a model with named parts (WideAndDeep: wide, embed{i}, deep)
+        for k, c in m.named_children():
+            out[k] = walk(c, f"{prefix}{k}.")
+        return out
+
+    return walk(model, "")
+
+
+def from_jax_tree(model: torch.nn.Module, tree: dict,
+                  kind: str = "params") -> Dict[str, object]:
+    """The inverse of :func:`jax_tree`: ``{port name: leaf}``.  Raises
+    ``KeyError`` for a path ``model`` does not have."""
+    names = _jax_names(model, kind)
+    out = {}
+    for key, leaf in _flatten(tree).items():
+        if key not in names:
+            raise KeyError(f"{kind} key {key!r} has no counterpart in "
+                           f"{type(model).__name__}")
+        out[names[key]] = leaf
+    return out
+
+
 def to_jax_params(model: torch.nn.Module):
     """The inverse of :func:`load_jax_params`: ``(params, state)`` nested
     dicts of numpy arrays in the reference's layout — containers keyed by
     child index, a layer's own parameters in ``params`` and its buffers in
     ``state``, ``{}`` for a layer without them."""
-    from bigdl_tpu_torch.nn.module import Container
-    from bigdl_tpu_torch.nn.recurrent import MultiRNNCell
+    # copies: the arrays must not alias weights trained in place later
+    def host(named):
+        return {k: v.detach().cpu().numpy().copy() for k, v in named}
 
-    def walk(m):
-        inner = _wrapped(m)
-        if inner is not None:
-            return walk(inner)
-        if isinstance(m, (Container, MultiRNNCell)):
-            pairs = [walk(c) for c in m.children()]
-            params = {str(i): p for i, (p, _) in enumerate(pairs)}
-            if isinstance(m, MultiRNNCell):
-                return params, {}
-            return params, {str(i): s for i, (_, s) in enumerate(pairs)}
-        # copies: the arrays must not alias weights trained in place later
-        params = {k: v.detach().cpu().numpy().copy()
-                  for k, v in m.named_parameters(recurse=False)}
-        state = {k: v.detach().cpu().numpy().copy()
-                 for k, v in m.named_buffers(recurse=False)}
-        # a model with named parts (WideAndDeep: wide, embed{i}, deep)
-        for k, c in m.named_children():
-            params[k], state[k] = walk(c)
-        return params, state
-
-    return walk(model)
+    return (jax_tree(model, host(model.named_parameters()), "params"),
+            jax_tree(model, host(model.named_buffers()), "state"))

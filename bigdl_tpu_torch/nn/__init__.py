@@ -1,10 +1,17 @@
 """Layers of the port (``bigdl_tpu.nn`` twins)."""
 
-from bigdl_tpu_torch.nn.activations import LogSoftMax, ReLU
+from bigdl_tpu_torch.nn.activations import (ELU, GELU, HardShrink,
+                                            HardSigmoid, HardTanh, LeakyReLU,
+                                            LogSigmoid, LogSoftMax, PReLU,
+                                            ReLU, ReLU6, RReLU, Sigmoid, SiLU,
+                                            SoftMax, SoftMin, SoftPlus,
+                                            SoftShrink, SoftSign, SReLU, Tanh,
+                                            TanhShrink, Threshold)
 from bigdl_tpu_torch.nn.criterion import (BCECriterion,
                                           BCEWithLogitsCriterion,
                                           ClassNLLCriterion, Criterion,
                                           CrossEntropyCriterion,
+                                          MSECriterion,
                                           TimeDistributedCriterion)
 from bigdl_tpu_torch.nn.layers import (BatchNormalization, Dropout, Linear, LookupTable,
                                        SpatialAveragePooling,
@@ -25,12 +32,14 @@ from bigdl_tpu_torch.nn.sparse import (COOBatch, DenseToSparse,
 __all__ = ["BCECriterion", "BCEWithLogitsCriterion", "BatchNormalization",
            "CAddTable", "COOBatch", "Cell", "ClassNLLCriterion", "ConcatTable",
            "Container", "Criterion", "CrossEntropyCriterion", "Dropout",
-           "DenseToSparse", "Identity", "LSTM", "Linear", "LogSoftMax",
-           "LookupTable", "LookupTableSparse",
-           "Module", "MultiRNNCell", "QuantizedLinear",
-           "QuantizedSpatialConvolution", "ReLU", "Recurrent", "Reshape",
-           "RnnCell", "Sequential", "SpatialAveragePooling",
-           "SpatialBatchNormalization", "SpatialConvolution",
-           "SparseJoinTable", "SparseLinear", "SpatialMaxPooling",
-           "TimeDistributed",
-           "TimeDistributedCriterion", "quantize"]
+           "DenseToSparse", "ELU", "GELU", "HardShrink", "HardSigmoid",
+           "HardTanh", "Identity", "LSTM", "LeakyReLU", "Linear",
+           "LogSigmoid", "LogSoftMax", "LookupTable", "LookupTableSparse",
+           "MSECriterion", "Module", "MultiRNNCell", "PReLU",
+           "QuantizedLinear", "QuantizedSpatialConvolution", "RReLU", "ReLU",
+           "ReLU6", "Recurrent", "Reshape", "RnnCell", "SReLU", "Sequential",
+           "SiLU", "Sigmoid", "SoftMax", "SoftMin", "SoftPlus", "SoftShrink",
+           "SoftSign", "SpatialAveragePooling", "SpatialBatchNormalization",
+           "SpatialConvolution", "SparseJoinTable", "SparseLinear",
+           "SpatialMaxPooling", "Tanh", "TanhShrink", "Threshold",
+           "TimeDistributed", "TimeDistributedCriterion", "quantize"]

@@ -105,6 +105,17 @@ class TimeDistributedCriterion(Criterion):
         return loss / T if self.size_average else loss
 
 
+class MSECriterion(Criterion):
+    """Squared error, averaged over every element (``size_average``) or
+    summed."""
+
+    def __init__(self, size_average: bool = True):
+        self.size_average = size_average
+
+    def apply(self, input, target):
+        return self._reduce((input - target) ** 2)
+
+
 class BCECriterion(Criterion):
     """Binary cross entropy on probabilities (reference
     ``BCECriterion.scala``), in f32; the input is clamped to ``[eps, 1 -

@@ -1,8 +1,8 @@
 """Learning-rate schedules (port of ``bigdl_tpu/optim/schedules.py``).
 
-Every schedule of the reference except ``Plateau``, which is driven by
-validation scores (validation is not ported yet).  Each is host-side
-arithmetic that matches the reference step for step.
+Every schedule of the reference.  Each is host-side arithmetic that
+matches the reference step for step; ``Plateau`` is fed the first
+validation method's score once per validation by the optimizer.
 
 Contract: ``schedule(base_lr, iteration, epoch, metric=None) -> lr`` runs on
 the host each step; iterations and epochs are 0-based.
@@ -160,6 +160,45 @@ class SequentialSchedule(LearningRateSchedule):
                 return s(base_lr, it, epoch, metric)
             it -= n
         return self.schedules[-1](base_lr, it, epoch, metric)
+
+
+class Plateau(LearningRateSchedule):
+    """Drop the lr by ``factor`` when the monitored metric stops improving
+    for ``patience`` validations (stateful; :meth:`record` is called by
+    the optimizer after each validation)."""
+
+    def __init__(self, monitor: str = "score", factor: float = 0.1,
+                 patience: int = 10, mode: str = "min", epsilon: float = 1e-4,
+                 cooldown: int = 0, min_lr: float = 0.0):
+        self.monitor, self.factor, self.patience = monitor, factor, patience
+        self.mode, self.epsilon = mode, epsilon
+        self.cooldown, self.min_lr = cooldown, min_lr
+        self._best: Optional[float] = None
+        self._wait = 0
+        self._cooldown_left = 0
+        self._scale = 1.0
+
+    def record(self, metric: float):
+        """Feed the monitored metric."""
+        better = (self._best is None
+                  or (self.mode == "min" and metric < self._best - self.epsilon)
+                  or (self.mode == "max" and metric > self._best + self.epsilon))
+        if self._cooldown_left > 0:
+            self._cooldown_left -= 1
+        if better:
+            self._best = metric
+            self._wait = 0
+        elif self._cooldown_left == 0:
+            self._wait += 1
+            if self._wait >= self.patience:
+                self._scale *= self.factor
+                self._wait = 0
+                self._cooldown_left = self.cooldown
+
+    def __call__(self, base_lr, iteration, epoch, metric=None):
+        if metric is not None:
+            self.record(metric)
+        return max(base_lr * self._scale, self.min_lr)
 
 
 class EpochSchedule(LearningRateSchedule):

@@ -38,6 +38,19 @@ class Config:
     # seed of an optimizer's run (Optimizer.set_seed overrides it): the
     # Dropout generators of its training copy are drawn from it
     seed: int = 1
+    # checkpointing (Optimizer.set_checkpoint's defaults): retention keeps
+    # the newest checkpoint_keep_last snapshots plus (with
+    # checkpoint_keep_every=N) every N-th step; checkpoint_async commits
+    # snapshots on a bounded background writer
+    checkpoint_keep_last: int = 5
+    checkpoint_keep_every: int = 0
+    checkpoint_async: bool = True
+    # non-finite loss/gradient policy of the training driver
+    # (resilience/numeric.py): "off" | "skip" | "rollback" | "abort";
+    # rollback restores the latest valid snapshot at most
+    # failure_retry_times times
+    numeric_guard: str = "off"
+    failure_retry_times: int = 5
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -46,7 +59,12 @@ class Config:
             env = _ENV_PREFIX + f.name.upper()
             if env in os.environ:
                 typ = type(getattr(cfg, f.name))
-                setattr(cfg, f.name, typ(os.environ[env]))
+                raw = os.environ[env]
+                if typ is bool:
+                    val = raw.strip().lower() in ("1", "true", "yes", "on")
+                else:
+                    val = typ(raw)
+                setattr(cfg, f.name, val)
         return cfg
 
 

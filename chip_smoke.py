@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (``bigdl_tpu_torch``) on one NVIDIA card.
 
-Drives the port's four main paths and holds every kernel of them against
+Drives the port's five main paths and holds every kernel of them against
 its plain PyTorch version.  Serving: an int8-quantized ResNet-50 (1000
 classes, 224x224, NCHW, random weights from a seed) served by
 ``ModelRegistry`` with ``quantize=True`` (weight_only) and
@@ -15,7 +15,11 @@ Wide&Deep (wide table 100,000 x 1, deep fields 10000/1000/100/100/50 at
 embed 16, 13 dense features, MLP (100, 50), batch 8192 with 8 wide ids a
 sample, f32) trained through ``LocalOptimizer`` in K=8 blocks with Adam at
 lr 0.01 on batch-COO ``SparseMiniBatch`` es, the wide part's forward and
-its weight gradient running kernel B3.  Phases, each printing its seconds:
+its weight gradient running kernel B3; and LeNet-5 (NCHW f32) trained on
+synthetic MNIST at MNIST's counts with the recipe of
+``examples/lenet/train.py`` (SGD lr 0.05, momentum 0.9, batch 128, two
+epochs, validation and a snapshot every epoch, both summaries), its two
+pools' backward running kernel B1.  Phases, each printing its seconds:
 
 1. the card: name, count, ``nvidia-smi`` name and power limit;
 2. the kernels, built from ``bigdl_tpu_torch/csrc`` (one ``nvcc`` a
@@ -84,14 +88,32 @@ its weight gradient running kernel B3.  Phases, each printing its seconds:
    launches that must equal 2 a step), then one profiled step;
 13. wide-deep check phase, card against CPU: one K=8 block step by step
    (``wd_step_reading``) within ``WD_TRAIN_TOL``, a limit three planted
-   faults must exceed.
+   faults must exceed;
+14. lenet pool phase: B1 at LeNet's two pools (batch 128: x (128, 6, 24,
+   24) and (128, 12, 8, 8), 2x2/2, NCHW f32), bitwise against its plain
+   version in ``two_pass``, then on tanh outputs its device time beside
+   the bound, the plain version and ``max_pool2d_with_indices_backward``;
+15. lenet timed phase: the recipe for two epochs (samples/s, ms per step,
+   peak memory, Top-1/Top-5 after each epoch over the 10,000 validation
+   images, each snapshot's commit ms and bytes); Top-1 after the last
+   epoch must exceed 0.9, the loss must fall and B1 must launch 2 a step
+   (validation runs the forward only); one profiled step;
+16. lenet check phase, card against CPU: one K=4 block step by step
+   (``wd_step_reading``) and the validation log-probabilities of the
+   trained weights within ``LENET_TRAIN_TOL``, a limit two planted faults
+   must exceed;
+17. lenet resume phase, under ``torch.use_deterministic_algorithms``: at
+   K=1 and K=4 a run cut by a SIGTERM mid-epoch (preemption handling) and
+   resumed by a fresh optimizer must equal the uninterrupted run bitwise,
+   losses and weights; at K=4 the preemption's snapshot is truncated on
+   disk first and ``latest_valid`` must skip it.
 
 The last lines are the card, the kernel table and the result as JSON; any
 failed check raises and the script exits non-zero.  Without a CUDA card it
 fails at once.  Run from the repository root:
 
     python3 chip_smoke.py [--seed N] [--json-out PATH]
-                          [--phases resnet,lstm,resnet-train,wide-deep]
+                          [--phases resnet,lstm,resnet-train,wide-deep,lenet]
 
 ``--phases resnet-conditioning`` adds a diagnostic that is not run by
 default: the check phase's path reading at residual gammas 0 to 1, beside
@@ -104,32 +126,44 @@ import argparse
 import copy
 import itertools
 import json
+import os
+import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
-import numpy as np
-import torch
+# cuBLAS's deterministic workspace setting (what the LeNet resume check's
+# torch.use_deterministic_algorithms asks for), set before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
-from bigdl_tpu_torch import nn, optim
-from bigdl_tpu_torch.dataset import (DataSet, MTSampleToMiniBatch, Sample,
-                                     SampleToMiniBatch, SparseMiniBatch,
-                                     SparseSample, Transformer,
-                                     batch_sparse_samples)
-from bigdl_tpu_torch.dataset.text import Dictionary
-from bigdl_tpu_torch.models import WideAndDeep, ptb_model, resnet50
-from bigdl_tpu_torch.nn import quantize, recurrent
-from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from bigdl_tpu_torch import nn, optim  # noqa: E402
+from bigdl_tpu_torch.checkpoint import manager as ckpt_manager  # noqa: E402
+from bigdl_tpu_torch.dataset import (  # noqa: E402
+    DataSet, MTSampleToMiniBatch, Sample, SampleToMiniBatch, SparseMiniBatch,
+    SparseSample, Transformer, batch_sparse_samples)
+from bigdl_tpu_torch.dataset import image, mnist  # noqa: E402
+from bigdl_tpu_torch.dataset.text import Dictionary  # noqa: E402
+from bigdl_tpu_torch.engine import Engine  # noqa: E402
+from bigdl_tpu_torch.models import (WideAndDeep, lenet5,  # noqa: E402
+                                    ptb_model, resnet50)
+from bigdl_tpu_torch.nn import quantize, recurrent  # noqa: E402
+from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,  # noqa: E402
                                           QuantizedSpatialConvolution)
-from bigdl_tpu_torch.ops import (_build, embed_bag, int8_gemm, lstm_cell,
-                                 maxpool)
-from bigdl_tpu_torch.ops.int8_gemm import (int8_matmul_reference,
-                                           prepare_operands)
-from bigdl_tpu_torch.optim import LocalOptimizer
-from bigdl_tpu_torch.serving import ModelRegistry
-from bigdl_tpu_torch.transform import vision as V
-from bigdl_tpu_torch.utils.precision import mixed_precision_loss_fn
+from bigdl_tpu_torch.ops import (  # noqa: E402
+    _build, embed_bag, int8_gemm, lstm_cell, maxpool)
+from bigdl_tpu_torch.ops.int8_gemm import (  # noqa: E402
+    int8_matmul_reference, prepare_operands)
+from bigdl_tpu_torch.optim import LocalOptimizer  # noqa: E402
+from bigdl_tpu_torch.serving import ModelRegistry  # noqa: E402
+from bigdl_tpu_torch.transform import vision as V  # noqa: E402
+from bigdl_tpu_torch.utils.precision import mixed_precision_loss_fn  # noqa: E402
+from bigdl_tpu_torch.utils.summary import (TrainSummary,  # noqa: E402
+                                           ValidationSummary)
 
 # H100 SXM data sheet, dense, at the 700 W limit
 PEAK_F32 = 67e12       # FLOP/s on the CUDA cores
@@ -1065,7 +1099,13 @@ POOL_CASES = [
      torch.bfloat16, "wide"),
     ("5x3s2p2x1_wide_nhwc_bf16", (2, 64, 28, 28), (5, 3), 2, (2, 1), False,
      "NHWC", torch.bfloat16, "wide"),
+    # LeNet-5's two pools at batch 128 (NCHW f32, two_pass)
+    ("lenet_pool1_nchw_f32", (128, 6, 24, 24), 2, 2, 0, False, "NCHW",
+     torch.float32, "ints"),
+    ("lenet_pool2_nchw_f32", (128, 12, 8, 8), 2, 2, 0, False, "NCHW",
+     torch.float32, "ints"),
 ]
+LENET_POOL_CASES = ("lenet_pool1_nchw_f32", "lenet_pool2_nchw_f32")
 # the cases that take B1's tiled_nhwc variant: NHWC, C a whole number of
 # 16-byte vectors, 16-byte-aligned bases, 32-bit offsets and windows of
 # fewer than 255 positions; the others (NCHW, C=3, the 16x16 windows, the
@@ -1089,6 +1129,8 @@ def pool_operands(shape, k, s, p, ceil, fmt, dtype, kind, gen, device):
     dims = (N, H, W, C) if fmt == "NHWC" else shape
     if kind == "relu":
         x = torch.relu(torch.randn(dims, generator=gen, device=device))
+    elif kind == "tanh":
+        x = torch.tanh(torch.randn(dims, generator=gen, device=device))
     else:
         x = torch.randint(-4, 5, dims, generator=gen, device=device).float()
     x = x.to(dtype)
@@ -1127,6 +1169,38 @@ def pool_bound(shape, y_shape, dtype):
     return nbytes / HBM_BPS * 1e3, "bytes", nbytes
 
 
+def pool_case_check(case, gen, device):
+    """B1 against its plain version at one case of POOL_CASES, bitwise,
+    in the variant TILED_CASES names."""
+    name, shape, k, s, p, ceil, fmt, dtype, kind = case
+    x, y, g, pads, k, s = pool_operands(shape, k, s, p, ceil, fmt, dtype,
+                                        kind, gen, device)
+    got = maxpool.launch(x, y, g, k, s, pads)
+    variant = maxpool.last_variant
+    want_variant = "tiled_nhwc" if name in TILED_CASES else "two_pass"
+    if variant[0] != want_variant:
+        raise AssertionError(f"B1 {name}: took {variant}, want "
+                             f"{want_variant}")
+    want = maxpool.maxpool_bwd_reference(x, y, g, k, s, pads)
+    torch.cuda.synchronize()
+    # a view that is not dense gets a dense gradient (empty_like's rule)
+    layout = torch.empty_like(x).stride()
+    if not torch.equal(got, want) or got.stride() != layout:
+        err = (got.float() - want.float()).abs().max().item()
+        raise AssertionError(f"B1 {name}: not bitwise equal to its plain "
+                             f"version (max abs err {err}, strides "
+                             f"{got.stride()} vs {layout})")
+    ties = (y == 0).float().mean().item() if kind == "relu" else None
+    print(f"pool check {name}: x {tuple(x.shape)} strides {x.stride()} "
+          f"{fmt} {dtype} kernel {k} stride {s} pads {pads}: "
+          f"{variant[0]} (tile of {variant[1]}, vectors {variant[2]}, "
+          f"blocks {variant[3]}) bitwise equal"
+          + (f" (windows with an all-zero max: {ties:.3f})"
+             if ties is not None else ""))
+    del x, y, g, got, want
+    torch.cuda.empty_cache()
+
+
 def pool_kernel_phase(device, card, report):
     """B1 against its plain version at every case of POOL_CASES, bitwise
     (both add the same terms in the same order and dtype), each in the
@@ -1134,33 +1208,8 @@ def pool_kernel_phase(device, card, report):
     batch 256) in bf16 (the training path's type) and f32: kernel, plain
     and library times beside the bound."""
     gen = torch.Generator(device=device).manual_seed(2718)
-    for name, shape, k, s, p, ceil, fmt, dtype, kind in POOL_CASES:
-        x, y, g, pads, k, s = pool_operands(shape, k, s, p, ceil, fmt, dtype,
-                                            kind, gen, device)
-        got = maxpool.launch(x, y, g, k, s, pads)
-        variant = maxpool.last_variant
-        want_variant = "tiled_nhwc" if name in TILED_CASES else "two_pass"
-        if variant[0] != want_variant:
-            raise AssertionError(f"B1 {name}: took {variant}, want "
-                                 f"{want_variant}")
-        want = maxpool.maxpool_bwd_reference(x, y, g, k, s, pads)
-        torch.cuda.synchronize()
-        # a view that is not dense gets a dense gradient (empty_like's rule)
-        layout = torch.empty_like(x).stride()
-        if not torch.equal(got, want) or got.stride() != layout:
-            err = (got.float() - want.float()).abs().max().item()
-            raise AssertionError(f"B1 {name}: not bitwise equal to its plain "
-                                 f"version (max abs err {err}, strides "
-                                 f"{got.stride()} vs {layout})")
-        ties = (y == 0).float().mean().item() if kind == "relu" else None
-        print(f"pool check {name}: x {tuple(x.shape)} strides {x.stride()} "
-              f"{fmt} {dtype} kernel {k} stride {s} pads {pads}: "
-              f"{variant[0]} (tile of {variant[1]}, vectors {variant[2]}, "
-              f"blocks {variant[3]}) bitwise equal"
-              + (f" (windows with an all-zero max: {ties:.3f})"
-                 if ties is not None else ""))
-        del x, y, g, got, want
-        torch.cuda.empty_cache()
+    for case in POOL_CASES:
+        pool_case_check(case, gen, device)
     rows = {}
     for name, dtype in (("stem_nhwc_bf16", torch.bfloat16),
                         ("stem_nhwc_f32", torch.float32)):
@@ -2122,20 +2171,25 @@ def planted_bag_fault(role, step):
 WD_FAULT_STEP = 3  # of the K=8 block's steps 0..7
 
 
-class RecordingAdam(optim.Adam):
-    """Adam that keeps float64 CPU copies of every step's parameters (as
-    the step found them) and gradients."""
+def recording(cls):
+    """``cls`` (an optimization method) keeping float64 CPU copies of every
+    step's parameters (as the step found them) and gradients in
+    ``steps``."""
+    class Recording(cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.steps = []
 
-    def __init__(self, *a, **kw):
-        super().__init__(*a, **kw)
-        self.steps = []
+        def update(self, grads, params, state, lr, step):
+            self.steps.append(({k: p.detach().double().cpu()
+                                for k, p in params.items()},
+                               {k: g.detach().double().cpu()
+                                for k, g in grads.items()}))
+            super().update(grads, params, state, lr, step)
+    return Recording
 
-    def update(self, grads, params, state, lr, step):
-        self.steps.append(({k: p.detach().double().cpu()
-                            for k, p in params.items()},
-                           {k: g.detach().double().cpu()
-                            for k, g in grads.items()}))
-        super().update(grads, params, state, lr, step)
+
+RecordingAdam = recording(optim.Adam)
 
 
 def wd_cpu_step(init, params, batch):
@@ -2154,7 +2208,7 @@ def wd_cpu_step(init, params, batch):
     return loss.item(), {k: p.grad.double() for k, p in m.named_parameters()}
 
 
-def wd_step_reading(losses, steps, init, batches):
+def wd_step_reading(losses, steps, init, batches, cpu_step=wd_cpu_step):
     """How far a K-step card run is from the CPU, step by step: the weights
     the card started from against ``init`` (per array, the largest
     difference as a share of its largest value), and for each step j the
@@ -2171,12 +2225,13 @@ def wd_step_reading(losses, steps, init, batches):
     about lr times the sign of its gradient, so a gradient within rounding
     of 0 on one device moves the other way on the other, and the trained
     weights of two sound runs differ by a share of training's change that
-    swings from run to run with the signs that flip."""
+    swings from run to run with the signs that flip.  ``cpu_step`` redoes
+    one step on the CPU (LeNet's check passes its own)."""
     start = flat_params(init)
     rows = [(((steps[0][0][k] - w).abs().max() / w.abs().max()).item(),
              f"start {k}") for k, w in start.items()]
     for j, (params, grads) in enumerate(steps):
-        loss, want = wd_cpu_step(init, params, batches[j])
+        loss, want = cpu_step(init, params, batches[j])
         rows.append((abs(losses[j] - loss) / abs(loss), f"step {j} loss"))
         rows += [(((grads[k] - w).abs().max() / w.abs().max()).item(),
                   f"step {j} {k}") for k, w in want.items()]
@@ -2348,7 +2403,472 @@ def wd_timed_phase(seed, device, card, report):
     return launches["recipe_feed"]
 
 
-PHASES = ("resnet", "lstm", "resnet-train", "wide-deep")
+# ---------------------------------------------------------------- LeNet-5
+# examples/lenet/train.py on one card: LeNet-5 (NCHW f32, its two 2x2/2
+# pools' backward on B1's two_pass variant) on synthetic MNIST at MNIST's
+# own counts (60,000 training images, 10,000 validation images: a ragged
+# last validation batch of 16), batch 128, the recipe's SGD (lr 0.05,
+# momentum 0.9, no decay), K from Engine.steps_per_dispatch(), two epochs,
+# Top-1/Top-5 every epoch, a snapshot every epoch, both summaries.
+LENET = {"train": 60_000, "val": 10_000, "batch": 128, "lr": 0.05,
+         "momentum": 0.9, "epochs": 2, "warmup_steps": 20, "check_K": 4,
+         "resume_iters": 160, "resume_every": 50, "preempt_at": 120,
+         "min_top1": 0.9}
+# the card against the CPU, step by step (wd_step_reading) and on the
+# validation log-probabilities: above the sound readings, below the two
+# planted faults every run measures and requires to exceed it
+LENET_TRAIN_TOL = 1e-3
+_LENET_DATA = {}
+
+
+def lenet_data():
+    """(train, validation) (images, labels) of synthetic_mnist, made once."""
+    if not _LENET_DATA:
+        _LENET_DATA["train"] = mnist.synthetic_mnist(LENET["train"], seed=0)
+        _LENET_DATA["val"] = mnist.synthetic_mnist(LENET["val"], seed=99)
+    return _LENET_DATA["train"], _LENET_DATA["val"]
+
+
+def lenet_pipeline(data, train, n=None):
+    """The recipe's pipeline over the first ``n`` images of ``data``:
+    to_samples >> BytesToGreyImg >> GreyImgNormalizer >>
+    SampleToMiniBatch(128), the last batch kept for validation."""
+    imgs, labels = data
+    mean, std = (mnist.TRAIN_MEAN, mnist.TRAIN_STD) if train \
+        else (mnist.TEST_MEAN, mnist.TEST_STD)
+    return (DataSet.array(mnist.to_samples(imgs[:n], labels[:n]))
+            >> image.BytesToGreyImg() >> image.GreyImgNormalizer(mean, std)
+            >> SampleToMiniBatch(LENET["batch"], drop_remainder=train))
+
+
+def lenet_sgd(cls=optim.SGD):
+    return cls(learning_rate=LENET["lr"], learning_rate_decay=0.0,
+               momentum=LENET["momentum"])
+
+
+def lenet_pool_phase(device, card, report):
+    """B1 at LeNet's two pools: bitwise against its plain version on
+    integer inputs (ties) in two_pass, then on tanh outputs its device
+    time beside the bound, the plain version and the library's
+    ``max_pool2d_with_indices_backward``."""
+    gen = torch.Generator(device=device).manual_seed(3141)
+    rows = {}
+    for name in LENET_POOL_CASES:
+        case = next(c for c in POOL_CASES if c[0] == name)
+        pool_case_check(case, gen, device)
+        shape, k, s, p, ceil, fmt, dtype = case[1:8]
+        x, y, g, pads, kk, ss = pool_operands(shape, k, s, p, ceil, fmt,
+                                              dtype, "tanh", gen, device)
+        _, ind = torch.nn.functional.max_pool2d(x, k, s, p,
+                                                return_indices=True)
+        geo = (kk, ss, pads)
+        fns = (lambda: maxpool.launch(x, y, g, *geo),
+               lambda: maxpool.maxpool_bwd_reference(x, y, g, *geo),
+               lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                   g, x, [k, k], [s, s], [p, p], [1, 1], False, ind))
+        got, want = fns[0](), fns[1]()
+        variant = maxpool.last_variant
+        if variant[0] != "two_pass":
+            raise AssertionError(f"B1 {name}: took {variant}")
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(f"B1 {name} on the timed inputs: max abs "
+                                 f"err {err} against its plain version")
+        # no window overlaps another: each position takes at most one
+        # gradient, so the library's gi is B1's unless a window ties
+        lib = fns[2]()
+        torch.testing.assert_close(lib, got, rtol=0, atol=0)
+        passes = []
+        k_ms = device_ms(fns[0], calls=50, split=passes)
+        l_ms = device_ms(fns[2], calls=50)
+        k_ev, p_ev, l_ev = (cuda_ms(f, budget_ms=50.0) for f in fns)
+        b_ms, b_by, nbytes = pool_bound(shape, y.shape, dtype)
+        rows[name] = {"ms": k_ms, "plain_ms": p_ev, "library_ms": l_ms,
+                      "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                      "max_abs_err": err, "event_ms": k_ev,
+                      "library_event_ms": l_ev, "passes": passes,
+                      "variant": list(variant)}
+        print(f"maxpool_bwd {name} x {tuple(x.shape)} {variant[0]} "
+              f"(blocks {variant[3]}): max_abs_err={err} against the plain "
+              f"version, library equal; device ms per call kernel_ms="
+              f"{k_ms:.5f} library_ms={l_ms:.5f}; event-timed kernel "
+              f"{k_ev:.5f} plain {p_ev:.5f} library {l_ev:.5f}; bound_ms="
+              f"{b_ms:.5f} ({b_by}: {nbytes / 1e6:.3f} MB at "
+              f"{HBM_BPS / 1e12:.2f} TB/s); by kernel: "
+              + ", ".join(f"{kernel_pass(n)} {ms:.5f}" for n, ms in passes)
+              + f" [{card}]")
+        del x, y, g, ind, got, want, lib
+    report["lenet_pool"] = rows
+    return rows
+
+
+def lenet_profile_step(init, batch, device, card):
+    """One training step (forward, backward, SGD update) of LeNet-5 at
+    batch 128 under torch.profiler after a warm-up step."""
+    net = copy.deepcopy(init).to(device).train()
+    params = dict(net.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    sgd = lenet_sgd()
+    ostate = sgd.init_state(params)
+    x = torch.from_numpy(batch.input).to(device)
+    y = torch.from_numpy(batch.target).to(device)
+    crit = nn.ClassNLLCriterion()
+
+    def step():
+        for p in params.values():
+            p.grad = None
+        crit.apply(net(x), y).backward()
+        sgd.update({k: p.grad for k, p in params.items()}, params, ostate,
+                   LENET["lr"], 0)
+
+    return profile_step(step, f"lenet train step (f32, batch "
+                        f"{LENET['batch']})", card, 8)
+
+
+def timed_commits(sound):
+    """A wrapper of the checkpoint manager's writer ``sound`` that records
+    (file, commit ms, bytes on disk) of each snapshot it commits."""
+    commits = []
+
+    def write(path, **kw):
+        t0 = time.perf_counter()
+        out = sound(path, **kw)
+        commits.append((os.path.basename(path),
+                        (time.perf_counter() - t0) * 1e3,
+                        os.path.getsize(path)))
+        return out
+    return write, commits
+
+
+def lenet_timed_phase(seed, device, card, report):
+    """The LeNet recipe on the card: two epochs of synthetic MNIST through
+    LocalOptimizer with validation, snapshots and both summaries.  Prints
+    samples/s and ms a step (host clock at replay, epoch 1 after its first
+    steps, validation and snapshots left out), peak memory, Top-1/Top-5
+    after each epoch, each snapshot's commit ms and bytes; fails unless
+    Top-1 after the last epoch exceeds LENET["min_top1"], the loss falls
+    and B1 launched 2 a step, all two_pass (validation runs the forward
+    only).  Then one profiled step."""
+    t0 = time.monotonic()
+    train, val = lenet_data()
+    print(f"lenet data: synthetic_mnist {len(train[1])} training and "
+          f"{len(val[1])} validation images in {time.monotonic() - t0:.1f} s")
+    init = lenet5(10).initialize(seed)
+    model = copy.deepcopy(init)
+    losses, clock, scores = [], [], []
+
+    class Recording(LocalOptimizer):
+        def _log_train_iteration(self, lr):
+            losses.append(self.state["loss"])
+            clock.append(time.perf_counter())
+
+        def _run_validation(self, run):
+            t = time.perf_counter()
+            res = super()._run_validation(run)
+            if res is not None:
+                scores.append({"neval": self.state["neval"],
+                               "top1": res["Top1Accuracy"].result,
+                               "top5": res["Top5Accuracy"].result,
+                               "count": res["Top1Accuracy"].count,
+                               "s": time.perf_counter() - t})
+            return res
+
+    sound_write = ckpt_manager.write_snapshot
+    write, commits = timed_commits(sound_write)
+    K = Engine.steps_per_dispatch()
+    with tempfile.TemporaryDirectory() as tmp:
+        opt = (Recording(model, lenet_pipeline(train, True),
+                         nn.ClassNLLCriterion(), device=device)
+               .set_optim_method(lenet_sgd())
+               .set_end_when(optim.max_epoch(LENET["epochs"]))
+               .set_validation(optim.every_epoch(),
+                               lenet_pipeline(val, False),
+                               [optim.Top1Accuracy(), optim.Top5Accuracy()])
+               .set_checkpoint(tmp, optim.every_epoch())
+               .set_train_summary(TrainSummary(tmp, "lenet"))
+               .set_val_summary(ValidationSummary(tmp, "lenet")))
+        torch.cuda.reset_peak_memory_stats()
+        maxpool.reset_counts()
+        ckpt_manager.write_snapshot = write
+        t1 = time.monotonic()
+        try:
+            opt.optimize()
+        finally:
+            ckpt_manager.write_snapshot = sound_write
+        wall = time.monotonic() - t1
+        peak = torch.cuda.max_memory_allocated()
+        opt.train_summary.close()
+        opt.validation_summary.close()
+        events = {phase: sum(os.path.getsize(os.path.join(d, f))
+                             for d, _, fs in os.walk(os.path.join(
+                                 tmp, "lenet", phase)) for f in fs)
+                  for phase in ("train", "validation")}
+        stall = opt.registry.histogram("checkpoint/driver_stall_s").snapshot()
+    steps = opt.state["neval"]
+    launches = maxpool.launches
+    per_epoch = -(-LENET["train"] // LENET["batch"])
+    if steps != LENET["epochs"] * per_epoch or launches != 2 * steps \
+            or maxpool.variant_launches["two_pass"] != launches:
+        raise AssertionError(f"lenet: {steps} steps, B1 launched {launches} "
+                             f"times ({maxpool.variant_launches}); want "
+                             f"{LENET['epochs'] * per_epoch} steps, 2 "
+                             f"two_pass launches a step")
+    w = LENET["warmup_steps"]
+    step_s = (clock[per_epoch - 1] - clock[w]) / (per_epoch - 1 - w)
+    first, last = np.mean(losses[:w]), np.mean(losses[-w:])
+    print(f"train lenet f32 batch {LENET['batch']} K={K}: {steps} steps in "
+          f"{LENET['epochs']} epochs, {wall:.2f} s with validation and "
+          f"snapshots; epoch 1's steps {w}..{per_epoch - 1}: ms_per_step="
+          f"{step_s * 1e3:.3f} samples_per_s={LENET['batch'] / step_s:.1f}"
+          f" max_memory_allocated={peak}; mean loss of the first / last "
+          f"{w} steps {first:.4f} / {last:.4f}; B1 launches {launches} "
+          f"({maxpool.variant_launches}) [{card}]")
+    for s in scores:
+        print(f"lenet validation after iteration {s['neval']}: Top1Accuracy="
+              f"{s['top1']:.4f} Top5Accuracy={s['top5']:.4f} over "
+              f"{int(s['count'])} images in {s['s'] * 1e3:.1f} ms [{card}]")
+    for name, ms, nbytes in commits:
+        print(f"lenet snapshot {name}: commit_ms={ms:.2f} bytes={nbytes} "
+              f"(the writer thread: serialize, CRC32-C, fsync, rename)")
+    print(f"lenet checkpoint driver stall per save (copy to the host and "
+          f"enqueue): {stall}; event files {events} bytes")
+    if len(scores) != LENET["epochs"] or len(commits) != LENET["epochs"]:
+        raise AssertionError(f"lenet: {len(scores)} validations and "
+                             f"{len(commits)} snapshots in "
+                             f"{LENET['epochs']} epochs")
+    if scores[-1]["count"] != LENET["val"]:
+        raise AssertionError(f"lenet validation scored "
+                             f"{scores[-1]['count']} of {LENET['val']}")
+    if not scores[-1]["top1"] > LENET["min_top1"]:
+        raise AssertionError(f"lenet Top-1 {scores[-1]['top1']:.4f} after "
+                             f"{LENET['epochs']} epochs, want > "
+                             f"{LENET['min_top1']}")
+    if not (np.all(np.isfinite(losses)) and last < first):
+        raise AssertionError(f"lenet: the loss is not finite and falling "
+                             f"({first} -> {last})")
+    profile = lenet_profile_step(
+        init, next(iter(lenet_pipeline(train, True).data(train=False))),
+        device, card)
+    report["lenet_train"] = {
+        "steps": steps, "K": K, "wall_s": wall, "ms_per_step": step_s * 1e3,
+        "samples_per_s": LENET["batch"] / step_s, "max_memory_allocated":
+        peak, "losses": losses, "validations": scores,
+        "snapshots": commits, "driver_stall": stall, "event_bytes": events,
+        "launches": launches, "profile": profile}
+    return launches
+
+
+def lenet_cpu_step(init, params, batch):
+    """The loss and the gradients of one LeNet step on the CPU (the plain
+    versions), from ``params`` on ``batch``."""
+    m = copy.deepcopy(init)
+    with torch.no_grad():
+        for k, p in m.named_parameters():
+            p.copy_(params[k])
+            p.requires_grad_(True)
+    loss = nn.ClassNLLCriterion().apply(m(torch.from_numpy(batch.input)),
+                                        torch.from_numpy(batch.target))
+    loss.backward()
+    return loss.item(), {k: p.grad.double() for k, p in m.named_parameters()}
+
+
+def lenet_logp_reading(model, batches, device):
+    """The validation log-probabilities of ``model``'s weights on the card
+    against the CPU: the largest difference as a share of max|logp|, over
+    ``batches`` (the first and the ragged last)."""
+    card = copy.deepcopy(model).to(device).eval()
+    cpu = copy.deepcopy(model).eval()
+    worst = 0.0
+    with torch.no_grad():
+        for b in batches:
+            x = torch.from_numpy(b.input)
+            want = cpu(x)
+            got = card(x.to(device)).cpu()
+            worst = max(worst, ((got - want).abs().max()
+                                / want.abs().max()).item())
+    return worst
+
+
+def lenet_check_phase(seed, device, card, report):
+    """One K=LENET["check_K"] block of the recipe on the card through
+    LocalOptimizer against the CPU, step by step (wd_step_reading with
+    lenet_cpu_step), from
+    the same init and batches, and the validation log-probabilities of the
+    trained weights on both (lenet_logp_reading); two planted faults on
+    the card must read above LENET_TRAIN_TOL: fc1's weight x127/128 at
+    init, and B1's first launch x127/128."""
+    K, B = LENET["check_K"], LENET["batch"]
+    train, val = lenet_data()
+    batches = list(lenet_pipeline(train, True, K * B).data(train=False))
+    vbatches = list(lenet_pipeline(val, False).data(train=False))
+    vbatches = [vbatches[0], vbatches[-1]]
+    init = lenet5(10).initialize(seed + 1)
+
+    def card_run(model, b1_fault=False):
+        sgd = lenet_sgd(recording(optim.SGD))
+        sound_launch = maxpool.launch
+        if b1_fault:
+            maxpool.launch = planted_b1_fault()
+        try:
+            losses = []
+            opt = (LocalOptimizer(model, lenet_pipeline(train, True, K * B),
+                                  nn.ClassNLLCriterion(), device=device)
+                   .set_optim_method(sgd).set_steps_per_dispatch(K)
+                   .set_end_when(optim.max_iteration(K)))
+            opt._log_train_iteration = \
+                lambda lr: losses.append(opt.state["loss"])
+            opt.optimize()
+        finally:
+            maxpool.launch = sound_launch
+        return losses, sgd.steps
+
+    card_model = copy.deepcopy(init)
+    maxpool.reset_counts()
+    card_losses, card_steps = card_run(card_model)
+    if maxpool.launches != 2 * K:
+        raise AssertionError(f"B1 launched {maxpool.launches} times in {K} "
+                             f"steps (want 2 a step)")
+    sound, worst = wd_step_reading(card_losses, card_steps, init, batches,
+                                   lenet_cpu_step)
+    logp = lenet_logp_reading(card_model, vbatches, device)
+    faults, fault_worst = {}, {}
+    m = copy.deepcopy(init)
+    with torch.no_grad():
+        m[8].weight.mul_(127 / 128)
+    for name, (model, b1) in {"fc1_weight_127_128": (m, False),
+                              "b1_first_launch_127_128": (
+                                  copy.deepcopy(init), True)}.items():
+        faults[name], fault_worst[name] = wd_step_reading(
+            *card_run(model, b1), init, batches, lenet_cpu_step)
+    print(f"lenet train-vs-cpu largest shares (share, what): sound {worst}; "
+          + "; ".join(f"{k} {v}" for k, v in fault_worst.items()))
+    print(f"lenet train-vs-cpu check, {K} steps of batch {B} step by step: "
+          f"sound {sound:.3e}, validation log-probs {logp:.3e} (batches of "
+          f"{vbatches[0].size()} and {vbatches[1].size()}), planted faults "
+          + ", ".join(f"{k} {v:.3e}" for k, v in faults.items())
+          + f" (tol {LENET_TRAIN_TOL}); card losses "
+          + ", ".join(f"{v:.6f}" for v in card_losses) + f" [{card}]")
+    report["lenet_check"] = {"sound": sound, "largest": worst,
+                             "logp": logp, "planted_faults": faults,
+                             "planted_largest": fault_worst,
+                             "tol": LENET_TRAIN_TOL,
+                             "card_losses": card_losses}
+    if not max(sound, logp) <= LENET_TRAIN_TOL:
+        raise AssertionError(f"LeNet on the card is {sound:.3e} (training) / "
+                             f"{logp:.3e} (validation log-probs) from the "
+                             f"CPU, over the limit {LENET_TRAIN_TOL}")
+    for fault, err in faults.items():
+        if not err > LENET_TRAIN_TOL:
+            raise AssertionError(
+                f"planted fault {fault} reads {err:.3e}, inside the LeNet "
+                f"training tolerance {LENET_TRAIN_TOL}: the check is blind")
+
+
+def lenet_resume_run(ckpt, k, device, preempt_at=None, resume=False):
+    """The recipe for LENET["resume_iters"] iterations at K=``k`` with a
+    snapshot every LENET["resume_every"] into ``ckpt``: ({step: loss},
+    optimizer).  ``preempt_at``: the process sends itself SIGTERM while
+    that iteration is replayed (preemption handling on); ``resume``:
+    resume() from ``ckpt`` first."""
+    train, _ = lenet_data()
+    losses = {}
+
+    class Recording(LocalOptimizer):
+        def _log_train_iteration(self, lr):
+            losses[self.state["neval"]] = self.state["loss"]
+            if self.state["neval"] == preempt_at:
+                if not self._preemption.installed:
+                    raise AssertionError("the SIGTERM handler is not "
+                                         "installed")
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    opt = (Recording(lenet5(10).initialize(7), lenet_pipeline(train, True),
+                     nn.ClassNLLCriterion(), device=device)
+           .set_optim_method(lenet_sgd()).set_steps_per_dispatch(k)
+           .set_end_when(optim.max_iteration(LENET["resume_iters"]))
+           .set_checkpoint(ckpt, optim.several_iteration(
+               LENET["resume_every"])))
+    if preempt_at is not None:
+        opt.set_preemption_handling()
+    if resume and not opt.resume():
+        raise AssertionError(f"no valid snapshot to resume under {ckpt}")
+    start = opt.state["neval"]
+    opt.optimize()
+    return losses, opt, start
+
+
+def lenet_resume_phase(device, card, report):
+    """Bitwise resume on the card, under torch.use_deterministic_algorithms:
+    at K=1 and K=4, an uninterrupted run against a run that a SIGTERM cuts
+    mid-epoch (preemption handling: the block in flight finishes, a last
+    snapshot is written) and a fresh optimizer's resume() of it: the
+    spliced losses and the final weights must equal the uninterrupted
+    run's bitwise.  At K=4 the preemption's snapshot is truncated on disk
+    first, so latest_valid must skip it and the resume starts from the
+    last trigger snapshot."""
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for k in (1, 4):
+            with tempfile.TemporaryDirectory() as tmp:
+                t0 = time.monotonic()
+                ref, ref_opt, _ = lenet_resume_run(
+                    os.path.join(tmp, "ref"), k, device)
+                cut_dir = os.path.join(tmp, "cut")
+                first, cut_opt, _ = lenet_resume_run(
+                    cut_dir, k, device, preempt_at=LENET["preempt_at"])
+                stop = cut_opt.state["neval"]
+                if not cut_opt.state.get("preempted") or \
+                        not LENET["preempt_at"] <= stop < \
+                        LENET["resume_iters"]:
+                    raise AssertionError(f"K={k}: the SIGTERM at iteration "
+                                         f"{LENET['preempt_at']} did not "
+                                         f"preempt the run ({cut_opt.state})")
+                mgr = ckpt_manager.CheckpointManager(cut_dir)
+                torn = None
+                if k == 4:
+                    torn = mgr.path_for(stop)
+                    with open(torn, "r+b") as f:
+                        f.truncate(os.path.getsize(torn) // 2)
+                latest = mgr.latest_valid()
+                mgr.unpin()
+                want = mgr.path_for(LENET["preempt_at"] // LENET[
+                    "resume_every"] * LENET["resume_every"]) if torn \
+                    else mgr.path_for(stop)
+                if latest != want:
+                    raise AssertionError(f"K={k}: latest_valid gave "
+                                         f"{latest}, want {want}")
+                second, res_opt, start = lenet_resume_run(
+                    cut_dir, k, device, resume=True)
+                spliced = {**first, **second}
+                same = sorted(spliced) == sorted(ref) and all(
+                    spliced[s] == ref[s] for s in ref)
+                params_same = all(torch.equal(a, b) for a, b in zip(
+                    res_opt.model.parameters(), ref_opt.model.parameters()))
+                print(f"lenet resume K={k}: SIGTERM at iteration "
+                      f"{LENET['preempt_at']}, stopped at {stop}"
+                      + (f", its snapshot truncated and skipped" if torn
+                         else "") + f", resumed from {start} to "
+                      f"{res_opt.state['neval']}: losses bitwise {same}, "
+                      f"weights bitwise {params_same} "
+                      f"({time.monotonic() - t0:.1f} s) [{card}]")
+                out[k] = {"stop": stop, "resumed_from": start,
+                          "torn": torn is not None, "losses_equal": same,
+                          "weights_equal": params_same}
+                if not (same and params_same):
+                    worst = max(abs(spliced.get(s, float("nan")) - ref[s])
+                                for s in ref)
+                    raise AssertionError(
+                        f"K={k}: the resumed run is not bitwise the "
+                        f"uninterrupted one (largest loss difference "
+                        f"{worst})")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    report["lenet_resume"] = out
+
+
+PHASES = ("resnet", "lstm", "resnet-train", "wide-deep", "lenet")
 EXTRA_PHASES = ("resnet-conditioning",)  # run only when named
 
 
@@ -2492,6 +3012,36 @@ def main(argv=None) -> int:
                                        for k in ("ms", "split", "plain_ms",
                                                  "bound_ms", "library_ms",
                                                  "library_route_ms")}})
+    if "lenet" in phases:
+        t0 = time.monotonic()
+        rows = lenet_pool_phase(device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase lenet-pool: {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        launches = lenet_timed_phase(args.seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase lenet-timed: {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        lenet_check_phase(args.seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase lenet-vs-cpu: {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        lenet_resume_phase(device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase lenet-resume: {time.monotonic() - t0:.1f} s")
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "variant")
+        lenet_row = {"launches": launches,
+                     **{name: {k: row[k] for k in keys}
+                        for name, row in rows.items()}}
+        entry = next((k for k in kernels if k["name"] == "maxpool_bwd"),
+                     None)
+        if entry is None:  # the stem was not run: LeNet's first pool leads
+            entry = {"name": "maxpool_bwd", **POOL_KERNEL,
+                     "launches": launches,
+                     **{k: rows[LENET_POOL_CASES[0]][k] for k in keys}}
+            kernels.append(entry)
+        entry["lenet"] = lenet_row
     if "resnet-conditioning" in phases:
         t0 = time.monotonic()
         resnet_conditioning_phase(args.seed, device, card, report)

@@ -1,7 +1,7 @@
 """The port on the card: the hand-written int8 GEMM, LSTM cell and max-pool
 backward kernels against their plain versions, the quantized serving slice,
-one PTB training block and a small NHWC ResNet's training against the same
-model on the CPU.  Every test here needs a CUDA card and skips without one; on the card
+one PTB training block, a small NHWC ResNet's training and a LeNet-5 block
+(validation and a snapshot included) against the same model on the CPU.  Every test here needs a CUDA card and skips without one; on the card
 run ``python -m pytest -m gpu tests/test_torch_*.py``.  This file imports
 no JAX, so it runs where the reference package is not installed.
 
@@ -715,3 +715,76 @@ def test_wide_deep_training_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
                                    atol=1e-4 * b.abs().max().item(),
                                    err_msg=k)
+
+
+# LeNet-5's two pools (2x2/2, NCHW f32, tanh outputs) at batch 128
+LENET_POOLS = [((128, 6, 24, 24), 2, 2, 0, False, "NCHW", torch.float32),
+               ((128, 12, 8, 8), 2, 2, 0, False, "NCHW", torch.float32)]
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["ints", "relu"])
+@pytest.mark.parametrize("case", LENET_POOLS, ids=_pool_id)
+def test_maxpool_bwd_lenet_geometries_take_two_pass(cuda, case, relu):
+    x, y, g, k, s, pads = _pool_operands(case, relu, cuda)
+    got = maxpool.launch(x, y, g, k, s, pads)
+    want = maxpool.maxpool_bwd_reference(x, y, g, k, s, pads)
+    torch.cuda.synchronize()
+    assert maxpool.last_variant[0] == "two_pass"
+    assert torch.equal(got, want)
+
+
+def test_lenet_block_on_card_matches_cpu(cuda, tmp_path):
+    """LeNet-5 trained for a K=4 block on synthetic MNIST, on the card (B1,
+    two launches a step) and on the CPU from the same weights, with
+    validation and a snapshot at the block's end: losses ``rtol=1e-4``,
+    parameters within ``1e-4`` of each array's largest value, the same
+    Top-1 count, and the card's snapshot resumes on the CPU."""
+    from bigdl_tpu_torch.dataset import image, mnist
+    from bigdl_tpu_torch.models import lenet5
+
+    imgs, labels = mnist.synthetic_mnist(256, seed=0)
+    vimgs, vlabels = mnist.synthetic_mnist(72, seed=99)
+
+    def grey(i, l):
+        return (DataSet.array(mnist.to_samples(i, l)) >> image.BytesToGreyImg()
+                >> image.GreyImgNormalizer(mnist.TRAIN_MEAN, mnist.TRAIN_STD))
+
+    def run(dev, ckpt):
+        model = lenet5(10).initialize(0)
+        scores = []
+        opt = (optim.LocalOptimizer(model, grey(imgs, labels)
+                                    >> SampleToMiniBatch(64),
+                                    nn.ClassNLLCriterion(), device=dev)
+               .set_optim_method(optim.SGD(0.05, momentum=0.9))
+               .set_steps_per_dispatch(4)
+               .set_end_when(optim.max_iteration(4))
+               .set_validation(optim.every_epoch(), grey(vimgs, vlabels),
+                               [optim.Top1Accuracy()], batch_size=32)
+               .set_checkpoint(str(ckpt), optim.every_epoch()))
+        losses = []
+        opt._log_train_iteration = lambda lr: losses.append(opt.state["loss"])
+        maxpool.reset_counts()
+        opt.optimize()
+        scores.append(opt.state["score"])
+        return losses, model, maxpool.launches, scores
+
+    lc, mc, nc, sc = run("cpu", tmp_path / "cpu")
+    lg, mg, ng, sg = run(cuda, tmp_path / "card")
+    assert (nc, ng) == (0, 8)
+    assert maxpool.variant_launches["two_pass"] == 8
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    for (k, a), (_, b) in zip(mg.state_dict().items(),
+                              mc.state_dict().items()):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4 * b.abs().max().item(),
+                                   err_msg=k)
+    assert sg == sc
+    resumed = (optim.LocalOptimizer(lenet5(10), grey(imgs, labels)
+                                    >> SampleToMiniBatch(64),
+                                    nn.ClassNLLCriterion(), device="cpu")
+               .set_optim_method(optim.SGD(0.05, momentum=0.9))
+               .set_checkpoint(str(tmp_path / "card"), optim.every_epoch()))
+    assert resumed.resume() and resumed.state["neval"] == 4
+    for (k, a), (_, b) in zip(resumed.model.state_dict().items(),
+                              mg.state_dict().items()):
+        assert torch.equal(a, b), k

@@ -4,8 +4,10 @@ load neither JAX nor the reference package and import with neither JAX nor
 versions on the CPU (an int8 GEMM, an LSTM cell step and back, one
 training step of a tiny PTB model, one bf16 step of a small NHWC ResNet
 behind a max pool fed by the image pipeline, a K=2 block of a tiny
-Wide&Deep on batch-COO crossed MovieLens features) builds or loads a
-kernel; and a kernel build that fails raises."""
+Wide&Deep on batch-COO crossed MovieLens features, an epoch of LeNet on
+synthetic MNIST with validation, a snapshot and its resume, both
+summaries, the preemption handler and the numeric guard) builds or loads
+a kernel; and a kernel build that fails raises."""
 
 import json
 import os
@@ -114,6 +116,31 @@ class Squeezed(nn.BCECriterion):
  .set_optim_method(optim.Adam(0.01)).set_steps_per_dispatch(2)
  .set_end_when(optim.max_iteration(2)).optimize())
 assert embed_bag.launches == 0
+import tempfile
+from bigdl_tpu_torch.dataset import image, mnist
+from bigdl_tpu_torch.models import lenet5
+from bigdl_tpu_torch.optim.validation import Top1Accuracy, Top5Accuracy
+from bigdl_tpu_torch.utils.summary import TrainSummary, ValidationSummary
+imgs, lbls = mnist.synthetic_mnist(40, seed=0)
+grey = lambda n: (DataSet.array(mnist.to_samples(imgs[:n], lbls[:n]))
+                  >> image.BytesToGreyImg()
+                  >> image.GreyImgNormalizer(mnist.TRAIN_MEAN,
+                                             mnist.TRAIN_STD))
+with tempfile.TemporaryDirectory() as tmp:
+    lenet_opt = (optim.LocalOptimizer(lenet5(10).initialize(0),
+                                      grey(40) >> SampleToMiniBatch(8),
+                                      nn.ClassNLLCriterion(), device="cpu")
+                 .set_optim_method(optim.SGD(0.05, momentum=0.9))
+                 .set_end_when(optim.max_iteration(5))
+                 .set_validation(optim.every_epoch(), grey(12),
+                                 [Top1Accuracy(), Top5Accuracy()], 8)
+                 .set_checkpoint(tmp, optim.every_epoch())
+                 .set_train_summary(TrainSummary(tmp, "lenet"))
+                 .set_val_summary(ValidationSummary(tmp, "lenet"))
+                 .set_preemption_handling().set_numeric_guard("skip"))
+    lenet_opt.optimize()
+    assert lenet_opt.state["score"] >= 0 and lenet_opt.resume()
+assert maxpool.launches == 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("jaxlib") or m == "bigdl_tpu"
              or m.startswith("bigdl_tpu."))

@@ -65,7 +65,12 @@ def test_schedule_step_for_step(name):
 
 
 def test_plateau_is_not_ported():
-    assert not hasattr(tsched, "Plateau")  # needs validation scores
+    """Plateau came with validation (the LeNet slice): fed a score through
+    ``__call__``'s metric, it gives the reference's lr sequence."""
+    mine, ref = tsched.Plateau(patience=2), jsched.Plateau(patience=2)
+    for it, score in enumerate([1.0, 0.9, 0.95, 0.97, 0.99, 0.5, 0.6]):
+        assert mine(0.1, it, 0, score) == ref(0.1, it, 0, score), it
+    assert mine(0.1, 7, 0) == ref(0.1, 7, 0) < 0.1
 
 
 def test_cast_floating():

@@ -139,6 +139,23 @@ def test_cuda_device_required_unless_cpu_asked(monkeypatch):
         optim.LocalOptimizer(ptb_model(VOCAB, 16, HIDDEN, 2), ds, crit)
 
 
+# the LeNet slice ported validation, checkpoints, summaries and the numeric
+# guard: those setters are builder calls now, with the reference's
+# arguments (resume without a checkpoint directory raises the reference's
+# ValueError); the rest still raise NotImplementedError
+PORTED_SETTERS = {
+    "set_validation": lambda o, ds: o.set_validation(
+        optim.every_epoch(), ds, [optim.Top1Accuracy()]),
+    "set_checkpoint": lambda o, ds: o.set_checkpoint(
+        "unused-dir", optim.every_epoch()),
+    "over_write_checkpoint": lambda o, ds: o.over_write_checkpoint(False),
+    "set_preemption_handling": lambda o, ds: o.set_preemption_handling(),
+    "set_train_summary": lambda o, ds: o.set_train_summary(None),
+    "set_val_summary": lambda o, ds: o.set_val_summary(None),
+    "set_numeric_guard": lambda o, ds: o.set_numeric_guard("skip"),
+}
+
+
 @pytest.mark.parametrize("setter", [
     "set_validation", "set_checkpoint", "over_write_checkpoint",
     "set_preemption_handling", "resume", "set_train_summary",
@@ -149,9 +166,15 @@ def test_unported_driver_features_raise(setter):
     opt = optim.LocalOptimizer(ptb_model(VOCAB, 16, HIDDEN, 2), ds,
                                nn.TimeDistributedCriterion(
                                    nn.ClassNLLCriterion()), device="cpu")
-    # set_compute_dtype is ported for None, f32 and bf16; f16 is not
-    arg = torch.float16 if setter == "set_compute_dtype" else None
-    with pytest.raises(NotImplementedError, match="not ported"):
-        getattr(opt, setter)(arg)
+    if setter in PORTED_SETTERS:
+        assert PORTED_SETTERS[setter](opt, ds) is opt
+    elif setter == "resume":
+        with pytest.raises(ValueError, match="set_checkpoint"):
+            opt.resume()
+    else:
+        # set_compute_dtype is ported for None, f32 and bf16; f16 is not
+        arg = torch.float16 if setter == "set_compute_dtype" else None
+        with pytest.raises(NotImplementedError, match="not ported"):
+            getattr(opt, setter)(arg)
     with pytest.raises(NotImplementedError, match="DistriOptimizer"):
         optim.Optimizer.create(None, ds, None, distributed=True)
