@@ -32,7 +32,7 @@ def _dtype_name(leaf) -> str:
     return str(dt).replace("torch.", "")
 
 
-def _leaves(tree, path=()):
+def leaves_with_path(tree, path=()):
     """(path, leaf) pairs in ``jax.tree_util.tree_flatten`` order: dict
     keys sorted, sequences in order; None and empty containers hold no
     leaf."""
@@ -40,10 +40,10 @@ def _leaves(tree, path=()):
         return
     if isinstance(tree, dict):
         for k in sorted(tree):
-            yield from _leaves(tree[k], path + (f"[{k!r}]",))
+            yield from leaves_with_path(tree[k], path + (f"[{k!r}]",))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _leaves(v, path + (f"[{i}]",))
+            yield from leaves_with_path(v, path + (f"[{i}]",))
     else:
         yield "".join(path), tree
 
@@ -52,7 +52,7 @@ def describe_params(params) -> dict:
     """Parameter tree -> ``{leaf path: "shape:dtype"}`` (the architecture
     fingerprint)."""
     out = {}
-    for key, leaf in _leaves(params):
+    for key, leaf in leaves_with_path(params):
         shape = getattr(leaf, "shape", None)
         shape = tuple(int(d) for d in (np.shape(leaf) if shape is None
                                        else shape))

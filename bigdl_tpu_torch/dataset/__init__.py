@@ -1,7 +1,8 @@
 """Training data pipeline of the port (``bigdl_tpu.dataset`` twins)."""
 
 from bigdl_tpu_torch.dataset.dataset import (AbstractDataSet, DataSet,
-                                             LocalDataSet, TransformedDataSet)
+                                             DistributedDataSet, LocalDataSet,
+                                             TransformedDataSet)
 from bigdl_tpu_torch.dataset.prefetch import MTSampleToMiniBatch
 from bigdl_tpu_torch.dataset.sample import (MiniBatch, Sample, SparseMiniBatch,
                                             SparseSample, batch_samples,
@@ -11,6 +12,7 @@ from bigdl_tpu_torch.dataset.transformer import (ChainedTransformer,
                                                  Transformer)
 
 __all__ = ["AbstractDataSet", "ChainedTransformer", "DataSet",
+           "DistributedDataSet",
            "LocalDataSet", "MTSampleToMiniBatch", "MiniBatch", "Sample",
            "SampleToMiniBatch", "SparseMiniBatch", "SparseSample",
            "TransformedDataSet", "Transformer", "batch_samples",

@@ -1,5 +1,8 @@
 """Process-wide defaults (port of ``bigdl_tpu/engine.py``: the serving
-defaults and the training driver's ``steps_per_dispatch``).
+defaults, the training driver's ``steps_per_dispatch``, and the topology:
+``node_number``, ``device_count`` and the mesh distributed optimizers
+shard over).  One process drives one device, so the process group's
+world size is both the node and the device count.
 
 The reference's tuned-config layer (``tuned_configs.json``) is not ported:
 its entries were measured on a TPU or a CPU, and none applies to an H100.
@@ -24,6 +27,8 @@ def resolve_device(device) -> torch.device:
 
 
 class Engine:
+    _mesh = None  # set_mesh(); None = a data mesh over the process group
+
     @classmethod
     def serving_defaults(cls) -> dict:
         """Defaults for :class:`bigdl_tpu_torch.serving.InferenceService`
@@ -43,3 +48,31 @@ class Engine:
         optimizer sets none: ``configure()``/``BIGDL_TPU_STEPS_PER_DISPATCH``
         > ``Config.steps_per_dispatch``."""
         return max(1, int(get_config().steps_per_dispatch))
+
+    # -- topology ------------------------------------------------------
+    @classmethod
+    def node_number(cls) -> int:
+        """Processes of the job (the reference's executor count): the
+        process group's world size, 1 before one exists."""
+        import torch.distributed as dist
+        return dist.get_world_size() if dist.is_initialized() else 1
+
+    @classmethod
+    def device_count(cls) -> int:
+        """Devices of the job: one a process."""
+        return cls.node_number()
+
+    @classmethod
+    def set_mesh(cls, mesh) -> None:
+        cls._mesh = mesh
+
+    @classmethod
+    def get_mesh(cls, backend=None):
+        """The mesh distributed optimizers shard over: the one
+        :meth:`set_mesh` gave, else a data mesh over every process
+        (``parallel.create_mesh``, which starts a world-1 group on
+        ``backend`` when there is none)."""
+        if cls._mesh is None:
+            from bigdl_tpu_torch.parallel.mesh import create_mesh
+            cls._mesh = create_mesh(backend=backend)
+        return cls._mesh

@@ -18,6 +18,13 @@ CPU tensors (bf16 ones too): this module imports neither JAX nor the
 reference package.  :func:`jax_tree` and :func:`from_jax_tree` carry any
 dict keyed by the port's parameter names (an optimizer's momentum) to
 and from the same layout; snapshots use them (``checkpoint/``).
+
+A ``DistriOptimizer``'s grad_sync state, ``{"master": [bucket, ...],
+"opt": {"velocity": [bucket, ...]}}`` (:func:`is_grad_sync_state`), is in
+the reference's layout already: flat f32 buckets over the parameters in
+the reference's leaf order (``parallel/grad_sync.py``), keyed by no
+parameter name, so it crosses packages as it is, without
+:func:`jax_tree`/:func:`from_jax_tree`.
 """
 
 from __future__ import annotations
@@ -145,6 +152,13 @@ def from_jax_tree(model: torch.nn.Module, tree: dict,
                            f"{type(model).__name__}")
         out[names[key]] = leaf
     return out
+
+
+def is_grad_sync_state(tree) -> bool:
+    """Whether an optimizer state tree is the grad_sync layout (flat master
+    buckets and the optimizer's state over them)."""
+    return (isinstance(tree, dict) and set(tree) == {"master", "opt"}
+            and isinstance(tree.get("master"), list))
 
 
 def to_jax_params(model: torch.nn.Module):

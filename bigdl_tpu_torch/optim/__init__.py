@@ -1,5 +1,6 @@
 """Training of the port (``bigdl_tpu.optim`` twins)."""
 
+from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
 from bigdl_tpu_torch.optim.optim_method import SGD, Adam, OptimMethod
 from bigdl_tpu_torch.optim.optimizer import (LocalOptimizer, Optimizer,
                                              clip_by_global_norm,
@@ -21,7 +22,7 @@ from bigdl_tpu_torch.optim.validation import (MAE, NDCG, HitRatio, Loss,
                                               ValidationMethod,
                                               ValidationResult)
 
-__all__ = ["Adam", "Default", "EpochDecay", "EpochDecayWithWarmUp",
+__all__ = ["Adam", "Default", "DistriOptimizer", "EpochDecay", "EpochDecayWithWarmUp",
            "EpochSchedule", "EpochStep", "Exponential", "HitRatio",
            "LearningRateSchedule", "LocalOptimizer", "Loss", "MAE",
            "MultiStep", "NDCG", "NaturalExp", "OptimMethod", "Optimizer",

@@ -2,7 +2,11 @@
 ``OptimMethod``, ``SGD``, ``Adam``).
 
 Parameters, gradients and state are dicts of tensors keyed by parameter
-name.  Where the reference's ``update`` is pure and returns new trees,
+name, or lists of tensors: ``DistriOptimizer``'s flat f32 master buckets
+(``parallel/grad_sync.py``), whose state is then the reference's layout
+over them, e.g. ``{"velocity": [bucket, ...]}``.  Every update is
+elementwise, so a bucket's update is the update of the parameters in it,
+bit for bit.  Where the reference's ``update`` is pure and returns new trees,
 here it updates the parameters and the state IN PLACE under
 ``torch.no_grad()``: the training loop owns both, and in-place updates keep
 one copy of each on the card.  The arithmetic follows the reference step
@@ -12,13 +16,23 @@ is not ported yet.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Union
 
 import torch
 
 from bigdl_tpu_torch.optim.schedules import Default, LearningRateSchedule
 
-Tensors = Dict[str, torch.Tensor]
+Tensors = Union[Dict[str, torch.Tensor], List[torch.Tensor]]
+
+
+def _keys(tree: Tensors):
+    return tree.keys() if isinstance(tree, dict) else range(len(tree))
+
+
+def _zeros_like(tree: Tensors) -> Tensors:
+    if isinstance(tree, dict):
+        return {k: torch.zeros_like(p) for k, p in tree.items()}
+    return [torch.zeros_like(p) for p in tree]
 
 
 class OptimMethod:
@@ -51,7 +65,9 @@ class OptimMethod:
         if self.weight_decay == 0.0:
             return grads
         wd = self.weight_decay
-        return {k: g + wd * params[k] for k, g in grads.items()}
+        if isinstance(grads, dict):
+            return {k: g + wd * params[k] for k, g in grads.items()}
+        return [g + wd * p for g, p in zip(grads, params)]
 
 
 class SGD(OptimMethod):
@@ -78,19 +94,18 @@ class SGD(OptimMethod):
     def init_state(self, params):
         if self.momentum == 0.0:
             return {}
-        return {"velocity": {k: torch.zeros_like(p)
-                             for k, p in params.items()}}
+        return {"velocity": _zeros_like(params)}
 
     @torch.no_grad()
     def update(self, grads, params, state, lr, step):
         grads = self._decayed(grads, params)
         if self.momentum == 0.0:
-            for k, p in params.items():
-                p.sub_(lr * grads[k])
+            for k in _keys(params):
+                params[k].sub_(lr * grads[k])
             return
         mu, damp = self.momentum, self.dampening
-        for k, p in params.items():
-            v = state["velocity"][k]
+        for k in _keys(params):
+            p, v = params[k], state["velocity"][k]
             g = grads[k]
             v.copy_(mu * v + (1 - damp) * g)
             p.sub_(lr * (g + mu * v if self.nesterov else v))
@@ -110,8 +125,7 @@ class Adam(OptimMethod):
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
 
     def init_state(self, params):
-        return {"m": {k: torch.zeros_like(p) for k, p in params.items()},
-                "v": {k: torch.zeros_like(p) for k, p in params.items()}}
+        return {"m": _zeros_like(params), "v": _zeros_like(params)}
 
     @torch.no_grad()
     def update(self, grads, params, state, lr, step):
@@ -119,8 +133,8 @@ class Adam(OptimMethod):
         b1, b2, eps = self.beta1, self.beta2, self.epsilon
         t = step + 1
         bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
-        for k, p in params.items():
-            g, m, v = grads[k], state["m"][k], state["v"][k]
+        for k in _keys(params):
+            p, g, m, v = params[k], grads[k], state["m"][k], state["v"][k]
             m.copy_(b1 * m + (1 - b1) * g)
             v.copy_(b2 * v + (1 - b2) * g * g)
             p.sub_(lr * (m / bc1) / (torch.sqrt(v / bc2) + eps))

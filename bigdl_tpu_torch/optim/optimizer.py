@@ -49,9 +49,14 @@ that iteration's parameters.  Dropout and RReLU draw from generators
 seeded by (run seed, layer, iteration), so a resumed run draws what the
 uninterrupted one drew.
 
+``Optimizer.create(..., distributed=True)`` builds the data-parallel
+``DistriOptimizer`` (``optim/distri_optimizer.py``), which overrides the
+driver's hooks: ``_records_scale`` (the global batch is the world's local
+batches), the step, the snapshot and the validation's reduction.
+
 Not ported yet, each raising ``NotImplementedError`` where the reference
-has the API: telemetry, activation-memory policies, compute dtypes other
-than f32 and bf16, and ``DistriOptimizer``.
+has the API: telemetry, activation-memory policies and compute dtypes
+other than f32 and bf16.
 """
 
 from __future__ import annotations
@@ -183,6 +188,9 @@ class Optimizer:
         self.numeric_guard: Optional[str] = None
         self._guard_policy = "off"  # resolved per run
         self.grad_clip: Optional[Callable[[Tensors], Tensors]] = None
+        # the clipping as data, for the sharded sync: ("value", lo, hi) |
+        # ("norm", max_norm)
+        self.grad_clip_spec: Optional[tuple] = None
         self.seed: Optional[int] = None  # None = Config.seed
         self.steps_per_dispatch: Optional[int] = None  # None = Engine's
         self.compute_dtype: Optional[torch.dtype] = None  # None = f32
@@ -204,14 +212,17 @@ class Optimizer:
     def set_gradient_clipping_by_value(self, min_v: float,
                                        max_v: float) -> "Optimizer":
         self.grad_clip = lambda g: clip_by_value(g, min_v, max_v)
+        self.grad_clip_spec = ("value", min_v, max_v)
         return self
 
     def set_gradient_clipping_by_l2_norm(self, max_norm: float) -> "Optimizer":
         self.grad_clip = lambda g: clip_by_global_norm(g, max_norm)
+        self.grad_clip_spec = ("norm", max_norm)
         return self
 
     def disable_gradient_clipping(self) -> "Optimizer":
         self.grad_clip = None
+        self.grad_clip_spec = None
         return self
 
     def set_seed(self, seed: int) -> "Optimizer":
@@ -340,8 +351,12 @@ class Optimizer:
 
     @staticmethod
     def create(model, dataset, criterion, distributed: bool = False, **kw):
+        """``LocalOptimizer``, or with ``distributed=True`` the
+        data-parallel ``DistriOptimizer``; ``kw`` go to its constructor."""
         if distributed:
-            _not_ported("DistriOptimizer")
+            from bigdl_tpu_torch.optim.distri_optimizer import \
+                DistriOptimizer
+            return DistriOptimizer(model, dataset, criterion, **kw)
         return LocalOptimizer(model, dataset, criterion, **kw)
 
     def optimize(self) -> torch.nn.Module:
@@ -372,6 +387,11 @@ class Optimizer:
                                 cfg.checkpoint_async),
                 registry=self.registry)
         return self._ckpt_manager
+
+    def _records_scale(self) -> int:
+        """Local batch rows -> global records (the world size under
+        ``DistriOptimizer``)."""
+        return 1
 
     def _checkpoint_schema(self, params_tree) -> dict:
         return build_schema(params_tree,
@@ -441,13 +461,15 @@ class Optimizer:
     def _do_checkpoint(self, run: _Run, sync: bool = False) -> None:
         """Snapshot the whole training state at the current replayed
         iteration (a copy to the host, then the commit on the writer)."""
-        mgr = self._checkpoint_manager()
-        params, mstate, ostate = self._trees(run)
+        self._save_trees(*self._trees(run), sync=sync)
+
+    def _save_trees(self, params, mstate, ostate, sync: bool) -> None:
         run_state = {"seed": self._resolved_seed(),
                      "dataset_position": self.dataset.position_state()}
-        mgr.save(self.state["neval"], params, mstate, ostate,
-                 driver_state=dict(self.state), run_state=run_state,
-                 schema=self._checkpoint_schema(params), sync=sync)
+        self._checkpoint_manager().save(
+            self.state["neval"], params, mstate, ostate,
+            driver_state=dict(self.state), run_state=run_state,
+            schema=self._checkpoint_schema(params), sync=sync)
 
     def _run_validation(self, run: _Run) -> Optional[dict]:
         if not (self.validation_trigger and self.validation_methods
@@ -497,6 +519,7 @@ class Optimizer:
                         counts[m.name] = counts.get(m.name, 0) + c
         finally:
             net.train(was_training)
+        sums, counts = self._reduce_validation(sums, counts)
         if not sums:
             raise ValueError(
                 "validation dataset yielded no batches — its size is "
@@ -505,6 +528,50 @@ class Optimizer:
                 "drop_remainder=False) for validation or shrink the batch")
         return {k: ValidationResult(float(v), counts[k])
                 for k, v in sums.items()}
+
+    def _reduce_validation(self, sums: dict, counts: dict):
+        """The validation sums and counts of the whole job (this process's
+        alone here)."""
+        return sums, counts
+
+    # ------------------------------------------------------ training copy
+    def _training_copy(self, device):
+        """The run's training copy of the model on ``device``: (net, its
+        parameters by name, requiring gradients, and its stochastic layers,
+        each drawing from a generator of its own)."""
+        net = copy.deepcopy(self.model).to(device).train()
+        stochastic = [m for m in net.modules()
+                      if isinstance(m, (Dropout, RReLU))]
+        for m in stochastic:
+            m.generator = torch.Generator(device=device)
+        params = dict(net.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        return net, params, stochastic
+
+    def _loss_fn(self, net, params: Tensors):
+        """``loss_fn(x, y)`` of the training copy in the compute dtype."""
+        criterion = self.criterion
+        if self.compute_dtype in (None, torch.float32):
+            return lambda x, y: criterion.apply(net(x), y)
+        mixed = mixed_precision_loss_fn(net, criterion, self.compute_dtype)
+        return lambda x, y: mixed(params, x, y)
+
+    def _check_rollback(self) -> None:
+        if self._guard_policy == "rollback" and not self.checkpoint_path:
+            raise ValueError(
+                "numeric_guard='rollback' needs set_checkpoint(path, "
+                "trigger) — there is no snapshot to roll back to")
+
+    def _write_back(self, net) -> None:
+        """The trained weights and buffers into the user's model."""
+        with torch.no_grad():
+            trained = dict(net.named_parameters())
+            for k, p in self.model.named_parameters():
+                p.copy_(trained[k])
+            trained = dict(net.named_buffers())
+            for k, b in self.model.named_buffers():
+                b.copy_(trained[k])
 
     # ------------------------------------------------------ driver loop
     def _block(self, step_fn, staged: StagedBlock, lrs: List[float],
@@ -531,8 +598,15 @@ class Optimizer:
             mgr.mark_run_start()
         epoch_size = self._epoch_size = self.dataset.size()
         data_iter = self.dataset.data(train=True)
+        # records count the job's global batches; this process reads its
+        # local share of them
+        scale = max(1, self._records_scale())
         rec = state.get("records_processed_this_epoch", 0)
-        if fast_forward_records(data_iter, rec):
+        if rec % scale:
+            raise ValueError(
+                f"mid-epoch resume: the snapshot's records counter ({rec}) "
+                f"does not divide by this run's {scale} processes")
+        if fast_forward_records(data_iter, rec // scale):
             logger.info("resume: skipped %d already-processed records", rec)
         stager = self._stager = DeviceBlockStager(data_iter, device)
         param_trig = self.train_summary.trigger_for("Parameters") \
@@ -550,15 +624,17 @@ class Optimizer:
             nonlocal bsz_hint
             probe_state = dict(state, neval=p_neval, epoch=p_epoch,
                                records_processed_this_epoch=p_records)
-            fire = probe_fire_step(probe_state, k_max, bsz_hint,
+            fire = probe_fire_step(probe_state, k_max, bsz_hint * scale,
                                    epoch_size, triggers)
             k_plan = fire if fire is not None else k_max
-            staged = stager.take(k_plan, max(1, epoch_size - p_records))
+            staged = stager.take(k_plan,
+                                 max(1, -(-(epoch_size - p_records) // scale)))
             k = len(staged.sizes)
             bsz_hint = staged.sizes[0]
             lrs = [float(self.optim_method.current_lr(p_neval + j, p_epoch))
                    for j in range(k)]
-            sync = p_records + sum(staged.sizes) >= epoch_size or fire == k
+            sync = p_records + sum(staged.sizes) * scale >= epoch_size \
+                or fire == k
             return staged, lrs, sync
 
         pending: Optional[_InFlight] = None
@@ -596,7 +672,7 @@ class Optimizer:
                 self._dispatch_count += 1
                 block = _InFlight(losses, block_in.sizes, lrs, t0)
                 p_neval += len(block_in.sizes)
-                p_records += sum(block_in.sizes)
+                p_records += sum(block_in.sizes) * scale
                 if p_records >= epoch_size:
                     p_epoch += 1
                     p_records = 0
@@ -680,7 +756,9 @@ class Optimizer:
                           else (fetched, None))
         per_step = (time.perf_counter() - block.t0) / len(block.sizes)
         state = self.state
-        for j, n in enumerate(block.sizes):
+        scale = self._records_scale()
+        for j, n_local in enumerate(block.sizes):
+            n = n_local * scale
             state["neval"] += 1
             state["records_processed_this_epoch"] += n
             state["loss"] = float(losses[j])
@@ -732,33 +810,14 @@ class LocalOptimizer(Optimizer):
     def _optimize_impl(self) -> torch.nn.Module:
         device = self.device
         guard = self._guard_policy = self._resolved_numeric_guard()
-        if guard == "rollback" and not self.checkpoint_path:
-            raise ValueError(
-                "numeric_guard='rollback' needs set_checkpoint(path, "
-                "trigger) — there is no snapshot to roll back to")
+        self._check_rollback()
         seed = self._resolved_seed()
-        net = copy.deepcopy(self.model).to(device).train()
-        stochastic = [m for m in net.modules()
-                      if isinstance(m, (Dropout, RReLU))]
-        for m in stochastic:
-            m.generator = torch.Generator(device=device)
-        params = dict(net.named_parameters())
-        for p in params.values():
-            p.requires_grad_(True)
+        net, params, stochastic = self._training_copy(device)
         self._validate_resume_schema(jax_tree(net, params, "params"))
         ostate = self._restored_opt_state(net, params)
         buffers = dict(net.named_buffers())
-        criterion, optim, clip = self.criterion, self.optim_method, \
-            self.grad_clip
-        if self.compute_dtype in (None, torch.float32):
-            def loss_fn(x, y):
-                return criterion.apply(net(x), y)
-        else:
-            mixed = mixed_precision_loss_fn(net, criterion,
-                                            self.compute_dtype)
-
-            def loss_fn(x, y):
-                return mixed(params, x, y)
+        optim, clip = self.optim_method, self.grad_clip
+        loss_fn = self._loss_fn(net, params)
 
         def step_fn(x, y, lr, step):
             for i, m in enumerate(stochastic):
@@ -791,12 +850,5 @@ class LocalOptimizer(Optimizer):
         logger.info("LocalOptimizer: %d samples/epoch, device=%s",
                     self.dataset.size(), device)
         self._train_driver(step_fn, device, _Run(net, params, ostate))
-        # write the trained weights back into the user's model
-        with torch.no_grad():
-            trained = dict(net.named_parameters())
-            for k, p in self.model.named_parameters():
-                p.copy_(trained[k])
-            trained = dict(net.named_buffers())
-            for k, b in self.model.named_buffers():
-                b.copy_(trained[k])
+        self._write_back(net)
         return self.model

@@ -51,6 +51,14 @@ class Config:
     # failure_retry_times times
     numeric_guard: str = "off"
     failure_retry_times: int = 5
+    # gradient sync of DistriOptimizer (parallel/grad_sync.py): gradients
+    # are flattened into buckets of at most grad_bucket_bytes (f32
+    # accounting), and each bucket crosses the wire as grad_wire_dtype:
+    # "f32" | "bf16" (unbiased stochastic rounding) | "f16" (round to
+    # nearest, saturating at +-65504/world); the update always runs on
+    # f32 master slices
+    grad_bucket_bytes: int = 4 << 20
+    grad_wire_dtype: str = "f32"
 
     @classmethod
     def from_env(cls) -> "Config":

@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (``bigdl_tpu_torch``) on one NVIDIA card.
 
-Drives the port's five main paths and holds every kernel of them against
+Drives the port's six main paths and holds every kernel of them against
 its plain PyTorch version.  Serving: an int8-quantized ResNet-50 (1000
 classes, 224x224, NCHW, random weights from a seed) served by
 ``ModelRegistry`` with ``quantize=True`` (weight_only) and
@@ -19,7 +19,10 @@ its weight gradient running kernel B3; and LeNet-5 (NCHW f32) trained on
 synthetic MNIST at MNIST's counts with the recipe of
 ``examples/lenet/train.py`` (SGD lr 0.05, momentum 0.9, batch 128, two
 epochs, validation and a snapshot every epoch, both summaries), its two
-pools' backward running kernel B1.  Phases, each printing its seconds:
+pools' backward running kernel B1; and ResNet-50's ImageNet recipe again,
+through ``Optimizer.create(..., distributed=True)``: the data-parallel
+``DistriOptimizer`` with the bucketed ZeRO-1 gradient sync at world 1 over
+NCCL, the stem pool's backward on B1.  Phases, each printing its seconds:
 
 1. the card: name, count, ``nvidia-smi`` name and power limit;
 2. the kernels, built from ``bigdl_tpu_torch/csrc`` (one ``nvcc`` a
@@ -53,7 +56,7 @@ pools' backward running kernel B1.  Phases, each printing its seconds:
    planted faults must exceed); four timed blocks (words/s, ms per step,
    peak memory, the loss must fall) whose kernel launches must equal 35 x
    steps each; one step under torch.profiler (device idle share);
-8. pool-kernel phase: B1 against its plain version, bitwise, at 16
+8. pool-kernel phase: B1 against its plain version, bitwise, at 20
    geometries (``POOL_CASES``: every branch of both variants), each taking
    the variant ``TILED_CASES`` says, then at the ResNet-50 stem in bf16 and
    f32 its error on the timed inputs and its time beside the bound, the
@@ -106,14 +109,37 @@ pools' backward running kernel B1.  Phases, each printing its seconds:
    K=1 and K=4 a run cut by a SIGTERM mid-epoch (preemption handling) and
    resumed by a fresh optimizer must equal the uninterrupted run bitwise,
    losses and weights; at K=4 the preemption's snapshot is truncated on
-   disk first and ``latest_valid`` must skip it.
+   disk first and ``latest_valid`` must skip it;
+18. distri phase, ResNet-50 through ``DistriOptimizer`` at world 1 over
+   NCCL with the f32 wire, then the bf16 wire: a warm-up and three timed
+   K=4 blocks over pre-augmented images, a warm-up and one timed block
+   through the recipe's pipeline (images/s, ms per step, peak memory, the
+   bucket count, block losses that must fall, B1 launches that must equal
+   the steps), then one profiled step a wire with the sync's device ms by
+   phase (the kernels of the ``grad_sync.<phase>`` ranges);
+19. distri vs local: one K=4 block through ``DistriOptimizer`` (f32 wire)
+   and through ``LocalOptimizer`` from the same weights and data, LeNet-5
+   under ``torch.use_deterministic_algorithms`` and ResNet-50 under
+   cuDNN's deterministic algorithms: losses and weights bitwise equal;
+20. distri world 2: B1 against its plain version, bitwise, at LeNet's two
+   pools at batch 64; two spawned processes on the one card over gloo,
+   LeNet at batch 64 a process: the f32 wire bitwise equal to the
+   all-reduce path, the ranks equal, the f32 master slices reassembled
+   into the weights exactly, the bf16 wire's masters within
+   ``WIRE_DRIFT_LIMIT`` of the f32 wire's weights and its published
+   weights its masters rounded to bf16, with two planted faults that
+   must each fail one of those, B1 two launches a step;
+21. distri resume: a grad_sync snapshot at iteration 4 (the reference's
+   ``{"master", "opt"}`` layout) resumed by a fresh optimizer ends
+   bitwise where the uninterrupted run ends (LeNet, K=4).
 
 The last lines are the card, the kernel table and the result as JSON; any
 failed check raises and the script exits non-zero.  Without a CUDA card it
 fails at once.  Run from the repository root:
 
     python3 chip_smoke.py [--seed N] [--json-out PATH]
-                          [--phases resnet,lstm,resnet-train,wide-deep,lenet]
+                          [--phases resnet,lstm,resnet-train,wide-deep,lenet,
+                                    distri]
 
 ``--phases resnet-conditioning`` adds a diagnostic that is not run by
 default: the check phase's path reading at residual gammas 0 to 1, beside
@@ -123,6 +149,7 @@ the CPU's own reading on reordered batches.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import itertools
 import json
@@ -142,6 +169,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from bigdl_tpu_torch import nn, optim  # noqa: E402
+from bigdl_tpu_torch.checkpoint import load_snapshot  # noqa: E402
 from bigdl_tpu_torch.checkpoint import manager as ckpt_manager  # noqa: E402
 from bigdl_tpu_torch.dataset import (  # noqa: E402
     DataSet, MTSampleToMiniBatch, Sample, SampleToMiniBatch, SparseMiniBatch,
@@ -302,13 +330,16 @@ def per_call_ms(kernels, calls):
             for name, ms, n in kernels if round(n / calls) > 0}
 
 
-def profiled_kernels(run, tries=3):
+def profiled_kernels(run, tries=8):
     """The kernels list (:func:`device_time`) of one torch.profiler session
     around ``run()``, after the :func:`sentinel`.  Now and then a session's
-    trace holds no kernel at all; such a session is taken again, up to
-    ``tries`` times, then fails."""
+    trace holds no kernel at all, sometimes three in a row; such a session
+    is taken again after a short pause, up to ``tries`` times, then
+    fails."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(tries):
+    for i in range(tries):
+        if i:
+            time.sleep(0.2)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             sentinel()
@@ -542,7 +573,9 @@ def device_time(prof):
     the kernel-side events (each launch counted once).  The ops are the
     host-side aten operations that launched kernels and carry the same
     device time; the port's own kernels, launched through ctypes, appear
-    only among the kernels.  The :func:`sentinel` spin is left out."""
+    only among the kernels.  The :func:`sentinel` spin and the device
+    spans of ``record_function`` ranges (user annotations, idle gaps
+    included) are left out."""
     from torch.autograd import DeviceType
     events = prof.key_averages()
 
@@ -550,6 +583,7 @@ def device_time(prof):
         return sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                        for e in events if e.device_type == kind
                        and e.self_device_time_total > 0
+                       and not getattr(e, "is_user_annotation", False)
                        and "spin_kernel" not in e.key
                        and e.key != "aten::_sleep"),
                       key=lambda t: -t[1])
@@ -1104,8 +1138,15 @@ POOL_CASES = [
      torch.float32, "ints"),
     ("lenet_pool2_nchw_f32", (128, 12, 8, 8), 2, 2, 0, False, "NCHW",
      torch.float32, "ints"),
+    # the same two pools at batch 64, a process's batch in the world-2
+    # DistriOptimizer check
+    ("lenet_b64_pool1_nchw_f32", (64, 6, 24, 24), 2, 2, 0, False, "NCHW",
+     torch.float32, "ints"),
+    ("lenet_b64_pool2_nchw_f32", (64, 12, 8, 8), 2, 2, 0, False, "NCHW",
+     torch.float32, "ints"),
 ]
 LENET_POOL_CASES = ("lenet_pool1_nchw_f32", "lenet_pool2_nchw_f32")
+DISTRI_POOL_CASES = ("lenet_b64_pool1_nchw_f32", "lenet_b64_pool2_nchw_f32")
 # the cases that take B1's tiled_nhwc variant: NHWC, C a whole number of
 # 16-byte vectors, 16-byte-aligned bases, 32-bit offsets and windows of
 # fewer than 255 positions; the others (NCHW, C=3, the 16x16 windows, the
@@ -1210,65 +1251,71 @@ def pool_kernel_phase(device, card, report):
     gen = torch.Generator(device=device).manual_seed(2718)
     for case in POOL_CASES:
         pool_case_check(case, gen, device)
-    rows = {}
-    for name, dtype in (("stem_nhwc_bf16", torch.bfloat16),
-                        ("stem_nhwc_f32", torch.float32)):
-        case = next(c for c in POOL_CASES if c[0] == name)
-        shape, k, s, p, ceil, fmt = case[1:7]
-        x, y, g, pads, kk, ss = pool_operands(shape, k, s, p, ceil, fmt,
-                                              dtype, "relu", gen, device)
-        # the library's own first-match pair: indices from the forward,
-        # then the backward that scatters through them
-        _, ind = torch.nn.functional.max_pool2d(x, k, s, p,
-                                                return_indices=True)
-        geo = (kk, ss, pads)
-        fns = (lambda: maxpool.launch(x, y, g, *geo),
-               lambda: maxpool.maxpool_bwd_reference(x, y, g, *geo),
-               lambda: torch.ops.aten.max_pool2d_with_indices_backward(
-                   g, x, [k, k], [s, s], [p, p], [1, 1], False, ind))
-        # the timed inputs too: bitwise against the plain version
-        got, want = fns[0](), fns[1]()
-        variant = maxpool.last_variant
-        if variant[0] != "tiled_nhwc":
-            raise AssertionError(f"B1 {name}: the stem took {variant}")
-        err = (got.float() - want.float()).abs().max().item()
-        if not torch.equal(got, want):
-            raise AssertionError(f"B1 {name} on the timed inputs: max abs "
-                                 f"err {err} against its plain version")
-        # the same function: the library sums a position's (at most 4)
-        # window gradients in f32 in another order and rounds once, B1
-        # rounds to x's dtype after each add: they agree within one ulp of
-        # a partial sum (at most 4 max|g|) for each of the 4 adds
-        lib = fns[2]()
-        ulp = 2.0 ** -23 if dtype == torch.float32 else 2.0 ** -7
-        torch.testing.assert_close(lib.float(), got.float(), rtol=0,
-                                   atol=16 * ulp * g.abs().max().item())
-        del got, want
-        passes = []
-        k_ms = device_ms(fns[0], calls=20, split=passes)
-        l_ms = device_ms(fns[2], calls=20)
-        k_ev, p_ev, l_ev = (cuda_ms(f, budget_ms=100.0) for f in fns)
-        b_ms, b_by, nbytes = pool_bound(shape, y.shape, dtype)
-        rows[name] = {"ms": k_ms, "plain_ms": p_ev, "library_ms": l_ms,
-                      "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-                      "max_abs_err": err, "event_ms": k_ev,
-                      "library_event_ms": l_ev,
-                      "library_call": "aten.max_pool2d_with_indices_backward "
-                                      "(indices from max_pool2d)",
-                      "passes": passes, "variant": list(variant)}
-        print(f"maxpool_bwd {name} x {tuple(x.shape)} {variant[0]} (tile of "
-              f"{variant[1]}, vectors {variant[2]}, blocks {variant[3]}): "
-              f"max_abs_err={err} "
-              f"against the plain version; device ms per call "
-              f"kernel_ms={k_ms:.4f} library_ms={l_ms:.4f}; event-timed "
-              f"kernel {k_ev:.4f} plain {p_ev:.4f} library {l_ev:.4f}; "
-              f"bound_ms={b_ms:.4f} ({b_by}: {nbytes / 1e9:.3f} GB at "
-              f"{HBM_BPS / 1e12:.2f} TB/s); by kernel: "
-              + ", ".join(f"{kernel_pass(n)} {ms:.4f}" for n, ms in passes)
-              + f" [{card}]")
-        del x, y, g, ind, lib
+    rows = {name: stem_pool_row(name, dtype, gen, device, card)
+            for name, dtype in (("stem_nhwc_bf16", torch.bfloat16),
+                                ("stem_nhwc_f32", torch.float32))}
     report["pool_kernel"] = rows
     return rows["stem_nhwc_bf16"]
+
+
+def stem_pool_row(name, dtype, gen, device, card):
+    """B1 at the ResNet-50 stem (NHWC, batch 256, post-ReLU inputs) in
+    ``dtype``: bitwise against its plain version on the timed inputs, then
+    kernel, plain and library times beside the bound."""
+    case = next(c for c in POOL_CASES if c[0] == name)
+    shape, k, s, p, ceil, fmt = case[1:7]
+    x, y, g, pads, kk, ss = pool_operands(shape, k, s, p, ceil, fmt,
+                                          dtype, "relu", gen, device)
+    # the library's own first-match pair: indices from the forward,
+    # then the backward that scatters through them
+    _, ind = torch.nn.functional.max_pool2d(x, k, s, p,
+                                            return_indices=True)
+    geo = (kk, ss, pads)
+    fns = (lambda: maxpool.launch(x, y, g, *geo),
+           lambda: maxpool.maxpool_bwd_reference(x, y, g, *geo),
+           lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+               g, x, [k, k], [s, s], [p, p], [1, 1], False, ind))
+    # the timed inputs too: bitwise against the plain version
+    got, want = fns[0](), fns[1]()
+    variant = maxpool.last_variant
+    if variant[0] != "tiled_nhwc":
+        raise AssertionError(f"B1 {name}: the stem took {variant}")
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.equal(got, want):
+        raise AssertionError(f"B1 {name} on the timed inputs: max abs "
+                             f"err {err} against its plain version")
+    # the same function: the library sums a position's (at most 4)
+    # window gradients in f32 in another order and rounds once, B1
+    # rounds to x's dtype after each add: they agree within one ulp of
+    # a partial sum (at most 4 max|g|) for each of the 4 adds
+    lib = fns[2]()
+    ulp = 2.0 ** -23 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(lib.float(), got.float(), rtol=0,
+                               atol=16 * ulp * g.abs().max().item())
+    del got, want
+    passes = []
+    k_ms = device_ms(fns[0], calls=20, split=passes)
+    l_ms = device_ms(fns[2], calls=20)
+    k_ev, p_ev, l_ev = (cuda_ms(f, budget_ms=100.0) for f in fns)
+    b_ms, b_by, nbytes = pool_bound(shape, y.shape, dtype)
+    row = {"ms": k_ms, "plain_ms": p_ev, "library_ms": l_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "max_abs_err": err, "event_ms": k_ev, "library_event_ms": l_ev,
+           "library_call": "aten.max_pool2d_with_indices_backward "
+                           "(indices from max_pool2d)",
+           "passes": passes, "variant": list(variant)}
+    print(f"maxpool_bwd {name} x {tuple(x.shape)} {variant[0]} (tile of "
+          f"{variant[1]}, vectors {variant[2]}, blocks {variant[3]}): "
+          f"max_abs_err={err} "
+          f"against the plain version; device ms per call "
+          f"kernel_ms={k_ms:.4f} library_ms={l_ms:.4f}; event-timed "
+          f"kernel {k_ev:.4f} plain {p_ev:.4f} library {l_ev:.4f}; "
+          f"bound_ms={b_ms:.4f} ({b_by}: {nbytes / 1e9:.3f} GB at "
+          f"{HBM_BPS / 1e12:.2f} TB/s); by kernel: "
+          + ", ".join(f"{kernel_pass(n)} {ms:.4f}" for n, ms in passes)
+          + f" [{card}]")
+    del x, y, g, ind, lib
+    return row
 
 
 # ------------------------------------------------------ ResNet-50 training
@@ -1300,6 +1347,23 @@ def recipe_samples(n, size, classes, seed=0):
         img[r * q:(r + 1) * q, c * q:(c + 1) * q, int(y) % 3] += 150
         samples.append(Sample(img, np.int32(y)))
     return samples
+
+
+_RESNET_DATA = {}
+
+
+def resnet_data():
+    """(samples, their pre-augmented Samples) of the recipe at
+    RESNET["samples"] images, made once."""
+    if not _RESNET_DATA:
+        B, size = RESNET["batch"], RESNET["size"]
+        samples = recipe_samples(RESNET["samples"], size, RESNET["classes"])
+        t0 = time.monotonic()
+        _RESNET_DATA["samples"] = samples
+        _RESNET_DATA["augmented"] = pre_augmented(samples, B, size)
+        print(f"pre-augmented {len(samples)} samples in "
+              f"{time.monotonic() - t0:.1f} s (8 workers)")
+    return _RESNET_DATA["samples"], _RESNET_DATA["augmented"]
 
 
 def recipe_augment(size):
@@ -1660,12 +1724,8 @@ def resnet_timed_phase(seed, device, card, report):
     B, K, size = RESNET["batch"], RESNET["K"], RESNET["size"]
     steps = K * (1 + RESNET["timed_blocks"])
     per_epoch = RESNET["samples"] // B
-    samples = recipe_samples(RESNET["samples"], size, RESNET["classes"])
+    samples, augmented = resnet_data()
     init = resnet50(RESNET["classes"], format="NHWC").initialize(seed)
-    t0 = time.monotonic()
-    augmented = pre_augmented(samples, B, size)
-    print(f"pre-augmented {len(augmented)} samples in "
-          f"{time.monotonic() - t0:.1f} s (8 workers)")
     datasets = {
         "pipeline": lambda: DataSet.array(samples) >> MTSampleToMiniBatch(
             B, recipe_augment(size), workers=RESNET["workers"]),
@@ -2429,16 +2489,19 @@ def lenet_data():
     return _LENET_DATA["train"], _LENET_DATA["val"]
 
 
-def lenet_pipeline(data, train, n=None):
+def lenet_pipeline(data, train, n=None, batch=None, distributed=False):
     """The recipe's pipeline over the first ``n`` images of ``data``:
     to_samples >> BytesToGreyImg >> GreyImgNormalizer >>
-    SampleToMiniBatch(128), the last batch kept for validation."""
+    SampleToMiniBatch(128, or ``batch``), the last batch kept for
+    validation; ``distributed``: this process's shard."""
     imgs, labels = data
     mean, std = (mnist.TRAIN_MEAN, mnist.TRAIN_STD) if train \
         else (mnist.TEST_MEAN, mnist.TEST_STD)
-    return (DataSet.array(mnist.to_samples(imgs[:n], labels[:n]))
+    return (DataSet.array(mnist.to_samples(imgs[:n], labels[:n]),
+                          distributed=distributed)
             >> image.BytesToGreyImg() >> image.GreyImgNormalizer(mean, std)
-            >> SampleToMiniBatch(LENET["batch"], drop_remainder=train))
+            >> SampleToMiniBatch(batch or LENET["batch"],
+                                 drop_remainder=train))
 
 
 def lenet_sgd(cls=optim.SGD):
@@ -2868,7 +2931,562 @@ def lenet_resume_phase(device, card, report):
     report["lenet_resume"] = out
 
 
-PHASES = ("resnet", "lstm", "resnet-train", "wide-deep", "lenet")
+# ------------------------------------------------ DistriOptimizer (slice 9)
+# the recipe's DistriOptimizer runs at world 1 over NCCL (one card); the
+# world-2 check runs two processes on the one card over gloo (NCCL refuses
+# two ranks on one device)
+DISTRI = {"pipeline_blocks": 1, "world2": 2, "world2_batch": 64,
+          "world2_steps": 8, "resume_images": 16 * 128, "resume_iters": 12,
+          "resume_every": 4}
+# how far the bf16 wire's f32 masters may stray from the f32 wire's
+# weights: the worst leaf's ||w_bf16 - w_f32|| / ||w_f32 - w_0||.  At the
+# world-2 check's LeNet the sound wire reads about 0.01 and a wire that
+# never updates the weights 1.0 (PERF.md section 2)
+WIRE_DRIFT_LIMIT = 0.1
+SYNC_PHASES = ("flatten", "wire_cast", "reduce_scatter", "update",
+               "all_gather", "unflatten")
+
+
+def distri_optimizer(model, dataset, device, wire, k, steps, method,
+                     compute=None, **kw):
+    """The optimizer ``Optimizer.create(..., distributed=True)`` builds,
+    recording each step's loss and the host clock at its replay in
+    ``opt.losses`` / ``opt.clock``."""
+    opt = (optim.Optimizer.create(model, dataset, nn.ClassNLLCriterion(),
+                                  distributed=True, device=device,
+                                  grad_wire_dtype=wire, **kw)
+           .set_optim_method(method).set_compute_dtype(compute)
+           .set_steps_per_dispatch(k)
+           .set_end_when(optim.max_iteration(steps)))
+    opt.losses, opt.clock = [], []
+
+    def log(lr):
+        opt.losses.append(opt.state["loss"])
+        opt.clock.append(time.perf_counter())
+    opt._log_train_iteration = log
+    return opt
+
+
+def sync_phase_kernels(prof):
+    """{phase: {kernel: [device ms, launches]}} of the kernels that the
+    ``grad_sync.<phase>`` ranges of a profiled step launched: the kernels
+    of each host-side range's operations (the range's own device-side
+    span, which covers the gaps between them, is left out)."""
+    out = {ph: {} for ph in SYNC_PHASES}
+
+    def walk(evt, acc):
+        for k in evt.kernels:
+            row = acc.setdefault(k.name, [0.0, 0])
+            row[0] += k.duration / 1e3
+            row[1] += 1
+        for ch in evt.cpu_children:
+            walk(ch, acc)
+
+    for evt in prof.events():
+        ph = evt.name[len("grad_sync."):] \
+            if evt.name.startswith("grad_sync.") else None
+        if ph in out and evt.device_type.name == "CPU":
+            for ch in evt.cpu_children:
+                walk(ch, out[ph])
+    return out
+
+
+def distri_profile_step(init, augmented, device, card, wire):
+    """The recipe's second step through DistriOptimizer (K=1) under
+    torch.profiler: wall ms, device busy ms, idle share, launches, and the
+    sync's own device ms by phase (the kernels of the ``grad_sync.<phase>``
+    ranges)."""
+    from torch.profiler import ProfilerActivity, profile
+    B = RESNET["batch"]
+    opt = distri_optimizer(copy.deepcopy(init),
+                           DataSet.array(augmented) >> SampleToMiniBatch(B),
+                           device, wire, 1, 2,
+                           recipe_sgd(RESNET["samples"] // B), torch.bfloat16)
+    sound_block, out = opt._block, {}
+
+    def block(step_fn, staged, lrs, first_step):
+        if first_step != 1:
+            return sound_block(step_fn, staged, lrs, first_step)
+        staged.wait()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.monotonic()
+            losses = sound_block(step_fn, staged, lrs, first_step)
+            torch.cuda.synchronize()
+            out["wall_ms"] = (time.monotonic() - t1) * 1e3
+        busy, kernels, _ = device_time(prof)
+        phases = sync_phase_kernels(prof)
+        out.update(device_busy_ms=busy,
+                   kernel_launches=sum(n for _, _, n in kernels),
+                   sync_ms={ph: sum(ms for ms, _ in ks.values())
+                            for ph, ks in phases.items()},
+                   sync_launches={ph: sum(n for _, n in ks.values())
+                                  for ph, ks in phases.items()},
+                   sync_kernels={ph: sorted(([k[:60], ms, n] for k, (ms, n)
+                                             in ks.items()),
+                                            key=lambda r: -r[1])[:4]
+                                 for ph, ks in phases.items()},
+                   nccl_ms=sum(ms for name, ms, _ in kernels
+                               if "nccl" in name.lower()),
+                   top=[list(k) for k in kernels[:8]])
+        return losses
+    opt._block = block
+    opt.optimize()
+    sync = sum(out["sync_ms"].values())
+    idle = "not measured (the profiler saw no device time)" \
+        if out["device_busy_ms"] == 0 else \
+        f"{max(0.0, 1 - out['device_busy_ms'] / out['wall_ms']):.3f}"
+    print(f"profile distri resnet50 step ({wire} wire, world 1 "
+          f"{opt.mesh.backend}): "
+          f"wall_ms={out['wall_ms']:.2f} device_busy_ms="
+          f"{out['device_busy_ms']:.2f} idle_share={idle} kernel_launches="
+          f"{out['kernel_launches']}; sync device ms {sync:.3f} in "
+          f"{sum(out['sync_launches'].values())} launches: "
+          + ", ".join(f"{ph} {ms:.3f} ({out['sync_launches'][ph]})"
+                      for ph, ms in out["sync_ms"].items())
+          + f" (nccl kernels {out['nccl_ms']:.3f}) [{card}]")
+    for ph, rows in out["sync_kernels"].items():
+        for name, ms, n in rows:
+            print(f"  {ph:>14s} {ms:8.3f} ms x{n:<4d} {name}")
+    return out
+
+
+def distri_resnet_phase(seed, device, card, report):
+    """ResNet-50's ImageNet recipe through Optimizer.create(...,
+    distributed=True) at world 1 over NCCL, with the f32 wire, then the
+    bf16 wire: each a warm-up block and three timed K=4 blocks over the
+    pre-augmented images, then a warm-up and DISTRI["pipeline_blocks"]
+    timed blocks through the recipe's pipeline (images/s, ms a step from the
+    host clock at each block's replay), block losses that must be finite
+    and fall, peak memory, the bucket count, B1's launches (one a step,
+    bf16, tiled_nhwc); then one profiled step a wire.  Returns B1's
+    launches in the f32 pre-augmented run (counts set to 0 just before
+    it)."""
+    B, K, size = RESNET["batch"], RESNET["K"], RESNET["size"]
+    per_epoch = RESNET["samples"] // B
+    samples, augmented = resnet_data()
+    init = resnet50(RESNET["classes"], format="NHWC").initialize(seed)
+    runs = {
+        "pre_augmented": (lambda: DataSet.array(augmented)
+                          >> SampleToMiniBatch(B),
+                          K * (1 + RESNET["timed_blocks"])),
+        "pipeline": (lambda: DataSet.array(samples) >> MTSampleToMiniBatch(
+            B, recipe_augment(size), workers=RESNET["workers"]),
+            K * (1 + DISTRI["pipeline_blocks"]))}
+    out, main_launches = {}, None
+    for wire in ("f32", "bf16"):
+        for name, (make, steps) in runs.items():
+            t0 = time.monotonic()
+            opt = distri_optimizer(copy.deepcopy(init), make(), device, wire,
+                                   K, steps, recipe_sgd(per_epoch),
+                                   torch.bfloat16)
+            torch.cuda.reset_peak_memory_stats()
+            maxpool.reset_counts()
+            opt.optimize()
+            launches = maxpool.launches
+            peak = torch.cuda.max_memory_allocated()
+            losses, clock = opt.losses, opt.clock
+            if launches != steps or opt.state["neval"] != steps or \
+                    maxpool.variant_launches["tiled_nhwc"] != steps:
+                raise AssertionError(
+                    f"distri {wire} {name}: B1 launched {launches} times "
+                    f"({maxpool.variant_launches}) in "
+                    f"{opt.state['neval']} steps")
+            if wire == "f32" and name == "pre_augmented":
+                main_launches = launches
+            blocks = [float(np.mean(losses[i:i + K]))
+                      for i in range(0, steps, K)]
+            if not (np.all(np.isfinite(losses)) and blocks[-1] < blocks[0]):
+                raise AssertionError(f"distri {wire} {name}: the loss is "
+                                     f"not finite and falling: {blocks}")
+            plan = opt._gs_plan
+            if not opt._use_grad_sync or opt._world != 1 or \
+                    opt.mesh.backend != ("nccl" if device.type == "cuda"
+                                         else "gloo"):
+                raise AssertionError(f"distri {wire} {name}: not the "
+                                     f"world-1 nccl grad_sync path")
+            ends = [clock[i + K - 1] for i in range(0, steps, K)]
+            step_s = (ends[-1] - ends[0]) / (steps - K)
+            out[f"{wire}/{name}"] = {
+                "ms_per_step": step_s * 1e3, "images_per_s": B / step_s,
+                "block_losses": blocks, "losses": losses,
+                "max_memory_allocated": peak, "launches": launches,
+                "buckets": plan.num_buckets,
+                "bucket_sizes": plan.bucket_sizes,
+                "wall_s": time.monotonic() - t0}
+            print(f"train resnet50 distri world 1 {opt.mesh.backend} {wire} "
+                  f"wire {name} "
+                  f"NHWC bf16 batch {B} K={K}: {steps} steps, the "
+                  f"{steps // K - 1} blocks after the first: ms_per_step="
+                  f"{step_s * 1e3:.2f} images_per_s={B / step_s:.1f} "
+                  f"max_memory_allocated={peak} buckets={plan.num_buckets} "
+                  f"(largest {max(plan.bucket_sizes)} elements) block losses "
+                  + ", ".join(f"{v:.4f}" for v in blocks)
+                  + f"; B1 launches {launches} for {steps} steps, all bf16 "
+                  f"tiled_nhwc; run {time.monotonic() - t0:.1f} s [{card}]")
+            del opt
+            torch.cuda.empty_cache()
+        out[f"{wire}/profile"] = distri_profile_step(init, augmented, device,
+                                                     card, wire)
+        torch.cuda.empty_cache()
+    report["distri_resnet"] = out
+    return main_launches
+
+
+def params_equal(a, b):
+    return all(torch.equal(x.detach().cpu(), y.detach().cpu())
+               for x, y in zip(a.parameters(), b.parameters()))
+
+
+def distri_vs_local_phase(seed, device, card, report):
+    """World 1 against LocalOptimizer on the card, same seed, weights and
+    data, one K=4 block, f32 wire: LeNet-5 (the recipe, under
+    torch.use_deterministic_algorithms) and ResNet-50 (the recipe, bf16
+    compute, cuDNN's deterministic algorithms) must give the same losses
+    and weights bit for bit."""
+    out = {}
+    K, B = LENET["check_K"], LENET["batch"]
+    train, _ = lenet_data()
+    init = lenet5(10).initialize(seed + 1)
+    torch.use_deterministic_algorithms(True)
+    try:
+        local = copy.deepcopy(init)
+        llosses = []
+        lopt = (LocalOptimizer(local, lenet_pipeline(train, True, K * B),
+                               nn.ClassNLLCriterion(), device=device)
+                .set_optim_method(lenet_sgd()).set_steps_per_dispatch(K)
+                .set_end_when(optim.max_iteration(K)))
+        lopt._log_train_iteration = \
+            lambda lr: llosses.append(lopt.state["loss"])
+        lopt.optimize()
+        dist_model = copy.deepcopy(init)
+        dopt = distri_optimizer(dist_model, lenet_pipeline(train, True, K * B),
+                                device, "f32", K, K, lenet_sgd())
+        dopt.optimize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = llosses == dopt.losses and params_equal(local, dist_model)
+    print(f"lenet distri world 1 vs LocalOptimizer, K={K} block of batch "
+          f"{B}: losses and weights bitwise {same} (buckets "
+          f"{dopt._gs_plan.num_buckets}); losses "
+          + ", ".join(f"{v:.6f}" for v in dopt.losses) + f" [{card}]")
+    out["lenet"] = {"bitwise": same, "losses": dopt.losses}
+    if not same:
+        raise AssertionError(f"LeNet through DistriOptimizer at world 1 is "
+                             f"not LocalOptimizer bit for bit: "
+                             f"{dopt.losses} vs {llosses}")
+    K, B = RESNET["K"], RESNET["batch"]
+    _, augmented = resnet_data()
+    init = resnet50(RESNET["classes"], format="NHWC").initialize(seed)
+    per_epoch = RESNET["samples"] // B
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        local = copy.deepcopy(init)
+        llosses, _, lopt, _ = resnet_train(
+            local, DataSet.array(augmented) >> SampleToMiniBatch(B), device,
+            K, K, torch.bfloat16, per_epoch)
+        del lopt
+        dist_model = copy.deepcopy(init)
+        dopt = distri_optimizer(dist_model, DataSet.array(augmented)
+                                >> SampleToMiniBatch(B), device, "f32", K, K,
+                                recipe_sgd(per_epoch), torch.bfloat16)
+        dopt.optimize()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            cudnn
+    same = llosses == dopt.losses and params_equal(local, dist_model)
+    worst = max(((a.detach() - b.detach()).abs().max()
+                 / b.detach().abs().max().clamp(min=1e-30)).item()
+                for a, b in zip(dist_model.parameters(), local.parameters()))
+    print(f"resnet50 distri world 1 vs LocalOptimizer, K={K} block of batch "
+          f"{B} bf16: losses and weights bitwise {same} (largest weight "
+          f"difference {worst:.3e} of a layer's largest; buckets "
+          f"{dopt._gs_plan.num_buckets}); losses "
+          + ", ".join(f"{v:.6f}" for v in dopt.losses) + f" [{card}]")
+    out["resnet50"] = {"bitwise": same, "losses": dopt.losses,
+                       "local_losses": llosses, "largest": worst}
+    report["distri_vs_local"] = out
+    if not same:
+        raise AssertionError("ResNet-50 through DistriOptimizer at world 1 "
+                             "is not LocalOptimizer bit for bit")
+
+
+WIRE_FAULTS = ("no_update", "stale_gather")
+
+
+@contextlib.contextmanager
+def planted_wire_fault(kind):
+    """A deliberately broken wire that the bf16 check must fail:
+    ``"no_update"`` (the reduce-scatter delivers zeros, so the weights
+    never move) or ``"stale_gather"`` (the all-gather keeps publishing its
+    first parameters); None: the sound wire."""
+    from bigdl_tpu_torch.parallel import grad_sync
+    saved = (grad_sync.reduce_scatter_grads, grad_sync.all_gather_params)
+    if kind == "no_update":
+        grad_sync.reduce_scatter_grads = lambda *a, **k: [
+            torch.zeros_like(o) for o in saved[0](*a, **k)]
+    elif kind == "stale_gather":
+        first = []
+
+        def stale(*a, **k):
+            new = saved[1](*a, **k)
+            first.extend(p.clone() for p in new[len(first):])
+            return [p.clone() for p in first]
+        grad_sync.all_gather_params = stale
+    try:
+        yield
+    finally:
+        grad_sync.reduce_scatter_grads, grad_sync.all_gather_params = saved
+
+
+def wire_drift(params, ref, start):
+    """How far a run's weights strayed from the f32 wire's: the worst
+    leaf's ``||w - w_f32|| / ||w_f32 - w_0||``."""
+    return max(float(np.linalg.norm(params[k] - ref[k])
+                     / np.linalg.norm(ref[k] - start[k])) for k in ref)
+
+
+def bf16_neighbours(run):
+    """Whether every weight a bf16-wire run published is one of the two
+    bf16 values around its f32 master: what the all-gather's unbiased
+    round may give."""
+    ok = True
+    for pub, master in zip(run["flat"], run["full_masters"]):
+        bits = master.view(np.uint32) & 0xFFFF0000
+        down, up = bits.view(np.float32), (bits + 0x10000).view(np.float32)
+        ok &= bool(np.all((pub == down) | (pub == up)))
+    return ok
+
+
+def distri_world2_worker(rank, world, store_dir, seed, device_type):
+    """One process of the world-2 check: LeNet on the one card over gloo,
+    five runs (grad_sync f32 wire, the all-reduce path, the bf16 wire, and
+    the bf16 wire with each planted fault of WIRE_FAULTS); pickles what
+    each ends with to ``store_dir``."""
+    import pickle
+    import torch.distributed as dist
+    from bigdl_tpu_torch.parallel import grad_sync
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+    torch.use_deterministic_algorithms(True)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(store_dir, "store"), world),
+        rank=rank, world_size=world)
+    try:
+        B, steps = DISTRI["world2_batch"], DISTRI["world2_steps"]
+        data = mnist.synthetic_mnist(B * world * steps, seed=0)
+        # does gloo itself take CUDA tensors for the bucket collectives?
+        probe = {}
+        for name, fn, n_out in (("reduce_scatter_tensor",
+                                 dist.reduce_scatter_tensor, 2),
+                                ("all_gather_into_tensor",
+                                 dist.all_gather_into_tensor, 8)):
+            try:
+                fn(torch.empty(n_out, device=device_type),
+                   torch.ones(4, device=device_type))
+                probe[name] = "accepted"
+            except RuntimeError as e:
+                probe[name] = f"refused: {str(e).splitlines()[0][:120]}"
+        results = {"gloo_cuda": probe}
+        for name, wire, kw in (
+                ("f32", "f32", {}),
+                ("plain", "f32", {"parameter_sharding": False}),
+                ("bf16", "bf16", {}),
+                ("no_update", "bf16", {}), ("stale_gather", "bf16", {})):
+            model = lenet5(10).initialize(seed + 1)
+            init = {k: v.detach().cpu().numpy().copy()
+                    for k, v in model.named_parameters()}
+            maxpool.reset_counts()
+            opt = distri_optimizer(
+                model, lenet_pipeline(data, True, batch=B, distributed=True),
+                device_type, wire, 4, steps, lenet_sgd(), backend="gloo",
+                **kw)
+            with planted_wire_fault(name if name in WIRE_FAULTS else None):
+                opt.optimize()
+            params = dict(model.named_parameters())
+            r = {"losses": opt.losses, "launches": maxpool.launches,
+                 "init": init,
+                 "params": {k: v.detach().numpy().copy()
+                            for k, v in params.items()},
+                 "backend": opt.mesh.backend, "world": opt._world,
+                 "device": str(opt._run_device)}
+            if opt._use_grad_sync:
+                r["masters"] = [m.cpu().numpy()
+                                for m in opt._final_opt_state["master"]]
+                r["flat"] = [b.numpy() for b in grad_sync.flatten_to_buckets(
+                    opt._gs_plan, [params[n].detach()
+                                   for n in opt._gs_names])]
+                full = grad_sync.gather_state(
+                    opt._gs_plan, opt._final_opt_state)["master"]
+                r["full_masters"] = [m.cpu().numpy() for m in full]
+                r["master_params"] = {
+                    n: v.cpu().numpy() for n, v in zip(
+                        opt._gs_names,
+                        grad_sync.unflatten_from_buckets(opt._gs_plan, full))}
+            results[name] = r
+        with open(os.path.join(store_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def distri_world2_phase(seed, device, card, report):
+    """Two processes on the one card over gloo, CUDA compute, LeNet at batch
+    64 a process (global 128), 8 steps in K=4 blocks.  First B1 against its
+    plain version, bitwise, at the two pools' shapes at that batch; then:
+    the grad_sync f32 wire must equal the all-reduce path bit for bit on
+    both ranks, the ranks must agree, each rank's f32 master slices must
+    reassemble into the published weights exactly, the bf16 wire's masters
+    must stay within WIRE_DRIFT_LIMIT of the f32 wire's weights and its
+    published weights must each be one of the two bf16 values around their
+    master, each planted fault of WIRE_FAULTS must fail one of those two,
+    and B1 must launch 2 a step."""
+    import pickle
+    gen = torch.Generator(device=device).manual_seed(1618)
+    for name in DISTRI_POOL_CASES:
+        pool_case_check(next(c for c in POOL_CASES if c[0] == name), gen,
+                        device)
+    world, steps = DISTRI["world2"], DISTRI["world2_steps"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        torch.multiprocessing.spawn(distri_world2_worker,
+                                    args=(world, tmp, seed, device.type),
+                                    nprocs=world,
+                                    join=True)
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    wall = time.monotonic() - t0
+    r0 = ranks[0]
+    checks = {}
+    checks["f32_equals_all_reduce"] = all(
+        r["f32"]["losses"] == r["plain"]["losses"] and all(
+            np.array_equal(r["f32"]["params"][k], r["plain"]["params"][k])
+            for k in r["f32"]["params"]) for r in ranks)
+    checks["ranks_agree"] = all(
+        r["f32"]["losses"] == r0["f32"]["losses"] and all(
+            np.array_equal(r["f32"]["params"][k], r0["f32"]["params"][k])
+            for k in r0["f32"]["params"]) for r in ranks)
+    checks["masters_reassemble"] = all(
+        np.array_equal(np.concatenate([r["f32"]["masters"][b]
+                                       for r in ranks]), flat)
+        for b, flat in enumerate(r0["f32"]["flat"]))
+    l32, l16 = np.array(r0["f32"]["losses"]), np.array(r0["bf16"]["losses"])
+    drift = {n: wire_drift(r0[n]["master_params"], r0["f32"]["params"],
+                           r0["f32"]["init"])
+             for n in ("bf16",) + WIRE_FAULTS}
+    rounded = {n: all(bf16_neighbours(r[n]) for r in ranks)
+               for n in ("bf16",) + WIRE_FAULTS}
+    checks["bf16_tracks_f32"] = bool(np.all(np.isfinite(l16))
+                                     and drift["bf16"] <= WIRE_DRIFT_LIMIT)
+    checks["bf16_publishes_masters_rounded"] = rounded["bf16"]
+    # each planted fault fails one of the two checks above
+    checks["no_update_caught"] = drift["no_update"] > WIRE_DRIFT_LIMIT
+    checks["stale_gather_caught"] = not rounded["stale_gather"]
+    checks["b1_two_a_step"] = all(r[n]["launches"] == 2 * steps
+                                  for r in ranks for n in ("f32", "plain",
+                                                           "bf16"))
+    checks["gloo_cuda_world2"] = all(
+        (r[n]["backend"], r[n]["world"], r[n]["device"]) ==
+        ("gloo", world, device.type) for r in ranks
+        for n in ("f32", "bf16"))
+    print(f"distri world 2 (gloo, two processes on one card, LeNet batch "
+          f"{DISTRI['world2_batch']} a process, {steps} steps K=4): "
+          + ", ".join(f"{k} {v}" for k, v in checks.items())
+          + f"; masters' drift from the f32 wire (limit {WIRE_DRIFT_LIMIT}): "
+          + ", ".join(f"{n} {v:.4g}" for n, v in drift.items())
+          + "; published = masters rounded: "
+          + ", ".join(f"{n} {v}" for n, v in rounded.items())
+          + f"; bf16 wire's largest loss gap "
+          f"{float(np.max(np.abs(l16 - l32))):.3e}; gloo on CUDA tensors "
+          f"itself: "
+          + ", ".join(f"{k} {v}" for k, v in r0["gloo_cuda"].items())
+          + f"; f32 losses " + ", ".join(f"{v:.6f}" for v in l32)
+          + f"; {wall:.1f} s [{card}]")
+    report["distri_world2"] = {"checks": checks, "wire_drift": drift,
+                               "rounded": rounded,
+                               "gloo_cuda": r0["gloo_cuda"],
+                               "f32_losses": l32.tolist(),
+                               "bf16_losses": l16.tolist(), "wall_s": wall}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"distri world-2 check failed: {failed}")
+
+
+def distri_resume_run(ckpt, device, resume_from=None):
+    train, _ = lenet_data()
+    opt = distri_optimizer(lenet5(10).initialize(7),
+                           lenet_pipeline(train, True,
+                                          DISTRI["resume_images"]),
+                           device, "f32", 4, DISTRI["resume_iters"],
+                           lenet_sgd())
+    opt.set_checkpoint(ckpt, optim.several_iteration(DISTRI["resume_every"]))
+    if resume_from is not None and not opt.resume(resume_from):
+        raise AssertionError(f"no snapshot at {resume_from}")
+    start = opt.state["neval"]
+    opt.optimize()
+    return opt, start
+
+
+def distri_resume_phase(device, card, report):
+    """The grad_sync state's snapshot and resume at world 1 (LeNet, K=4,
+    under torch.use_deterministic_algorithms): a fresh optimizer resumed
+    from the uninterrupted run's snapshot at iteration 4 must end where
+    that run ends, losses and weights bit for bit; the snapshot holds the
+    reference's {"master": [...], "opt": {"velocity": [...]}} layout."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ref, _ = distri_resume_run(os.path.join(tmp, "ref"), device)
+            snap = os.path.join(tmp, "ref", "model.4")
+            blob = load_snapshot(snap)
+            layout = (set(blob["opt_state"]) == {"master", "opt"}
+                      and set(blob["opt_state"]["opt"]) == {"velocity"}
+                      and blob["manifest"]["schema"]["grad_sync"]["enabled"])
+            res, start = distri_resume_run(os.path.join(tmp, "res"), device,
+                                           resume_from=snap)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = ref.losses[start:] == res.losses and \
+        params_equal(ref.model, res.model)
+    print(f"lenet distri resume (world 1, K=4): resumed from iteration "
+          f"{start} to {res.state['neval']}: grad_sync snapshot layout "
+          f"{layout}, losses and weights bitwise {same} [{card}]")
+    report["distri_resume"] = {"start": start, "bitwise": same,
+                               "layout": layout}
+    if not (same and layout and start == 4):
+        raise AssertionError("the grad_sync snapshot did not resume "
+                             "bit for bit")
+
+
+def distri_phase(seed, device, card, report):
+    """The slice-9 phases; returns B1's launches on the main path."""
+    t0 = time.monotonic()
+    launches = distri_resnet_phase(seed, device, card, report)
+    print(f"phase distri-resnet: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    distri_vs_local_phase(seed, device, card, report)
+    torch.cuda.empty_cache()
+    print(f"phase distri-vs-local: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    distri_world2_phase(seed, device, card, report)
+    print(f"phase distri-world2: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    distri_resume_phase(device, card, report)
+    print(f"phase distri-resume: {time.monotonic() - t0:.1f} s")
+    # the world-1 group the runs started
+    torch.distributed.destroy_process_group()
+    Engine.set_mesh(None)
+    return launches
+
+
+PHASES = ("resnet", "lstm", "resnet-train", "wide-deep", "lenet",
+          "distri")
 EXTRA_PHASES = ("resnet-conditioning",)  # run only when named
 
 
@@ -3042,6 +3660,21 @@ def main(argv=None) -> int:
                      **{k: rows[LENET_POOL_CASES[0]][k] for k in keys}}
             kernels.append(entry)
         entry["lenet"] = lenet_row
+    if "distri" in phases:
+        launches = distri_phase(args.seed, device, card, report)
+        entry = next((k for k in kernels if k["name"] == "maxpool_bwd"),
+                     None)
+        if entry is None:  # the stem was not checked: check and time it
+            gen = torch.Generator(device=device).manual_seed(2718)
+            row = stem_pool_row("stem_nhwc_bf16", torch.bfloat16, gen,
+                                device, card)
+            entry = {"name": "maxpool_bwd", **POOL_KERNEL,
+                     "launches": launches,
+                     **{k: row[k] for k in (
+                         "max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms", "variant")}}
+            kernels.append(entry)
+        entry["distri"] = {"launches": launches}
     if "resnet-conditioning" in phases:
         t0 = time.monotonic()
         resnet_conditioning_phase(args.seed, device, card, report)

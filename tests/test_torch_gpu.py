@@ -1,8 +1,12 @@
 """The port on the card: the hand-written int8 GEMM, LSTM cell and max-pool
 backward kernels against their plain versions, the quantized serving slice,
 one PTB training block, a small NHWC ResNet's training and a LeNet-5 block
-(validation and a snapshot included) against the same model on the CPU.  Every test here needs a CUDA card and skips without one; on the card
-run ``python -m pytest -m gpu tests/test_torch_*.py``.  This file imports
+(validation and a snapshot included) against the same model on the CPU;
+LeNet-5 through a world-1 NCCL ``DistriOptimizer`` against
+``LocalOptimizer`` on the card (bitwise with the f32 wire; the bf16 wire's
+masters within ``WIRE_DRIFT_LIMIT`` of its weights), and the bf16 wire's
+stochastic round against the CPU's (bitwise, same noise).  Every test
+here needs a CUDA card and skips without one; on the card run ``python -m pytest -m gpu tests/test_torch_*.py``.  This file imports
 no JAX, so it runs where the reference package is not installed.
 
 Tolerances: dynamic mode is BITWISE (exact integer sums, one-rounding FMA
@@ -788,3 +792,86 @@ def test_lenet_block_on_card_matches_cpu(cuda, tmp_path):
     for (k, a), (_, b) in zip(resumed.model.state_dict().items(),
                               mg.state_dict().items()):
         assert torch.equal(a, b), k
+
+
+def test_stochastic_round_on_card_matches_cpu(cuda):
+    """The unbiased bf16 round is bitwise the same on the card and on the
+    CPU, given the same noise words."""
+    from bigdl_tpu_torch.utils.precision import stochastic_round_bits
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(1 << 16, generator=gen) * 10.0 ** torch.randint(
+        -20, 20, (1 << 16,), generator=gen)
+    noise = torch.randint(-2 ** 31, 2 ** 31 - 1, x.shape, dtype=torch.int32,
+                          generator=gen)
+    want = stochastic_round_bits(x, torch.bfloat16, noise)
+    got = stochastic_round_bits(x.to(cuda), torch.bfloat16, noise.to(cuda))
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+# the bf16 wire's f32 masters against the f32 weights, the worst leaf's
+# ||w_bf16 - w_f32|| / ||w_f32 - w_0|| (tests/test_torch_distri.py)
+WIRE_DRIFT_LIMIT = 0.1
+
+
+def test_distri_world1_on_card_equals_local_optimizer(cuda):
+    """LeNet-5 through DistriOptimizer at world 1 over NCCL (the f32 and
+    bf16 wires) against LocalOptimizer on the card, under the deterministic
+    algorithms: the f32 wire gives the same losses and weights bit for
+    bit; the bf16 wire's losses stay within ``rtol=0.05, atol=0.02`` of
+    them (the reference's limit for its wire) and its f32 masters within
+    ``WIRE_DRIFT_LIMIT`` of its weights, which a planted wire that never
+    updates the weights exceeds."""
+    import torch.distributed as dist
+    from bigdl_tpu_torch.dataset import image, mnist
+    from bigdl_tpu_torch.engine import Engine
+    from bigdl_tpu_torch.models import lenet5
+    from bigdl_tpu_torch.parallel import grad_sync
+    from torch_distri_worker import planted_fault, wire_drift
+
+    imgs, labels = mnist.synthetic_mnist(256, seed=0)
+
+    def run(cls, **kw):
+        model = lenet5(10).initialize(0)
+        opt = (cls(model, DataSet.array(mnist.to_samples(imgs, labels))
+                   >> image.BytesToGreyImg()
+                   >> image.GreyImgNormalizer(mnist.TRAIN_MEAN,
+                                              mnist.TRAIN_STD)
+                   >> SampleToMiniBatch(64), nn.ClassNLLCriterion(),
+                   device=cuda, **kw)
+               .set_optim_method(optim.SGD(0.05, momentum=0.9))
+               .set_steps_per_dispatch(4)
+               .set_end_when(optim.max_iteration(8)))
+        losses = []
+        opt._log_train_iteration = lambda lr: losses.append(opt.state["loss"])
+        opt.optimize()
+        return losses, model, opt
+
+    def masters(opt):
+        return {n: v.cpu().numpy() for n, v in zip(
+            opt._gs_names, grad_sync.unflatten_from_buckets(
+                opt._gs_plan, opt._final_opt_state["master"]))}
+
+    init = {n: v.detach().numpy().copy()
+            for n, v in lenet5(10).initialize(0).named_parameters()}
+    torch.use_deterministic_algorithms(True)
+    try:
+        ll, ml, _ = run(optim.LocalOptimizer)
+        ld, md, od = run(optim.DistriOptimizer, grad_bucket_bytes=1 << 14)
+        lb, _, ob = run(optim.DistriOptimizer, grad_wire_dtype="bf16")
+        with planted_fault("no_update"):
+            _, _, of = run(optim.DistriOptimizer, grad_wire_dtype="bf16")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        Engine.set_mesh(None)
+    assert od.mesh.backend == "nccl" and od._world == 1
+    assert od._gs_plan.num_buckets > 1
+    assert ld == ll
+    for a, b in zip(md.parameters(), ml.parameters()):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(lb, ll, rtol=0.05, atol=0.02)
+    assert ob._final_opt_state["master"][0].dtype == torch.float32
+    want = {n: v.detach().cpu().numpy() for n, v in ml.named_parameters()}
+    assert wire_drift(masters(ob), want, init) <= WIRE_DRIFT_LIMIT
+    assert wire_drift(masters(of), want, init) > WIRE_DRIFT_LIMIT

@@ -6,8 +6,10 @@ training step of a tiny PTB model, one bf16 step of a small NHWC ResNet
 behind a max pool fed by the image pipeline, a K=2 block of a tiny
 Wide&Deep on batch-COO crossed MovieLens features, an epoch of LeNet on
 synthetic MNIST with validation, a snapshot and its resume, both
-summaries, the preemption handler and the numeric guard) builds or loads
-a kernel; and a kernel build that fails raises."""
+summaries, the preemption handler and the numeric guard, two steps of
+LeNet through a world-1 ``DistriOptimizer`` with the bf16 wire, the
+``parallel/`` modules with it) builds or loads a kernel; and a kernel
+build that fails raises."""
 
 import json
 import os
@@ -140,6 +142,16 @@ with tempfile.TemporaryDirectory() as tmp:
                  .set_preemption_handling().set_numeric_guard("skip"))
     lenet_opt.optimize()
     assert lenet_opt.state["score"] >= 0 and lenet_opt.resume()
+assert maxpool.launches == 0
+from bigdl_tpu_torch.parallel import grad_sync, mesh
+distri = (optim.Optimizer.create(lenet5(10).initialize(0),
+                                 grey(40) >> SampleToMiniBatch(8),
+                                 nn.ClassNLLCriterion(), distributed=True,
+                                 device="cpu", grad_wire_dtype="bf16")
+          .set_optim_method(optim.SGD(0.05, momentum=0.9))
+          .set_end_when(optim.max_iteration(2)))
+distri.optimize()
+assert distri._use_grad_sync and mesh.create_mesh(backend="gloo").size == 1
 assert maxpool.launches == 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("jaxlib") or m == "bigdl_tpu"

@@ -176,5 +176,23 @@ def test_unported_driver_features_raise(setter):
         arg = torch.float16 if setter == "set_compute_dtype" else None
         with pytest.raises(NotImplementedError, match="not ported"):
             getattr(opt, setter)(arg)
-    with pytest.raises(NotImplementedError, match="DistriOptimizer"):
-        optim.Optimizer.create(None, ds, None, distributed=True)
+
+
+def test_create_distributed_returns_distri_optimizer():
+    ds = DataSet.array(_windows(Sample)) >> SampleToMiniBatch(BATCH)
+    crit = nn.TimeDistributedCriterion(nn.ClassNLLCriterion())
+    opt = optim.Optimizer.create(ptb_model(VOCAB, 16, HIDDEN, 2), ds, crit,
+                                 distributed=True, device="cpu",
+                                 grad_wire_dtype="bf16")
+    assert isinstance(opt, optim.DistriOptimizer)
+    assert opt.grad_wire_dtype == "bf16" and opt.device.type == "cpu"
+    local = optim.Optimizer.create(ptb_model(VOCAB, 16, HIDDEN, 2), ds, crit,
+                                   device="cpu")
+    assert type(local) is optim.LocalOptimizer
+
+
+def test_distributed_array_returns_distributed_dataset():
+    from bigdl_tpu_torch.dataset import DistributedDataSet
+    ds = DataSet.array(_windows(Sample), distributed=True, seed=3)
+    assert isinstance(ds, DistributedDataSet)
+    assert ds.size() == ds.local_size() == 20  # no group: process 0 of 1

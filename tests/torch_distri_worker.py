@@ -1,0 +1,222 @@
+"""One process of a gloo world for ``tests/test_torch_distri.py``: trains the
+small MLP on synthetic MNIST through the port's ``DistriOptimizer`` on the
+CPU in several configurations and pickles what each run ends with.
+
+Rank r of a world of P gets, from its ``DistributedDataSet``, the rows the
+reference's P-device mesh gives device r: in global batch j of G rows,
+rows r*G/P to (r+1)*G/P (:func:`mesh_order`).  Imports neither JAX nor the
+reference package.
+
+Also the spawn helper of the tests: :func:`run_world` starts P processes
+with ``torch.multiprocessing.spawn`` over a ``FileStore`` in a directory of
+the caller's, so no TCP port is taken.
+"""
+
+import contextlib
+import os
+import pickle
+import warnings
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from bigdl_tpu_torch import nn, optim
+from bigdl_tpu_torch.dataset import (DistributedDataSet, SampleToMiniBatch,
+                                     Transformer)
+from bigdl_tpu_torch.dataset import image, mnist
+from bigdl_tpu_torch.interop import load_jax_params
+from bigdl_tpu_torch.parallel import grad_sync
+
+N_SAMPLES, GLOBAL_BATCH, ITERS = 512, 64, 6
+BUCKET_BYTES = 1 << 16  # three buckets: [1.bias], [1.weight], [3.*]
+
+
+def small_mlp():
+    return (nn.Sequential()
+            .add(nn.Reshape((784,)))
+            .add(nn.Linear(784, 64)).add(nn.ReLU())
+            .add(nn.Linear(64, 10)).add(nn.LogSoftMax()))
+
+
+def mesh_order(samples, global_batch, world):
+    """``samples`` reordered so that shard p::world of the result is, in
+    order, the rows device p gets of each global batch."""
+    local = global_batch // world
+    out = [None] * len(samples)
+    for g, s in enumerate(samples):
+        j, r = divmod(g, global_batch)
+        c, i = divmod(r, local)
+        out[(j * local + i) * world + c] = s
+    return out
+
+
+class PoisonBatch(Transformer):
+    """NaN inputs in batch ``at`` (0-based) of this process."""
+
+    def __init__(self, at):
+        self.at = at
+
+    def __call__(self, it):
+        for i, b in enumerate(it):
+            if i == self.at:
+                b.input[...] = np.nan
+            yield b
+
+
+def pipeline(world, rank, poison_at=None):
+    imgs, labels = mnist.synthetic_mnist(N_SAMPLES, seed=0)
+    samples = mesh_order(mnist.to_samples(imgs, labels), GLOBAL_BATCH,
+                         world)
+    ds = (DistributedDataSet(samples, process_index=rank,
+                             process_count=world)
+          >> image.BytesToGreyImg()
+          >> image.GreyImgNormalizer(mnist.TRAIN_MEAN, mnist.TRAIN_STD)
+          >> SampleToMiniBatch(GLOBAL_BATCH // world))
+    if poison_at is not None:
+        ds = ds >> PoisonBatch(poison_at)
+    return ds
+
+
+@contextlib.contextmanager
+def planted_fault(kind):
+    """A deliberately broken wire for the checks to fail on: ``"no_update"``
+    (the reduce-scatter delivers zeros, so the weights never move),
+    ``"stale_gather"`` (the all-gather keeps publishing its first
+    parameters) or ``"nearest"`` (round-to-nearest in place of the
+    unbiased round); None: the sound wire."""
+    saved = {name: getattr(grad_sync, name) for name in (
+        "reduce_scatter_grads", "all_gather_params", "stochastic_round")}
+    if kind == "no_update":
+        grad_sync.reduce_scatter_grads = lambda *a, **k: [
+            torch.zeros_like(o)
+            for o in saved["reduce_scatter_grads"](*a, **k)]
+    elif kind == "stale_gather":
+        first = []
+
+        def stale(*a, **k):
+            new = saved["all_gather_params"](*a, **k)
+            first.extend(p.clone() for p in new[len(first):])
+            return [p.clone() for p in first]
+        grad_sync.all_gather_params = stale
+    elif kind == "nearest":
+        grad_sync.stochastic_round = lambda x, dtype, gen=None: x.to(dtype)
+    elif kind is not None:
+        raise ValueError(f"unknown planted fault {kind!r}")
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(grad_sync, name, fn)
+
+
+def wire_drift(params, ref, start):
+    """How far a run's weights strayed from the f32 wire's, per leaf:
+    ``||w - w_f32|| / ||w_f32 - w_0||``, the worst leaf's."""
+    return max(float(np.linalg.norm(params[k] - ref[k])
+                     / np.linalg.norm(ref[k] - start[k])) for k in ref)
+
+
+def bf16_neighbours(published, master):
+    """Whether every published weight is one of the two bf16 values around
+    its f32 master: what the unbiased round of the all-gather may give."""
+    bits = np.asarray(master, np.float32).view(np.uint32) & 0xFFFF0000
+    down, up = bits.view(np.float32), (bits + 0x10000).view(np.float32)
+    return bool(np.all((published == down) | (published == up)))
+
+
+def train(world, rank, start, *, iters=ITERS, k=1, lr=0.05, momentum=0.9,
+          clip=None, ckpt=None, resume=None, guard=None, poison_at=None,
+          fault=None, **kw):
+    """One run from the parameters ``start`` (the reference's layout):
+    what it ends with, as numpy.  ``fault`` plants a broken wire
+    (:func:`planted_fault`)."""
+    model = small_mlp()
+    load_jax_params(model, start)
+    init = {k: v.detach().numpy().copy() for k, v in model.named_parameters()}
+    losses = []
+
+    class Recording(optim.DistriOptimizer):
+        def _log_train_iteration(self, lr):
+            losses.append(self.state["loss"])
+
+    opt = (Recording(model, pipeline(world, rank, poison_at),
+                     nn.ClassNLLCriterion(), device="cpu",
+                     grad_bucket_bytes=BUCKET_BYTES, **kw)
+           .set_optim_method(optim.SGD(learning_rate=lr, momentum=momentum))
+           .set_seed(5).set_steps_per_dispatch(k)
+           .set_end_when(optim.max_iteration(iters)))
+    if clip == "norm":
+        opt.set_gradient_clipping_by_l2_norm(0.5)
+    elif clip == "value":
+        opt.set_gradient_clipping_by_value(-3e-3, 3e-3)
+    if guard is not None:
+        opt.set_numeric_guard(guard)
+    if ckpt is not None:
+        opt.set_checkpoint(ckpt, optim.several_iteration(2))
+    if resume is not None:
+        assert opt.resume(resume)
+    start_neval = opt.state["neval"]
+    with planted_fault(fault):
+        opt.optimize()
+    out = {"losses": losses, "start_neval": start_neval, "init": init,
+           "state": {k: opt.state[k] for k in
+                     ("neval", "epoch", "records_processed_this_epoch")},
+           "params": {k: v.detach().numpy().copy()
+                      for k, v in model.named_parameters()},
+           "dispatches": opt._dispatch_count,
+           "skipped": opt.registry.counter(
+               "resilience/steps_skipped").value}
+    if opt._use_grad_sync:
+        plan = opt._gs_plan
+        out["plan"] = {"paths": plan.paths, "buckets": plan.buckets,
+                       "sizes": plan.bucket_sizes}
+        out["masters"] = [m.numpy().copy()
+                          for m in opt._final_opt_state["master"]]
+        out["flat_params"] = [b.numpy() for b in grad_sync.flatten_to_buckets(
+            plan, [dict(model.named_parameters())[n].detach()
+                   for n in opt._gs_names])]
+        out["master_dtypes"] = [str(m.dtype)
+                                for m in opt._final_opt_state["master"]]
+        full = grad_sync.gather_state(plan, opt._final_opt_state)["master"]
+        out["full_masters"] = [m.numpy() for m in full]
+        out["master_params"] = {
+            n: v.numpy() for n, v in zip(
+                opt._gs_names, grad_sync.unflatten_from_buckets(plan, full))}
+    return out
+
+
+def _worker(rank, world, store_dir, runs):
+    warnings.simplefilter("ignore", FutureWarning)
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(store_dir, "store"),
+                                     world),
+        rank=rank, world_size=world)
+    try:
+        with open(os.path.join(store_dir, "start.pkl"), "rb") as f:
+            start = pickle.load(f)
+        results = {}
+        for name, kw in runs.items():
+            kw = dict(kw)
+            if kw.pop("rank1_only_poison", False):
+                kw["poison_at"] = kw["poison_at"] if rank == 1 else None
+            results[name] = train(world, rank, start, **kw)
+        with open(os.path.join(store_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_world(world, store_dir, start, runs):
+    """Run ``runs`` ({name: train() keywords}) in a spawned gloo world of
+    ``world`` processes; returns each rank's {name: result}."""
+    with open(os.path.join(store_dir, "start.pkl"), "wb") as f:
+        pickle.dump(start, f)
+    torch.multiprocessing.spawn(_worker, args=(world, store_dir, runs),
+                                nprocs=world, join=True)
+    out = []
+    for r in range(world):
+        with open(os.path.join(store_dir, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
