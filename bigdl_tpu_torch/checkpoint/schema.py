@@ -32,20 +32,24 @@ def _dtype_name(leaf) -> str:
     return str(dt).replace("torch.", "")
 
 
-def leaves_with_path(tree, path=()):
+def leaves_with_path(tree, path=(), keys=False):
     """(path, leaf) pairs in ``jax.tree_util.tree_flatten`` order: dict
     keys sorted, sequences in order; None and empty containers hold no
-    leaf."""
+    leaf.  The path is ``jax.tree_util.keystr``'s string
+    (``"['0']['weight']"``), or with ``keys`` the tuple of dict keys and
+    sequence indices."""
     if tree is None:
         return
     if isinstance(tree, dict):
         for k in sorted(tree):
-            yield from leaves_with_path(tree[k], path + (f"[{k!r}]",))
+            yield from leaves_with_path(
+                tree[k], path + ((k if keys else f"[{k!r}]"),), keys)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from leaves_with_path(v, path + (f"[{i}]",))
+            yield from leaves_with_path(
+                v, path + ((i if keys else f"[{i}]"),), keys)
     else:
-        yield "".join(path), tree
+        yield (path if keys else "".join(path)), tree
 
 
 def describe_params(params) -> dict:

@@ -1,5 +1,6 @@
 """Training data pipeline of the port (``bigdl_tpu.dataset`` twins)."""
 
+from bigdl_tpu_torch.dataset import cifar, image, mnist
 from bigdl_tpu_torch.dataset.dataset import (AbstractDataSet, DataSet,
                                              DistributedDataSet, LocalDataSet,
                                              TransformedDataSet)

@@ -13,12 +13,19 @@ from bigdl_tpu_torch.nn.criterion import (BCECriterion,
                                           CrossEntropyCriterion,
                                           MSECriterion,
                                           TimeDistributedCriterion)
-from bigdl_tpu_torch.nn.layers import (BatchNormalization, Dropout, Linear, LookupTable,
-                                       SpatialAveragePooling,
+from bigdl_tpu_torch.nn.initialization import (BilinearFiller,
+                                               ConstInitMethod,
+                                               InitializationMethod,
+                                               MsraFiller, Ones,
+                                               RandomNormal, RandomUniform,
+                                               Xavier, Zeros)
+from bigdl_tpu_torch.nn.layers import (BatchNormalization, Dropout, Linear,
+                                       LookupTable, SpatialAveragePooling,
                                        SpatialBatchNormalization,
-                                       SpatialConvolution, SpatialMaxPooling)
-from bigdl_tpu_torch.nn.module import (ConcatTable, Container, Identity,
-                                       Module, Sequential)
+                                       SpatialConvolution,
+                                       SpatialCrossMapLRN, SpatialMaxPooling)
+from bigdl_tpu_torch.nn.module import (Concat, ConcatTable, Container,
+                                       Identity, Module, Sequential)
 from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,
                                           QuantizedSpatialConvolution,
                                           quantize)
@@ -30,16 +37,21 @@ from bigdl_tpu_torch.nn.sparse import (COOBatch, DenseToSparse,
                                        SparseLinear)
 
 __all__ = ["BCECriterion", "BCEWithLogitsCriterion", "BatchNormalization",
-           "CAddTable", "COOBatch", "Cell", "ClassNLLCriterion", "ConcatTable",
+           "BilinearFiller", "CAddTable", "COOBatch", "Cell",
+           "ClassNLLCriterion", "Concat", "ConcatTable", "ConstInitMethod",
            "Container", "Criterion", "CrossEntropyCriterion", "Dropout",
            "DenseToSparse", "ELU", "GELU", "HardShrink", "HardSigmoid",
-           "HardTanh", "Identity", "LSTM", "LeakyReLU", "Linear",
+           "HardTanh", "Identity", "InitializationMethod", "LSTM",
+           "LeakyReLU", "Linear",
            "LogSigmoid", "LogSoftMax", "LookupTable", "LookupTableSparse",
-           "MSECriterion", "Module", "MultiRNNCell", "PReLU",
+           "MSECriterion", "Module", "MsraFiller", "MultiRNNCell", "Ones",
+           "PReLU",
            "QuantizedLinear", "QuantizedSpatialConvolution", "RReLU", "ReLU",
+           "RandomNormal", "RandomUniform",
            "ReLU6", "Recurrent", "Reshape", "RnnCell", "SReLU", "Sequential",
            "SiLU", "Sigmoid", "SoftMax", "SoftMin", "SoftPlus", "SoftShrink",
            "SoftSign", "SpatialAveragePooling", "SpatialBatchNormalization",
-           "SpatialConvolution", "SparseJoinTable", "SparseLinear",
-           "SpatialMaxPooling", "Tanh", "TanhShrink", "Threshold",
+           "SpatialConvolution", "SpatialCrossMapLRN", "SparseJoinTable",
+           "SparseLinear", "SpatialMaxPooling", "Tanh", "TanhShrink",
+           "Threshold", "Xavier", "Zeros",
            "TimeDistributed", "TimeDistributedCriterion", "quantize"]

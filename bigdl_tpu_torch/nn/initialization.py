@@ -23,6 +23,28 @@ class Zeros(InitializationMethod):
         return torch.zeros(shape, dtype=torch.float32)
 
 
+class Ones(InitializationMethod):
+    def init(self, generator, shape, fan_in, fan_out):
+        return torch.ones(shape, dtype=torch.float32)
+
+
+class ConstInitMethod(InitializationMethod):
+    def __init__(self, value: float):
+        self.value = value
+
+    def init(self, generator, shape, fan_in, fan_out):
+        return torch.full(shape, self.value, dtype=torch.float32)
+
+
+class Xavier(InitializationMethod):
+    """Glorot uniform: U(-a, a), a = sqrt(6 / (fan_in + fan_out))."""
+
+    def init(self, generator, shape, fan_in, fan_out):
+        a = math.sqrt(6.0 / (fan_in + fan_out))
+        return torch.empty(shape, dtype=torch.float32).uniform_(
+            -a, a, generator=generator)
+
+
 class MsraFiller(InitializationMethod):
     """Kaiming/He normal: N(0, sqrt(2/fan)); ``variance_norm_average=False``
     uses fan_in."""
@@ -64,3 +86,20 @@ class RandomNormal(InitializationMethod):
     def init(self, generator, shape, fan_in, fan_out):
         return self.mean + self.stdv * torch.randn(
             shape, generator=generator, dtype=torch.float32)
+
+
+class BilinearFiller(InitializationMethod):
+    """Bilinear-upsampling kernel of a full (transposed) convolution,
+    broadcast over the leading axes of a (..., kh, kw) weight; draws
+    nothing."""
+
+    def init(self, generator, shape, fan_in, fan_out):
+        kh, kw = shape[-2], shape[-1]
+        f_h, f_w = math.ceil(kh / 2.0), math.ceil(kw / 2.0)
+        c_h = (2 * f_h - 1 - f_h % 2) / (2.0 * f_h)
+        c_w = (2 * f_w - 1 - f_w % 2) / (2.0 * f_w)
+        ys = torch.arange(kh, dtype=torch.int32)[:, None]
+        xs = torch.arange(kw, dtype=torch.int32)[None, :]
+        filt = (1 - torch.abs(ys / f_h - c_h)) \
+            * (1 - torch.abs(xs / f_w - c_w))
+        return filt.to(torch.float32).expand(tuple(shape)).contiguous()

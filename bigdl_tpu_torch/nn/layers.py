@@ -341,6 +341,37 @@ class Dropout(Module):
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+class SpatialCrossMapLRN(Module):
+    """Local response normalization across channels:
+    ``x / (k + alpha / size * sum of x^2 over a window of size channels)
+    ^ beta``, the channel axis 1 (NCHW) or 3 (NHWC).  The window around
+    channel c spans ``c - (size - 1) // 2`` to ``c + size // 2``, as the
+    reference pads it; ``torch.nn.functional.local_response_norm`` pads
+    the other way round, which differs for an even ``size``.  No weights:
+    conv-era normalization (AlexNet, Inception v1)."""
+
+    def __init__(self, size: int = 5, alpha: float = 1.0, beta: float = 0.75,
+                 k: float = 1.0, format: str = "NCHW",
+                 name: Optional[str] = None):
+        super().__init__(name)
+        self.size, self.alpha, self.beta, self.k = size, alpha, beta, k
+        self.format = _check_format(format)
+
+    def forward(self, x):
+        axis = 1 if self.format == "NCHW" else 3
+        sq = x * x
+        lo = (self.size - 1) // 2
+        hi = self.size - 1 - lo
+        pads = [0, 0] * (x.dim() - 1 - axis) + [lo, hi]
+        padded = F.pad(sq, pads)
+        c = x.shape[axis]
+        acc = padded.narrow(axis, 0, c)
+        for i in range(1, self.size):
+            acc = acc + padded.narrow(axis, i, c)
+        denom = torch.pow(self.k + (self.alpha / self.size) * acc, self.beta)
+        return x / denom
+
+
 class LookupTable(Module):
     """Embedding lookup; weight (n_index, n_output).  Indices are 0-based
     (the Torch original is 1-based); ``padding_value``'s row is zeroed at

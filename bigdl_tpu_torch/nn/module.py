@@ -76,6 +76,19 @@ class ConcatTable(Container):
         return tuple(m(x) for m in self._modules.values())
 
 
+class Concat(Container):
+    """Apply every child to the same input and concatenate the outputs
+    along ``dim`` (0-based, the batch at 0: ``dim=1`` is NCHW's channel
+    axis, ``dim=3`` NHWC's)."""
+
+    def __init__(self, dim: int = 1, name: Optional[str] = None):
+        super().__init__(name=name)
+        self.dim = dim
+
+    def forward(self, x):
+        return torch.cat([m(x) for m in self._modules.values()], self.dim)
+
+
 class Identity(Module):
     def forward(self, x):
         return x

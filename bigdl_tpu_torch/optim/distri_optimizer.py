@@ -27,8 +27,11 @@ gloo moves them through host memory itself).  A run of one process needs
 no launcher (its group starts on a ``HashStore``); several start under
 ``torchrun`` or call ``torch.distributed.init_process_group`` first.
 
-Snapshots: every process gathers the grad_sync state's owned slices into
-full buckets, process 0 writes, every process records the step.  The state
+Summaries: process 0 alone writes them (the train scalars, the
+"Parameters" histograms of the full parameters, the validation scores);
+every process evaluates the triggers.  Snapshots: every process gathers
+the grad_sync state's owned slices into full buckets, process 0 writes,
+every process records the step.  The state
 keeps the reference's layout ``{"master": [bucket, ...], "opt": {...}}``
 with the reference's leaf order and padding, so a snapshot resumes across
 packages at the same world size.  Tensor parallelism (``param_specs``) and
@@ -46,6 +49,7 @@ import torch.distributed as dist
 from torch.profiler import record_function
 
 from bigdl_tpu_torch.checkpoint import build_schema
+from bigdl_tpu_torch.checkpoint.schema import leaves_with_path
 from bigdl_tpu_torch.engine import Engine, resolve_device
 from bigdl_tpu_torch.interop.jax_weights import (is_grad_sync_state,
                                                  jax_tree)
@@ -114,6 +118,8 @@ class DistriOptimizer(Optimizer):
         self._gs_plan: Optional[grad_sync.BucketPlan] = None
         self._gs_wire: Optional[torch.dtype] = None
         self._gs_names: list = []  # parameter names in the plan's order
+        # ("Parameters/<reference leaf path>", parameter name) pairs
+        self._param_tags: list = []
         self._world = 1
         self._rank = 0
         self._final_opt_state = None
@@ -229,6 +235,22 @@ class DistriOptimizer(Optimizer):
             return
         self._save_trees(*trees, sync=sync)
 
+    def _writes_summaries(self) -> bool:
+        return self._rank == 0
+
+    def _log_parameter_histograms(self, run: _Run) -> None:
+        # the reference's trigger-gated "Parameters" summary; a block ends
+        # at the step the trigger names, so run.params are that step's
+        # full (all-gathered) parameters
+        trig = getattr(self.train_summary, "trigger_for",
+                       lambda _n: None)("Parameters")
+        if trig is None or not trig(self.state) \
+                or not self._writes_summaries():
+            return
+        for tag, name in self._param_tags:
+            self.train_summary.add_histogram(tag, run.params[name],
+                                             self.state["neval"])
+
     def _reduce_validation(self, sums: dict, counts: dict):
         if self._world == 1 or not sums:
             return sums, counts
@@ -289,9 +311,14 @@ class DistriOptimizer(Optimizer):
         self._check_rollback()
         seed = self._resolved_seed()
         net, params, stochastic = self._training_copy(device)
-        names = grad_sync.tree_leaves(
-            jax_tree(net, {k: k for k in params}, "params"))
-        self._gs_names = names
+        # parameter names in the reference's leaf order, the walk that
+        # orders the bucket plan; tags as the reference writes them
+        leaves = list(leaves_with_path(
+            jax_tree(net, {k: k for k in params}, "params"), keys=True))
+        names = self._gs_names = [name for _, name in leaves]
+        self._param_tags = [("Parameters/" + "/".join(
+            k if isinstance(k, str) else f"[{k}]" for k in path), name)
+            for path, name in leaves]
         params_tree = jax_tree(net, params, "params")
         self._resolve_grad_sync(params_tree)
         self._validate_resume_schema(params_tree)

@@ -479,7 +479,8 @@ class Optimizer:
         results = self.evaluate_with(run.net)
         for name, res in results.items():
             logger.info("validation %s = %s", name, res)
-            if self.validation_summary is not None:
+            if self.validation_summary is not None \
+                    and self._writes_summaries():
                 self.validation_summary.add_scalar(name, res.result,
                                                    self.state["neval"])
         # the first method's score feeds triggers and, once per
@@ -707,6 +708,15 @@ class Optimizer:
                     logger.exception("async checkpoint write also failed "
                                      "while an already-failing run ended")
 
+    def _writes_summaries(self) -> bool:
+        """Whether this process writes the train and validation
+        summaries (a data-parallel job's process 0 alone)."""
+        return True
+
+    def _log_parameter_histograms(self, run: _Run) -> None:
+        """The trigger-gated "Parameters" histograms (none here: the
+        reference's LocalOptimizer writes none)."""
+
     def _log_train_iteration(self, lr: float) -> None:
         s = self.state
         logger.info("epoch %d iter %d loss %.4f lr %.5g throughput %.1f "
@@ -767,9 +777,11 @@ class Optimizer:
                 self._on_nonfinite_step(state["loss"])
             self._log_train_iteration(block.lrs[j])
             if self.train_summary is not None:
-                self.train_summary.add_train_step(
-                    state["neval"], state["loss"], block.lrs[j],
-                    state["throughput"])
+                if self._writes_summaries():
+                    self.train_summary.add_train_step(
+                        state["neval"], state["loss"], block.lrs[j],
+                        state["throughput"])
+                self._log_parameter_histograms(run)
             state["epoch_finished"] = \
                 state["records_processed_this_epoch"] >= self._epoch_size
             if state["epoch_finished"]:

@@ -1,6 +1,6 @@
 """Host-side image math and the per-sample RNG of the augmentation
 pipeline (port of ``bigdl_tpu/utils/imgops.py``: the part the ImageNet
-recipe's transforms call).
+and CIFAR-10 recipes' transforms call).
 
 A copy of the reference's numpy code, kept so the port does not import the
 reference package: the same sample and seed give the same float array,
@@ -36,6 +36,14 @@ def sample_key(key: int):
         yield
     finally:
         _sample_key.key = prev
+
+
+# eigen decomposition of ImageNet RGB covariance (AlexNet lighting noise;
+# reference ``Lighting.scala`` constants)
+LIGHTING_EIGVAL = np.array([0.2175, 0.0188, 0.0045], np.float32)
+LIGHTING_EIGVEC = np.array([[-0.5675, 0.7192, 0.4009],
+                            [-0.5808, -0.0045, -0.8140],
+                            [-0.5836, -0.6948, 0.4203]], np.float32)
 
 
 class ThreadRng:
@@ -76,8 +84,66 @@ class ThreadRng:
     def uniform(self, low=0.0, high=1.0, size=None):
         return self._gen().uniform(low, high, size)
 
+    def normal(self, loc=0.0, scale=1.0, size=None):
+        return self._gen().normal(loc, scale, size)
+
     def integers(self, low, high=None, size=None):
         return self._gen().integers(low, high, size)
+
+    def permutation(self, n):
+        return self._gen().permutation(n)
+
+
+def lighting_delta(rng, alphastd: float) -> np.ndarray:
+    """Per-image RGB offset of AlexNet PCA lighting noise."""
+    alpha = np.asarray(rng.normal(0, alphastd, 3), np.float32)
+    return (LIGHTING_EIGVEC * alpha * LIGHTING_EIGVAL).sum(axis=1)
+
+
+def color_jitter(img: np.ndarray, rng, brightness: float, contrast: float,
+                 saturation: float) -> np.ndarray:
+    """Random brightness/contrast/saturation in random order (reference
+    ``ColorJitter.scala`` semantics on float images)."""
+    for op in rng.permutation(3):
+        if op == 0 and brightness:
+            img = img * (1 + rng.uniform(-brightness, brightness))
+        elif op == 1 and contrast:
+            m = img.mean()
+            img = (img - m) * (1 + rng.uniform(-contrast, contrast)) + m
+        elif op == 2 and saturation and img.ndim == 3:
+            grey = img.mean(-1, keepdims=True)
+            img = grey + (img - grey) * (1 + rng.uniform(-saturation,
+                                                         saturation))
+    return np.asarray(img, np.float32)
+
+
+def rgb_to_hsv(img: np.ndarray) -> np.ndarray:
+    """Vectorized RGB[0,255]→HSV (H in degrees [0,360))."""
+    x = img / 255.0
+    mx = x.max(-1)
+    mn = x.min(-1)
+    diff = mx - mn + 1e-12
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    h = np.where(mx == r, (g - b) / diff % 6,
+                 np.where(mx == g, (b - r) / diff + 2, (r - g) / diff + 4))
+    h = h * 60.0
+    s = np.where(mx > 0, diff / (mx + 1e-12), 0.0)
+    return np.stack([h, s, mx], -1)
+
+
+def hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
+    h, s, v = hsv[..., 0] / 60.0, hsv[..., 1], hsv[..., 2]
+    c = v * s
+    xm = c * (1 - np.abs(h % 2 - 1))
+    m = v - c
+    z = np.zeros_like(c)
+    i = (h.astype(np.int32) % 6)[..., None]
+    rgb = np.select(
+        [i == 0, i == 1, i == 2, i == 3, i == 4, i == 5],
+        [np.stack([c, xm, z], -1), np.stack([xm, c, z], -1),
+         np.stack([z, c, xm], -1), np.stack([z, xm, c], -1),
+         np.stack([xm, z, c], -1), np.stack([c, z, xm], -1)])
+    return (rgb + m[..., None]) * 255.0
 
 
 def resize_bilinear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:

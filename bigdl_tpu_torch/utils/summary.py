@@ -131,18 +131,28 @@ def _histo_event(tag: str, values, step: int, wall: float) -> bytes:
 
 # ------------------------------------------------------------ file writer
 class FileWriter:
-    """TFRecord event-file writer."""
+    """TFRecord event-file writer.  The file is opened, and its version
+    record written, at the first record: a process that records nothing
+    (every process of a data-parallel job but process 0) leaves no file
+    and no second header behind."""
 
     def __init__(self, log_dir: str):
-        os.makedirs(log_dir, exist_ok=True)
-        fname = f"events.out.tfevents.{int(time.time())}.bigdl_tpu"
-        self._path = os.path.join(log_dir, fname)
-        self._f = open(self._path, "ab")
-        # first record: file version event
-        ver = _pb_double(1, time.time()) + _pb_str(3, "brain.Event:2")
-        self._write_record(ver)
+        self._dir = log_dir
+        self._path = None
+        self._f = None
 
     def _write_record(self, payload: bytes):
+        if self._f is None:
+            os.makedirs(self._dir, exist_ok=True)
+            fname = f"events.out.tfevents.{int(time.time())}.bigdl_tpu"
+            self._path = os.path.join(self._dir, fname)
+            self._f = open(self._path, "ab")
+            # first record: file version event
+            self._frame(_pb_double(1, time.time())
+                        + _pb_str(3, "brain.Event:2"))
+        self._frame(payload)
+
+    def _frame(self, payload: bytes):
         header = struct.pack("<Q", len(payload))
         self._f.write(header)
         self._f.write(struct.pack("<I", _masked_crc(header)))
@@ -156,10 +166,12 @@ class FileWriter:
         self._write_record(_histo_event(tag, values, step, time.time()))
 
     def flush(self):
-        self._f.flush()
+        if self._f is not None:
+            self._f.flush()
 
     def close(self):
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 class Summary:

@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (``bigdl_tpu_torch``) on one NVIDIA card.
 
-Drives the port's six main paths and holds every kernel of them against
+Drives the port's eight main paths and holds every kernel of them against
 its plain PyTorch version.  Serving: an int8-quantized ResNet-50 (1000
 classes, 224x224, NCHW, random weights from a seed) served by
 ``ModelRegistry`` with ``quantize=True`` (weight_only) and
@@ -22,7 +22,14 @@ epochs, validation and a snapshot every epoch, both summaries), its two
 pools' backward running kernel B1; and ResNet-50's ImageNet recipe again,
 through ``Optimizer.create(..., distributed=True)``: the data-parallel
 ``DistriOptimizer`` with the bucketed ZeRO-1 gradient sync at world 1 over
-NCCL, the stem pool's backward on B1.  Phases, each printing its seconds:
+NCCL, the stem pool's backward on B1; and the CIFAR-10 recipes of
+``examples/vgg/train.py`` and ``examples/resnet/train_cifar10.py`` (VGG
+for CIFAR-10 and ResNet-20, NCHW f32, batch 128, on 50,000 synthetic
+images through the recipe's pad/crop/flip pipeline, Top-1 over 10,000),
+VGG's five pools on B1; and Inception v1 at ``bench.py``'s configuration
+(NHWC, bf16 compute, batch 256, 224x224, 1000 classes) with the recipe of
+``examples/inception/train.py``, its 13 pools on B1.  Phases, each
+printing its seconds:
 
 1. the card: name, count, ``nvidia-smi`` name and power limit;
 2. the kernels, built from ``bigdl_tpu_torch/csrc`` (one ``nvcc`` a
@@ -131,7 +138,31 @@ NCCL, the stem pool's backward on B1.  Phases, each printing its seconds:
    must each fail one of those, B1 two launches a step;
 21. distri resume: a grad_sync snapshot at iteration 4 (the reference's
    ``{"master", "opt"}`` layout) resumed by a fresh optimizer ends
-   bitwise where the uninterrupted run ends (LeNet, K=4).
+   bitwise where the uninterrupted run ends (LeNet, K=4);
+22. cifar: B1 at VGG's five pools (``VGG_POOL_CASES``, batch 128, NCHW
+   f32, ``two_pass``) bitwise against its plain version, then timed
+   beside the bound and the library; VGG one epoch and ResNet-20
+   ``CIFAR["steps"]`` steps through LocalOptimizer and VGG
+   ``CIFAR["steps"]`` steps through the DistriOptimizer the recipe's
+   ``--distributed`` builds (world 1, NCCL), each printing images/s, ms
+   a step, peak memory, Top-1 and a profiled step; the loss must fall,
+   Top-1 pass ``CIFAR["min_top1"]``, B1 launch 5 times a VGG step (all
+   ``two_pass``) and never for ResNet-20;
+   then VGG's world-1 DistriOptimizer against LocalOptimizer over a K=4
+   block under the deterministic algorithms: bitwise;
+23. inception: B1 at Inception v1's 10 distinct NHWC bf16 geometries at
+   batch 256 (``tiled_nhwc``) and 3 NCHW f32 ones at batch 4
+   (``two_pass``: a 3x3/2 ceil-mode pool, 3x3/1 pad 1 pools), bitwise and
+   timed; two timed runs of the recipe (pre-augmented and through its
+   pipeline, 16 timed steps each, four blocks an epoch: images/s, ms a
+   step, peak memory, a profiled K=4 block's idle share and top
+   operations, B1 13 launches a step, all bf16
+   ``tiled_nhwc``); then an NCHW f32 Inception v1 (its LRNs at an even
+   size and alpha 1, dropout off) through one K=4 block on the card
+   against the CPU step by step (``wd_step_reading``, each gradient by
+   its norm share) within
+   ``INCEPTION_TRAIN_TOL``, a limit two planted faults must exceed (the
+   LRN's torch window, two towers of module 4a swapped).
 
 The last lines are the card, the kernel table and the result as JSON; any
 failed check raises and the script exits non-zero.  Without a CUDA card it
@@ -139,7 +170,7 @@ fails at once.  Run from the repository root:
 
     python3 chip_smoke.py [--seed N] [--json-out PATH]
                           [--phases resnet,lstm,resnet-train,wide-deep,lenet,
-                                    distri]
+                                    distri,cifar,inception]
 
 ``--phases resnet-conditioning`` adds a diagnostic that is not run by
 default: the check phase's path reading at residual gammas 0 to 1, beside
@@ -174,11 +205,12 @@ from bigdl_tpu_torch.checkpoint import manager as ckpt_manager  # noqa: E402
 from bigdl_tpu_torch.dataset import (  # noqa: E402
     DataSet, MTSampleToMiniBatch, Sample, SampleToMiniBatch, SparseMiniBatch,
     SparseSample, Transformer, batch_sparse_samples)
-from bigdl_tpu_torch.dataset import image, mnist  # noqa: E402
+from bigdl_tpu_torch.dataset import cifar, image, mnist  # noqa: E402
 from bigdl_tpu_torch.dataset.text import Dictionary  # noqa: E402
 from bigdl_tpu_torch.engine import Engine  # noqa: E402
-from bigdl_tpu_torch.models import (WideAndDeep, lenet5,  # noqa: E402
-                                    ptb_model, resnet50)
+from bigdl_tpu_torch.models import (WideAndDeep, inception_v1,  # noqa: E402
+                                    lenet5, ptb_model, resnet50,
+                                    resnet_cifar, vgg_for_cifar10)
 from bigdl_tpu_torch.nn import quantize, recurrent  # noqa: E402
 from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,  # noqa: E402
                                           QuantizedSpatialConvolution)
@@ -368,10 +400,13 @@ def device_ms(fn, calls=50, split=None):
             fn()
 
     for _ in range(3):  # a trace that lost most launches is taken again
-        per_call = per_call_ms(profiled_kernels(run), calls)
+        kernels = profiled_kernels(run)
+        per_call = per_call_ms(kernels, calls)
         if per_call:
             break
-        print("profiler: a trace lost most launches; taken again")
+        print(f"profiler: a trace lost most launches of {calls} calls ("
+              + ", ".join(f"{n} x{c}" for n, _, c in kernels)[:300]
+              + "); taken again")
     else:
         raise AssertionError("the profiler saw no kernel of every call")
     if split is not None:
@@ -593,9 +628,9 @@ def device_time(prof):
 
 def profile_step(step, label, card, top):
     """One call of ``step`` (a training step) under torch.profiler after a
-    warm-up call: prints wall ms, device busy ms, the idle share, kernel
-    launches and the ``top`` device kernels and aten operations, and returns
-    them."""
+    warm-up call: prints (:func:`print_profile`, the ``top`` kernels and
+    operations) and returns wall ms, device busy ms, the idle share, kernel
+    launches and the 20 first device kernels and aten operations."""
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
@@ -606,20 +641,30 @@ def profile_step(step, label, card, top):
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t1) * 1e3
     busy_ms, kernels, ops = device_time(prof)
-    n_kernels = sum(n for _, _, n in kernels)
-    idle = "not measured (the profiler saw no device time)" if busy_ms == 0 \
-        else f"{max(0.0, 1 - busy_ms / wall_ms):.3f}"
-    print(f"profile {label}: wall_ms={wall_ms:.2f} device_busy_ms="
-          f"{busy_ms:.2f} idle_share={idle} kernel_launches={n_kernels} "
-          f"[{card}]")
-    for name, ms, n in (kernels[:top] + [("--- aten ops ---", 0.0, 0)]
-                        + ops[:top]):
-        share = 100 * ms / busy_ms if busy_ms else 0.0
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "idle_share": max(0.0, 1 - busy_ms / wall_ms) if busy_ms
+           else None,
+           "kernel_launches": sum(n for _, _, n in kernels),
+           "kernels": [list(k) for k in kernels[:20]],
+           "ops": [list(o) for o in ops[:20]]}
+    print_profile(label, out, card, top)
+    return out
+
+
+def print_profile(label, prof, card, top=None):
+    """Prints a profile (:func:`profile_step`, :func:`profiled_block`):
+    wall ms, device busy ms, the idle share, kernel launches and the
+    ``top`` device kernels and aten operations (all it holds: None)."""
+    idle = "not measured (the profiler saw no device time)" \
+        if not prof.get("device_busy_ms") else f"{prof['idle_share']:.3f}"
+    print(f"profile {label}: wall_ms={prof['wall_ms']:.2f} device_busy_ms="
+          f"{prof['device_busy_ms']:.2f} idle_share={idle} kernel_launches="
+          f"{prof['kernel_launches']} [{card}]")
+    busy = prof["device_busy_ms"]
+    for name, ms, n in (prof["kernels"][:top]
+                        + [["--- aten ops ---", 0.0, 0]] + prof["ops"][:top]):
+        share = 100 * ms / busy if busy else 0.0
         print(f"  {ms:8.3f} ms {share:5.1f}% x{n:<5d} {name[:90]}")
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "kernel_launches": n_kernels,
-            "kernels": [list(k) for k in kernels[:20]],
-            "ops": [list(o) for o in ops[:20]]}
 
 
 def profile_phase(mode, seed, device, card, report):
@@ -1144,9 +1189,55 @@ POOL_CASES = [
      torch.float32, "ints"),
     ("lenet_b64_pool2_nchw_f32", (64, 12, 8, 8), 2, 2, 0, False, "NCHW",
      torch.float32, "ints"),
+    # VGG for CIFAR-10's five 2x2/2 pools at batch 128 (NCHW f32, two_pass)
+    ("vgg_pool1_nchw_f32", (128, 64, 32, 32), 2, 2, 0, False, "NCHW",
+     torch.float32, "ints"),
+    ("vgg_pool2_nchw_f32", (128, 128, 16, 16), 2, 2, 0, False, "NCHW",
+     torch.float32, "ints"),
+    ("vgg_pool3_nchw_f32", (128, 256, 8, 8), 2, 2, 0, False, "NCHW",
+     torch.float32, "ints"),
+    ("vgg_pool4_nchw_f32", (128, 512, 4, 4), 2, 2, 0, False, "NCHW",
+     torch.float32, "ints"),
+    ("vgg_pool5_nchw_f32", (128, 512, 2, 2), 2, 2, 0, False, "NCHW",
+     torch.float32, "ints"),
+    # Inception v1's 13 pools at batch 256 (NHWC bf16, tiled_nhwc), its 10
+    # distinct geometries: four 3x3/2 ceil-mode pools (the stem's two,
+    # pool3, pool4) and the towers' 3x3/1 pad 1 (4b-4d and 5a-5b share one)
+    ("inception_pool1_nhwc_bf16", (256, 64, 112, 112), 3, 2, 0, True,
+     "NHWC", torch.bfloat16, "ints"),
+    ("inception_pool2_nhwc_bf16", (256, 192, 56, 56), 3, 2, 0, True,
+     "NHWC", torch.bfloat16, "ints"),
+    ("inception_3a_nhwc_bf16", (256, 192, 28, 28), 3, 1, 1, False, "NHWC",
+     torch.bfloat16, "ints"),
+    ("inception_3b_nhwc_bf16", (256, 256, 28, 28), 3, 1, 1, False, "NHWC",
+     torch.bfloat16, "ints"),
+    ("inception_pool3_nhwc_bf16", (256, 480, 28, 28), 3, 2, 0, True,
+     "NHWC", torch.bfloat16, "ints"),
+    ("inception_4a_nhwc_bf16", (256, 480, 14, 14), 3, 1, 1, False, "NHWC",
+     torch.bfloat16, "ints"),
+    ("inception_4b_nhwc_bf16", (256, 512, 14, 14), 3, 1, 1, False, "NHWC",
+     torch.bfloat16, "ints"),
+    ("inception_4e_nhwc_bf16", (256, 528, 14, 14), 3, 1, 1, False, "NHWC",
+     torch.bfloat16, "ints"),
+    ("inception_pool4_nhwc_bf16", (256, 832, 14, 14), 3, 2, 0, True,
+     "NHWC", torch.bfloat16, "ints"),
+    ("inception_5a_nhwc_bf16", (256, 832, 7, 7), 3, 1, 1, False, "NHWC",
+     torch.bfloat16, "ints"),
+    # the card-vs-CPU check's Inception v1 (NCHW f32, batch 4, two_pass):
+    # a 3x3/2 ceil-mode pool, and 3x3/1 pad 1 pools whose overlapping
+    # windows add into one input element, at 28x28 and at the 7x7 edge
+    ("inception_check_pool1_nchw_f32", (4, 64, 112, 112), 3, 2, 0, True,
+     "NCHW", torch.float32, "ints"),
+    ("inception_check_3a_nchw_f32", (4, 192, 28, 28), 3, 1, 1, False,
+     "NCHW", torch.float32, "ints"),
+    ("inception_check_5a_nchw_f32", (4, 832, 7, 7), 3, 1, 1, False, "NCHW",
+     torch.float32, "ints"),
 ]
 LENET_POOL_CASES = ("lenet_pool1_nchw_f32", "lenet_pool2_nchw_f32")
 DISTRI_POOL_CASES = ("lenet_b64_pool1_nchw_f32", "lenet_b64_pool2_nchw_f32")
+VGG_POOL_CASES = tuple(f"vgg_pool{i}_nchw_f32" for i in range(1, 6))
+INCEPTION_POOL_CASES = tuple(c[0] for c in POOL_CASES
+                             if c[0].startswith("inception_"))
 # the cases that take B1's tiled_nhwc variant: NHWC, C a whole number of
 # 16-byte vectors, 16-byte-aligned bases, 32-bit offsets and windows of
 # fewer than 255 positions; the others (NCHW, C=3, the 16x16 windows, the
@@ -1154,7 +1245,8 @@ DISTRI_POOL_CASES = ("lenet_b64_pool1_nchw_f32", "lenet_b64_pool2_nchw_f32")
 TILED_CASES = {"stem_nhwc_f32", "stem_nhwc_bf16", "stem_nhwc_bf16_relu",
                "3x3s1p1_nhwc_bf16", "3x3s2_ceil_odd_nhwc_f32",
                "3x3s2p1_c160_nhwc_bf16", "5x3s2p2x1_nhwc_f32",
-               "1x1s2_nhwc_bf16"}
+               "1x1s2_nhwc_bf16",
+               *(c for c in INCEPTION_POOL_CASES if c.endswith("_nhwc_bf16"))}
 
 
 def pair(v):
@@ -1243,60 +1335,70 @@ def pool_case_check(case, gen, device):
 
 
 def pool_kernel_phase(device, card, report):
-    """B1 against its plain version at every case of POOL_CASES, bitwise
-    (both add the same terms in the same order and dtype), each in the
-    variant that TILED_CASES names, then, at the ResNet-50 stem (NHWC,
-    batch 256) in bf16 (the training path's type) and f32: kernel, plain
-    and library times beside the bound."""
+    """B1 against its plain version at every case of POOL_CASES but VGG's
+    and Inception's (their phases check those), bitwise (both add the
+    same terms in the same order and dtype), each in the variant that
+    TILED_CASES names, then, at the ResNet-50 stem (NHWC, batch 256) in
+    bf16 (the training path's type) and f32: kernel, plain and library
+    times beside the bound."""
     gen = torch.Generator(device=device).manual_seed(2718)
     for case in POOL_CASES:
-        pool_case_check(case, gen, device)
-    rows = {name: stem_pool_row(name, dtype, gen, device, card)
-            for name, dtype in (("stem_nhwc_bf16", torch.bfloat16),
-                                ("stem_nhwc_f32", torch.float32))}
+        if case[0] not in VGG_POOL_CASES + INCEPTION_POOL_CASES:
+            pool_case_check(case, gen, device)
+    rows = {name: pool_row(pool_case(name), gen, device, card)
+            for name in ("stem_nhwc_bf16", "stem_nhwc_f32")}
     report["pool_kernel"] = rows
     return rows["stem_nhwc_bf16"]
 
 
-def stem_pool_row(name, dtype, gen, device, card):
-    """B1 at the ResNet-50 stem (NHWC, batch 256, post-ReLU inputs) in
-    ``dtype``: bitwise against its plain version on the timed inputs, then
-    kernel, plain and library times beside the bound."""
-    case = next(c for c in POOL_CASES if c[0] == name)
-    shape, k, s, p, ceil, fmt = case[1:7]
+def pool_case(name):
+    return next(c for c in POOL_CASES if c[0] == name)
+
+
+def pool_row(case, gen, device, card):
+    """B1 at one case of POOL_CASES on post-ReLU inputs (what every pool
+    of the main paths sees): bitwise against its plain version
+    on the timed inputs, in the variant TILED_CASES names, within rounding
+    of the library's ``max_pool2d_with_indices_backward``, then kernel,
+    plain and library times beside the bound."""
+    name, shape, k, s, p, ceil, fmt, dtype = case[:8]
     x, y, g, pads, kk, ss = pool_operands(shape, k, s, p, ceil, fmt,
                                           dtype, "relu", gen, device)
     # the library's own first-match pair: indices from the forward,
     # then the backward that scatters through them
-    _, ind = torch.nn.functional.max_pool2d(x, k, s, p,
+    kl, sl, pl = list(kk), list(ss), list(pair(p))
+    _, ind = torch.nn.functional.max_pool2d(x, kl, sl, pl, ceil_mode=ceil,
                                             return_indices=True)
     geo = (kk, ss, pads)
     fns = (lambda: maxpool.launch(x, y, g, *geo),
            lambda: maxpool.maxpool_bwd_reference(x, y, g, *geo),
            lambda: torch.ops.aten.max_pool2d_with_indices_backward(
-               g, x, [k, k], [s, s], [p, p], [1, 1], False, ind))
+               g, x, kl, sl, pl, [1, 1], ceil, ind))
     # the timed inputs too: bitwise against the plain version
     got, want = fns[0](), fns[1]()
     variant = maxpool.last_variant
-    if variant[0] != "tiled_nhwc":
-        raise AssertionError(f"B1 {name}: the stem took {variant}")
+    want_variant = "tiled_nhwc" if name in TILED_CASES else "two_pass"
+    if variant[0] != want_variant:
+        raise AssertionError(f"B1 {name}: took {variant}, want "
+                             f"{want_variant}")
     err = (got.float() - want.float()).abs().max().item()
     if not torch.equal(got, want):
         raise AssertionError(f"B1 {name} on the timed inputs: max abs "
                              f"err {err} against its plain version")
-    # the same function: the library sums a position's (at most 4)
+    # the same function: the library sums a position's (at most n)
     # window gradients in f32 in another order and rounds once, B1
     # rounds to x's dtype after each add: they agree within one ulp of
-    # a partial sum (at most 4 max|g|) for each of the 4 adds
+    # a partial sum (at most n max|g|) for each of the n adds
     lib = fns[2]()
+    n = -(-kk[0] // ss[0]) * -(-kk[1] // ss[1])
     ulp = 2.0 ** -23 if dtype == torch.float32 else 2.0 ** -7
     torch.testing.assert_close(lib.float(), got.float(), rtol=0,
-                               atol=16 * ulp * g.abs().max().item())
+                               atol=n * n * ulp * g.abs().max().item())
     del got, want
     passes = []
+    k_ev, p_ev, l_ev = (cuda_ms(f, budget_ms=100.0) for f in fns)
     k_ms = device_ms(fns[0], calls=20, split=passes)
     l_ms = device_ms(fns[2], calls=20)
-    k_ev, p_ev, l_ev = (cuda_ms(f, budget_ms=100.0) for f in fns)
     b_ms, b_by, nbytes = pool_bound(shape, y.shape, dtype)
     row = {"ms": k_ms, "plain_ms": p_ev, "library_ms": l_ms,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
@@ -1304,10 +1406,11 @@ def stem_pool_row(name, dtype, gen, device, card):
            "library_call": "aten.max_pool2d_with_indices_backward "
                            "(indices from max_pool2d)",
            "passes": passes, "variant": list(variant)}
-    print(f"maxpool_bwd {name} x {tuple(x.shape)} {variant[0]} (tile of "
+    print(f"maxpool_bwd {name} x {tuple(x.shape)} {fmt} {dtype} kernel "
+          f"{kk} stride {ss} pads {pads}: {variant[0]} (tile of "
           f"{variant[1]}, vectors {variant[2]}, blocks {variant[3]}): "
           f"max_abs_err={err} "
-          f"against the plain version; device ms per call "
+          f"against the plain version; device ms per call (torch.profiler) "
           f"kernel_ms={k_ms:.4f} library_ms={l_ms:.4f}; event-timed "
           f"kernel {k_ev:.4f} plain {p_ev:.4f} library {l_ev:.4f}; "
           f"bound_ms={b_ms:.4f} ({b_by}: {nbytes / 1e9:.3f} GB at "
@@ -2268,17 +2371,29 @@ def wd_cpu_step(init, params, batch):
     return loss.item(), {k: p.grad.double() for k, p in m.named_parameters()}
 
 
-def wd_step_reading(losses, steps, init, batches, cpu_step=wd_cpu_step):
+def max_share(got, want):
+    """The largest difference as a share of ``want``'s largest value."""
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def norm_share(got, want):
+    """``||got - want|| / ||want||``."""
+    return (got - want).norm().item() / max(want.norm().item(), 1e-300)
+
+
+def wd_step_reading(losses, steps, init, batches, cpu_step=wd_cpu_step,
+                    share=max_share):
     """How far a K-step card run is from the CPU, step by step: the weights
     the card started from against ``init`` (per array, the largest
     difference as a share of its largest value), and for each step j the
     relative difference of its loss and, per array, of its gradient (as a
-    share of the array's largest gradient on the CPU) from the same step
-    on the CPU from the card's own weights of step j.  (reading, its four
-    largest (share, what)).  Per array, not per layer as in
-    :func:`grad_reading`: no gradient here is a sum that nearly cancels
-    (the sound readings of the card runs are a few 1e-7), and the wide
-    weight's own gradient is held apart from the bias's.
+    share of the array's largest gradient on the CPU; Inception's check
+    passes ``norm_share``) from the same step on the CPU from the card's
+    own weights of step j.  (reading, its four largest (share, what)).
+    Per array, not per layer as in :func:`grad_reading`: no gradient here
+    is a sum that nearly cancels (the sound readings of the card runs are
+    a few 1e-7), and the wide weight's own gradient is held apart from
+    the bias's.
 
     Step by step, not over the trained weights (the PTB check's reading,
     :func:`train_reading`, printed beside it): Adam moves each weight by
@@ -2288,13 +2403,13 @@ def wd_step_reading(losses, steps, init, batches, cpu_step=wd_cpu_step):
     swings from run to run with the signs that flip.  ``cpu_step`` redoes
     one step on the CPU (LeNet's check passes its own)."""
     start = flat_params(init)
-    rows = [(((steps[0][0][k] - w).abs().max() / w.abs().max()).item(),
-             f"start {k}") for k, w in start.items()]
+    rows = [(max_share(steps[0][0][k], w), f"start {k}")
+            for k, w in start.items()]
     for j, (params, grads) in enumerate(steps):
         loss, want = cpu_step(init, params, batches[j])
         rows.append((abs(losses[j] - loss) / abs(loss), f"step {j} loss"))
-        rows += [(((grads[k] - w).abs().max() / w.abs().max()).item(),
-                  f"step {j} {k}") for k, w in want.items()]
+        rows += [(share(grads[k], w), f"step {j} {k}")
+                 for k, w in want.items()]
     rows.sort(reverse=True)
     return rows[0][0], rows[:4]
 
@@ -3485,8 +3600,604 @@ def distri_phase(seed, device, card, report):
     return launches
 
 
+# ------------------------------------------------- CIFAR-10: VGG, ResNet-20
+# The recipes of examples/vgg/train.py and examples/resnet/train_cifar10.py
+# on synthetic CIFAR-10 at the real split's sizes (50,000 training and
+# 10,000 validation images): batch 128, normalize, pad-4 crop, flip and
+# CHW through MTSampleToMiniBatch (8 workers), Top-1 over the validation
+# images after every epoch.  HFlip turns two pairs of synthetic classes
+# (0/3 and 4/7: the same square and channel, mirrored) into the same
+# images, so Top-1 tops out near 0.8 on this data; "min_top1" is the bar.
+# The per-sample pipeline holds a step to ~100 ms on the card's host
+# (PERF.md section 5), ~40 s an epoch: VGG's LocalOptimizer run takes one
+# epoch, ResNet-20's (which launches no kernel) and VGG's DistriOptimizer
+# run the "steps" they name, Top-1 at their end; each profiles the block
+# (one step, K=1) at "profile_at".
+CIFAR = {"train": 50_000, "val": 10_000, "batch": 128, "workers": 8,
+         "epochs": 1, "steps": {"resnet20": 150, "vgg_distri": 100},
+         "warmup_steps": 20,
+         "profile_at": {"vgg": 200, "resnet20": 60, "vgg_distri": 60},
+         "check_K": 4, "min_top1": 0.5}
+_CIFAR_DATA = {}
+
+
+def cifar_data():
+    """(training, validation) Samples of synthetic_cifar, made once."""
+    if not _CIFAR_DATA:
+        t0 = time.monotonic()
+        _CIFAR_DATA["train"] = cifar.to_samples(
+            *cifar.synthetic_cifar(CIFAR["train"]))
+        _CIFAR_DATA["val"] = cifar.to_samples(
+            *cifar.synthetic_cifar(CIFAR["val"], seed=9))
+        print(f"cifar data: synthetic_cifar {CIFAR['train']} training and "
+              f"{CIFAR['val']} validation images in "
+              f"{time.monotonic() - t0:.1f} s")
+    return _CIFAR_DATA["train"], _CIFAR_DATA["val"]
+
+
+def cifar_augment():
+    """The recipes' per-sample training augmentation: normalize, pad 4
+    and crop 32, flip, HWC to CHW (each transform made once: it carries
+    its random stream)."""
+    train_aug = (image.BGRImgNormalizer(cifar.TRAIN_MEAN, cifar.TRAIN_STD),
+                 image.RandomCropper(32, 32, pad=4), image.HFlip(),
+                 image.ChannelOrder("CHW"))
+
+    def augment(s):
+        for t in train_aug:
+            s = next(iter(t(iter([s]))))
+        return s
+    return augment
+
+
+def cifar_train_set(samples, distributed=False):
+    return (DataSet.array(samples, distributed=distributed)
+            >> MTSampleToMiniBatch(CIFAR["batch"], cifar_augment(),
+                                   workers=CIFAR["workers"]))
+
+
+def cifar_val_set(samples):
+    return (DataSet.array(samples)
+            >> image.BGRImgNormalizer(cifar.TRAIN_MEAN, cifar.TRAIN_STD)
+            >> image.ChannelOrder("CHW")
+            >> SampleToMiniBatch(CIFAR["batch"], drop_remainder=False))
+
+
+def cifar_sgd(name):
+    """The recipe's SGD: ResNet-20's nesterov with MultiStep at epochs 80
+    and 120, VGG's with EpochStep(25, 0.5)."""
+    if name == "resnet20":
+        return optim.SGD(0.1, momentum=0.9, dampening=0.0, nesterov=True,
+                         weight_decay=1e-4,
+                         learning_rate_schedule=optim.MultiStep(
+                             [80, 120], 0.1, epoch_based=True))
+    return optim.SGD(0.01, momentum=0.9, dampening=0.0, weight_decay=5e-4,
+                     learning_rate_schedule=optim.EpochStep(25, 0.5))
+
+
+def cifar_model(name, seed):
+    model = resnet_cifar(20, class_num=10) if name == "resnet20" \
+        else vgg_for_cifar10(10)
+    return model.initialize(seed)
+
+
+def cifar_run(name, seed, device, card, distributed=False):
+    """One recipe run through LocalOptimizer or, ``distributed``, the
+    DistriOptimizer the recipe's --distributed builds (over
+    ``DataSet.array(..., distributed=True)``; world 1 over NCCL):
+    CIFAR["epochs"] epochs, Top-1 over the validation images after every
+    epoch, or the CIFAR["steps"] the run names, Top-1 at their end.
+    Prints images/s and ms a step (host clock at replay, after the first
+    CIFAR["warmup_steps"] steps, up to the first validation), peak
+    memory, a profiled block and B1's launches; fails unless the loss
+    falls, the last Top-1 passes CIFAR["min_top1"] and B1
+    launched 5 times a VGG step (two_pass) and never for ResNet-20."""
+    key = name + ("_distri" if distributed else "")
+    B, w = CIFAR["batch"], CIFAR["warmup_steps"]
+    per_epoch = -(-CIFAR["train"] // B)
+    steps = CIFAR["steps"].get(key, CIFAR["epochs"] * per_epoch)
+    train, val = cifar_data()
+    losses, clock, scores, prof = [], [], [], {}
+    cls = optim.DistriOptimizer if distributed else LocalOptimizer
+
+    class Recording(profiled_block(cls, CIFAR["profile_at"][key], card, 8,
+                                   prof)):
+        def _log_train_iteration(self, lr):
+            losses.append(self.state["loss"])
+            clock.append(time.perf_counter())
+
+        def _run_validation(self, run):
+            t = time.perf_counter()
+            res = super()._run_validation(run)
+            if res is not None:
+                scores.append({"neval": self.state["neval"],
+                               "top1": res["Top1Accuracy"].result,
+                               "count": res["Top1Accuracy"].count,
+                               "s": time.perf_counter() - t})
+            return res
+
+    opt = (Recording(cifar_model(name, seed),
+                     cifar_train_set(train, distributed),
+                     nn.ClassNLLCriterion(), device=device)
+           .set_optim_method(cifar_sgd(name))
+           .set_end_when(optim.max_iteration(steps))
+           .set_validation(optim.several_iteration(steps)
+                           if key in CIFAR["steps"] else optim.every_epoch(),
+                           cifar_val_set(val),
+                           [optim.Top1Accuracy()]))
+    torch.cuda.reset_peak_memory_stats()
+    maxpool.reset_counts()
+    t1 = time.monotonic()
+    opt.optimize()
+    wall = time.monotonic() - t1
+    peak = torch.cuda.max_memory_allocated()
+    launches = maxpool.launches
+    want = 5 * steps if name == "vgg" else 0
+    if opt.state["neval"] != steps or launches != want \
+            or maxpool.variant_launches["two_pass"] != want:
+        raise AssertionError(f"{key}: {opt.state['neval']} steps, B1 "
+                             f"launched {launches} times "
+                             f"({maxpool.variant_launches}); want {steps} "
+                             f"steps and {want} two_pass launches")
+    if distributed and not (opt._world == 1 and opt._use_grad_sync and
+                            opt.mesh.backend == ("nccl" if device.type ==
+                                                 "cuda" else "gloo")):
+        raise AssertionError(f"{key}: not the world-1 grad_sync path")
+    end = min(steps, per_epoch) - 1
+    step_s = (clock[end] - clock[w]) / (end - w)
+    first, last = np.mean(losses[:w]), np.mean(losses[-w:])
+    what = {"vgg": "VGG for CIFAR-10", "resnet20": "ResNet-20"}[name]
+    route = "DistriOptimizer world 1 " + opt.mesh.backend if distributed \
+        else "LocalOptimizer"
+    kernel = (f"B1 launches {launches}, 5 a step, all two_pass" if want
+              else "no max pool, no kernel: B1 launches 0")
+    print(f"train {what} {route} NCHW f32 batch {B}: {steps} steps, "
+          f"{wall:.2f} s with validation; steps {w}..{end}: ms_per_step="
+          f"{step_s * 1e3:.3f} images_per_s={B / step_s:.1f} "
+          f"max_memory_allocated={peak}; mean loss of the first / last {w} "
+          f"steps {first:.4f} / {last:.4f}; {kernel} [{card}]")
+    for s in scores:
+        print(f"{key} validation after iteration {s['neval']}: "
+              f"Top1Accuracy={s['top1']:.4f} over {int(s['count'])} images "
+              f"in {s['s'] * 1e3:.1f} ms [{card}]")
+    print_profile(f"{key} step {CIFAR['profile_at'][key]} (batch {B}, f32)",
+                  prof, card)
+    if not scores or len(scores) != max(1, steps // per_epoch) \
+            or scores[-1]["count"] != CIFAR["val"]:
+        raise AssertionError(f"{key}: {len(scores)} validations in {steps} "
+                             f"steps, the last over "
+                             f"{scores[-1]['count'] if scores else 0} "
+                             f"images")
+    if not scores[-1]["top1"] > CIFAR["min_top1"]:
+        raise AssertionError(f"{key}: Top-1 {scores[-1]['top1']:.4f} after "
+                             f"{steps} steps, want > {CIFAR['min_top1']}")
+    if not (np.all(np.isfinite(losses)) and last < first):
+        raise AssertionError(f"{key}: the loss is not finite and falling "
+                             f"({first} -> {last})")
+    return {"steps": steps, "wall_s": wall, "ms_per_step": step_s * 1e3,
+            "images_per_s": B / step_s, "max_memory_allocated": peak,
+            "first_loss": first, "last_loss": last, "validations": scores,
+            "launches": launches, "profile": prof}
+
+
+def pool_cases_phase(names, seed, device, card, report, key):
+    """B1 at the cases ``names`` of POOL_CASES: bitwise against its plain
+    version on integer inputs (ties) in the variant TILED_CASES names,
+    then :func:`pool_row` on post-ReLU inputs (time, bound, library)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rows = {}
+    for name in names:
+        case = pool_case(name)
+        pool_case_check(case, gen, device)
+        rows[name] = pool_row(case, gen, device, card)
+        torch.cuda.empty_cache()
+    report[key] = rows
+    return rows
+
+
+def cifar_distri_vs_local(seed, device, card, report):
+    """VGG's world-1 DistriOptimizer (f32 wire) against LocalOptimizer
+    over one K-step block of the recipe's pipeline from the same weights,
+    under torch.use_deterministic_algorithms: losses and weights must be
+    equal bit for bit."""
+    K, B = CIFAR["check_K"], CIFAR["batch"]
+    train, _ = cifar_data()
+    init = cifar_model("vgg", seed + 1)
+
+    def data():
+        return DataSet.array(train[:K * B]) >> MTSampleToMiniBatch(
+            B, cifar_augment(), workers=CIFAR["workers"])
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        local = copy.deepcopy(init)
+        llosses = []
+        lopt = (LocalOptimizer(local, data(), nn.ClassNLLCriterion(),
+                               device=device)
+                .set_optim_method(cifar_sgd("vgg")).set_steps_per_dispatch(K)
+                .set_end_when(optim.max_iteration(K)))
+        lopt._log_train_iteration = \
+            lambda lr: llosses.append(lopt.state["loss"])
+        lopt.optimize()
+        dist_model = copy.deepcopy(init)
+        dopt = distri_optimizer(dist_model, data(), device, "f32", K, K,
+                                cifar_sgd("vgg"))
+        dopt.optimize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = llosses == dopt.losses and params_equal(local, dist_model)
+    print(f"vgg distri world 1 vs LocalOptimizer, K={K} block of batch {B}: "
+          f"losses and weights bitwise {same} (buckets "
+          f"{dopt._gs_plan.num_buckets}); losses "
+          + ", ".join(f"{v:.6f}" for v in dopt.losses) + f" [{card}]")
+    report["cifar_distri_vs_local"] = {"bitwise": same,
+                                       "losses": dopt.losses,
+                                       "local_losses": llosses}
+    if not same:
+        raise AssertionError(f"VGG through DistriOptimizer at world 1 is "
+                             f"not LocalOptimizer bit for bit: "
+                             f"{dopt.losses} vs {llosses}")
+
+
+def cifar_phase(seed, device, card, report):
+    """The CIFAR-10 training phases; returns each run's results (B1's
+    launches on the main path: ``["vgg"]["launches"]``)."""
+    out = {}
+    for name, distributed in (("vgg", False), ("resnet20", False),
+                              ("vgg", True)):
+        t0 = time.monotonic()
+        key = name + ("_distri" if distributed else "")
+        out[key] = cifar_run(name, seed, device, card, distributed)
+        torch.cuda.empty_cache()
+        print(f"phase cifar-{key}: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    cifar_distri_vs_local(seed, device, card, report)
+    torch.cuda.empty_cache()
+    print(f"phase cifar-distri-vs-local: {time.monotonic() - t0:.1f} s")
+    # the world-1 group the runs started
+    torch.distributed.destroy_process_group()
+    Engine.set_mesh(None)
+    report["cifar"] = out
+    return out
+
+
+# ------------------------------------------------------------ Inception v1
+# bench.py's configuration of the BigDL whitepaper's model: NHWC, bf16
+# compute, batch 256, 224x224, 1000 classes, with the recipe's SGD
+# (examples/inception/train.py: lr 0.0898, momentum 0.9, dampening 0,
+# weight decay 1e-4, Poly(0.5, 62000)) and augmentation, K=4.  The example's
+# synthetic images, 1024 of them, each "repeat" times an epoch: 16 steps,
+# four blocks an epoch, so one block in four ends an epoch and has the
+# next block staged after it rather than beside it.  Each run times 16
+# steps (four blocks, one epoch's end among them).
+INCEPTION = {"batch": 256, "K": 4, "size": 224, "classes": 1000,
+             "samples": 1024, "repeat": 4, "workers": 8, "timed_blocks": 4,
+             "check_batch": 4, "check_K": 4,
+             # the check's LRN: an even size (where torch's window differs
+             # from the reference's) and alpha 1 (the model's 1e-4 leaves
+             # LRN within 1e-3 of the identity, blind to its window)
+             "check_lrn": (4, 1.0, 0.75, 1.0)}
+# the card against the CPU, step by step: each step's loss and each
+# parameter's gradient (||g_card - g_cpu|| / ||g_cpu||), from the card's own
+# weights of that step; above the sound readings, below the two planted
+# faults that every run measures and requires to exceed it
+INCEPTION_TRAIN_TOL = 5e-2
+_INCEPTION_DATA = {}
+
+
+def synthetic_imagenet(n, size=224, classes=1000, seed=0):
+    """The Inception example's synthetic stand-in: a class-coloured 56x56
+    patch on noise, uint8 HWC."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, classes, n).astype(np.int32)
+    imgs = rng.integers(0, 60, (n, size, size, 3)).astype(np.float32)
+    for i, y in enumerate(labels):
+        r, c = divmod(int(y) % 16, 4)
+        imgs[i, r * 56:(r + 1) * 56, c * 56:(c + 1) * 56, int(y) % 3] += 150
+    return imgs.astype(np.uint8), labels
+
+
+def inception_augment(size, to_chw=False):
+    """The recipe's per-sample augmentation (HWC for the NHWC model)."""
+    aug = (V.RandomAlterAspect(target_size=size) >> V.HFlip()
+           >> V.ChannelNormalize((123.0, 117.0, 104.0), (58.4, 57.1, 57.4))
+           >> V.ImageFrameToSample(to_chw=to_chw))
+    return lambda s: aug(V.ImageFeature(s.feature, s.label))["sample"]
+
+
+def inception_data():
+    """(samples, their pre-augmented NHWC Samples), made once."""
+    if not _INCEPTION_DATA:
+        B, size = INCEPTION["batch"], INCEPTION["size"]
+        t0 = time.monotonic()
+        samples = cifar.to_samples(*synthetic_imagenet(
+            INCEPTION["samples"], size, INCEPTION["classes"]))
+        it = (DataSet.array(samples) >> MTSampleToMiniBatch(
+            B, inception_augment(size), workers=INCEPTION["workers"])).data(
+                train=False)
+        augmented = [Sample(f, t) for b in it
+                     for f, t in zip(b.input, b.target)]
+        _INCEPTION_DATA["samples"] = samples
+        _INCEPTION_DATA["augmented"] = augmented
+        print(f"inception data: {len(samples)} synthetic images, "
+              f"pre-augmented in {time.monotonic() - t0:.1f} s (8 workers)")
+    return _INCEPTION_DATA["samples"], _INCEPTION_DATA["augmented"]
+
+
+def inception_sgd(cls=optim.SGD):
+    return cls(learning_rate=0.0898, momentum=0.9, dampening=0.0,
+               weight_decay=1e-4,
+               learning_rate_schedule=optim.Poly(0.5, 62000))
+
+
+def profiled_block(cls, at, card, top, out):
+    """``cls`` (an optimizer) whose block ``at`` (0-based) runs under
+    torch.profiler, from its enqueue to the next block's: that block's
+    device work, the next block's staging (the data pipeline's wait) and
+    the replay of the block before.  ``out`` gets wall ms, device busy ms,
+    the idle share and the top kernels and aten operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    class Profiled(cls):
+        def _block(self, step_fn, staged, lrs, first_step):
+            n = self._blocks_seen = getattr(self, "_blocks_seen", -1) + 1
+            if n == at + 1:
+                torch.cuda.synchronize()
+                wall_ms = (time.monotonic() - self._prof_t0) * 1e3
+                self._prof.__exit__(None, None, None)
+                busy_ms, kernels, ops = device_time(self._prof)
+                out.update(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                           idle_share=max(0.0, 1 - busy_ms / wall_ms)
+                           if busy_ms else None,
+                           kernel_launches=sum(c for _, _, c in kernels),
+                           kernels=[list(k) for k in kernels[:top]],
+                           ops=[list(o) for o in ops[:top]],
+                           steps=len(staged.sizes))
+            if n == at:
+                torch.cuda.synchronize()
+                self._prof = profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA])
+                self._prof.__enter__()
+                self._prof_t0 = time.monotonic()
+            return super()._block(step_fn, staged, lrs, first_step)
+    return Profiled
+
+
+def inception_timed_phase(seed, device, card, report):
+    """Inception v1 on the card, timed twice: over batches augmented
+    beforehand and through the recipe's own pipeline (MTSampleToMiniBatch,
+    8 workers).  Each run: a warm-up K=4 block, the timed blocks (images/s
+    and ms a step from the host clock at each block's replay), a profiled
+    block (idle share, top device kernels and operations) and a closing
+    block; block losses that must be finite and fall, peak memory, B1's
+    launches (13 a step, all bf16, all tiled_nhwc).  Returns B1's launches
+    in the pre-augmented run."""
+    B, K, size = INCEPTION["batch"], INCEPTION["K"], INCEPTION["size"]
+    samples, augmented = inception_data()
+    r = INCEPTION["repeat"]
+    init = inception_v1(INCEPTION["classes"], format="NHWC").initialize(seed)
+    datasets = {
+        "pre_augmented": lambda: DataSet.array(augmented * r)
+        >> SampleToMiniBatch(B),
+        "pipeline": lambda: DataSet.array(samples * r)
+        >> MTSampleToMiniBatch(B, inception_augment(size),
+                               workers=INCEPTION["workers"])}
+    out, launches = {}, {}
+    sound_launch = maxpool.launch
+    timed = INCEPTION["timed_blocks"]
+    for name, make in datasets.items():
+        t0 = time.monotonic()
+        # the warm-up block, the timed ones, one whose replay waits on the
+        # profiled block's enqueue (kept out of the timing), the profiled
+        # block and the one that closes its window
+        steps = K * (timed + 4)
+        losses, clock, prof = [], [], {}
+
+        class Recording(profiled_block(LocalOptimizer, timed + 2, card, 10,
+                                       prof)):
+            def _log_train_iteration(self, lr):
+                losses.append(self.state["loss"])
+                clock.append(time.perf_counter())
+
+        opt = (Recording(copy.deepcopy(init), make(), nn.ClassNLLCriterion(),
+                         device=device)
+               .set_optim_method(inception_sgd())
+               .set_compute_dtype(torch.bfloat16).set_steps_per_dispatch(K)
+               .set_end_when(optim.max_iteration(steps)))
+        torch.cuda.reset_peak_memory_stats()
+        maxpool.reset_counts()
+        dtypes = []  # of every B1 launch: the activations are bf16
+
+        def launch(x, *a):
+            dtypes.append(x.dtype)
+            return sound_launch(x, *a)
+        maxpool.launch = launch
+        try:
+            opt.optimize()
+        finally:
+            maxpool.launch = sound_launch
+        launches[name] = maxpool.launches
+        peak = torch.cuda.max_memory_allocated()
+        if opt.state["neval"] != steps or launches[name] != 13 * steps \
+                or maxpool.variant_launches["tiled_nhwc"] != 13 * steps:
+            raise AssertionError(f"inception {name}: B1 launched "
+                                 f"{launches[name]} times "
+                                 f"({maxpool.variant_launches}) in "
+                                 f"{opt.state['neval']} steps; want 13 "
+                                 f"tiled_nhwc a step")
+        if set(dtypes) != {torch.bfloat16}:
+            raise AssertionError(f"inception {name}: B1 ran on "
+                                 f"{set(dtypes)}, not on bf16")
+        blocks = [float(np.mean(losses[i:i + K]))
+                  for i in range(0, steps, K)]
+        if not (np.all(np.isfinite(losses)) and blocks[-1] < blocks[0]):
+            raise AssertionError(f"inception {name}: the loss is not finite "
+                                 f"and falling: {blocks}")
+        # block b's losses come back after block b+1 is enqueued: the
+        # clock at the last step of each block marks that block's end
+        ends = [clock[i + K - 1] for i in range(0, K * (timed + 1), K)]
+        step_s = (ends[-1] - ends[0]) / (K * timed)
+        out[name] = {"ms_per_step": step_s * 1e3,
+                     "images_per_s": B / step_s, "block_losses": blocks,
+                     "losses": losses, "max_memory_allocated": peak,
+                     "launches": launches[name], "profile": prof,
+                     "wall_s": time.monotonic() - t0}
+        print(f"train inception_v1 {name} NHWC bf16 batch {B} K={K}: "
+              f"{steps} steps, the {timed} timed blocks after the first: "
+              f"ms_per_step={step_s * 1e3:.2f} images_per_s="
+              f"{B / step_s:.1f} max_memory_allocated={peak} block losses "
+              + ", ".join(f"{v:.4f}" for v in blocks)
+              + f"; B1 launches {launches[name]} for {steps} steps, 13 a "
+              f"step, all bf16 tiled_nhwc; run {time.monotonic() - t0:.1f} "
+              f"s [{card}]")
+        print_profile(f"inception_v1 {name} block {timed + 2} ({K} steps "
+                      f"of batch {B}, bf16)", prof, card)
+        del opt
+        torch.cuda.empty_cache()
+    report["inception_train"] = out
+    return launches["pre_augmented"]
+
+
+def inception_check_model(seed):
+    """The check's Inception v1: NCHW f32, the LRNs at INCEPTION["check_lrn"]
+    and dropout off (its mask comes from the card's generator, which the
+    CPU cannot redraw)."""
+    model = inception_v1(INCEPTION["classes"]).initialize(seed)
+    size, alpha, beta, k = INCEPTION["check_lrn"]
+    for m in model.modules():
+        if isinstance(m, nn.SpatialCrossMapLRN):
+            m.size, m.alpha, m.beta, m.k = size, alpha, beta, k
+        if isinstance(m, nn.Dropout):
+            m.p = 0.0
+    return model
+
+
+def inception_cpu_step(init, params, batch):
+    """The loss and the gradients of one check step on the CPU (the plain
+    versions), from ``params`` on ``batch``."""
+    m = copy.deepcopy(init)
+    with torch.no_grad():
+        for k, p in m.named_parameters():
+            p.copy_(params[k])
+            p.requires_grad_(True)
+    loss = nn.ClassNLLCriterion().apply(m(torch.from_numpy(batch.input)),
+                                        torch.from_numpy(batch.target))
+    loss.backward()
+    return loss.item(), {k: p.grad.double() for k, p in m.named_parameters()}
+
+
+@contextlib.contextmanager
+def planted_inception_fault(kind):
+    """A fault of the card run: ``"lrn_torch_window"`` (the LRNs through
+    ``torch.nn.functional.local_response_norm``, whose even window sits
+    one channel lower than the reference's) or ``"concat_towers_swapped"``
+    (module 4a concatenates its 3x3 and 5x5 towers the other way round);
+    None: sound."""
+    sound = {nn.SpatialCrossMapLRN: nn.SpatialCrossMapLRN.forward,
+             nn.Concat: nn.Concat.forward}
+    if kind == "lrn_torch_window":
+        nn.SpatialCrossMapLRN.forward = \
+            lambda self, x: torch.nn.functional.local_response_norm(
+                x, self.size, self.alpha, self.beta, self.k)
+    elif kind == "concat_towers_swapped":
+        def forward(self, x):
+            outs = [m(x) for m in self._modules.values()]
+            if self.name == "4a":
+                outs[1], outs[2] = outs[2], outs[1]
+            return torch.cat(outs, self.dim)
+        nn.Concat.forward = forward
+    elif kind is not None:
+        raise ValueError(f"unknown planted fault {kind!r}")
+    try:
+        yield
+    finally:
+        for cls, fn in sound.items():
+            cls.forward = fn
+
+
+def inception_check_phase(seed, device, card, report):
+    """Inception v1 in NCHW f32 at batch INCEPTION["check_batch"] through
+    one K=4 LocalOptimizer block on the card (B1 two_pass, 13 launches a
+    step) against the CPU, step by step (:func:`wd_step_reading` with
+    :func:`norm_share`), with
+    the recipe's SGD; the two planted faults of
+    :func:`planted_inception_fault` must read above INCEPTION_TRAIN_TOL."""
+    K, B = INCEPTION["check_K"], INCEPTION["check_batch"]
+    samples, _ = inception_data()
+    it = (DataSet.array(samples[:K * B]) >> MTSampleToMiniBatch(
+        B, inception_augment(INCEPTION["size"], to_chw=True),
+        workers=INCEPTION["workers"])).data(train=False)
+    batches = list(it)
+    flat = [Sample(f, t) for b in batches for f, t in zip(b.input, b.target)]
+    init = inception_check_model(seed + 1)
+
+    def card_run(fault=None):
+        sgd = inception_sgd(recording(optim.SGD))
+        losses = []
+        opt = (LocalOptimizer(copy.deepcopy(init),
+                              DataSet.array(flat) >> SampleToMiniBatch(B),
+                              nn.ClassNLLCriterion(), device=device)
+               .set_optim_method(sgd).set_steps_per_dispatch(K)
+               .set_end_when(optim.max_iteration(K)))
+        opt._log_train_iteration = lambda lr: losses.append(opt.state["loss"])
+        with planted_inception_fault(fault):
+            opt.optimize()
+        return losses, sgd.steps
+
+    maxpool.reset_counts()
+    card_losses, card_steps = card_run()
+    launches = maxpool.launches
+    if launches != 13 * K or \
+            maxpool.variant_launches["two_pass"] != 13 * K:
+        raise AssertionError(f"B1 launched {launches} times "
+                             f"({maxpool.variant_launches}) in {K} NCHW "
+                             f"steps (want 13 two_pass a step)")
+    sound, worst = wd_step_reading(card_losses, card_steps, init, batches,
+                                   inception_cpu_step, norm_share)
+    faults, fault_worst = {}, {}
+    for fault in ("lrn_torch_window", "concat_towers_swapped"):
+        faults[fault], fault_worst[fault] = wd_step_reading(
+            *card_run(fault), init, batches, inception_cpu_step, norm_share)
+    print(f"inception train-vs-cpu largest shares (share, what): sound "
+          f"{worst}; " + "; ".join(f"{k} {v}" for k, v in fault_worst.items()))
+    print(f"inception train-vs-cpu check, NCHW f32, {K} steps of batch {B} "
+          f"step by step: sound {sound:.3e}, planted faults "
+          + ", ".join(f"{k} {v:.3e}" for k, v in faults.items())
+          + f" (tol {INCEPTION_TRAIN_TOL}); card losses "
+          + ", ".join(f"{v:.6f}" for v in card_losses) + f" [{card}]")
+    report["inception_check"] = {"sound": sound, "largest": worst,
+                                 "planted_faults": faults,
+                                 "planted_largest": fault_worst,
+                                 "tol": INCEPTION_TRAIN_TOL,
+                                 "card_losses": card_losses,
+                                 "launches": launches}
+    if not sound <= INCEPTION_TRAIN_TOL:
+        raise AssertionError(f"Inception v1 on the card is {sound:.3e} from "
+                             f"the CPU, over the limit {INCEPTION_TRAIN_TOL}")
+    for fault, err in faults.items():
+        if not err > INCEPTION_TRAIN_TOL:
+            raise AssertionError(
+                f"planted fault {fault} reads {err:.3e}, inside the "
+                f"Inception tolerance {INCEPTION_TRAIN_TOL}: the check is "
+                f"blind")
+
+
+def inception_phase(seed, device, card, report):
+    """The Inception v1 training phases; returns B1's launches on the main
+    path (the pre-augmented timed run)."""
+    t0 = time.monotonic()
+    launches = inception_timed_phase(seed, device, card, report)
+    torch.cuda.empty_cache()
+    print(f"phase inception-timed: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    inception_check_phase(seed, device, card, report)
+    torch.cuda.empty_cache()
+    print(f"phase inception-vs-cpu: {time.monotonic() - t0:.1f} s")
+    return launches
+
+
 PHASES = ("resnet", "lstm", "resnet-train", "wide-deep", "lenet",
-          "distri")
+          "distri", "cifar", "inception")
 EXTRA_PHASES = ("resnet-conditioning",)  # run only when named
 
 
@@ -3666,8 +4377,7 @@ def main(argv=None) -> int:
                      None)
         if entry is None:  # the stem was not checked: check and time it
             gen = torch.Generator(device=device).manual_seed(2718)
-            row = stem_pool_row("stem_nhwc_bf16", torch.bfloat16, gen,
-                                device, card)
+            row = pool_row(pool_case("stem_nhwc_bf16"), gen, device, card)
             entry = {"name": "maxpool_bwd", **POOL_KERNEL,
                      "launches": launches,
                      **{k: row[k] for k in (
@@ -3675,6 +4385,40 @@ def main(argv=None) -> int:
                          "bound_by", "library_ms", "variant")}}
             kernels.append(entry)
         entry["distri"] = {"launches": launches}
+    pool_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "variant")
+    # B1 at both paths' pools, bitwise and timed; then their training runs
+    pool_rows = {}
+    for phase, names, pool_seed in (("cifar", VGG_POOL_CASES, 1618),
+                                    ("inception", INCEPTION_POOL_CASES, 1414)):
+        if phase in phases:
+            t0 = time.monotonic()
+            pool_rows[phase] = pool_cases_phase(names, pool_seed, device, card,
+                                                report, f"{phase}_pool")
+            print(f"phase {phase}-pool: {time.monotonic() - t0:.1f} s")
+    for phase, run in (("cifar", cifar_phase), ("inception", inception_phase)):
+        if phase not in phases:
+            continue
+        runs, rows = run(args.seed, device, card, report), pool_rows[phase]
+        launches = runs["vgg"]["launches"] if phase == "cifar" else runs
+        entry = next((k for k in kernels if k["name"] == "maxpool_bwd"),
+                     None)
+        if entry is None:  # no earlier path ran B1: this one leads
+            first = next(iter(rows.values()))
+            entry = {"name": "maxpool_bwd", **POOL_KERNEL,
+                     "launches": launches,
+                     **{k: first[k] for k in pool_keys}}
+            kernels.append(entry)
+        entry[phase] = {"launches": launches,
+                        **{name: {k: row[k] for k in pool_keys}
+                           for name, row in rows.items()}}
+        if phase == "cifar":
+            entry[phase]["vgg_distri_launches"] = \
+                runs["vgg_distri"]["launches"]
+            entry[phase]["resnet20_launches"] = runs["resnet20"]["launches"]
+        else:
+            entry[phase]["check_launches"] = \
+                report["inception_check"]["launches"]
     if "resnet-conditioning" in phases:
         t0 = time.monotonic()
         resnet_conditioning_phase(args.seed, device, card, report)

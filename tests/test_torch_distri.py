@@ -179,6 +179,7 @@ def world2(tmp_path_factory, start, devices):
         "skip": {"guard": "skip", "poison_at": 2, "rank1_only_poison": True},
         "resumed": {"resume": str(tmp / "jax" / "model.4"),
                     "ckpt": str(tmp / "resumed")},
+        "summary": {"summary": str(tmp / "summary")},
     }
     ranks = W.run_world(2, str(tmp), start[0], runs)
     return {"ranks": ranks, "jax": (jlosses, jparams), "dir": tmp}
@@ -332,6 +333,29 @@ def test_reference_resumes_port_grad_sync_snapshot(world2, start, devices,
     assert jopt.state["neval"] == W.ITERS
     np.testing.assert_allclose(jlosses, gs["losses"][4:], rtol=LOSS_RTOL)
     assert_weights_close(gs["params"], jparams)
+
+
+def test_rank0_alone_writes_the_summaries(world2):
+    """Every rank hands the optimizer the same summaries; the files hold
+    one version record each and every record once: the train scalars a
+    step, the "Parameters" histograms and the validation score at
+    iterations 3 and 6."""
+    root = world2["dir"] / "summary" / "w"
+    recs = {}
+    for phase in ("train", "validation"):
+        (f,) = os.listdir(root / phase)
+        recs[phase] = W.summary_records(str(root / phase / f))
+        assert recs[phase].count("version") == 1
+        assert recs[phase][0] == "version"
+    train = recs["train"][1:]
+    steps = list(range(1, W.ITERS + 1))
+    for tag in ("Loss", "LearningRate", "Throughput"):
+        assert [s for t, s in train if t == tag] == steps, tag
+    hist = [(t, s) for t, s in train if t.startswith("Parameters/")]
+    paths = ["1/bias", "1/weight", "3/bias", "3/weight"]
+    assert hist == [(f"Parameters/{p}", s) for s in (3, 6) for p in paths]
+    assert recs["validation"][1:] == [("Top1Accuracy", 3),
+                                      ("Top1Accuracy", 6)]
 
 
 # ---------------------------------------------------------- world 1
@@ -528,3 +552,47 @@ def test_distributed_dataset_matches_reference(count):
                                    process_count=count)
         again.restore_position(ours.position_state())
         assert list(again.data(train=False)) == list(ours.data(train=False))
+
+
+def _parameter_tags(run_dir):
+    (f,) = [f for f in os.listdir(run_dir) if "tfevents" in f]
+    return [t for t in W.summary_records(os.path.join(run_dir, f))
+            if t != "version" and t[0].startswith("Parameters/")]
+
+
+def test_parameter_histograms_match_reference(tmp_path):
+    """The reference's own test (``tests/test_round3_closures.py``,
+    ``TestParameterHistograms``) through the port's DistriOptimizer: the
+    trigger-gated "Parameters" histograms, tagged with the reference's
+    leaf paths at the reference's steps."""
+    from bigdl_tpu.dataset.sample import Sample as JSample
+    from bigdl_tpu.utils.summary import TrainSummary as JTrainSummary
+    from bigdl_tpu_torch.dataset.sample import Sample
+    from bigdl_tpu_torch.utils.summary import TrainSummary
+
+    def run(name, n, o, data, summary_cls, **kw):
+        sample, dataset, to_batch = data
+        rng = np.random.RandomState(0)
+        samples = [sample(rng.rand(8).astype(np.float32),
+                          np.int32(rng.randint(0, 2))) for _ in range(64)]
+        model = n.Sequential(n.Linear(8, 2), n.LogSoftMax())
+        if name == "port":
+            model.initialize(0)
+        summary = summary_cls(str(tmp_path / name), "run")
+        summary.set_summary_trigger("Parameters", o.several_iteration(2))
+        (o.DistriOptimizer(model, dataset.array(samples) >> to_batch(16),
+                           n.ClassNLLCriterion(), **kw)
+         .set_optim_method(o.SGD(learning_rate=0.1))
+         .set_end_when(o.max_iteration(4))
+         .set_train_summary(summary)
+         .optimize())
+        summary.close()
+        return _parameter_tags(tmp_path / name / "run" / "train")
+
+    port = run("port", nn, optim, (Sample, DataSet, SampleToMiniBatch),
+               TrainSummary, device="cpu")
+    ref = run("ref", jnn, joptim, (JSample, JDataSet, JSampleToMiniBatch),
+              JTrainSummary)
+    assert ref == [("Parameters/0/bias", 2), ("Parameters/0/weight", 2),
+                   ("Parameters/0/bias", 4), ("Parameters/0/weight", 4)]
+    assert port == ref

@@ -5,7 +5,11 @@ one PTB training block, a small NHWC ResNet's training and a LeNet-5 block
 LeNet-5 through a world-1 NCCL ``DistriOptimizer`` against
 ``LocalOptimizer`` on the card (bitwise with the f32 wire; the bf16 wire's
 masters within ``WIRE_DRIFT_LIMIT`` of its weights), and the bf16 wire's
-stochastic round against the CPU's (bitwise, same noise).  Every test
+stochastic round against the CPU's (bitwise, same noise); B1 at VGG's
+and Inception's pool geometries, and one step of VGG for CIFAR-10 and of
+Inception v1 against the CPU (each step's loss within ``rtol=1e-4``, the
+weights' step within a stated share of its change: their whole-model
+gradients differ between two sound devices by up to percents).  Every test
 here needs a CUDA card and skips without one; on the card run ``python -m pytest -m gpu tests/test_torch_*.py``.  This file imports
 no JAX, so it runs where the reference package is not installed.
 
@@ -875,3 +879,127 @@ def test_distri_world1_on_card_equals_local_optimizer(cuda):
     want = {n: v.detach().cpu().numpy() for n, v in ml.named_parameters()}
     assert wire_drift(masters(ob), want, init) <= WIRE_DRIFT_LIMIT
     assert wire_drift(masters(of), want, init) > WIRE_DRIFT_LIMIT
+
+
+# B1 at the CIFAR and Inception paths' geometries, small batches: VGG's
+# 2x2/2 (NCHW f32), Inception's 3x3/2 ceil-mode stem pool and a 3x3/1 pad 1
+# tower pool (NHWC bf16 with g channels-last, as the training path hands
+# them over: tiled_nhwc), and the tower pool in the check's NCHW f32
+NEW_PATH_POOLS = [
+    (((8, 64, 32, 32), 2, 2, 0, False, "NCHW", torch.float32), "two_pass"),
+    (((4, 64, 112, 112), 3, 2, 0, True, "NHWC", torch.bfloat16),
+     "tiled_nhwc"),
+    (((4, 480, 14, 14), 3, 1, 1, False, "NHWC", torch.bfloat16),
+     "tiled_nhwc"),
+    (((2, 192, 28, 28), 3, 1, 1, False, "NCHW", torch.float32), "two_pass")]
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["ints", "relu"])
+@pytest.mark.parametrize("case,variant", NEW_PATH_POOLS,
+                         ids=lambda c: _pool_id(c) if isinstance(c, tuple)
+                         else c)
+def test_maxpool_bwd_vgg_inception_geometries(cuda, case, variant, relu):
+    x, y, g, k, s, pads = _pool_operands(case, relu, cuda,
+                                         g_channels_last=case[5] == "NHWC")
+    got = maxpool.launch(x, y, g, k, s, pads)
+    want = maxpool.maxpool_bwd_reference(x, y, g, k, s, pads)
+    torch.cuda.synchronize()
+    assert maxpool.last_variant[0] == variant
+    assert torch.equal(got, want)
+
+
+def _one_step(model, samples, batch, dev, sgd, compute=None):
+    """One LocalOptimizer step of ``model`` (in place): (loss, B1 variant
+    launches)."""
+    opt = (optim.LocalOptimizer(model, DataSet.array(samples)
+                                >> SampleToMiniBatch(batch),
+                                nn.ClassNLLCriterion(), device=dev)
+           .set_optim_method(sgd).set_compute_dtype(compute)
+           .set_steps_per_dispatch(1).set_end_when(optim.max_iteration(1)))
+    losses = []
+    opt._log_train_iteration = lambda lr: losses.append(opt.state["loss"])
+    maxpool.reset_counts()
+    opt.optimize()
+    return losses[0], dict(maxpool.variant_launches)
+
+
+def _update_share(card, cpu, init):
+    """||w_card - w_cpu|| / ||w_cpu - w_0|| over all parameters: the share
+    of the step's change the two devices disagree on."""
+    d = c = 0.0
+    for (k, a), (_, b) in zip(card.named_parameters(),
+                              cpu.named_parameters()):
+        a, b = a.detach().double(), b.detach().double()
+        d += float(((a - b) ** 2).sum())
+        c += float(((b - init[k]) ** 2).sum())
+    return (d / c) ** 0.5
+
+
+def _no_dropout(model):
+    # its mask comes from the device's generator: the CPU cannot redraw it
+    for m in model.modules():
+        if isinstance(m, nn.Dropout):
+            m.p = 0.0
+    return model
+
+
+def test_vgg_step_on_card_matches_cpu(cuda):
+    """One step of VGG for CIFAR-10 (the recipe's SGD, batch 8, dropout
+    off) on the card, B1 five launches two_pass, against the CPU: the loss
+    within ``rtol=1e-4``, the weights' step within 0.15 of its change (its
+    training-mode gradients differ by percents between two sound devices:
+    tests/test_torch_cifar.py)."""
+    from bigdl_tpu_torch.dataset import cifar
+    from bigdl_tpu_torch.models import vgg_for_cifar10
+    imgs, labels = cifar.synthetic_cifar(8)
+    samples = [Sample(((i.astype(np.float32) - np.float32(cifar.TRAIN_MEAN))
+                       / np.float32(cifar.TRAIN_STD)).transpose(2, 0, 1)
+                      .copy(), l) for i, l in zip(imgs, labels)]
+    init = _no_dropout(vgg_for_cifar10(10).initialize(0))
+    w0 = {k: v.detach().double() for k, v in init.named_parameters()}
+
+    def sgd():
+        return optim.SGD(0.01, momentum=0.9, dampening=0.0,
+                         weight_decay=5e-4,
+                         learning_rate_schedule=optim.EpochStep(25, 0.5))
+
+    import copy
+    cpu, card = copy.deepcopy(init), copy.deepcopy(init)
+    lc, _ = _one_step(cpu, samples, 8, "cpu", sgd())
+    lg, variants = _one_step(card, samples, 8, cuda, sgd())
+    assert variants == {"two_pass": 5, "tiled_nhwc": 0}
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    assert _update_share(card, cpu, w0) < 0.15
+
+
+def test_inception_step_on_card_matches_cpu(cuda):
+    """Inception v1 in NCHW f32 at batch 2, one step of the recipe's SGD
+    (dropout off) on the card (B1 13 launches, two_pass) against the CPU:
+    the loss within ``rtol=1e-4``, the weights' step within 0.05 of its
+    change; then one NHWC bf16 step: 13 tiled_nhwc launches, a finite
+    loss."""
+    import copy
+    from bigdl_tpu_torch.models import inception_v1
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 1, (2, 224, 224, 3)).astype(np.float32)
+
+    def sgd():
+        return optim.SGD(0.0898, momentum=0.9, dampening=0.0,
+                         weight_decay=1e-4,
+                         learning_rate_schedule=optim.Poly(0.5, 62000))
+
+    chw = [Sample(x[i].transpose(2, 0, 1).copy(), np.int32(7 * i))
+           for i in range(2)]
+    init = _no_dropout(inception_v1(1000).initialize(0))
+    w0 = {k: v.detach().double() for k, v in init.named_parameters()}
+    cpu, card = copy.deepcopy(init), copy.deepcopy(init)
+    lc, _ = _one_step(cpu, chw, 2, "cpu", sgd())
+    lg, variants = _one_step(card, chw, 2, cuda, sgd())
+    assert variants == {"two_pass": 13, "tiled_nhwc": 0}
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    assert _update_share(card, cpu, w0) < 0.05
+    hwc = [Sample(x[i], np.int32(7 * i)) for i in range(2)]
+    lb, variants = _one_step(inception_v1(1000, format="NHWC").initialize(0),
+                             hwc, 2, cuda, sgd(), torch.bfloat16)
+    assert variants == {"two_pass": 0, "tiled_nhwc": 13}
+    assert np.isfinite(lb)

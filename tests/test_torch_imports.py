@@ -8,8 +8,9 @@ Wide&Deep on batch-COO crossed MovieLens features, an epoch of LeNet on
 synthetic MNIST with validation, a snapshot and its resume, both
 summaries, the preemption handler and the numeric guard, two steps of
 LeNet through a world-1 ``DistriOptimizer`` with the bf16 wire, the
-``parallel/`` modules with it) builds or loads a kernel; and a kernel
-build that fails raises."""
+``parallel/`` modules with it, a step of VGG on synthetic CIFAR through
+the colour ops, an NHWC inception module behind an LRN) builds or loads a
+kernel; and a kernel build that fails raises."""
 
 import json
 import os
@@ -153,6 +154,26 @@ distri = (optim.Optimizer.create(lenet5(10).initialize(0),
 distri.optimize()
 assert distri._use_grad_sync and mesh.create_mesh(backend="gloo").size == 1
 assert maxpool.launches == 0
+from bigdl_tpu_torch.dataset import cifar
+from bigdl_tpu_torch.models import vgg_for_cifar10
+from bigdl_tpu_torch.models.inception import inception_module
+ci, cl = cifar.synthetic_cifar(8)
+colour = DataSet.array(cifar.to_samples(ci, cl))
+for t in (image.BGRImgNormalizer(cifar.TRAIN_MEAN, cifar.TRAIN_STD),
+          image.RandomCropper(32, 32, pad=4), image.HFlip(),
+          image.ColorJitter(), image.Lighting(), image.ChannelOrder("CHW")):
+    colour = colour >> t
+(optim.LocalOptimizer(vgg_for_cifar10(10).initialize(0),
+                      colour >> SampleToMiniBatch(4), nn.ClassNLLCriterion(),
+                      device="cpu")
+ .set_end_when(optim.max_iteration(1)).optimize())
+tower = (nn.Sequential()
+         .add(nn.SpatialCrossMapLRN(4, 1.0, 0.75, 1.0, format="NHWC"))
+         .add(inception_module(8, 4, 4, 4, 2, 2, 2, "t", "NHWC"))
+         .initialize(0))
+xt = torch.rand(2, 9, 9, 8, requires_grad=True)
+tower(xt).sum().backward()
+assert xt.grad.shape == xt.shape and maxpool.launches == 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("jaxlib") or m == "bigdl_tpu"
              or m.startswith("bigdl_tpu."))

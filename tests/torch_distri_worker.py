@@ -15,6 +15,7 @@ the caller's, so no TCP port is taken.
 import contextlib
 import os
 import pickle
+import struct
 import warnings
 
 import numpy as np
@@ -26,7 +27,9 @@ from bigdl_tpu_torch.dataset import (DistributedDataSet, SampleToMiniBatch,
                                      Transformer)
 from bigdl_tpu_torch.dataset import image, mnist
 from bigdl_tpu_torch.interop import load_jax_params
+from bigdl_tpu_torch.optim import validation
 from bigdl_tpu_torch.parallel import grad_sync
+from bigdl_tpu_torch.utils.summary import TrainSummary, ValidationSummary
 
 N_SAMPLES, GLOBAL_BATCH, ITERS = 512, 64, 6
 BUCKET_BYTES = 1 << 16  # three buckets: [1.bias], [1.weight], [3.*]
@@ -125,12 +128,60 @@ def bf16_neighbours(published, master):
     return bool(np.all((published == down) | (published == up)))
 
 
+def _fields(buf):
+    """(field number, value) pairs of one protobuf message: varints as
+    ints, length-delimited fields as bytes, fixed widths skipped."""
+    out, pos = [], 0
+    while pos < len(buf):
+        key, pos = _varint(buf, pos)
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            value, pos = _varint(buf, pos)
+        elif wire == 2:
+            n, pos = _varint(buf, pos)
+            value, pos = buf[pos:pos + n], pos + n
+        else:
+            value, pos = None, pos + (8 if wire == 1 else 4)
+        out.append((field, value))
+    return out
+
+
+def _varint(buf, pos):
+    value, shift = 0, 0
+    while True:
+        b = buf[pos]
+        value |= (b & 0x7F) << shift
+        shift += 7
+        pos += 1
+        if not b & 0x80:
+            return value, pos
+
+
+def summary_records(path):
+    """What an event file holds, record by record: ``"version"`` for a
+    file-version record, else ``(tag, step)``."""
+    blob = open(path, "rb").read()
+    out, pos = [], 0
+    while pos < len(blob):
+        (n,) = struct.unpack("<Q", blob[pos:pos + 8])
+        event = dict(_fields(blob[pos + 12:pos + 12 + n]))
+        pos += 16 + n
+        if 3 in event:  # file_version
+            out.append("version")
+            continue
+        value = dict(_fields(dict(_fields(event[5]))[1]))
+        out.append((value[1].decode(), event.get(2, 0)))
+    return out
+
+
 def train(world, rank, start, *, iters=ITERS, k=1, lr=0.05, momentum=0.9,
           clip=None, ckpt=None, resume=None, guard=None, poison_at=None,
-          fault=None, **kw):
+          fault=None, summary=None, **kw):
     """One run from the parameters ``start`` (the reference's layout):
     what it ends with, as numpy.  ``fault`` plants a broken wire
-    (:func:`planted_fault`)."""
+    (:func:`planted_fault`).  ``summary``: a directory that every rank
+    hands the same train and validation summaries (app ``"w"``), with
+    "Parameters" histograms and a validation every 3 iterations."""
     model = small_mlp()
     load_jax_params(model, start)
     init = {k: v.detach().numpy().copy() for k, v in model.named_parameters()}
@@ -156,9 +207,19 @@ def train(world, rank, start, *, iters=ITERS, k=1, lr=0.05, momentum=0.9,
         opt.set_checkpoint(ckpt, optim.several_iteration(2))
     if resume is not None:
         assert opt.resume(resume)
+    if summary is not None:
+        ts = TrainSummary(summary, "w").set_summary_trigger(
+            "Parameters", optim.several_iteration(3))
+        vs = ValidationSummary(summary, "w")
+        (opt.set_train_summary(ts).set_val_summary(vs)
+         .set_validation(optim.several_iteration(3), pipeline(world, rank),
+                         [validation.Top1Accuracy()]))
     start_neval = opt.state["neval"]
     with planted_fault(fault):
         opt.optimize()
+    if summary is not None:
+        ts.close()
+        vs.close()
     out = {"losses": losses, "start_neval": start_neval, "init": init,
            "state": {k: opt.state[k] for k in
                      ("neval", "epoch", "records_processed_this_epoch")},
@@ -186,7 +247,88 @@ def train(world, rank, start, *, iters=ITERS, k=1, lr=0.05, momentum=0.9,
     return out
 
 
-def _worker(rank, world, store_dir, runs):
+def cifar_pipeline(pkg, D, samples, batch):
+    """Normalised CHW CIFAR batches of ``samples`` in a dataset made by
+    ``D``; ``pkg`` is a package's ``(image, cifar, SampleToMiniBatch)``."""
+    image_, cifar, S2B = pkg
+    return (D(samples) >> image_.BGRImgNormalizer(cifar.TRAIN_MEAN,
+                                                  cifar.TRAIN_STD)
+            >> image_.ChannelOrder("CHW") >> S2B(batch))
+
+
+def vgg_sgd():
+    """The VGG recipe's SGD."""
+    return optim.SGD(0.01, momentum=0.9, dampening=0.0, weight_decay=5e-4,
+                     learning_rate_schedule=optim.EpochStep(25, 0.5))
+
+
+class Tracing:
+    """Mixin for an optimizer class: records every step of its blocks in
+    ``self.trace``: the parameters, buffers and SGD velocity before it
+    (full: a DistriOptimizer gathers its owned slices), its batch, rate,
+    step and loss, and the parameters after it, as numpy."""
+
+    def _train_driver(self, step_fn, device, run):
+        self._run = run
+        self.trace = []
+        return super()._train_driver(step_fn, device, run)
+
+    def _velocity(self):
+        run = self._run
+        if getattr(self, "_use_grad_sync", False):
+            full = grad_sync.gather_state(self._gs_plan, run.ostate,
+                                          self.mesh.group)
+            return dict(zip(self._gs_names, grad_sync.unflatten_from_buckets(
+                self._gs_plan, full["opt"]["velocity"])))
+        return run.ostate["velocity"]
+
+    def _block(self, step_fn, staged, lrs, first_step):
+        def snap(named):
+            return {k: v.detach().numpy().copy() for k, v in named.items()}
+
+        def traced(x, y, lr, step):
+            run = self._run
+            before = (snap(run.params), snap(dict(run.net.named_buffers())),
+                      snap(self._velocity()))
+            loss = step_fn(x, y, lr, step)
+            self.trace.append((before, x.numpy().copy(), y.numpy().copy(),
+                               lr, step, float(loss), snap(run.params)))
+            return loss
+        return super()._block(traced, staged, lrs, first_step)
+
+
+def train_vgg(world, rank, start, *, n=32, global_batch=8, iters=3,
+              data_seed=0):
+    """VGG for CIFAR-10 through the port's DistriOptimizer on synthetic
+    CIFAR, the recipe's SGD, dropout off (its masks come from another
+    generator than the reference's): every step's :class:`Tracing`
+    record and the final parameters."""
+    from bigdl_tpu_torch.dataset import cifar
+    from bigdl_tpu_torch.models import vgg_for_cifar10
+    model = vgg_for_cifar10(10)
+    load_jax_params(model, start)
+    for m in model.modules():
+        if isinstance(m, nn.Dropout):
+            m.p = 0.0
+    imgs, labels = cifar.synthetic_cifar(n, seed=data_seed)
+    samples = mesh_order(cifar.to_samples(imgs, labels), global_batch,
+                         world)
+    ds = cifar_pipeline(
+        (image, cifar, SampleToMiniBatch),
+        lambda s: DistributedDataSet(s, process_index=rank,
+                                     process_count=world),
+        samples, global_batch // world)
+    opt = (type("TracingDistri", (Tracing, optim.DistriOptimizer), {})(
+        model, ds, nn.ClassNLLCriterion(), device="cpu")
+        .set_optim_method(vgg_sgd())
+        .set_end_when(optim.max_iteration(iters)))
+    opt.optimize()
+    return {"trace": opt.trace,
+            "params": {k: v.detach().numpy().copy()
+                       for k, v in model.named_parameters()}}
+
+
+def _worker(rank, world, store_dir, runs, fn=None):
     warnings.simplefilter("ignore", FutureWarning)
     torch.set_num_threads(1)
     dist.init_process_group(
@@ -201,19 +343,20 @@ def _worker(rank, world, store_dir, runs):
             kw = dict(kw)
             if kw.pop("rank1_only_poison", False):
                 kw["poison_at"] = kw["poison_at"] if rank == 1 else None
-            results[name] = train(world, rank, start, **kw)
+            results[name] = (fn or train)(world, rank, start, **kw)
         with open(os.path.join(store_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(results, f)
     finally:
         dist.destroy_process_group()
 
 
-def run_world(world, store_dir, start, runs):
-    """Run ``runs`` ({name: train() keywords}) in a spawned gloo world of
+def run_world(world, store_dir, start, runs, fn=None):
+    """Run ``runs`` ({name: keywords}) of ``fn`` (:func:`train` by
+    default; a function of this module) in a spawned gloo world of
     ``world`` processes; returns each rank's {name: result}."""
     with open(os.path.join(store_dir, "start.pkl"), "wb") as f:
         pickle.dump(start, f)
-    torch.multiprocessing.spawn(_worker, args=(world, store_dir, runs),
+    torch.multiprocessing.spawn(_worker, args=(world, store_dir, runs, fn),
                                 nprocs=world, join=True)
     out = []
     for r in range(world):
