@@ -185,7 +185,8 @@ def write_snapshot(path: str, *, params, model_state=None, opt_state=None,
         "driver_state": dict(driver_state) if driver_state else None,
         "run": dict(run_state) if run_state else None,
     }
-    arrays = [np.ascontiguousarray(a) for a in arrays]
+    # np.ascontiguousarray would make a 0-d leaf (LBFGS's counters) 1-d
+    arrays = [np.require(a, requirements="C") for a in arrays]
     entries = []
     total = 0
     for i, a in enumerate(arrays):

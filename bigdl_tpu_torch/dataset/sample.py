@@ -36,7 +36,25 @@ class MiniBatch:
         self.target = target
 
     def size(self) -> int:
-        return self.input.shape[0]
+        leaf = self.input
+        while isinstance(leaf, (tuple, list, dict)):
+            leaf = next(iter(leaf.values())) if isinstance(leaf, dict) \
+                else leaf[0]
+        return leaf.shape[0]
+
+    def slice(self, offset: int, length: int) -> "MiniBatch":
+        """The sub-batch ``[offset, offset + length)`` of every array
+        (nested tuples, lists and dicts are cut leaf by leaf)."""
+
+        def cut(x):
+            if isinstance(x, dict):
+                return {k: cut(v) for k, v in x.items()}
+            if isinstance(x, (tuple, list)):
+                return type(x)(cut(e) for e in x)
+            return x[offset:offset + length]
+
+        return MiniBatch(cut(self.input),
+                         None if self.target is None else cut(self.target))
 
     def __repr__(self):
         return f"MiniBatch(size={self.size()})"

@@ -17,7 +17,10 @@ The dicts hold numpy arrays (convert JAX arrays with ``np.asarray``) or
 CPU tensors (bf16 ones too): this module imports neither JAX nor the
 reference package.  :func:`jax_tree` and :func:`from_jax_tree` carry any
 dict keyed by the port's parameter names (an optimizer's momentum) to
-and from the same layout; snapshots use them (``checkpoint/``).
+and from the same layout; snapshots use them (``checkpoint/``).  An
+optimizer state entry keyed by no parameter name (LBFGS's flat
+``(history, n)`` matrices over the reference's leaf order, its int32
+counters) crosses as it is.
 
 A ``DistriOptimizer``'s grad_sync state, ``{"master": [bucket, ...],
 "opt": {"velocity": [bucket, ...]}}`` (:func:`is_grad_sync_state`), is in

@@ -6,9 +6,9 @@ ImageNet bottleneck ResNet-50 (1000 classes, 224x224), in NCHW or, with
 the format; ``state_dict`` keys are the reference's pytree paths in both).
 Convs carry MSRA init and no bias; BN starts at gamma 1, beta 0, running
 mean 0 and variance 1.  The factories return placeholder weights: call
-``.initialize(generator)`` or load weights before use.  The reference's
-``remat`` option is not ported (``Remat`` is a later module): anything but
-``remat=False`` raises.
+``.initialize(generator)`` or load weights before use.  ``resnet50(remat=)``
+wraps each bottleneck in :class:`~bigdl_tpu_torch.nn.Remat`, which leaves
+the ``state_dict`` keys as they are.
 """
 
 from __future__ import annotations
@@ -90,11 +90,17 @@ def resnet_cifar(depth: int = 20, class_num: int = 10,
 def resnet50(class_num: int = 1000, format: str = "NCHW",
              remat=False) -> nn.Sequential:
     """ImageNet ResNet-50: stem 7x7/2 + maxpool, stages [3,4,6,3]
-    bottlenecks at 64/128/256/512 — 53 convolutions and one Linear."""
-    if remat is not False:
-        raise NotImplementedError(
-            f"resnet50(remat={remat!r}): rematerialization (nn.Remat) is "
-            "not ported yet; use remat=False")
+    bottlenecks at 64/128/256/512 — 53 convolutions and one Linear.
+
+    ``remat`` recomputes the bottlenecks' interiors in the backward:
+    ``False`` keeps every activation; ``True`` recomputes each block whole,
+    its convolutions too; ``"tails"`` keeps the convolutions' outputs and
+    recomputes the BatchNorm and ReLU tails.  The stem, with its pool,
+    stays outside."""
+    if remat not in (False, True, "tails"):
+        raise ValueError(f"unknown remat mode {remat!r}; "
+                         "use False, True or 'tails'")
+    policy = "tails" if remat == "tails" else None
     fmt = format
     model = (nn.Sequential(name="ResNet50")
              .add(_conv_bn(3, 64, 7, 2, 3, "stem", fmt))
@@ -104,8 +110,9 @@ def resnet50(class_num: int = 1000, format: str = "NCHW",
     for mid, blocks, first_stride in [(64, 3, 1), (128, 4, 2), (256, 6, 2),
                                       (512, 3, 2)]:
         for bi in range(blocks):
-            model.add(bottleneck(in_c, mid, first_stride if bi == 0 else 1,
-                                 fmt))
+            block = bottleneck(in_c, mid, first_stride if bi == 0 else 1,
+                               fmt)
+            model.add(nn.Remat(block, policy=policy) if remat else block)
             in_c = mid * 4
     model.add(nn.SpatialAveragePooling(7, 7, 7, 7, format=fmt))
     model.add(nn.Reshape((2048,)))

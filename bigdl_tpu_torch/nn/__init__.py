@@ -25,10 +25,15 @@ from bigdl_tpu_torch.nn.layers import (BatchNormalization, Dropout, Linear,
                                        SpatialConvolution,
                                        SpatialCrossMapLRN, SpatialMaxPooling)
 from bigdl_tpu_torch.nn.module import (Concat, ConcatTable, Container,
-                                       Identity, Module, Sequential)
+                                       Identity, Module, ParallelTable, Remat,
+                                       Sequential)
 from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,
                                           QuantizedSpatialConvolution,
                                           quantize)
+from bigdl_tpu_torch.nn.regularizers import (L1L2Regularizer,
+                                             L1Regularizer, L2Regularizer,
+                                             Regularizer, has_regularizers,
+                                             regularization_loss)
 from bigdl_tpu_torch.nn.recurrent import (LSTM, Cell, MultiRNNCell,
                                           Recurrent, RnnCell, TimeDistributed)
 from bigdl_tpu_torch.nn.shape_ops import CAddTable, Reshape
@@ -41,17 +46,18 @@ __all__ = ["BCECriterion", "BCEWithLogitsCriterion", "BatchNormalization",
            "ClassNLLCriterion", "Concat", "ConcatTable", "ConstInitMethod",
            "Container", "Criterion", "CrossEntropyCriterion", "Dropout",
            "DenseToSparse", "ELU", "GELU", "HardShrink", "HardSigmoid",
-           "HardTanh", "Identity", "InitializationMethod", "LSTM",
-           "LeakyReLU", "Linear",
+           "HardTanh", "Identity", "InitializationMethod", "L1L2Regularizer",
+           "L1Regularizer", "L2Regularizer", "LSTM", "LeakyReLU", "Linear",
            "LogSigmoid", "LogSoftMax", "LookupTable", "LookupTableSparse",
            "MSECriterion", "Module", "MsraFiller", "MultiRNNCell", "Ones",
-           "PReLU",
+           "PReLU", "ParallelTable",
            "QuantizedLinear", "QuantizedSpatialConvolution", "RReLU", "ReLU",
            "RandomNormal", "RandomUniform",
-           "ReLU6", "Recurrent", "Reshape", "RnnCell", "SReLU", "Sequential",
+           "ReLU6", "Recurrent", "Regularizer", "Remat", "Reshape", "RnnCell", "SReLU", "Sequential",
            "SiLU", "Sigmoid", "SoftMax", "SoftMin", "SoftPlus", "SoftShrink",
            "SoftSign", "SpatialAveragePooling", "SpatialBatchNormalization",
            "SpatialConvolution", "SpatialCrossMapLRN", "SparseJoinTable",
            "SparseLinear", "SpatialMaxPooling", "Tanh", "TanhShrink",
            "Threshold", "Xavier", "Zeros",
-           "TimeDistributed", "TimeDistributedCriterion", "quantize"]
+           "TimeDistributed", "TimeDistributedCriterion", "has_regularizers",
+           "quantize", "regularization_loss"]

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.initialization import (InitializationMethod,
                                                RandomNormal, RandomUniform)
-from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.nn.module import Module, recomputing
 from bigdl_tpu_torch.ops.maxpool import maxpool2d
 
 FORMATS = ("NCHW", "NHWC")
@@ -50,8 +50,12 @@ class Linear(Module):
                  with_bias: bool = True,
                  weight_init: Optional[InitializationMethod] = None,
                  bias_init: Optional[InitializationMethod] = None,
+                 w_regularizer=None, b_regularizer=None,
                  name: Optional[str] = None):
         super().__init__(name)
+        # per-layer penalties, summed by nn.regularizers.regularization_loss
+        self.w_regularizer = w_regularizer
+        self.b_regularizer = b_regularizer
         self.input_size = input_size
         self.output_size = output_size
         self.with_bias = with_bias
@@ -110,8 +114,11 @@ class SpatialConvolution(Module):
                  format: str = "NCHW",
                  weight_init: Optional[InitializationMethod] = None,
                  bias_init: Optional[InitializationMethod] = None,
+                 w_regularizer=None, b_regularizer=None,
                  name: Optional[str] = None):
         super().__init__(name)
+        self.w_regularizer = w_regularizer
+        self.b_regularizer = b_regularizer
         self.format = _check_format(format)
         self.n_input_plane = n_input_plane
         self.n_output_plane = n_output_plane
@@ -291,13 +298,16 @@ class SpatialBatchNormalization(Module):
             mean, sq = _Moments.apply(x, dims)
             var = torch.clamp(sq - mean * mean, min=0.0)
             n = x.numel() / self.n_output
-            with torch.no_grad():
-                unbiased = var * n / max(n - 1, 1)
-                m = self.momentum
-                self.running_mean.copy_((1 - m) * self.running_mean
-                                        + m * mean)
-                self.running_var.copy_((1 - m) * self.running_var
-                                       + m * unbiased)
+            # a recomputed forward (Remat, the remat policies) normalizes
+            # as the first one did but must not move the statistics again
+            if not recomputing():
+                with torch.no_grad():
+                    unbiased = var * n / max(n - 1, 1)
+                    m = self.momentum
+                    self.running_mean.copy_((1 - m) * self.running_mean
+                                            + m * mean)
+                    self.running_var.copy_((1 - m) * self.running_var
+                                           + m * unbiased)
         else:
             mean, var = self.running_mean, self.running_var
         # 1/sqrt rather than rsqrt: both are correctly rounded on the CPU

@@ -10,11 +10,20 @@ Weights are drawn by :meth:`Module.initialize` from one explicit
 ``torch.Generator`` walked through the tree in order; until then a
 layer's weights are deterministic placeholders (zeros for weights, the
 reference's init values for BatchNorm).
+
+:class:`Remat` recomputes its inner module's forward in the backward
+instead of keeping its activations (``torch.utils.checkpoint``);
+:func:`remat_contexts` makes a recomputed forward see what the first one
+saw: BatchNorm leaves its running statistics alone while
+:func:`recomputing` is true, and the explicit generators of ``Dropout``
+and ``RReLU`` are set back to their state at the first forward, so a mask
+is drawn once.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -92,3 +101,174 @@ class Concat(Container):
 class Identity(Module):
     def forward(self, x):
         return x
+
+
+class ParallelTable(Container):
+    """Apply the i-th child to the i-th element of the input; return a
+    tuple."""
+
+    def forward(self, x):
+        return tuple(m(x[i]) for i, m in enumerate(self._modules.values()))
+
+
+# ------------------------------------------------------- rematerialization
+_recompute_depth = 0  # > 0 while a checkpointed forward is being redone
+
+
+def recomputing() -> bool:
+    """Whether the forward running now is a recomputation (in the
+    backward) of a checkpointed region: stateful layers must not update
+    their state a second time."""
+    return _recompute_depth > 0
+
+
+def walk(root: torch.nn.Module):
+    """Every module of ``root``'s tree, the inner module of each
+    :class:`Remat` included (``modules()`` reaches only its children)."""
+    for m in root.modules():
+        yield m
+        inner = getattr(m, "inner", None) if isinstance(m, Remat) else None
+        if inner is not None:
+            yield inner
+
+
+_ATEN = torch.ops.aten
+# JAX's dots_saveable counts convolutions as products too
+_DOT_OPS = frozenset([_ATEN.mm.default, _ATEN.addmm.default,
+                      _ATEN.bmm.default, _ATEN.baddbmm.default,
+                      _ATEN.convolution.default])
+_CONV_OPS = frozenset([_ATEN.convolution.default])
+SAVE_POLICIES = {"dots": _DOT_OPS, "tails": _CONV_OPS}
+
+
+def _save_policy(ops: frozenset) -> Callable:
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in ops \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
+class _Recompute:
+    """The recomputation's context: :func:`recomputing` is true and each
+    stochastic layer's generator holds its state of the first forward
+    (the caller's state comes back afterwards)."""
+
+    def __init__(self, saved):
+        self.saved, self.current = saved, []
+
+    def __enter__(self):
+        global _recompute_depth
+        _recompute_depth += 1
+        self.current = [(g, g.get_state()) for g, _ in self.saved]
+        for g, state in self.saved:
+            g.set_state(state)
+
+    def __exit__(self, *exc):
+        global _recompute_depth
+        for g, state in self.current:
+            g.set_state(state)
+        _recompute_depth -= 1
+        return False
+
+
+class _FirstForward:
+    def __init__(self, gens, saved):
+        self.gens, self.saved = gens, saved
+
+    def __enter__(self):
+        self.saved[:] = [(g, g.get_state()) for g in self.gens]
+
+    def __exit__(self, *exc):
+        return False
+
+
+def remat_contexts(module: torch.nn.Module,
+                   policy: Optional[str] = None) -> Callable:
+    """``context_fn`` for ``torch.utils.checkpoint.checkpoint`` over a
+    region holding ``module``: ``policy`` None saves nothing (the whole
+    forward is recomputed), ``"dots"`` saves the outputs of matrix
+    products and convolutions, ``"tails"`` those of convolutions only."""
+    gens = [m.generator for m in walk(module)
+            if isinstance(getattr(m, "generator", None), torch.Generator)]
+    if policy is not None and policy not in SAVE_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}; use None, "
+                         f"{', '.join(map(repr, SAVE_POLICIES))}")
+
+    def context_fn():
+        saved: list = []
+        fwd, rec = _FirstForward(gens, saved), _Recompute(saved)
+        if policy is None:
+            return fwd, rec
+        from torch.utils.checkpoint import \
+            create_selective_checkpoint_contexts
+        sac_fwd, sac_rec = create_selective_checkpoint_contexts(
+            _save_policy(SAVE_POLICIES[policy]))
+        return _both(fwd, sac_fwd), _both(rec, sac_rec)
+
+    return context_fn
+
+
+@contextlib.contextmanager
+def _both(a, b):
+    with a, b:
+        yield
+
+
+def checkpointed(fn: Callable, module: torch.nn.Module,
+                 policy: Optional[str] = None) -> Callable:
+    """``fn`` whose activations are recomputed in the backward
+    (:func:`remat_contexts` over ``module``, which ``fn`` runs)."""
+    from torch.utils.checkpoint import checkpoint
+    context_fn = remat_contexts(module, policy)
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=context_fn)
+    return run
+
+
+class Remat(Module):
+    """Rematerialization: ``inner``'s activations are not kept for the
+    backward but recomputed there.  ``policy`` None recomputes everything,
+    ``"tails"`` keeps the convolutions' outputs and recomputes the
+    BatchNorm and ReLU tails, ``"dots"`` keeps every product's output.
+
+    Transparent in the tree: a ``Remat`` shares its inner module's
+    parameters, buffers and children, so ``state_dict()`` keys, snapshots
+    and interop paths are those of the model without it (the reference's
+    ``spec_children`` returns the inner module).  The region's parameters
+    enter the checkpoint as inputs, so a recomputation under
+    ``functional_call`` (mixed precision) uses the casts the first forward
+    used."""
+
+    def __init__(self, inner: Module, policy: Optional[str] = None,
+                 name: Optional[str] = None):
+        super().__init__(name or f"Remat[{getattr(inner, 'name', '')}]")
+        object.__setattr__(self, "inner", inner)  # not a child: no key level
+        self._parameters = inner._parameters
+        self._buffers = inner._buffers
+        self._modules = inner._modules
+        self._non_persistent_buffers_set = inner._non_persistent_buffers_set
+        self.policy = policy
+
+    def reset_parameters(self, generator):
+        if isinstance(self.inner, Module):
+            self.inner.reset_parameters(generator)
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        self.inner.training = mode
+        return self
+
+    def forward(self, x):
+        from torch.func import functional_call
+        named = list(self.inner.named_parameters())
+        names = [k for k, _ in named]
+
+        def run(x, *tensors):
+            return functional_call(self.inner, dict(zip(names, tensors)),
+                                   (x,))
+        return checkpointed(run, self.inner, self.policy)(
+            x, *(t for _, t in named))

@@ -1,7 +1,10 @@
 """Training of the port (``bigdl_tpu.optim`` twins)."""
 
 from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
-from bigdl_tpu_torch.optim.optim_method import SGD, Adam, OptimMethod
+from bigdl_tpu_torch.optim.optim_method import (LBFGS, SGD, Adadelta,
+                                                Adagrad, Adam, Adamax, Ftrl,
+                                                OptimMethod, ParallelAdam,
+                                                RMSprop)
 from bigdl_tpu_torch.optim.optimizer import (LocalOptimizer, Optimizer,
                                              clip_by_global_norm,
                                              clip_by_value, global_norm)
@@ -22,10 +25,12 @@ from bigdl_tpu_torch.optim.validation import (MAE, NDCG, HitRatio, Loss,
                                               ValidationMethod,
                                               ValidationResult)
 
-__all__ = ["Adam", "Default", "DistriOptimizer", "EpochDecay", "EpochDecayWithWarmUp",
-           "EpochSchedule", "EpochStep", "Exponential", "HitRatio",
+__all__ = ["Adadelta", "Adagrad", "Adam", "Adamax", "Default", "DistriOptimizer", "EpochDecay", "EpochDecayWithWarmUp",
+           "EpochSchedule", "EpochStep", "Exponential", "Ftrl", "HitRatio",
+           "LBFGS",
            "LearningRateSchedule", "LocalOptimizer", "Loss", "MAE",
            "MultiStep", "NDCG", "NaturalExp", "OptimMethod", "Optimizer",
+           "ParallelAdam", "RMSprop",
            "Plateau", "Poly", "SGD", "SequentialSchedule", "Step",
            "Top1Accuracy", "Top5Accuracy", "TreeNNAccuracy", "Trigger",
            "ValidationMethod", "ValidationResult", "Warmup",

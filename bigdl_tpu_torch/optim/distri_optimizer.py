@@ -59,6 +59,7 @@ from bigdl_tpu_torch.parallel import grad_sync
 from bigdl_tpu_torch.parallel.mesh import Mesh
 from bigdl_tpu_torch.resilience.numeric import NonFiniteStepError
 from bigdl_tpu_torch.utils.config import get_config
+from bigdl_tpu_torch.utils.tuned import resolve_default
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
 
@@ -68,7 +69,7 @@ def _to_device(tree, device):
         return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_device(v, device) for v in tree)
-    return torch.as_tensor(tree).to(device=device, dtype=torch.float32)
+    return torch.as_tensor(tree).to(device)
 
 
 def _to_host(tree):
@@ -158,16 +159,18 @@ class DistriOptimizer(Optimizer):
 
     def _resolve_grad_sync(self, params_tree) -> None:
         """Whether this run takes the bucketed path, and its plan:
-        constructor > Config (``configure()``/env) > default."""
+        constructor > ``configure()``/env > the workload's tuned entry >
+        default."""
         self._use_grad_sync = use = self.parameter_sharding
         if not use:
             self._gs_plan = None
             return
-        cfg = get_config()
+        wl, backend = self._workload_tag(), self._run_device.type
         wire = self.grad_wire_dtype if self.grad_wire_dtype is not None \
-            else cfg.grad_wire_dtype
+            else resolve_default("grad_wire_dtype", wl, backend)[0]
         bucket = self.grad_bucket_bytes \
-            if self.grad_bucket_bytes is not None else cfg.grad_bucket_bytes
+            if self.grad_bucket_bytes is not None \
+            else resolve_default("grad_bucket_bytes", wl, backend)[0]
         self._gs_wire = grad_sync.resolve_wire_dtype(wire)
         self._gs_plan = grad_sync.build_plan(params_tree, self._world,
                                              int(bucket))
@@ -344,12 +347,7 @@ class DistriOptimizer(Optimizer):
         gen = None
         if use_gs and wire != torch.float32:
             gen = torch.Generator(device=device)
-        loss_fn = self._loss_fn(net, params)
-
-        def state_tensors():
-            if use_gs:
-                return list(grad_sync.state_leaves(ostate))
-            return [v for d in ostate.values() for v in d.values()]
+        loss_fn = self._loss_fn(net, params, device)
 
         def step_fn(x, y, lr, step):
             for i, m in enumerate(stochastic):
@@ -358,7 +356,8 @@ class DistriOptimizer(Optimizer):
                 p.grad = None
             if guard == "skip":
                 before = [(t, t.detach().clone()) for t in
-                          [*plist, *floats, *state_tensors()]]
+                          [*plist, *floats,
+                           *grad_sync.state_leaves(ostate)]]
             loss = loss_fn(x, y)
             loss.backward()
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)

@@ -49,14 +49,23 @@ that iteration's parameters.  Dropout and RReLU draw from generators
 seeded by (run seed, layer, iteration), so a resumed run draws what the
 uninterrupted one drew.
 
+The step's loss is the criterion's plus every layer's regularizer penalty
+(``nn/regularizers.py``).  ``set_activation_memory`` picks what the
+backward keeps: ``"full"`` recomputes the whole forward, ``"dots"`` keeps
+only the outputs of products and convolutions (``torch.utils.checkpoint``
+and its selective form over the step's loss, ``nn/module.py``), ``"bf16"``
+computes (and so stores) in bf16.  A recomputed forward leaves BatchNorm's
+statistics and the stochastic layers' draws as the first one left them.
+``set_workload`` names the ``tuned_configs.json`` entry whose values fill
+the knobs left at their defaults (``utils/tuned.py``).
+
 ``Optimizer.create(..., distributed=True)`` builds the data-parallel
 ``DistriOptimizer`` (``optim/distri_optimizer.py``), which overrides the
 driver's hooks: ``_records_scale`` (the global batch is the world's local
 batches), the step, the snapshot and the validation's reduction.
 
 Not ported yet, each raising ``NotImplementedError`` where the reference
-has the API: telemetry, activation-memory policies and compute dtypes
-other than f32 and bf16.
+has the API: telemetry and compute dtypes other than f32 and bf16.
 """
 
 from __future__ import annotations
@@ -83,15 +92,20 @@ from bigdl_tpu_torch.interop.jax_weights import (from_jax_tree, jax_tree,
 from bigdl_tpu_torch.nn.activations import RReLU
 from bigdl_tpu_torch.nn.criterion import Criterion
 from bigdl_tpu_torch.nn.layers import Dropout
+from bigdl_tpu_torch.nn.module import checkpointed, walk
+from bigdl_tpu_torch.nn.regularizers import (has_regularizers,
+                                             regularization_loss)
 from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
 from bigdl_tpu_torch.optim.trigger import Trigger, max_epoch, probe_fire_step
 from bigdl_tpu_torch.optim.validation import (ValidationMethod,
                                               ValidationResult)
+from bigdl_tpu_torch.parallel.grad_sync import state_leaves
 from bigdl_tpu_torch.resilience.numeric import (NonFiniteStepError,
                                                 validate_policy)
 from bigdl_tpu_torch.telemetry.registry import MetricRegistry
 from bigdl_tpu_torch.utils.config import get_config
 from bigdl_tpu_torch.utils.precision import mixed_precision_loss_fn
+from bigdl_tpu_torch.utils.tuned import resolve_default
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
 
@@ -194,6 +208,9 @@ class Optimizer:
         self.seed: Optional[int] = None  # None = Config.seed
         self.steps_per_dispatch: Optional[int] = None  # None = Engine's
         self.compute_dtype: Optional[torch.dtype] = None  # None = f32
+        # None = setter never called: the default chain applies
+        self.activation_memory: Optional[str] = None
+        self.workload: Optional[str] = None  # tuned_configs.json key
         self.state: dict = {"epoch": 0, "neval": 0,
                             "records_processed_this_epoch": 0}
         self._stager: Optional[DeviceBlockStager] = None
@@ -336,8 +353,40 @@ class Optimizer:
             else validate_policy(policy)
         return self
 
-    def set_activation_memory(self, *a, **kw):
-        _not_ported("activation-memory policies (set_activation_memory)")
+    _ACTIVATION_POLICIES = ("none", "bf16", "dots", "full", "bf16+dots",
+                            "bf16+full")
+
+    def set_activation_memory(self, policy: Optional[str]) -> "Optimizer":
+        """What the backward keeps of the forward: ``None``/``"none"``
+        keeps everything (the step as without the setter); ``"dots"``
+        keeps the outputs of matrix products and convolutions and
+        recomputes the rest; ``"full"`` recomputes the whole forward from
+        the step's inputs, but as one region over the step it redoes the
+        forward before the backward needs any of it, so its peak is
+        ``"none"``'s and only its time grows (``resnet50(remat=True)``,
+        one region a block, is what lowers the peak); ``"bf16"`` computes,
+        and so stores, in bf16 (the mixed-precision path: parameters,
+        gradients and the update stay f32); ``"bf16+dots"``,
+        ``"bf16+full"`` both.  The
+        recomputation computes what the first forward computed: only what
+        is stored changes."""
+        if policy is not None and policy not in self._ACTIVATION_POLICIES:
+            raise ValueError(
+                f"activation memory policy must be one of "
+                f"{self._ACTIVATION_POLICIES} or None, got {policy!r}")
+        # an explicit None is the inert policy, which overrides a default
+        self.activation_memory = "none" if policy is None else policy
+        return self
+
+    def set_workload(self, tag: Optional[str]) -> "Optimizer":
+        """Tag this run's workload (``"ptb_lstm"``, ``"wide_deep"``, ...):
+        the ``tuned_configs.json`` entry ``tag@<device type>`` fills
+        ``steps_per_dispatch``, ``activation_memory`` and
+        (``DistriOptimizer``) the gradient sync's wire and bucket size
+        where nothing above it set them (``utils/tuned.py``).  Without such
+        an entry the tag changes nothing."""
+        self.workload = tag
+        return self
 
     def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> "Optimizer":
         """Mixed precision: forward and backward in ``dtype`` (bf16 for
@@ -368,6 +417,28 @@ class Optimizer:
             return self.numeric_guard
         return validate_policy(get_config().numeric_guard,
                                source="Config.numeric_guard")
+
+    def _workload_tag(self) -> Optional[str]:
+        return self.workload or Engine.workload()
+
+    def _resolved_activation_memory(self, device) -> str:
+        """The setter's policy, else the default chain (``configure()``/
+        ``BIGDL_TPU_ACTIVATION_MEMORY`` > the tuned entry > ``"none"``);
+        a bad value from the environment or a tuned file raises here."""
+        if self.activation_memory is not None:
+            return self.activation_memory
+        policy, src = resolve_default("activation_memory",
+                                      workload=self._workload_tag(),
+                                      backend=torch.device(device).type)
+        if policy not in self._ACTIVATION_POLICIES:
+            raise ValueError(
+                f"activation_memory {policy!r} (from {src}) must be "
+                f"one of {self._ACTIVATION_POLICIES}")
+        return policy
+
+    def _steps_per_block(self, device) -> int:
+        return self.steps_per_dispatch or Engine.steps_per_dispatch(
+            workload=self._workload_tag(), backend=torch.device(device).type)
 
     def _resolved_seed(self) -> int:
         return get_config().seed if self.seed is None else int(self.seed)
@@ -422,6 +493,18 @@ class Optimizer:
                              f"{sorted(ostate)}")
         with torch.no_grad():
             for key, tensors in ostate.items():
+                if not isinstance(tensors, dict):
+                    src = torch.as_tensor(saved[key])
+                    if src.numel() == tensors.numel() == 1:
+                        # the reference's writer stores a 0-d leaf as (1,)
+                        src = src.reshape(tensors.shape)
+                    if src.shape != tensors.shape:
+                        raise ValueError(
+                            f"resumed optimizer state {key!r} has shape "
+                            f"{tuple(src.shape)}, this run's "
+                            f"{tuple(tensors.shape)}")
+                    tensors.copy_(src)
+                    continue
                 got = from_jax_tree(net, saved[key], "params")
                 if set(got) != set(tensors):
                     raise ValueError(f"resumed optimizer state {key!r} "
@@ -443,13 +526,15 @@ class Optimizer:
 
     def _trees(self, run: _Run):
         """(params, buffers, optimizer state) of ``run`` in the
-        reference's layout."""
+        reference's layout: a state entry keyed by parameter name as the
+        parameters' tree, any other (LBFGS's flat history and counters)
+        as it is."""
         net = run.net
         params = jax_tree(net, {k: p.detach()
                                 for k, p in run.params.items()}, "params")
         state = jax_tree(net, dict(net.named_buffers()), "state")
-        ostate = {k: jax_tree(net, v, "params")
-                  for k, v in run.ostate.items()}
+        ostate = {k: jax_tree(net, v, "params") if isinstance(v, dict)
+                  else v for k, v in run.ostate.items()}
         return params, state, ostate
 
     def _maybe_checkpoint(self, run: _Run) -> None:
@@ -541,7 +626,7 @@ class Optimizer:
         parameters by name, requiring gradients, and its stochastic layers,
         each drawing from a generator of its own)."""
         net = copy.deepcopy(self.model).to(device).train()
-        stochastic = [m for m in net.modules()
+        stochastic = [m for m in walk(net)
                       if isinstance(m, (Dropout, RReLU))]
         for m in stochastic:
             m.generator = torch.Generator(device=device)
@@ -550,13 +635,33 @@ class Optimizer:
             p.requires_grad_(True)
         return net, params, stochastic
 
-    def _loss_fn(self, net, params: Tensors):
-        """``loss_fn(x, y)`` of the training copy in the compute dtype."""
+    def _loss_fn(self, net, params: Tensors, device):
+        """``loss_fn(x, y)`` of the training copy: the criterion's loss in
+        the compute dtype plus the regularizers' penalties (f32, on the
+        parameters), under the activation-memory policy."""
         criterion = self.criterion
-        if self.compute_dtype in (None, torch.float32):
-            return lambda x, y: criterion.apply(net(x), y)
-        mixed = mixed_precision_loss_fn(net, criterion, self.compute_dtype)
-        return lambda x, y: mixed(params, x, y)
+        policy = self._resolved_activation_memory(device)
+        compute_dtype = self.compute_dtype
+        if policy.startswith("bf16"):
+            if compute_dtype not in (None, torch.bfloat16):
+                raise ValueError(
+                    f"activation memory policy {policy!r} conflicts with "
+                    f"set_compute_dtype({compute_dtype}): bf16 activation "
+                    f"storage is bf16 compute; drop one of the two")
+            compute_dtype = torch.bfloat16
+        if compute_dtype in (None, torch.float32):
+            loss_fn = lambda x, y: criterion.apply(net(x), y)  # noqa: E731
+        else:
+            mixed = mixed_precision_loss_fn(net, criterion, compute_dtype)
+            loss_fn = lambda x, y: mixed(params, x, y)  # noqa: E731
+        if has_regularizers(net):
+            base = loss_fn
+            loss_fn = lambda x, y: (base(x, y)  # noqa: E731
+                                    + regularization_loss(net, params))
+        if policy.endswith(("dots", "full")):
+            loss_fn = checkpointed(loss_fn, net, "dots"
+                                   if policy.endswith("dots") else None)
+        return loss_fn
 
     def _check_rollback(self) -> None:
         if self._guard_policy == "rollback" and not self.checkpoint_path:
@@ -590,7 +695,7 @@ class Optimizer:
 
     def _train_driver(self, step_fn, device, run: _Run) -> None:
         state = self.state
-        k_max = self.steps_per_dispatch or Engine.steps_per_dispatch()
+        k_max = self._steps_per_block(device)
         # a previous run's preempted verdict must not leak into this one
         state.pop("preempted", None)
         mgr: Optional[CheckpointManager] = None
@@ -829,7 +934,7 @@ class LocalOptimizer(Optimizer):
         ostate = self._restored_opt_state(net, params)
         buffers = dict(net.named_buffers())
         optim, clip = self.optim_method, self.grad_clip
-        loss_fn = self._loss_fn(net, params)
+        loss_fn = self._loss_fn(net, params, device)
 
         def step_fn(x, y, lr, step):
             for i, m in enumerate(stochastic):
@@ -841,8 +946,7 @@ class LocalOptimizer(Optimizer):
                 # not finite (buffers: BatchNorm's running statistics)
                 before = [(t, t.detach().clone()) for t in
                           [*params.values(), *buffers.values(),
-                           *(v for d in ostate.values()
-                             for v in d.values())]]
+                           *state_leaves(ostate)]]
             loss = loss_fn(x, y)
             loss.backward()
             grads = {k: p.grad for k, p in params.items()}

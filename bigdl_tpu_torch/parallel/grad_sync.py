@@ -180,10 +180,11 @@ def unflatten_from_buckets(plan: BucketPlan,
 
 
 def state_leaves(tree):
-    """The tensors of a state tree (dicts, lists), in order."""
+    """The tensors of a state tree (dicts, lists), in the reference's leaf
+    order (a dict's keys sorted)."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from state_leaves(v)
+        for k in sorted(tree):
+            yield from state_leaves(tree[k])
     elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from state_leaves(v)
@@ -208,7 +209,7 @@ def init_state(plan: BucketPlan, params: Sequence[torch.Tensor],
                 f"{type(optim_method).__name__} created a "
                 f"{tuple(leaf.shape)}-shaped state leaf (buckets: "
                 f"{sorted(master_shapes)}).  Use parameter_sharding="
-                f"False for this method.")
+                f"False/grad_sync=False for this method.")
     return {"master": masters, "opt": inner}
 
 

@@ -1,9 +1,20 @@
-"""Typed configuration: the fields the serving and training slices read.
+"""Typed configuration: the fields the ported code reads.
 
-Port of ``bigdl_tpu/utils/config.py`` cut to this slice's fields, with the
-same names and the same ``BIGDL_TPU_*`` environment variables.
-Resolution order (later wins): dataclass defaults, then environment
-variables, then explicit :func:`configure` calls.
+Port of ``bigdl_tpu/utils/config.py`` cut to the ported modules' fields,
+with the same names and the same ``BIGDL_TPU_*`` environment variables.
+Resolution order (later wins): dataclass defaults, the per-workload
+``tuned_configs.json`` entry (``utils/tuned.resolve_default``, only where
+a call site names a workload and the field is still at its default),
+environment variables, explicit :func:`configure` calls.  The config
+records where each field's value came from (:meth:`Config.source`).
+
+A field comes with the module that reads it: the reference's fields that
+no code reads (``prefetch_batches``, ``loader_workers``,
+``compute_dtype``, ``matmul_precision``, ``log_every_n_iterations``,
+``summary_flush_secs``) are left out, and ``serving_deadline_ms`` waits
+for the replica set, as the TPU's ``kernel_impl`` and the telemetry, front
+end, fault injection, lockdep, spmdcheck and mesh-axis fields wait for
+their modules.
 """
 
 from __future__ import annotations
@@ -59,11 +70,30 @@ class Config:
     # f32 master slices
     grad_bucket_bytes: int = 4 << 20
     grad_wire_dtype: str = "f32"
+    # activation-memory policy of the training driver when the optimizer
+    # sets none (Optimizer.set_activation_memory): "none" | "dots" |
+    # "full" | "bf16" | "bf16+dots" | "bf16+full"
+    activation_memory: str = "none"
+    # anomaly detection: autograd fails at the first backward that makes a
+    # NaN (torch.autograd.set_detect_anomaly; apply_debug_config)
+    debug_nans: bool = False
+    # provenance: field -> "env" | "explicit" for every overridden field;
+    # absent = still the dataclass default, the one state a tuned value
+    # may fill.  Private: not a knob.
+    _sources: dict = dataclasses.field(default_factory=dict, repr=False,
+                                       compare=False)
+
+    def source(self, name: str) -> str:
+        """Where ``name``'s value came from: ``"default"``, ``"env"`` or
+        ``"explicit"``."""
+        return self._sources.get(name, "default")
 
     @classmethod
     def from_env(cls) -> "Config":
         cfg = cls()
         for f in dataclasses.fields(cls):
+            if f.name.startswith("_"):
+                continue  # bookkeeping, not a knob
             env = _ENV_PREFIX + f.name.upper()
             if env in os.environ:
                 typ = type(getattr(cfg, f.name))
@@ -73,6 +103,7 @@ class Config:
                 else:
                     val = typ(raw)
                 setattr(cfg, f.name, val)
+                cfg._sources[f.name] = "env"
         return cfg
 
 
@@ -83,6 +114,9 @@ def get_config() -> Config:
     global _config
     if _config is None:
         _config = Config.from_env()
+        if _config.debug_nans:
+            # BIGDL_TPU_DEBUG_NANS=1 alone is enough
+            apply_debug_config(_config)
     return _config
 
 
@@ -90,11 +124,15 @@ def configure(**kw) -> Config:
     """Override config fields programmatically (highest precedence)."""
     cfg = get_config()
     for k, v in kw.items():
-        if not hasattr(cfg, k):
-            names = [f.name for f in dataclasses.fields(Config)]
+        if k.startswith("_") or not hasattr(cfg, k):
+            names = [f.name for f in dataclasses.fields(Config)
+                     if not f.name.startswith("_")]
             raise AttributeError(
                 f"unknown config field {k!r}; fields: {names}")
         setattr(cfg, k, v)
+        cfg._sources[k] = "explicit"
+    if "debug_nans" in kw:
+        apply_debug_config(cfg)
     return cfg
 
 
@@ -102,3 +140,12 @@ def reset_config() -> None:
     """Drop overrides; the next get_config() re-reads the environment."""
     global _config
     _config = None
+
+
+def apply_debug_config(cfg: Optional[Config] = None) -> None:
+    """Push the debug toggles into torch: ``debug_nans`` turns on
+    autograd's anomaly detection, so the first backward that makes a NaN
+    fails loudly (the reference turns on ``jax_debug_nans``)."""
+    import torch
+    cfg = cfg or get_config()
+    torch.autograd.set_detect_anomaly(bool(cfg.debug_nans))

@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (``bigdl_tpu_torch``) on one NVIDIA card.
 
-Drives the port's eight main paths and holds every kernel of them against
+Drives the port's ten main paths and holds every kernel of them against
 its plain PyTorch version.  Serving: an int8-quantized ResNet-50 (1000
 classes, 224x224, NCHW, random weights from a seed) served by
 ``ModelRegistry`` with ``quantize=True`` (weight_only) and
@@ -28,8 +28,13 @@ for CIFAR-10 and ResNet-20, NCHW f32, batch 128, on 50,000 synthetic
 images through the recipe's pad/crop/flip pipeline, Top-1 over 10,000),
 VGG's five pools on B1; and Inception v1 at ``bench.py``'s configuration
 (NHWC, bf16 compute, batch 256, 224x224, 1000 classes) with the recipe of
-``examples/inception/train.py``, its 13 pools on B1.  Phases, each
-printing its seconds:
+``examples/inception/train.py``, its 13 pools on B1; and the MNIST
+autoencoder of ``examples/autoencoder/train.py`` (784 -> 32 -> 784, batch
+128, Adagrad, MSE, five epochs of 60,000 synthetic images) with every other
+optim method and the L1/L2 regularizers; and ResNet-50 under each
+rematerialization mode (``resnet50(remat=True|"tails")``,
+``set_activation_memory("dots"|"full")``), B1 at its stem pool inside the
+recomputed steps.  Phases, each printing its seconds:
 
 1. the card: name, count, ``nvidia-smi`` name and power limit;
 2. the kernels, built from ``bigdl_tpu_torch/csrc`` (one ``nvcc`` a
@@ -162,7 +167,33 @@ printing its seconds:
    against the CPU step by step (``wd_step_reading``, each gradient by
    its norm share) within
    ``INCEPTION_TRAIN_TOL``, a limit two planted faults must exceed (the
-   LRN's torch window, two towers of module 4a swapped).
+   LRN's torch window, two towers of module 4a swapped);
+24. autoencoder: the recipe for five epochs through LocalOptimizer at K
+   from ``Engine.steps_per_dispatch()`` (ms a step and samples/s over
+   epochs 2-5, peak memory, a profiled block, each epoch's loss, which
+   must fall, and the reconstruction MSE of 256 images); then one K=4
+   block of each method (SGD with a bf16 velocity, ParallelAdam, Adagrad,
+   Adadelta, Adamax, RMSprop, Ftrl, LBFGS, and Adagrad with
+   ``L1L2Regularizer(1e-4, 1e-4)`` on both Linears) on the card against
+   the CPU step by step (``ae_step_reading``: loss, gradients, update and
+   state) within ``AE_STEP_TOL``, a limit two planted faults must exceed
+   (Adagrad's epsilon inside the root, Adadelta's accumulators swapped);
+   LBFGS's update with host syncs made errors; each elementwise method
+   through a world-1 DistriOptimizer over NCCL bitwise equal to
+   LocalOptimizer, LBFGS refused by the ZeRO-1 path and bitwise on
+   ``parameter_sharding=False``;
+25. remat: ResNet-50 at batch 32 under
+   ``torch.use_deterministic_algorithms``, one K=4 block in each of
+   ``REMAT_MODES`` at f32 and in no remat, remat=True and "tails" under
+   bf16 compute: losses, weights and BatchNorm statistics bitwise equal
+   to remat=False's at the same dtype, B1 once a step, two planted
+   faults (BatchNorm updated again in the recomputed forward; Remat
+   keeping its block's parameters out of the checkpoint, in bf16) that
+   must break it; then
+   ``bench.py``'s configuration (NHWC, bf16, batch 256, 1,024
+   pre-augmented images) in each of ``REMAT_TIMED``, 8 timed steps (ms a
+   step, images/s, peak memory, B1 once a step), and a profiled step of
+   a second, short run (device time, idle share).
 
 The last lines are the card, the kernel table and the result as JSON; any
 failed check raises and the script exits non-zero.  Without a CUDA card it
@@ -170,7 +201,7 @@ fails at once.  Run from the repository root:
 
     python3 chip_smoke.py [--seed N] [--json-out PATH]
                           [--phases resnet,lstm,resnet-train,wide-deep,lenet,
-                                    distri,cifar,inception]
+                                    distri,cifar,inception,autoencoder,remat]
 
 ``--phases resnet-conditioning`` adds a diagnostic that is not run by
 default: the check phase's path reading at residual gammas 0 to 1, beside
@@ -208,9 +239,9 @@ from bigdl_tpu_torch.dataset import (  # noqa: E402
 from bigdl_tpu_torch.dataset import cifar, image, mnist  # noqa: E402
 from bigdl_tpu_torch.dataset.text import Dictionary  # noqa: E402
 from bigdl_tpu_torch.engine import Engine  # noqa: E402
-from bigdl_tpu_torch.models import (WideAndDeep, inception_v1,  # noqa: E402
-                                    lenet5, ptb_model, resnet50,
-                                    resnet_cifar, vgg_for_cifar10)
+from bigdl_tpu_torch.models import (WideAndDeep, autoencoder,  # noqa: E402
+                                    inception_v1, lenet5, ptb_model,
+                                    resnet50, resnet_cifar, vgg_for_cifar10)
 from bigdl_tpu_torch.nn import quantize, recurrent  # noqa: E402
 from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,  # noqa: E402
                                           QuantizedSpatialConvolution)
@@ -344,11 +375,16 @@ def cuda_ms(fn, budget_ms=30.0):
     return start.elapsed_time(end) / iters
 
 
+SENTINEL_SPINS = 32
+
+
 def sentinel():
-    """A short spin kernel at the head of a profiled window, waited for:
-    the trace can miss a session's first launches, and these it may miss.
-    :func:`device_time` leaves it out."""
-    torch.cuda._sleep(1000)
+    """Short spin kernels at the head of a profiled window, waited for:
+    the trace can miss a session's first launches (after the distri
+    phase, the first 18-20 of each session at a pool), and these it may
+    miss.  :func:`device_time` leaves them out."""
+    for _ in range(SENTINEL_SPINS):
+        torch.cuda._sleep(1000)
     torch.cuda.synchronize()
 
 
@@ -399,14 +435,17 @@ def device_ms(fn, calls=50, split=None):
         for _ in range(calls):
             fn()
 
-    for _ in range(3):  # a trace that lost most launches is taken again
+    # a trace that lost most launches is taken again, each time with
+    # twice the calls, so that a session's lost head weighs less
+    for _ in range(4):
         kernels = profiled_kernels(run)
         per_call = per_call_ms(kernels, calls)
         if per_call:
             break
         print(f"profiler: a trace lost most launches of {calls} calls ("
               + ", ".join(f"{n} x{c}" for n, _, c in kernels)[:300]
-              + "); taken again")
+              + f"); taken again with {2 * calls}")
+        calls *= 2
     else:
         raise AssertionError("the profiler saw no kernel of every call")
     if split is not None:
@@ -4196,8 +4235,552 @@ def inception_phase(seed, device, card, report):
     return launches
 
 
+# ------------------------------------------- autoencoder, every optim method
+AE = {"train": 60_000, "batch": 128, "epochs": 5, "lr": 0.01,
+      "bottleneck": 32, "recon": 256, "check_K": 4, "profile_at": 2}
+# a method's K=4 block on the card against the CPU, step by step
+# (ae_step_reading: each step's loss, gradients, update and state, each as
+# a norm share): above the sound readings, below the planted faults that
+# every run measures
+AE_STEP_TOL = 1e-4
+# the methods the phase drives (name, constructor, whether elementwise)
+AE_METHODS = {
+    "sgd_bf16_velocity": lambda: optim.SGD(0.1, momentum=0.9,
+                                           state_dtype=torch.bfloat16),
+    "parallel_adam": lambda: optim.ParallelAdam(0.001),
+    "adagrad": lambda: optim.Adagrad(AE["lr"]),
+    "adadelta": lambda: optim.Adadelta(),
+    "adamax": lambda: optim.Adamax(),
+    "rmsprop": lambda: optim.RMSprop(0.001),
+    "ftrl": lambda: optim.Ftrl(0.05),
+    "lbfgs": lambda: optim.LBFGS(0.1, history=5),
+}
+_AE_DATA = {}
+
+
+def ae_data():
+    """The recipe's images: synthetic MNIST at MNIST's count, scaled to
+    [0, 1] (float32 (n, 28, 28)); made once."""
+    if not _AE_DATA:
+        imgs, _ = mnist.synthetic_mnist(AE["train"], seed=0)
+        _AE_DATA["x"] = imgs.astype(np.float32) / 255.0
+    return _AE_DATA["x"]
+
+
+def ae_dataset(x):
+    """The recipe's dataset: each image its own target, flattened."""
+    return DataSet.array([Sample(a, a.reshape(-1)) for a in x]) \
+        >> SampleToMiniBatch(AE["batch"])
+
+
+def ae_model(seed, regularized=False):
+    model = autoencoder(AE["bottleneck"]).initialize(seed)
+    if regularized:
+        for i in (1, 3):
+            model[i].w_regularizer = nn.L1L2Regularizer(1e-4, 1e-4)
+            model[i].b_regularizer = nn.L1L2Regularizer(1e-4, 1e-4)
+    return model
+
+
+def ae_recipe_phase(seed, device, card, report):
+    """``examples/autoencoder/train.py``'s recipe through LocalOptimizer on
+    the card: 784 -> 32 -> 784, batch 128, Adagrad lr 0.01, MSE, five
+    epochs of 60,000 images, K from ``Engine.steps_per_dispatch()``; ms a
+    step and samples/s over epochs 2-5, one profiled block, each epoch's
+    mean loss (must fall) and the reconstruction MSE of 256 images."""
+    x = ae_data()
+    B, epochs = AE["batch"], AE["epochs"]
+    k = Engine.steps_per_dispatch(backend=device.type)
+    # an epoch counts records: its last batch runs into the next pass
+    per_epoch = -(-AE["train"] // B)
+    losses, clock, prof = [], [], {}
+
+    class Recording(LocalOptimizer):
+        def _log_train_iteration(self, lr):
+            losses.append(self.state["loss"])
+            clock.append(time.perf_counter())
+
+    model = ae_model(seed)
+    cls = profiled_block(Recording, AE["profile_at"], card, 6, prof)
+    opt = (cls(model, ae_dataset(x), nn.MSECriterion(), device=device)
+           .set_optim_method(optim.Adagrad(AE["lr"]))
+           .set_steps_per_dispatch(k)
+           .set_end_when(optim.max_epoch(epochs)))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    opt.optimize()
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(losses)
+    if steps != epochs * per_epoch:
+        raise AssertionError(f"autoencoder ran {steps} steps, want "
+                             f"{epochs * per_epoch}")
+    epoch_loss = [float(np.mean(losses[e * per_epoch:(e + 1) * per_epoch]))
+                  for e in range(epochs)]
+    step_s = (clock[-1] - clock[per_epoch - 1]) / (steps - per_epoch)
+    with torch.no_grad():
+        net = copy.deepcopy(model).to(device).eval()
+        xs = torch.from_numpy(x[:AE["recon"]]).to(device)
+        recon = net(xs)
+        mse = float(((recon - xs.reshape(len(xs), -1)) ** 2).mean())
+    print_profile(f"autoencoder block {AE['profile_at']} (K={k})", prof,
+                  card, 6)
+    print(f"train autoencoder 784-{AE['bottleneck']}-784 batch {B} K={k} "
+          f"Adagrad lr {AE['lr']} MSE: {epochs} epochs of {AE['train']} "
+          f"({steps} steps, {wall:.1f} s); epochs 2-{epochs}: "
+          f"ms_per_step={step_s * 1e3:.3f} samples_per_s={B / step_s:.1f} "
+          f"max_memory_allocated={peak}; epoch losses "
+          + ", ".join(f"{v:.6f}" for v in epoch_loss)
+          + f"; reconstruction MSE of {AE['recon']} images {mse:.6f} "
+          f"[{card}]")
+    report["autoencoder"] = {"k": k, "steps": steps, "wall_s": wall,
+                             "ms_per_step": step_s * 1e3,
+                             "samples_per_s": B / step_s,
+                             "max_memory_allocated": peak,
+                             "epoch_losses": epoch_loss, "recon_mse": mse,
+                             "profile": prof}
+    if not (np.all(np.isfinite(losses)) and epoch_loss[-1] < epoch_loss[0]):
+        raise AssertionError(f"the autoencoder's loss does not fall: "
+                             f"{epoch_loss}")
+
+
+def host_tree(tree):
+    """A CPU copy of an optimizer state (dicts, lists, tensors)."""
+    if isinstance(tree, dict):
+        return {k: host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_tree(v) for v in tree)
+    return tree.detach().to("cpu", copy=True)
+
+
+def tree_pairs(a, b, prefix=""):
+    """(path, leaf of a, leaf of b) over two trees of one structure."""
+    if isinstance(a, dict):
+        for k in a:
+            yield from tree_pairs(a[k], b[k], f"{prefix}{k}.")
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            yield from tree_pairs(x, y, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], a, b
+
+
+def state_recording(make):
+    """An optimization method (``make()``'s class) that keeps a CPU copy
+    of every step's parameters, gradients and state before its update, and
+    of the parameters and state after it, in ``steps``."""
+    base = make()
+
+    class Rec(type(base)):
+        def update(self, grads, params, state, lr, step):
+            before = (host_tree(params), host_tree(grads), host_tree(state))
+            super().update(grads, params, state, lr, step)
+            self.steps.append(before + (host_tree(params), host_tree(state),
+                                        lr, step))
+    rec = copy.copy(base)
+    rec.__class__ = Rec
+    rec.steps = []
+    return rec
+
+
+class AdagradEpsInSqrt(optim.Adagrad):
+    """Planted fault: ``epsilon`` inside the square root."""
+
+    @torch.no_grad()
+    def update(self, grads, params, state, lr, step):
+        for k in params:
+            g, a = grads[k], state["accum"][k]
+            a.copy_(a + g * g)
+            params[k].sub_(lr * g / torch.sqrt(a + self.epsilon))
+
+
+class AdadeltaSwapped(optim.Adadelta):
+    """Planted fault: the two accumulators swapped in the step."""
+
+    @torch.no_grad()
+    def update(self, grads, params, state, lr, step):
+        rho, eps = self.rho, self.epsilon
+        for k in params:
+            g, a, au = grads[k], state["accum"][k], state["accum_update"][k]
+            a.copy_(rho * a + (1 - rho) * g * g)
+            delta = g * torch.sqrt(a + eps) / torch.sqrt(au + eps)
+            au.copy_(rho * au + (1 - rho) * delta * delta)
+            params[k].sub_(lr * delta)
+
+
+AE_FAULTS = {"adagrad_eps_in_sqrt": ("adagrad", AdagradEpsInSqrt),
+             "adadelta_accumulators_swapped": ("adadelta", AdadeltaSwapped)}
+
+
+def ae_step_reading(init, steps, batches, make, losses):
+    """How far a block on the card is from the CPU, step by step: for each
+    step j, the CPU redoes the forward and backward from the card's
+    weights of step j on batch j (the loss against the card's, relative;
+    each gradient by its norm share), then the update with ``make()`` from
+    the card's gradients, weights and state of step j (the update, each
+    weight's change, and every state leaf against the card's, by norm
+    share).  (reading, its four largest (share, what))."""
+    rows = []
+    for j, (p, g, st, p_after, st_after, lr, step) in enumerate(steps):
+        m = copy.deepcopy(init)
+        with torch.no_grad():
+            for k, t in m.named_parameters():
+                t.copy_(p[k])
+                t.requires_grad_(True)
+        x = torch.from_numpy(batches[j].input)
+        y = torch.from_numpy(batches[j].target)
+        loss = nn.MSECriterion().apply(m(x), y) + nn.regularization_loss(m)
+        loss.backward()
+        rows.append((abs(losses[j] - loss.item()) / abs(loss.item()),
+                     f"step {j} loss"))
+        rows += [(norm_share(g[k].double(), t.grad.double()),
+                  f"step {j} grad {k}") for k, t in m.named_parameters()]
+        cp, cst = copy.deepcopy(p), copy.deepcopy(st)
+        make().update({k: v.clone() for k, v in g.items()}, cp, cst, lr,
+                      step)
+        rows += [(norm_share((p_after[k] - p[k]).double(),
+                             (cp[k] - p[k]).double()), f"step {j} update {k}")
+                 for k in p]
+        rows += [(norm_share(a.double(), b.double()), f"step {j} state {k}")
+                 for k, a, b in tree_pairs(st_after, cst)
+                 if a.is_floating_point()]
+        rows += [(float(not torch.equal(a, b)), f"step {j} state {k}")
+                 for k, a, b in tree_pairs(st_after, cst)
+                 if not a.is_floating_point()]
+    rows.sort(key=lambda r: -r[0])
+    return rows[0][0], rows[:4]
+
+
+def ae_block(model, method, x, device, k, distributed=False, **kw):
+    """One K-step block of the recipe through LocalOptimizer (or a world-1
+    DistriOptimizer): (per-step losses, optimizer)."""
+    losses = []
+    if distributed:
+        opt = optim.Optimizer.create(model, ae_dataset(x), nn.MSECriterion(),
+                                     distributed=True, device=device, **kw)
+    else:
+        opt = LocalOptimizer(model, ae_dataset(x), nn.MSECriterion(),
+                             device=device)
+    opt = (opt.set_optim_method(method).set_steps_per_dispatch(k)
+           .set_end_when(optim.max_iteration(k)))
+    opt._log_train_iteration = lambda lr: losses.append(opt.state["loss"])
+    opt.optimize()
+    return losses, opt
+
+
+def ae_methods_phase(seed, device, card, report):
+    """Every optim method (and Adagrad with an L1L2 regularizer on both
+    Linears) through one K=4 block of the recipe on the card against the
+    CPU (:func:`ae_step_reading`), two planted faults above the limit;
+    LBFGS's update on the card with host syncs made errors; then each
+    elementwise method through a world-1 DistriOptimizer over NCCL,
+    bitwise equal to LocalOptimizer, and LBFGS refused by the ZeRO-1 path
+    and bitwise on ``parameter_sharding=False``."""
+    K, B = AE["check_K"], AE["batch"]
+    x = ae_data()[:K * B]
+    # the batches the optimizer's first K steps read (its stream wraps)
+    batches = list(itertools.islice(ae_dataset(x).data(train=True), K))
+    runs = {name: (make, False) for name, make in AE_METHODS.items()}
+    runs["adagrad_l1l2"] = (AE_METHODS["adagrad"], True)
+    readings, largest, faults = {}, {}, {}
+    for name, (make, reg) in runs.items():
+        init = ae_model(seed + 1, reg)
+        rec = state_recording(make)
+        losses, _ = ae_block(copy.deepcopy(init), rec, x, device, K)
+        readings[name], largest[name] = ae_step_reading(
+            init, rec.steps, batches, make, losses)
+    for fault, (sound, cls) in AE_FAULTS.items():
+        init = ae_model(seed + 1)
+        base = AE_METHODS[sound]()
+        planted = lambda: cls(**({"learning_rate": base.learning_rate}  # noqa: E731
+                                 if sound == "adagrad" else {}))
+        rec = state_recording(planted)
+        losses, _ = ae_block(copy.deepcopy(init), rec, x, device, K)
+        faults[fault], largest[fault] = ae_step_reading(
+            init, rec.steps, batches, AE_METHODS[sound], losses)
+    # LBFGS's in-loop update reads nothing back: every host sync an error
+    lb = optim.LBFGS(0.1, history=3)
+    params = {k: v.detach().to(device) for k, v in
+              ae_model(seed).named_parameters()}
+    lst = lb.init_state(params)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for step in range(4):  # a convex quadratic's gradients
+            lb.update({k: (p - 0.5) * 0.1 for k, p in params.items()},
+                      params, lst, 0.1, step)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pairs = int(lst["pairs"])
+    print("autoencoder methods card-vs-cpu largest shares (share, what): "
+          + "; ".join(f"{k} {v}" for k, v in largest.items()))
+    print(f"autoencoder methods card-vs-cpu, K={K} block of batch {B} step "
+          f"by step: " + ", ".join(f"{k} {v:.3e}"
+                                   for k, v in readings.items())
+          + "; planted faults " + ", ".join(f"{k} {v:.3e}"
+                                            for k, v in faults.items())
+          + f" (tol {AE_STEP_TOL}); LBFGS update under sync debug mode "
+          f"'error': 4 steps, {pairs} pairs pushed [{card}]")
+    # world 1: DistriOptimizer against LocalOptimizer, bit for bit
+    bitwise = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, make in AE_METHODS.items():
+            init = ae_model(seed + 2)
+            local, dist_model = copy.deepcopy(init), copy.deepcopy(init)
+            llosses, _ = ae_block(local, make(), x, device, K)
+            if name == "lbfgs":
+                try:
+                    ae_block(copy.deepcopy(init), make(), x, device, K,
+                             distributed=True)
+                except ValueError as e:
+                    refused = str(e)
+                else:
+                    raise AssertionError("the ZeRO-1 path took LBFGS")
+                if "grad_sync requires an elementwise optimizer" \
+                        not in refused:
+                    raise AssertionError(f"LBFGS refused with {refused!r}")
+                dlosses, dopt = ae_block(dist_model, make(), x, device, K,
+                                         distributed=True,
+                                         parameter_sharding=False)
+            else:
+                dlosses, dopt = ae_block(dist_model, make(), x, device, K,
+                                         distributed=True)
+            bitwise[name] = llosses == dlosses \
+                and params_equal(local, dist_model)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"autoencoder DistriOptimizer world 1 (NCCL) vs LocalOptimizer, "
+          f"K={K} block: bitwise " + ", ".join(
+              f"{k} {v}" for k, v in bitwise.items())
+          + f"; LBFGS refused by ZeRO-1: {refused[:80]}... [{card}]")
+    report["autoencoder_methods"] = {
+        "readings": readings, "largest": largest, "planted_faults": faults,
+        "tol": AE_STEP_TOL, "lbfgs_pairs": pairs, "world1_bitwise": bitwise,
+        "lbfgs_refused": refused}
+    for name, v in readings.items():
+        if not v <= AE_STEP_TOL:
+            raise AssertionError(f"{name} on the card is {v:.3e} from the "
+                                 f"CPU, over the limit {AE_STEP_TOL}")
+    for name, v in faults.items():
+        if not v > AE_STEP_TOL:
+            raise AssertionError(f"planted fault {name} reads {v:.3e}, "
+                                 f"inside the limit {AE_STEP_TOL}: the check "
+                                 f"is blind")
+    if not all(bitwise.values()):
+        raise AssertionError(f"world-1 DistriOptimizer is not "
+                             f"LocalOptimizer bit for bit: {bitwise}")
+
+
+def autoencoder_phase(seed, device, card, report):
+    t0 = time.monotonic()
+    ae_recipe_phase(seed, device, card, report)
+    print(f"phase autoencoder-recipe: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    ae_methods_phase(seed, device, card, report)
+    print(f"phase autoencoder-methods: {time.monotonic() - t0:.1f} s")
+
+
+# --------------------------------------- ResNet-50 rematerialization, B1
+REMAT = {"check_batch": 32, "K": 4, "timed_blocks": 2}
+REMAT_MODES = {  # name: (resnet50's remat, the activation-memory policy)
+    "none": (False, None), "remat_true": (True, None),
+    "remat_tails": ("tails", None), "policy_dots": (False, "dots"),
+    "policy_full": (False, "full")}
+REMAT_TIMED = ("none", "remat_true", "remat_tails", "policy_full")
+
+
+def remat_run(init, mode, dataset, device, steps, k, compute, sgd,
+              cls=LocalOptimizer):
+    """ResNet-50 (``init`` rebuilt under ``mode``'s remat, same weights)
+    through ``cls``: (per-step losses, replay clock, model, optimizer)."""
+    remat, policy = REMAT_MODES[mode]
+    model = resnet50(RESNET["classes"], format="NHWC", remat=remat)
+    model.load_state_dict(init.state_dict())
+    losses, clock = [], []
+
+    class Recording(cls):
+        def _log_train_iteration(self, lr):
+            losses.append(self.state["loss"])
+            clock.append(time.perf_counter())
+
+    opt = (Recording(model, dataset, nn.ClassNLLCriterion(), device=device)
+           .set_optim_method(sgd).set_compute_dtype(compute)
+           .set_steps_per_dispatch(k)
+           .set_end_when(optim.max_iteration(steps)))
+    if policy is not None:
+        opt.set_activation_memory(policy)
+    opt.optimize()
+    return losses, clock, model, opt
+
+
+# the check's runs: (label, mode of REMAT_MODES, compute dtype, planted
+# fault); each is held against "none" at its compute dtype
+REMAT_CHECKS = ([(m, m, None, None) for m in REMAT_MODES]
+                + [("fault_bn_twice", "remat_true", None, "bn_twice")]
+                + [(m + "+bf16", m, torch.bfloat16, None)
+                   for m in ("none", "remat_true", "remat_tails")]
+                + [("fault_params_outside+bf16", "remat_true", torch.bfloat16,
+                    "params_outside")])
+
+
+def _remat_params_outside(self, x):
+    """Planted fault: the block runs on its own f32 parameters, which do
+    not enter the checkpoint, so under bf16 compute the recomputation
+    misses the casts of the first forward."""
+    return nn.module.checkpointed(self.inner, self.inner, self.policy)(x)
+
+
+def remat_check_phase(seed, device, card, report):
+    """Batch 32 under torch.use_deterministic_algorithms: one K=4 block in
+    each run of ``REMAT_CHECKS`` (every mode at f32; no remat, remat=True
+    and "tails" under bf16 compute, where the recomputation runs inside
+    the mixed-precision functional_call); its losses, weights and
+    BatchNorm statistics must equal remat=False's at its dtype bit for
+    bit, B1 launch once a step in each, and two planted faults must break
+    it: BatchNorm updating its statistics again in the recomputed forward
+    (f32), and Remat keeping its block's parameters out of the checkpoint
+    (bf16; this one may also raise where the recomputation meets the f32
+    weights)."""
+    K, B = REMAT["K"], REMAT["check_batch"]
+    rng = np.random.default_rng(seed)
+    xs = rng.normal(0, 1, (K * B, RESNET["size"], RESNET["size"], 3)) \
+        .astype(np.float32)
+    ys = rng.integers(0, RESNET["classes"], K * B)
+    samples = [Sample(a, np.int32(b)) for a, b in zip(xs, ys)]
+    init = resnet50(RESNET["classes"], format="NHWC").initialize(seed)
+    out, runs = {}, {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for label, mode, compute, fault in REMAT_CHECKS:
+            sound = nn.layers.recomputing, nn.Remat.forward
+            if fault == "bn_twice":
+                nn.layers.recomputing = lambda: False
+            elif fault == "params_outside":
+                nn.Remat.forward = _remat_params_outside
+            maxpool.reset_counts()
+            try:
+                losses, _, model, _ = remat_run(
+                    init, mode, DataSet.array(samples) >> SampleToMiniBatch(B),
+                    device, K, K, compute, optim.SGD(0.01, momentum=0.9))
+                runs[label] = (compute, losses, model.state_dict(),
+                               maxpool.launches, None)
+                del model
+            except RuntimeError as e:
+                if fault is None:
+                    raise
+                runs[label] = (compute, None, None, maxpool.launches,
+                               str(e).splitlines()[0])
+            finally:
+                nn.layers.recomputing, nn.Remat.forward = sound
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    base = {c: runs[label][1:3] for label, m, c, f in REMAT_CHECKS
+            if m == "none"}
+    for label, (compute, losses, state, launches, raised) in runs.items():
+        want_losses, want_state = base[compute]
+        dtype = "bf16" if compute is not None else "f32"
+        if raised is not None:
+            out[label] = {"bitwise": False, "raised": raised,
+                          "launches": launches}
+            print(f"resnet50 remat check {label}: {dtype} batch {B}, K={K}: "
+                  f"raised {raised!r} [{card}]")
+            continue
+        same = losses == want_losses and all(
+            torch.equal(state[k], v) for k, v in want_state.items())
+        worst = max(((state[k].double() - v.double()).abs().max()
+                     / v.double().abs().max().clamp(min=1e-30)).item()
+                    for k, v in want_state.items())
+        out[label] = {"bitwise": same, "largest": worst,
+                      "launches": launches, "losses": losses}
+        print(f"resnet50 remat check {label}: {dtype} batch {B}, K={K} block "
+              f"under deterministic algorithms: losses, weights and BN "
+              f"statistics bitwise to remat=False {same} (largest "
+              f"difference {worst:.3e} of an array's largest); B1 launches "
+              f"{launches}; losses " + ", ".join(f"{v:.6f}" for v in losses)
+              + f" [{card}]")
+    report["remat_check"] = out
+    for label, row in out.items():
+        if label.startswith("fault"):
+            if row["bitwise"]:
+                raise AssertionError(f"the planted fault {label} passed the "
+                                     f"remat check: it is blind")
+            continue
+        if not row["bitwise"]:
+            raise AssertionError(f"resnet50 {label} is not remat=False bit "
+                                 f"for bit (largest {row['largest']:.3e})")
+        if row["launches"] != K:
+            raise AssertionError(f"{label}: B1 launched {row['launches']} "
+                                 f"times in {K} steps")
+
+
+def remat_timed_phase(seed, device, card, report):
+    """``bench.py``'s ResNet-50 configuration (NHWC, bf16, batch 256, the
+    recipe's SGD, 1,024 pre-augmented images) in each mode of
+    ``REMAT_TIMED``: a warm-up block and two timed K=4 blocks (ms a step,
+    images/s, peak memory, B1's launches: one a step), then a second run
+    of two steps whose first runs under torch.profiler (its device time
+    and idle share; kept apart, as reading the trace takes the host
+    seconds).  Returns B1's launches in the timed runs by mode."""
+    B, K = RESNET["batch"], REMAT["K"]
+    steps = K * (1 + REMAT["timed_blocks"])
+    per_epoch = RESNET["samples"] // B
+    _, augmented = resnet_data()
+    init = resnet50(RESNET["classes"], format="NHWC").initialize(seed)
+    out, launches = {}, {}
+    for mode in REMAT_TIMED:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        maxpool.reset_counts()
+        t0 = time.monotonic()
+        losses, clock, _, opt = remat_run(
+            init, mode, DataSet.array(augmented) >> SampleToMiniBatch(B),
+            device, steps, K, torch.bfloat16, recipe_sgd(per_epoch))
+        peak = torch.cuda.max_memory_allocated()
+        launches[mode] = maxpool.launches
+        variants = dict(maxpool.variant_launches)
+        del opt
+        ends = [clock[i + K - 1] for i in range(0, steps, K)]
+        step_s = (ends[-1] - ends[0]) / (steps - K)
+        prof = {}
+        remat_run(init, mode, DataSet.array(augmented) >> SampleToMiniBatch(B),
+                  device, 2, 1, torch.bfloat16, recipe_sgd(per_epoch),
+                  profiled_block(LocalOptimizer, 0, card, 6, prof))
+        out[mode] = {"ms_per_step": step_s * 1e3, "images_per_s": B / step_s,
+                     "max_memory_allocated": peak, "launches": launches[mode],
+                     "losses": losses, "profile": prof,
+                     "wall_s": time.monotonic() - t0}
+        print_profile(f"resnet50 {mode} step", prof, card, 4)
+        print(f"train resnet50 {mode} NHWC bf16 batch {B} K={K}: "
+              f"{steps - K} timed steps: ms_per_step={step_s * 1e3:.2f} "
+              f"images_per_s={B / step_s:.1f} max_memory_allocated={peak} "
+              f"profiled step device_busy_ms="
+              f"{prof.get('device_busy_ms', 0.0):.2f}; B1 launches "
+              f"{launches[mode]} for {steps} steps ({variants}); losses "
+              + ", ".join(f"{v:.4f}" for v in losses)
+              + f" [{card}]")
+        if launches[mode] != steps:
+            raise AssertionError(f"{mode}: B1 launched {launches[mode]} times "
+                                 f"in {steps} steps")
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{mode}: non-finite loss {losses}")
+    report["remat_timed"] = out
+    return launches
+
+
+def remat_phase(seed, device, card, report):
+    t0 = time.monotonic()
+    remat_check_phase(seed, device, card, report)
+    print(f"phase remat-check: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    launches = remat_timed_phase(seed, device, card, report)
+    print(f"phase remat-timed: {time.monotonic() - t0:.1f} s")
+    return launches
+
+
 PHASES = ("resnet", "lstm", "resnet-train", "wide-deep", "lenet",
-          "distri", "cifar", "inception")
+          "distri", "cifar", "inception", "autoencoder", "remat")
 EXTRA_PHASES = ("resnet-conditioning",)  # run only when named
 
 
@@ -4419,6 +5002,29 @@ def main(argv=None) -> int:
         else:
             entry[phase]["check_launches"] = \
                 report["inception_check"]["launches"]
+    if "autoencoder" in phases:
+        t0 = time.monotonic()
+        autoencoder_phase(args.seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase autoencoder: {time.monotonic() - t0:.1f} s")
+    if "remat" in phases:
+        t0 = time.monotonic()
+        launches = remat_phase(args.seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase remat: {time.monotonic() - t0:.1f} s")
+        entry = next((k for k in kernels if k["name"] == "maxpool_bwd"),
+                     None)
+        if entry is None:  # no earlier path ran B1: check and time the stem
+            gen = torch.Generator(device=device).manual_seed(2718)
+            row = pool_row(pool_case("stem_nhwc_bf16"), gen, device, card)
+            entry = {"name": "maxpool_bwd", **POOL_KERNEL,
+                     "launches": sum(launches.values()),
+                     **{k: row[k] for k in pool_keys}}
+            kernels.append(entry)
+        entry["remat"] = {"launches": launches,
+                          "check_launches": {
+                              m: r["launches"] for m, r in
+                              report["remat_check"].items()}}
     if "resnet-conditioning" in phases:
         t0 = time.monotonic()
         resnet_conditioning_phase(args.seed, device, card, report)

@@ -9,7 +9,10 @@ stochastic round against the CPU's (bitwise, same noise); B1 at VGG's
 and Inception's pool geometries, and one step of VGG for CIFAR-10 and of
 Inception v1 against the CPU (each step's loss within ``rtol=1e-4``, the
 weights' step within a stated share of its change: their whole-model
-gradients differ between two sound devices by up to percents).  Every test
+gradients differ between two sound devices by up to percents); a small
+NHWC net under ``nn.Remat`` at each policy, B1 in front, bitwise equal to
+no remat on the card; LBFGS's update with host syncs made errors; SGD's
+bf16 velocity storing the CPU's bits.  Every test
 here needs a CUDA card and skips without one; on the card run ``python -m pytest -m gpu tests/test_torch_*.py``.  This file imports
 no JAX, so it runs where the reference package is not installed.
 
@@ -1003,3 +1006,82 @@ def test_inception_step_on_card_matches_cpu(cuda):
                              hwc, 2, cuda, sgd(), torch.bfloat16)
     assert variants == {"two_pass": 0, "tiled_nhwc": 13}
     assert np.isfinite(lb)
+
+
+# ------------------------------------------------ remat, optim methods
+def _remat_net(remat, fmt="NHWC"):
+    """A conv, B1's stem-like pool and two bottlenecks, each with a
+    dropout, in ``nn.Remat(policy=remat)`` unless ``remat == "off"``."""
+    m = nn.Sequential()
+    m.add(nn.SpatialConvolution(3, 16, 3, 3, 1, 1, 1, 1, format=fmt))
+    m.add(nn.SpatialMaxPooling(3, 3, 2, 2, 1, 1, format=fmt))
+    for _ in range(2):
+        b = tresnet.bottleneck(16, 4, 1, fmt).add(nn.Dropout(0.5))
+        m.add(b if remat == "off" else nn.Remat(b, policy=remat))
+    return m
+
+
+@pytest.mark.parametrize("policy", [None, "tails", "dots"])
+def test_remat_on_card_is_bitwise_no_remat(cuda, policy):
+    """Recomputed on the card, B1 in front: outputs, gradients and BN
+    statistics bitwise, the dropout mask drawn once."""
+    start = _remat_net("off").initialize(0).state_dict()
+    x = torch.randn(8, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    got = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode in ("off", policy):
+            m = _remat_net(mode)
+            m.load_state_dict(start)
+            m = m.cuda().train()
+            for d in (d for d in nn.module.walk(m)
+                      if isinstance(d, nn.Dropout)):
+                d.generator = torch.Generator(device="cuda").manual_seed(3)
+            for p in m.parameters():
+                p.requires_grad_(True)
+            maxpool.reset_counts()
+            y = m(x.cuda())
+            y.square().sum().backward()
+            assert maxpool.launches == 1
+            got.append((y.detach(), [p.grad for p in m.parameters()],
+                        [b.clone() for b in m.buffers()]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (ya, ga, sa), (yb, gb, sb) = got
+    assert torch.equal(ya, yb)
+    assert all(torch.equal(a, b) for a, b in zip(ga, gb))
+    assert all(torch.equal(a, b) for a, b in zip(sa, sb))
+
+
+def test_lbfgs_update_on_card_syncs_nothing(cuda):
+    m = optim.LBFGS(0.1, history=3)
+    p = {"w": torch.ones(64, device="cuda"), "b": torch.zeros(8,
+                                                            device="cuda")}
+    st = m.init_state(p)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for step in range(5):
+            m.update({k: (v - 0.5) * 0.1 for k, v in p.items()}, p, st, 0.1,
+                     step)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(st["count"]) == 5 and int(st["pairs"]) > 0
+
+
+def test_bf16_velocity_on_card_matches_cpu(cuda):
+    """The velocity's rounding noise is a hash of each value: the card
+    stores the CPU's bits."""
+    g = torch.Generator().manual_seed(0)
+    p0 = torch.randn(4096, generator=g)
+    grads = [torch.randn(4096, generator=g) for _ in range(5)]
+    out = []
+    for dev in ("cpu", "cuda"):
+        m = optim.SGD(0.1, momentum=0.9, state_dtype=torch.bfloat16)
+        p = {"w": p0.clone().to(dev)}
+        st = m.init_state(p)
+        for step, gr in enumerate(grads):
+            m.update({"w": gr.to(dev)}, p, st, 0.1, step)
+        out.append((p["w"].cpu(), st["velocity"]["w"].cpu()))
+    assert torch.equal(out[0][1], out[1][1])
+    assert torch.equal(out[0][0], out[1][0])

@@ -9,7 +9,9 @@ synthetic MNIST with validation, a snapshot and its resume, both
 summaries, the preemption handler and the numeric guard, two steps of
 LeNet through a world-1 ``DistriOptimizer`` with the bf16 wire, the
 ``parallel/`` modules with it, a step of VGG on synthetic CIFAR through
-the colour ops, an NHWC inception module behind an LRN) builds or loads a
+the colour ops, an NHWC inception module behind an LRN, two steps of the
+autoencoder through each new optim method with a regularizer, an NHWC
+``Remat`` block under two activation-memory policies) builds or loads a
 kernel; and a kernel build that fails raises."""
 
 import json
@@ -174,6 +176,33 @@ tower = (nn.Sequential()
 xt = torch.rand(2, 9, 9, 8, requires_grad=True)
 tower(xt).sum().backward()
 assert xt.grad.shape == xt.shape and maxpool.launches == 0
+from bigdl_tpu_torch.models import autoencoder
+ae_x = (imgs[:8].astype(np.float32) / 255.0)
+ae_set = DataSet.array([Sample(a, a.reshape(-1)) for a in ae_x])
+for method in (optim.Adagrad(0.01), optim.Adadelta(), optim.Adamax(),
+               optim.RMSprop(), optim.Ftrl(), optim.ParallelAdam(),
+               optim.LBFGS(history=2),
+               optim.SGD(0.1, momentum=0.9, state_dtype=torch.bfloat16)):
+    ae = autoencoder(4).initialize(0)
+    ae[1].w_regularizer = nn.L1L2Regularizer(1e-4, 1e-4)
+    (optim.LocalOptimizer(ae, ae_set >> SampleToMiniBatch(4),
+                          nn.MSECriterion(), device="cpu")
+     .set_optim_method(method).set_steps_per_dispatch(2)
+     .set_end_when(optim.max_iteration(2)).optimize())
+remat_net = (nn.Sequential()
+             .add(nn.SpatialConvolution(3, 16, 3, 3, 1, 1, 1, 1,
+                                        format="NHWC"))
+             .add(nn.SpatialMaxPooling(3, 3, 2, 2, 1, 1, format="NHWC"))
+             .add(nn.Remat(resnet_cifar(8, format="NHWC")[2], "tails"))
+             .add(nn.SpatialAveragePooling(4, 4, 4, 4, format="NHWC"))
+             .add(nn.Reshape((16,))).add(nn.LogSoftMax()).initialize(0))
+for policy in ("dots", "bf16+full"):
+    (optim.LocalOptimizer(remat_net, DataSet.array(
+        [Sample(np.ones((8, 8, 3), np.float32), np.int64(1))] * 4)
+        >> SampleToMiniBatch(2), nn.ClassNLLCriterion(), device="cpu")
+     .set_activation_memory(policy)
+     .set_end_when(optim.max_iteration(1)).optimize())
+assert maxpool.launches == 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("jaxlib") or m == "bigdl_tpu"
              or m.startswith("bigdl_tpu."))

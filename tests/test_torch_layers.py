@@ -272,8 +272,12 @@ def test_resnet50_nhwc_state_dict_and_remat():
     got = {k: tuple(v.shape)
            for k, v in resnet50(format="NHWC").state_dict().items()}
     assert got == want
-    with pytest.raises(NotImplementedError, match="remat"):
-        resnet50(remat="tails")
+    # Remat shares its block's tensors: the keys stay the reference's
+    for remat in (True, "tails"):
+        assert {k: tuple(v.shape) for k, v in resnet50(
+            format="NHWC", remat=remat).state_dict().items()} == want
+    with pytest.raises(ValueError, match="remat"):
+        resnet50(remat="dots")
     with pytest.raises(ValueError, match="format"):
         nn.SpatialConvolution(3, 4, 3, 3, format="HWCN")
 

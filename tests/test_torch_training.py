@@ -153,6 +153,8 @@ PORTED_SETTERS = {
     "set_train_summary": lambda o, ds: o.set_train_summary(None),
     "set_val_summary": lambda o, ds: o.set_val_summary(None),
     "set_numeric_guard": lambda o, ds: o.set_numeric_guard("skip"),
+    # ported with the activation-memory policies
+    "set_activation_memory": lambda o, ds: o.set_activation_memory("full"),
 }
 
 

@@ -176,12 +176,14 @@ def summary_records(path):
 
 def train(world, rank, start, *, iters=ITERS, k=1, lr=0.05, momentum=0.9,
           clip=None, ckpt=None, resume=None, guard=None, poison_at=None,
-          fault=None, summary=None, **kw):
+          fault=None, summary=None, method=None, **kw):
     """One run from the parameters ``start`` (the reference's layout):
     what it ends with, as numpy.  ``fault`` plants a broken wire
     (:func:`planted_fault`).  ``summary``: a directory that every rank
     hands the same train and validation summaries (app ``"w"``), with
-    "Parameters" histograms and a validation every 3 iterations."""
+    "Parameters" histograms and a validation every 3 iterations.
+    ``method``: ``(name in optim, keywords)`` in place of the SGD; a
+    ``ValueError`` of its run is returned as ``{"refused": message}``."""
     model = small_mlp()
     load_jax_params(model, start)
     init = {k: v.detach().numpy().copy() for k, v in model.named_parameters()}
@@ -194,7 +196,9 @@ def train(world, rank, start, *, iters=ITERS, k=1, lr=0.05, momentum=0.9,
     opt = (Recording(model, pipeline(world, rank, poison_at),
                      nn.ClassNLLCriterion(), device="cpu",
                      grad_bucket_bytes=BUCKET_BYTES, **kw)
-           .set_optim_method(optim.SGD(learning_rate=lr, momentum=momentum))
+           .set_optim_method(
+               getattr(optim, method[0])(**method[1]) if method is not None
+               else optim.SGD(learning_rate=lr, momentum=momentum))
            .set_seed(5).set_steps_per_dispatch(k)
            .set_end_when(optim.max_iteration(iters)))
     if clip == "norm":
@@ -216,7 +220,12 @@ def train(world, rank, start, *, iters=ITERS, k=1, lr=0.05, momentum=0.9,
                          [validation.Top1Accuracy()]))
     start_neval = opt.state["neval"]
     with planted_fault(fault):
-        opt.optimize()
+        try:
+            opt.optimize()
+        except ValueError as e:
+            if method is None:
+                raise
+            return {"refused": str(e)}
     if summary is not None:
         ts.close()
         vs.close()
