@@ -1,12 +1,13 @@
 """Sample and MiniBatch (port of ``bigdl_tpu/dataset/sample.py``).
 Host-side data is numpy; the training driver stages it on the device.
 Sparse samples batch into one batch-COO :class:`SparseMiniBatch` whose
-``COOBatch`` holds CPU tensors.  Padding of ragged samples
-(``PaddingParam``) is not ported yet.
+``COOBatch`` holds CPU tensors.  Samples of different lengths batch under
+a :class:`PaddingParam`.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import numpy as np
@@ -60,12 +61,54 @@ class MiniBatch:
         return f"MiniBatch(size={self.size()})"
 
 
-def batch_samples(samples: Sequence[Sample]) -> MiniBatch:
-    """Stack samples of one shape into a MiniBatch."""
-    feats = np.stack([np.asarray(s.feature) for s in samples])
+@dataclass
+class PaddingParam:
+    """How samples of different lengths (axis 0) batch: each is padded
+    with ``padding_value`` to the batch's longest, or to ``fixed_length``;
+    with ``buckets`` (and no ``fixed_length``) to the smallest listed
+    length that holds the longest, so that a run's batches take at most
+    ``len(buckets)`` shapes."""
+
+    padding_value: float = 0.0
+    fixed_length: Optional[int] = None
+    buckets: Optional[Sequence[int]] = None
+
+
+def _stack_padded(arrays: Sequence[np.ndarray],
+                  param: Optional[PaddingParam]) -> np.ndarray:
+    """``arrays`` stacked; without ``param`` they must share a shape."""
+    shapes = {a.shape for a in arrays}
+    if len(shapes) == 1 and param is None:
+        return np.stack(arrays)
+    if param is None:
+        raise ValueError(
+            f"ragged samples {sorted(shapes)} need a PaddingParam")
+    max_len = param.fixed_length or max(a.shape[0] for a in arrays)
+    if param.buckets is not None and param.fixed_length is None:
+        fitting = [b for b in sorted(param.buckets) if b >= max_len]
+        if not fitting:
+            raise ValueError(
+                f"sequence length {max_len} exceeds the largest bucket "
+                f"{max(param.buckets)}")
+        max_len = fitting[0]
+    out = np.full((len(arrays), max_len) + arrays[0].shape[1:],
+                  param.padding_value, dtype=arrays[0].dtype)
+    for i, a in enumerate(arrays):
+        out[i, :a.shape[0]] = a
+    return out
+
+
+def batch_samples(samples: Sequence[Sample],
+                  feature_padding: Optional[PaddingParam] = None,
+                  label_padding: Optional[PaddingParam] = None) -> MiniBatch:
+    """Stack samples into a MiniBatch, features and labels each padded by
+    their :class:`PaddingParam` when given."""
+    feats = _stack_padded([np.asarray(s.feature) for s in samples],
+                          feature_padding)
     if samples[0].label is None:
         return MiniBatch(feats, None)
-    return MiniBatch(feats, np.stack([np.asarray(s.label) for s in samples]))
+    return MiniBatch(feats, _stack_padded([np.asarray(s.label)
+                                           for s in samples], label_padding))
 
 
 class SparseSample:

@@ -4,9 +4,9 @@
 
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Iterator, Optional
 
-from bigdl_tpu_torch.dataset.sample import batch_samples
+from bigdl_tpu_torch.dataset.sample import PaddingParam, batch_samples
 
 
 class Transformer:
@@ -28,11 +28,17 @@ class ChainedTransformer(Transformer):
 
 
 class SampleToMiniBatch(Transformer):
-    """Group Samples into MiniBatches of ``batch_size``; a short last
-    batch is dropped unless ``drop_remainder=False``."""
+    """Group Samples into MiniBatches of ``batch_size``, ragged features
+    and labels padded by ``feature_padding``/``label_padding``; a short
+    last batch is dropped unless ``drop_remainder=False``."""
 
-    def __init__(self, batch_size: int, drop_remainder: bool = True):
+    def __init__(self, batch_size: int,
+                 feature_padding: Optional[PaddingParam] = None,
+                 label_padding: Optional[PaddingParam] = None,
+                 drop_remainder: bool = True):
         self.batch_size = batch_size
+        self.feature_padding = feature_padding
+        self.label_padding = label_padding
         self.drop_remainder = drop_remainder
 
     def __call__(self, it):
@@ -40,7 +46,9 @@ class SampleToMiniBatch(Transformer):
         for s in it:
             buf.append(s)
             if len(buf) == self.batch_size:
-                yield batch_samples(buf)
+                yield batch_samples(buf, self.feature_padding,
+                                    self.label_padding)
                 buf = []
         if buf and not self.drop_remainder:
-            yield batch_samples(buf)
+            yield batch_samples(buf, self.feature_padding,
+                                self.label_padding)

@@ -13,7 +13,7 @@ costs no copy, and its conv weight is kept ``channels_last`` too.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -415,3 +415,183 @@ class LookupTable(Module):
             w = w * torch.clamp(self.max_norm / torch.clamp(norms, min=1e-7),
                                 max=1.0)
         return F.embedding(x.long(), w)
+
+
+class SpatialFullConvolution(Module):
+    """Transposed 2-D convolution of NCHW input (deconvolution); weight
+    IOHW ``(n_input_plane, n_output_plane, kh, kw)``, the layout of
+    ``F.conv_transpose2d``.  The output is ``(in - 1) * stride - 2 * pad +
+    kernel + adj`` on each axis.  ``F.conv_transpose2d`` refuses an
+    ``output_padding`` (``adj``) at or above the stride, which the
+    reference takes, so the layer computes the uncropped transposed
+    convolution, ``(in - 1) * stride + kernel`` on each axis, and cuts the
+    output from it, ``pad`` in from the start; positions past its end
+    (``adj > pad``) receive no input and hold the bias alone."""
+
+    def __init__(self, n_input_plane: int, n_output_plane: int,
+                 kernel_w: int, kernel_h: int,
+                 stride_w: int = 1, stride_h: int = 1,
+                 pad_w: int = 0, pad_h: int = 0,
+                 adj_w: int = 0, adj_h: int = 0,
+                 with_bias: bool = True,
+                 weight_init: Optional[InitializationMethod] = None,
+                 bias_init: Optional[InitializationMethod] = None,
+                 name: Optional[str] = None):
+        super().__init__(name)
+        self.n_input_plane = n_input_plane
+        self.n_output_plane = n_output_plane
+        self.kernel = (kernel_h, kernel_w)
+        self.stride = (stride_h, stride_w)
+        self.pad = (pad_h, pad_w)
+        self.adj = (adj_h, adj_w)
+        self.with_bias = with_bias
+        self.weight_init = weight_init or RandomUniform()
+        self.bias_init = bias_init or RandomUniform()
+        self.weight = torch.nn.Parameter(
+            torch.zeros(n_input_plane, n_output_plane, kernel_h, kernel_w),
+            requires_grad=False)
+        self.bias = torch.nn.Parameter(torch.zeros(n_output_plane),
+                                       requires_grad=False) \
+            if with_bias else None
+
+    def reset_parameters(self, generator):
+        kh, kw = self.kernel
+        fan_in = self.n_input_plane * kh * kw
+        fan_out = self.n_output_plane * kh * kw
+        self.weight.data.copy_(self.weight_init.init(
+            generator, self.weight.shape, fan_in, fan_out))
+        if self.bias is not None:
+            self.bias.data.copy_(self.bias_init.init(
+                generator, self.bias.shape, fan_in, fan_out))
+
+    def forward(self, x):
+        full = F.conv_transpose2d(x, self.weight, stride=self.stride)
+        sizes = [(n - 1) * s - 2 * p + k + a for n, s, p, k, a in zip(
+            x.shape[2:], self.stride, self.pad, self.kernel, self.adj)]
+        (ph, pw), (hh, ww) = self.pad, full.shape[2:]
+        past_h = max(0, ph + sizes[0] - hh)
+        past_w = max(0, pw + sizes[1] - ww)
+        if past_h or past_w:
+            full = F.pad(full, (0, past_w, 0, past_h))
+        y = full[:, :, ph:ph + sizes[0], pw:pw + sizes[1]]
+        if self.bias is not None:
+            y = y + self.bias[None, :, None, None]
+        return y
+
+
+def _lp_norm(x, p: float):
+    """The Lp norm of ``x`` over axis 1, kept."""
+    if p == 2.0:
+        return torch.sqrt(torch.sum(x * x, 1, keepdim=True))
+    return torch.pow(torch.sum(torch.pow(torch.abs(x), p), 1, keepdim=True),
+                     1.0 / p)
+
+
+class Normalize(Module):
+    """``x / (||x||_p + eps)`` over axis 1."""
+
+    def __init__(self, p: float = 2.0, eps: float = 1e-10,
+                 name: Optional[str] = None):
+        super().__init__(name)
+        self.p, self.eps = p, eps
+
+    def forward(self, x):
+        return x / (_lp_norm(x, self.p) + self.eps)
+
+
+class NormalizeScale(Module):
+    """:class:`Normalize` over axis 1, then a trainable scale ``weight``
+    of shape ``size`` (broadcast; ``(1, C, 1, 1)`` for NCHW maps), every
+    entry ``scale`` at initialization (SSD's L2Norm layer, scale 20)."""
+
+    def __init__(self, p: float = 2.0, eps: float = 1e-10,
+                 scale: float = 1.0, size: Sequence[int] = (1,),
+                 name: Optional[str] = None):
+        super().__init__(name)
+        self.p, self.eps, self.scale = p, eps, scale
+        self.size = tuple(size)
+        self.weight = torch.nn.Parameter(
+            torch.full(self.size, float(scale)), requires_grad=False)
+
+    def reset_parameters(self, generator):
+        self.weight.data.fill_(self.scale)
+
+    def forward(self, x):
+        return x / (_lp_norm(x, self.p) + self.eps) * self.weight
+
+
+class CMul(Module):
+    """Trainable elementwise scale ``weight`` of shape ``size``, broadcast
+    over the input; U(-1/sqrt(n), 1/sqrt(n)) at initialization, n the
+    weight's size."""
+
+    def __init__(self, size: Sequence[int], name: Optional[str] = None):
+        super().__init__(name)
+        self.size = tuple(size)
+        self.weight = torch.nn.Parameter(torch.zeros(self.size),
+                                         requires_grad=False)
+
+    def reset_parameters(self, generator):
+        fan = self.weight.numel()
+        self.weight.data.copy_(RandomUniform().init(generator, self.size,
+                                                    fan, fan))
+
+    def forward(self, x):
+        return x * self.weight
+
+
+class CAdd(Module):
+    """Trainable elementwise ``bias`` of shape ``size``, broadcast over
+    the input; initialized as :class:`CMul`'s weight."""
+
+    def __init__(self, size: Sequence[int], name: Optional[str] = None):
+        super().__init__(name)
+        self.size = tuple(size)
+        self.bias = torch.nn.Parameter(torch.zeros(self.size),
+                                       requires_grad=False)
+
+    def reset_parameters(self, generator):
+        fan = self.bias.numel()
+        self.bias.data.copy_(RandomUniform().init(generator, self.size,
+                                                  fan, fan))
+
+    def forward(self, x):
+        return x + self.bias
+
+
+class TemporalConvolution(Module):
+    """1-D convolution over time of ``(N, T, input_frame_size)`` input, no
+    padding; weight ``(output_frame_size, input_frame_size, kernel_w)``
+    (OIW), bias ``(output_frame_size,)``; output ``(N, T', out)``.  The
+    activation is transposed to ``F.conv1d``'s NCW, not the weight."""
+
+    def __init__(self, input_frame_size: int, output_frame_size: int,
+                 kernel_w: int, stride_w: int = 1,
+                 weight_init: Optional[InitializationMethod] = None,
+                 bias_init: Optional[InitializationMethod] = None,
+                 name: Optional[str] = None):
+        super().__init__(name)
+        self.input_frame_size = input_frame_size
+        self.output_frame_size = output_frame_size
+        self.kernel_w = kernel_w
+        self.stride_w = stride_w
+        self.weight_init = weight_init or RandomUniform()
+        self.bias_init = bias_init or RandomUniform()
+        self.weight = torch.nn.Parameter(
+            torch.zeros(output_frame_size, input_frame_size, kernel_w),
+            requires_grad=False)
+        self.bias = torch.nn.Parameter(torch.zeros(output_frame_size),
+                                       requires_grad=False)
+
+    def reset_parameters(self, generator):
+        fan_in = self.input_frame_size * self.kernel_w
+        fan_out = self.output_frame_size * self.kernel_w
+        self.weight.data.copy_(self.weight_init.init(
+            generator, self.weight.shape, fan_in, fan_out))
+        self.bias.data.copy_(self.bias_init.init(
+            generator, self.bias.shape, fan_in, fan_out))
+
+    def forward(self, x):
+        y = F.conv1d(x.transpose(1, 2), self.weight, self.bias,
+                     stride=self.stride_w)
+        return y.transpose(1, 2)

@@ -111,6 +111,36 @@ class ParallelTable(Container):
         return tuple(m(x[i]) for i, m in enumerate(self._modules.values()))
 
 
+def _shapes(x):
+    if isinstance(x, (tuple, list)):
+        return type(x)(_shapes(e) for e in x)
+    if isinstance(x, dict):
+        return {k: _shapes(v) for k, v in x.items()}
+    return tuple(x.shape)
+
+
+class Echo(Module):
+    """Debug layer: prints the input's shapes (a table's, leaf by leaf)
+    at each call and passes the input on."""
+
+    def forward(self, x):
+        print(f"[Echo {self.name}] {_shapes(x)}")
+        return x
+
+
+class Lambda(Module):
+    """A stateless layer around a tensor function, e.g. ``Lambda(lambda
+    x: x.amax(1))`` for a max over time (``amax``, not ``max(dim)``, whose
+    gradient goes to one of tied maxima only)."""
+
+    def __init__(self, fn: Callable, name: Optional[str] = None):
+        super().__init__(name)
+        self.fn = fn
+
+    def forward(self, x):
+        return self.fn(x)
+
+
 # ------------------------------------------------------- rematerialization
 _recompute_depth = 0  # > 0 while a checkpointed forward is being redone
 

@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (``bigdl_tpu_torch``) on one NVIDIA card.
 
-Drives the port's ten main paths and holds every kernel of them against
+Drives the port's twelve main paths and holds every kernel of them against
 its plain PyTorch version.  Serving: an int8-quantized ResNet-50 (1000
 classes, 224x224, NCHW, random weights from a seed) served by
 ``ModelRegistry`` with ``quantize=True`` (weight_only) and
@@ -34,7 +34,14 @@ autoencoder of ``examples/autoencoder/train.py`` (784 -> 32 -> 784, batch
 optim method and the L1/L2 regularizers; and ResNet-50 under each
 rematerialization mode (``resnet50(remat=True|"tails")``,
 ``set_activation_memory("dots"|"full")``), B1 at its stem pool inside the
-recomputed steps.  Phases, each printing its seconds:
+recomputed steps; and the text path of ``examples/rnn/train.py`` at its
+defaults, PTB-small (vocab 10000, 2x200 LSTM, 20 steps, batch 20, Adam
+lr 0.005) read from a PTB-format file through ``read_ptb_words``,
+``Dictionary``, ``ptb_batches`` and ``SampleToMiniBatch``, layer 0's LSTM
+cell on B2f and B2b at (20, 200), with ``simple_rnn`` through the one-hot
+sentence chain and the text CNN of ``examples/textclassification/train.py``;
+and every layer and criterion of the nn core that the text slice added.
+Phases, each printing its seconds:
 
 1. the card: name, count, ``nvidia-smi`` name and power limit;
 2. the kernels, built from ``bigdl_tpu_torch/csrc`` (one ``nvcc`` a
@@ -58,9 +65,10 @@ recomputed steps.  Phases, each printing its seconds:
    count must equal 54 x dispatches (in both modes 1 SIMT, the stem, and
    53 wgmma) and warmup must not grow;
 6. LSTM kernel phase: B2f and B2b against their plain versions at the
-   six (N, H) shapes of ``CELL_SHAPES``, f32 and bf16, forget_bias 0 and
-   1, then their times at (20, 650) f32 beside the bound, the plain
-   version and PyTorch's fused cell, with B2f's CTAs and cluster size and
+   seven (N, H) shapes of ``CELL_SHAPES``, f32 and bf16, forget_bias 0 and
+   1, then their times at (20, 650) and (20, 200) f32 beside the bound,
+   the plain version and PyTorch's fused cell, with B2f's CTAs and cluster
+   size and
    B2b's grid beside the floor of its launches (an empty kernel of the
    same grid);
 7. training phase: one K=8 block on the card against the same steps on
@@ -201,7 +209,8 @@ fails at once.  Run from the repository root:
 
     python3 chip_smoke.py [--seed N] [--json-out PATH]
                           [--phases resnet,lstm,resnet-train,wide-deep,lenet,
-                                    distri,cifar,inception,autoencoder,remat]
+                                    distri,cifar,inception,autoencoder,remat,
+                                    text,nn-core]
 
 ``--phases resnet-conditioning`` adds a diagnostic that is not run by
 default: the check phase's path reading at residual gammas 0 to 1, beside
@@ -235,13 +244,14 @@ from bigdl_tpu_torch.checkpoint import load_snapshot  # noqa: E402
 from bigdl_tpu_torch.checkpoint import manager as ckpt_manager  # noqa: E402
 from bigdl_tpu_torch.dataset import (  # noqa: E402
     DataSet, MTSampleToMiniBatch, Sample, SampleToMiniBatch, SparseMiniBatch,
-    SparseSample, Transformer, batch_sparse_samples)
-from bigdl_tpu_torch.dataset import cifar, image, mnist  # noqa: E402
+    SparseSample, Transformer, batch_samples, batch_sparse_samples)
+from bigdl_tpu_torch.dataset import cifar, image, mnist, text  # noqa: E402
 from bigdl_tpu_torch.dataset.text import Dictionary  # noqa: E402
 from bigdl_tpu_torch.engine import Engine  # noqa: E402
 from bigdl_tpu_torch.models import (WideAndDeep, autoencoder,  # noqa: E402
                                     inception_v1, lenet5, ptb_model,
-                                    resnet50, resnet_cifar, vgg_for_cifar10)
+                                    resnet50, resnet_cifar, simple_rnn,
+                                    vgg_for_cifar10)
 from bigdl_tpu_torch.nn import quantize, recurrent  # noqa: E402
 from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,  # noqa: E402
                                           QuantizedSpatialConvolution)
@@ -278,6 +288,13 @@ SERVE_TOL = {"weight_only": 1e-5, "dynamic": 1e-5}
 PTB = {"vocab": 10000, "embed": 650, "hidden": 650, "layers": 2, "T": 35,
        "batch": 20, "K": 8}
 PTB_BATCHES = 64   # batches per epoch of the synthetic corpus
+# PTB-small, the text path (examples/rnn/train.py at its defaults; Zaremba,
+# Sutskever and Vinyals 2014's "small": vocab 10000, 2x200 LSTM, 20 steps
+# unrolled, batch 20), Adam lr 0.005, on a PTB-format file of ~95,000
+# words over 9,999 distinct tokens that the text phase writes
+PTB_SMALL = {"vocab": 10000, "embed": 200, "hidden": 200, "layers": 2,
+             "T": 20, "batch": 20, "lr": 0.005, "words": 95_000,
+             "distinct": 9999, "K": 4, "profile_at": 200, "timed_from": 20}
 TIMED_BLOCKS = 3   # K-step blocks timed after one warm-up block
 LSTM_KERNELS = {
     "lstm_cell_fwd": {"route": "cuda",
@@ -287,10 +304,12 @@ LSTM_KERNELS = {
                       "source": "bigdl_tpu_torch/csrc/lstm_cell.cu",
                       "replaces": "bigdl_tpu/ops/pallas_lstm.py:181"},
 }
-# (N, H): PTB-medium's, tiny, ragged, N above one 32-row batch tile (37, 64),
-# and an odd H (333) that the forward's eight K slices do not divide and whose
-# bf16 rows take its plain-load copies
-CELL_SHAPES = [(20, 650), (1, 64), (5, 130), (37, 650), (64, 650), (20, 333)]
+# (N, H): PTB-medium's, PTB-small's (the text path's), tiny, ragged, N
+# above one 32-row batch tile (37, 64), and an odd H (333) that the
+# forward's eight K slices do not divide and whose bf16 rows take its
+# plain-load copies
+CELL_SHAPES = [(20, 650), (20, 200), (1, 64), (5, 130), (37, 650), (64, 650),
+               (20, 333)]
 # elementwise operations per hidden unit (transcendentals counted as one)
 CELL_EW_OPS = {"lstm_cell_fwd": 20, "lstm_cell_bwd": 36}
 # kernel against plain version (rtol = atol): bf16 results within one bf16
@@ -893,17 +912,14 @@ def cell_bound(N, H, dtype, kernel):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def lstm_kernel_phase(device, card, report):
-    """B2f and B2b against their plain versions at every shape, dtype and
-    forget_bias of CELL_SHAPES, then kernel, plain and library times at
-    PTB-medium's (20, 650) f32, W_t warm in L2 as the 35 steps of a
-    sequence find it: device time per call (torch.profiler) and, beside
-    it, a CUDA-event-timed loop that includes the host's launch gaps."""
-    gen = torch.Generator(device=device).manual_seed(4321)
-    errs = {(k, d): 0.0 for k in LSTM_KERNELS for d in ("float32",
-                                                       "bfloat16")}
-    n_checked = 0
-    for N, H in CELL_SHAPES:
+def cell_check(shapes, device, card, gen):
+    """B2f and B2b against their plain versions at every (N, H) of
+    ``shapes``, f32 and bf16, forget_bias 0 and 1: {(N, H): {(kernel,
+    dtype): max abs err}}."""
+    errs = {}
+    for N, H in shapes:
+        errs[N, H] = at = {(k, d): 0.0 for k in LSTM_KERNELS
+                           for d in ("float32", "bfloat16")}
         for dname in ("float32", "bfloat16"):
             dtype = getattr(torch, dname)
             for fb in (0.0, 1.0):
@@ -923,16 +939,25 @@ def lstm_kernel_phase(device, card, report):
                             g.float(), w.float(), rtol=tol, atol=tol,
                             msg=lambda e: f"{kernel} N={N} H={H} {dname} "
                                           f"fb={fb}: {e}")
-                        errs[kernel, dname] = max(
-                            errs[kernel, dname],
+                        at[kernel, dname] = max(
+                            at[kernel, dname],
                             (g.float() - w.float()).abs().max().item())
-                n_checked += 1
-    print(f"lstm kernel check: B2f and B2b at {n_checked} (shape, dtype, "
-          f"forget_bias) cases vs their plain versions; max abs err "
-          + ", ".join(f"{k} {d} {v:.3e}" for (k, d), v in errs.items())
+    worst = {key: max(e[key] for e in errs.values())
+             for key in next(iter(errs.values()))}
+    print(f"lstm kernel check: B2f and B2b at {4 * len(shapes)} (shape, "
+          f"dtype, forget_bias) cases vs their plain versions, shapes "
+          f"{list(shapes)}; max abs err "
+          + ", ".join(f"{k} {d} {v:.3e}" for (k, d), v in worst.items())
           + f" (tol {CELL_TOL}) [{card}]")
+    return errs
 
-    N, H = PTB["batch"], PTB["hidden"]
+
+def cell_time_rows(N, H, errs, device, card, gen):
+    """Kernel, plain and library times of B2f and B2b at (N, H) f32, W_t
+    warm in L2 as the steps of a sequence find it: device time per call
+    (torch.profiler) and, beside it, a CUDA-event-timed loop that includes
+    the host's launch gaps; with the bound and the errors ``errs`` of
+    :func:`cell_check` at that shape.  {kernel: row}."""
     zx, h, c, w_t, dh, dc = cell_operands(N, H, torch.float32, gen, device)
     # PyTorch's fused cell takes both biases or neither (its CUDA version
     # reads the hidden bias's strides when the input bias is given);
@@ -963,9 +988,9 @@ def lstm_kernel_phase(device, card, report):
         k_ms, p_ms, l_ms = (device_ms(f) for f in (k_fn, p_fn, l_fn))
         k_ev, p_ev, l_ev = (cuda_ms(f) for f in (k_fn, p_fn, l_fn))
         b_ms, b_by = cell_bound(N, H, torch.float32, kernel)
-        rows[kernel] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                        "library_call": l_what, "bound_ms": b_ms,
-                        "bound_by": b_by,
+        rows[kernel] = {"shape": [N, H], "ms": k_ms, "plain_ms": p_ms,
+                        "library_ms": l_ms, "library_call": l_what,
+                        "bound_ms": b_ms, "bound_by": b_by,
                         "max_abs_err": errs[kernel, "float32"],
                         "max_abs_err_bf16": errs[kernel, "bfloat16"],
                         "event_ms": k_ev, "plain_event_ms": p_ev,
@@ -996,8 +1021,24 @@ def lstm_kernel_phase(device, card, report):
               f"({b_by}){beats}; event-timed loop with host launch gaps: "
               f"kernel {k_ev:.5f} plain {p_ev:.5f} library {l_ev:.5f} "
               f"[{card}]")
-    report["lstm_kernels"] = rows
     return rows
+
+
+def lstm_kernel_phase(device, card, report):
+    """B2f and B2b against their plain versions at every shape, dtype and
+    forget_bias of CELL_SHAPES, then kernel, plain and library times at
+    PTB-medium's (20, 650) and PTB-small's (20, 200) f32
+    (:func:`cell_time_rows`).  ({kernel: row at (20, 650)}, {kernel: row
+    at (20, 200)})."""
+    gen = torch.Generator(device=device).manual_seed(4321)
+    errs = cell_check(CELL_SHAPES, device, card, gen)
+    medium = (PTB["batch"], PTB["hidden"])
+    small = (PTB_SMALL["batch"], PTB_SMALL["hidden"])
+    rows = cell_time_rows(*medium, errs[medium], device, card, gen)
+    small_rows = cell_time_rows(*small, errs[small], device, card, gen)
+    report["lstm_kernels"] = rows
+    report["lstm_kernels_ptb_small"] = small_rows
+    return rows, small_rows
 
 
 # ------------------------------------------------------- PTB-medium training
@@ -1053,11 +1094,11 @@ def train_reading(losses, model, want_losses, want, init):
     return max(loss_err, param_err)
 
 
-def planted_lstm_fault(fault):
+def planted_lstm_fault(fault, T=PTB["T"]):
     """A wrapper of the fused cell as the LSTM layer calls it, planting
     ``fault`` on the card run: layer 0's W_t scaled by 127/128, or one
     time step's layer-0 dz (the gradient reaching zx_t) scaled by 127/128
-    through a tensor hook."""
+    through a tensor hook (sequences of ``T`` steps)."""
     sound = recurrent.lstm_cell
     calls = [0]
 
@@ -1065,7 +1106,7 @@ def planted_lstm_fault(fault):
         if fault == "w_t_127_128":
             return sound(zx, h, c, w_t * (127 / 128), **kw)
         calls[0] += 1
-        if calls[0] % PTB["T"] == PTB["T"] // 2:
+        if calls[0] % T == T // 2:
             zx.register_hook(lambda g: g * (127 / 128))
         return sound(zx, h, c, w_t, **kw)
     return cell
@@ -2310,15 +2351,17 @@ class SparseToMiniBatch(Transformer):
 
 
 class Prebuilt(Transformer):
-    """Batches built beforehand, in turn, one for every WD["batch"]
-    records the dataset yields (the records themselves are not read)."""
+    """Batches built beforehand, in turn, one for every ``per`` (default
+    WD["batch"]) records the dataset yields (the records themselves are not
+    read)."""
 
-    def __init__(self, batches):
+    def __init__(self, batches, per=None):
         self.batches = batches
+        self.per = per or WD["batch"]
 
     def __call__(self, it):
         for i in itertools.count():
-            for _ in range(WD["batch"]):
+            for _ in range(self.per):
                 next(it)
             yield self.batches[i % len(self.batches)]
 
@@ -4779,8 +4822,711 @@ def remat_phase(seed, device, card, report):
     return launches
 
 
+# ------------------------------------------------------------- text path
+# simple_rnn through the one-hot chain over the PTB-small file's lines
+SIMPLE_RNN = {"vocab": 127, "hidden": 40, "length": 20, "batch": 20,
+              "steps": 48, "lr": 0.005, "K": 4}
+# examples/textclassification/train.py: at its defaults (400 texts,
+# sequence 12, embedding 32, batch 32, six epochs, Adam lr 0.01), then
+# timed at the widths of BigDL's TextClassifier example (sequence 1000,
+# 100-d embeddings, batch 128) over 12,800 texts of the same corpus
+TEXT_CNN = {"texts": 400, "seq": 12, "embed": 32, "batch": 32, "epochs": 6,
+            "lr": 0.01, "min_acc": 0.9, "K": 4, "timed_texts": 12_800,
+            "timed_seq": 1000, "timed_embed": 100, "timed_batch": 128,
+            "profile_at": 80, "timed_from": 10}
+# the text models' K=4 blocks on the card against the CPU, step by step
+# (wd_step_reading): PTB-small's limit is TRAIN_TOL, which two planted
+# faults must exceed; the SimpleRNN and the text CNN are held to the same
+TEXT_TOL = TRAIN_TOL
+
+
+def write_ptb_file(path, seed):
+    """A PTB-format file (one sentence a line, words split by spaces) of
+    PTB_SMALL["words"] words over PTB_SMALL["distinct"] tokens, ``<unk>``
+    among them at rank 2 as in PTB: each token once, the rest drawn from a
+    Zipf law over the ranks (p ~ 1/rank), shuffled, cut into sentences of
+    5-35 words."""
+    n, total = PTB_SMALL["distinct"], PTB_SMALL["words"]
+    rng = np.random.default_rng(seed)
+    vocab = [f"w{i}" for i in range(n)]
+    vocab[1] = "<unk>"
+    p = 1.0 / np.arange(1, n + 1)
+    ids = np.concatenate([np.arange(n),
+                          rng.choice(n, size=total - n, p=p / p.sum())])
+    rng.shuffle(ids)
+    with open(path, "w") as f:
+        at = 0
+        while at < total:
+            end = min(total, at + int(rng.integers(5, 36)))
+            f.write(" ".join(vocab[i] for i in ids[at:end]) + "\n")
+            at = end
+
+
+def text_cnn_corpus(n=400, seed=0):
+    """``synthetic_corpus`` of examples/textclassification/train.py (the
+    example imports the reference package, so it is copied here): two
+    topics of 20 preferred words each and 20 shared words, 12 words a
+    text; (texts, labels)."""
+    rng = np.random.default_rng(seed)
+    topics = [[f"alpha{i}" for i in range(20)],
+              [f"beta{i}" for i in range(20)]]
+    shared = [f"w{i}" for i in range(20)]
+    texts, labels = [], []
+    for _ in range(n):
+        y = int(rng.integers(0, 2))
+        words = rng.choice(topics[y] + shared, size=12)
+        texts.append(" ".join(words))
+        labels.append(y)
+    return texts, labels
+
+
+def text_cnn_samples(texts, labels, seq_len):
+    """The example's samples: tokenized, a Dictionary over every token,
+    ids cut or zero-padded to ``seq_len``; (samples, vocabulary size)."""
+    toks = [text.sentence_tokenizer(t) for t in texts]
+    d = Dictionary(toks)
+    samples = []
+    for t, y in zip(toks, labels):
+        ids = d.encode(t)[:seq_len]
+        if len(ids) < seq_len:
+            ids = np.pad(ids, (0, seq_len - len(ids)))
+        samples.append(Sample(ids.astype(np.int32), np.int32(y)))
+    return samples, d.vocab_size()
+
+
+def max_over_time(x):
+    return x.amax(1)
+
+
+def text_cnn(vocab, embed):
+    """The example's model: LookupTable >> TemporalConvolution(embed, 64,
+    3) >> ReLU >> max over time (``amax``: tied maxima share the gradient,
+    as the reference's ``max(axis=1)`` shares it) >> Linear(64, 2) >>
+    LogSoftMax."""
+    return nn.Sequential(nn.LookupTable(vocab, embed),
+                         nn.TemporalConvolution(embed, 64, 3), nn.ReLU(),
+                         nn.Lambda(max_over_time), nn.Linear(64, 2),
+                         nn.LogSoftMax(), name="TextCNN")
+
+
+def text_cpu_step(criterion):
+    """``cpu_step`` of :func:`wd_step_reading` for a model fed one input
+    tensor: the loss and gradients of one step on the CPU from
+    ``params``."""
+    def step(init, params, batch):
+        m = copy.deepcopy(init)
+        with torch.no_grad():
+            for k, p in m.named_parameters():
+                p.copy_(params[k])
+                p.requires_grad_(True)
+        loss = criterion.apply(m(torch.from_numpy(batch.input)),
+                               torch.from_numpy(batch.target))
+        loss.backward()
+        return loss.item(), {k: p.grad.double()
+                             for k, p in m.named_parameters()}
+    return step
+
+
+def text_train(model, dataset, device, end, criterion, lr, k,
+               cls=LocalOptimizer, method=None):
+    """Train ``model`` in place through ``cls`` with Adam at ``lr`` (or
+    ``method``) in K=``k`` blocks until ``end``: (per-step losses, the host
+    clock at each step's loss, optimizer, wall seconds)."""
+    losses, clock = [], []
+
+    class Recording(cls):
+        def _log_train_iteration(self, lr):
+            losses.append(self.state["loss"])
+            clock.append(time.perf_counter())
+
+    opt = (Recording(model, dataset, criterion, device=device)
+           .set_optim_method(method or optim.Adam(learning_rate=lr))
+           .set_steps_per_dispatch(k).set_end_when(end))
+    t0 = time.monotonic()
+    opt.optimize()
+    return losses, clock, opt, time.monotonic() - t0
+
+
+def text_check(label, init, samples, batch, criterion, lr, device, card,
+               faults=()):
+    """One K=4 block of ``init`` on the card through LocalOptimizer
+    against the CPU step by step (:func:`wd_step_reading`), over the first
+    4 batches of ``samples``; each of ``faults`` (name, context manager
+    factory) planted on a card run of its own.  (sound, its four largest,
+    {fault: reading})."""
+    K = PTB_SMALL["K"]
+    batches = [batch_samples(samples[j * batch:(j + 1) * batch])
+               for j in range(K)]
+
+    def card_run(ctx):
+        adam = RecordingAdam(learning_rate=lr)
+        with ctx():
+            losses = text_train(
+                copy.deepcopy(init), DataSet.array(np.zeros(K * batch))
+                >> Prebuilt(batches, batch), device, optim.max_iteration(K),
+                criterion, lr, K, method=adam)[0]
+        return losses, adam.steps
+
+    cpu_step = text_cpu_step(criterion)
+    sound, worst = wd_step_reading(*card_run(contextlib.nullcontext), init,
+                                   batches, cpu_step)
+    readings = {name: wd_step_reading(*card_run(ctx), init, batches,
+                                      cpu_step)[0] for name, ctx in faults}
+    print(f"{label} train-vs-cpu check, {K} steps of batch {batch} step by "
+          f"step: sound {sound:.3e} (largest {worst}), planted faults "
+          + (", ".join(f"{k} {v:.3e}" for k, v in readings.items())
+             or "none") + f" (tol {TEXT_TOL}) [{card}]")
+    if not sound <= TEXT_TOL:
+        raise AssertionError(f"{label} training on the card is {sound:.3e} "
+                             f"from the CPU, over the limit {TEXT_TOL}")
+    for fault, err in readings.items():
+        if not err > TEXT_TOL:
+            raise AssertionError(
+                f"planted fault {fault} reads {err:.3e}, inside the "
+                f"{label} tolerance {TEXT_TOL}: the check is blind")
+    return sound, worst, readings
+
+
+@contextlib.contextmanager
+def lstm_fault(fault):
+    """``planted_lstm_fault`` in the LSTM layer for the block."""
+    recurrent.lstm_cell = planted_lstm_fault(fault, PTB_SMALL["T"])
+    try:
+        yield
+    finally:
+        recurrent.lstm_cell = lstm_cell.lstm_cell
+
+
+def timed_run(label, model, dataset, device, end, criterion, lr, k, at,
+              timed_from, per_step, unit, card):
+    """A training run with block ``at`` profiled (:func:`profiled_block`):
+    ms a step and ``unit``/s over steps ``timed_from`` to the profiled
+    block's first (``per_step`` ``unit`` a step), the profile, the losses;
+    a dict."""
+    prof = {}
+    cls = profiled_block(LocalOptimizer, at, card, 6, prof)
+    torch.cuda.reset_peak_memory_stats()
+    losses, clock, opt, wall = text_train(model, dataset, device, end,
+                                          criterion, lr, k, cls=cls)
+    peak = torch.cuda.max_memory_allocated()
+    last = at * k - 1
+    step_s = (clock[last] - clock[timed_from]) / (last - timed_from)
+    print_profile(f"{label} block {at} (K={k})", prof, card, 6)
+    print(f"train {label} K={k}: {len(losses)} steps in {wall:.1f} s; "
+          f"steps {timed_from}-{last}: ms_per_step={step_s * 1e3:.3f} "
+          f"{unit}_per_s={per_step / step_s:.1f} max_memory_allocated="
+          f"{peak}; loss {np.mean(losses[:20]):.4f} (first 20 steps) -> "
+          f"{np.mean(losses[-20:]):.4f} (last 20) [{card}]")
+    return {"steps": len(losses), "wall_s": wall, "k": k,
+            "ms_per_step": step_s * 1e3, f"{unit}_per_s": per_step / step_s,
+            "max_memory_allocated": peak, "losses": losses, "profile": prof}
+
+
+def ptb_small_phase(seed, device, card, report, tmp):
+    """PTB-small through the text pipeline of examples/rnn/train.py:
+    ``read_ptb_words`` >> ``Dictionary(vocab_size=10000)`` >>
+    ``ptb_batches(ids, 20)`` >> Sample >> ``SampleToMiniBatch(20)``, then
+    ``ptb_model(10000, 200, 200)`` with Adam and the time-distributed NLL:
+    a K=4 block against the CPU (two planted faults), then one epoch of
+    the file (B2f/B2b 20 launches a step each, the loss must fall, words/s,
+    a profiled block).  Returns B2f's and B2b's launches in the epoch."""
+    cfg = PTB_SMALL
+    path = os.path.join(tmp, "ptb.train.txt")
+    t0 = time.monotonic()
+    write_ptb_file(path, seed)
+    words = text.read_ptb_words(path)
+    d = Dictionary([words], vocab_size=cfg["vocab"])
+    if d.vocab_size() != cfg["vocab"] or "<unk>" not in d.word2index:
+        raise AssertionError(f"the file's dictionary holds {d.vocab_size()} "
+                             f"words, want {cfg['vocab']} with <unk>")
+    x, y = text.ptb_batches(d.encode(words), cfg["T"])
+    samples = [Sample(a, b) for a, b in zip(x, y)]
+    print(f"ptb-small data: {len(words)} words ({words.count('<eos>')} "
+          f"lines) -> {len(samples)} windows of {cfg['T']} in "
+          f"{time.monotonic() - t0:.1f} s")
+    init = ptb_model(cfg["vocab"], cfg["embed"], cfg["hidden"],
+                     cfg["layers"]).initialize(seed)
+    crit = nn.TimeDistributedCriterion(nn.ClassNLLCriterion(),
+                                       size_average=True)
+    t0 = time.monotonic()
+    sound, worst, faults = text_check(
+        "ptb-small", init, samples, cfg["batch"], crit, cfg["lr"], device,
+        card, [(f, lambda f=f: lstm_fault(f))
+               for f in ("w_t_127_128", "one_step_dz_127_128")])
+    print(f"phase text-ptb-small-vs-cpu: {time.monotonic() - t0:.1f} s")
+
+    t0 = time.monotonic()
+    k = Engine.steps_per_dispatch(backend=device.type)
+    model = copy.deepcopy(init)
+    lstm_cell.fwd_launches = lstm_cell.bwd_launches = 0
+    run = timed_run("ptb-small epoch", model, DataSet.array(samples, seed=seed)
+                    >> SampleToMiniBatch(cfg["batch"]), device,
+                    optim.max_epoch(1), crit, cfg["lr"], k,
+                    cfg["profile_at"] // k, cfg["timed_from"],
+                    cfg["batch"] * cfg["T"], "words", card)
+    launches = {"lstm_cell_fwd": lstm_cell.fwd_launches,
+                "lstm_cell_bwd": lstm_cell.bwd_launches}
+    steps, losses = run["steps"], run["losses"]
+    if steps != -(-len(samples) // cfg["batch"]):  # the last batch wraps
+        raise AssertionError(f"one epoch ran {steps} steps")
+    for kernel, n in launches.items():
+        if n != cfg["T"] * steps:
+            raise AssertionError(f"{kernel} launched {n} times in {steps} "
+                                 f"steps (want {cfg['T']} a step)")
+    if not (np.all(np.isfinite(losses))
+            and np.mean(losses[-20:]) < np.mean(losses[:20])):
+        raise AssertionError(f"PTB-small's loss did not fall: "
+                             f"{losses[:20]} ... {losses[-20:]}")
+    print(f"ptb-small launches {launches} in {steps} steps [{card}]")
+    print(f"phase text-ptb-small-epoch: {time.monotonic() - t0:.1f} s")
+    report["ptb_small"] = {"sound": sound, "largest": worst,
+                           "planted_faults": faults, "tol": TEXT_TOL,
+                           "launches": launches, **run}
+    return launches
+
+
+def simple_rnn_phase(seed, device, card, report, tmp):
+    """``simple_rnn`` over the PTB-small file's lines through the one-hot
+    chain: ``SentenceTokenizer`` >> ``SentenceBiPadding`` >>
+    ``Dictionary(vocab_size=127)`` >> ``TextToLabeledSentence`` >>
+    ``LabeledSentenceToSample(20, one_hot=True)`` >>
+    ``SampleToMiniBatch(20)``; a K=4 block against the CPU, then
+    SIMPLE_RNN["steps"] steps whose loss must fall."""
+    cfg = SIMPLE_RNN
+    t0 = time.monotonic()
+    with open(os.path.join(tmp, "ptb.train.txt")) as f:
+        lines = f.read().splitlines()
+    toks = list(text.SentenceBiPadding()(text.SentenceTokenizer()(
+        iter(lines))))
+    d = Dictionary(toks, vocab_size=cfg["vocab"])
+    V = d.vocab_size()
+    samples = list(text.LabeledSentenceToSample(
+        cfg["length"], one_hot=True, vocab_size=V)(
+            text.TextToLabeledSentence(d)(iter(toks))))
+    init = simple_rnn(V, cfg["hidden"], V).initialize(seed)
+    crit = nn.TimeDistributedCriterion(nn.ClassNLLCriterion(),
+                                       size_average=True)
+    sound, worst, _ = text_check("simple-rnn", init, samples, cfg["batch"],
+                                 crit, cfg["lr"], device, card)
+    losses, clock, _, wall = text_train(
+        copy.deepcopy(init), DataSet.array(samples, seed=seed)
+        >> SampleToMiniBatch(cfg["batch"]), device,
+        optim.max_iteration(cfg["steps"]), crit, cfg["lr"], cfg["K"])
+    step_s = (clock[-1] - clock[cfg["K"] - 1]) / (len(losses) - cfg["K"])
+    first, last = np.mean(losses[:8]), np.mean(losses[-8:])
+    print(f"train simple-rnn V={V} (one-hot) hidden {cfg['hidden']} batch "
+          f"{cfg['batch']} x {cfg['length']}: {len(samples)} sentences, "
+          f"{len(losses)} steps in {wall:.1f} s, ms_per_step="
+          f"{step_s * 1e3:.3f}; loss {first:.4f} (first 8) -> {last:.4f} "
+          f"(last 8) [{card}]")
+    if not (np.all(np.isfinite(losses)) and last < first):
+        raise AssertionError(f"the SimpleRNN's loss did not fall: {losses}")
+    print(f"phase text-simple-rnn: {time.monotonic() - t0:.1f} s")
+    report["simple_rnn"] = {"vocab": V, "sound": sound, "largest": worst,
+                            "tol": TEXT_TOL, "losses": losses,
+                            "ms_per_step": step_s * 1e3}
+
+
+def text_cnn_phase(seed, device, card, report):
+    """examples/textclassification/train.py's text CNN: at its defaults, a
+    K=4 block against the CPU and six epochs whose train accuracy must
+    exceed TEXT_CNN["min_acc"]; then one timed epoch at sequence 1000,
+    embedding 100, batch 128 (samples/s, a profiled block)."""
+    cfg = TEXT_CNN
+    t0 = time.monotonic()
+    texts, labels = text_cnn_corpus(cfg["texts"], seed)
+    samples, V = text_cnn_samples(texts, labels, cfg["seq"])
+    init = text_cnn(V, cfg["embed"]).initialize(seed)
+    crit = nn.ClassNLLCriterion()
+    sound, worst, _ = text_check("text-cnn", init, samples, cfg["batch"],
+                                 crit, cfg["lr"], device, card)
+    model = copy.deepcopy(init)
+    losses = text_train(model, DataSet.array(samples, seed=seed)
+                        >> SampleToMiniBatch(cfg["batch"]), device,
+                        optim.max_epoch(cfg["epochs"]), crit, cfg["lr"],
+                        cfg["K"])[0]
+    with torch.no_grad():
+        net = copy.deepcopy(model).to(device).eval()
+        xs = torch.from_numpy(np.stack([s.feature for s in samples]))
+        pred = net(xs.to(device)).argmax(-1).cpu().numpy()
+    acc = float((pred == np.asarray(labels)).mean())
+    print(f"train text-cnn (the example's defaults: vocab {V}, sequence "
+          f"{cfg['seq']}, embedding {cfg['embed']}, batch {cfg['batch']}, "
+          f"{cfg['epochs']} epochs, {len(losses)} steps): loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, train accuracy {acc:.4f} "
+          f"(must exceed {cfg['min_acc']}) [{card}]")
+    if not acc > cfg["min_acc"]:
+        raise AssertionError(f"the text CNN's train accuracy is {acc}")
+    print(f"phase text-cnn: {time.monotonic() - t0:.1f} s")
+
+    t0 = time.monotonic()
+    texts, labels = text_cnn_corpus(cfg["timed_texts"], seed + 1)
+    samples, V = text_cnn_samples(texts, labels, cfg["timed_seq"])
+    k = Engine.steps_per_dispatch(backend=device.type)
+    B = cfg["timed_batch"]
+    run = timed_run(f"text-cnn sequence {cfg['timed_seq']} embedding "
+                    f"{cfg['timed_embed']} batch {B}",
+                    text_cnn(V, cfg["timed_embed"]).initialize(seed),
+                    DataSet.array(samples, seed=seed) >> SampleToMiniBatch(B),
+                    device, optim.max_epoch(1), crit, cfg["lr"], k,
+                    cfg["profile_at"] // k, cfg["timed_from"], B, "samples",
+                    card)
+    print(f"phase text-cnn-timed: {time.monotonic() - t0:.1f} s")
+    report["text_cnn"] = {"sound": sound, "largest": worst, "tol": TEXT_TOL,
+                          "train_accuracy": acc, "losses": losses,
+                          "timed": run}
+
+
+def text_phase(seed, device, card, report):
+    """The text path: PTB-small, the one-hot SimpleRNN chain, the text
+    CNN.  Returns B2f's and B2b's launches in PTB-small's epoch."""
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = ptb_small_phase(seed, device, card, report, tmp)
+        torch.cuda.empty_cache()
+        simple_rnn_phase(seed, device, card, report, tmp)
+    torch.cuda.empty_cache()
+    text_cnn_phase(seed, device, card, report)
+    return launches
+
+
+# ----------------------------------------------------------------- nn core
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures", "data")
+# every layer and criterion of the text slice on the card against the CPU:
+# the largest difference of any output or gradient as a share of that
+# array's largest value on the CPU; above the sound readings (f32 ops in
+# another order), below the two planted faults (a tie's gradient 1 or 0
+# where the reference gives 0.5), which every run measures
+NN_CORE_TOL = 1e-4
+
+
+def _fixture(name, *keys):
+    z = np.load(os.path.join(FIXTURES, f"{name}.npz"))
+    return tuple(z[k].astype(np.float32) if z[k].dtype.kind == "f" else z[k]
+                 for k in keys)
+
+
+def _normal(gen, *shape):
+    return gen.normal(size=shape).astype(np.float32)
+
+
+def _tied(gen, *shape):
+    """Normal values, each row's first two entries along the last axis
+    equal, a few exact zeros."""
+    x = _normal(gen, *shape)
+    x[..., 1] = x[..., 0]
+    x.reshape(-1)[::5] = 0.0
+    return x
+
+
+def _at_bounds(gen):
+    x = _normal(gen, 4, 6)
+    x[0, :2] = (-0.5, 0.8)
+    return x
+
+
+def _table(gen, n, *shape):
+    xs = [_normal(gen, *shape) for _ in range(n)]
+    xs[1].reshape(-1)[::2] = xs[0].reshape(-1)[::2]
+    return tuple(xs)
+
+
+def _uniform(gen, *shape):
+    return gen.uniform(0.5, 2.0, shape).astype(np.float32)
+
+
+# name: (module, input maker of a numpy Generator); a golden fixture's
+# input where the class has one
+NN_CORE_MODULES = {
+    "View": (lambda: nn.View((6, 2)), lambda g: _normal(g, 2, 3, 4)),
+    "Flatten": (nn.Flatten, lambda g: _normal(g, 2, 3, 4)),
+    "Squeeze": (lambda: nn.Squeeze(1), lambda g: _normal(g, 2, 1, 4)),
+    "Unsqueeze": (lambda: nn.Unsqueeze(1), lambda g: _normal(g, 2, 3)),
+    "Transpose": (lambda: nn.Transpose([(1, 2), (0, 1)]),
+                  lambda g: _normal(g, 2, 3, 4)),
+    "Contiguous": (nn.Contiguous, lambda g: _normal(g, 3, 2)),
+    "Narrow": (lambda: nn.Narrow(2, 1, -1), lambda g: _normal(g, 2, 3, 5)),
+    "Select": (lambda: nn.Select(1, -1), lambda g: _normal(g, 2, 4, 3)),
+    "Index": (lambda: nn.Index(1),
+              lambda g: (_normal(g, 2, 5, 3),
+                         g.integers(0, 5, (2, 3)).astype(np.int64))),
+    "Padding": (lambda: nn.Padding(1, -2, 0.5),
+                lambda g: _normal(g, 2, 3, 4)),
+    "SpatialZeroPadding": (lambda: nn.SpatialZeroPadding(1, 2, 0, 1),
+                           lambda g: _normal(g, 2, 3, 4, 5)),
+    "JoinTable": (lambda: nn.JoinTable(1),
+                  lambda g: (_normal(g, 2, 3), _normal(g, 2, 4))),
+    "SplitTable": (lambda: nn.SplitTable(1), lambda g: _normal(g, 2, 3, 4)),
+    "CMulTable": (nn.CMulTable, lambda g: _table(g, 3, 2, 5)),
+    "CSubTable": (nn.CSubTable, lambda g: _table(g, 2, 2, 5)),
+    "CDivTable": (nn.CDivTable,
+                  lambda g: (_normal(g, 2, 5), _uniform(g, 2, 5))),
+    "CMaxTable": (nn.CMaxTable, lambda g: _table(g, 3, 2, 5)),
+    "CMinTable": (nn.CMinTable, lambda g: _table(g, 3, 2, 5)),
+    "FlattenTable": (nn.FlattenTable,
+                     lambda g: ((_normal(g, 2, 3), (_normal(g, 2, 2),)),
+                                _normal(g, 2, 1))),
+    "SelectTable": (lambda: nn.SelectTable(0),
+                    lambda g: (_normal(g, 2, 3), _normal(g, 2, 4))),
+    "MulConstant": (lambda: nn.MulConstant(2.5), lambda g: _normal(g, 2, 3)),
+    "AddConstant": (lambda: nn.AddConstant(-1.5), lambda g: _normal(g, 2, 3)),
+    "Power": (lambda: nn.Power(1.5, 2.0, 1.0),
+              lambda g: _fixture("power", "x")[0]),
+    "Sqrt": (nn.Sqrt, lambda g: _uniform(g, 2, 3)),
+    "Square": (nn.Square, lambda g: _normal(g, 2, 3)),
+    "Abs": (nn.Abs, lambda g: _tied(g, 3, 4)),
+    "Exp": (nn.Exp, lambda g: _normal(g, 2, 3)),
+    "Log": (nn.Log, lambda g: _uniform(g, 2, 3)),
+    "Clamp": (lambda: nn.Clamp(-0.5, 0.8),
+              lambda g: _fixture("clamp", "x")[0]),
+    "Clamp_at_bounds": (lambda: nn.Clamp(-0.5, 0.8), _at_bounds),
+    "Mean": (lambda: nn.Mean(1), lambda g: _normal(g, 2, 3, 4)),
+    "Sum": (lambda: nn.Sum(2, False), lambda g: _normal(g, 2, 3, 4)),
+    "Max": (lambda: nn.Max(2), lambda g: _tied(g, 2, 3, 4)),
+    "Min": (lambda: nn.Min(2), lambda g: _tied(g, 2, 3, 4)),
+    "Replicate": (lambda: nn.Replicate(3, 1), lambda g: _normal(g, 2, 4)),
+    "Pack": (lambda: nn.Pack(1),
+             lambda g: (_normal(g, 2, 3), _normal(g, 2, 3))),
+    "Scale": (lambda: nn.Scale((1, 4)), lambda g: _normal(g, 3, 4)),
+    "Masking": (nn.Masking, lambda g: np.where(
+        g.random((2, 5, 1)) < .3, 0.0, _normal(g, 2, 5, 3)).astype(
+            np.float32)),
+    "CMul": (lambda: nn.CMul((1, 6)), lambda g: _fixture("cmul", "x")[0]),
+    "CAdd": (lambda: nn.CAdd((1, 6)), lambda g: _fixture("cadd", "x")[0]),
+    "Normalize": (lambda: nn.Normalize(1.5), lambda g: _normal(g, 3, 5, 2)),
+    "NormalizeScale": (lambda: nn.NormalizeScale(2.0, 1e-10, 20.0,
+                                                 (1, 4, 1, 1)),
+                       lambda g: _normal(g, 2, 4, 3, 3)),
+    "TemporalConvolution": (lambda: nn.TemporalConvolution(5, 6, 3, 2),
+                            lambda g: _fixture("temporal_convolution",
+                                               "x")[0]),
+    "SpatialFullConvolution": (
+        lambda: nn.SpatialFullConvolution(4, 3, 3, 3, 2, 2, 1, 1, 1, 1),
+        lambda g: _fixture("spatial_full_convolution", "x")[0]),
+    "SpatialFullConvolution_adj_over_stride": (
+        lambda: nn.SpatialFullConvolution(2, 3, 3, 3, 2, 2, 1, 1, 2, 3),
+        lambda g: _normal(g, 2, 2, 4, 4)),
+    "Lambda": (lambda: nn.Lambda(max_over_time), lambda g: _tied(g, 2, 5, 3)),
+    "Echo": (nn.Echo, lambda g: _normal(g, 2, 3)),
+}
+
+
+def _pair_fixture(name):
+    x1, x2, t = _fixture(f"crit2_{name}", "x1", "x2", "target")
+    return (x1, x2), t
+
+
+def _crit_fixture(name):
+    return _fixture(f"crit_{name}", "x", "target")
+
+
+def _masked_steps(g):
+    t = g.integers(1, 5, (3, 4)).astype(np.int64)
+    t[0, 2:] = 0
+    x = np.log(g.dirichlet(np.ones(5), (3, 4))).astype(np.float32)
+    return x, t
+
+
+# name: (criterion, (input, target) maker)
+NN_CORE_CRITERIA = {
+    "AbsCriterion": (nn.AbsCriterion, lambda g: _crit_fixture("abs")),
+    "SmoothL1Criterion": (nn.SmoothL1Criterion,
+                          lambda g: _crit_fixture("smooth_l1")),
+    "DistKLDivCriterion": (nn.DistKLDivCriterion,
+                           lambda g: _crit_fixture("dist_kl")),
+    "KLDCriterion": (nn.KLDCriterion, lambda g: _pair_fixture("kld_vae")),
+    "GaussianCriterion": (nn.GaussianCriterion,
+                          lambda g: _pair_fixture("gaussian")),
+    "MarginCriterion": (nn.MarginCriterion, lambda g: _crit_fixture("margin")),
+    "MarginRankingCriterion": (nn.MarginRankingCriterion,
+                               lambda g: _pair_fixture("margin_ranking")),
+    "CosineEmbeddingCriterion": (
+        lambda: nn.CosineEmbeddingCriterion(0.2),
+        lambda g: _pair_fixture("cosine_embedding")),
+    "HingeEmbeddingCriterion": (nn.HingeEmbeddingCriterion,
+                                lambda g: _crit_fixture("hinge_embedding")),
+    "SoftMarginCriterion": (nn.SoftMarginCriterion,
+                            lambda g: _crit_fixture("soft_margin")),
+    "L1Cost": (nn.L1Cost, lambda g: _crit_fixture("l1_cost")),
+    "DiceCoefficientCriterion": (nn.DiceCoefficientCriterion,
+                                 lambda g: _crit_fixture("dice")),
+    "MultiLabelSoftMarginCriterion": (
+        nn.MultiLabelSoftMarginCriterion,
+        lambda g: _crit_fixture("multilabel_soft_margin")),
+    "MultiCriterion": (lambda: nn.MultiCriterion().add(nn.MSECriterion(), .5)
+                       .add(nn.AbsCriterion(), 2.0),
+                       lambda g: (_normal(g, 3, 4), _normal(g, 3, 4))),
+    "ParallelCriterion": (
+        lambda: nn.ParallelCriterion().add(nn.ClassNLLCriterion())
+        .add(nn.MSECriterion(), .25),
+        lambda g: ((np.log(g.dirichlet(np.ones(3), 4)).astype(np.float32),
+                    _normal(g, 4, 2)),
+                   (g.integers(0, 3, 4), _normal(g, 4, 2)))),
+    "PGCriterion": (nn.PGCriterion, lambda g: _crit_fixture("pg")),
+    "MultiLabelMarginCriterion": (nn.MultiLabelMarginCriterion,
+                                  lambda g: _crit_fixture(
+                                      "multilabel_margin")),
+    "SoftmaxWithCriterion": (nn.SoftmaxWithCriterion,
+                             lambda g: _crit_fixture("softmax_with")),
+    "CosineDistanceCriterion": (nn.CosineDistanceCriterion,
+                                lambda g: _crit_fixture("cosine_distance")),
+    "CosineProximityCriterion": (nn.CosineProximityCriterion,
+                                 lambda g: _crit_fixture(
+                                     "cosine_proximity")),
+    "DotProductCriterion": (nn.DotProductCriterion,
+                            lambda g: _crit_fixture("dot_product")),
+    "KullbackLeiblerDivergenceCriterion": (
+        nn.KullbackLeiblerDivergenceCriterion,
+        lambda g: _crit_fixture("kl_probs")),
+    "L1HingeEmbeddingCriterion": (
+        nn.L1HingeEmbeddingCriterion,
+        lambda g: _pair_fixture("l1_hinge_embedding")),
+    "MeanAbsolutePercentageCriterion": (nn.MeanAbsolutePercentageCriterion,
+                                        lambda g: _crit_fixture("mape")),
+    "MeanSquaredLogarithmicCriterion": (nn.MeanSquaredLogarithmicCriterion,
+                                        lambda g: _crit_fixture("msle")),
+    "MultiMarginCriterion": (lambda: nn.MultiMarginCriterion(p=2),
+                             lambda g: _crit_fixture("multi_margin_p2")),
+    "PoissonCriterion": (nn.PoissonCriterion,
+                         lambda g: _crit_fixture("poisson")),
+    "ClassSimplexCriterion": (lambda: nn.ClassSimplexCriterion(4),
+                              lambda g: _crit_fixture("class_simplex")),
+    "SmoothL1CriterionWithWeights": (
+        lambda: nn.SmoothL1CriterionWithWeights(2.0, 3),
+        lambda g: (_normal(g, 3, 4), (_normal(g, 3, 4),
+                                      np.abs(_normal(g, 3, 4)),
+                                      np.abs(_normal(g, 3, 4))))),
+    "TimeDistributedMaskCriterion": (
+        lambda: nn.TimeDistributedMaskCriterion(nn.ClassNLLCriterion(
+            weights=[1, .5, 2, 1, 3])), _masked_steps),
+    "TransformerCriterion": (
+        lambda: nn.TransformerCriterion(nn.MSECriterion(),
+                                        nn.Linear(4, 3).initialize(5)),
+        lambda g: (_normal(g, 5, 4), _normal(g, 5, 3))),
+    "CategoricalCrossEntropy": (nn.CategoricalCrossEntropy,
+                                lambda g: _crit_fixture("categorical_ce")),
+}
+
+
+class ClampOnTorchClamp(nn.Clamp):
+    """A planted fault: Clamp written with ``torch.clamp`` (gradient 1 at
+    a bound, where the reference gives 0.5)."""
+
+    def forward(self, x):
+        return torch.clamp(x, self.min_v, self.max_v)
+
+
+class MaxOnTorchMax(nn.Max):
+    """A planted fault: Max written with ``torch.max(x, dim)`` (the whole
+    gradient to one of tied maxima, where the reference shares it)."""
+
+    def forward(self, x):
+        return torch.max(x, self.dim).values
+
+
+# fault: (the NN_CORE_MODULES case whose input it is fed, the module)
+NN_CORE_FAULTS = {
+    "clamp_on_torch_clamp": ("Clamp_at_bounds",
+                             lambda: ClampOnTorchClamp(-0.5, 0.8)),
+    "max_on_torch_max": ("Max", lambda: MaxOnTorchMax(2))}
+
+
+def _tree(fn, x):
+    if isinstance(x, (tuple, list)):
+        return type(x)(_tree(fn, e) for e in x)
+    return fn(x)
+
+
+def _flat_leaves(x):
+    if isinstance(x, (tuple, list)):
+        return [e for t in x for e in _flat_leaves(t)]
+    return [x]
+
+
+def core_run(module, criterion, x, t, device, cot_seed):
+    """The outputs and the gradients with respect to every float input
+    and parameter of ``module(x)`` (against seeded cotangents) or of
+    ``criterion.apply(x, t)``, on ``device``: a list of CPU tensors."""
+    xs = _tree(lambda a: torch.from_numpy(np.array(a)).to(device)
+               .requires_grad_(a.dtype.kind == "f"), x)
+    params = []
+    if module is not None:
+        module = module.to(device)
+        params = [p.requires_grad_(True) for p in module.parameters()]
+        outs = _flat_leaves(module(xs))
+        gen = np.random.default_rng(cot_seed)
+        loss = sum((o * torch.from_numpy(_normal(gen, *o.shape)).to(device))
+                   .sum() for o in outs)
+    else:
+        loss = criterion.apply(xs, _tree(lambda a: torch.from_numpy(
+            np.array(a)).to(device), t))
+        outs = [loss]
+    floats = [a for a in _flat_leaves(xs) if a.requires_grad] + params
+    grads = torch.autograd.grad(loss, floats, allow_unused=True)
+    return [o.detach().cpu() for o in outs] + [
+        torch.zeros(a.shape) if g is None else g.cpu()
+        for a, g in zip(floats, grads)]
+
+
+def core_reading(got, want):
+    """The largest difference over the arrays, each as a share of its own
+    largest value on the CPU."""
+    return max(((g.double() - w.double()).abs().max()
+                / max(w.double().abs().max().item(), 1e-30)).item()
+               for g, w in zip(got, want))
+
+
+def nn_core_phase(seed, device, card, report):
+    """Every layer and criterion of the text slice (the 37 shape and table
+    ops, CMul, CAdd, Normalize, NormalizeScale, TemporalConvolution,
+    SpatialFullConvolution, Lambda, Echo and the 32 criteria) through its
+    forward and its input and parameter gradients on the card against the
+    CPU, at its golden fixture's input or a small seeded one; each reading
+    within NN_CORE_TOL, which two planted faults must exceed."""
+    readings, inputs_of = {}, {}
+    cases = [(name, make, None, inputs) for name, (make, inputs)
+             in NN_CORE_MODULES.items()]
+    cases += [(name, None, make, inputs) for name, (make, inputs)
+              in NN_CORE_CRITERIA.items()]
+    for i, (name, make_module, make_crit, inputs) in enumerate(cases):
+        data = inputs(np.random.default_rng(seed + i))
+        x, t = (data, None) if make_module else data
+        module = make_module().initialize(seed + i) if make_module else None
+        crit = make_crit() if make_crit else None
+        # cotangents from a seed of their own: drawn from the input's, a
+        # cotangent equal to the input can make a gradient vanish
+        cot_seed = 10_000 + seed + i
+        inputs_of[name] = (x, cot_seed)
+        want = core_run(copy.deepcopy(module), crit, x, t, "cpu", cot_seed)
+        got = core_run(module, crit, x, t, device, cot_seed)
+        readings[name] = core_reading(got, want)
+    faults = {}
+    for fault, (case, make) in NN_CORE_FAULTS.items():
+        x, cot_seed = inputs_of[case]
+        want = core_run(NN_CORE_MODULES[case][0](), None, x, None, "cpu",
+                        cot_seed)
+        faults[fault] = core_reading(
+            core_run(make(), None, x, None, device, cot_seed), want)
+    worst = sorted(readings.items(), key=lambda kv: -kv[1])[:5]
+    print(f"nn-core check: {len(NN_CORE_MODULES)} layer cases and "
+          f"{len(NN_CORE_CRITERIA)} criteria, card against CPU, largest "
+          f"shares {worst}; planted faults "
+          + ", ".join(f"{k} {v:.3e}" for k, v in faults.items())
+          + f" (tol {NN_CORE_TOL}) [{card}]")
+    report["nn_core"] = {"readings": readings, "planted_faults": faults,
+                         "tol": NN_CORE_TOL}
+    over = {k: v for k, v in readings.items() if not v <= NN_CORE_TOL}
+    if over:
+        raise AssertionError(f"nn-core readings over {NN_CORE_TOL}: {over}")
+    for fault, err in faults.items():
+        if not err > NN_CORE_TOL:
+            raise AssertionError(f"planted fault {fault} reads {err:.3e}, "
+                                 f"inside {NN_CORE_TOL}: the check is blind")
+
+
 PHASES = ("resnet", "lstm", "resnet-train", "wide-deep", "lenet",
-          "distri", "cifar", "inception", "autoencoder", "remat")
+          "distri", "cifar", "inception", "autoencoder", "remat", "text",
+          "nn-core")
 EXTRA_PHASES = ("resnet-conditioning",)  # run only when named
 
 
@@ -4871,7 +5617,7 @@ def main(argv=None) -> int:
 
     if "lstm" in phases:
         t0 = time.monotonic()
-        rows = lstm_kernel_phase(device, card, report)
+        rows, small_rows = lstm_kernel_phase(device, card, report)
         print(f"phase lstm-kernels: {time.monotonic() - t0:.1f} s")
         launches = training_phase(args.seed, device, card, report)
         torch.cuda.empty_cache()
@@ -5025,6 +5771,31 @@ def main(argv=None) -> int:
                           "check_launches": {
                               m: r["launches"] for m, r in
                               report["remat_check"].items()}}
+    if "text" in phases:
+        gen = torch.Generator(device=device).manual_seed(4321)
+        entries = {k["name"]: k for k in kernels if k["name"] in LSTM_KERNELS}
+        if not entries:  # the lstm phase did not run: check and time B2f/B2b
+            t0 = time.monotonic()
+            small = (PTB_SMALL["batch"], PTB_SMALL["hidden"])
+            errs = cell_check([small], device, card, gen)
+            small_rows = cell_time_rows(*small, errs[small], device, card,
+                                        gen)
+            print(f"phase lstm-kernels-ptb-small: "
+                  f"{time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        launches = text_phase(args.seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase text: {time.monotonic() - t0:.1f} s")
+        for kernel, row in small_rows.items():
+            if kernel not in entries:  # the text path leads
+                entries[kernel] = {"name": kernel, **LSTM_KERNELS[kernel],
+                                   "launches": launches[kernel], **row}
+                kernels.append(entries[kernel])
+            entries[kernel]["text"] = {"launches": launches[kernel], **row}
+    if "nn-core" in phases:
+        t0 = time.monotonic()
+        nn_core_phase(args.seed, device, card, report)
+        print(f"phase nn-core: {time.monotonic() - t0:.1f} s")
     if "resnet-conditioning" in phases:
         t0 = time.monotonic()
         resnet_conditioning_phase(args.seed, device, card, report)

@@ -12,7 +12,10 @@ weights' step within a stated share of its change: their whole-model
 gradients differ between two sound devices by up to percents); a small
 NHWC net under ``nn.Remat`` at each policy, B1 in front, bitwise equal to
 no remat on the card; LBFGS's update with host syncs made errors; SGD's
-bf16 velocity storing the CPU's bits.  Every test
+bf16 velocity storing the CPU's bits; one step of PTB-small through the
+text pipeline and of the text CNN against the CPU (the loss within
+``rtol=1e-5``, each gradient within 1e-4 of its array's largest).  Every
+test
 here needs a CUDA card and skips without one; on the card run ``python -m pytest -m gpu tests/test_torch_*.py``.  This file imports
 no JAX, so it runs where the reference package is not installed.
 
@@ -184,8 +187,9 @@ def test_served_on_card_matches_cpu(cuda, quantize):
 
 # (N, H): PTB-medium's, tiny, ragged, N above one 32-row batch tile (37,
 # 64), and an odd H that the forward's eight K slices do not divide (its bf16
-# rows take the plain-load copies)
-CELL_SHAPES = [(20, 650), (1, 64), (5, 130), (37, 650), (64, 650), (20, 333)]
+# rows take the plain-load copies); (20, 200) is PTB-small's, the text path's
+CELL_SHAPES = [(20, 650), (20, 200), (1, 64), (5, 130), (37, 650), (64, 650),
+               (20, 333)]
 
 
 @pytest.mark.parametrize("fb", [0.0, 1.0], ids=["fb0", "fb1"])
@@ -306,6 +310,60 @@ def test_ptb_training_on_card_matches_cpu(cuda):
     for (k, a), (_, b) in zip(flat(pg), flat(pc)):
         np.testing.assert_allclose(a, b, rtol=1e-4,
                                    atol=1e-4 * np.abs(b).max(), err_msg=k)
+
+
+def _step_grads(model, x, y, criterion, device):
+    """The loss and the gradients of one step of ``model`` on ``device``."""
+    net = model.to(device)
+    for p in net.parameters():
+        p.requires_grad_(True)
+    loss = criterion.apply(net(torch.from_numpy(x).to(device)),
+                           torch.from_numpy(y).to(device))
+    loss.backward()
+    return loss.item(), {k: p.grad.double().cpu()
+                         for k, p in net.named_parameters()}
+
+
+def _assert_step_close(model, x, y, criterion, cuda):
+    import copy
+    want_loss, want = _step_grads(copy.deepcopy(model), x, y, criterion,
+                                  "cpu")
+    got_loss, got = _step_grads(model, x, y, criterion, cuda)
+    assert abs(got_loss - want_loss) <= 1e-5 * abs(want_loss)
+    for k, w in want.items():
+        share = ((got[k] - w).abs().max() / w.abs().max()).item()
+        assert share <= 1e-4, (k, share)
+
+
+def test_ptb_small_step_on_card_matches_cpu(cuda, tmp_path):
+    """One step of PTB-small (vocab 10000, 2x200 LSTM, T=20, batch 20)
+    fed by the text pipeline on a written PTB-format file: the loss within
+    ``rtol=1e-5`` and each gradient within 1e-4 of its array's largest on
+    the CPU; layer 0 through B2f/B2b 20 times each."""
+    import chip_smoke
+    from bigdl_tpu_torch.dataset import text
+    path = tmp_path / "ptb.txt"
+    chip_smoke.write_ptb_file(path, 0)
+    words = text.read_ptb_words(path)
+    d = text.Dictionary([words], vocab_size=10000)
+    x, y = text.ptb_batches(d.encode(words), 20)
+    lstm_cell.fwd_launches = lstm_cell.bwd_launches = 0
+    _assert_step_close(ptb_model(10000, 200, 200).initialize(0), x[:20],
+                       y[:20], nn.TimeDistributedCriterion(
+                           nn.ClassNLLCriterion(), size_average=True), cuda)
+    assert lstm_cell.fwd_launches == lstm_cell.bwd_launches == 20
+
+
+def test_text_cnn_step_on_card_matches_cpu(cuda):
+    """One step of examples/textclassification/train.py's text CNN at its
+    defaults (sequence 12, embedding 32, batch 32), card against CPU."""
+    import chip_smoke
+    samples, V = chip_smoke.text_cnn_samples(*chip_smoke.text_cnn_corpus(),
+                                             seq_len=12)
+    x = np.stack([s.feature for s in samples[:32]])
+    y = np.stack([s.label for s in samples[:32]])
+    _assert_step_close(chip_smoke.text_cnn(V, 32).initialize(0), x, y,
+                       nn.ClassNLLCriterion(), cuda)
 
 
 # (x shape (N, C, H, W), kernel, stride, pad, ceil_mode, format, dtype);

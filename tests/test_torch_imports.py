@@ -11,8 +11,13 @@ LeNet through a world-1 ``DistriOptimizer`` with the bf16 wire, the
 ``parallel/`` modules with it, a step of VGG on synthetic CIFAR through
 the colour ops, an NHWC inception module behind an LRN, two steps of the
 autoencoder through each new optim method with a regularizer, an NHWC
-``Remat`` block under two activation-memory policies) builds or loads a
-kernel; and a kernel build that fails raises."""
+``Remat`` block under two activation-memory policies, two steps of the
+text CNN through the text pipeline, ragged samples batched under
+``PaddingParam``s, ``TimeDistributedMaskCriterion`` over a weighted
+criterion) builds or loads a kernel; and a kernel build that fails
+raises.  The text slice's modules (``dataset/text.py``,
+``nn/shape_ops.py``, ``nn/criterion.py``, ``nn/layers.py``,
+``nn/module.py``) are among those imported."""
 
 import json
 import os
@@ -203,6 +208,26 @@ for policy in ("dots", "bf16+full"):
      .set_activation_memory(policy)
      .set_end_when(optim.max_iteration(1)).optimize())
 assert maxpool.launches == 0
+from bigdl_tpu_torch.dataset import PaddingParam, batch_samples, text
+docs = list(text.SentenceTokenizer()(iter(text.synthetic_corpus(8))))
+assert text.Dictionary(docs).vocab_size() > 10
+cnn_samples, cnn_vocab = chip_smoke.text_cnn_samples(
+    *chip_smoke.text_cnn_corpus(64), seq_len=12)
+(optim.LocalOptimizer(chip_smoke.text_cnn(cnn_vocab, 8).initialize(0),
+                      DataSet.array(cnn_samples) >> SampleToMiniBatch(16),
+                      nn.ClassNLLCriterion(), device="cpu")
+ .set_optim_method(optim.Adam(0.01))
+ .set_end_when(optim.max_iteration(2)).optimize())
+ragged = batch_samples([Sample(np.ones(n, np.float32), np.arange(n) % 3)
+                        for n in (2, 5, 3)], PaddingParam(buckets=(4, 8)),
+                       PaddingParam(padding_value=-1))
+assert ragged.input.shape == (3, 8) and ragged.target.shape == (3, 5)
+masked = nn.TimeDistributedMaskCriterion(nn.ClassNLLCriterion(
+    weights=[1.0, 2.0, 3.0])).apply(torch.log_softmax(torch.rand(2, 4, 3), -1),
+                                    torch.tensor([[1, 2, 0, 0], [2, 1, 1, 0]]))
+assert torch.isfinite(masked)
+assert {"bigdl_tpu_torch.dataset.text", "bigdl_tpu_torch.nn.shape_ops",
+        "bigdl_tpu_torch.nn.criterion"} <= set(names)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("jaxlib") or m == "bigdl_tpu"
              or m.startswith("bigdl_tpu."))
