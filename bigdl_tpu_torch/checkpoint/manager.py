@@ -50,7 +50,7 @@ class CheckpointManager:
     def __init__(self, directory: str, keep_last: int = 5,
                  keep_every: int = 0, overwrite: bool = True,
                  async_save: bool = True, registry=None,
-                 queue_depth: int = 2):
+                 queue_depth: int = 2, flight=None):
         self.directory = directory
         self.keep_last = max(1, int(keep_last))
         self.keep_every = max(0, int(keep_every))
@@ -58,6 +58,12 @@ class CheckpointManager:
         self._writer = AsyncSnapshotWriter(queue_depth) if async_save \
             else None
         self._registry = registry
+        # optional telemetry.FlightRecorder and the run's trace id (the
+        # driver stamps both per run): a commit is a flight event, fired
+        # on the writer thread after the fsync, so the recorder holds
+        # what reached the disk
+        self.flight = flight
+        self.trace_id: Optional[str] = None
         self._t_run_start: Optional[float] = None
         self._driver_stall_s = 0.0
         # step of the newest save THIS manager issued (None = none yet);
@@ -165,6 +171,10 @@ class CheckpointManager:
                 reg.counter("checkpoint/bytes_written").inc(
                     _tree_bytes(host))
                 reg.counter("checkpoint/snapshots_committed").inc()
+            if self.flight is not None:
+                self.flight.record("checkpoint_commit", cat="driver",
+                                   trace_id=self.trace_id, step=step,
+                                   path=path)
             logger.info("checkpoint saved to %s", path)
 
         if sync or self._writer is None:

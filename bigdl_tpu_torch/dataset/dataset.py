@@ -38,6 +38,14 @@ class AbstractDataSet:
     def restore_position(self, state: dict) -> None:
         """Re-derive the shuffle order saved by :meth:`position_state`."""
 
+    def reshard(self, process_index: int, process_count: int) -> int:
+        """Read shard ``process_index`` of ``process_count`` from now on
+        (an elastic resize); returns the previous count.  Only a
+        ``DistributedDataSet`` root shards."""
+        raise TypeError(
+            f"{type(self).__name__} is not sharded over processes: elastic "
+            f"training needs a DistributedDataSet")
+
     def transform(self, transformer: Transformer) -> "TransformedDataSet":
         return TransformedDataSet(self, transformer)
 
@@ -132,6 +140,13 @@ class DistributedDataSet(AbstractDataSet):
         self._epoch = int(state.get("shuffle_epoch", 0))
         self._global_indexes = self._permutation()
 
+    def reshard(self, process_index: int, process_count: int) -> int:
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process {process_index} of {process_count}")
+        old, self._p, self._np = self._np, int(process_index), \
+            int(process_count)
+        return old
+
     def data(self, train: bool) -> Iterator:
         if train:
             def infinite():
@@ -164,6 +179,13 @@ class TransformedDataSet(AbstractDataSet):
 
     def restore_position(self, state: dict) -> None:
         self.base.restore_position(state)
+
+    def reshard(self, process_index: int, process_count: int) -> int:
+        """The root's shard moves, and every batching stage keeps the
+        global batch: its local batch becomes ``batch x old / new``."""
+        old = self.base.reshard(process_index, process_count)
+        self.transformer.rescale(old, process_count)
+        return old
 
     def data(self, train: bool) -> Iterator:
         return self.transformer(self.base.data(train))

@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.dataset.sample import MiniBatch, Sample
-from bigdl_tpu_torch.dataset.transformer import Transformer
+from bigdl_tpu_torch.dataset.transformer import Transformer, rescaled_batch
+from bigdl_tpu_torch.telemetry.tracer import NULL_SPAN
 from bigdl_tpu_torch.utils.imgops import sample_key
 
 
@@ -122,9 +123,12 @@ def _stack_leaves(*leaves):
 class DeviceBlockStager:
     """Stage blocks of consecutive same-signature batches on ``device``."""
 
-    def __init__(self, batch_iter: Iterator, device):
+    def __init__(self, batch_iter: Iterator, device, tracer=None):
         self._it = batch_iter
         self._device = torch.device(device)
+        # telemetry: host_stack / h2d_stage spans (cat "stage") when the
+        # driver's tracer is given; None records nothing
+        self._tracer = tracer
         self._held: Optional[MiniBatch] = None  # deferred to the next block
         self._stream = torch.cuda.Stream(self._device) \
             if self._device.type == "cuda" else None
@@ -143,6 +147,21 @@ class DeviceBlockStager:
         size stays within ``records_budget`` (the batch that reaches it is
         included).  Raises StopIteration if the iterator is exhausted with
         nothing staged: training iterators must be infinite."""
+        span = self._tracer.span if self._tracer is not None else None
+        with span("host_stack", cat="stage") if span else NULL_SPAN:
+            xs, ys, sizes = self._stack_block(k, records_budget)
+        with span("h2d_stage", cat="stage", k=len(sizes)) if span \
+                else NULL_SPAN:
+            # the copy is asynchronous: the span times the host's side
+            # of the staging, not the transfer itself
+            if self._stream is None:
+                return StagedBlock(tree_map(torch.from_numpy, xs),
+                                   tree_map(torch.from_numpy, ys), None,
+                                   sizes, self._device)
+            return StagedBlock(*self._to_device(xs, ys), sizes,
+                               self._device)
+
+    def _stack_block(self, k: int, records_budget: int):
         batches, sig, total = [], None, 0
         while len(batches) < max(1, int(k)) and total < records_budget:
             if self._held is not None:
@@ -168,12 +187,7 @@ class DeviceBlockStager:
         xs = tree_map(_stack_leaves, *[b.input for b in batches])
         ys = None if batches[0].target is None else \
             tree_map(_stack_leaves, *[b.target for b in batches])
-        sizes = [b.size() for b in batches]
-        if self._stream is None:
-            return StagedBlock(tree_map(torch.from_numpy, xs),
-                               tree_map(torch.from_numpy, ys), None, sizes,
-                               self._device)
-        return StagedBlock(*self._to_device(xs, ys), sizes, self._device)
+        return xs, ys, [b.size() for b in batches]
 
     def _to_device(self, xs, ys):
         main = torch.cuda.current_stream(self._device)
@@ -244,6 +258,10 @@ class MTSampleToMiniBatch(Transformer):
         # pass counter folded into the sample key: each call (an epoch)
         # draws fresh augmentation, run-to-run deterministic
         self._passes = itertools.count()
+
+    def rescale(self, old_count: int, new_count: int) -> None:
+        self.batch_size = rescaled_batch(self.batch_size, old_count,
+                                         new_count)
 
     def __call__(self, it: Iterator[Sample]) -> Iterator[MiniBatch]:
         out_q: queue.Queue = queue.Queue(maxsize=self.prefetch)

@@ -18,6 +18,11 @@ class Transformer:
     def __rshift__(self, other: "Transformer") -> "ChainedTransformer":
         return ChainedTransformer(self, other)
 
+    def rescale(self, old_count: int, new_count: int) -> None:
+        """The dataset under this stage went from ``old_count`` to
+        ``new_count`` shards (an elastic resize); a batching stage keeps
+        the global batch.  Others are unaffected."""
+
 
 class ChainedTransformer(Transformer):
     def __init__(self, first: Transformer, second: Transformer):
@@ -25,6 +30,21 @@ class ChainedTransformer(Transformer):
 
     def __call__(self, it):
         return self.second(self.first(it))
+
+    def rescale(self, old_count: int, new_count: int) -> None:
+        self.first.rescale(old_count, new_count)
+        self.second.rescale(old_count, new_count)
+
+
+def rescaled_batch(batch_size: int, old_count: int, new_count: int) -> int:
+    """The local batch that keeps ``batch_size x old_count`` rows a global
+    batch over ``new_count`` shards."""
+    total = int(batch_size) * int(old_count)
+    if total % int(new_count):
+        raise ValueError(
+            f"a global batch of {total} rows does not split over "
+            f"{new_count} processes")
+    return total // int(new_count)
 
 
 class SampleToMiniBatch(Transformer):
@@ -40,6 +60,10 @@ class SampleToMiniBatch(Transformer):
         self.feature_padding = feature_padding
         self.label_padding = label_padding
         self.drop_remainder = drop_remainder
+
+    def rescale(self, old_count: int, new_count: int) -> None:
+        self.batch_size = rescaled_batch(self.batch_size, old_count,
+                                         new_count)
 
     def __call__(self, it):
         buf = []

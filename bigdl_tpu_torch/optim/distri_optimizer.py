@@ -34,15 +34,32 @@ the grad_sync state's owned slices into full buckets, process 0 writes,
 every process records the step.  The state
 keeps the reference's layout ``{"master": [bucket, ...], "opt": {...}}``
 with the reference's leaf order and padding, so a snapshot resumes across
-packages at the same world size.  Tensor parallelism (``param_specs``) and
-elastic resizing (``set_elastic``) are not ported.
+packages at the same world size.  Tensor parallelism (``param_specs``) is
+not ported.
+
+Elastic training (``set_elastic``, or ``resize``/``host_loss``/
+``device_loss`` clauses in ``Config.fault_plan``): a membership epoch
+freezes a roster, a prefix of the launch ranks.  Every launch rank keeps
+the same deterministic plan and ledger, so all of them cross the same
+epoch boundaries.  At a change the roster finishes (graceful) or abandons
+(abrupt) the block in flight, every launch rank restores the latest valid
+snapshot and builds the new roster's process group (``new_group``, called
+by all of them), and the run resumes on it: the ``DistributedDataSet``
+re-shards over the roster with the global batch kept (each roster rank's
+local batch is the global batch over the roster size), the records scale
+and the bucket plan follow the roster, the ZeRO-1 state is re-padded
+(``grad_sync.reshard_state``).  A launch rank outside the roster does no
+step: it waits on the launch group for rank 0's word — the next epoch
+(it then resumes with the rest) or the end of training (it then takes
+the trained parameters and the driver counters from rank 0).
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Optional
+import time
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -57,7 +74,10 @@ from bigdl_tpu_torch.optim.optimizer import (Optimizer, _Run, step_finite,
                                              stream_seed)
 from bigdl_tpu_torch.parallel import grad_sync
 from bigdl_tpu_torch.parallel.mesh import Mesh
+from bigdl_tpu_torch.resilience.membership import (ClusterMembership,
+                                                   MembershipChanged)
 from bigdl_tpu_torch.resilience.numeric import NonFiniteStepError
+from bigdl_tpu_torch.utils import spmdcheck
 from bigdl_tpu_torch.utils.config import get_config
 from bigdl_tpu_torch.utils.tuned import resolve_default
 
@@ -124,12 +144,187 @@ class DistriOptimizer(Optimizer):
         self._world = 1
         self._rank = 0
         self._final_opt_state = None
+        self._rank_in_roster = True
+        # elastic: the mesh of every launch rank, and each roster's group
+        self._launch_mesh: Optional[Mesh] = None
+        self._roster: Optional[Tuple[int, ...]] = None  # the last run's
+        self._roster_groups: dict = {}
 
-    def set_elastic(self, *a, **kw):
-        raise NotImplementedError(
-            "elastic training (set_elastic) is not ported to "
-            "bigdl_tpu_torch yet (ROADMAP queue A, slice 6: "
-            "resilience/membership.py)")
+    # -------------------------------------------------- elastic membership
+    def set_elastic(self, membership: Optional[ClusterMembership] = None
+                    ) -> "DistriOptimizer":
+        """Arm elastic training: membership epochs over the launch ranks.
+        A ``resize``/``host_loss``/``device_loss`` fault clause (or a
+        ``request_resize`` on the returned optimizer's ``_membership``)
+        opens a new epoch; the driver detects it at the replay boundary,
+        snapshots, and ``optimize()`` resumes on the new roster.  Built
+        once per optimizer, so epochs stay monotonic across every shrink
+        and regrow of a run.  Needs ``set_checkpoint``."""
+        if self._membership is None:
+            # the mesh of a run already going is the launch mesh
+            self._launch_mesh = self._launch_mesh or self.mesh
+            self._membership = membership if membership is not None \
+                else ClusterMembership(
+                    tuple(range(self._launch_world())),
+                    registry=self.metrics.registry, recorder=self._flight)
+        return self
+
+    def _launch_world(self) -> int:
+        mesh = self._launch_mesh or self.mesh
+        if mesh is not None:
+            return mesh.size
+        return dist.get_world_size() if dist.is_initialized() else 1
+
+    def _arm_membership_from_plan(self, faults) -> None:
+        if faults is None or not faults.has_membership_kinds():
+            return
+        self.set_elastic()
+
+    def _roster_mesh(self, launch: Mesh) -> Optional[Mesh]:
+        """This run's mesh: the launch mesh, or under a smaller roster
+        its group's (every launch rank builds every roster's group, in
+        ledger order, as ``new_group`` asks).  None on a launch rank
+        outside the roster."""
+        cur = self._membership.current()
+        roster = tuple(cur.devices)
+        prev = self._roster or tuple(range(launch.size))
+        self._roster = roster
+        if roster != prev and self._resize_t0 is None:
+            # an epoch opened between runs (an operator's request_resize
+            # before optimize()): nothing is in flight, adopt it up front
+            # with no restore.  spmdcheck: adopting a roster re-keys every
+            # later collective
+            spmdcheck.note("membership_adopt", axis=f"epoch{cur.epoch}")
+            logger.warning("membership epoch %d (%s): adopting world=%d "
+                           "roster at run start", cur.epoch, cur.reason,
+                           cur.world)
+            self._flight_event("resize_adopt", epoch=cur.epoch,
+                               world=cur.world, reason=cur.reason)
+        if len(roster) == launch.size:
+            return launch
+        group = self._roster_groups.get(roster)
+        if group is None:
+            group = self._roster_groups[roster] = dist.new_group(
+                ranks=list(roster), backend=launch.backend)
+        if dist.get_rank() not in roster:
+            return None
+        return Mesh(dict(launch.shape, data=len(roster)), group,
+                    launch.backend)
+
+    _REASONS = ("resize", "host_loss", "device_loss")
+
+    def _word(self, *values) -> torch.Tensor:
+        """Rank 0's word to the launch ranks outside the roster: one
+        broadcast on the launch group (NCCL moves CUDA tensors)."""
+        dev = self._run_device if self._launch_mesh.backend == "nccl" \
+            else torch.device("cpu")
+        msg = torch.tensor([float(v) for v in values] or [0.0] * 6,
+                           dtype=torch.float64, device=dev)
+        dist.broadcast(msg, src=0, group=self._launch_mesh.group)
+        return msg.cpu()
+
+    def _has_idle_ranks(self) -> bool:
+        return self._launch_mesh is not None \
+            and self._world < self._launch_mesh.size
+
+    def _announce_change(self, e: MembershipChanged) -> None:
+        """The roster's side of :meth:`_sit_out` at an epoch change."""
+        ep = e.epoch
+        self._word(1, ep.epoch, ep.world, ep.graceful, e.detected_neval,
+                   self._REASONS.index(ep.reason))
+
+    def _announce_end(self) -> None:
+        """The roster's side of :meth:`_sit_out` when training ends: the
+        driver counters, then every parameter and buffer from rank 0."""
+        s = self.state
+        self._word(0, s["neval"], s["epoch"],
+                   s["records_processed_this_epoch"], 0, 0)
+        self._broadcast_model()
+
+    def _broadcast_model(self) -> None:
+        dev = self._run_device if self._launch_mesh.backend == "nccl" \
+            else torch.device("cpu")
+        with torch.no_grad():
+            for t in [*self.model.parameters(), *self.model.buffers()]:
+                buf = t.detach().to(dev).contiguous()
+                dist.broadcast(buf, src=0, group=self._launch_mesh.group)
+                t.copy_(buf.to(t.device))
+
+    def _sit_out(self) -> torch.nn.Module:
+        """A launch rank outside the roster: wait for rank 0's word.
+        At an epoch change, adopt it into this rank's ledger and raise
+        ``MembershipChanged`` like the roster does; at the end, take the
+        driver counters and the trained model and return."""
+        logger.info("membership epoch %d: rank %d outside the roster, "
+                    "waiting", self._membership.epoch(), dist.get_rank())
+        word = [int(v) for v in self._word()]
+        if word[0] == 0:
+            neval, epoch, records = word[1:4]
+            self.state.update(neval=neval, epoch=epoch,
+                              records_processed_this_epoch=records)
+            self._broadcast_model()
+            return self.model
+        epoch, world, graceful, neval, reason = word[1:6]
+        m = self._membership
+        why = self._REASONS[reason]
+        if why == "device_loss":
+            m.signal_device_loss(to=world)
+        elif why == "host_loss":
+            m.signal_host_loss(to=world)
+        else:
+            m.request_resize(world, reason=why)
+        ep = m.current()
+        if ep.epoch != epoch:
+            raise RuntimeError(
+                f"membership ledgers disagree: rank 0 announced epoch "
+                f"{epoch}, this rank is at {ep.epoch}")
+        raise MembershipChanged(ep, bool(graceful), neval, time.monotonic())
+
+    # replay-boundary: the roster replayed or abandoned the block in flight
+    def _resume_after_resize(self, e: MembershipChanged) -> None:
+        """Restore the latest valid snapshot (rank 0's writer idle and
+        every launch rank past a barrier first), so the next run resumes
+        on the new roster; a resize is a measured event, not a failure,
+        and burns no retry."""
+        ep = e.epoch
+        logger.warning("membership epoch %d (%s, graceful=%s): resuming on "
+                       "world=%d", ep.epoch, ep.reason, ep.graceful,
+                       ep.world)
+        mgr = self._checkpoint_manager()
+        mgr.wait()
+        dist.barrier(group=self._launch_mesh.group)
+        ckpt = mgr.latest_valid()
+        if ckpt is None:
+            raise RuntimeError(
+                f"membership epoch {ep.epoch} ({ep.reason}) but no "
+                f"valid snapshot under {self.checkpoint_path} to resume "
+                f"from — elastic training needs one committed snapshot "
+                f"before an abrupt device loss") from e
+        mgr.restore_into(self, ckpt, verified=True)
+        lost = max(0, e.detected_neval - int(self.state["neval"]))
+        self.metrics.registry.counter(
+            "resilience/steps_lost_to_resize").inc(lost)
+        self._flight_event("resize_restore", epoch=ep.epoch,
+                           world=ep.world, reason=ep.reason,
+                           steps_lost=lost,
+                           iteration=int(self.state["neval"]))
+        # the downtime clock runs until the resumed driver stages again
+        self._resize_t0 = e.t0
+
+    def _maybe_reshard_resumed(self, ostate):
+        """An elastic resume of a grad_sync state written at another
+        world size: each bucket cut to its content and re-padded to this
+        run's plan (padding is zeros, which elementwise methods keep)."""
+        if self._membership is None or not self._use_grad_sync \
+                or not is_grad_sync_state(ostate):
+            return ostate
+        want = [(s,) for s in self._gs_plan.bucket_sizes]
+        got = [tuple(m.shape) for m in ostate["master"]]
+        if want == got:
+            return ostate
+        logger.info("elastic resume: re-sharding grad_sync state %s -> %s "
+                    "(n_shard=%d)", got, want, self._gs_plan.n_shard)
+        return grad_sync.reshard_state(self._gs_plan, ostate)
 
     # ------------------------------------------------------------ set-up
     def _resolve_mesh(self) -> Mesh:
@@ -204,6 +399,15 @@ class DistriOptimizer(Optimizer):
     def _records_scale(self) -> int:
         return self._world
 
+    def _note_staged(self, staged) -> None:
+        # spmdcheck: the reference assembles the global block from every
+        # process's share here, one rendezvous a leaf; the port's
+        # processes stage their own shares, and the notes keep the two
+        # schedules aligned
+        if spmdcheck.installed():
+            for _, leaf in leaves_with_path((staged.xs, staged.ys)):
+                spmdcheck.note("make_global", payload=leaf)
+
     def _checkpoint_schema(self, params_tree) -> dict:
         if not self._use_grad_sync:
             return super()._checkpoint_schema(params_tree)
@@ -230,6 +434,8 @@ class DistriOptimizer(Optimizer):
     # replay-boundary: called at block edges, after the loss fetch
     def _do_checkpoint(self, run: _Run, sync: bool = False) -> None:
         trees = self._trees(run)  # a collective for grad_sync state
+        # spmdcheck: every process captures at the same iteration
+        spmdcheck.note("checkpoint", payload=trees[0])
         if self._rank != 0:
             # every process records the step: the preemption branch's
             # already-saved test must agree on all of them
@@ -281,7 +487,18 @@ class DistriOptimizer(Optimizer):
         attempts = 0
         while True:
             try:
-                return self._optimize_impl()
+                model = self._optimize_impl()
+                if self._membership is not None and self._rank_in_roster \
+                        and self._has_idle_ranks():
+                    self._announce_end()
+                return model
+            except MembershipChanged as e:
+                # the roster replayed or abandoned its block; the ranks
+                # outside it hear of the change, then all of them restore
+                if self._rank_in_roster \
+                        and self._has_idle_ranks():
+                    self._announce_change(e)
+                self._resume_after_resize(e)
             except NonFiniteStepError as e:
                 attempts += 1
                 self._rollback_nonfinite(e, attempts,
@@ -305,11 +522,24 @@ class DistriOptimizer(Optimizer):
                 mgr.restore_into(self, ckpt, verified=True)
 
     def _optimize_impl(self) -> torch.nn.Module:
-        self.mesh = self._resolve_mesh()
+        if self._membership is None:
+            self.mesh = self._resolve_mesh()
+        else:
+            launch = self._launch_mesh = \
+                self._launch_mesh or self._resolve_mesh()
+            mesh = self._roster_mesh(launch)
+            self._rank_in_roster = mesh is not None
+            self.mesh = mesh or launch
+        self._place()
+        if not self._rank_in_roster:
+            return self._sit_out()
         group = self.mesh.group
         self._world, self._rank = self.mesh.size, self.mesh.rank
-        self._place()
         device = self._run_device
+        if self._membership is not None:
+            # the data, the records scale and the bucket plan follow the
+            # roster
+            self.dataset.reshard(self._rank, self._world)
         guard = self._guard_policy = self._resolved_numeric_guard()
         self._check_rollback()
         seed = self._resolved_seed()
@@ -328,6 +558,7 @@ class DistriOptimizer(Optimizer):
         plist = [params[k] for k in names]
         saved, self._resume_opt_state = self._resume_opt_state, None
         if saved is not None:
+            saved = self._maybe_reshard_resumed(saved)
             self._check_resumed_opt_state(saved)
         if self._use_grad_sync:
             plan = self._gs_plan

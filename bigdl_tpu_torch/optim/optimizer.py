@@ -64,8 +64,24 @@ the knobs left at their defaults (``utils/tuned.py``).
 driver's hooks: ``_records_scale`` (the global batch is the world's local
 batches), the step, the snapshot and the validation's reduction.
 
-Not ported yet, each raising ``NotImplementedError`` where the reference
-has the API: telemetry and compute dtypes other than f32 and bf16.
+Resilience and telemetry, as in the reference, each inert when off (no
+object built, the losses and the kernel launches unchanged):
+
+- **Telemetry** (``set_telemetry`` / ``Config.telemetry_enabled``): tracer
+  spans around staging, dispatch, the one-block-behind device wait,
+  replay and the triggers, the stall detector's phase fractions and the
+  memory gauges (``telemetry/``); the flight recorder
+  (``Config.flight_recorder_path``) and the admin plane
+  (``Config.admin_port``).
+- **Fault injection** (``Config.fault_plan``, ``resilience/faults.py``):
+  poisoned staged blocks, driver dispatch errors retried under
+  ``failure_retry_times``, membership events at the replay boundary
+  (``DistriOptimizer`` only; ``LocalOptimizer`` refuses them).
+- **spmdcheck** notes at the checkpoint capture, the dispatch and the
+  block fetch (``utils/spmdcheck.py``).
+
+Not ported yet, raising ``NotImplementedError`` where the reference has
+the API: compute dtypes other than f32 and bf16.
 """
 
 from __future__ import annotations
@@ -100,10 +116,17 @@ from bigdl_tpu_torch.optim.trigger import Trigger, max_epoch, probe_fire_step
 from bigdl_tpu_torch.optim.validation import (ValidationMethod,
                                               ValidationResult)
 from bigdl_tpu_torch.parallel.grad_sync import state_leaves
+from bigdl_tpu_torch.resilience.faults import FaultInjector, InjectedFault
+from bigdl_tpu_torch.resilience.membership import (ClusterMembership,
+                                                   MembershipChanged)
 from bigdl_tpu_torch.resilience.numeric import (NonFiniteStepError,
                                                 validate_policy)
+from bigdl_tpu_torch.telemetry import (NULL_SPAN, DriverTelemetry, admin,
+                                       flight, jit_cache_size)
 from bigdl_tpu_torch.telemetry.registry import MetricRegistry
+from bigdl_tpu_torch.utils import spmdcheck
 from bigdl_tpu_torch.utils.config import get_config
+from bigdl_tpu_torch.utils.metrics import Metrics
 from bigdl_tpu_torch.utils.precision import mixed_precision_loss_fn
 from bigdl_tpu_torch.utils.tuned import resolve_default
 
@@ -152,10 +175,12 @@ def _not_ported(what: str):
 class _InFlight:
     """An enqueued block whose per-step losses are still on the card."""
 
-    __slots__ = ("losses", "sizes", "lrs", "t0")
+    __slots__ = ("losses", "sizes", "lrs", "t0", "stage_s", "dispatch_s")
 
-    def __init__(self, losses, sizes, lrs, t0):
+    def __init__(self, losses, sizes, lrs, t0, stage_s=0.0, dispatch_s=0.0):
         self.losses, self.sizes, self.lrs, self.t0 = losses, sizes, lrs, t0
+        self.stage_s = stage_s        # planning + staging host time
+        self.dispatch_s = dispatch_s  # the steps' enqueue host time
 
 
 class _Run:
@@ -196,8 +221,10 @@ class Optimizer:
         self._resume_opt_state: Optional[dict] = None  # reference layout
         self.train_summary = None
         self.validation_summary = None
-        # checkpoint, numeric-guard and validation counters
-        self.registry = MetricRegistry()
+        # the driver's phase accumulators ("data", "computing") and its
+        # checkpoint, numeric-guard, fault and membership counters; the
+        # telemetry watchdogs share the registry
+        self.metrics = Metrics()
         # None = setter never called: Config.numeric_guard applies
         self.numeric_guard: Optional[str] = None
         self._guard_policy = "off"  # resolved per run
@@ -216,6 +243,28 @@ class Optimizer:
         self._stager: Optional[DeviceBlockStager] = None
         self._epoch_size = 0
         self._dispatch_count = 0  # blocks enqueued by the last run
+        # telemetry: None = Config.telemetry_enabled; the run's bundle
+        # lives in _telemetry (None when off: every site tests that)
+        self.telemetry_enabled: Optional[bool] = None
+        self.telemetry_trace_path: Optional[str] = None
+        self._telemetry: Optional[DriverTelemetry] = None
+        # flight recorder: None unless Config.flight_recorder_path is set
+        self._flight = None
+        # admin-plane source name, minted once per optimizer
+        self._admin_name: Optional[str] = None
+        # fault injector: None unless Config.fault_plan names a plan
+        self._fault_injector: Optional[FaultInjector] = None
+        # elastic membership: None unless a membership fault clause or
+        # DistriOptimizer.set_elastic() arms one
+        self._membership: Optional[ClusterMembership] = None
+        # monotonic() time of the last MembershipChanged detection; the
+        # resumed run observes resilience/resize_downtime_s from it
+        self._resize_t0: Optional[float] = None
+
+    @property
+    def registry(self) -> MetricRegistry:
+        """The driver's metric registry (``self.metrics.registry``)."""
+        return self.metrics.registry
 
     # ------------------------------------------------------------- builder
     def set_optim_method(self, method: OptimMethod) -> "Optimizer":
@@ -341,8 +390,21 @@ class Optimizer:
         self.state.update(state)
         return self
 
-    def set_telemetry(self, *a, **kw):
-        _not_ported("telemetry (set_telemetry)")
+    def set_telemetry(self, enabled: bool = True,
+                      trace_path: Optional[str] = None) -> "Optimizer":
+        """Turn the telemetry on or off for this optimizer's runs
+        (overrides ``Config.telemetry_enabled`` / ``BIGDL_TPU_TELEMETRY``).
+        ``trace_path``: write the Chrome-trace JSON there when training
+        ends (summarize with ``python -m tools.trace_report``)."""
+        self.telemetry_enabled = bool(enabled)
+        if trace_path is not None:
+            self.telemetry_trace_path = trace_path
+        return self
+
+    def telemetry_snapshot(self) -> Optional[dict]:
+        """Registry and watchdog snapshot of the last telemetry-enabled
+        run; None when telemetry was off."""
+        return self._telemetry.snapshot() if self._telemetry else None
 
     def set_numeric_guard(self, policy: Optional[str]) -> "Optimizer":
         """Non-finite loss/gradient policy for this run (overrides
@@ -456,13 +518,57 @@ class Optimizer:
                 overwrite=self.overwrite_checkpoint,
                 async_save=pick(self.checkpoint_async,
                                 cfg.checkpoint_async),
-                registry=self.registry)
+                registry=self.metrics.registry)
         return self._ckpt_manager
+
+    def _tel_span(self, name: str, cat: str, **args):
+        """A tracer span when telemetry is on; the shared no-op otherwise
+        (the off path allocates nothing)."""
+        tel = self._telemetry
+        if tel is None:
+            return NULL_SPAN
+        return tel.tracer.span(name, cat=cat, **args)
+
+    def _flight_event(self, event: str, **fields) -> None:
+        """One driver event into the flight recorder (no-op when none is
+        live), with the run's trace id when telemetry is on."""
+        fl = self._flight
+        if fl is not None:
+            tel = self._telemetry
+            fl.record(event, cat="driver",
+                      trace_id=tel.trace_id if tel is not None else None,
+                      **fields)
+
+    def _arm_membership_from_plan(self, faults) -> None:
+        """A single-process trainer cannot resize: membership clauses in
+        its plan are refused, never silently left unfired
+        (``DistriOptimizer`` arms a ``ClusterMembership`` instead)."""
+        if faults is None or not faults.has_membership_kinds():
+            return
+        raise ValueError(
+            "fault plan contains membership kinds (resize/host_loss/"
+            "device_loss) but this is a LocalOptimizer — elastic "
+            "training needs DistriOptimizer's device mesh to resize "
+            "over")
+
+    def _apply_membership_clause(self, clause) -> None:
+        """One fired membership clause as its ``ClusterMembership``
+        signal."""
+        m = self._membership
+        if clause.kind == "resize":
+            m.request_resize(clause.to)
+        elif clause.kind == "host_loss":
+            m.signal_host_loss(to=clause.to)
+        else:  # device_loss
+            m.signal_device_loss(to=clause.to)
 
     def _records_scale(self) -> int:
         """Local batch rows -> global records (the world size under
         ``DistriOptimizer``)."""
         return 1
+
+    def _note_staged(self, staged: StagedBlock) -> None:
+        """A staged block's spmdcheck notes (none on one process)."""
 
     def _checkpoint_schema(self, params_tree) -> dict:
         return build_schema(params_tree,
@@ -520,9 +626,12 @@ class Optimizer:
         return ostate
 
     def _validate_resume_schema(self, params_tree) -> None:
+        """The restored snapshot's schema against this run's; an elastic
+        run tolerates world-size and bucket-padding drift."""
         saved, self._resume_schema = self._resume_schema, None
         if saved is not None:
-            validate_schema(saved, self._checkpoint_schema(params_tree))
+            validate_schema(saved, self._checkpoint_schema(params_tree),
+                            elastic=self._membership is not None)
 
     def _trees(self, run: _Run):
         """(params, buffers, optimizer state) of ``run`` in the
@@ -540,13 +649,18 @@ class Optimizer:
     def _maybe_checkpoint(self, run: _Run) -> None:
         if self.checkpoint_trigger and self.checkpoint_path \
                 and self.checkpoint_trigger(self.state):
-            self._do_checkpoint(run)
+            with self._tel_span("checkpoint", "trigger",
+                                neval=self.state["neval"]):
+                self._do_checkpoint(run)
 
     # replay-boundary: called at block edges, after the loss fetch
     def _do_checkpoint(self, run: _Run, sync: bool = False) -> None:
         """Snapshot the whole training state at the current replayed
         iteration (a copy to the host, then the commit on the writer)."""
-        self._save_trees(*self._trees(run), sync=sync)
+        trees = self._trees(run)
+        # spmdcheck: every process captures at the same iteration
+        spmdcheck.note("checkpoint", payload=trees[0])
+        self._save_trees(*trees, sync=sync)
 
     def _save_trees(self, params, mstate, ostate, sync: bool) -> None:
         run_state = {"seed": self._resolved_seed(),
@@ -561,7 +675,9 @@ class Optimizer:
                 and self.validation_dataset is not None
                 and self.validation_trigger(self.state)):
             return None
-        results = self.evaluate_with(run.net)
+        with self._tel_span("validation", "trigger",
+                            neval=self.state["neval"]):
+            results = self.evaluate_with(run.net)
         for name, res in results.items():
             logger.info("validation %s = %s", name, res)
             if self.validation_summary is not None \
@@ -693,15 +809,83 @@ class Optimizer:
                                 torch.stack([o[1].float() for o in outs])])
         return torch.stack(outs)
 
+    def _setup_telemetry(self, device) -> Optional[DriverTelemetry]:
+        """This run's telemetry bundle (None when off), the flight
+        recorder (None unless configured) and the admin plane's
+        registration (none unless ``Config.admin_port``)."""
+        cfg = get_config()
+        tel_on = (self.telemetry_enabled if self.telemetry_enabled
+                  is not None else cfg.telemetry_enabled)
+        self._flight = flight.from_config()
+        tel = None
+        if tel_on:
+            tel = DriverTelemetry(
+                registry=self.metrics.registry,
+                trace_capacity=cfg.telemetry_trace_capacity,
+                trace_path=(self.telemetry_trace_path
+                            or cfg.telemetry_trace_path or None),
+                flight=self._flight, device=device)
+        # an earlier enabled run's bundle must not keep recording
+        self._telemetry = tel
+        srv = admin.maybe_start()
+        if srv is not None:
+            if self._admin_name is None:
+                self._admin_name = srv.unique_source_name("driver")
+            srv.add_registry(self._admin_name, self.metrics.registry)
+            if tel is not None:
+                srv.add_tracer(self._admin_name, tel.tracer)
+                srv.add_health(self._admin_name, tel.health_snapshot)
+            else:
+                # a telemetry-off rerun must not serve the previous
+                # run's trace and verdicts as current
+                srv.drop_tracer(self._admin_name)
+                srv.drop_health(self._admin_name)
+            if self._flight is not None:
+                srv.set_flight(self._flight)
+        return tel
+
+    def _setup_faults(self) -> Optional[FaultInjector]:
+        """The fault injector of ``Config.fault_plan`` (None without a
+        plan).  Built once per (optimizer, plan): a plan is one timeline
+        of the outside world, so its firing budgets survive the rollback
+        and retry loops re-entering the driver."""
+        plan = get_config().fault_plan or ""
+        if self._fault_injector is not None \
+                and self._fault_injector.plan != plan:
+            self._fault_injector = None
+        if self._fault_injector is None and plan:
+            self._fault_injector = FaultInjector.from_config(
+                registry=self.metrics.registry)
+            logger.warning("fault injection live: %s",
+                           self._fault_injector.describe())
+        return self._fault_injector
+
     def _train_driver(self, step_fn, device, run: _Run) -> None:
         state = self.state
         k_max = self._steps_per_block(device)
+        tel = self._setup_telemetry(device)
+        faults = self._setup_faults()
+        # elastic membership: armed only by membership clauses or
+        # set_elastic(); otherwise None and every site below is inert
+        self._arm_membership_from_plan(faults)
+        membership = self._membership
+        if membership is not None and not self.checkpoint_path:
+            raise ValueError(
+                "elastic training (membership fault kinds / "
+                "set_elastic) needs set_checkpoint(path, trigger) — a "
+                "resize resumes from the latest valid snapshot")
+        # the epoch this run dispatches under, compared with the live one
+        # at the replay boundary the loop already crosses
+        run_epoch = membership.epoch() if membership is not None else 0
         # a previous run's preempted verdict must not leak into this one
         state.pop("preempted", None)
         mgr: Optional[CheckpointManager] = None
         if self.checkpoint_path:
             mgr = self._checkpoint_manager()
             mgr.mark_run_start()
+            # this run's recorder and trace id on its commit events
+            mgr.flight = self._flight
+            mgr.trace_id = tel.trace_id if tel is not None else None
         epoch_size = self._epoch_size = self.dataset.size()
         data_iter = self.dataset.data(train=True)
         # records count the job's global batches; this process reads its
@@ -714,7 +898,18 @@ class Optimizer:
                 f"does not divide by this run's {scale} processes")
         if fast_forward_records(data_iter, rec // scale):
             logger.info("resume: skipped %d already-processed records", rec)
-        stager = self._stager = DeviceBlockStager(data_iter, device)
+        stager = self._stager = DeviceBlockStager(
+            data_iter, device, tracer=tel.tracer if tel else None)
+        if self._resize_t0 is not None:
+            # the elastic resume: detection to staging again is the
+            # resize's downtime
+            downtime = time.monotonic() - self._resize_t0
+            self._resize_t0 = None
+            self.metrics.registry.histogram(
+                "resilience/resize_downtime_s").observe(downtime)
+            self._flight_event("resize_resumed",
+                               downtime_s=round(downtime, 4),
+                               iteration=state["neval"], epoch=run_epoch)
         param_trig = self.train_summary.trigger_for("Parameters") \
             if hasattr(self.train_summary, "trigger_for") else None
         triggers = (self.validation_trigger, self.checkpoint_trigger,
@@ -728,20 +923,28 @@ class Optimizer:
 
         def stage_next():
             nonlocal bsz_hint
+            t_stage0 = time.perf_counter()
             probe_state = dict(state, neval=p_neval, epoch=p_epoch,
                                records_processed_this_epoch=p_records)
             fire = probe_fire_step(probe_state, k_max, bsz_hint * scale,
                                    epoch_size, triggers)
             k_plan = fire if fire is not None else k_max
-            staged = stager.take(k_plan,
-                                 max(1, -(-(epoch_size - p_records) // scale)))
+            with self.metrics.time("data"):
+                staged = stager.take(
+                    k_plan, max(1, -(-(epoch_size - p_records) // scale)))
+            self._note_staged(staged)
             k = len(staged.sizes)
+            if faults is not None:
+                # the batch-poison fault site, keyed by global iteration,
+                # after the block's copy has landed
+                staged.wait()
+                faults.corrupt_staged(staged.xs, p_neval, k)
             bsz_hint = staged.sizes[0]
             lrs = [float(self.optim_method.current_lr(p_neval + j, p_epoch))
                    for j in range(k)]
             sync = p_records + sum(staged.sizes) * scale >= epoch_size \
                 or fire == k
-            return staged, lrs, sync
+            return staged, lrs, sync, time.perf_counter() - t_stage0
 
         pending: Optional[_InFlight] = None
         staged = None
@@ -763,21 +966,72 @@ class Optimizer:
                     logger.warning("preemption signal: final snapshot at "
                                    "iteration %d, exiting cleanly",
                                    state["neval"])
+                    self._flight_event("preemption",
+                                       iteration=state["neval"])
                     mgr.wait()  # writer idle before the last save
                     if mgr.last_saved_step != state["neval"]:
                         self._do_checkpoint(run, sync=True)
                     state["preempted"] = True
                     break
+                if membership is not None:
+                    changed = membership.changed_since(run_epoch)
+                    if changed is not None:
+                        # graceful: replay the block in flight and write
+                        # a last synchronous snapshot (no step lost);
+                        # abrupt: abandon it, the resume pays the steps
+                        # since the latest snapshot.  The staged block
+                        # is dropped either way.
+                        t_detect = time.monotonic()
+                        if changed.graceful:
+                            if pending is not None:
+                                self._replay_block(pending, run)
+                                pending = None
+                            mgr.wait()
+                            if mgr.last_saved_step != state["neval"]:
+                                self._do_checkpoint(run, sync=True)
+                        else:
+                            pending = None
+                        logger.warning(
+                            "membership epoch %d (world %d, %s): "
+                            "suspending at iteration %d for elastic "
+                            "resume", changed.epoch, changed.world,
+                            changed.reason, state["neval"])
+                        self._flight_event(
+                            "membership_change", epoch=changed.epoch,
+                            world=changed.world, reason=changed.reason,
+                            graceful=changed.graceful,
+                            iteration=state["neval"])
+                        raise MembershipChanged(
+                            changed, changed.graceful, state["neval"],
+                            t_detect)
                 if staged is None:
                     if pending is None and self.end_when(state):
                         break
                     staged = stage_next()
-                block_in, lrs, sync = staged
+                block_in, lrs, sync, stage_s = staged
+                k = len(block_in.sizes)
+                # spmdcheck: every process enqueues the same block shape
+                # in the same order, or the steps' collectives go
+                # one-sided
+                spmdcheck.note("dispatch", axis=f"k{k}", payload=block_in.xs)
                 t0 = time.perf_counter()
-                losses = self._block(step_fn, block_in, lrs, p_neval)
+                with self._tel_span("dispatch", "dispatch", k=k):
+                    if faults is None:
+                        losses = self._block(step_fn, block_in, lrs, p_neval)
+                    else:
+                        losses = self._dispatch_with_retry(
+                            lambda: self._block(step_fn, block_in, lrs,
+                                                p_neval),
+                            self._dispatch_count)
+                if tel is not None:
+                    # silent on the eager step: it compiles nothing
+                    tel.recompile.observe(("block_fn", k),
+                                          jit_cache_size(step_fn))
                 self._dispatch_count += 1
-                block = _InFlight(losses, block_in.sizes, lrs, t0)
-                p_neval += len(block_in.sizes)
+                block = _InFlight(losses, block_in.sizes, lrs, t0,
+                                  stage_s=stage_s,
+                                  dispatch_s=time.perf_counter() - t0)
+                p_neval += k
                 p_records += sum(block_in.sizes) * scale
                 if p_records >= epoch_size:
                     p_epoch += 1
@@ -798,9 +1052,18 @@ class Optimizer:
                 else:
                     pending = block
         finally:
-            run_failing = sys.exc_info()[0] is not None
+            exc = sys.exc_info()[0]
+            run_failing = exc is not None
+            if run_failing and not issubclass(exc, MembershipChanged):
+                # on disk even if nothing below gets to run; a membership
+                # change is a measured event, recorded above
+                self._flight_event("run_crash", error=exc.__name__,
+                                   iteration=state["neval"])
             if preempt is not None:
                 preempt.uninstall()
+            if tel is not None:
+                # the trace of an interrupted run too
+                tel.finalize()
             if mgr is not None:
                 # optimize() returning means the snapshots exist; a
                 # deferred write error fails the run unless it is failing
@@ -831,15 +1094,24 @@ class Optimizer:
     def _on_nonfinite_step(self, loss: float) -> None:
         """A replayed iteration carried a non-finite loss or gradient.
         ``skip``: its update was dropped on the card, count it; else
-        raise at that 0-based iteration."""
+        raise at that 0-based iteration (the index fault plans and lr
+        schedules see)."""
         policy = self._guard_policy
         step = self.state["neval"] - 1
-        self.registry.counter("resilience/nonfinite_steps").inc()
+        reg = self.metrics.registry
+        reg.counter("resilience/nonfinite_steps").inc()
         if policy == "skip":
-            self.registry.counter("resilience/steps_skipped").inc()
+            reg.counter("resilience/steps_skipped").inc()
+            if self._telemetry is not None:
+                self._telemetry.tracer.instant(
+                    "nonfinite_step_skipped", cat="resilience", step=step)
+            self._flight_event("nonfinite_step", step=step, policy="skip",
+                               loss=loss)
             logger.warning("non-finite step at iteration %d (loss=%s) — "
                            "update skipped on the card", step, loss)
             return
+        self._flight_event("nonfinite_step", step=step, policy=policy,
+                           loss=loss)
         raise NonFiniteStepError(step, loss, policy)
 
     # replay-boundary: the failed block is torn down before the restore
@@ -855,10 +1127,40 @@ class Optimizer:
         ckpt = mgr.latest_valid()
         if ckpt is None:
             raise e
-        self.registry.counter("resilience/rollbacks").inc()
+        self.metrics.registry.counter("resilience/rollbacks").inc()
+        if self._telemetry is not None:
+            self._telemetry.tracer.instant(
+                "rollback", cat="resilience", step=e.step, ckpt=ckpt)
+        self._flight_event("rollback", step=e.step, ckpt=ckpt,
+                           attempt=attempts)
         logger.warning("non-finite step at iteration %d; rollback %d/%d "
                        "from %s", e.step, attempts, retry_budget, ckpt)
         mgr.restore_into(self, ckpt, verified=True)
+
+    def _dispatch_with_retry(self, fire, index: int):
+        """Bounded retry with backoff around one block's enqueue, reached
+        only with a live fault plan.  The injector raises before
+        ``fire()`` runs, so a retried attempt starts from the same
+        parameters; ``InjectedFault`` is transient by construction."""
+        retries = get_config().failure_retry_times
+        faults = self._fault_injector
+        attempt = 0
+        while True:
+            try:
+                faults.driver_dispatch(index)
+                return fire()
+            except InjectedFault:
+                attempt += 1
+                self.metrics.registry.counter(
+                    "resilience/dispatch_retries").inc()
+                if attempt > retries:
+                    raise
+                backoff = min(0.01 * (2.0 ** (attempt - 1)), 1.0)
+                logger.warning(
+                    "transient dispatch failure at dispatch %d; retry "
+                    "%d/%d in %.0f ms", index, attempt, retries,
+                    backoff * 1e3)
+                time.sleep(backoff)
 
     def _replay_block(self, block: _InFlight, run: _Run) -> bool:
         """Copy a block's losses (and, under a numeric guard, its finite
@@ -866,40 +1168,85 @@ class Optimizer:
         state through its iterations: summaries, epoch rollover,
         validation and checkpoint triggers at their exact iterations, the
         stop condition.  True when training should stop."""
-        fetched = block.losses.tolist()
+        tel = self._telemetry
+        t_wait0 = time.perf_counter()
+        # spmdcheck: every process fetches the block that produced it
+        spmdcheck.note("block_fetch", payload=block.losses)
+        with self.metrics.time("computing"), \
+                self._tel_span("device_wait", "device_wait",
+                               steps=len(block.sizes)):
+            # the driver's one device-to-host sync: the span wraps the
+            # fetch the driver makes anyway, it adds none
+            fetched = block.losses.tolist()
+        t_wait1 = time.perf_counter()
         losses, finite = (fetched if block.losses.dim() == 2
                           else (fetched, None))
+        if tel is not None:
+            # the block's in-flight window (enqueue to losses landed) on
+            # a "device" track beside the host's spans
+            tel.tracer.record("block_inflight", int(block.t0 * 1e9),
+                              int(t_wait1 * 1e9), cat="pipeline",
+                              track="device", steps=len(block.sizes))
         per_step = (time.perf_counter() - block.t0) / len(block.sizes)
         state = self.state
         scale = self._records_scale()
-        for j, n_local in enumerate(block.sizes):
-            n = n_local * scale
-            state["neval"] += 1
-            state["records_processed_this_epoch"] += n
-            state["loss"] = float(losses[j])
-            state["throughput"] = n / per_step
-            if finite is not None and not finite[j]:
-                self._on_nonfinite_step(state["loss"])
-            self._log_train_iteration(block.lrs[j])
-            if self.train_summary is not None:
-                if self._writes_summaries():
-                    self.train_summary.add_train_step(
-                        state["neval"], state["loss"], block.lrs[j],
-                        state["throughput"])
-                self._log_parameter_histograms(run)
-            state["epoch_finished"] = \
-                state["records_processed_this_epoch"] >= self._epoch_size
-            if state["epoch_finished"]:
-                state["epoch"] += 1
-                state["records_processed_this_epoch"] = 0
-                self.dataset.shuffle()
-                self._stager.reset(self.dataset.data(train=True))
-            self._run_validation(run)
-            self._maybe_checkpoint(run)
-            state["epoch_finished"] = False
-            if self.end_when(state):
-                return True
-        return False
+        ended = False
+        t_replay0 = time.perf_counter()
+        with self._tel_span("replay", "replay", steps=len(block.sizes)):
+            for j, n_local in enumerate(block.sizes):
+                n = n_local * scale
+                state["neval"] += 1
+                state["records_processed_this_epoch"] += n
+                state["loss"] = float(losses[j])
+                state["throughput"] = n / per_step
+                if finite is not None and not finite[j]:
+                    self._on_nonfinite_step(state["loss"])
+                self._log_train_iteration(block.lrs[j])
+                if self.train_summary is not None:
+                    if self._writes_summaries():
+                        self.train_summary.add_train_step(
+                            state["neval"], state["loss"], block.lrs[j],
+                            state["throughput"])
+                    self._log_parameter_histograms(run)
+                state["epoch_finished"] = \
+                    state["records_processed_this_epoch"] >= self._epoch_size
+                if state["epoch_finished"]:
+                    state["epoch"] += 1
+                    state["records_processed_this_epoch"] = 0
+                    self.dataset.shuffle()
+                    self._stager.reset(self.dataset.data(train=True))
+                self._run_validation(run)
+                self._maybe_checkpoint(run)
+                state["epoch_finished"] = False
+                if self._fault_injector is not None \
+                        and self._membership is not None:
+                    # the membership fault site, keyed by the 0-based
+                    # global iteration; the loop sees the new epoch at
+                    # its next replay boundary
+                    for clause in self._fault_injector.membership_events(
+                            state["neval"] - 1):
+                        self._apply_membership_clause(clause)
+                if self.end_when(state):
+                    ended = True
+                    break
+        if tel is not None:
+            tel.stalls.record_block(block.stage_s, block.dispatch_s,
+                                    t_wait1 - t_wait0,
+                                    time.perf_counter() - t_replay0)
+            tel.memory.observe()
+            self._mirror_telemetry_scalars(tel)
+        return ended
+
+    def _mirror_telemetry_scalars(self, tel) -> None:
+        """The driver's gauges (phase fractions, memory watermarks) into
+        the train summary, one scalar a gauge a replayed block."""
+        summary = self.train_summary
+        add = getattr(summary, "add_scalar", None) if summary else None
+        if add is None or not self._writes_summaries():
+            return
+        step = self.state["neval"]
+        for name, val in tel.registry.gauges().items():
+            add(f"Telemetry/{name}", float(val), step)
 
 
 class LocalOptimizer(Optimizer):

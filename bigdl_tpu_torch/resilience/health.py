@@ -32,13 +32,14 @@ class CircuitBreaker:
     def __init__(self, trip_after: int = 5, cooldown_s: float = 30.0,
                  cooldown_factor: float = 2.0,
                  cooldown_max_s: float = 300.0, registry=None,
-                 name: str = "", clock=time.monotonic):
+                 name: str = "", clock=time.monotonic, recorder=None):
         self.trip_after = max(1, int(trip_after))
         self._base_cooldown_s = float(cooldown_s)
         self._cooldown_s = float(cooldown_s)  # guarded-by: _lock
         self._cooldown_factor = float(cooldown_factor)
         self._cooldown_max_s = float(cooldown_max_s)
         self._registry = registry
+        self._recorder = recorder  # optional telemetry.FlightRecorder
         self._name = name
         self._clock = clock
         self._lock = threading.Lock()
@@ -71,6 +72,11 @@ class CircuitBreaker:
                 if self._registry is not None:
                     self._registry.counter(
                         "resilience/breaker_trips").inc()
+                if self._recorder is not None:
+                    self._recorder.record(
+                        "breaker_trip", cat="resilience",
+                        version=self._name, trips=self.trips,
+                        cooldown_s=round(self._cooldown_s, 3))
 
     def allow(self, now: Optional[float] = None) -> bool:
         if now is None:

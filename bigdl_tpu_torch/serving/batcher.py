@@ -93,13 +93,16 @@ class _Request:
     shared leading row dim ``n_rows`` (≤ max_batch_size, enforced by the
     service) plus the future the caller is waiting on."""
 
-    __slots__ = ("x", "n_rows", "future", "t_enqueue")
+    __slots__ = ("x", "n_rows", "future", "t_enqueue", "ctx")
 
-    def __init__(self, x, n_rows: int):
+    def __init__(self, x, n_rows: int, ctx=None):
         self.x = x
         self.n_rows = n_rows
         self.future: Future = Future()
         self.t_enqueue = time.monotonic()
+        # optional telemetry.RequestContext (None unless request tracing
+        # is on or the caller passed one)
+        self.ctx = ctx
 
 
 class RequestBatcher:

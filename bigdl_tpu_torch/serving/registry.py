@@ -10,7 +10,10 @@ routing consults it: ``breaker_trip_after`` consecutive request failures
 on the newest version open its breaker, and un-versioned
 ``get``/``predict``/``submit`` calls fall back to the newest version
 whose breaker still admits traffic.  Overload/closed rejections are never
-counted.  Pinned ``version=`` requests bypass the breaker.
+counted.  Pinned ``version=`` requests bypass the breaker.  Breaker trips
+and fallbacks land in the flight recorder (``Config.flight_recorder_path``
+or ``flight=``), and the breakers are a ``/healthz`` source of the admin
+plane (``Config.admin_port``).
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ class ModelRegistry:
 
     def __init__(self, *, breaker_trip_after: int = 5,
                  breaker_cooldown_s: float = 30.0, registry=None,
-                 device="cuda"):
+                 flight=None, device="cuda"):
         self.device = resolve_device(device)
         self._lock = threading.Lock()
         # guarded-by: _lock
@@ -51,6 +54,17 @@ class ModelRegistry:
         self._metrics = registry
         # guarded-by: _lock
         self._breakers: Dict[Tuple[str, int], CircuitBreaker] = {}
+        # flight recorder: None (inert) unless configured or passed
+        from bigdl_tpu_torch.telemetry import flight as _flight_mod
+        self._flight = flight if flight is not None \
+            else _flight_mod.from_config()
+        # admin plane: the breakers as a /healthz source (ok = none open)
+        from bigdl_tpu_torch.telemetry import admin as _admin
+        self._admin_name: Optional[str] = None
+        srv = _admin.maybe_start()
+        if srv is not None:
+            self._admin_name = srv.unique_source_name("model_registry")
+            srv.add_health(self._admin_name, self.breaker_health)
 
     # -- deployment --------------------------------------------------------
     def deploy(self, name: str, model=None, *, path: Optional[str] = None,
@@ -101,7 +115,8 @@ class ModelRegistry:
             self._breakers[key] = CircuitBreaker(
                 trip_after=self._breaker_trip_after,
                 cooldown_s=self._breaker_cooldown_s,
-                registry=self._metrics, name=f"{name}:v{version}")
+                registry=self._metrics, name=f"{name}:v{version}",
+                recorder=self._flight)
             self._latest[name] = max(self._latest.get(name, 0),
                                      int(version))
         return service
@@ -128,6 +143,11 @@ class ModelRegistry:
                 if self._metrics is not None:
                     self._metrics.counter(
                         "resilience/breaker_fallbacks").inc()
+                if self._flight is not None:
+                    self._flight.record(
+                        "breaker_fallback", cat="resilience",
+                        model=name, from_version=newest,
+                        to_version=version)
                 logger.warning(
                     "model %r v%d breaker open — routing to v%d",
                     name, newest, version)
@@ -187,6 +207,16 @@ class ModelRegistry:
         with self._lock:
             return self._breakers[(name, int(version))].snapshot()
 
+    def breaker_health(self) -> dict:
+        """The ``/healthz`` provider: every deployed version's breaker
+        snapshot; ``ok`` = no breaker currently open."""
+        with self._lock:
+            breakers = dict(self._breakers)
+        snaps = {f"{n}:v{v}": brk.snapshot()
+                 for (n, v), brk in sorted(breakers.items())}
+        return {"ok": not any(s["open"] for s in snaps.values()),
+                "breakers": snaps}
+
     def list_models(self) -> Dict[str, List[int]]:
         with self._lock:
             out: Dict[str, List[int]] = {}
@@ -235,6 +265,11 @@ class ModelRegistry:
             self._latest.clear()
         for svc in services:
             svc.stop(drain=drain)
+        if self._admin_name is not None:
+            from bigdl_tpu_torch.telemetry import admin as _admin
+            srv = _admin.current()
+            if srv is not None:
+                srv.remove_source(self._admin_name)
 
     def __enter__(self) -> "ModelRegistry":
         return self

@@ -19,8 +19,16 @@ Port of ``bigdl_tpu/serving/service.py``.  The serving contract:
 
 Inputs and outputs are numpy arrays, or tuples/lists/dicts of them.  The
 model runs on ``device`` ("cuda" by default; "cpu" only when asked).
-The reference's tracer, admin-plane and fault-injector hooks wait for the
-port's telemetry slice.
+
+Observability and chaos, as in the reference, each inert when off: a
+``tracer`` with ``request_tracing`` records a submit span per request and
+one dispatch span per coalesced batch, with a flow arrow from each
+request into its dispatch; a ``fault_injector`` is consulted once per
+dispatch (an injected error fails that batch's requests, a replica death
+kills the batcher thread, which :meth:`InferenceService.revive` brings
+back); the admin plane (``Config.admin_port``) serves the metrics.  The
+replica set's failover across replicas comes with the rest of serving,
+so a lone service's fault clauses see ``replica=None``.
 """
 
 from __future__ import annotations
@@ -213,13 +221,25 @@ class InferenceService:
         :meth:`start`.  Used by tests to stage deterministic coalescing.
     device:
         Where the model runs: ``"cuda"`` (the default) or ``"cpu"``.
+    fault_injector:
+        Optional :class:`~bigdl_tpu_torch.resilience.faults.FaultInjector`
+        consulted once per coalesced dispatch, keyed by this service's own
+        dispatch counter.  ``None`` (the default): the dispatch path never
+        touches it.
+    tracer / request_tracing:
+        An optional :class:`~bigdl_tpu_torch.telemetry.Tracer` for the
+        submit and dispatch spans; ``request_tracing`` (None =
+        ``Config.request_tracing``) mints a ``RequestContext`` per submit
+        when none is passed.  Off, no context is ever allocated.
     """
 
     def __init__(self, model: torch.nn.Module, *, input_spec=None,
                  max_batch_size: Optional[int] = None,
                  batch_timeout_ms: Optional[float] = None,
                  queue_capacity: Optional[int] = None, buckets=None,
-                 name: str = "model", start: bool = True, device="cuda"):
+                 name: str = "model", start: bool = True, device="cuda",
+                 fault_injector=None, tracer=None,
+                 request_tracing: Optional[bool] = None):
         from bigdl_tpu_torch.engine import Engine
         defaults = Engine.serving_defaults()
         self.device = resolve_device(device)
@@ -256,8 +276,33 @@ class InferenceService:
         self.metrics = ServingMetrics()
         self.weights_dtype = _weights_dtype(self.model)
         self.metrics.set_weights_dtype(self.weights_dtype)
-        self._batcher = self._make_batcher()
+        # fault injection: consulted per dispatch; _fault_replica is the
+        # replica a set would stamp (None for a lone service)
+        self._faults = fault_injector
+        self._fault_replica: Optional[int] = None
+        self._dispatch_index = 0
+        # request-scoped observability, resolved once here: the hot
+        # paths only test these attributes
+        self.tracer = tracer
+        if request_tracing is None:
+            from bigdl_tpu_torch.utils.config import get_config
+            request_tracing = get_config().request_tracing
+        self._request_tracing = bool(request_tracing)
+        # admin plane: started per Config.admin_port (0: none), this
+        # service's registry (and tracer) under a name minted unique
+        from bigdl_tpu_torch.telemetry import admin as _admin
+        self._admin_name: Optional[str] = None
+        srv = _admin.maybe_start()
+        if srv is not None:
+            self._admin_name = srv.unique_source_name(self.name)
+            srv.add_registry(self._admin_name, self.metrics.registry)
+            if self.tracer is not None:
+                srv.add_tracer(self._admin_name, self.tracer)
+        # the batcher and its finalizer are swapped by revive() and
+        # retired by stop(), both under the lifecycle lock
+        self._batcher = self._make_batcher()  # write-guarded-by: _lifecycle_lock
         # a dropped service must not strand its batcher thread
+        # write-guarded-by: _lifecycle_lock
         self._finalizer = weakref.finalize(
             self, RequestBatcher.close, self._batcher, True, 5.0)
         if input_spec is not None:
@@ -384,11 +429,13 @@ class InferenceService:
                 f"input_spec dtypes of {self.name!r}: {e}") from None
         return _unflatten(req_def, conformed)
 
-    def submit(self, x) -> Future:
+    def submit(self, x, *, ctx=None) -> Future:
         """Enqueue one request (pytree of arrays, shared leading batch dim
         ``1 <= n <= max_batch_size``) and return the Future of its
         outputs.  Raises :class:`ServiceOverloaded` when the bounded queue
-        is full and :class:`ServiceClosed` after :meth:`stop`."""
+        is full and :class:`ServiceClosed` after :meth:`stop`.  ``ctx``:
+        an optional ``RequestContext`` (minted here when request tracing
+        is on), which rides the queue with the request."""
         xs, n = self._normalize_input(x)
         if n == 0:
             f: Future = Future()
@@ -402,14 +449,31 @@ class InferenceService:
             # deferred-spec path: capture the row spec from live traffic
             self.warmup(_tree_map(
                 lambda a: RowSpec(a.shape[1:], a.dtype), xs))
-        req = _Request(self._conform_request(xs), n)
+        xs = self._conform_request(xs)
+        if ctx is None and self._request_tracing:
+            from bigdl_tpu_torch.telemetry.context import RequestContext
+            ctx = RequestContext()
+        req = _Request(xs, n, ctx=ctx)
+        tracer = self.tracer
+        if ctx is not None and tracer is not None and tracer.enabled:
+            # the request's submit span, with the outbound half of the
+            # flow arrow its dispatch span closes
+            with tracer.span("request_submit", cat="serving",
+                             trace_id=ctx.trace_id, model=self.name,
+                             rows=n, tenant=ctx.tenant):
+                tracer.flow_start("req", ctx.flow_id, cat="serving")
+                self._put_counted(req, n)
+        else:
+            self._put_counted(req, n)
+        return req.future
+
+    def _put_counted(self, req: _Request, n: int) -> None:
         try:
             self._batcher.put(req)
         except ServiceOverloaded:
             self.metrics.record_reject(n)
             raise
         self.metrics.record_submit(n)
-        return req.future
 
     def predict(self, x, timeout: Optional[float] = None):
         """Blocking sugar over :meth:`submit`; chunks inputs larger than
@@ -469,7 +533,30 @@ class InferenceService:
         if not live:
             return
         rows = sum(r.n_rows for r in live)
+        tracer = self.tracer
+        ctxs = ([r.ctx for r in live if r.ctx is not None]
+                if tracer is not None and tracer.enabled else [])
+        if ctxs:
+            # one dispatch span fanning in the coalesced requests' flows
+            with tracer.span("dispatch", cat="serving", model=self.name,
+                             n_requests=len(live), rows=rows,
+                             trace_ids=[c.trace_id for c in ctxs]):
+                for c in ctxs:
+                    tracer.flow_end("req", c.flow_id, cat="serving")
+                self._dispatch_forward(live, rows)
+        else:
+            self._dispatch_forward(live, rows)
+
+    def _dispatch_forward(self, live: List[_Request], rows: int) -> None:
         try:
+            if self._faults is not None:
+                # the fault site, inside the handler: an injected error
+                # fails the group like a real one; ReplicaDeathFault is a
+                # BaseException and escapes, killing the batcher thread
+                # with the group stranded, as a real crash does
+                ix = self._dispatch_index
+                self._dispatch_index += 1
+                self._faults.serving_dispatch(ix, self._fault_replica)
             if len(live) == 1:
                 x = live[0].x
             else:
@@ -504,6 +591,28 @@ class InferenceService:
         """False once stopped or once the batcher thread died."""
         return not self._stopped and not self._batcher.dead
 
+    def revive(self) -> bool:
+        """Replace a DEAD batcher thread with a fresh one over the same
+        warmed model: no rewarm, the service keeps its name and metrics.
+        The dead batcher's stranded backlog is cancelled first.  False
+        (no-op) while the batcher is healthy; ``ServiceClosed`` after
+        :meth:`stop`."""
+        with self._lifecycle_lock:
+            if self._stopped:
+                raise ServiceClosed(
+                    f"cannot revive stopped service {self.name!r}")
+            if not self._batcher.dead:
+                return False
+            cancelled = self._batcher.close(drain=False, timeout=1.0)
+            if cancelled:
+                self.metrics.record_cancel(cancelled)
+            self._finalizer.detach()
+            self._batcher = self._make_batcher()
+            self._finalizer = weakref.finalize(
+                self, RequestBatcher.close, self._batcher, True, 5.0)
+            self._batcher.start()
+            return True
+
     def stats(self) -> dict:
         """Snapshot dict — the reference's ``stats()`` schema."""
         snap = self.metrics.snapshot(queue_depth=self._batcher.depth(),
@@ -530,6 +639,24 @@ class InferenceService:
                                                  timeout=timeout)
         if cancelled_rows:
             self.metrics.record_cancel(cancelled_rows)
+        # a stopped service leaves the admin plane
+        if self._admin_name is not None:
+            from bigdl_tpu_torch.telemetry import admin as _admin
+            srv = _admin.current()
+            if srv is not None:
+                srv.remove_source(self._admin_name)
+
+    def release(self) -> None:
+        """Drop the model of a STOPPED service, so a retired slot stops
+        holding device memory.  Refused on a live service: its batcher
+        still dispatches through it."""
+        if not self._stopped:
+            raise RuntimeError(
+                f"release() on live service {self.name!r}; stop() first")
+        self.model = None
+        with self._warm_lock:
+            self._warmed = False
+            self._row_spec = None
 
     def __enter__(self) -> "InferenceService":
         return self

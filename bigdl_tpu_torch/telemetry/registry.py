@@ -1,9 +1,19 @@
-"""Metric registry — counters, gauges, reservoir histograms.
+"""Unified metric registry — counters, gauges, reservoir histograms.
 
-Port of ``bigdl_tpu/telemetry/registry.py`` (an owned copy, cut to what the
-serving slice uses): the backing store of ``serving.ServingMetrics`` and of
-the registry's circuit-breaker counters.  Host-side bookkeeping only: no
-device work, no syncs.
+One implementation for every host-side metric in the stack: the training
+driver's phase accumulators (``utils/metrics.Metrics`` is now a thin
+veneer over this), the serving engine's counters/latency reservoirs
+(``serving/metrics.ServingMetrics``), and the runtime watchdogs
+(``telemetry/watchdog.py``).  The lineage kept three separate ad-hoc
+implementations (reference ``Metrics.scala`` driver accumulators, the
+serving latency ring, bench-local medians); BigDL 2.0's cluster pipeline
+(arXiv:2204.01715 §4) treats one metrics substrate as the foundation the
+optimizer and dashboard both stand on — this is that substrate.
+
+Port of ``bigdl_tpu/telemetry/registry.py`` (stdlib only, an owned
+copy).  Everything here is host-side bookkeeping: no device work, no
+syncs.  That property is what makes the telemetry subsystem provably
+inert (see ``telemetry/tracer.py``).
 
 Thread safety: metric creation is serialized by the registry lock
 (get-or-create is atomic — concurrent threads asking for the same name
@@ -13,7 +23,7 @@ get the SAME metric object); each metric serializes its own updates.
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 
 class Counter:
@@ -57,7 +67,9 @@ class Reservoir:
     estimator (p50/p95/p99 over the most recent ``capacity`` samples).
 
     A bounded ring instead of an unbounded list: an always-on endpoint
-    must not grow memory with request count.
+    must not grow memory with request count.  This is the one reservoir
+    implementation in the tree; ``serving.metrics.LatencyReservoir`` is
+    an alias of it.
     """
 
     def __init__(self, capacity: int = 4096):
@@ -70,6 +82,19 @@ class Reservoir:
         with self._lock:
             self._buf[self._n % len(self._buf)] = value
             self._n += 1
+
+    @property
+    def count(self) -> int:
+        """Total values ever recorded (not just the retained window)."""
+        return self._n
+
+    def window(self) -> List[float]:
+        """Copy of the retained sample window (unordered) — what the
+        set-level aggregation concatenates to compute cross-replica
+        percentiles (``ServingMetrics.aggregate``)."""
+        with self._lock:
+            n = min(self._n, len(self._buf))
+            return list(self._buf[:n])
 
     def percentiles(self, qs=(50, 95, 99)) -> Optional[Dict[str, float]]:
         with self._lock:
@@ -88,8 +113,11 @@ class Reservoir:
 
 
 class Histogram:
-    """Exact sum/count/min/max plus a bounded reservoir for percentiles
-    (the p50/p95/p99 view)."""
+    """Exact sum/count/min/max plus a bounded reservoir for percentiles.
+
+    The exact accumulators are what ``Metrics.summary()`` (driver phase
+    accumulators) reads; the reservoir serves the p50/p95/p99 SLO view.
+    """
 
     __slots__ = ("name", "_lock", "_res", "_sum", "_count", "_min", "_max")
 
@@ -115,8 +143,27 @@ class Histogram:
                 self._max = v
         self._res.record(v)
 
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    @property
+    def mean(self) -> float:
+        return self._sum / self._count if self._count else 0.0
+
     def percentiles(self, qs=(50, 95, 99)) -> Optional[Dict[str, float]]:
         return self._res.percentiles(qs)
+
+    @property
+    def reservoir(self) -> Reservoir:
+        """The backing percentile window (``ServingMetrics`` exposes it
+        as the historical ``latency`` attribute; aggregation reads
+        ``.window()``)."""
+        return self._res
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -133,7 +180,8 @@ class MetricRegistry:
     """Get-or-create registry of named metrics, snapshot-exportable.
 
     Names are flat strings; the convention is ``scope/name``
-    (``serving/rows_dispatched``, ``resilience/breaker_trips``).  Asking for an existing name with a
+    (``driver/device_wait_fraction``, ``telemetry/recompiles``,
+    ``serving/rows_dispatched``).  Asking for an existing name with a
     different metric type is a bug and raises.
     """
 
@@ -165,6 +213,10 @@ class MetricRegistry:
         with self._lock:
             return self._metrics.get(name)
 
+    def names(self) -> List[str]:
+        with self._lock:
+            return sorted(self._metrics)
+
     def snapshot(self) -> dict:
         """JSON-able snapshot: ``{"counters": {name: int}, "gauges":
         {name: float}, "histograms": {name: {count, sum, mean, min,
@@ -180,3 +232,35 @@ class MetricRegistry:
             elif isinstance(m, Histogram):
                 out["histograms"][name] = m.snapshot()
         return out
+
+    def gauges(self) -> Dict[str, float]:
+        """Flat name → value of gauges only — cheap enough for a
+        per-block poll (no histogram-reservoir sorting)."""
+        with self._lock:
+            items = list(self._metrics.items())
+        return {name: m.value for name, m in items
+                if isinstance(m, Gauge)}
+
+    def scalars(self) -> Dict[str, float]:
+        """Flat name → scalar view (counters/gauges as-is, histograms as
+        their mean) — what the driver mirrors into ``TrainSummary``."""
+        with self._lock:
+            items = list(self._metrics.items())
+        out = {}
+        for name, m in items:
+            out[name] = m.mean if isinstance(m, Histogram) else m.value
+        return out
+
+    def discard(self, name: str) -> None:
+        """Remove one metric if present (``Metrics.reset`` uses this to
+        clear only the accumulators it owns on a SHARED registry)."""
+        with self._lock:
+            self._metrics.pop(name, None)
+
+    def reset(self) -> None:
+        """Drop every metric.  NOTE: holders of direct metric-object
+        references (watchdog counters) keep updating orphaned objects
+        after this — on a shared registry prefer :meth:`discard` of the
+        names you own."""
+        with self._lock:
+            self._metrics.clear()

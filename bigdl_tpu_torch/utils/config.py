@@ -12,9 +12,9 @@ A field comes with the module that reads it: the reference's fields that
 no code reads (``prefetch_batches``, ``loader_workers``,
 ``compute_dtype``, ``matmul_precision``, ``log_every_n_iterations``,
 ``summary_flush_secs``) are left out, and ``serving_deadline_ms`` waits
-for the replica set, as the TPU's ``kernel_impl`` and the telemetry, front
-end, fault injection, lockdep, spmdcheck and mesh-axis fields wait for
-their modules.
+for the replica set, as the TPU's ``kernel_impl`` and the front end and
+mesh-axis fields wait for their modules.  ``BIGDL_TPU_TELEMETRY`` is the
+short alias of ``BIGDL_TPU_TELEMETRY_ENABLED``, as in the reference.
 """
 
 from __future__ import annotations
@@ -77,6 +77,39 @@ class Config:
     # anomaly detection: autograd fails at the first backward that makes a
     # NaN (torch.autograd.set_detect_anomaly; apply_debug_config)
     debug_nans: bool = False
+    # fault injection (resilience/faults.py): a deterministic plan seeded
+    # by fault_seed ("" = no injector object exists: the inert state)
+    fault_plan: str = ""
+    fault_seed: int = 0
+    # telemetry (telemetry/): the driver's step-timeline tracer, metric
+    # registry and watchdogs.  Inert: turning it on adds no launch and
+    # no host sync, and the losses stay bitwise equal.
+    # telemetry_trace_path: write the Chrome-trace JSON there when
+    # training ends ("" = keep it in memory); past
+    # telemetry_trace_capacity spans the tracer drops and counts
+    telemetry_enabled: bool = False
+    telemetry_trace_path: str = ""
+    telemetry_trace_capacity: int = 200_000
+    # admin plane (telemetry/admin.py): /metrics, /healthz, /trace,
+    # /flight and /profile?seconds=N on 127.0.0.1:admin_port; 0 = off
+    # (no socket, no thread)
+    admin_port: int = 0
+    # request-scoped tracing (telemetry/context.py): a RequestContext per
+    # serving submit; off = none is ever allocated
+    request_tracing: bool = False
+    # flight recorder (telemetry/flight.py): the append-and-flush JSONL
+    # event stream ("" = off: nothing allocated, nothing opened) and its
+    # in-memory ring's bound
+    flight_recorder_path: str = ""
+    flight_recorder_capacity: int = 4096
+    # lockdep (utils/lockdep.py): the lock-order sanitizer of the
+    # threaded host plane (off = nothing patched); lockdep_hold_ms also
+    # records holds longer than it (0 = no wall-clock check)
+    lockdep: bool = False
+    lockdep_hold_ms: float = 200.0
+    # spmdcheck (utils/spmdcheck.py): the collective-schedule sanitizer
+    # (off = each note site is one global read)
+    spmdcheck: bool = False
     # provenance: field -> "env" | "explicit" for every overridden field;
     # absent = still the dataclass default, the one state a tuned value
     # may fill.  Private: not a knob.
@@ -104,6 +137,14 @@ class Config:
                     val = typ(raw)
                 setattr(cfg, f.name, val)
                 cfg._sources[f.name] = "env"
+        # short alias: BIGDL_TPU_TELEMETRY=1 is BIGDL_TPU_TELEMETRY_ENABLED=1
+        # (the long form wins when both are set)
+        alias = _ENV_PREFIX + "TELEMETRY"
+        if alias in os.environ and \
+                _ENV_PREFIX + "TELEMETRY_ENABLED" not in os.environ:
+            cfg.telemetry_enabled = os.environ[alias].strip().lower() in (
+                "1", "true", "yes", "on")
+            cfg._sources["telemetry_enabled"] = "env"
         return cfg
 
 

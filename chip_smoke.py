@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (``bigdl_tpu_torch``) on one NVIDIA card.
 
-Drives the port's twelve main paths and holds every kernel of them against
+Drives the port's thirteen main paths and holds every kernel of them against
 its plain PyTorch version.  Serving: an int8-quantized ResNet-50 (1000
 classes, 224x224, NCHW, random weights from a seed) served by
 ``ModelRegistry`` with ``quantize=True`` (weight_only) and
@@ -40,7 +40,10 @@ lr 0.005) read from a PTB-format file through ``read_ptb_words``,
 ``Dictionary``, ``ptb_batches`` and ``SampleToMiniBatch``, layer 0's LSTM
 cell on B2f and B2b at (20, 200), with ``simple_rnn`` through the one-hot
 sentence chain and the text CNN of ``examples/textclassification/train.py``;
-and every layer and criterion of the nn core that the text slice added.
+and every layer and criterion of the nn core that the text slice added;
+and the resilience and telemetry plane around PTB-medium, LeNet-5 and the
+int8 serving path (fault plans, elastic membership over two processes,
+the tracer, watchdogs, flight recorder, admin plane, lockdep, spmdcheck).
 Phases, each printing its seconds:
 
 1. the card: name, count, ``nvidia-smi`` name and power limit;
@@ -201,7 +204,30 @@ Phases, each printing its seconds:
    ``bench.py``'s configuration (NHWC, bf16, batch 256, 1,024
    pre-augmented images) in each of ``REMAT_TIMED``, 8 timed steps (ms a
    step, images/s, peak memory, B1 once a step), and a profiled step of
-   a second, short run (device time, idle share).
+   a second, short run (device time, idle share);
+26. resilience: PTB-medium, ``RESIL["ptb_steps"]`` steps at K=8, with
+   everything off and then with telemetry (a trace path), the flight
+   recorder, the admin plane (an ephemeral loopback port), lockdep and
+   spmdcheck on: the losses bitwise equal (deterministic algorithms),
+   B2f/B2b 35 launches a training step in each, the trace's five phase
+   categories read as ``tools/trace_report.py`` reads them, ``/metrics``,
+   ``/healthz``, ``/trace`` and ``/flight`` answering during the run, the
+   memory gauges equal to ``torch.cuda.memory_stats``, no lock-order
+   cycle and no schedule divergence; a ``/profile?seconds=1`` capture
+   taken during a third run must hold B2f's kernel.  LeNet-5 under
+   ``LENET_PLAN`` with the guard's skip and rollback policies: the skipped
+   steps exactly 5 and 9, the reference's flight events, the retry
+   counted, the skip run within ``LENET_TRAIN_TOL`` of the CPU step by
+   step, B1 bitwise at both pools and 2 launches a step.  LeNet through
+   ``DistriOptimizer`` over two processes on the card under
+   ``ELASTIC_PLAN``: membership [2, 1, 2], no step lost, bitwise to the
+   replay boundary against an uninterrupted world-2 run, the whole run
+   within ``ELASTIC_TOL``, which two planted faults must exceed; and
+   under ``LOSS_PLAN``.  The int8 ResNet-50 (weight_only) served under
+   ``SERVE_PLAN`` with request tracing: the injected error, the batcher's
+   death and ``revive()``, the other requests bitwise equal to a
+   fault-free service's, one flow a request, B4 54 launches a forward and
+   within its tolerance of its plain version at the served GEMMs.
 
 The last lines are the card, the kernel table and the result as JSON; any
 failed check raises and the script exits non-zero.  Without a CUDA card it
@@ -210,7 +236,7 @@ fails at once.  Run from the repository root:
     python3 chip_smoke.py [--seed N] [--json-out PATH]
                           [--phases resnet,lstm,resnet-train,wide-deep,lenet,
                                     distri,cifar,inception,autoencoder,remat,
-                                    text,nn-core]
+                                    text,nn-core,resilience]
 
 ``--phases resnet-conditioning`` adds a diagnostic that is not run by
 default: the check phase's path reading at residual gammas 0 to 1, beside
@@ -339,9 +365,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def gemm_shapes(model, device):
-    """[(M, K, O, has_bias)] of one batch-32 forward of the quantized
-    ``model``, in launch order, read from the layers' output shapes."""
+def gemm_shapes(model, device, batch=BATCH):
+    """[(M, K, O, has_bias)] of one forward of ``batch`` rows (32 by
+    default) of the quantized ``model``, in launch order, read from the
+    layers' output shapes."""
     rec = []
 
     def hook(m, inp, out):
@@ -355,7 +382,7 @@ def gemm_shapes(model, device):
                if isinstance(m, (QuantizedSpatialConvolution,
                                  QuantizedLinear))]
     with torch.inference_mode():
-        model(torch.zeros((BATCH,) + SPEC[0], device=device))
+        model(torch.zeros((batch,) + SPEC[0], device=device))
     torch.cuda.synchronize()
     for h in handles:
         h.remove()
@@ -5524,9 +5551,736 @@ def nn_core_phase(seed, device, card, report):
                                  f"inside {NN_CORE_TOL}: the check is blind")
 
 
+# ------------------------------------------------------------ resilience
+# the resilience and telemetry slice (resilience/, telemetry/,
+# utils/{lockdep,spmdcheck,profiling,metrics}.py) on the main paths
+RESIL = {"ptb_steps": 32, "profile_steps": 400, "profile_tries": 4,
+         "validate_every": 16,
+         "val_batches": 1, "lenet_K": 4, "lenet_steps": 24,
+         "lenet_every": 4, "elastic_steps": 8, "elastic_batch": 64,
+         "serve_requests": 7, "serve_rows": 2, "serve_max_batch": 4}
+# the fault plans; each LeNet clause has a firing budget of one: an at=
+# clause with no count= fires again on every retry of its dispatch (the
+# driver's retries would all fail and the run with them) and on every
+# rollback's re-run of its step, in both packages
+LENET_PLAN = ("dispatch_error@where=driver,at=3,count=1;"
+              "corrupt_batch@at=5,count=1;nonfinite_grads@at=9,count=1")
+ELASTIC_PLAN = "resize@at=2,to=1;resize@at=5,to=2"
+LOSS_PLAN = "device_loss@at=4"
+SERVE_PLAN = "dispatch_error@at=2;replica_death@at=4"
+ELASTIC_BOUNDARY = 3  # at=2 ends the block of step 3: model.3 resumes
+# the elastic trajectory against an uninterrupted world-2 run, step by
+# step: the largest relative loss difference at each iteration and, per
+# weight array, the largest difference as a share of the array's largest
+# value.  Above the sound reading (one process summing the global batch
+# of 128 where two summed 64 each), below the two planted faults every
+# run measures: each resume taking the weights of the snapshot one step
+# before the boundary (the boundary's counters kept: a step lost), and
+# the world-1 segment sharded and counted at the launch world's scale
+# (rank 0 alone training on its half of each global batch)
+ELASTIC_TOL = 1e-4
+ELASTIC_FAULTS = ("weights_one_step_early", "launch_world_scale")
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def admin_get(port, path, timeout=60):
+    """(status, body) of one GET to the admin plane on loopback."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+class AdminPoller:
+    """A client thread that, while a run is going, asks the admin plane
+    for each of ``paths`` until each has answered once and, with
+    ``profile_tries``, takes ``/profile?seconds=1`` captures until one
+    holds B2f's kernel (at most that many: a torch.profiler session now
+    and then holds no kernel at all, section 7 of PERF.md).  ``done`` is
+    set when it has all it asked for."""
+
+    def __init__(self, port, paths, profile_tries=0):
+        self.port, self.paths, self.tries = port, paths, profile_tries
+        self.answers = {}
+        self.captures = []  # (status, kernels, B2f kernels) a capture
+        self.done = threading.Event()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _capture(self):
+        code, body = admin_get(self.port, "/profile?seconds=1")
+        kernels = []
+        if code == 200:
+            log_dir = json.loads(body)["log_dir"]
+            with open(os.path.join(log_dir, "trace.json")) as f:
+                kernels = [e["name"] for e in json.load(f)["traceEvents"]
+                           if e.get("cat") == "kernel"]
+        self.captures.append((code, len(kernels), sum(
+            "lstm_cell_fwd" in k for k in kernels)))
+
+    def _run(self):
+        from bigdl_tpu_torch.telemetry import admin
+        while not self._stop.is_set() and admin.current() is None:
+            time.sleep(0.005)
+        while not self._stop.is_set():
+            for path in self.paths:
+                if path not in self.answers:
+                    code, body = admin_get(self.port, path)
+                    if code in (200, 503):  # /healthz says 503 on a stall
+                        self.answers[path] = (code, body)
+            profiled = not self.tries or len(self.captures) >= self.tries \
+                or any(c[2] for c in self.captures)
+            if not profiled:
+                self._capture()
+                continue
+            if len(self.answers) == len(self.paths):
+                self.done.set()
+                return
+            time.sleep(0.02)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=120)
+
+
+def trace_phases(path):
+    """Seconds a phase category of a Chrome trace, read as
+    ``tools/trace_report.py`` reads one: the "X" events of
+    ``traceEvents``, ``dur`` in microseconds."""
+    with open(path) as f:
+        data = json.load(f)
+    events = data["traceEvents"] if isinstance(data, dict) else data
+    out = {}
+    for e in events:
+        if e.get("ph") == "X":
+            for key in ("name", "ts", "dur", "pid", "tid"):
+                if key not in e:
+                    raise AssertionError(f"trace event without {key}: {e}")
+            cat = e.get("cat") or "uncategorized"
+            out[cat] = out.get(cat, 0.0) + e["dur"] / 1e6
+    return out
+
+
+def ptb_telemetry_run(init, samples, seed, device, steps, val, tel=None,
+                      end=None):
+    """PTB-medium through LocalOptimizer as the training phase runs it, a
+    validation (the Loss) every RESIL["validate_every"] steps for the
+    trigger spans, for ``steps`` steps (or until the trigger ``end``);
+    ``tel``: the trace path (telemetry on).  (losses, optimizer, wall s,
+    the B2f/B2b launches of the training steps, those of the validation
+    forwards)."""
+    losses, val_launches = [], [0, 0]
+
+    class Recording(LocalOptimizer):
+        def _log_train_iteration(self, lr):
+            losses.append(self.state["loss"])
+
+        def evaluate_with(self, net):  # count the forwards apart
+            f, b = lstm_cell.fwd_launches, lstm_cell.bwd_launches
+            try:
+                return super().evaluate_with(net)
+            finally:
+                val_launches[0] += lstm_cell.fwd_launches - f
+                val_launches[1] += lstm_cell.bwd_launches - b
+                lstm_cell.fwd_launches, lstm_cell.bwd_launches = f, b
+
+    crit = nn.TimeDistributedCriterion(nn.ClassNLLCriterion())
+    opt = (Recording(copy.deepcopy(init), DataSet.array(samples, seed=seed)
+                     >> SampleToMiniBatch(PTB["batch"]), crit, device=device)
+           .set_optim_method(optim.SGD(learning_rate=1.0))
+           .set_gradient_clipping_by_l2_norm(5.0)
+           .set_steps_per_dispatch(PTB["K"]).set_seed(seed)
+           .set_validation(optim.several_iteration(RESIL["validate_every"]),
+                           val, [optim.Loss(crit)])
+           .set_end_when(end or optim.max_iteration(steps)))
+    if tel is not None:
+        opt.set_telemetry(True, trace_path=tel)
+    lstm_cell.fwd_launches = lstm_cell.bwd_launches = 0
+    t0 = time.monotonic()
+    opt.optimize()
+    wall = time.monotonic() - t0
+    return (losses, opt, wall,
+            {"lstm_cell_fwd": lstm_cell.fwd_launches,
+             "lstm_cell_bwd": lstm_cell.bwd_launches},
+            {"lstm_cell_fwd": val_launches[0],
+             "lstm_cell_bwd": val_launches[1]})
+
+
+def ptb_telemetry_phase(seed, device, card, report, tmp):
+    """PTB-medium, RESIL["ptb_steps"] steps, with everything off and then
+    with telemetry (a trace path), the flight recorder, the admin plane,
+    lockdep and spmdcheck on: the losses bitwise equal, B2f/B2b 35
+    launches a step in each, the trace's five phase categories, the four
+    admin endpoints answering during the run, the memory gauges against
+    the allocator's counters; then a third run during which a
+    ``/profile?seconds=1`` capture must hold B2f's kernel."""
+    from bigdl_tpu_torch.telemetry import PHASE_CATS, admin, flight
+    from bigdl_tpu_torch.utils import config, lockdep, spmdcheck
+    # B2f and B2b against their plain versions at the shape this path
+    # launches them at
+    cell_check([(PTB["batch"], PTB["hidden"])], device, card,
+               torch.Generator(device=device).manual_seed(4321))
+    samples = ptb_samples(seed)
+    val = DataSet.array(samples[:PTB["batch"] * RESIL["val_batches"]]) \
+        >> SampleToMiniBatch(PTB["batch"], drop_remainder=False)
+    init = ptb_model(PTB["vocab"], PTB["embed"], PTB["hidden"],
+                     PTB["layers"]).initialize(seed)
+    steps = RESIL["ptb_steps"]
+    want = PTB["T"] * steps
+    # two runs of the same steps, compared bitwise: the deterministic
+    # algorithms (the CUBLAS_WORKSPACE_CONFIG set above) in both
+    torch.use_deterministic_algorithms(True)
+    try:
+        return ptb_telemetry_checks(init, samples, val, seed, device, card,
+                                    report, tmp, steps, want)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def ptb_telemetry_checks(init, samples, val, seed, device, card, report,
+                         tmp, steps, want):
+    from bigdl_tpu_torch.telemetry import PHASE_CATS, admin, flight
+    from bigdl_tpu_torch.utils import config, lockdep, spmdcheck
+    # a warm-up run: the card's first blocks (cuBLAS, the allocator) are
+    # paid here, not by the timed off run
+    ptb_telemetry_run(init, samples, seed, device, PTB["K"], val)
+    off_l, off_opt, off_s, off_n, off_val = ptb_telemetry_run(
+        init, samples, seed, device, steps, val)
+    if off_opt._telemetry is not None or off_opt._flight is not None \
+            or admin.current() is not None:
+        raise AssertionError("telemetry off built a telemetry object")
+
+    port = free_port()
+    trace = os.path.join(tmp, "ptb_trace.json")
+    fpath = os.path.join(tmp, "ptb_flight.jsonl")
+    config.configure(flight_recorder_path=fpath, admin_port=port,
+                     lockdep=True, spmdcheck=True)
+    paths = ("/metrics", "/healthz", "/trace", "/flight")
+    try:
+        lockdep.maybe_install()
+        spmdcheck.maybe_install()
+        with AdminPoller(port, paths) as poll:
+            on_l, on_opt, on_s, on_n, on_val = ptb_telemetry_run(
+                init, samples, seed, device, steps, val, tel=trace)
+        tel = on_opt._telemetry
+        # the gauges against the allocator's counters, read at one point
+        got = tel.memory.observe()
+        raw = torch.cuda.memory_stats(device)
+        mem = {"bytes_in_use": raw["allocated_bytes.all.current"],
+               "peak_bytes_in_use": raw["allocated_bytes.all.peak"],
+               "bytes_limit": torch.cuda.mem_get_info(device)[1]}
+        snap = on_opt.telemetry_snapshot()
+        verdict = tel.health_snapshot()  # the run's /healthz at its end
+        cycles, notes = lockdep.cycles(), spmdcheck.notes_recorded()
+        divs = spmdcheck.divergences(final=True)
+        proxies = lockdep.proxies_allocated()
+    finally:
+        lockdep.uninstall()
+        lockdep.reset()
+        spmdcheck.uninstall()
+        admin.reset()
+        flight.reset()
+        config.reset_config()
+    phases = trace_phases(trace)
+    events = [e["event"] for e in
+              flight.load_dump(fpath)["events"]]
+    dogs = snap["watchdogs"]
+    checks = {
+        "losses_bitwise": on_l == off_l and len(on_l) == steps,
+        "launches": off_n == on_n == {k: want for k in LSTM_KERNELS},
+        "validation_launches_apart": off_val == on_val,
+        "phase_cats": all(c in phases for c in PHASE_CATS),
+        "admin_answered": {p: poll.answers.get(p, (None,))[0]
+                           for p in paths},
+        "memory_gauges_are_the_allocators": got == mem and all(
+            snap["gauges"].get(f"device/{k}") is not None for k in mem),
+        "no_recompile": dogs["recompile_events"] == [],
+        "lockdep_clean": cycles == [] and proxies > 0,
+        "spmdcheck_clean": divs == [] and notes > 0,
+    }
+    checks["admin_answered_all"] = all(
+        c in (200, 503) for c in checks["admin_answered"].values())
+    metrics = poll.answers.get("/metrics", (None, b""))[1].decode()
+    health = json.loads(poll.answers.get("/healthz", (None, b"{}"))[1])
+    checks["metrics_holds_the_driver"] = 'source="driver"' in metrics
+
+    # a third run, training until a /profile?seconds=1 capture taken
+    # while it trains holds B2f (RESIL["profile_tries"] captures at most,
+    # RESIL["profile_steps"] steps at most)
+    config.configure(admin_port=port)
+    try:
+        with AdminPoller(port, (), RESIL["profile_tries"]) as prof_poll:
+            ptb_telemetry_run(
+                init, samples, seed, device, RESIL["profile_steps"], val,
+                tel=os.path.join(tmp, "ptb_trace3.json"),
+                end=lambda s: prof_poll.done.is_set()
+                or s["neval"] >= RESIL["profile_steps"])
+    finally:
+        admin.reset()
+        config.reset_config()
+    captures = prof_poll.captures
+    b2f = max((c[2] for c in captures), default=0)
+    checks["profile_holds_b2f"] = b2f > 0 and all(
+        c[0] == 200 for c in captures)
+    words = PTB["batch"] * PTB["T"]
+    print(f"resilience ptb-medium {steps} steps K={PTB['K']}, telemetry "
+          f"off / on (trace, flight recorder, admin on 127.0.0.1:{port}, "
+          f"lockdep, spmdcheck): ms_per_step {off_s / steps * 1e3:.3f} / "
+          f"{on_s / steps * 1e3:.3f} (each run's wall over its steps, the "
+          f"model's copy to the card and validation included); words/s "
+          f"{words * steps / off_s:.1f} / {words * steps / on_s:.1f}; "
+          f"phase fractions "
+          + ", ".join(f"{k} {v:.4f}" for k, v in
+                      dogs["phase_fractions"].items())
+          + f"; trace seconds "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(phases.items()))
+          + f"; stalls: host_sync {dogs['host_sync_stall_events']}, "
+          f"stager_starvation {dogs['stager_starvation_events']} of "
+          f"{dogs['blocks_observed']} blocks; /healthz during the run "
+          f"{checks['admin_answered']['/healthz']} (ok={health.get('ok')}),"
+          f" at its end ok={verdict['ok']}; memory gauges {got}; flight "
+          f"events "
+          f"{sorted(set(events))}; lockdep {proxies} locks, "
+          f"{len(cycles)} cycles; spmdcheck {notes} notes; launches "
+          f"{on_n} (+ validation {on_val}); /profile captures (status, "
+          f"kernels, B2f kernels): {captures} [{card}]")
+    report["resilience_ptb"] = {
+        "checks": checks, "off_s": off_s, "on_s": on_s, "steps": steps,
+        "losses": on_l, "phase_fractions": dogs["phase_fractions"],
+        "trace_phase_s": phases, "watchdogs": dogs, "memory": got,
+        "health": health, "health_at_end": verdict, "launches": on_n,
+        "validation_launches": on_val, "profile_captures": captures}
+    failed = [k for k, v in checks.items() if v is not True
+              and k != "admin_answered"]
+    if failed:
+        raise AssertionError(f"resilience ptb check failed: {failed}: "
+                             f"{ {k: checks[k] for k in failed} }")
+    return on_n
+
+
+def lenet_fault_run(init, data, device, policy, tmp):
+    """LeNet's recipe, K=RESIL["lenet_K"], under LENET_PLAN and the
+    numeric guard's ``policy`` (rollback: a snapshot every
+    RESIL["lenet_every"] steps): (losses, optimizer, B1 launches, the
+    flight events)."""
+    from bigdl_tpu_torch.telemetry import flight
+    from bigdl_tpu_torch.utils import config
+    tmp = tempfile.mkdtemp(dir=tmp)  # this run's own
+    fpath = os.path.join(tmp, "flight.jsonl")
+    config.configure(fault_plan=LENET_PLAN, flight_recorder_path=fpath)
+    losses = []
+    try:
+        K, B, n = RESIL["lenet_K"], LENET["batch"], RESIL["lenet_steps"]
+        sgd = lenet_sgd(recording(optim.SGD))
+        opt = (LocalOptimizer(copy.deepcopy(init),
+                              lenet_pipeline(data, True, n * B),
+                              nn.ClassNLLCriterion(), device=device)
+               .set_optim_method(sgd).set_steps_per_dispatch(K)
+               .set_numeric_guard(policy)
+               .set_end_when(optim.max_iteration(n)))
+        if policy == "rollback":
+            opt.set_checkpoint(os.path.join(tmp, "ck"),
+                               optim.several_iteration(RESIL["lenet_every"]))
+        opt._log_train_iteration = lambda lr: losses.append(
+            opt.state["loss"])
+        maxpool.reset_counts()
+        opt.optimize()
+        launches = maxpool.launches
+    finally:
+        flight.reset()
+        config.reset_config()
+    events = [(e["event"], e.get("step"), e.get("policy"))
+              for e in flight.load_dump(fpath)["events"]
+              if e["event"] in ("nonfinite_step", "rollback", "run_crash")]
+    return losses, opt, launches, events, sgd.steps
+
+
+def lenet_faults_phase(seed, device, card, report, tmp):
+    """LeNet-5 under LENET_PLAN with the guard's skip policy, and under
+    rollback with a snapshot every RESIL["lenet_every"] steps: each run
+    completes, the flight recorder lists the reference's events for each
+    clause, the retry is counted, the skipped steps are exactly 5 and 9,
+    the skip run is within LENET_TRAIN_TOL of the same plan on the CPU
+    step by step, and B1 launches 2 a step."""
+    train, _ = lenet_data()
+    gen = torch.Generator(device=device).manual_seed(1618)
+    for name in LENET_POOL_CASES:
+        pool_case_check(pool_case(name), gen, device)
+    init = lenet5(10).initialize(seed + 3)
+    n = RESIL["lenet_steps"]
+    cpu = torch.device("cpu")
+    runs = {(p, d.type): lenet_fault_run(init, train, d, p, tmp)
+            for p in ("skip", "rollback") for d in (device, cpu)}
+    skip = runs["skip", device.type]
+    bad = [j for j, v in enumerate(skip[0]) if not np.isfinite(v)]
+    counters = {p: {k: v for k, v in runs[p, device.type][1].metrics
+                    .registry.snapshot()["counters"].items()
+                    if k.startswith("resilience/")} for p in ("skip",
+                                                            "rollback")}
+    # step by step against the CPU run of the same plan: the relative
+    # loss difference at each step (the gate); beside it, printed, the
+    # gradients of each step from the card's own weights against the
+    # CPU's LeNet step there, each by its norm share.  Not gated: over 22
+    # steps a near-tie in a pool window (tanh outputs a rounding apart)
+    # can send one element's gradient to its neighbour on one device and
+    # not on the other, which read 4.3e-4 at step 20 in some runs and
+    # ~1e-6 in others
+    c_losses = runs["skip", "cpu"][0]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(skip[0], c_losses)
+                   if np.isfinite(b))
+    steps = [s for j, s in enumerate(skip[4]) if j not in bad]
+    fin_losses = [v for j, v in enumerate(skip[0]) if j not in bad]
+    batches = [b for j, b in enumerate(lenet_pipeline(
+        train, True, n * LENET["batch"]).data(train=False)) if j not in bad]
+    sound, worst = wd_step_reading(fin_losses, steps, init, batches,
+                                   lenet_cpu_step, share=norm_share)
+    roll = runs["rollback", device.type]
+    checks = {
+        "skipped_steps_5_and_9": bad == [5, 9] and len(skip[0]) == n,
+        "skip_events": skip[3] == [("nonfinite_step", 5, "skip"),
+                                   ("nonfinite_step", 9, "skip")],
+        "skip_counters": counters["skip"] == {
+            "resilience/dispatch_retries": 1,
+            "resilience/fault_dispatch_error": 1,
+            "resilience/fault_corrupt_batch": 1,
+            "resilience/fault_nonfinite_grads": 1,
+            "resilience/nonfinite_steps": 2, "resilience/steps_skipped": 2},
+        # the raise ends the driver run (its run_crash event), the
+        # rollback restores and runs again
+        "rollback_events": roll[3] == [
+            ("nonfinite_step", 5, "rollback"), ("run_crash", None, None),
+            ("rollback", 5, None), ("nonfinite_step", 9, "rollback"),
+            ("run_crash", None, None), ("rollback", 9, None)],
+        "rollback_counters": counters["rollback"].get(
+            "resilience/rollbacks") == 2 and counters["rollback"].get(
+            "resilience/dispatch_retries") == 1,
+        "rollback_completes": int(roll[1].state["neval"]) == n
+        and np.isfinite(roll[0][-1]),
+        "same_as_cpu_events": all(
+            runs[p, device.type][3] == runs[p, "cpu"][3]
+            for p in ("skip", "rollback")),
+        "within_tol": loss_err <= LENET_TRAIN_TOL,
+        "b1_two_a_step": skip[2] == 2 * n,
+    }
+    print(f"resilience lenet, plan {LENET_PLAN!r}, {n} steps K="
+          f"{RESIL['lenet_K']}: skip: skipped {bad}, counters "
+          f"{counters['skip']}, flight {skip[3]}; rollback (a snapshot "
+          f"every {RESIL['lenet_every']} steps): counters "
+          f"{counters['rollback']}, flight {roll[3]}, {len(roll[0])} "
+          f"replayed steps, B1 {roll[2]} launches; card vs CPU (skip): "
+          f"losses {loss_err:.3e} (tol {LENET_TRAIN_TOL}), step gradients "
+          f"by norm share {sound:.3e} (largest {worst}); B1 {skip[2]} "
+          f"launches; "
+          f"checks "
+          + ", ".join(f"{k} {v}" for k, v in checks.items()) + f" [{card}]")
+    report["resilience_lenet"] = {
+        "checks": checks, "skipped": bad, "counters": counters,
+        "events": {p: runs[p, device.type][3] for p in ("skip", "rollback")},
+        "loss_err": loss_err, "step_reading": sound, "largest": worst,
+        "tol": LENET_TRAIN_TOL, "launches": skip[2]}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"resilience lenet check failed: {failed}")
+    return skip[2]
+
+
+def elastic_worker(rank, world, store_dir, seed, device_type):
+    """One process of the elastic check: LeNet through DistriOptimizer on
+    the one card over gloo, batch RESIL["elastic_batch"] a process, a
+    snapshot every step, in five runs: uninterrupted, ELASTIC_PLAN sound
+    and under each of ELASTIC_FAULTS, and LOSS_PLAN.  Pickles what each
+    ends with: the (iteration, loss) of every replayed step, B1's
+    launches, the membership history, the metrics, the weights."""
+    import pickle
+    import torch.distributed as dist
+    from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
+    from bigdl_tpu_torch.utils import config
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+    torch.use_deterministic_algorithms(True)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(store_dir, "store"), world),
+        rank=rank, world_size=world)
+    B, n = RESIL["elastic_batch"], RESIL["elastic_steps"]
+    data = mnist.synthetic_mnist(B * world * 2 * n, seed=0)
+    sound_resume = DistriOptimizer._resume_after_resize
+    sound_scale = DistriOptimizer._records_scale
+
+    def weights_one_step_early(self, e):
+        sound_resume(self, e)
+        at = dict(self.state)
+        mgr = self._checkpoint_manager()
+        mgr.restore_into(self, mgr.path_for(int(at["neval"]) - 1),
+                         verified=False)
+        self.state.update(at)  # the boundary's counters, older weights
+
+    results = {}
+    try:
+        for name, plan in (("ref", None), ("elastic", ELASTIC_PLAN),
+                           ("weights_one_step_early", ELASTIC_PLAN),
+                           ("launch_world_scale", ELASTIC_PLAN),
+                           ("device_loss", LOSS_PLAN)):
+            if plan is not None:
+                config.configure(fault_plan=plan)
+            ds = lenet_pipeline(data, True, batch=B, distributed=True)
+            if name == "weights_one_step_early":
+                DistriOptimizer._resume_after_resize = weights_one_step_early
+            elif name == "launch_world_scale":
+                DistriOptimizer._records_scale = lambda self: (
+                    self._launch_mesh or self.mesh).size
+                ds.reshard = lambda index, count: count
+            try:
+                maxpool.reset_counts()
+                opt = distri_optimizer(
+                    lenet5(10).initialize(seed + 5), ds, device_type, "f32",
+                    1, n, lenet_sgd(), backend="gloo")
+                opt._log_train_iteration = lambda lr, o=opt: o.losses.append(
+                    (int(o.state["neval"]), o.state["loss"]))
+                opt.set_checkpoint(os.path.join(store_dir, f"ck_{name}"),
+                                   optim.several_iteration(1))
+                opt.optimize()
+            finally:
+                DistriOptimizer._resume_after_resize = sound_resume
+                DistriOptimizer._records_scale = sound_scale
+                config.reset_config()
+            m = opt._membership
+            snap = opt.metrics.registry.snapshot()
+            results[name] = {
+                "losses": opt.losses, "launches": maxpool.launches,
+                "worlds": [e.world for e in m.history()] if m else None,
+                "neval": int(opt.state["neval"]),
+                "steps_lost": snap["counters"].get(
+                    "resilience/steps_lost_to_resize"),
+                "downtime_s": snap["histograms"].get(
+                    "resilience/resize_downtime_s", {}).get("sum"),
+                "params": {k: v.detach().cpu().numpy().copy()
+                           for k, v in opt.model.named_parameters()}}
+        with open(os.path.join(store_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def elastic_reading(run, ref):
+    """The largest relative difference of the loss at each iteration (the
+    last replay of it) and, per weight array, the largest difference as
+    a share of its largest value, of ``run`` against ``ref``."""
+    got, want = dict(run["losses"]), dict(ref["losses"])
+    loss = max((abs(got[k] - v) / abs(v) if k in got else float("inf"))
+               for k, v in want.items())
+    params = max(float(np.abs(run["params"][k] - v).max()
+                       / np.abs(v).max()) for k, v in ref["params"].items())
+    return max(loss, params)
+
+
+def elastic_phase(seed, device, card, report):
+    """LeNet through DistriOptimizer, two processes on the one card over
+    gloo: ELASTIC_PLAN gives the membership history [2, 1, 2] with no
+    step lost, losses bitwise equal to an uninterrupted world-2 run up to
+    the replay boundary and the whole trajectory within ELASTIC_TOL of
+    it, a limit both ELASTIC_FAULTS must exceed; LOSS_PLAN resumes from
+    the latest valid snapshot at world 1."""
+    import pickle
+    gen = torch.Generator(device=device).manual_seed(1618)
+    for name in DISTRI_POOL_CASES:
+        pool_case_check(pool_case(name), gen, device)
+    world = 2
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        torch.multiprocessing.spawn(elastic_worker,
+                                    args=(world, tmp, seed, device.type),
+                                    nprocs=world, join=True)
+        wall = time.monotonic() - t0
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    r0 = ranks[0]
+    ref, ela, loss = r0["ref"], r0["elastic"], r0["device_loss"]
+    n, b = RESIL["elastic_steps"], ELASTIC_BOUNDARY
+    sound = elastic_reading(ela, ref)
+    faults = {f: elastic_reading(r0[f], ref) for f in ELASTIC_FAULTS}
+    checks = {
+        "history_2_1_2": all(r["elastic"]["worlds"] == [2, 1, 2]
+                             for r in ranks),
+        "no_step_lost": ela["steps_lost"] == 0,
+        "bitwise_to_boundary": ela["losses"][:b] == ref["losses"][:b]
+        and [k for k, _ in ela["losses"]] == list(range(1, n + 1)),
+        "within_tol": sound <= ELASTIC_TOL,
+        "faults_caught": all(v > ELASTIC_TOL for v in faults.values()),
+        "ranks_end_equal": all(
+            np.array_equal(r["elastic"]["params"][k], v)
+            for r in ranks for k, v in ela["params"].items()),
+        "device_loss_resumes": loss["worlds"] == [2, 1]
+        and all(r["device_loss"]["neval"] == n for r in ranks)
+        and np.isfinite([v for _, v in loss["losses"]]).all(),
+    }
+    print(f"resilience elastic (LeNet, gloo, two processes on one card, "
+          f"batch {RESIL['elastic_batch']} a process, {n} steps, a "
+          f"snapshot every step): plan {ELASTIC_PLAN!r}: worlds "
+          f"{ela['worlds']}, steps lost {ela['steps_lost']}, resize "
+          f"downtime {ela['downtime_s']:.4f} s over 2 resizes; reading "
+          f"{sound:.3e}, planted faults "
+          + ", ".join(f"{k} {v:.3e}" for k, v in faults.items())
+          + f" (tol {ELASTIC_TOL}); {LOSS_PLAN!r}: worlds {loss['worlds']},"
+          f" steps lost {loss['steps_lost']}, downtime "
+          f"{loss['downtime_s']:.4f} s; B1 launches rank 0 {ela['launches']}"
+          f" / rank 1 {ranks[1]['elastic']['launches']}; checks "
+          + ", ".join(f"{k} {v}" for k, v in checks.items())
+          + f"; {wall:.1f} s [{card}]")
+    report["resilience_elastic"] = {
+        "checks": checks, "reading": sound, "planted_faults": faults,
+        "tol": ELASTIC_TOL, "losses": ela["losses"],
+        "ref_losses": ref["losses"], "steps_lost": ela["steps_lost"],
+        "downtime_s": ela["downtime_s"], "device_loss": {
+            k: loss[k] for k in ("worlds", "steps_lost", "downtime_s",
+                                 "losses")}, "wall_s": wall}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"resilience elastic check failed: {failed}")
+
+
+def served_gemm_check(model, rows, device):
+    """B4 against its plain version at every distinct GEMM of one
+    ``rows``-row forward of the quantized ``model`` (weight_only, f32 x):
+    (the forward's (M, K, O, bias) list, max abs err)."""
+    shapes = gemm_shapes(model, device, batch=rows)
+    gen = torch.Generator(device=device).manual_seed(97)
+    err = 0.0
+    for M, K, O, bias in sorted(set(shapes)):
+        xin, wq, scale, b = operands(M, K, O, "float32", bias, gen, device)
+        got = int8_gemm.launch(xin, wq, scale, b)
+        want = int8_matmul_reference(xin, wq, scale, b)
+        torch.testing.assert_close(
+            got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item(),
+            msg=lambda e: f"B4 weight_only M={M} K={K} O={O}: {e}")
+        err = max(err, (got - want).abs().max().item())
+    return shapes, err
+
+
+def serving_faults_phase(seed, device, card, report):
+    """The slice-1 int8 ResNet-50 (weight_only) served through
+    InferenceService with request tracing and SERVE_PLAN, one request a
+    dispatch: dispatch 2's request fails with InjectedFault, dispatch 4
+    kills the batcher and ``revive()`` brings it back, every other
+    request is bitwise equal to a fault-free service's at the same
+    shapes, the trace holds one flow a request, B4 launches 54 a
+    forward."""
+    from bigdl_tpu_torch.resilience import FaultInjector, InjectedFault
+    from bigdl_tpu_torch.serving import InferenceService
+    from bigdl_tpu_torch.telemetry import Tracer
+    model = quantize(resnet50().initialize(
+        torch.Generator().manual_seed(seed)), mode="weight_only")
+    rows, n = RESIL["serve_rows"], RESIL["serve_requests"]
+    shapes, b4_err = served_gemm_check(copy.deepcopy(model).to(device),
+                                       rows, device)
+    kw = {"input_spec": SPEC, "max_batch_size": RESIL["serve_max_batch"],
+          "batch_timeout_ms": 0, "device": device}
+    rng = np.random.default_rng(seed)
+    reqs = [rng.normal(0, 1, (rows,) + SPEC[0]).astype(np.float32)
+            for _ in range(n)]
+    with InferenceService(copy.deepcopy(model), name="clean", **kw) as clean:
+        want = [clean.predict(x, timeout=300) for x in reqs]
+    tracer = Tracer()
+    svc = InferenceService(model, name="faulty", tracer=tracer,
+                           request_tracing=True,
+                           fault_injector=FaultInjector(SERVE_PLAN), **kw)
+    got, outcome = {}, {}
+    int8_gemm.reset_counts()
+    t0 = time.monotonic()
+    try:
+        for i, x in enumerate(reqs):
+            fut = svc.submit(x)
+            if i == 4:
+                deadline = time.monotonic() + 60
+                while svc.alive and time.monotonic() < deadline:
+                    time.sleep(0.005)
+                outcome[i] = ("batcher dead" if not svc.alive else "alive",
+                              "pending" if not fut.done() else "done")
+                outcome["revived"] = svc.revive() and svc.alive
+                continue
+            try:
+                got[i] = fut.result(timeout=300)
+                outcome[i] = "ok"
+            except InjectedFault as e:
+                outcome[i] = f"InjectedFault: {e}"
+    finally:
+        svc.stop()
+    wall = time.monotonic() - t0
+    launches = int8_gemm.launches
+    stats = svc.stats()
+    starts = sorted(e[7] for e in tracer.events() if e[0] == "s")
+    ends = sorted(e[7] for e in tracer.events() if e[0] == "f")
+    ok = [i for i in range(n) if outcome.get(i) == "ok"]
+    checks = {
+        "dispatch_2_injected": str(outcome.get(2)).startswith(
+            "InjectedFault"),
+        "dispatch_4_killed_and_revived": outcome.get(4) == (
+            "batcher dead", "pending") and outcome.get("revived") is True,
+        "others_bitwise": ok == [0, 1, 3, 5, 6] and all(
+            np.array_equal(got[i], want[i]) for i in ok),
+        "one_flow_a_request": len(starts) == n and starts == ends,
+        "b4_54_a_forward": launches == 54 * len(ok),
+        "b4_forward_shapes": len(shapes) == 54,
+    }
+    print(f"resilience serving (int8 ResNet-50 weight_only, plan "
+          f"{SERVE_PLAN!r}, {n} requests of {rows} rows, one a dispatch): "
+          + ", ".join(f"{k}: {v}" for k, v in outcome.items())
+          + f"; B4 {launches} launches for {len(ok)} forwards, checked "
+          f"against its plain version at the {len(set(shapes))} distinct "
+          f"GEMMs of a {rows}-row forward (max abs err {b4_err:.3e}); "
+          f"requests failed {stats['requests_failed']}; {wall:.1f} s; "
+          "checks " + ", ".join(f"{k} {v}" for k, v in checks.items())
+          + f" [{card}]")
+    report["resilience_serving"] = {"checks": checks, "outcome": {
+        str(k): v for k, v in outcome.items()}, "launches": launches,
+        "b4_max_abs_err": b4_err, "wall_s": wall}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"resilience serving check failed: {failed}")
+    return launches, shapes
+
+
+def resilience_phase(seed, device, card, report):
+    """PTB-medium under telemetry, LeNet under a fault plan, elastic
+    LeNet over two processes, the int8 ResNet-50 served under faults:
+    {kernel: launches} and the served forward's GEMM shapes."""
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, fn in (("ptb", ptb_telemetry_phase),
+                          ("lenet", lenet_faults_phase)):
+            t0 = time.monotonic()
+            launches[label] = fn(seed, device, card, report, tmp)
+            torch.cuda.empty_cache()
+            print(f"phase resilience-{label}: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    elastic_phase(seed, device, card, report)
+    print(f"phase resilience-elastic: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    launches["int8_gemm"], shapes = serving_faults_phase(seed, device, card,
+                                                         report)
+    torch.cuda.empty_cache()
+    print(f"phase resilience-serving: {time.monotonic() - t0:.1f} s")
+    return launches, shapes
+
+
 PHASES = ("resnet", "lstm", "resnet-train", "wide-deep", "lenet",
           "distri", "cifar", "inception", "autoencoder", "remat", "text",
-          "nn-core")
+          "nn-core", "resilience")
 EXTRA_PHASES = ("resnet-conditioning",)  # run only when named
 
 
@@ -5796,6 +6550,54 @@ def main(argv=None) -> int:
         t0 = time.monotonic()
         nn_core_phase(args.seed, device, card, report)
         print(f"phase nn-core: {time.monotonic() - t0:.1f} s")
+    if "resilience" in phases:
+        t0 = time.monotonic()
+        launches, shapes = resilience_phase(args.seed, device, card, report)
+        print(f"phase resilience: {time.monotonic() - t0:.1f} s")
+        by_name = {k["name"]: k for k in kernels}
+        gen = torch.Generator(device=device).manual_seed(4321)
+        if not all(k in by_name for k in LSTM_KERNELS):
+            # no earlier phase timed B2f/B2b: check and time PTB-medium's
+            t0 = time.monotonic()
+            shape = (PTB["batch"], PTB["hidden"])
+            errs = cell_check([shape], device, card, gen)
+            for kernel, row in cell_time_rows(*shape, errs[shape], device,
+                                              card, gen).items():
+                by_name[kernel] = {"name": kernel, **LSTM_KERNELS[kernel],
+                                   "launches": launches["ptb"][kernel],
+                                   **row}
+                kernels.append(by_name[kernel])
+            print(f"phase lstm-kernels-resilience: "
+                  f"{time.monotonic() - t0:.1f} s")
+        if "maxpool_bwd" not in by_name:
+            # no earlier phase timed B1: LeNet's first pool leads
+            row = pool_row(pool_case(LENET_POOL_CASES[0]), gen, device, card)
+            by_name["maxpool_bwd"] = {
+                "name": "maxpool_bwd", **POOL_KERNEL,
+                "launches": launches["lenet"],
+                **{k: row[k] for k in pool_keys}}
+            kernels.append(by_name["maxpool_bwd"])
+        if "int8_gemm[weight_only]" not in by_name:
+            # no earlier phase timed B4: time the served forward's GEMMs
+            t0 = time.monotonic()
+            t = kernel_phase(shapes, device, card, report)["weight_only"]
+            by_name["int8_gemm[weight_only]"] = {
+                "name": "int8_gemm[weight_only]", **KERNEL,
+                "launches": launches["int8_gemm"],
+                **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "library_ms")},
+                "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
+                else "operations",
+                "rows_a_forward": RESIL["serve_rows"]}
+            kernels.append(by_name["int8_gemm[weight_only]"])
+            print(f"phase int8-kernels-resilience: "
+                  f"{time.monotonic() - t0:.1f} s")
+        for kernel in LSTM_KERNELS:
+            by_name[kernel]["resilience"] = {
+                "launches": launches["ptb"][kernel]}
+        by_name["maxpool_bwd"]["resilience"] = {"launches": launches["lenet"]}
+        by_name["int8_gemm[weight_only]"]["resilience"] = {
+            "launches": launches["int8_gemm"]}
     if "resnet-conditioning" in phases:
         t0 = time.monotonic()
         resnet_conditioning_phase(args.seed, device, card, report)

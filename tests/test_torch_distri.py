@@ -462,8 +462,9 @@ def test_unported_distributed_features_raise():
                               device="cpu", param_specs={})
     opt = optim.DistriOptimizer(lenet5(10), ds, nn.ClassNLLCriterion(),
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="membership"):
-        opt.set_elastic()
+    # elastic training is ported: set_elastic arms the membership ledger
+    assert opt._membership is None
+    assert opt.set_elastic() is opt and opt._membership.epoch() == 1
     for axis in ("model", "seq", "pipe"):
         with pytest.raises(NotImplementedError, match="slice 10"):
             create_mesh(**{axis: 2}, backend="gloo")

@@ -14,7 +14,10 @@ NHWC net under ``nn.Remat`` at each policy, B1 in front, bitwise equal to
 no remat on the card; LBFGS's update with host syncs made errors; SGD's
 bf16 velocity storing the CPU's bits; one step of PTB-small through the
 text pipeline and of the text CNN against the CPU (the loss within
-``rtol=1e-5``, each gradient within 1e-4 of its array's largest).  Every
+``rtol=1e-5``, each gradient within 1e-4 of its array's largest); the
+memory watermark against the allocator's counters, a poisoned staged
+block written on the card with no copy to the host, and a profiler
+window holding another thread's kernels.  Every
 test
 here needs a CUDA card and skips without one; on the card run ``python -m pytest -m gpu tests/test_torch_*.py``.  This file imports
 no JAX, so it runs where the reference package is not installed.
@@ -1143,3 +1146,61 @@ def test_bf16_velocity_on_card_matches_cpu(cuda):
         out.append((p["w"].cpu(), st["velocity"]["w"].cpu()))
     assert torch.equal(out[0][1], out[1][1])
     assert torch.equal(out[0][0], out[1][0])
+
+
+# ------------------------------------------------- the telemetry plane
+def test_memory_watermark_gauges_are_the_allocators(cuda):
+    from bigdl_tpu_torch.telemetry import MemoryWatermark, MetricRegistry
+    keep = torch.empty(1 << 20, device=cuda)  # noqa: F841 - allocated
+    reg = MetricRegistry()
+    got = MemoryWatermark(reg, cuda).observe()
+    raw = torch.cuda.memory_stats(cuda)
+    assert got == {"bytes_in_use": raw["allocated_bytes.all.current"],
+                   "peak_bytes_in_use": raw["allocated_bytes.all.peak"],
+                   "bytes_limit": torch.cuda.mem_get_info(cuda)[1]}
+    assert reg.gauges()["device/bytes_in_use"] == got["bytes_in_use"]
+
+
+def test_corrupt_staged_on_the_card_copies_nothing_to_the_host(cuda):
+    from bigdl_tpu_torch.dataset.prefetch import DeviceBlockStager
+    from bigdl_tpu_torch.dataset.sample import MiniBatch
+    from bigdl_tpu_torch.resilience import FaultInjector
+    batches = iter([MiniBatch(np.ones((4, 8), np.float32),
+                              np.zeros(4, np.int64)) for _ in range(3)])
+    staged = DeviceBlockStager(batches, cuda).take(3, 100)
+    staged.wait()
+    inj = FaultInjector("corrupt_batch@at=1;nonfinite_grads@at=2")
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        inj.corrupt_staged(staged.xs, 0, 3)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert not any("DtoH" in n or "Memcpy" in n for n in names), names
+    x = staged.xs.cpu()
+    assert torch.isfinite(x[0]).all() and torch.isnan(x[1]).all()
+    assert torch.isinf(x[2]).all()
+
+
+def test_profile_window_holds_a_kernel(cuda, tmp_path):
+    """As the admin plane takes it: the window on another thread, the
+    kernels launched by the training thread."""
+    import json
+    import threading
+
+    from bigdl_tpu_torch.utils.profiling import TRACE_FILE, profile_window
+    a = torch.randn(1024, 1024, device=cuda)
+    a @ a
+    torch.cuda.synchronize()
+    out = []
+    t = threading.Thread(target=lambda: out.append(
+        profile_window(0.5, log_dir=str(tmp_path))))
+    t.start()
+    while t.is_alive():
+        a @ a
+        torch.cuda.synchronize()
+    t.join()
+    trace = json.load(open(tmp_path / TRACE_FILE))
+    cats = {e.get("cat") for e in trace["traceEvents"]}
+    kernels = [e for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    assert out == [str(tmp_path)] and kernels, cats

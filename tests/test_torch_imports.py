@@ -14,10 +14,15 @@ autoencoder through each new optim method with a regularizer, an NHWC
 ``Remat`` block under two activation-memory policies, two steps of the
 text CNN through the text pipeline, ragged samples batched under
 ``PaddingParam``s, ``TimeDistributedMaskCriterion`` over a weighted
-criterion) builds or loads a kernel; and a kernel build that fails
-raises.  The text slice's modules (``dataset/text.py``,
-``nn/shape_ops.py``, ``nn/criterion.py``, ``nn/layers.py``,
-``nn/module.py``) are among those imported."""
+criterion, a LeNet block under a fault plan with telemetry, the flight
+recorder, the admin plane and spmdcheck on) builds or loads a kernel; and
+a kernel build that fails raises.  The text slice's modules
+(``dataset/text.py``, ``nn/shape_ops.py``, ``nn/criterion.py``,
+``nn/layers.py``, ``nn/module.py``) and the resilience and telemetry
+slice's (``resilience/faults.py``, ``resilience/membership.py``,
+``telemetry/{tracer,context,watchdog,hooks,flight,admin}.py``,
+``utils/{metrics,profiling,lockdep,spmdcheck}.py``) are among those
+imported."""
 
 import json
 import os
@@ -228,6 +233,32 @@ masked = nn.TimeDistributedMaskCriterion(nn.ClassNLLCriterion(
 assert torch.isfinite(masked)
 assert {"bigdl_tpu_torch.dataset.text", "bigdl_tpu_torch.nn.shape_ops",
         "bigdl_tpu_torch.nn.criterion"} <= set(names)
+import os
+from bigdl_tpu_torch.telemetry import flight
+from bigdl_tpu_torch.utils import config, spmdcheck
+with tempfile.TemporaryDirectory() as d:
+    config.configure(fault_plan="corrupt_batch@at=1", telemetry_enabled=True,
+                     flight_recorder_path=os.path.join(d, "f.jsonl"),
+                     spmdcheck=True)
+    spmdcheck.maybe_install()
+    fault_opt = (optim.LocalOptimizer(lenet5(10).initialize(0),
+                                      grey(40) >> SampleToMiniBatch(8),
+                                      nn.ClassNLLCriterion(),
+                                      device="cpu")
+                 .set_numeric_guard("skip").set_steps_per_dispatch(2)
+                 .set_end_when(optim.max_iteration(2)))
+    fault_opt.optimize()
+    assert fault_opt.registry.counter("resilience/steps_skipped").value == 1
+    assert spmdcheck.notes_recorded() > 0
+    spmdcheck.uninstall()
+    flight.reset()
+    config.reset_config()
+assert maxpool.launches == 0
+assert {"bigdl_tpu_torch." + m for m in (
+    "resilience.faults", "resilience.membership", "telemetry.tracer",
+    "telemetry.context", "telemetry.watchdog", "telemetry.hooks",
+    "telemetry.flight", "telemetry.admin", "utils.metrics",
+    "utils.profiling", "utils.lockdep", "utils.spmdcheck")} <= set(names)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("jaxlib") or m == "bigdl_tpu"
              or m.startswith("bigdl_tpu."))

@@ -1,8 +1,9 @@
 """The concurrency lint (graftlint GL2xx/GL3xx) over the port's threaded
-modules: the serving batcher and service, the breaker, the telemetry
-registry, the block prefetchers, the snapshot writer thread, the
-checkpoint manager's GC pin, the preemption handler and the summary
-writer.
+modules: the serving batcher and service, the breaker, the fault injector
+and the membership ledger, the telemetry plane (registry, tracer, flight
+recorder, admin server), the block prefetchers, the snapshot writer
+thread, the checkpoint manager's GC pin, the preemption handler, the
+summary writer and the two sanitizers (lockdep, spmdcheck).
 
 The reference's own gate (``tests/test_graftlint.py``) lints
 ``bigdl_tpu/``; the port lies outside its default paths, so this file
@@ -24,7 +25,9 @@ THREADED = ["bigdl_tpu_torch/serving", "bigdl_tpu_torch/resilience",
             "bigdl_tpu_torch/checkpoint/snapshot.py",
             "bigdl_tpu_torch/checkpoint/manager.py",
             "bigdl_tpu_torch/checkpoint/preemption.py",
-            "bigdl_tpu_torch/utils/summary.py"]
+            "bigdl_tpu_torch/utils/summary.py",
+            "bigdl_tpu_torch/utils/lockdep.py",
+            "bigdl_tpu_torch/utils/spmdcheck.py"]
 
 
 def _lint(*args):

@@ -155,6 +155,8 @@ PORTED_SETTERS = {
     "set_numeric_guard": lambda o, ds: o.set_numeric_guard("skip"),
     # ported with the activation-memory policies
     "set_activation_memory": lambda o, ds: o.set_activation_memory("full"),
+    # ported with the telemetry plane
+    "set_telemetry": lambda o, ds: o.set_telemetry(True),
 }
 
 

@@ -23,8 +23,8 @@ import torch
 import torch.distributed as dist
 
 from bigdl_tpu_torch import nn, optim
-from bigdl_tpu_torch.dataset import (DistributedDataSet, SampleToMiniBatch,
-                                     Transformer)
+from bigdl_tpu_torch.dataset import (DistributedDataSet, Sample,
+                                     SampleToMiniBatch, Transformer)
 from bigdl_tpu_torch.dataset import image, mnist
 from bigdl_tpu_torch.interop import load_jax_params
 from bigdl_tpu_torch.optim import validation
@@ -335,6 +335,104 @@ def train_vgg(world, rank, start, *, n=32, global_batch=8, iters=3,
     return {"trace": opt.trace,
             "params": {k: v.detach().numpy().copy()
                        for k, v in model.named_parameters()}}
+
+
+def grouped_samples(n_groups=16, group=4, din=16, nclass=4, seed=0):
+    """The reference's elastic data (``tests/test_membership.py``): groups
+    of identical rows, one group a global batch of ``group``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_groups):
+        row = rng.normal(0, 1, (din,)).astype(np.float32)
+        lbl = np.int32(rng.integers(0, nclass))
+        out.extend(Sample(row.copy(), lbl) for _ in range(group))
+    return out
+
+
+class _ElasticSummary:
+    """Records nothing itself; with ``sync_every_step`` its per-iteration
+    "Parameters" trigger makes every block a replay boundary."""
+
+    def __init__(self, sync_every_step):
+        self.sync = sync_every_step
+
+    def add_train_step(self, *a):
+        pass
+
+    def add_scalar(self, *a):
+        pass
+
+    def add_histogram(self, *a):
+        pass
+
+    def trigger_for(self, name):
+        return optim.several_iteration(1) \
+            if self.sync and name == "Parameters" else None
+
+
+def train_elastic(world, rank, start, *, plan=None, ckpt=None, iters=8,
+                  ckpt_every=1, k=1, sync_every_step=False, spmd=False,
+                  global_batch=4, resize_before=None):
+    """The reference's elastic MLP (16-16-4, SGD lr 0.1, the f32 wire)
+    on :func:`grouped_samples` through the port's ``DistriOptimizer``,
+    under the fault plan ``plan`` (or, with ``resize_before``, an
+    operator's ``request_resize`` before ``optimize()``): the losses this
+    rank replayed, the membership history, the resilience metrics, the
+    final parameters and (``spmd``) this rank's collective schedule."""
+    from bigdl_tpu_torch.utils import config, spmdcheck
+    if plan is not None:
+        config.configure(fault_plan=plan)
+    if spmd:
+        spmdcheck.install()
+        spmdcheck.reset()
+    losses = []
+
+    class Recording(optim.DistriOptimizer):
+        def _log_train_iteration(self, lr):
+            losses.append(self.state["loss"])
+
+    try:
+        model = (nn.Sequential().add(nn.Linear(16, 16)).add(nn.ReLU())
+                 .add(nn.Linear(16, 4)).add(nn.LogSoftMax()))
+        load_jax_params(model, start)
+        ds = (DistributedDataSet(grouped_samples(), process_index=rank,
+                                 process_count=world)
+              >> SampleToMiniBatch(global_batch // world))
+        opt = (Recording(model, ds, nn.ClassNLLCriterion(), device="cpu",
+                         grad_wire_dtype="f32")
+               .set_optim_method(optim.SGD(learning_rate=0.1))
+               .set_seed(7).set_steps_per_dispatch(k)
+               .set_train_summary(_ElasticSummary(sync_every_step))
+               .set_end_when(optim.max_iteration(iters)))
+        if ckpt is not None:
+            opt.set_checkpoint(ckpt, optim.several_iteration(ckpt_every),
+                               keep_last=100)
+        if resize_before is not None:
+            opt.set_elastic()._membership.request_resize(resize_before)
+        try:
+            opt.optimize()
+        except ValueError as e:
+            return {"refused": str(e)}
+        m = opt._membership
+        snap = opt.metrics.registry.snapshot()
+        return {
+            "losses": losses,
+            "worlds": [e.world for e in m.history()] if m else None,
+            "epoch": m.epoch() if m else None,
+            "graceful": m.current().graceful if m else None,
+            "counters": snap["counters"], "gauges": snap["gauges"],
+            "downtimes": snap["histograms"].get(
+                "resilience/resize_downtime_s", {}).get("count", 0),
+            "neval": int(opt.state["neval"]),
+            "params": {k_: v.detach().numpy().copy()
+                       for k_, v in model.named_parameters()},
+            "schedule": [(e.kind, e.axis, e.fingerprint) for e in
+                         spmdcheck.schedules().get(rank, [])]
+            if spmd else None}
+    finally:
+        config.reset_config()
+        if spmd:
+            spmdcheck.uninstall()
 
 
 def _worker(rank, world, store_dir, runs, fn=None):
