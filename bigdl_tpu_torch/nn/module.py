@@ -35,6 +35,17 @@ class Module(torch.nn.Module):
         super().__init__()
         self.name = name if name is not None else type(self).__name__
 
+    def __call__(self, *args, **kwargs):
+        # functional-graph syntax: a module called on Node(s) builds a DAG
+        # edge (nn/graph.py); any other call is torch's, hooks included
+        if len(args) == 1 and not kwargs \
+                and not isinstance(args[0], torch.Tensor):
+            from bigdl_tpu_torch.nn.graph import Node, is_nodes
+            if is_nodes(args[0]):
+                x = args[0]
+                return Node(self, [x] if isinstance(x, Node) else list(x))
+        return super().__call__(*args, **kwargs)
+
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Draw this layer's own weights (not its children's).  Layers
         without weights keep this no-op."""

@@ -53,16 +53,27 @@ def _quantize_symmetric(w: np.ndarray, axis=None):
     return q, np.asarray(scale, np.float32)
 
 
+def _tensor(v, dtype, device) -> torch.Tensor:
+    """A copy of ``v`` (numpy array or tensor) as ``dtype`` on ``device``."""
+    t = v.detach() if isinstance(v, torch.Tensor) \
+        else torch.from_numpy(np.array(v))
+    return t.to(device=device, dtype=dtype, copy=True)
+
+
 def _register_quantized(mod: Module, wq, ws, bias, device) -> None:
-    mod.register_buffer("weight_q", torch.from_numpy(wq).to(device))
-    mod.register_buffer("weight_scale", torch.from_numpy(ws).to(device))
+    """The int8 twin's buffers from numpy arrays or tensors (a model
+    file's, or the quantizer's)."""
+    mod.register_buffer("weight_q", _tensor(wq, torch.int8, device))
+    mod.register_buffer("weight_scale", _tensor(ws, torch.float32, device))
     mod.register_buffer("bias", None if bias is None
-                        else bias.detach().clone().float())
+                        else _tensor(bias, torch.float32, device))
 
 
 class QuantizedLinear(Module):
     """int8 Linear: buffers ``weight_q`` (out, in) int8, ``weight_scale``
-    (out, 1) f32 and an optional f32 ``bias``."""
+    (out, 1) f32 and an optional f32 ``bias``, each given as a numpy array
+    or a tensor (``from_linear`` quantizes a float layer; the model-file
+    loaders pass the stored tensors)."""
 
     def __init__(self, weight_q: np.ndarray, weight_scale: np.ndarray,
                  bias: Optional[torch.Tensor], name: Optional[str] = None,
@@ -100,7 +111,8 @@ def _im2col(x: torch.Tensor, kernel, stride, dilation) -> torch.Tensor:
 
 class QuantizedSpatialConvolution(Module):
     """int8 conv: buffers ``weight_q`` OIHW int8, ``weight_scale``
-    (O, 1, 1, 1) f32 and an optional f32 ``bias``."""
+    (O, 1, 1, 1) f32 and an optional f32 ``bias`` (numpy arrays or
+    tensors), the geometry taken from the float ``conv``."""
 
     def __init__(self, conv: SpatialConvolution, weight_q, weight_scale,
                  bias, name: Optional[str] = None,

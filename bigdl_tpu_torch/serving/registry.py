@@ -2,7 +2,9 @@
 
 Port of ``bigdl_tpu/serving/registry.py``.  One registry hosts many
 models, each behind its own :class:`InferenceService` (own queue, own
-buckets, own stats), optionally int8-quantized by
+buckets, own stats), deployable from an in-memory module or straight
+from a BigDL, Caffe, Torch7 or TensorFlow file (the loaders
+``interop.convert_model`` uses), optionally int8-quantized by
 ``nn.quantized.quantize`` on the way in.
 
 Every deployed version carries a :class:`CircuitBreaker`.  Latest-wins
@@ -69,22 +71,32 @@ class ModelRegistry:
     # -- deployment --------------------------------------------------------
     def deploy(self, name: str, model=None, *, path: Optional[str] = None,
                format: Optional[str] = None, version: Optional[int] = None,
-               quantize=False, **service_kw) -> InferenceService:
-        """Deploy ``model`` as ``name``:``version``.  ``service_kw`` flows
-        to :class:`InferenceService` (``input_spec`` for deploy-time
-        warmup, batching/backpressure knobs, ``start=False``...).
+               quantize=False, prototxt: Optional[str] = None,
+               weights: Optional[str] = None,
+               tf_inputs: Optional[List[str]] = None,
+               tf_outputs: Optional[List[str]] = None,
+               **service_kw) -> InferenceService:
+        """Deploy ``model`` (or one loaded from ``path`` in ``format``:
+        ``bigdl``, ``caffe`` with ``prototxt=``, ``torch``, ``tensorflow``
+        with ``tf_inputs=``/``tf_outputs=``) as ``name``:``version``, on
+        the registry's device.  ``service_kw`` flows to
+        :class:`InferenceService` (``input_spec`` for deploy-time warmup,
+        batching/backpressure knobs, ``start=False``...).  ``format=
+        "keras"`` (with ``weights=``) raises ``NotImplementedError``: the
+        Keras loaders come with the next port slice.
 
         ``quantize``: False (default) deploys as-is; True int8-quantizes
         on the way in with the ``Config.int8_activation_mode`` default; a
         mode string (``"weight_only"`` / ``"dynamic"``) pins the mode.
         The quantized deploy is a distinct version with its own breaker
         and a ``weights_dtype`` stats tag."""
-        if path is not None or format is not None:
-            raise NotImplementedError(
-                "deploy(path=, format=) needs the interop loaders, which "
-                "come with the ROADMAP interop item; pass model=")
         if model is None:
-            raise ValueError("deploy() needs model=")
+            if path is None or format is None:
+                raise ValueError("deploy() needs model= or path=+format=")
+            from bigdl_tpu_torch.interop.convert_model import load_model
+            # loaded on the CPU; the service moves it to self.device once
+            model = load_model(format, path, prototxt=prototxt,
+                               tf_inputs=tf_inputs, tf_outputs=tf_outputs)
         if quantize:
             from bigdl_tpu_torch.nn.quantized import quantize as _quantize
             model = _quantize(

@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (``bigdl_tpu_torch``) on one NVIDIA card.
 
-Drives the port's thirteen main paths and holds every kernel of them against
+Drives the port's fourteen main paths and holds every kernel of them against
 its plain PyTorch version.  Serving: an int8-quantized ResNet-50 (1000
 classes, 224x224, NCHW, random weights from a seed) served by
 ``ModelRegistry`` with ``quantize=True`` (weight_only) and
@@ -227,7 +227,27 @@ Phases, each printing its seconds:
    ``SERVE_PLAN`` with request tracing: the injected error, the batcher's
    death and ``revive()``, the other requests bitwise equal to a
    fault-free service's, one flow a request, B4 54 launches a forward and
-   within its tolerance of its plain version at the served GEMMs.
+   within its tolerance of its plain version at the served GEMMs;
+27. interop, under ``torch.use_deterministic_algorithms``: ResNet-50
+   (seeded weights, BatchNorm running statistics drawn from the seed)
+   written to ``.bigdl`` and to a frozen GraphDef and each loaded onto the
+   card: the batch-32 forward bitwise for ``.bigdl``, within
+   ``INTEROP_TOL`` for the GraphDef (BatchNorm folded), a limit that a
+   file with one 3x3 kernel transposed must exceed; its bottlenecks as an
+   ``nn.Graph`` (``resnet50_graph``, Caffe's layout) through Caffe (within
+   ``INTEROP_TOL``, the same planted fault) and ``.bigdl`` (bitwise);
+   VGG-16 through ``.t7`` and Inception v1 through ``.bigdl``, bitwise;
+   bytes and write, load and first-forward seconds of each file;
+   ``python -m bigdl_tpu_torch.interop.convert_model --quantize`` of the
+   ResNet-50 file in both modes (its parity check passing), each
+   quantized file and the float file with ``quantize=`` deployed by
+   ``ModelRegistry(device="cuda")`` and served to 8 client threads x 4
+   requests of 1-4 rows (rows/s, latency p50/p99): every dispatched batch
+   bitwise through the in-memory quantized deploy, B4 54 launches a
+   dispatch; the Caffe and GraphDef files served in float within
+   ``INTEROP_TOL``; a hand-built TF while loop (two loop variables, a
+   nested frame) on the card bitwise the CPU.  The files live in a
+   temporary directory removed at the end.
 
 The last lines are the card, the kernel table and the result as JSON; any
 failed check raises and the script exits non-zero.  Without a CUDA card it
@@ -236,7 +256,7 @@ fails at once.  Run from the repository root:
     python3 chip_smoke.py [--seed N] [--json-out PATH]
                           [--phases resnet,lstm,resnet-train,wide-deep,lenet,
                                     distri,cifar,inception,autoencoder,remat,
-                                    text,nn-core,resilience]
+                                    text,nn-core,resilience,interop]
 
 ``--phases resnet-conditioning`` adds a diagnostic that is not run by
 default: the check phase's path reading at residual gammas 0 to 1, beside
@@ -277,7 +297,7 @@ from bigdl_tpu_torch.engine import Engine  # noqa: E402
 from bigdl_tpu_torch.models import (WideAndDeep, autoencoder,  # noqa: E402
                                     inception_v1, lenet5, ptb_model,
                                     resnet50, resnet_cifar, simple_rnn,
-                                    vgg_for_cifar10)
+                                    vgg16, vgg_for_cifar10)
 from bigdl_tpu_torch.nn import quantize, recurrent  # noqa: E402
 from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,  # noqa: E402
                                           QuantizedSpatialConvolution)
@@ -6278,9 +6298,402 @@ def resilience_phase(seed, device, card, report):
     return launches, shapes
 
 
+# ---------------------------------------------------------------- interop
+INTEROP = {"batch": 32, "serve_threads": 8, "serve_requests": 4,
+           "float_requests": 4, "gemms": 54}  # B4 launches a forward
+# the Caffe and TensorFlow files hold the same weights in another
+# arithmetic (BatchNorm split into BatchNorm + Scale, or folded into one
+# scale and shift, the pads as their own nodes): their logits are held
+# within this share of max|y| (sound readings ~1e-7 on the card),
+# a limit a planted fault must exceed
+INTEROP_TOL = {"caffe": 1e-4, "tensorflow": 1e-4}
+FILE_FAULT_CONV = 20  # the 3x3 conv whose weights a planted file transposes
+
+
+def bn_stats_from_seed(model, seed):
+    """Every BatchNorm's running statistics, scale and shift drawn from
+    ``seed`` (a format that drops one reads as a fault, and Caffe's Scale
+    layer does real arithmetic); returns ``model``."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.SpatialBatchNormalization):
+                n = m.n_output
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+                m.weight.copy_(1.0 + 0.1 * torch.randn(n, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(n, generator=gen))
+    return model
+
+
+def resnet50_graph(class_num=1000):
+    """ResNet-50's bottlenecks as an ``nn.Graph`` through the functional
+    API, in Caffe's ResNet-50 layout: the stem pool is 3x3/2 in ceil mode
+    without padding (Caffe pools in ceil mode), the head Flatten and the
+    1000-way Linear (the logits)."""
+    from bigdl_tpu_torch.nn.initialization import MsraFiller
+    inp = nn.Input()
+
+    def conv_bn(x, cin, cout, k, s, p, name):
+        x = nn.SpatialConvolution(cin, cout, k, k, s, s, p, p,
+                                  with_bias=False, weight_init=MsraFiller(),
+                                  name=f"{name}_conv")(x)
+        return nn.SpatialBatchNormalization(cout, name=f"{name}_bn")(x)
+
+    h = nn.ReLU(name="stem_relu")(conv_bn(inp, 3, 64, 7, 2, 3, "stem"))
+    h = nn.SpatialMaxPooling(3, 3, 2, 2, ceil_mode=True, name="pool1")(h)
+    in_c = 64
+    for stage, (mid, blocks, stride) in enumerate(
+            [(64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2)]):
+        for bi in range(blocks):
+            name, s, out_c = f"res{stage + 2}{'abcdef'[bi]}", \
+                stride if bi == 0 else 1, mid * 4
+            m = nn.ReLU(name=f"{name}_a_relu")(
+                conv_bn(h, in_c, mid, 1, 1, 0, f"{name}_a"))
+            m = nn.ReLU(name=f"{name}_b_relu")(
+                conv_bn(m, mid, mid, 3, s, 1, f"{name}_b"))
+            m = conv_bn(m, mid, out_c, 1, 1, 0, f"{name}_c")
+            sc = conv_bn(h, in_c, out_c, 1, s, 0, f"{name}_sc") \
+                if s != 1 or in_c != out_c else h
+            h = nn.ReLU(name=f"{name}_relu")(
+                nn.CAddTable(name=f"{name}_add")([m, sc]))
+            in_c = out_c
+    h = nn.SpatialAveragePooling(7, 7, 7, 7, name="pool5")(h)
+    out = nn.Linear(2048, class_num, name="fc1000")(nn.Flatten(
+        name="flatten")(h))
+    return nn.Graph([inp], [out], name="ResNet50Graph")
+
+
+def tensor_rel(y, want) -> float:
+    return ((y.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def file_roundtrip(label, save, load, paths, x, device, card, report):
+    """Write a model, load it onto the card, run its first forward on
+    ``x``: (loaded model, output).  Prints and records the bytes and the
+    write, load and first-forward seconds."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    save()
+    write_s = time.monotonic() - t0
+    size = sum(os.path.getsize(p) for p in paths)
+    t0 = time.monotonic()
+    model = load().to(device).eval()
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    with torch.no_grad():
+        y = model(x)
+    torch.cuda.synchronize()
+    fwd_s = time.monotonic() - t0
+    print(f"interop {label}: {size} bytes, write {write_s:.2f} s, load "
+          f"onto the card {load_s:.2f} s, first forward (batch "
+          f"{x.shape[0]}) {fwd_s:.3f} s [{card}]")
+    report["interop"]["files"][label] = {
+        "bytes": size, "write_s": write_s, "load_s": load_s,
+        "first_forward_s": fwd_s}
+    return model, y
+
+
+def transposed_conv_copy(model, index=FILE_FAULT_CONV):
+    """A copy of ``model`` whose ``index``-th 3x3 convolution has its
+    kernel transposed (kh <-> kw): the planted file fault."""
+    bad = copy.deepcopy(model)
+    convs = [m for m in bad.modules() if isinstance(m, nn.SpatialConvolution)
+             and m.kernel == (3, 3)]
+    w = convs[min(index, len(convs) - 1)].weight
+    with torch.no_grad():
+        w.copy_(w.transpose(2, 3).contiguous())
+    return bad
+
+
+def held_within(label, fmt, y, want, fault_y, card, report):
+    tol = INTEROP_TOL[fmt]
+    sound, fault = tensor_rel(y, want), tensor_rel(fault_y, want)
+    print(f"interop {label} vs in-memory: max|dy|/max|y| {sound:.3e} "
+          f"(limit {tol}); planted fault (one 3x3 conv's kernel transposed "
+          f"in the file) {fault:.3e} [{card}]")
+    report["interop"]["checks"][label] = {"reading": sound, "limit": tol,
+                                          "planted_fault": fault}
+    if not (torch.isfinite(y).all() and sound <= tol):
+        raise AssertionError(f"interop {label}: reading {sound} over {tol}")
+    if not fault > tol:
+        raise AssertionError(f"interop {label}: planted fault reads {fault}, "
+                             f"inside {tol}: the check is blind")
+
+
+def bitwise(label, y, want, card, report):
+    same = torch.equal(y, want)
+    print(f"interop {label} vs in-memory: bitwise {same} [{card}]")
+    report["interop"]["checks"][label] = {"bitwise": same}
+    if not same:
+        raise AssertionError(f"interop {label}: not bitwise, max|dy| "
+                             f"{(y - want).abs().max().item()}")
+
+
+def serve_file_deploy(reg, name, deploy_kw, mem_name, seed, card):
+    """8 client threads x 4 requests of 1-4 rows through the file-loaded
+    deploy ``name``; every dispatched batch (recorded at the model) then
+    replayed through the in-memory quantized deploy ``mem_name`` must give
+    the same bits.  Returns the reading (launches, dispatches, stats...)."""
+    svc = reg.deploy(name, **deploy_kw)
+    batches = []
+    hook = svc.model.register_forward_hook(
+        lambda m, i, o: batches.append((i[0].clone(), o.clone())))
+    errors, got = [], {}
+
+    def client(tid):
+        rng = np.random.default_rng(seed * 100 + tid)
+        try:
+            for r in range(INTEROP["serve_requests"]):
+                x = rng.normal(0, 1, (int(rng.integers(1, 5)),)
+                               + SPEC[0]).astype(np.float32)
+                got[tid, r] = reg.predict(name, x, timeout=300)
+        except Exception as e:  # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(INTEROP["serve_threads"])]
+    int8_gemm.reset_counts()
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.monotonic() - t0
+    launches = int8_gemm.launches
+    variants = {v: n for v, n in int8_gemm.variant_launches.items() if n}
+    hook.remove()
+    stats = svc.stats()
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"{name}: client failures: {errors[:3]}")
+    rows = sum(len(v) for v in got.values())
+    replayed = [reg.predict(mem_name, xb.cpu().numpy(), timeout=300)
+                for xb, _ in batches]
+    same = all(np.array_equal(yb.cpu().numpy(), r)
+               for (_, yb), r in zip(batches, replayed))
+    dispatches = stats["dispatch_count"]
+    lat = stats["latency_ms"]
+    return {"launches": launches, "dispatches": dispatches,
+            "variant_launches": variants, "rows": rows, "wall_s": wall,
+            "rows_per_s": rows / wall, "p50_ms": lat["p50"],
+            "p99_ms": lat["p99"], "bitwise": same,
+            "finite": all(np.isfinite(v).all() for v in got.values()),
+            "replayed_batches": len(batches)}
+
+
+def interop_phase(seed, device, card, report):
+    """ResNet-50 through ``.bigdl`` and a frozen GraphDef, its Graph twin
+    through Caffe and ``.bigdl``, VGG-16 through ``.t7``, Inception v1
+    through ``.bigdl``, each loaded onto the card and held against the
+    in-memory model; ``convert_model --quantize`` of the ResNet-50 file in
+    both modes and the quantized ResNet-50 served from files (B4); the
+    Caffe and TF files served in float; a TF while loop on the card
+    against the CPU.  Returns {mode: B4 launches of the served loads}."""
+    from bigdl_tpu_torch import interop
+    from bigdl_tpu_torch.interop import load_tf_graph, save_tf_graph
+    report["interop"] = {"files": {}, "checks": {}, "serving": {}}
+    B = INTEROP["batch"]
+    launches = {}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            def at(name):
+                return os.path.join(tmp, name)
+
+            # 1. ResNet-50 through .bigdl (bitwise) and a frozen GraphDef
+            model = bn_stats_from_seed(resnet50().initialize(
+                torch.Generator().manual_seed(seed)), seed + 1)
+            model = model.to(device).eval()
+            gen = torch.Generator(device=device).manual_seed(seed + 2)
+            x = torch.randn((B,) + SPEC[0], generator=gen, device=device)
+            with torch.no_grad():
+                want = model(x)
+            _, y = file_roundtrip(
+                "resnet50.bigdl",
+                lambda: interop.save_bigdl_module(model, at("r50.bigdl")),
+                lambda: interop.load_bigdl_module(at("r50.bigdl")),
+                [at("r50.bigdl")], x, device, card, report)
+            bitwise("resnet50.bigdl", y, want, card, report)
+            shape = (B,) + SPEC[0]
+            _, y = file_roundtrip(
+                "resnet50.pb",
+                lambda: save_tf_graph(model, at("r50.pb"), shape),
+                lambda: load_tf_graph(at("r50.pb"), ["input"], ["output"]),
+                [at("r50.pb")], x, device, card, report)
+            save_tf_graph(transposed_conv_copy(model), at("bad.pb"), shape)
+            with torch.no_grad():
+                fault_y = load_tf_graph(at("bad.pb"), ["input"], [
+                    "output"]).to(device)(x)
+            held_within("resnet50.pb", "tensorflow", y, want, fault_y, card,
+                        report)
+            os.remove(at("bad.pb"))
+
+            # 2. the Graph twin through Caffe and .bigdl
+            graph = bn_stats_from_seed(resnet50_graph().initialize(
+                torch.Generator().manual_seed(seed + 3)), seed + 4)
+            graph = graph.to(device).eval()
+            with torch.no_grad():
+                want_g = graph(x)
+            caffe = [at("r50.prototxt"), at("r50.caffemodel")]
+            _, y = file_roundtrip(
+                "resnet50_graph.caffe",
+                lambda: interop.save_caffe(graph, *caffe),
+                lambda: interop.load_caffe_model(*caffe), caffe, x, device,
+                card, report)
+            bad = [at("bad.prototxt"), at("bad.caffemodel")]
+            interop.save_caffe(transposed_conv_copy(graph), *bad)
+            with torch.no_grad():
+                fault_y = interop.load_caffe_model(*bad).to(device)(x)
+            held_within("resnet50_graph.caffe", "caffe", y, want_g, fault_y,
+                        card, report)
+            for p in bad:
+                os.remove(p)
+            _, y = file_roundtrip(
+                "resnet50_graph.bigdl",
+                lambda: interop.save_bigdl_module(graph, at("g.bigdl")),
+                lambda: interop.load_bigdl_module(at("g.bigdl")),
+                [at("g.bigdl")], x, device, card, report)
+            bitwise("resnet50_graph.bigdl", y, want_g, card, report)
+
+            # 3. VGG-16 through .t7, Inception v1 through .bigdl
+            for label, build, save, load, fname in (
+                    ("vgg16.t7", vgg16, interop.save_torch_module,
+                     interop.load_torch_module, "vgg16.t7"),
+                    ("inception_v1.bigdl", inception_v1,
+                     interop.save_bigdl_module, interop.load_bigdl_module,
+                     "inception.bigdl")):
+                net = build(1000).initialize(
+                    torch.Generator().manual_seed(seed + 5)).to(device).eval()
+                with torch.no_grad():
+                    want_n = net(x)
+                _, y = file_roundtrip(
+                    label, lambda: save(net, at(fname)),
+                    lambda: load(at(fname)), [at(fname)], x, device, card,
+                    report)
+                bitwise(label, y, want_n, card, report)
+                os.remove(at(fname))
+                del net, want_n, y
+                torch.cuda.empty_cache()
+
+            # 4. quantized serving from files
+            for mode in ("weight_only", "dynamic"):
+                t0 = time.monotonic()
+                cli = subprocess.run(
+                    [sys.executable, "-m",
+                     "bigdl_tpu_torch.interop.convert_model", "--from",
+                     "bigdl", "--to", "bigdl", "--input", at("r50.bigdl"),
+                     "--output", at(f"r50_{mode}.bigdl"), "--quantize",
+                     "--quantize-mode", mode, "--device", device.type],
+                    cwd=repo, capture_output=True,
+                    text=True, timeout=600)
+                if cli.returncode != 0:
+                    raise AssertionError(f"convert_model --quantize {mode} "
+                                         f"failed: {cli.stderr[-2000:]}")
+                parity = [line for line in cli.stdout.splitlines()
+                          if "quantize parity" in line]
+                print(f"interop convert_model --quantize-mode {mode} "
+                      f"(subprocess, --device {device.type}): {parity[0]}; "
+                      f"{os.path.getsize(at(f'r50_{mode}.bigdl'))} bytes, "
+                      f"{time.monotonic() - t0:.1f} s [{card}]")
+                report["interop"]["files"][f"resnet50_{mode}.bigdl"] = {
+                    "bytes": os.path.getsize(at(f"r50_{mode}.bigdl")),
+                    "convert_s": time.monotonic() - t0, "parity": parity[0]}
+                kw = {"input_spec": SPEC, "max_batch_size": BATCH}
+                with ModelRegistry(device=device) as reg:
+                    reg.deploy("mem", model, quantize=mode, **kw)
+                    runs = {
+                        "quantized_file": serve_file_deploy(
+                            reg, "q_file", {
+                                "path": at(f"r50_{mode}.bigdl"),
+                                "format": "bigdl", **kw}, "mem", seed, card),
+                        "quantize_on_deploy": serve_file_deploy(
+                            reg, "f_file", {
+                                "path": at("r50.bigdl"), "format": "bigdl",
+                                "quantize": mode, **kw}, "mem", seed + 1,
+                            card)}
+                for kind, run in runs.items():
+                    print(f"interop serve {mode} {kind}: {run['rows']} rows "
+                          f"in {run['dispatches']} dispatches, "
+                          f"{run['rows_per_s']:.1f} rows/s, p50 "
+                          f"{run['p50_ms']} ms, p99 {run['p99_ms']} ms; B4 "
+                          f"{run['launches']} launches "
+                          f"({run['variant_launches']}); the "
+                          f"{run['replayed_batches']} dispatched batches "
+                          f"bitwise through the in-memory deploy: "
+                          f"{run['bitwise']} [{card}]")
+                    ok = (run["bitwise"] and run["finite"]
+                          and run["dispatches"] > 0
+                          and run["launches"]
+                          == INTEROP["gemms"] * run["dispatches"]
+                          and run["replayed_batches"] == run["dispatches"])
+                    if not ok:
+                        raise AssertionError(f"interop serve {mode} {kind}: "
+                                             f"{run}")
+                report["interop"]["serving"][mode] = runs
+                launches[mode] = {k: r["launches"] for k, r in runs.items()}
+                torch.cuda.empty_cache()
+
+            # 5. float serving of the Caffe and TensorFlow files
+            for fmt, kw, ref_model in (
+                    ("caffe", {"path": caffe[1], "prototxt": caffe[0]},
+                     graph),
+                    ("tensorflow", {"path": at("r50.pb"),
+                                    "tf_inputs": ["input"],
+                                    "tf_outputs": ["output"]}, model)):
+                rng = np.random.default_rng(seed + 7)
+                worst = 0.0
+                with ModelRegistry(device=device) as reg:
+                    reg.deploy("f", format=fmt, input_spec=SPEC,
+                               max_batch_size=BATCH, **kw)
+                    for _ in range(INTEROP["float_requests"]):
+                        xr = rng.normal(0, 1, (int(rng.integers(1, 5)),)
+                                        + SPEC[0]).astype(np.float32)
+                        got = torch.from_numpy(reg.predict("f", xr,
+                                                           timeout=300))
+                        with torch.no_grad():
+                            ref_y = ref_model(torch.from_numpy(xr).to(
+                                device)).cpu()
+                        worst = max(worst, tensor_rel(got, ref_y))
+                print(f"interop serve float {fmt}: "
+                      f"{INTEROP['float_requests']} requests, max|dy|/max|y| "
+                      f"{worst:.3e} (limit {INTEROP_TOL[fmt]}) [{card}]")
+                report["interop"]["serving"][f"float_{fmt}"] = worst
+                if not worst <= INTEROP_TOL[fmt]:
+                    raise AssertionError(f"interop serve float {fmt}: {worst}")
+
+            # 6. a TF while loop on the card against the CPU, bitwise
+            sys.path.insert(0, os.path.join(repo, "tests"))
+            import torch_tfgraph_util as tg
+            with open(at("loop.pb"), "wb") as f:
+                f.write(tg.nested_loop_graph())
+            loop = load_tf_graph(at("loop.pb"), ["acc0", "w"],
+                                 ["out", "i_exit"])
+            rng = np.random.default_rng(seed + 8)
+            feed = {"acc0": rng.normal(size=(64, 128)).astype(np.float32),
+                    "w": rng.normal(size=128).astype(np.float32)}
+            cpu = loop({k: torch.from_numpy(v) for k, v in feed.items()})
+            on_card = loop.to(device)({k: torch.from_numpy(v).to(device)
+                                       for k, v in feed.items()})
+            same = all(c.device.type == device.type for c in on_card) \
+                and all(torch.equal(a, b.cpu()) for a, b in zip(cpu, on_card))
+            print(f"interop TF while loop (two loop variables, a nested "
+                  f"frame, 3 x 2 trips over a (64, 128) carry) on the card "
+                  f"bitwise the CPU: {same} [{card}]")
+            report["interop"]["checks"]["tf_while_loop"] = {"bitwise": same}
+            if not same:
+                raise AssertionError("interop TF while loop differs")
+    finally:
+        torch.use_deterministic_algorithms(det)
+    return launches
+
+
 PHASES = ("resnet", "lstm", "resnet-train", "wide-deep", "lenet",
           "distri", "cifar", "inception", "autoencoder", "remat", "text",
-          "nn-core", "resilience")
+          "nn-core", "resilience", "interop")
 EXTRA_PHASES = ("resnet-conditioning",)  # run only when named
 
 
@@ -6598,6 +7011,36 @@ def main(argv=None) -> int:
         by_name["maxpool_bwd"]["resilience"] = {"launches": launches["lenet"]}
         by_name["int8_gemm[weight_only]"]["resilience"] = {
             "launches": launches["int8_gemm"]}
+    if "interop" in phases:
+        t0 = time.monotonic()
+        launches = interop_phase(args.seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase interop: {time.monotonic() - t0:.1f} s")
+        by_name = {k["name"]: k for k in kernels}
+        missing = [m for m in ("weight_only", "dynamic")
+                   if f"int8_gemm[{m}]" not in by_name]
+        if missing:
+            # no earlier phase timed B4: time the served forward's GEMMs
+            t0 = time.monotonic()
+            probe = quantize(resnet50().initialize(args.seed)).to(device)
+            shapes = gemm_shapes(probe, device)
+            del probe
+            totals = kernel_phase(shapes, device, card, report)
+            for mode in missing:
+                t = totals[mode]
+                by_name[f"int8_gemm[{mode}]"] = {
+                    "name": f"int8_gemm[{mode}]", **KERNEL,
+                    "launches": sum(launches[mode].values()),
+                    **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "library_ms")},
+                    "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
+                    else "operations"}
+                kernels.append(by_name[f"int8_gemm[{mode}]"])
+            print(f"phase int8-kernels-interop: "
+                  f"{time.monotonic() - t0:.1f} s")
+        for mode in ("weight_only", "dynamic"):
+            by_name[f"int8_gemm[{mode}]"]["interop"] = {
+                "launches": sum(launches[mode].values()), **launches[mode]}
     if "resnet-conditioning" in phases:
         t0 = time.monotonic()
         resnet_conditioning_phase(args.seed, device, card, report)

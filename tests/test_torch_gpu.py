@@ -16,8 +16,10 @@ bf16 velocity storing the CPU's bits; one step of PTB-small through the
 text pipeline and of the text CNN against the CPU (the loss within
 ``rtol=1e-5``, each gradient within 1e-4 of its array's largest); the
 memory watermark against the allocator's counters, a poisoned staged
-block written on the card with no copy to the host, and a profiler
-window holding another thread's kernels.  Every
+block written on the card with no copy to the host, a profiler
+window holding another thread's kernels; a quantized LeNet served from a
+``.bigdl`` file bitwise to the in-memory quantized deploy, and a
+hand-built TF while loop on the card bitwise to the CPU.  Every
 test
 here needs a CUDA card and skips without one; on the card run ``python -m pytest -m gpu tests/test_torch_*.py``.  This file imports
 no JAX, so it runs where the reference package is not installed.
@@ -1204,3 +1206,55 @@ def test_profile_window_holds_a_kernel(cuda, tmp_path):
     cats = {e.get("cat") for e in trace["traceEvents"]}
     kernels = [e for e in trace["traceEvents"] if e.get("cat") == "kernel"]
     assert out == [str(tmp_path)] and kernels, cats
+
+
+@pytest.mark.parametrize("mode", ["weight_only", "dynamic"])
+def test_quantized_bigdl_file_served_on_card(cuda, mode, tmp_path):
+    """A quantized LeNet read from a ``.bigdl`` file and served on the card
+    is bitwise the in-memory quantized deploy of the same weights, its
+    four int8 layers on B4 once a dispatch each."""
+    from bigdl_tpu_torch import interop
+    from bigdl_tpu_torch.models import lenet5
+    model = lenet5(10).initialize(0)
+    path = str(tmp_path / "q.bigdl")
+    interop.save_bigdl_module(nn.quantize(model, mode=mode), path)
+    x = np.random.default_rng(4).normal(0, 1, (6, 784)).astype(np.float32)
+    kw = {"input_spec": ((784,), np.float32), "max_batch_size": 8}
+    with ModelRegistry(device=cuda) as reg:
+        svc = reg.deploy("file", path=path, format="bigdl", **kw)
+        reg.deploy("mem", model, quantize=mode, **kw)
+        int8_gemm.launches = 0
+        got = reg.predict("file", x, timeout=120)
+        assert int8_gemm.launches == 4 * svc.stats()["dispatch_count"] > 0
+        want = reg.predict("mem", x, timeout=120)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_tf_while_loop_on_card_matches_cpu(cuda, tmp_path):
+    """A hand-built GraphDef with two loop variables and a nested frame
+    runs on the card bitwise as on the CPU; the TensorArray RNN loop
+    within 1e-5 (its products are cuBLAS's)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_tfgraph_util as tg
+    from bigdl_tpu_torch.interop import load_tf_graph
+    path = tmp_path / "nested.pb"
+    path.write_bytes(tg.nested_loop_graph())
+    m = load_tf_graph(str(path), ["acc0", "w"], ["out", "i_exit"])
+    rng = np.random.default_rng(5)
+    feed = {"acc0": rng.normal(size=(4, 3)).astype(np.float32),
+            "w": rng.normal(size=3).astype(np.float32)}
+    cpu = m({k: torch.from_numpy(v) for k, v in feed.items()})
+    card = m.to(cuda)({k: torch.from_numpy(v).to(cuda)
+                       for k, v in feed.items()})
+    assert all(c.device.type == "cuda" for c in card)
+    for a, b in zip(cpu, card):
+        assert torch.equal(a, b.cpu())
+    g, _, _ = tg.dynrnn_graph(5, 3, 4, 6, rng)
+    path = tmp_path / "rnn.pb"
+    path.write_bytes(g)
+    rnn = load_tf_graph(str(path), ["x"], ["out"])
+    x = torch.from_numpy(rng.normal(size=(5, 3, 4)).astype(np.float32))
+    torch.testing.assert_close(rnn.to(cuda)(x.to(cuda)).cpu(), rnn.cpu()(x),
+                               rtol=1e-5, atol=1e-5)

@@ -22,7 +22,11 @@ a kernel build that fails raises.  The text slice's modules
 slice's (``resilience/faults.py``, ``resilience/membership.py``,
 ``telemetry/{tracer,context,watchdog,hooks,flight,admin}.py``,
 ``utils/{metrics,profiling,lockdep,spmdcheck}.py``) are among those
-imported."""
+imported, and so are the interop slice's (``utils/protowire.py``,
+``nn/graph.py``, ``ops/registry.py``, ``interop/*``), which also import
+without ``h5py``: a quantized LeNet deployed from a ``.bigdl`` file and
+LeNet through ``.t7`` and a GraphDef run on the CPU with no kernel
+launched."""
 
 import json
 import os
@@ -41,9 +45,10 @@ import importlib, importlib.abc, json, pkgutil, sys
 
 
 class Absent(importlib.abc.MetaPathFinder):
-    # as if jax, triton and the reference package were not installed
+    # as if jax, triton, h5py and the reference package were not installed
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "triton", "bigdl_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "triton", "bigdl_tpu",
+                                  "h5py"):
             raise ImportError(f"{name} is absent in this probe")
         return None
 
@@ -259,9 +264,36 @@ assert {"bigdl_tpu_torch." + m for m in (
     "telemetry.context", "telemetry.watchdog", "telemetry.hooks",
     "telemetry.flight", "telemetry.admin", "utils.metrics",
     "utils.profiling", "utils.lockdep", "utils.spmdcheck")} <= set(names)
+from bigdl_tpu_torch import interop
+from bigdl_tpu_torch.serving import ModelRegistry
+with tempfile.TemporaryDirectory() as d:
+    net = lenet5(10).initialize(0).eval()
+    xin = torch.rand(2, 784)
+    with torch.no_grad():
+        want = net(xin)
+    interop.save_bigdl_module(nn.quantize(net, mode="dynamic"),
+                              os.path.join(d, "q.bigdl"))
+    interop.save_torch_module(net, os.path.join(d, "m.t7"))
+    interop.save_tf_graph(net, os.path.join(d, "m.pb"), (2, 784))
+    with torch.no_grad():
+        assert torch.equal(interop.load_torch_module(
+            os.path.join(d, "m.t7")).eval()(xin), want)
+        assert torch.allclose(interop.load_tf_graph(
+            os.path.join(d, "m.pb"), ["input"], ["output"])(xin), want,
+            atol=1e-5)
+    with ModelRegistry(device="cpu") as reg:
+        reg.deploy("q", path=os.path.join(d, "q.bigdl"), format="bigdl")
+        assert reg.predict("q", xin.numpy(), timeout=60).shape == (2, 10)
+assert int8_gemm.launches == 0
+assert {"bigdl_tpu_torch." + m for m in (
+    "utils.protowire", "nn.graph", "interop.bigdl_format",
+    "interop.torch_format", "interop.torch_export", "interop.caffe_format",
+    "interop.caffe_export", "ops.registry", "interop.tf_loops",
+    "interop.tf_format", "interop.tf_export", "interop.convert_model")
+} <= set(names)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("jaxlib") or m == "bigdl_tpu"
-             or m.startswith("bigdl_tpu."))
+             or m.startswith("bigdl_tpu.") or m.startswith("h5py"))
 print(json.dumps({"modules": len(names), "bad": bad,
                   "libs": sorted(_build._libs)}))
 """
