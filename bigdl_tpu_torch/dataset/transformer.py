@@ -1,6 +1,6 @@
 """Transformers: composable iterator stages (port of
-``bigdl_tpu/dataset/transformer.py``, this slice's part).  Compose with
-``>>``: ``DataSet.array(samples) >> SampleToMiniBatch(20)``."""
+``bigdl_tpu/dataset/transformer.py``).  Compose with ``>>``:
+``DataSet.array(samples) >> SampleToMiniBatch(20)``."""
 
 from __future__ import annotations
 
@@ -34,6 +34,16 @@ class ChainedTransformer(Transformer):
     def rescale(self, old_count: int, new_count: int) -> None:
         self.first.rescale(old_count, new_count)
         self.second.rescale(old_count, new_count)
+
+
+class FnTransformer(Transformer):
+    """Map a per-element function over the stream."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, it):
+        return (self.fn(x) for x in it)
 
 
 def rescaled_batch(batch_size: int, old_count: int, new_count: int) -> int:

@@ -1,9 +1,10 @@
 """Model conversion CLI (port of ``bigdl_tpu/interop/convert_model.py``).
 
-``--from {bigdl,caffe,torch,tensorflow} --to {bigdl,caffe,torch}``, with
-``--prototxt`` for Caffe sources, ``--tf_inputs``/``--tf_outputs`` for
-TensorFlow sources and ``--quantize`` for int8 post-training quantization
-of a BigDL target.  The model is moved once to ``--device`` (default
+``--from {bigdl,caffe,torch,tensorflow,keras} --to {bigdl,caffe,torch}``,
+with ``--prototxt`` for Caffe sources, ``--tf_inputs``/``--tf_outputs`` for
+TensorFlow sources, ``--weights`` (a Keras HDF5 file) for Keras JSON
+sources and ``--quantize`` for int8 post-training quantization of a BigDL
+target.  The model is moved once to ``--device`` (default
 ``cuda``, which must exist; ``cpu`` when asked), where the ``--quantize``
 parity check runs the float and the int8 model on one probe batch.
 
@@ -20,14 +21,11 @@ import argparse
 import numpy as np
 import torch
 
-KERAS_NOT_PORTED = ("Keras models are not ported yet: the Keras loaders "
-                    "come with the next port slice (training imported and "
-                    "Keras-defined models)")
-
-
 def load_model(fmt: str, path: str, *, prototxt=None, tf_inputs=None,
-               tf_outputs=None):
-    """A model from an interop file, on the CPU."""
+               tf_outputs=None, weights=None):
+    """A model from an interop file, on the CPU.  A Keras JSON definition
+    takes its weights from ``weights``: a Keras HDF5 file's path, or the
+    arrays themselves in Keras order (``set_keras_weights``)."""
     fmt = fmt.lower()
     if fmt == "bigdl":
         from bigdl_tpu_torch.interop.bigdl_format import load_bigdl_module
@@ -47,7 +45,14 @@ def load_model(fmt: str, path: str, *, prototxt=None, tf_inputs=None,
         from bigdl_tpu_torch.interop.tf_format import load_tf_graph
         return load_tf_graph(path, inputs=tf_inputs, outputs=tf_outputs)
     if fmt == "keras":
-        raise NotImplementedError(KERAS_NOT_PORTED)
+        from bigdl_tpu_torch.interop.keras_format import (
+            load_keras_hdf5_weights, load_keras_json, set_keras_weights)
+        model = load_keras_json(path)
+        if isinstance(weights, str):
+            load_keras_hdf5_weights(model, weights)
+        elif weights is not None:
+            set_keras_weights(model, list(weights))
+        return model.core_module()
     raise ValueError(f"unknown model format {fmt!r}; expected "
                      "bigdl|caffe|torch|tensorflow|keras")
 
@@ -58,7 +63,7 @@ def _load(args):
             args.src_fmt, args.input, prototxt=args.prototxt,
             tf_inputs=args.tf_inputs.split(",") if args.tf_inputs else None,
             tf_outputs=args.tf_outputs.split(",") if args.tf_outputs
-            else None)
+            else None, weights=args.weights)
     except ValueError as e:
         raise SystemExit(f"--from {args.src_fmt}: {e}")
 

@@ -1,5 +1,6 @@
-"""Recurrent stack (port of ``bigdl_tpu/nn/recurrent.py``, this slice's part:
-``RnnCell``, ``LSTM``, ``MultiRNNCell``, ``Recurrent``, ``TimeDistributed``).
+"""Recurrent stack (port of ``bigdl_tpu/nn/recurrent.py``, these parts:
+``RnnCell``, ``LSTM``, ``GRU``, ``MultiRNNCell``, ``Recurrent``,
+``BiRecurrent``, ``TimeDistributed``).
 
 Layout is batch-major ``(N, T, features)`` at every public face, as in the
 reference.  Where the reference scans a step body with ``lax.scan``,
@@ -168,6 +169,54 @@ class LSTM(Cell):
         return h_new, (h_new, c_new)
 
 
+class GRU(Cell):
+    """GRU cell, the reset gate applied to h before the candidate
+    projection: ``w_gates`` (2H, D+H) and ``b_gates`` (2H) give r|u,
+    ``w_cand`` (H, D+H) and ``b_cand`` (H) the candidate."""
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 name: Optional[str] = None):
+        super().__init__(name)
+        self.input_size, self.hidden_size = input_size, hidden_size
+        H, D = hidden_size, input_size
+        self.w_gates = _param(2 * H, D + H)
+        self.b_gates = _param(2 * H)
+        self.w_cand = _param(H, D + H)
+        self.b_cand = _param(H)
+
+    def reset_parameters(self, generator):
+        fan = self.input_size + self.hidden_size
+        for p in (self.w_gates, self.b_gates, self.w_cand, self.b_cand):
+            p.data.copy_(_uniform(generator, p.shape, fan))
+
+    def initial_hidden(self, batch_size, like):
+        return _zeros(batch_size, self.hidden_size, like)
+
+    def step(self, x_t, h):
+        z = torch.cat([x_t, h], dim=-1) @ self.w_gates.T + self.b_gates
+        r, u = torch.sigmoid(z).chunk(2, dim=-1)
+        cand = torch.tanh(torch.cat([x_t, r * h], dim=-1) @ self.w_cand.T
+                          + self.b_cand)
+        h_new = u * h + (1 - u) * cand
+        return h_new, h_new
+
+    def hoist(self, xs):
+        # the gates' and the candidate's input projections side by side
+        # on the last axis: (T, N, 2H) | (T, N, H)
+        D = self.input_size
+        return torch.cat([xs @ self.w_gates[:, :D].T + self.b_gates,
+                          xs @ self.w_cand[:, :D].T + self.b_cand], dim=-1)
+
+    def step_hoisted(self, zx_t, h, invariants):
+        H, D = self.hidden_size, self.input_size
+        zg, zc = zx_t[..., :2 * H], zx_t[..., 2 * H:]
+        z = zg + h @ self.w_gates[:, D:].T
+        r, u = torch.sigmoid(z).chunk(2, dim=-1)
+        cand = torch.tanh(zc + (r * h) @ self.w_cand[:, D:].T)
+        h_new = u * h + (1 - u) * cand
+        return h_new, h_new
+
+
 class MultiRNNCell(Cell):
     """Stack cells vertically; children are named ``"0"``, ``"1"``, ..."""
 
@@ -241,6 +290,28 @@ class Recurrent(Module):
         if self.reverse:
             ys = ys.flip(0)
         return ys.transpose(0, 1)
+
+
+class BiRecurrent(Module):
+    """Bidirectional wrapper: ``fwd`` runs ``cell_fwd`` over time, ``bwd``
+    runs ``cell_bwd`` (a copy of ``cell_fwd`` by default) over reversed
+    time; the outputs are concatenated on the feature axis (``merge=
+    "concat"``) or added."""
+
+    def __init__(self, cell_fwd: Cell, cell_bwd: Optional[Cell] = None,
+                 merge: str = "concat", name: Optional[str] = None):
+        super().__init__(name)
+        import copy
+        self.fwd = Recurrent(cell_fwd)
+        self.bwd = Recurrent(cell_bwd if cell_bwd is not None
+                             else copy.deepcopy(cell_fwd), reverse=True)
+        self.merge = merge
+
+    def forward(self, x):
+        yf, yb = self.fwd(x), self.bwd(x)
+        if self.merge == "concat":
+            return torch.cat([yf, yb], dim=-1)
+        return yf + yb
 
 
 class TimeDistributed(Module):

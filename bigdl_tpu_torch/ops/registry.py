@@ -187,7 +187,9 @@ def _softplus(x):
 _UNOPS = {
     "Neg": torch.neg, "Abs": torch.abs, "Exp": torch.exp, "Log": torch.log,
     "Sqrt": torch.sqrt, "Rsqrt": lambda x: 1.0 / torch.sqrt(x),
-    "Square": torch.square, "Floor": torch.floor, "Ceil": torch.ceil,
+    "Square": lambda x: torch.square(
+        x.to(torch.int32) if x.dtype == torch.bool else x),
+    "Floor": torch.floor, "Ceil": torch.ceil,
     "Round": torch.round, "Sign": torch.sign,
     "Reciprocal": torch.reciprocal, "Tanh": torch.tanh,
     "Sigmoid": torch.sigmoid, "Relu": torch.relu,
@@ -263,6 +265,17 @@ def _reduce_all(x, ax, keep):
         torch.all(x.bool())
 
 
+def _sum_dtype(x):
+    """The dtype of a sum or product of ``x`` in the reference (JAX at
+    32 bits): int32 for bool and signed integers, uint32 for unsigned
+    ones, the input's own for floats.  torch would widen to int64."""
+    if x.is_floating_point() or x.is_complex():
+        return x.dtype
+    if x.dtype in (torch.uint8, torch.uint16, torch.uint32, torch.uint64):
+        return torch.uint32
+    return torch.int32
+
+
 def _make_reduce(kind):
     def op(attrs, x, axis):
         x = _tt(x)
@@ -272,7 +285,8 @@ def _make_reduce(kind):
             ax = tuple(range(x.dim()))
         ax = tuple(a % x.dim() for a in ax) if x.dim() else ()
         if kind == "Sum":
-            return torch.sum(x, dim=ax, keepdim=keep) if ax else x.clone()
+            out = torch.sum(x, dim=ax, keepdim=keep) if ax else x.clone()
+            return out.to(_sum_dtype(x))
         if kind == "Mean":
             return torch.mean(_float_like(x), dim=ax, keepdim=keep) \
                 if ax else _float_like(x).clone()
@@ -283,7 +297,7 @@ def _make_reduce(kind):
             out = x
             for a in sorted(ax, reverse=True):
                 out = torch.prod(out, dim=a, keepdim=keep)
-            return out
+            return out.to(_sum_dtype(x))
         b = x.bool()
         f = torch.all if kind == "All" else torch.any
         out = b
@@ -661,7 +675,8 @@ _UNOPS_R3 = {
     "Log1p": torch.log1p, "Expm1": torch.expm1, "Erfc": torch.erfc,
     "Lgamma": torch.lgamma, "Digamma": torch.digamma,
     "IsNan": torch.isnan, "IsInf": torch.isinf, "IsFinite": torch.isfinite,
-    "Rint": torch.round, "Sin": torch.sin, "Cos": torch.cos,
+    "Rint": lambda x: torch.round(_float_like(x)), "Sin": torch.sin,
+    "Cos": torch.cos,
     "Tan": torch.tan, "Asin": torch.asin, "Acos": torch.acos,
     "Atan": torch.atan, "Sinh": torch.sinh, "Cosh": torch.cosh,
     "Inv": torch.reciprocal,
@@ -758,6 +773,8 @@ def _unsorted_segment_sum(attrs, data, segment_ids, num_segments):
 @register_op("Cumsum")
 def _cumsum(attrs, x, axis):
     x = _tt(x)
+    if x.dtype == torch.bool:  # the reference sums bools as int32
+        x = x.to(torch.int32)
     ax = int(_np(axis))
     rev = bool(attrs.get("reverse", False))
     ex = bool(attrs.get("exclusive", False))

@@ -8,6 +8,8 @@ from bigdl_tpu_torch.optim.optim_method import (LBFGS, SGD, Adadelta,
 from bigdl_tpu_torch.optim.optimizer import (LocalOptimizer, Optimizer,
                                              clip_by_global_norm,
                                              clip_by_value, global_norm)
+from bigdl_tpu_torch.optim.predictor import (Evaluator, PredictionService,
+                                             Predictor)
 from bigdl_tpu_torch.optim.schedules import (Default, EpochDecay,
                                              EpochDecayWithWarmUp,
                                              EpochSchedule, EpochStep,
@@ -26,12 +28,13 @@ from bigdl_tpu_torch.optim.validation import (MAE, NDCG, HitRatio, Loss,
                                               ValidationResult)
 
 __all__ = ["Adadelta", "Adagrad", "Adam", "Adamax", "Default", "DistriOptimizer", "EpochDecay", "EpochDecayWithWarmUp",
-           "EpochSchedule", "EpochStep", "Exponential", "Ftrl", "HitRatio",
+           "EpochSchedule", "EpochStep", "Evaluator", "Exponential", "Ftrl",
+           "HitRatio",
            "LBFGS",
            "LearningRateSchedule", "LocalOptimizer", "Loss", "MAE",
            "MultiStep", "NDCG", "NaturalExp", "OptimMethod", "Optimizer",
            "ParallelAdam", "RMSprop",
-           "Plateau", "Poly", "SGD", "SequentialSchedule", "Step",
+           "Plateau", "Poly", "PredictionService", "Predictor", "SGD", "SequentialSchedule", "Step",
            "Top1Accuracy", "Top5Accuracy", "TreeNNAccuracy", "Trigger",
            "ValidationMethod", "ValidationResult", "Warmup",
            "clip_by_global_norm", "clip_by_value", "every_epoch",

@@ -100,8 +100,7 @@ from bigdl_tpu_torch.checkpoint import (CheckpointManager, PreemptionHandler,
 from bigdl_tpu_torch.checkpoint.schema import describe_params
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
 from bigdl_tpu_torch.dataset.prefetch import (DeviceBlockStager, StagedBlock,
-                                              fast_forward_records, tree_map)
-from bigdl_tpu_torch.dataset.sample import MiniBatch
+                                              fast_forward_records)
 from bigdl_tpu_torch.engine import Engine, resolve_device
 from bigdl_tpu_torch.interop.jax_weights import (from_jax_tree, jax_tree,
                                                  load_jax_params)
@@ -114,7 +113,8 @@ from bigdl_tpu_torch.nn.regularizers import (has_regularizers,
 from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
 from bigdl_tpu_torch.optim.trigger import Trigger, max_epoch, probe_fire_step
 from bigdl_tpu_torch.optim.validation import (ValidationMethod,
-                                              ValidationResult)
+                                              ValidationResult,
+                                              validation_sums)
 from bigdl_tpu_torch.parallel.grad_sync import state_leaves
 from bigdl_tpu_torch.resilience.faults import FaultInjector, InjectedFault
 from bigdl_tpu_torch.resilience.membership import (ClusterMembership,
@@ -696,31 +696,11 @@ class Optimizer:
     def evaluate_with(self, net: torch.nn.Module) -> dict:
         """The validation set through ``net`` in eval mode under
         ``torch.no_grad()``: ``{method name: ValidationResult}``.  Each
-        method's sum stays on the card in f64 until the pass ends."""
-        device = next(net.parameters()).device
-        to_dev = lambda a: (a if isinstance(a, torch.Tensor)  # noqa: E731
-                            else torch.from_numpy(np.asarray(a))).to(device)
-        sums: dict = {}
-        counts: dict = {}
-        was_training = net.training
-        net.eval()
-        try:
-            with torch.no_grad():
-                for batch in self.validation_dataset.data(train=False):
-                    if not isinstance(batch, MiniBatch):
-                        raise TypeError("validation dataset must yield "
-                                        "MiniBatch (attach "
-                                        "SampleToMiniBatch)")
-                    out = net(tree_map(to_dev, batch.input))
-                    tgt = tree_map(to_dev, batch.target)
-                    for m in self.validation_methods:
-                        v, c = m.batch_stats(out, tgt)
-                        v = torch.as_tensor(v, device=device).double()
-                        sums[m.name] = sums[m.name] + v \
-                            if m.name in sums else v
-                        counts[m.name] = counts.get(m.name, 0) + c
-        finally:
-            net.train(was_training)
+        method's sum stays on the card in f64 until the pass ends
+        (:func:`~bigdl_tpu_torch.optim.validation.validation_sums`, the
+        loop ``Evaluator`` runs too)."""
+        sums, counts = validation_sums(net, self.validation_dataset,
+                                       self.validation_methods)
         sums, counts = self._reduce_validation(sums, counts)
         if not sums:
             raise ValueError(

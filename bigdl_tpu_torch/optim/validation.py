@@ -4,9 +4,10 @@ Each method's ``batch_stats(output, target) -> (value, count)`` is plain
 tensor code on the output's device; ``value`` is a 0-d tensor, ``count`` a
 Python int.  A :class:`ValidationResult` is an associative ``(value,
 count)`` pair, so per-batch results add up across a validation pass.
-``Optimizer.evaluate_with`` keeps the running value on the card, in f64
-(the reference adds per-batch Python floats: the same f64 sums in the same
-order), and reads it back once a method at the end of the pass.
+:func:`validation_sums`, the loop of ``Optimizer.evaluate_with`` and of
+``Evaluator``, keeps the running value on the card, in f64 (the reference
+adds per-batch Python floats: the same f64 sums in the same order), and
+the caller reads it back once a method at the end of the pass.
 """
 
 from __future__ import annotations
@@ -141,3 +142,38 @@ class TreeNNAccuracy(ValidationMethod):
     def batch_stats(self, output, target):
         pred = torch.argmax(output[:, 0], dim=-1)
         return torch.sum(pred == target.to(pred.dtype)), target.shape[0]
+
+
+def validation_sums(net: torch.nn.Module, dataset, methods):
+    """``dataset``'s batches through ``net`` in eval mode under
+    ``torch.no_grad()``, on the device of ``net``'s parameters: ``(sums,
+    counts)``, each ``{method name: ...}``, the sums f64 0-d tensors on
+    that device.  Empty dicts when the dataset yields no batch."""
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset.prefetch import tree_map
+    from bigdl_tpu_torch.dataset.sample import MiniBatch
+    device = next(net.parameters()).device
+    to_dev = lambda a: (a if isinstance(a, torch.Tensor)  # noqa: E731
+                        else torch.from_numpy(np.asarray(a))).to(device)
+    sums: dict = {}
+    counts: dict = {}
+    was_training = net.training
+    net.eval()
+    try:
+        with torch.no_grad():
+            for batch in dataset.data(train=False):
+                if not isinstance(batch, MiniBatch):
+                    raise TypeError("validation dataset must yield "
+                                    "MiniBatch (attach SampleToMiniBatch)")
+                out = net(tree_map(to_dev, batch.input))
+                tgt = tree_map(to_dev, batch.target)
+                for m in methods:
+                    v, c = m.batch_stats(out, tgt)
+                    v = torch.as_tensor(v, device=device).double()
+                    sums[m.name] = sums[m.name] + v \
+                        if m.name in sums else v
+                    counts[m.name] = counts.get(m.name, 0) + c
+    finally:
+        net.train(was_training)
+    return sums, counts

@@ -72,18 +72,18 @@ class ModelRegistry:
     def deploy(self, name: str, model=None, *, path: Optional[str] = None,
                format: Optional[str] = None, version: Optional[int] = None,
                quantize=False, prototxt: Optional[str] = None,
-               weights: Optional[str] = None,
+               weights=None,
                tf_inputs: Optional[List[str]] = None,
                tf_outputs: Optional[List[str]] = None,
                **service_kw) -> InferenceService:
         """Deploy ``model`` (or one loaded from ``path`` in ``format``:
         ``bigdl``, ``caffe`` with ``prototxt=``, ``torch``, ``tensorflow``
-        with ``tf_inputs=``/``tf_outputs=``) as ``name``:``version``, on
-        the registry's device.  ``service_kw`` flows to
-        :class:`InferenceService` (``input_spec`` for deploy-time warmup,
-        batching/backpressure knobs, ``start=False``...).  ``format=
-        "keras"`` (with ``weights=``) raises ``NotImplementedError``: the
-        Keras loaders come with the next port slice.
+        with ``tf_inputs=``/``tf_outputs=``, ``keras`` (a Keras-1.2 JSON
+        definition) with ``weights=``, a Keras HDF5 file or the arrays in
+        Keras order) as ``name``:``version``, on the registry's device.
+        ``service_kw`` flows to :class:`InferenceService` (``input_spec``
+        for deploy-time warmup, batching/backpressure knobs,
+        ``start=False``...).
 
         ``quantize``: False (default) deploys as-is; True int8-quantizes
         on the way in with the ``Config.int8_activation_mode`` default; a
@@ -96,7 +96,8 @@ class ModelRegistry:
             from bigdl_tpu_torch.interop.convert_model import load_model
             # loaded on the CPU; the service moves it to self.device once
             model = load_model(format, path, prototxt=prototxt,
-                               tf_inputs=tf_inputs, tf_outputs=tf_outputs)
+                               tf_inputs=tf_inputs, tf_outputs=tf_outputs,
+                               weights=weights)
         if quantize:
             from bigdl_tpu_torch.nn.quantized import quantize as _quantize
             model = _quantize(

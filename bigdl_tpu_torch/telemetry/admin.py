@@ -23,7 +23,8 @@ the first HTTP beachhead for ROADMAP item 1's RPC front end:
   as Chrome-trace JSON (one pid per source, mergeable in Perfetto).
 - ``GET /flight`` — the flight-recorder ring as JSON.
 - ``GET /profile?seconds=N`` — on-demand ``torch.profiler`` capture via
-  the ``utils/profiling`` bridge; returns the trace's log dir.  The one
+  the ``utils/profiling`` bridge; returns the trace's log dir, with the
+  window's device events, kernel launches and retakes.  The one
   endpoint that may sync the device — it exists to be the opt-in deep
   dive, never scraped.
 
@@ -269,9 +270,10 @@ class AdminServer:
             from bigdl_tpu_torch.utils.profiling import profile_window
             with self._lock:
                 tracer = next(iter(self._tracers.values()), None)
+            stats = {}
             log_dir = profile_window(seconds, log_dir=self.profile_dir,
-                                     tracer=tracer)
-            return {"log_dir": log_dir, "seconds": seconds}
+                                     tracer=tracer, stats=stats)
+            return {"log_dir": log_dir, "seconds": seconds, **stats}
         finally:
             self._profile_lock.release()
 

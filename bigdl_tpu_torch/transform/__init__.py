@@ -1,13 +1,18 @@
 """Image transforms of the port (``bigdl_tpu.transform`` twins)."""
 
-from bigdl_tpu_torch.transform.vision import (CenterCrop, ChainedFeature,
-                                              ChannelNormalize,
-                                              FeatureTransformer, HFlip,
-                                              ImageFeature,
-                                              ImageFrameToSample,
-                                              RandomAlterAspect, RandomCrop,
-                                              Resize)
+from bigdl_tpu_torch.transform.vision import (
+    AspectScale, Brightness, CenterCrop, ChainedFeature, ChannelNormalize,
+    ChannelOrder, ChannelScaledNormalizer, ColorJitter, Contrast, Expand,
+    FeatureTransformer, Filler, FixedCrop, HFlip, Hue, ImageFeature,
+    ImageFrame, ImageFrameToSample, Lighting, LocalImageFrame, MatToFloats,
+    PixelNormalizer, RandomAlterAspect, RandomAspectScale, RandomCrop,
+    RandomResize, RandomTransformer, Resize, Saturation)
 
-__all__ = ["CenterCrop", "ChainedFeature", "ChannelNormalize",
-           "FeatureTransformer", "HFlip", "ImageFeature",
-           "ImageFrameToSample", "RandomAlterAspect", "RandomCrop", "Resize"]
+__all__ = [
+    "AspectScale", "Brightness", "CenterCrop", "ChainedFeature",
+    "ChannelNormalize", "ChannelOrder", "ChannelScaledNormalizer",
+    "ColorJitter", "Contrast", "Expand", "FeatureTransformer", "Filler",
+    "FixedCrop", "HFlip", "Hue", "ImageFeature", "ImageFrame",
+    "ImageFrameToSample", "Lighting", "LocalImageFrame", "MatToFloats",
+    "PixelNormalizer", "RandomAlterAspect", "RandomAspectScale", "RandomCrop",
+    "RandomResize", "RandomTransformer", "Resize", "Saturation"]

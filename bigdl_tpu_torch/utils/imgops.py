@@ -93,6 +93,9 @@ class ThreadRng:
     def permutation(self, n):
         return self._gen().permutation(n)
 
+    def choice(self, a, size=None, p=None):
+        return self._gen().choice(a, size=size, p=p)
+
 
 def lighting_delta(rng, alphastd: float) -> np.ndarray:
     """Per-image RGB offset of AlexNet PCA lighting noise."""

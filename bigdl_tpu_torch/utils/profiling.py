@@ -163,23 +163,57 @@ def _write_trace(prof, log_dir: str) -> None:
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
 
+# host calls that launch a kernel, as a profiler trace names them
+_LAUNCH_CALLS = frozenset((
+    "cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel",
+    "cuLaunchKernel", "cuLaunchKernelEx"))
+# a window whose trace records kernel launches and no device activity at
+# all is the profiler's fault (torch 2.11's kineto on an H100 now and then
+# hands back such a session, see PERF.md) and is taken again, this many
+# times at most
+WINDOW_RETAKES = 3
+
+
+def _device_counts(prof) -> Tuple[int, int]:
+    """(device activities, kernel launch calls) in a finished session."""
+    from torch.autograd import DeviceType
+    device = launches = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            device += 1
+        elif e.name() in _LAUNCH_CALLS:
+            launches += 1
+    return device, launches
+
+
 def profile_window(seconds: float, log_dir: Optional[str] = None,
-                   tracer=None) -> str:
+                   tracer=None, stats: Optional[dict] = None) -> str:
     """Wall-clock ``torch.profiler`` capture: whatever the process runs
     for the next ``seconds`` (the card's kernels included, from any
     thread) lands in ``<log_dir>/trace.json``.  The admin plane's
     ``/profile?seconds=N`` endpoint is a thin shim over this — the
-    on-demand deep dive for a live process.  Returns the log dir."""
+    on-demand deep dive for a live process.  A window that recorded
+    kernel launches but no device activity is taken again, up to
+    ``WINDOW_RETAKES`` times; ``stats``, where given, receives the kept
+    window's ``device_events`` and ``launches`` and the ``retakes``.
+    Returns the log dir."""
     if log_dir is None:
         log_dir = tempfile.mkdtemp(prefix="bigdl_tpu_torch_profile_")
-    span = (tracer.span("torch_profiler_window", cat="profiler",
-                        log_dir=log_dir, seconds=seconds)
-            if tracer is not None else nullcontext())
-    with span:
-        with torch.profiler.profile(activities=_activities()) as prof:
-            time.sleep(float(seconds))
-            if torch.cuda.is_available():
-                torch.cuda.synchronize()
+    for retake in range(WINDOW_RETAKES + 1):
+        span = (tracer.span("torch_profiler_window", cat="profiler",
+                            log_dir=log_dir, seconds=seconds)
+                if tracer is not None else nullcontext())
+        with span:
+            with torch.profiler.profile(activities=_activities()) as prof:
+                time.sleep(float(seconds))
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+        device, launches = _device_counts(prof)
+        if device or not launches:
+            break
+    if stats is not None:
+        stats.update(device_events=device, launches=launches,
+                     retakes=retake)
     _write_trace(prof, log_dir)
     return log_dir
 

@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (``bigdl_tpu_torch``) on one NVIDIA card.
 
-Drives the port's fourteen main paths and holds every kernel of them against
+Drives the port's sixteen main paths and holds every kernel of them against
 its plain PyTorch version.  Serving: an int8-quantized ResNet-50 (1000
 classes, 224x224, NCHW, random weights from a seed) served by
 ``ModelRegistry`` with ``quantize=True`` (weight_only) and
@@ -43,7 +43,13 @@ sentence chain and the text CNN of ``examples/textclassification/train.py``;
 and every layer and criterion of the nn core that the text slice added;
 and the resilience and telemetry plane around PTB-medium, LeNet-5 and the
 int8 serving path (fault plans, elastic membership over two processes,
-the tracer, watchdogs, flight recorder, admin plane, lockdep, spmdcheck).
+the tracer, watchdogs, flight recorder, admin plane, lockdep, spmdcheck);
+and models read from files (BigDL, Caffe, Torch7, TensorFlow); and batch
+prediction, evaluation and the estimator (``Predictor``, ``Evaluator``,
+``PredictionService``, ``NNClassifier``, the image chain), with the int8
+ResNet-50 on B4 and LeNet-5's pools on B1; and the Keras surface (the
+Keras LeNet on B1, Keras text classifiers with a bidirectional LSTM on
+B2f/B2b, a Keras JSON deployed, ``TFSession``).
 Phases, each printing its seconds:
 
 1. the card: name, count, ``nvidia-smi`` name and power limit;
@@ -247,7 +253,31 @@ Phases, each printing its seconds:
    dispatch; the Caffe and GraphDef files served in float within
    ``INTEROP_TOL``; a hand-built TF while loop (two loop variables, a
    nested frame) on the card bitwise the CPU.  The files live in a
-   temporary directory removed at the end.
+   temporary directory removed at the end;
+28. predict: LeNet-5 (seeded) written to ``.bigdl``, loaded, evaluated by
+   ``Evaluator`` (Top-1, Top-5, Loss) over the 10,000 validation images
+   at batch 128 (a 16-row last batch) and predicted by ``Predictor``,
+   against the CPU (counts equal, hits equal but at near ties, the
+   log-probabilities within ``PREDICT_TOL``, a limit two planted faults
+   must exceed); the int8 ResNet-50 in both modes through ``Predictor``
+   over 100 images at batch 32 (a 4-row tail padded to 32; B4 54
+   launches a forward, the row probe's included) and ``PredictionService``
+   (8 threads x 4 requests of 1-4 rows), every row against the CPU;
+   Inception v1 over 64 PNGs (280x320) read by ``ImageFrame.read``
+   through the image-classification example's chain; ``NNClassifier``
+   (LeNet-5, 3 epochs of 4,096, B1 2 a step, ``transform`` against the
+   CPU's argmax) and the ML-pipeline example's two small estimators;
+29. keras: the Keras LeNet of ``examples/lenet/train_keras.py`` (compile,
+   fit 3 epochs of 4,096 with validation, evaluate, predict; B1 2 a
+   step; a K=4 block against the CPU step by step within ``KERAS_TOL``,
+   two planted faults), its Keras-1.2 JSON loaded, the trained weights
+   set in Keras order and deployed from the file; two text classifiers
+   (``Embedding >> Bidirectional(LSTM(128)|GRU(128)) >> Dense(20)``)
+   over ``synthetic_news(4096, 20)`` padded to 200 tokens, batch 128, B2f
+   and B2b 400 launches an LSTM step, one step of each against the CPU;
+   B2f/B2b at (128, 128) against their plain versions and timed;
+   ``TFSession`` training a re-imported GraphDef and a queue-fed one
+   over a TFRecord file.
 
 The last lines are the card, the kernel table and the result as JSON; any
 failed check raises and the script exits non-zero.  Without a CUDA card it
@@ -256,7 +286,8 @@ fails at once.  Run from the repository root:
     python3 chip_smoke.py [--seed N] [--json-out PATH]
                           [--phases resnet,lstm,resnet-train,wide-deep,lenet,
                                     distri,cifar,inception,autoencoder,remat,
-                                    text,nn-core,resilience,interop]
+                                    text,nn-core,resilience,interop,
+                                    predict,keras]
 
 ``--phases resnet-conditioning`` adds a diagnostic that is not run by
 default: the check phase's path reading at residual gammas 0 to 1, beside
@@ -351,11 +382,11 @@ LSTM_KERNELS = {
                       "replaces": "bigdl_tpu/ops/pallas_lstm.py:181"},
 }
 # (N, H): PTB-medium's, PTB-small's (the text path's), tiny, ragged, N
-# above one 32-row batch tile (37, 64), and an odd H (333) that the
+# above one 32-row batch tile (37, 64), an odd H (333) that the
 # forward's eight K slices do not divide and whose bf16 rows take its
-# plain-load copies
+# plain-load copies, and the Keras text classifier's (128, 128)
 CELL_SHAPES = [(20, 650), (20, 200), (1, 64), (5, 130), (37, 650), (64, 650),
-               (20, 333)]
+               (20, 333), (128, 128)]
 # elementwise operations per hidden unit (transcendentals counted as one)
 CELL_EW_OPS = {"lstm_cell_fwd": 20, "lstm_cell_bwd": 36}
 # kernel against plain version (rtol = atol): bf16 results within one bf16
@@ -5625,32 +5656,40 @@ class AdminPoller:
     """A client thread that, while a run is going, asks the admin plane
     for each of ``paths`` until each has answered once and, with
     ``profile_tries``, takes ``/profile?seconds=1`` captures until one
-    holds B2f's kernel (at most that many: a torch.profiler session now
-    and then holds no kernel at all, section 7 of PERF.md).  ``done`` is
-    set when it has all it asked for."""
+    holds B2f's kernel (at most that many), the first once ``started`` is
+    set.  ``done`` is set when it has all it asked for."""
 
-    def __init__(self, port, paths, profile_tries=0):
+    def __init__(self, port, paths, profile_tries=0, started=None):
         self.port, self.paths, self.tries = port, paths, profile_tries
+        self.started = started
         self.answers = {}
-        self.captures = []  # (status, kernels, B2f kernels) a capture
+        # (status, kernels, B2f kernels, the window's retakes) a capture
+        self.captures = []
         self.done = threading.Event()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
 
     def _capture(self):
-        code, body = admin_get(self.port, "/profile?seconds=1")
-        kernels = []
+        try:
+            code, body = admin_get(self.port, "/profile?seconds=1")
+        except OSError as e:  # recorded: the check then fails on it
+            self.captures.append((repr(e), 0, 0, None))
+            return
+        kernels, retakes = [], None
         if code == 200:
-            log_dir = json.loads(body)["log_dir"]
-            with open(os.path.join(log_dir, "trace.json")) as f:
+            answer = json.loads(body)
+            retakes = answer["retakes"]
+            with open(os.path.join(answer["log_dir"], "trace.json")) as f:
                 kernels = [e["name"] for e in json.load(f)["traceEvents"]
                            if e.get("cat") == "kernel"]
         self.captures.append((code, len(kernels), sum(
-            "lstm_cell_fwd" in k for k in kernels)))
+            "lstm_cell_fwd" in k for k in kernels), retakes))
 
     def _run(self):
         from bigdl_tpu_torch.telemetry import admin
-        while not self._stop.is_set() and admin.current() is None:
+        while not self._stop.is_set() and (
+                admin.current() is None or self.started is not None
+                and not self.started.is_set()):
             time.sleep(0.005)
         while not self._stop.is_set():
             for path in self.paths:
@@ -5839,16 +5878,23 @@ def ptb_telemetry_checks(init, samples, val, seed, device, card, report,
     checks["metrics_holds_the_driver"] = 'source="driver"' in metrics
 
     # a third run, training until a /profile?seconds=1 capture taken
-    # while it trains holds B2f (RESIL["profile_tries"] captures at most,
-    # RESIL["profile_steps"] steps at most)
+    # while it trains (from the end of its first block) holds B2f
+    # (RESIL["profile_tries"] captures at most, RESIL["profile_steps"]
+    # steps at most)
     config.configure(admin_port=port)
+    trained = threading.Event()
+
+    def end(s):
+        if s["neval"] > 0:
+            trained.set()
+        return prof_poll.done.is_set() or s["neval"] >= RESIL["profile_steps"]
+
     try:
-        with AdminPoller(port, (), RESIL["profile_tries"]) as prof_poll:
+        with AdminPoller(port, (), RESIL["profile_tries"],
+                         started=trained) as prof_poll:
             ptb_telemetry_run(
                 init, samples, seed, device, RESIL["profile_steps"], val,
-                tel=os.path.join(tmp, "ptb_trace3.json"),
-                end=lambda s: prof_poll.done.is_set()
-                or s["neval"] >= RESIL["profile_steps"])
+                tel=os.path.join(tmp, "ptb_trace3.json"), end=end)
     finally:
         admin.reset()
         config.reset_config()
@@ -5877,7 +5923,7 @@ def ptb_telemetry_checks(init, samples, val, seed, device, card, report,
           f"{sorted(set(events))}; lockdep {proxies} locks, "
           f"{len(cycles)} cycles; spmdcheck {notes} notes; launches "
           f"{on_n} (+ validation {on_val}); /profile captures (status, "
-          f"kernels, B2f kernels): {captures} [{card}]")
+          f"kernels, B2f kernels, retakes): {captures} [{card}]")
     report["resilience_ptb"] = {
         "checks": checks, "off_s": off_s, "on_s": on_s, "steps": steps,
         "losses": on_l, "phase_fractions": dogs["phase_fractions"],
@@ -5888,7 +5934,9 @@ def ptb_telemetry_checks(init, samples, val, seed, device, card, report,
               and k != "admin_answered"]
     if failed:
         raise AssertionError(f"resilience ptb check failed: {failed}: "
-                             f"{ {k: checks[k] for k in failed} }")
+                             f"{ {k: checks[k] for k in failed} }; "
+                             f"/profile captures (status, kernels, B2f "
+                             f"kernels, retakes): {captures}")
     return on_n
 
 
@@ -6396,12 +6444,12 @@ def file_roundtrip(label, save, load, paths, x, device, card, report):
     return model, y
 
 
-def transposed_conv_copy(model, index=FILE_FAULT_CONV):
-    """A copy of ``model`` whose ``index``-th 3x3 convolution has its
-    kernel transposed (kh <-> kw): the planted file fault."""
+def transposed_conv_copy(model, index=FILE_FAULT_CONV, kernel=(3, 3)):
+    """A copy of ``model`` whose ``index``-th ``kernel`` convolution has
+    its kernel transposed (kh <-> kw): the planted file fault."""
     bad = copy.deepcopy(model)
     convs = [m for m in bad.modules() if isinstance(m, nn.SpatialConvolution)
-             and m.kernel == (3, 3)]
+             and m.kernel == kernel]
     w = convs[min(index, len(convs) - 1)].weight
     with torch.no_grad():
         w.copy_(w.transpose(2, 3).contiguous())
@@ -6691,9 +6739,840 @@ def interop_phase(seed, device, card, report):
     return launches
 
 
+PREDICT = {"lenet_batch": 128, "resnet_images": 100, "resnet_batch": 32,
+           "service_threads": 8, "service_requests": 4, "images": 64,
+           "image_hw": (280, 320), "image_batch": 32, "fit_images": 4096,
+           "fit_epochs": 3, "lr_points": 512, "lr_epochs": 20,
+           "mse_points": 256, "mse_epochs": 20}
+# card against CPU, each output as a share of the CPU's max|y|: LeNet's
+# log-probabilities and the image chain's Inception logits (f32; sound
+# readings ~1.4e-7 to 1.9e-7), the int8 ResNet-50 at the served limit
+# (SERVE_TOL; weight_only reads 6.9e-6 over 100 images); each limit
+# between the sound reading and the two planted faults every run measures
+# and requires to exceed it (the seeded Inception's logits barely move
+# with their input: its faults read ~2e-4)
+PREDICT_TOL = {"lenet": 1e-5, "int8": 1e-5, "inception": 1e-5}
+
+
+def near_ties(logp, k, tol):
+    """Rows of ``logp`` whose k-th and (k+1)-th largest scores lie within
+    ``tol`` of max|logp| (their top-k set may differ between two sound
+    devices)."""
+    top = torch.topk(logp, k + 1, dim=-1).values
+    gap = top[:, k - 1] - top[:, k]
+    return int((gap <= tol * logp.abs().max()).sum())
+
+
+def predict_reading(y, want):
+    """max|y - want| / max|want| of two host arrays."""
+    return tensor_rel(torch.as_tensor(y), torch.as_tensor(want))
+
+
+def held_predictions(label, y, want, faults, tol, card, report):
+    """The card's predictions ``y`` against the CPU's ``want`` within
+    ``tol`` of max|want|; each of ``faults`` ({name: predictions}) must
+    read above it.  Returns the sound reading."""
+    sound = predict_reading(y, want)
+    readings = {k: predict_reading(v, want) for k, v in faults.items()}
+    print(f"predict {label} card vs cpu: max|dy|/max|y| {sound:.3e} (limit "
+          f"{tol}); planted faults "
+          + ", ".join(f"{k} {v:.3e}" for k, v in readings.items())
+          + f" [{card}]")
+    report["predict"][label] = {"reading": sound, "limit": tol,
+                                "planted_faults": readings}
+    if not (np.isfinite(y).all() and y.shape == want.shape
+            and sound <= tol):
+        raise AssertionError(f"predict {label}: {y.shape} vs {want.shape}, "
+                             f"reading {sound} over {tol}")
+    for k, v in readings.items():
+        if not v > tol:
+            raise AssertionError(f"predict {label}: planted fault {k} reads "
+                                 f"{v}, inside {tol}: the check is blind")
+    return sound
+
+
+def scaled_copy(model, index, factor=127 / 128):
+    """A copy of ``model`` whose child ``index``'s weight is scaled."""
+    bad = copy.deepcopy(model)
+    with torch.no_grad():
+        bad[index].weight.mul_(factor)
+    return bad
+
+
+def scaled_int8_copy(qmodel, index=20, factor=127 / 128):
+    """A copy of the quantized ``qmodel`` whose ``index``-th quantized
+    convolution has its per-channel weight scales scaled."""
+    bad = copy.deepcopy(qmodel)
+    convs = [m for m in bad.modules()
+             if isinstance(m, QuantizedSpatialConvolution)]
+    with torch.no_grad():
+        convs[min(index, len(convs) - 1)].weight_scale.mul_(factor)
+    return bad
+
+
+def predict_lenet(seed, device, card, report, tmp):
+    """LeNet-5 (seeded) through ``.bigdl``, evaluated by ``Evaluator``
+    (Top-1, Top-5, Loss) over the 10,000 validation images at batch 128
+    and predicted by ``Predictor``, on the card and on the CPU."""
+    from bigdl_tpu_torch import interop
+    from bigdl_tpu_torch.optim import Evaluator, Predictor
+    path = os.path.join(tmp, "lenet.bigdl")
+    interop.save_bigdl_module(lenet5(10).initialize(seed + 11), path)
+    model = interop.load_bigdl_module(path)
+    cpu_model = copy.deepcopy(model)
+    _, val = lenet_data()
+    ds = lenet_pipeline(val, False, batch=PREDICT["lenet_batch"])
+    methods = [optim.Top1Accuracy(), optim.Top5Accuracy(),
+               optim.Loss(nn.ClassNLLCriterion())]
+    t0 = time.monotonic()
+    got = Evaluator(model, device=device).evaluate(ds, methods)
+    eval_s = time.monotonic() - t0
+    want = Evaluator(cpu_model, device="cpu").evaluate(ds, methods)
+    x = np.concatenate([b.input for b in ds.data(train=False)])
+    t0 = time.monotonic()
+    y = Predictor(model, batch_size=PREDICT["lenet_batch"],
+                  device=device).predict(x)
+    predict_s = time.monotonic() - t0
+    y_cpu = Predictor(cpu_model, batch_size=PREDICT["lenet_batch"],
+                      device="cpu").predict(x)
+    tol = PREDICT_TOL["lenet"]
+    logp = torch.from_numpy(y_cpu)
+    ties = {"Top1Accuracy": near_ties(logp, 1, tol),
+            "Top5Accuracy": near_ties(logp, 5, tol)}
+    rows = {}
+    for name in want:
+        g, w = got[name], want[name]
+        rows[name] = {"card": g.result, "cpu": w.result,
+                      "count": [g.count, w.count]}
+        if g.count != w.count:
+            raise AssertionError(f"Evaluator {name} counted {g.count} on "
+                                 f"the card, {w.count} on the CPU")
+        if name in ties:
+            if abs(g.value - w.value) > ties[name]:
+                raise AssertionError(
+                    f"Evaluator {name}: {g.value} hits on the card, "
+                    f"{w.value} on the CPU, {ties[name]} near ties")
+        elif not abs(g.result - w.result) <= tol * abs(w.result):
+            raise AssertionError(f"Evaluator Loss {g.result} on the card, "
+                                 f"{w.result} on the CPU")
+    faults = {
+        "fc1_weight_127_128": Predictor(
+            scaled_copy(cpu_model, 8), batch_size=PREDICT["lenet_batch"],
+            device=device).predict(x),
+        "conv1_kernel_transposed": Predictor(
+            transposed_conv_copy(cpu_model, 0, (5, 5)),
+            batch_size=PREDICT["lenet_batch"], device=device).predict(x)}
+    print(f"predict lenet.bigdl Evaluator over {x.shape[0]} images at batch "
+          f"{PREDICT['lenet_batch']} (last batch "
+          f"{x.shape[0] % PREDICT['lenet_batch']}): "
+          + ", ".join(f"{k} card {v['card']:.6f} cpu {v['cpu']:.6f} "
+                      f"({int(v['count'][0])} samples)"
+                      for k, v in rows.items())
+          + f"; near ties {ties}; Evaluator {eval_s:.2f} s, Predictor "
+          f"{predict_s:.2f} s [{card}]")
+    report["predict"]["lenet_evaluator"] = rows
+    held_predictions("lenet", y, y_cpu, faults, tol, card, report)
+
+
+def predict_int8_resnet(seed, device, card, report):
+    """The int8 ResNet-50 (both modes) predicted by ``Predictor`` over 100
+    images at batch 32 (three batches and a 4-row tail padded to 32),
+    every row against the CPU; B4 launches 54 a forward, the probe's
+    forwards included.  Then ``PredictionService`` (weight_only) with 8
+    threads x 4 requests of 1-4 rows, each against the CPU.  Returns
+    {mode: B4 launches}."""
+    from bigdl_tpu_torch.optim import PredictionService, Predictor
+    B, n = PREDICT["resnet_batch"], PREDICT["resnet_images"]
+    gen = torch.Generator().manual_seed(seed + 12)
+    x = torch.randn((n,) + SPEC[0], generator=gen).numpy()
+    float_model = resnet50().initialize(seed)
+    tol = PREDICT_TOL["int8"]
+    launches = {}
+    for mode in ("weight_only", "dynamic"):
+        qmodel = quantize(float_model, mode=mode)
+        cpu_model = copy.deepcopy(qmodel)
+        forwards = [0]
+        hook = qmodel.register_forward_pre_hook(
+            lambda m, i: forwards.__setitem__(0, forwards[0] + 1))
+        pred = Predictor(qmodel, batch_size=B, device=device)
+        int8_gemm.reset_counts()
+        t0 = time.monotonic()
+        y = pred.predict(x)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches[mode] = int8_gemm.launches
+        hook.remove()
+        want = Predictor(cpu_model, batch_size=B, device="cpu").predict(x)
+        faults = {
+            "conv_kernel_transposed": Predictor(
+                quantize(transposed_conv_copy(float_model), mode=mode),
+                batch_size=B, device=device).predict(x),
+            "conv_scale_127_128": Predictor(
+                scaled_int8_copy(cpu_model), batch_size=B,
+                device=device).predict(x)}
+        print(f"predict int8 resnet50 {mode}: {n} images at batch {B} "
+              f"({n // B} batches, a {n % B}-row tail padded to {B}) in "
+              f"{wall:.2f} s, {forwards[0]} forwards (the row probe's "
+              f"included), B4 {launches[mode]} launches "
+              f"({ {v: c for v, c in int8_gemm.variant_launches.items() if c} }) "
+              f"[{card}]")
+        if launches[mode] != INTEROP["gemms"] * forwards[0]:
+            raise AssertionError(f"B4 launched {launches[mode]} times in "
+                                 f"{forwards[0]} forwards")
+        held_predictions(f"int8_{mode}", y, want, faults, tol, card, report)
+        report["predict"][f"int8_{mode}"].update(
+            launches=launches[mode], forwards=forwards[0], wall_s=wall)
+        del pred, faults
+        torch.cuda.empty_cache()
+
+    # PredictionService: concurrent callers coalesced by the engine
+    qmodel = quantize(float_model, mode="weight_only")
+    cpu_model = copy.deepcopy(qmodel)
+    svc = PredictionService(qmodel, batch_size=B, device=device,
+                            input_spec=SPEC)
+    got, errors = {}, []
+
+    def client(tid):
+        rng = np.random.default_rng(seed * 100 + tid)
+        try:
+            for r in range(PREDICT["service_requests"]):
+                xr = rng.normal(0, 1, (int(rng.integers(1, 5)),)
+                                + SPEC[0]).astype(np.float32)
+                got[tid, r] = (xr, svc.predict(xr))
+        except Exception as e:  # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(PREDICT["service_threads"])]
+    int8_gemm.reset_counts()
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.monotonic() - t0
+    service_launches = int8_gemm.launches
+    stats = svc.stats()
+    svc.stop()
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"PredictionService client failures: "
+                           f"{errors[:3]}")
+    worst = 0.0
+    with torch.no_grad():
+        for xr, yr in got.values():
+            want = cpu_model(torch.from_numpy(xr))
+            worst = max(worst, predict_reading(yr, want.numpy()))
+    rows = sum(len(v[0]) for v in got.values())
+    print(f"predict PredictionService int8 weight_only: {len(got)} requests "
+          f"({rows} rows) from {PREDICT['service_threads']} threads in "
+          f"{stats['dispatch_count']} dispatches, {wall:.2f} s, "
+          f"request_count {svc.request_count}; B4 {service_launches} "
+          f"launches; each request vs the CPU alone: max|dy|/max|y| "
+          f"{worst:.3e} (limit {tol}) [{card}]")
+    report["predict"]["prediction_service"] = {
+        "requests": len(got), "rows": rows, "wall_s": wall,
+        "dispatches": stats["dispatch_count"], "reading": worst,
+        "limit": tol, "launches": service_launches}
+    if not (worst <= tol and svc.request_count == len(got)
+            and service_launches == INTEROP["gemms"]
+            * stats["dispatch_count"]):
+        raise AssertionError(f"PredictionService: reading {worst}, "
+                             f"{service_launches} launches in "
+                             f"{stats['dispatch_count']} dispatches")
+    launches["weight_only"] += service_launches
+    return launches
+
+
+def write_images(folder, n, hw, seed):
+    """``n`` seeded RGB PNGs of ``hw`` (h, w) in ``folder``."""
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    os.makedirs(folder, exist_ok=True)
+    for i in range(n):
+        arr = rng.integers(0, 256, hw + (3,), dtype=np.uint8)
+        Image.fromarray(arr).save(os.path.join(folder, f"img_{i:03d}.png"))
+
+
+def image_chain(folder, bgr=False):
+    """The image-classification example's chain over ``folder``: the
+    NCHW f32 batch (``bgr``: the channels swapped first, a planted
+    fault)."""
+    frame = V.ImageFrame.read(folder)
+    if bgr:
+        frame = frame >> V.ChannelOrder()
+    frame = (frame >> V.AspectScale(256) >> V.CenterCrop(224, 224)
+             >> V.ChannelNormalize((123.0, 117.0, 104.0),
+                                   (58.4, 57.1, 57.4))
+             >> V.MatToFloats() >> V.ImageFrameToSample(to_chw=True))
+    return np.stack([f["sample"].feature for f in frame.features])
+
+
+def predict_inception(seed, device, card, report, tmp):
+    """Inception v1 (1000 classes, NCHW f32) over 64 PNGs read by
+    ``ImageFrame.read`` through the example's chain, at batch 32, against
+    the CPU."""
+    from bigdl_tpu_torch.optim import Predictor
+    folder = os.path.join(tmp, "images")
+    write_images(folder, PREDICT["images"], PREDICT["image_hw"], seed + 13)
+    t0 = time.monotonic()
+    x = image_chain(folder)
+    chain_s = time.monotonic() - t0
+    model = inception_v1(1000).initialize(seed + 14)
+    cpu_model = copy.deepcopy(model)
+    B = PREDICT["image_batch"]
+    t0 = time.monotonic()
+    y = Predictor(model, batch_size=B, device=device).predict(x)
+    wall = time.monotonic() - t0
+    want = Predictor(cpu_model, batch_size=B, device="cpu").predict(x)
+    faults = {
+        "conv_kernel_transposed": Predictor(
+            transposed_conv_copy(cpu_model), batch_size=B,
+            device=device).predict(x),
+        "channels_bgr": Predictor(model, batch_size=B, device=device)
+        .predict(image_chain(folder, bgr=True))}
+    print(f"predict inception_v1 image chain: {x.shape[0]} PNGs of "
+          f"{PREDICT['image_hw']} read and transformed to {x.shape[1:]} in "
+          f"{chain_s:.2f} s, predicted at batch {B} in {wall:.2f} s "
+          f"[{card}]")
+    held_predictions("inception_image_chain", y, want, faults,
+                     PREDICT_TOL["inception"], card, report)
+
+
+def mnist_arrays(n):
+    """The first ``n`` synthetic MNIST training images, normalized NCHW
+    f32, and their labels."""
+    (imgs, labels), _ = lenet_data()
+    x = ((imgs[:n].reshape(-1, 1, 28, 28).astype(np.float32))
+         - mnist.TRAIN_MEAN) / mnist.TRAIN_STD
+    return x, labels[:n].astype(np.int32)
+
+
+def nll_loss(model, x, y):
+    """The mean NLL of ``model`` (a CPU copy) over (x, y)."""
+    m = copy.deepcopy(model).cpu().eval()
+    with torch.no_grad():
+        return nn.ClassNLLCriterion().apply(
+            m(torch.from_numpy(x)), torch.from_numpy(y)).item()
+
+
+def predict_estimators(seed, device, card, report):
+    """``NNClassifier(lenet5(10))`` fit on 4096 images, 3 epochs at batch
+    128 (the estimator example's recipe): the loss falls, B1 2 a step,
+    ``transform`` equals the CPU's argmax on the trained weights but at
+    near ties; then the logistic regression and the ``NNEstimator`` MSE
+    regression of the ML-pipeline example.  Returns B1's launches."""
+    from bigdl_tpu_torch.estimator import NNClassifier, NNEstimator
+    x, y = mnist_arrays(PREDICT["fit_images"])
+    model = lenet5(10).initialize(seed + 15)
+    before = nll_loss(model, x, y)
+    clf = NNClassifier(model, batch_size=LENET["batch"],
+                       max_epoch=PREDICT["fit_epochs"],
+                       optim_method=optim.SGD(learning_rate=LENET["lr"],
+                                              momentum=LENET["momentum"]),
+                       device=device)
+    maxpool.reset_counts()
+    t0 = time.monotonic()
+    fitted = clf.fit(x, y)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = maxpool.launches
+    steps = PREDICT["fit_epochs"] * (len(x) // LENET["batch"])
+    after = nll_loss(model, x, y)
+    classes = fitted.transform(x)
+    with torch.no_grad():
+        logp = copy.deepcopy(model).cpu().eval()(torch.from_numpy(x))
+    want = logp.argmax(-1).numpy()
+    ties = near_ties(logp, 1, PREDICT_TOL["lenet"])
+    diff = int((classes != want).sum())
+    acc = float((classes == y).mean())
+    print(f"predict NNClassifier(lenet5): {steps} steps of batch "
+          f"{LENET['batch']} in {wall:.2f} s (fit included): "
+          f"ms_per_step={wall / steps * 1e3:.3f} samples_per_s="
+          f"{steps * LENET['batch'] / wall:.1f}; NLL {before:.4f} -> "
+          f"{after:.4f}; B1 {launches} launches; transform vs CPU argmax: "
+          f"{diff} differ ({ties} near ties); train acc {acc:.4f} [{card}]")
+    if not (after < before and launches == 2 * steps and diff <= ties):
+        raise AssertionError(f"NNClassifier: NLL {before} -> {after}, B1 "
+                             f"{launches} in {steps} steps, {diff} classes "
+                             f"differ ({ties} near ties)")
+
+    # the ML-pipeline example's two small estimators
+    rng = np.random.RandomState(seed)
+    xl = rng.rand(PREDICT["lr_points"], 2).astype(np.float32)
+    yl = (xl.sum(1) > 1.0).astype(np.int32)
+    lr_model = nn.Sequential(nn.Linear(2, 2), nn.LogSoftMax()).initialize(
+        seed)
+    lr_acc = float((NNClassifier(
+        lr_model, batch_size=32, max_epoch=PREDICT["lr_epochs"],
+        optim_method=optim.SGD(learning_rate=0.5), device=device)
+        .fit(xl, yl).transform(xl) == yl).mean())
+    xm = rng.rand(PREDICT["mse_points"], 2).astype(np.float32)
+    w = np.asarray([[2.0, -1.0], [0.5, 1.5]], np.float32)
+    ym = xm @ w.T + np.asarray([0.1, -0.2], np.float32)
+    est = NNEstimator(nn.Linear(2, 2).initialize(seed), nn.MSECriterion(),
+                      batch_size=32, max_epoch=PREDICT["mse_epochs"],
+                      optim_method=optim.Adam(learning_rate=0.05),
+                      device=device)
+    mse = float(((est.fit(xm, ym).transform(xm) - ym) ** 2).mean())
+    print(f"predict ML pipeline: logistic regression train acc "
+          f"{lr_acc:.4f}, NNEstimator MSE regression mse {mse:.6f} [{card}]")
+    report["predict"]["estimators"] = {
+        "lenet": {"steps": steps, "wall_s": wall, "nll": [before, after],
+                  "launches": launches, "differ": diff, "near_ties": ties,
+                  "train_acc": acc},
+        "logistic_regression_acc": lr_acc, "mse_regression": mse}
+    if not (lr_acc > 0.9 and mse < 0.01):
+        raise AssertionError(f"ML pipeline estimators: acc {lr_acc}, "
+                             f"mse {mse}")
+    return launches
+
+
+def predict_phase(seed, device, card, report):
+    """Batch prediction, evaluation and the estimator on the card: LeNet-5
+    through ``.bigdl`` (Evaluator, Predictor), the int8 ResNet-50 through
+    Predictor and PredictionService (B4), Inception v1 through the image
+    chain, NNClassifier and the ML-pipeline estimators (B1).  Returns
+    {"int8_gemm": {mode: launches}, "maxpool_bwd": launches}."""
+    report["predict"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        predict_lenet(seed, device, card, report, tmp)
+        print(f"phase predict-lenet: {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        b4 = predict_int8_resnet(seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase predict-int8: {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        predict_inception(seed, device, card, report, tmp)
+        torch.cuda.empty_cache()
+        print(f"phase predict-inception: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    b1 = predict_estimators(seed, device, card, report)
+    print(f"phase predict-estimators: {time.monotonic() - t0:.1f} s")
+    return {"int8_gemm": b4, "maxpool_bwd": b1}
+
+
+KERAS = {"train": 4096, "val": 1024, "batch": 128, "epochs": 3,
+         "check_K": 4, "docs": 4096, "classes": 20, "seq": 200,
+         "embed": 100, "hidden": 128, "text_steps": 4, "serve_requests": 4,
+         "tf_points": 512, "tf_epochs": 4, "queue_records": 64,
+         "queue_epochs": 20}
+# the card against the CPU step by step (wd_step_reading): the Keras
+# LeNet's K=4 block (LENET_TRAIN_TOL's limit) and one step of each text
+# classifier, above the sound readings, below the two planted faults every
+# run measures and requires to exceed it (the LSTM's W_t x127/128 reads
+# 1.6e-3 on the CPU at these shapes)
+KERAS_TOL = {"lenet": 1e-3, "text": 3e-4}
+# the deployed Keras JSON LeNet's served log-probabilities against the
+# CPU, as a share of max|y| (sound ~1e-7)
+KERAS_SERVE_TOL = 1e-5
+
+
+def keras_lenet():
+    """``examples/lenet/train_keras.py``'s model."""
+    from bigdl_tpu_torch import keras as K
+    return K.Sequential([
+        K.Convolution2D(6, 5, 5, activation="tanh", input_shape=(1, 28, 28)),
+        K.MaxPooling2D(), K.Convolution2D(12, 5, 5, activation="tanh"),
+        K.MaxPooling2D(), K.Flatten(), K.Dense(100, activation="tanh"),
+        K.Dense(10, activation="softmax")])
+
+
+def keras_lenet_json() -> str:
+    """The Keras-1.2 ``model.to_json()`` of :func:`keras_lenet`."""
+    def layer(cls, **cfg):
+        return {"class_name": cls, "config": cfg}
+    return json.dumps({"class_name": "Sequential", "config": [
+        layer("Convolution2D", name="conv1", nb_filter=6, nb_row=5,
+              nb_col=5, activation="tanh", border_mode="valid",
+              subsample=[1, 1], dim_ordering="th", bias=True,
+              batch_input_shape=[None, 1, 28, 28]),
+        layer("MaxPooling2D", name="pool1", pool_size=[2, 2],
+              strides=[2, 2], border_mode="valid", dim_ordering="th"),
+        layer("Convolution2D", name="conv2", nb_filter=12, nb_row=5,
+              nb_col=5, activation="tanh", border_mode="valid",
+              subsample=[1, 1], dim_ordering="th", bias=True),
+        layer("MaxPooling2D", name="pool2", pool_size=[2, 2],
+              strides=[2, 2], border_mode="valid", dim_ordering="th"),
+        layer("Flatten", name="flatten"),
+        layer("Dense", name="fc1", output_dim=100, activation="tanh",
+              bias=True),
+        layer("Dense", name="fc2", output_dim=10, activation="softmax",
+              bias=True)]})
+
+
+def keras_weights(core):
+    """The Keras-order weight list of a built Keras LeNet's core module:
+    conv kernels as they are (``th``), Dense kernels (in, out)."""
+    out = []
+    for m in core.modules():
+        if isinstance(m, nn.SpatialConvolution):
+            out += [m.weight.detach().cpu().numpy(),
+                    m.bias.detach().cpu().numpy()]
+        elif isinstance(m, nn.Linear):
+            out += [m.weight.detach().cpu().numpy().T.copy(),
+                    m.bias.detach().cpu().numpy()]
+    return out
+
+
+def keras_block(init, batches, criterion, method, device, ctx=None):
+    """One block of ``len(batches)`` steps of ``init``'s copy on the card
+    through LocalOptimizer over exactly ``batches``, ``method`` recording
+    every step: (losses, steps)."""
+    K, B = len(batches), batches[0].size()
+    with (ctx or contextlib.nullcontext)():
+        losses = text_train(
+            copy.deepcopy(init), DataSet.array(np.zeros(K * B))
+            >> Prebuilt(batches, B), device, optim.max_iteration(K),
+            criterion, None, K, method=method)[0]
+    return losses, method.steps
+
+
+def keras_check(label, init, batches, criterion, make_method, faults,
+                tol, device, card, report):
+    """``init`` through one block on the card against the CPU step by step
+    (:func:`wd_step_reading`) within ``tol``; each of ``faults`` ({name:
+    (model, context manager factory or None)}) on a card run of its own
+    must read above it.  Returns the sound reading."""
+    step = text_cpu_step(criterion)
+    memo = {}
+
+    def cpu_step(init, params, batch):
+        # a fault run from init's weights asks for the sound run's steps
+        key = (id(batch), tuple(p.numpy().tobytes().__hash__()
+                                for p in params.values()))
+        if key not in memo:
+            memo[key] = step(init, params, batch)
+        return memo[key]
+
+    sound, worst = wd_step_reading(
+        *keras_block(init, batches, criterion, make_method(), device), init,
+        batches, cpu_step)
+    readings = {name: wd_step_reading(
+        *keras_block(model, batches, criterion, make_method(), device, ctx),
+        init, batches, cpu_step)[0]
+        for name, (model, ctx) in faults.items()}
+    print(f"keras {label} train-vs-cpu check, {len(batches)} step(s) of "
+          f"batch {batches[0].size()} step by step: sound {sound:.3e} "
+          f"(largest {worst}), planted faults "
+          + ", ".join(f"{k} {v:.3e}" for k, v in readings.items())
+          + f" (tol {tol}) [{card}]")
+    report["keras"][f"{label}_check"] = {
+        "sound": sound, "largest": worst, "planted_faults": readings,
+        "tol": tol}
+    if not sound <= tol:
+        raise AssertionError(f"keras {label} on the card is {sound:.3e} "
+                             f"from the CPU, over {tol}")
+    for fault, err in readings.items():
+        if not err > tol:
+            raise AssertionError(f"keras {label}: planted fault {fault} "
+                                 f"reads {err:.3e}, inside {tol}: the check "
+                                 f"is blind")
+    return sound
+
+
+@contextlib.contextmanager
+def b1_fault():
+    """B1's first launch of the block returns its result x127/128."""
+    sound = maxpool.launch
+    maxpool.launch = planted_b1_fault()
+    try:
+        yield
+    finally:
+        maxpool.launch = sound
+
+
+def keras_lenet_phase(seed, device, card, report, tmp):
+    """The Keras LeNet of ``examples/lenet/train_keras.py``: compile, fit
+    (batch 128, 3 epochs of 4096, validation every epoch), evaluate and
+    predict on the card (B1 2 a step); a K=4 block against the CPU step
+    by step; then its Keras-1.2 JSON loaded, the trained weights carried
+    across in Keras order, deployed from the file and served.  Returns
+    B1's launches."""
+    from bigdl_tpu_torch.interop.keras_format import (load_keras_json,
+                                                      set_keras_weights)
+    x, y = mnist_arrays(KERAS["train"])
+    vx, vy = x[:KERAS["val"]], y[:KERAS["val"]]
+    model = keras_lenet()
+    model.compile(optim.SGD(learning_rate=LENET["lr"],
+                            momentum=LENET["momentum"]),
+                  "categorical_crossentropy", metrics=["accuracy"],
+                  device=device)
+    core = model.core_module()
+    init = copy.deepcopy(core)
+    criterion = model.criterion
+    before = criterion.apply(init(torch.from_numpy(x[:1024])),
+                             torch.from_numpy(y[:1024])).item()
+    maxpool.reset_counts()
+    t0 = time.monotonic()
+    model.fit(x, y, batch_size=KERAS["batch"], nb_epoch=KERAS["epochs"],
+              validation_data=(vx, vy))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = maxpool.launches
+    steps = KERAS["epochs"] * (len(x) // KERAS["batch"])
+    scores = model.evaluate(vx, vy, batch_size=KERAS["batch"])
+    probs = model.predict(vx, batch_size=KERAS["batch"])
+    classes = model.predict_classes(vx, batch_size=KERAS["batch"])
+    with torch.no_grad():
+        after = criterion.apply(copy.deepcopy(core).cpu()(
+            torch.from_numpy(x[:1024])), torch.from_numpy(y[:1024])).item()
+    print(f"keras lenet fit: {steps} steps of batch {KERAS['batch']} in "
+          f"{wall:.2f} s (validation every epoch included): ms_per_step="
+          f"{wall / steps * 1e3:.3f} samples_per_s="
+          f"{steps * KERAS['batch'] / wall:.1f}; loss {before:.4f} -> "
+          f"{after:.4f}; last validation {model.optimizer.state.get('score')}"
+          f"; evaluate {scores}; predict {probs.shape}, predict_classes "
+          f"agree with argmax {bool((classes == probs.argmax(-1)).all())}; "
+          f"B1 {launches} launches [{card}]")
+    report["keras"]["lenet_fit"] = {
+        "steps": steps, "wall_s": wall, "loss": [before, after],
+        "evaluate": scores, "launches": launches}
+    if not (after < before and launches == 2 * steps
+            and np.isfinite(probs).all()
+            and probs.shape == (KERAS["val"], 10)
+            and (classes == probs.argmax(-1)).all()):
+        raise AssertionError(f"keras lenet: loss {before} -> {after}, B1 "
+                             f"{launches} in {steps} steps")
+
+    # a K=4 block against the CPU step by step
+    K, B = KERAS["check_K"], KERAS["batch"]
+    batches = [batch_samples([Sample(x[i], y[i])
+                              for i in range(j * B, (j + 1) * B)])
+               for j in range(K)]
+
+    def make_sgd():
+        return recording(optim.SGD)(learning_rate=LENET["lr"],
+                                    momentum=LENET["momentum"])
+
+    fc = copy.deepcopy(init)
+    with torch.no_grad():
+        fc[5][0].weight.mul_(127 / 128)
+    keras_check("lenet", init, batches, criterion, make_sgd,
+                {"fc1_weight_127_128": (fc, None),
+                 "b1_first_launch_127_128": (init, b1_fault)},
+                KERAS_TOL["lenet"], device, card, report)
+
+    # the Keras JSON, the trained weights in Keras order, served
+    path = os.path.join(tmp, "lenet.json")
+    with open(path, "w") as f:
+        f.write(keras_lenet_json())
+    weights = keras_weights(core)
+    loaded = load_keras_json(path)
+    set_keras_weights(loaded, weights)
+    trained = copy.deepcopy(core).cpu().eval()
+    same = all(torch.equal(a, b.cpu()) for a, b in zip(
+        loaded.core_module().state_dict().values(),
+        trained.state_dict().values()))
+    rng = np.random.default_rng(seed + 16)
+    worst = 0.0
+    with ModelRegistry(device=device) as reg:
+        reg.deploy("keras_lenet", path=path, format="keras", weights=weights,
+                   input_spec=((1, 28, 28), np.float32), max_batch_size=32)
+        for _ in range(KERAS["serve_requests"]):
+            idx = rng.integers(0, len(x), int(rng.integers(1, 5)))
+            got = reg.predict("keras_lenet", x[idx], timeout=300)
+            with torch.no_grad():
+                want = trained(torch.from_numpy(x[idx])).numpy()
+            worst = max(worst, predict_reading(got, want))
+    print(f"keras lenet JSON: loaded, {len(weights)} Keras-order arrays "
+          f"set, weights equal to the trained ones {same}; deployed from "
+          f"the file, {KERAS['serve_requests']} requests vs the CPU: "
+          f"max|dy|/max|y| {worst:.3e} (limit {KERAS_SERVE_TOL}) [{card}]")
+    report["keras"]["json_deploy"] = {"weights_equal": same,
+                                      "reading": worst,
+                                      "limit": KERAS_SERVE_TOL}
+    if not (same and worst <= KERAS_SERVE_TOL):
+        raise AssertionError(f"keras JSON deploy: weights equal {same}, "
+                             f"reading {worst}")
+    return launches
+
+
+def news_corpus(seed):
+    """``synthetic_news(4096, 20)`` tokenized through ``Dictionary`` and
+    padded or cut to 200 tokens (ids + 1; 0 pads): (ids, labels, vocab)."""
+    from bigdl_tpu_torch.dataset import news20
+    texts, labels, _ = news20.synthetic_news(KERAS["docs"],
+                                             KERAS["classes"], seed=seed)
+    tokens = [t.split() for t in texts]
+    d = Dictionary(tokens)
+    ids = np.zeros((len(tokens), KERAS["seq"]), np.int32)
+    for i, t in enumerate(tokens):
+        e = d.encode(t)[:KERAS["seq"]]
+        ids[i, :len(e)] = e + 1
+    return ids, labels, d.vocab_size() + 1
+
+
+def keras_text(cell, vocab):
+    from bigdl_tpu_torch import keras as K
+    rec = K.LSTM if cell == "lstm" else K.GRU
+    return K.Sequential([
+        K.Embedding(vocab, KERAS["embed"], input_length=KERAS["seq"]),
+        K.Bidirectional(rec(KERAS["hidden"])),
+        K.Dense(KERAS["classes"], activation="softmax")])
+
+
+@contextlib.contextmanager
+def gru_update_fault():
+    """The GRU's new state with the candidate's share x127/128."""
+    sound = nn.GRU.step_hoisted
+
+    def step_hoisted(self, zx_t, h, invariants):
+        H, D = self.hidden_size, self.input_size
+        zg, zc = zx_t[..., :2 * H], zx_t[..., 2 * H:]
+        r, u = torch.sigmoid(zg + h @ self.w_gates[:, D:].T).chunk(2, -1)
+        cand = torch.tanh(zc + (r * h) @ self.w_cand[:, D:].T)
+        h_new = u * h + (1 - u) * cand * (127 / 128)
+        return h_new, h_new
+
+    nn.GRU.step_hoisted = step_hoisted
+    try:
+        yield
+    finally:
+        nn.GRU.step_hoisted = sound
+
+
+def keras_text_phase(seed, device, card, report):
+    """The two text classifiers over the synthetic news corpus, batch 128:
+    a few steps each through ``fit`` (the LSTM's B2f and B2b 400 a step:
+    200 steps in each direction), then one step of each against the CPU.
+    Returns {kernel: launches}."""
+    ids, labels, vocab = news_corpus(seed)
+    B, n = KERAS["batch"], KERAS["batch"] * KERAS["text_steps"]
+    launches = {}
+    for cell in ("lstm", "gru"):
+        model = keras_text(cell, vocab)
+        model.compile(optim.Adam(learning_rate=1e-3),
+                      "categorical_crossentropy", device=device)
+        init = copy.deepcopy(model.core_module())
+        lstm_cell.fwd_launches = lstm_cell.bwd_launches = 0
+        t0 = time.monotonic()
+        model.fit(ids[:n], labels[:n], batch_size=B, nb_epoch=1)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        got = {"lstm_cell_fwd": lstm_cell.fwd_launches,
+               "lstm_cell_bwd": lstm_cell.bwd_launches}
+        steps = KERAS["text_steps"]
+        print(f"keras text {cell}: Embedding({vocab}, {KERAS['embed']}) >> "
+              f"Bidirectional({cell.upper()}({KERAS['hidden']})) >> "
+              f"Dense({KERAS['classes']}), {steps} steps of batch {B} x "
+              f"{KERAS['seq']} tokens in {wall:.2f} s (ms_per_step="
+              f"{wall / steps * 1e3:.1f}); B2f {got['lstm_cell_fwd']}, B2b "
+              f"{got['lstm_cell_bwd']} launches [{card}]")
+        want = 2 * KERAS["seq"] * steps if cell == "lstm" else 0
+        if got["lstm_cell_fwd"] != want or got["lstm_cell_bwd"] != want:
+            raise AssertionError(f"keras text {cell}: B2f/B2b {got}, want "
+                                 f"{want} each")
+        if cell == "lstm":
+            launches = got
+        batches = [batch_samples([Sample(ids[i], labels[i])
+                                  for i in range(B)])]
+
+        def make_adam():
+            return recording(optim.Adam)(learning_rate=1e-3)
+
+        dense = copy.deepcopy(init)
+        with torch.no_grad():
+            dense[2][0].weight.mul_(127 / 128)
+        cell_fault = (("w_t_127_128", (init, lambda: lstm_fault(
+            "w_t_127_128"))) if cell == "lstm"
+                      else ("gru_update_127_128", (init, gru_update_fault)))
+        keras_check(f"text_{cell}", init, batches, model.criterion,
+                    make_adam, dict([("dense_weight_127_128", (dense, None)),
+                                     cell_fault]),
+                    KERAS_TOL["text"], device, card, report)
+        report["keras"][f"text_{cell}"] = {"steps": steps, "wall_s": wall,
+                                           "launches": got}
+    return launches
+
+
+def keras_tf_session_phase(seed, device, card, report, tmp):
+    """``examples/tensorflow/train_imported.py``: a GraphDef saved with
+    ``trainable=True``, re-imported and trained by ``TFSession.train`` for
+    4 epochs (the loss falls); then the queue-fed form over a TFRecord
+    file through ``QueuePipeline``."""
+    from bigdl_tpu_torch.dataset import tfrecord
+    from bigdl_tpu_torch.interop import save_tf_graph
+    from bigdl_tpu_torch.interop.session import TFSession
+    model = nn.Sequential(nn.Linear(4, 16), nn.ReLU(), nn.Linear(16, 3),
+                          nn.LogSoftMax()).initialize(seed)
+    pb = os.path.join(tmp, "model.pb")
+    save_tf_graph(model, pb, input_shape=(1, 4), trainable=True)
+    rng = np.random.RandomState(seed + 1)
+    centers = rng.randn(3, 4) * 3
+    yb = rng.randint(0, 3, KERAS["tf_points"])
+    xb = (centers[yb] + rng.randn(KERAS["tf_points"], 4)).astype(np.float32)
+    ds = (DataSet.array([Sample(a, np.int32(t)) for a, t in zip(xb, yb)])
+          >> SampleToMiniBatch(32))
+    sess = TFSession(pb, inputs=["input"], outputs=["output"], device=device)
+    crit = nn.ClassNLLCriterion()
+    before = crit.apply(torch.from_numpy(sess.run(xb)),
+                        torch.from_numpy(yb)).item()
+    t0 = time.monotonic()
+    opt = sess.train(ds, crit, optim_method=optim.Adam(learning_rate=0.05),
+                     end_when=optim.max_epoch(KERAS["tf_epochs"]))
+    wall = time.monotonic() - t0
+    out = sess.run(xb)
+    after = crit.apply(torch.from_numpy(out), torch.from_numpy(yb)).item()
+    acc = float((out.argmax(1) == yb).mean())
+    # queue-fed: the TFRecord pipeline inside the graph
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_tfgraph_util as tg
+    true_w = np.float32([1.0, -2.0, 3.0, 0.5])
+    qrng = np.random.default_rng(seed)
+    recs = []
+    for _ in range(KERAS["queue_records"]):
+        v = qrng.normal(0, 1, 4).astype(np.float32)
+        recs.append(np.concatenate([v, [v @ true_w]]).astype(
+            np.float32).tobytes())
+    rec_path = os.path.join(tmp, "train.tfrecord")
+    tfrecord.write_records(rec_path, recs)
+    qpb = os.path.join(tmp, "queue_graph.pb")
+    with open(qpb, "wb") as f:
+        f.write(tg.build_queue_graph(rec_path))
+    qsess = TFSession(qpb, outputs=["loss"], device=device)
+    t1 = time.monotonic()
+    losses = qsess.train(optim_method=optim.SGD(learning_rate=0.1),
+                         epochs=KERAS["queue_epochs"])
+    qwall = time.monotonic() - t1
+    print(f"keras TFSession: imported GraphDef trained {opt.state['neval']} "
+          f"steps in {wall:.2f} s, NLL {before:.4f} -> {after:.4f}, train "
+          f"acc {acc:.4f}; queue-fed over {len(recs)} TFRecords: "
+          f"{len(losses)} steps (batch {qsess.pipeline.batch_size}) in "
+          f"{qwall:.2f} s, loss {losses[0]:.4f} -> {losses[-1]:.3e} "
+          f"[{card}]")
+    report["keras"]["tf_session"] = {
+        "nll": [before, after], "acc": acc, "wall_s": wall,
+        "queue_losses": [losses[0], losses[-1]], "queue_steps": len(losses)}
+    if not (after < before and losses[-1] < 0.01 * losses[0]
+            and all(np.isfinite(losses))):
+        raise AssertionError(f"TFSession: NLL {before} -> {after}, queue "
+                             f"loss {losses[0]} -> {losses[-1]}")
+
+
+def keras_phase(seed, device, card, report):
+    """The Keras LeNet (fit, evaluate, predict, the K=4 check, JSON
+    deploy), the two Keras text classifiers, and TFSession.  Returns
+    {"maxpool_bwd": launches, "lstm_cell_fwd"/"lstm_cell_bwd": launches}."""
+    report["keras"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        b1 = keras_lenet_phase(seed, device, card, report, tmp)
+        print(f"phase keras-lenet: {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        b2 = keras_text_phase(seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase keras-text: {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        keras_tf_session_phase(seed, device, card, report, tmp)
+        print(f"phase keras-tf-session: {time.monotonic() - t0:.1f} s")
+    return {"maxpool_bwd": b1, **b2}
+
+
 PHASES = ("resnet", "lstm", "resnet-train", "wide-deep", "lenet",
           "distri", "cifar", "inception", "autoencoder", "remat", "text",
-          "nn-core", "resilience", "interop")
+          "nn-core", "resilience", "interop", "predict", "keras")
 EXTRA_PHASES = ("resnet-conditioning",)  # run only when named
 
 
@@ -7041,6 +7920,76 @@ def main(argv=None) -> int:
         for mode in ("weight_only", "dynamic"):
             by_name[f"int8_gemm[{mode}]"]["interop"] = {
                 "launches": sum(launches[mode].values()), **launches[mode]}
+    if "predict" in phases:
+        t0 = time.monotonic()
+        launches = predict_phase(args.seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase predict: {time.monotonic() - t0:.1f} s")
+        by_name = {k["name"]: k for k in kernels}
+        missing = [m for m in ("weight_only", "dynamic")
+                   if f"int8_gemm[{m}]" not in by_name]
+        if missing:
+            # no earlier phase timed B4: time the served forward's GEMMs
+            t0 = time.monotonic()
+            probe = quantize(resnet50().initialize(args.seed)).to(device)
+            shapes = gemm_shapes(probe, device)
+            del probe
+            totals = kernel_phase(shapes, device, card, report)
+            for mode in missing:
+                t = totals[mode]
+                by_name[f"int8_gemm[{mode}]"] = {
+                    "name": f"int8_gemm[{mode}]", **KERNEL,
+                    "launches": launches["int8_gemm"][mode],
+                    **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "library_ms")},
+                    "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
+                    else "operations"}
+                kernels.append(by_name[f"int8_gemm[{mode}]"])
+            print(f"phase int8-kernels-predict: "
+                  f"{time.monotonic() - t0:.1f} s")
+        if "maxpool_bwd" not in by_name:
+            # no earlier phase timed B1: LeNet's first pool leads
+            gen = torch.Generator(device=device).manual_seed(2718)
+            row = pool_row(pool_case(LENET_POOL_CASES[0]), gen, device, card)
+            by_name["maxpool_bwd"] = {
+                "name": "maxpool_bwd", **POOL_KERNEL,
+                "launches": launches["maxpool_bwd"],
+                **{k: row[k] for k in pool_keys}}
+            kernels.append(by_name["maxpool_bwd"])
+        for mode in ("weight_only", "dynamic"):
+            by_name[f"int8_gemm[{mode}]"]["predict"] = {
+                "launches": launches["int8_gemm"][mode]}
+        by_name["maxpool_bwd"]["predict"] = {
+            "launches": launches["maxpool_bwd"]}
+    if "keras" in phases:
+        t0 = time.monotonic()
+        launches = keras_phase(args.seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase keras: {time.monotonic() - t0:.1f} s")
+        # B2f/B2b at the text classifier's (128, 128): checked and timed
+        t0 = time.monotonic()
+        gen = torch.Generator(device=device).manual_seed(4321)
+        shape = (KERAS["batch"], KERAS["hidden"])
+        errs = cell_check([shape], device, card, gen)
+        rows = cell_time_rows(*shape, errs[shape], device, card, gen)
+        print(f"phase lstm-kernels-keras: {time.monotonic() - t0:.1f} s")
+        by_name = {k["name"]: k for k in kernels}
+        for kernel, row in rows.items():
+            if kernel not in by_name:  # the Keras text path leads
+                by_name[kernel] = {"name": kernel, **LSTM_KERNELS[kernel],
+                                   "launches": launches[kernel], **row}
+                kernels.append(by_name[kernel])
+            by_name[kernel]["keras"] = {"launches": launches[kernel], **row}
+        if "maxpool_bwd" not in by_name:
+            # no earlier phase timed B1: LeNet's first pool leads
+            row = pool_row(pool_case(LENET_POOL_CASES[0]), gen, device, card)
+            by_name["maxpool_bwd"] = {
+                "name": "maxpool_bwd", **POOL_KERNEL,
+                "launches": launches["maxpool_bwd"],
+                **{k: row[k] for k in pool_keys}}
+            kernels.append(by_name["maxpool_bwd"])
+        by_name["maxpool_bwd"]["keras"] = {
+            "launches": launches["maxpool_bwd"]}
     if "resnet-conditioning" in phases:
         t0 = time.monotonic()
         resnet_conditioning_phase(args.seed, device, card, report)

@@ -42,6 +42,8 @@ over every bound exactly (entries outside every bound: on their side, in
 nnz order).
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -1190,13 +1192,14 @@ def test_profile_window_holds_a_kernel(cuda, tmp_path):
     import json
     import threading
 
-    from bigdl_tpu_torch.utils.profiling import TRACE_FILE, profile_window
+    from bigdl_tpu_torch.utils.profiling import (TRACE_FILE, WINDOW_RETAKES,
+                                                 profile_window)
     a = torch.randn(1024, 1024, device=cuda)
     a @ a
     torch.cuda.synchronize()
-    out = []
+    out, stats = [], {}
     t = threading.Thread(target=lambda: out.append(
-        profile_window(0.5, log_dir=str(tmp_path))))
+        profile_window(0.5, log_dir=str(tmp_path), stats=stats)))
     t.start()
     while t.is_alive():
         a @ a
@@ -1206,6 +1209,8 @@ def test_profile_window_holds_a_kernel(cuda, tmp_path):
     cats = {e.get("cat") for e in trace["traceEvents"]}
     kernels = [e for e in trace["traceEvents"] if e.get("cat") == "kernel"]
     assert out == [str(tmp_path)] and kernels, cats
+    assert stats["device_events"] >= len(kernels) and stats["launches"] \
+        and stats["retakes"] <= WINDOW_RETAKES, stats
 
 
 @pytest.mark.parametrize("mode", ["weight_only", "dynamic"])
@@ -1258,3 +1263,61 @@ def test_tf_while_loop_on_card_matches_cpu(cuda, tmp_path):
     x = torch.from_numpy(rng.normal(size=(5, 3, 4)).astype(np.float32))
     torch.testing.assert_close(rnn.to(cuda)(x.to(cuda)).cpu(), rnn.cpu()(x),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["weight_only", "dynamic"])
+def test_predictor_over_int8_model_on_card(cuda, mode):
+    """``Predictor`` over a quantized LeNet: a 3-row tail padded to the
+    steady 8 rows (and the 2- and 3-row probe of its row tracking), B4 4
+    launches a forward, every row within the served limit of the CPU's."""
+    from bigdl_tpu_torch.models import lenet5
+    from bigdl_tpu_torch.optim import Predictor
+    q = nn.quantize(lenet5(10).initialize(3), mode=mode)
+    cpu = Predictor(q, batch_size=8, device="cpu")
+    x = np.random.default_rng(6).normal(0, 1, (19, 784)).astype(np.float32)
+    want = cpu.predict(x)
+    forwards = []
+    card_model = nn.quantize(lenet5(10).initialize(3), mode=mode)
+    card_model.register_forward_pre_hook(lambda m, i: forwards.append(1))
+    int8_gemm.launches = 0
+    got = Predictor(card_model, batch_size=8, device=cuda).predict(x)
+    assert len(forwards) == 5  # 2 full batches, the 2- and 3-row probe, tail
+    assert int8_gemm.launches == 4 * len(forwards)
+    tol = 1e-4 if mode == "weight_only" else 1e-3
+    np.testing.assert_allclose(got, want, rtol=tol,
+                               atol=tol * np.abs(want).max())
+
+
+def test_keras_bidirectional_lstm_step_on_card(cuda):
+    """One step of a Keras ``Bidirectional(LSTM)`` text model on the card:
+    B2f and B2b 2 x T launches each (both directions), the loss within
+    ``rtol=1e-5`` and each gradient within 1e-4 of its array's largest of
+    the same step on the CPU."""
+    from bigdl_tpu_torch import keras as K
+    T, B = 12, 16
+    model = K.Sequential([K.Embedding(50, 8, input_length=T),
+                          K.Bidirectional(K.LSTM(32)),
+                          K.Dense(5, activation="softmax")])
+    init = model.core_module()
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.integers(0, 50, (B, T)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 5, B))
+    crit = nn.CategoricalCrossEntropy()
+
+    def step(device):
+        m = copy.deepcopy(init).to(device)
+        for p in m.parameters():
+            p.requires_grad_(True)
+        loss = crit.apply(m(x.to(device)), y.to(device))
+        loss.backward()
+        return loss.item(), {k: p.grad.cpu() for k, p in
+                             m.named_parameters()}
+
+    lstm_cell.fwd_launches = lstm_cell.bwd_launches = 0
+    loss, grads = step(cuda)
+    assert lstm_cell.fwd_launches == lstm_cell.bwd_launches == 2 * T
+    want_loss, want = step("cpu")
+    np.testing.assert_allclose(loss, want_loss, rtol=1e-5)
+    for k, g in want.items():
+        torch.testing.assert_close(grads[k], g, rtol=1e-4,
+                                   atol=1e-4 * g.abs().max().item())

@@ -26,7 +26,11 @@ imported, and so are the interop slice's (``utils/protowire.py``,
 ``nn/graph.py``, ``ops/registry.py``, ``interop/*``), which also import
 without ``h5py``: a quantized LeNet deployed from a ``.bigdl`` file and
 LeNet through ``.t7`` and a GraphDef run on the CPU with no kernel
-launched."""
+launched.  So are the prediction and Keras slice's (``optim/predictor.py``,
+``estimator.py``, ``keras/*``, ``interop/{keras_format,session,
+tf_queues}.py``, ``dataset/{news20,tfrecord}.py``, ``nn/{spatial_extras,
+tensor_extras}.py``): a ``Predictor`` over a quantized LeNet, a Keras
+LeNet step and a ``TFSession`` step launch no kernel."""
 
 import json
 import os
@@ -291,6 +295,34 @@ assert {"bigdl_tpu_torch." + m for m in (
     "interop.caffe_export", "ops.registry", "interop.tf_loops",
     "interop.tf_format", "interop.tf_export", "interop.convert_model")
 } <= set(names)
+from bigdl_tpu_torch import keras as K
+from bigdl_tpu_torch.interop.session import TFSession
+from bigdl_tpu_torch.optim import Predictor
+qnet = nn.quantize(lenet5(10).initialize(0), mode="weight_only")
+assert Predictor(qnet, batch_size=4, device="cpu").predict(
+    np.zeros((6, 1, 28, 28), np.float32)).shape == (6, 10)
+klenet = K.Sequential([K.Convolution2D(6, 5, 5, activation="tanh",
+                                       input_shape=(1, 28, 28)),
+                       K.MaxPooling2D(), K.Flatten(),
+                       K.Dense(10, activation="softmax")])
+klenet.compile("sgd", "categorical_crossentropy", device="cpu")
+klenet.fit(np.zeros((8, 1, 28, 28), np.float32), np.zeros(8, np.int32),
+           batch_size=8, nb_epoch=1)
+with tempfile.TemporaryDirectory() as d:
+    interop.save_tf_graph(nn.Sequential(nn.Linear(4, 3), nn.LogSoftMax())
+                          .initialize(0), os.path.join(d, "t.pb"), (1, 4),
+                          trainable=True)
+    sess = TFSession(os.path.join(d, "t.pb"), ["input"], ["output"],
+                     device="cpu")
+    sess.train(DataSet.array([Sample(np.ones(4, np.float32), np.int32(1))]
+                             * 4) >> SampleToMiniBatch(4),
+               nn.ClassNLLCriterion(), end_when=optim.max_iteration(1))
+assert int8_gemm.launches == maxpool.launches == 0
+assert {"bigdl_tpu_torch." + m for m in (
+    "optim.predictor", "estimator", "keras.backend", "keras.layers",
+    "keras.topology", "interop.keras_format", "interop.session",
+    "interop.tf_queues", "dataset.news20", "dataset.tfrecord",
+    "nn.spatial_extras", "nn.tensor_extras")} <= set(names)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("jaxlib") or m == "bigdl_tpu"
              or m.startswith("bigdl_tpu.") or m.startswith("h5py"))

@@ -10,6 +10,7 @@ both packages give byte-identical files for the same weights.
 the reference's own.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -586,10 +587,12 @@ def test_convert_model_parity_gate_and_device(tmp_path):
             convert_model.main(["--from", "bigdl", "--to", "bigdl",
                                 "--input", src, "--output",
                                 str(tmp_path / "o.bigdl")])
-    with pytest.raises(NotImplementedError, match="next port slice"):
+    # --from keras reads a Keras JSON definition: a .bigdl file is none
+    with pytest.raises(SystemExit, match="--from keras"):
         convert_model.main(["--from", "keras", "--to", "bigdl", "--input",
                             src, "--output", str(tmp_path / "k.bigdl"),
                             "--device", "cpu"])
+    assert not os.path.exists(tmp_path / "k.bigdl")
 
 
 @pytest.mark.parametrize("fmt,name", [("bigdl", "cnn"), ("torch", "cnn"),
@@ -618,6 +621,37 @@ def test_deploy_from_file_matches_reference_deploy(fmt, name, tmp_path):
     assert rel(got, want) <= TOL[fmt]
 
 
+def _keras_layer(cls, **cfg):
+    return {"class_name": cls, "config": cfg}
+
+
+# LeNet-5 as a Keras-1.2 JSON (softmax where the port's ends in LogSoftMax)
+KERAS_LENET_JSON = {"class_name": "Sequential", "config": [
+    _keras_layer("Reshape", target_shape=[1, 28, 28],
+                 batch_input_shape=[None, 1, 28, 28]),
+    _keras_layer("Convolution2D", nb_filter=6, nb_row=5, nb_col=5,
+                 activation="tanh"),
+    _keras_layer("MaxPooling2D", pool_size=[2, 2]),
+    _keras_layer("Convolution2D", nb_filter=12, nb_row=5, nb_col=5,
+                 activation="tanh"),
+    _keras_layer("MaxPooling2D", pool_size=[2, 2]),
+    _keras_layer("Reshape", target_shape=[192]),
+    _keras_layer("Dense", output_dim=100, activation="tanh"),
+    _keras_layer("Dense", output_dim=10, activation="softmax")]}
+
+
+def keras_lenet_weights(model):
+    """``model``'s (a port LeNet-5) weights in Keras order: conv kernels
+    as they are, Dense kernels (in, out)."""
+    out = []
+    for m in model.modules():
+        if isinstance(m, (nn.SpatialConvolution, nn.Linear)):
+            w = m.weight.detach().numpy()
+            out += [w.T.copy() if w.ndim == 2 else w,
+                    m.bias.detach().numpy()]
+    return out
+
+
 def test_deploy_quantize_and_keras(tmp_path):
     from bigdl_tpu_torch.serving import ModelRegistry
     port, _, x = twins("lenet")
@@ -627,10 +661,18 @@ def test_deploy_quantize_and_keras(tmp_path):
         svc = reg.deploy("q", path=path, format="bigdl", quantize="dynamic")
         got = reg.predict("q", x, timeout=120)
         assert svc.stats()["weights_dtype"] == "int8"
-        with pytest.raises(NotImplementedError, match="next port slice"):
-            reg.deploy("k", path=path, format="keras")
+        # a Keras JSON LeNet with the same weights in Keras order
+        kpath = str(tmp_path / "l.json")
+        with open(kpath, "w") as f:
+            json.dump(KERAS_LENET_JSON, f)
+        reg.deploy("k", path=kpath, format="keras",
+                   weights=keras_lenet_weights(port))
+        got_k = reg.predict("k", x, timeout=120)
     want = port_forward(quantize(port, mode="dynamic"), x)
     np.testing.assert_array_equal(got, want)
+    want_k = port_forward(port, x)
+    np.testing.assert_allclose(got_k, np.exp(want_k), rtol=1e-5,
+                               atol=1e-6)
 
 
 def test_deep_graph_copies_and_quantizes():

@@ -387,3 +387,124 @@ def test_golden_fixture_train_forward_backward(name):
     for k, b in model.named_buffers():
         np.testing.assert_allclose(b.numpy(), z[f"ns_{k}"], **tol,
                                    err_msg=k)
+
+
+# the fixtures of the layers the Keras slice brought, forward and backward
+# (gradients of sum(out)) at the reference replay's tolerance: (module,
+# {fixture parameter: port parameter}, eval mode)
+NEW_LAYER_FIXTURES = {
+    "recurrent_gru": (
+        lambda: nn.Recurrent(nn.GRU(4, 6)),
+        {k: f"cell.{k}" for k in ("w_gates", "b_gates", "w_cand",
+                                  "b_cand")}, False),
+    "bi_recurrent_lstm": (
+        lambda: nn.BiRecurrent(nn.LSTM(3, 5), nn.LSTM(3, 5)),
+        {f"{d}_{k}": f"{d}.cell.{k}" for d in ("fwd", "bwd")
+         for k in ("weight", "bias")}, False),
+    "spatial_separable_convolution": (
+        lambda: nn.SpatialSeparableConvolution(3, 4, 2, 3, 3, pw=1, ph=1),
+        {k: k for k in ("depth_weight", "point_weight", "bias")}, False),
+    "upsampling_2d": (lambda: nn.UpSampling2D((2, 3)), {}, False),
+    "temporal_max_pooling": (lambda: nn.TemporalMaxPooling(2, 2), {},
+                             False),
+    "maxout": (lambda: nn.Maxout(4, 3, 2), {"weight": "weight",
+                                            "bias": "bias"}, False),
+    "highway": (lambda: nn.Highway(5),
+                {k: k for k in ("weight", "bias", "gate_weight",
+                                "gate_bias")}, False),
+    "batch_norm_1d_eval": (lambda: nn.BatchNormalization(6),
+                           {"weight": "weight", "bias": "bias"}, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_LAYER_FIXTURES))
+def test_golden_fixture_new_layers(name):
+    make, names, eval_mode = NEW_LAYER_FIXTURES[name]
+    z = np.load(os.path.join(DATA_DIR, f"{name}.npz"))
+    model = make()
+    params = dict(model.named_parameters())
+    buffers = dict(model.named_buffers())
+    with torch.no_grad():
+        for k, port_name in names.items():
+            params[port_name].copy_(torch.from_numpy(
+                z[f"p_{k}"].astype(np.float32)))
+            params[port_name].requires_grad_(True)
+        for k in z.files:
+            if k.startswith("s_"):
+                buffers[k[2:]].copy_(torch.from_numpy(
+                    z[k].astype(np.float32)))
+    model.train(not eval_mode)
+    x = torch.from_numpy(z["x"].astype(np.float32)).requires_grad_(True)
+    out = model(x)
+    out.sum().backward()
+    tol = dict(rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(out.detach().numpy(), z["out"], **tol)
+    np.testing.assert_allclose(x.grad.numpy(), z["dx"], **tol)
+    for k, port_name in names.items():
+        np.testing.assert_allclose(params[port_name].grad.numpy(),
+                                   z[f"dp_{k}"], **tol, err_msg=k)
+
+
+# the nine layers the Keras wrappers build, against the reference's
+# modules: forward and the gradients of sum(y * cotangent) (input and every
+# parameter) from the same weights, rtol=1e-5 / 1e-4 of each array's
+# largest value (recurrences of a few f32 steps in another order)
+EXTRAS = {
+    "GRU": (lambda m: m.Recurrent(m.GRU(3, 5)), (2, 6, 3)),
+    "GRU-reverse": (lambda m: m.Recurrent(m.GRU(3, 5), reverse=True),
+                    (2, 6, 3)),
+    "BiRecurrent-LSTM": (lambda m: m.BiRecurrent(m.LSTM(3, 4), m.LSTM(3, 4)),
+                         (2, 5, 3)),
+    "BiRecurrent-GRU-add": (lambda m: m.BiRecurrent(m.GRU(3, 4),
+                                                    merge="add"), (2, 5, 3)),
+    "SpatialSeparableConvolution": (
+        lambda m: m.SpatialSeparableConvolution(3, 5, 2, 3, 3, 2, 1, 1, 0),
+        (2, 3, 9, 8)),
+    "UpSampling2D": (lambda m: m.UpSampling2D((3, 2)), (2, 2, 3, 4)),
+    "Cropping2D": (lambda m: m.Cropping2D((1, 2), (0, 1)), (2, 2, 6, 5)),
+    "TemporalMaxPooling": (lambda m: m.TemporalMaxPooling(3, 2), (2, 9, 4)),
+    "Maxout": (lambda m: m.Maxout(6, 4, 3), (5, 6)),
+    "Highway": (lambda m: m.Highway(6), (4, 6)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EXTRAS))
+def test_extra_layer_forward_and_gradients_match_reference(name):
+    make, shape = EXTRAS[name]
+    tm = make(nn).initialize(5)
+    params, state = to_jax_params(tm)
+    jm = make(jnn)
+    x = _x(shape, seed=2)
+    cot = np.random.default_rng(9).normal(0, 1, tm(torch.from_numpy(x))
+                                          .shape).astype(np.float32)
+
+    def jloss(p, x):
+        y, _ = jm.apply(p, state, x)
+        return (y * cot).sum(), y
+
+    (_, yj), (gp, gx) = jax.value_and_grad(jloss, argnums=(0, 1),
+                                           has_aux=True)(params, x)
+    for p in tm.parameters():
+        p.requires_grad_(True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    yt = tm(xt)
+    (yt * torch.from_numpy(cot)).sum().backward()
+    _close(yt.detach().numpy(), np.asarray(yj))
+    got = to_jax_params(tm)[0]
+
+    def grads(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from grads(v, f"{prefix}{k}.")
+            else:
+                yield f"{prefix}{k}", v
+
+    tgrads = {k: p.grad.numpy() for k, p in tm.named_parameters()}
+    from bigdl_tpu_torch.interop.jax_weights import _jax_names
+    names = _jax_names(tm, "params")
+    for k, g in grads(jax.tree_util.tree_map(np.asarray, gp)):
+        np.testing.assert_allclose(tgrads[names[k]], g, rtol=1e-4,
+                                   atol=1e-4 * np.abs(g).max(), err_msg=k)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), rtol=1e-4,
+                               atol=1e-4 * np.abs(np.asarray(gx)).max())
+    assert got.keys() == params.keys()

@@ -3,7 +3,8 @@ modules: the serving batcher and service, the breaker, the fault injector
 and the membership ledger, the telemetry plane (registry, tracer, flight
 recorder, admin server), the block prefetchers, the snapshot writer
 thread, the checkpoint manager's GC pin, the preemption handler, the
-summary writer and the two sanitizers (lockdep, spmdcheck).
+summary writer, the two sanitizers (lockdep, spmdcheck) and
+``PredictionService``'s request count.
 
 The reference's own gate (``tests/test_graftlint.py``) lints
 ``bigdl_tpu/``; the port lies outside its default paths, so this file
@@ -27,7 +28,8 @@ THREADED = ["bigdl_tpu_torch/serving", "bigdl_tpu_torch/resilience",
             "bigdl_tpu_torch/checkpoint/preemption.py",
             "bigdl_tpu_torch/utils/summary.py",
             "bigdl_tpu_torch/utils/lockdep.py",
-            "bigdl_tpu_torch/utils/spmdcheck.py"]
+            "bigdl_tpu_torch/utils/spmdcheck.py",
+            "bigdl_tpu_torch/optim/predictor.py"]
 
 
 def _lint(*args):

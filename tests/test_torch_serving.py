@@ -206,10 +206,10 @@ def test_registry_breaker_falls_back_to_previous_version():
 def test_deploy_refusals():
     reg = ModelRegistry(device="cpu")
     # files load through the interop layer: a missing one is an OSError,
-    # and Keras waits for the next port slice
+    # a Keras JSON definition too
     with pytest.raises(FileNotFoundError):
         reg.deploy("m", path="missing.bigdl", format="bigdl")
-    with pytest.raises(NotImplementedError, match="next port slice"):
+    with pytest.raises(FileNotFoundError):
         reg.deploy("m", path="model.json", format="keras")
     with pytest.raises(ValueError, match="not servable"):
         reg.deploy("bad", nn.Sequential().add(nn.Reshape((12,),

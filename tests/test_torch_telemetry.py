@@ -52,6 +52,7 @@ from bigdl_tpu_torch.telemetry import (PHASE_CATS, AdminServer,  # noqa: E402
                                        admin, flight, jit_cache_size,
                                        render_prometheus)
 from bigdl_tpu_torch.utils import config  # noqa: E402
+from bigdl_tpu_torch.utils import profiling  # noqa: E402
 from bigdl_tpu_torch.utils.metrics import Metrics  # noqa: E402
 from bigdl_tpu_torch.utils.profiling import (TRACE_FILE, format_times,  # noqa: E402
                                              get_times, profile_step,
@@ -186,9 +187,11 @@ def test_admin_endpoints_answer_over_loopback(tmp_path):
         code, body = _get(srv.url("/flight"))
         assert code == 200 and len(json.loads(body)["events"]) == 3
         code, body = _get(srv.url("/profile?seconds=0.1"))
-        log_dir = json.loads(body)["log_dir"]
+        answer = json.loads(body)
         assert code == 200 and os.path.exists(
-            os.path.join(log_dir, TRACE_FILE))
+            os.path.join(answer["log_dir"], TRACE_FILE))
+        assert (answer["device_events"], answer["launches"],
+                answer["retakes"]) == (0, 0, 0)
         assert _get(srv.url("/nope"))[0] == 404
     finally:
         srv.stop()
@@ -244,6 +247,29 @@ def test_profile_capture_writes_a_chrome_trace(tmp_path):
     log_dir = profile_window(0.05, log_dir=str(tmp_path / "w"), tracer=tr)
     assert os.path.exists(os.path.join(log_dir, TRACE_FILE))
     assert [e[1] for e in tr.events()] == ["torch_profiler_window"]
+
+
+@pytest.mark.parametrize("counts, retakes", [
+    ([(0, 0)], 0),                      # the CPU: nothing launched
+    ([(0, 12), (40, 41)], 1),           # the profiler lost the card once
+    ([(0, 12)] * 8, profiling.WINDOW_RETAKES),  # bounded, then kept
+])
+def test_profile_window_retakes_a_window_without_device_activity(
+        tmp_path, monkeypatch, counts, retakes):
+    """A window whose trace records launches but no device activity is
+    the profiler's fault: taken again, at most WINDOW_RETAKES times, each
+    take a span; the kept window's counts go to ``stats``."""
+    seen = iter(counts)
+    monkeypatch.setattr(profiling, "_device_counts", lambda prof: next(seen))
+    tr, stats = Tracer(), {}
+    log_dir = profile_window(0.01, log_dir=str(tmp_path), tracer=tr,
+                             stats=stats)
+    device, launches = counts[min(retakes, len(counts) - 1)]
+    assert stats == {"device_events": device, "launches": launches,
+                     "retakes": retakes}
+    assert [e[1] for e in tr.events()] == \
+        ["torch_profiler_window"] * (retakes + 1)
+    assert os.path.exists(os.path.join(log_dir, TRACE_FILE))
 
 
 def test_watchdogs_on_the_cpu():

@@ -124,6 +124,21 @@ for _op in ("Sum", "Mean", "Max", "Min", "Prod"):
     case(_op, {}, f(2, 3, 4), i32(0), name=f"{_op}-drop")
 case("Sum", {}, f(2, 3), np.zeros(0, np.int32), name="Sum-all")
 case("Mean", {}, i32(1, 2, 4), i32(0), name="Mean-int")
+# torch widens integer sums and products to int64; the reference keeps
+# int32 (uint32 for unsigned inputs)
+case("Sum", {}, np.int32([[1, 5, 3], [2, 2, 2]]), np.int32(1), name="Sum-int")
+case("Prod", {}, np.int32([[1, 5, 3], [2, 2, 2]]), np.int32(1),
+     name="Prod-int")
+case("Sum", {}, np.asarray([[True, False, True], [True, True, False]]),
+     np.int32(1), name="Sum-bool")
+case("Sum", {}, np.uint8([[1, 5, 3], [200, 2, 2]]), np.int32(1),
+     name="Sum-uint8")
+case("Square", {}, np.asarray([True, False, True]), name="Square-bool")
+case("Rint", {}, np.int32([1, -2, 7]), name="Rint-int")
+case("Cumsum", {}, np.asarray([True, False, True, True]), np.int32(0),
+     name="Cumsum-bool")
+case("Cumsum", {"exclusive": True}, np.asarray([True, False, True, True]),
+     np.int32(0), name="Cumsum-bool-exclusive")
 for _op in ("All", "Any"):
     case(_op, {"keepdims": True}, b(3, 4), i32(1))
 case("ArgMax", {}, f(3, 5), np.int32(1))

@@ -214,3 +214,39 @@ def cond_graph():
             + node("f", "Add", ["sw:0", "one"])
             + node("m", "Merge", ["f", "t"])
             + node("out", "Identity", ["m"]))
+
+
+def build_queue_graph(record_path, batch=8):
+    """A GraphDef with its whole input pipeline in the graph:
+    string_input_producer -> TFRecordReader -> DecodeRaw (5 floats a
+    record) -> example queue -> QueueDequeueManyV2 -> a linear regression
+    of the last float on the first four -> an in-graph MSE loss
+    (``tfgraph_util.build_queue_graph``'s graph, node for node)."""
+    g = b""
+    g += node("filenames", "Const", value=string_const([record_path]))
+    g += node("fq", "FIFOQueueV2")
+    g += node("fq_enq", "QueueEnqueueManyV2", ["fq", "filenames"])
+    g += node("reader", "TFRecordReaderV2")
+    g += node("read", "ReaderReadV2", ["reader", "fq"])
+    g += node("decoded", "DecodeRaw", ["read:1"], out_type=attr_type(1))
+    g += node("rec", "Reshape", ["decoded", "rec_shape"])
+    g += node("rec_shape", "Const", value=shape_const([5]))
+    g += node("eq", "FIFOQueueV2")
+    g += node("eq_enq", "QueueEnqueueV2", ["eq", "rec"])
+    g += node("batch_n", "Const", value=int_scalar_const(batch))
+    g += node("dq", "QueueDequeueManyV2", ["eq", "batch_n"])
+    g += node("xb", "Const", value=shape_const([0, 0]))
+    g += node("xs", "Const", value=shape_const([-1, 4]))
+    g += node("x", "Slice", ["dq", "xb", "xs"])
+    g += node("yb", "Const", value=shape_const([0, 4]))
+    g += node("ys", "Const", value=shape_const([-1, 1]))
+    g += node("y", "Slice", ["dq", "yb", "ys"])
+    g += node("w_init", "Const", value=attr_tensor(np.zeros((4, 1))))
+    g += node("W", "VariableV2")
+    g += node("W_assign", "Assign", ["W", "w_init"])
+    g += node("pred", "MatMul", ["x", "W"])
+    g += node("diff", "Sub", ["pred", "y"])
+    g += node("sq", "Square", ["diff"])
+    g += node("red", "Const", value=shape_const([0, 1]))
+    g += node("loss", "Mean", ["sq", "red"])
+    return g
