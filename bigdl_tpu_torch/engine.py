@@ -90,7 +90,9 @@ class Engine:
         knobs = {"max_batch_size": "serving_max_batch_size",
                  "batch_timeout_ms": "serving_batch_timeout_ms",
                  "queue_capacity": "serving_queue_capacity",
-                 "row_buckets": "serving_row_buckets"}
+                 "row_buckets": "serving_row_buckets",
+                 # the per-request deadline a ReplicaSet stamps (0 = none)
+                 "deadline_ms": "serving_deadline_ms"}
         return {k: tuned.resolve_default(knob, wl, backend)[0]
                 for k, knob in knobs.items()}
 

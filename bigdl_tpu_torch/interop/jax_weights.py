@@ -13,6 +13,12 @@ model with named parts keys them by name in both: ``WideAndDeep``'s
 ``params["wide"]["weight"]`` (the ``SparseLinear`` weight, (wide_dim, 1)),
 ``params["embed0"]["weight"]`` and ``params["deep"]["0"]["bias"]`` are the
 port's ``wide.weight``, ``embed0.weight`` and ``deep.0.bias``.
+A ``transformer_lm`` keeps the reference's tree too: ``MultiHeadAttention``'s
+``wq``, ``wk``, ``wv``, ``wo`` (stored ``(in, out)``) and its four biases,
+``LayerNorm``'s and ``LearnedPositionalEmbedding``'s ``weight``/``bias``,
+under ``params["0"]`` (the embedding), ``["1"]["weight"]`` (positions),
+``[str(2 + i)]["0"]["0"]["0"]`` (block i's attention) and so on, the head's
+``TimeDistributed`` skipped as above.
 The dicts hold numpy arrays (convert JAX arrays with ``np.asarray``) or
 CPU tensors (bf16 ones too): this module imports neither JAX nor the
 reference package.  :func:`jax_tree` and :func:`from_jax_tree` carry any

@@ -1,12 +1,18 @@
-"""Dynamic-batching inference serving of the port."""
+"""Serving of the port: dynamic-batching inference
+(:class:`InferenceService`, :class:`ModelRegistry`) and continuous-batching
+autoregressive decode (:class:`DecodeService`)."""
 
-from bigdl_tpu_torch.serving.batcher import (RequestSpecError, ServiceClosed,
+from bigdl_tpu_torch.serving.batcher import (DeadlineExceeded, RequestBatcher,
+                                             RequestSpecError, ServiceClosed,
                                              ServiceOverloaded)
-from bigdl_tpu_torch.serving.metrics import ServingMetrics
+from bigdl_tpu_torch.serving.decode import DecodeResult, DecodeService
+from bigdl_tpu_torch.serving.metrics import LatencyReservoir, ServingMetrics
 from bigdl_tpu_torch.serving.registry import ModelRegistry
-from bigdl_tpu_torch.serving.service import (InferenceService,
+from bigdl_tpu_torch.serving.service import (InferenceService, pad_rows,
                                              parse_row_buckets, row_buckets)
 
-__all__ = ["InferenceService", "ModelRegistry",
-           "RequestSpecError", "ServiceClosed", "ServiceOverloaded",
-           "ServingMetrics", "parse_row_buckets", "row_buckets"]
+__all__ = ["DeadlineExceeded", "DecodeResult", "DecodeService",
+           "InferenceService", "LatencyReservoir", "ModelRegistry",
+           "RequestBatcher", "RequestSpecError", "ServiceClosed",
+           "ServiceOverloaded", "ServingMetrics", "pad_rows",
+           "parse_row_buckets", "row_buckets"]

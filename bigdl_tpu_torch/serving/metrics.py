@@ -9,9 +9,13 @@ schema).  Latency windows are registry histograms: one global
 (``serving/latency_s``) and one per row bucket
 (``serving/latency_s_bucket{N}``, created as traffic reaches the bucket),
 since a 1-row dispatch and a 32-row dispatch have very different service
-times.  ``throughput_rps`` is computed over the ACTIVITY window (first
-submit → last completion), not uptime, so idle time does not dilute it;
-``throughput_window_s`` reports that window.
+times; ``LatencyReservoir`` is the registry's ``Reservoir`` and
+``.latency`` the global histogram's backing reservoir.
+``throughput_rps`` is computed over the ACTIVITY window (first submit →
+last completion), not uptime, so idle time does not dilute it;
+``throughput_window_s`` reports that window, and
+:meth:`ServingMetrics.aggregate` computes a replica set's view over the
+union of its replicas' activity windows.
 
 Everything is host-side bookkeeping — nothing here touches the device.
 """
@@ -20,9 +24,13 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
-from bigdl_tpu_torch.telemetry.registry import Histogram, MetricRegistry
+from bigdl_tpu_torch.telemetry.registry import (Histogram, MetricRegistry,
+                                                Reservoir)
+
+# back-compat alias: the serving latency window IS the registry reservoir
+LatencyReservoir = Reservoir
 
 
 class ServingMetrics:
@@ -46,7 +54,11 @@ class ServingMetrics:
         self._dispatches = reg.counter("serving/dispatches")
         self._rows_real = reg.counter("serving/rows_real")
         self._rows_dispatched = reg.counter("serving/rows_dispatched")
+        # global latency window: a registry histogram so /metrics
+        # renders its quantiles; .latency is its backing reservoir (the
+        # historical attribute surface)
         self._latency_h = reg.histogram("serving/latency_s")
+        self.latency = self._latency_h.reservoir
         # per-row-bucket latency histograms, created as buckets see
         # traffic (registry get-or-create is atomic; the lock only
         # guards the local cache dict); guarded-by: _lock
@@ -57,9 +69,10 @@ class ServingMetrics:
         self._t_last_done: Optional[float] = None
         # weights dtype of the served model (int8 speed-path PR): the
         # gauge is PRE-created here — one fixed metric name per service
-        # registry, value-coded — so a metrics scrape's schema is
+        # registry, value-coded — so the Prometheus scrape schema is
         # bounded up front instead of growing a label per dtype string.
-        # The snapshot's "weights_dtype" key appears only once set.
+        # Snapshot back-compat: the "weights_dtype" key appears only
+        # once set (absent = "f32", the historical default).
         self._weights_dtype: Optional[str] = None
         self._weights_dtype_g = reg.gauge("serving/weights_dtype_code")
 
@@ -83,7 +96,7 @@ class ServingMetrics:
     def weights_dtype(self) -> Optional[str]:
         return self._weights_dtype
 
-    # counter values
+    # back-compat value surface (pre-registry these were plain ints)
     @property
     def submitted(self) -> int:
         return self._submitted.value
@@ -212,3 +225,83 @@ class ServingMetrics:
             {b: self._ms(h.percentiles()) for b, h in buckets}
             if buckets else None)
         return snap
+
+    # -- set-level aggregation --------------------------------------------
+    @staticmethod
+    def aggregate(metrics: Sequence["ServingMetrics"],
+                  queue_depth: int = 0) -> dict:
+        """Snapshot-shaped aggregate over N per-replica metrics (the
+        ``ReplicaSet.stats()["aggregate"]`` view — satellite audit):
+
+        - counters sum;
+        - ``throughput_rps`` = total completions over the UNION of the
+          replicas' activity windows (earliest first-submit → latest
+          completion) — not a sum of per-replica rates, whose
+          denominators differ, and not replica 0's number;
+        - latency percentiles are computed over the CONCATENATED
+          reservoir windows (global and per bucket), so the set p99 is
+          the p99 of actual recent samples, not an average of averages.
+        """
+        metrics = list(metrics)  # tolerate one-shot iterables
+        tot = {k: 0 for k in
+               ("requests_submitted", "requests_completed",
+                "requests_rejected", "requests_failed",
+                "requests_cancelled", "dispatch_count",
+                "rows_real", "rows_dispatched")}
+        windows: List[tuple] = []
+        lat_samples: List[float] = []
+        bucket_samples: Dict[int, List[float]] = {}
+        for m in metrics:
+            tot["requests_submitted"] += m.submitted
+            tot["requests_completed"] += m.completed
+            tot["requests_rejected"] += m.rejected
+            tot["requests_failed"] += m.failed
+            tot["requests_cancelled"] += m.cancelled
+            tot["dispatch_count"] += m.dispatches
+            tot["rows_real"] += m.rows_real
+            tot["rows_dispatched"] += m.rows_dispatched
+            w = m.activity_window()
+            if w is not None:
+                windows.append(w)
+            lat_samples.extend(m.latency.window())
+            with m._lock:
+                items = list(m._bucket_latency.items())
+            for b, h in items:
+                bucket_samples.setdefault(b, []).extend(
+                    h.reservoir.window())
+        window_s = (max(w[1] for w in windows)
+                    - min(w[0] for w in windows)) if windows else None
+        if window_s is not None:
+            window_s = max(window_s, 1e-9)
+        occ = (tot["rows_real"] / tot["rows_dispatched"]
+               if tot["rows_dispatched"] else None)
+
+        def pct(samples: List[float]) -> Optional[dict]:
+            # same nearest-rank rule as Reservoir.percentiles, computed
+            # directly over the already-materialized sample list
+            n = len(samples)
+            window = sorted(samples)
+            out_ = {}
+            for q in (50, 95, 99):
+                idx = min(n - 1, max(0, int(round(q / 100.0 * n)) - 1))
+                out_[f"p{q}"] = window[idx]
+            out_["mean"] = sum(window) / n
+            out_["max"] = window[-1]
+            return ServingMetrics._ms(out_)
+
+        out = dict(tot)
+        out.pop("rows_real")
+        out["n_sources"] = len(metrics)
+        out["mean_batch_occupancy"] = (round(occ, 4)
+                                       if occ is not None else None)
+        out["throughput_rps"] = (
+            round(tot["requests_completed"] / window_s, 2)
+            if window_s is not None else 0.0)
+        out["throughput_window_s"] = (round(window_s, 3)
+                                      if window_s is not None else None)
+        out["queue_depth"] = queue_depth
+        out["latency_ms"] = pct(lat_samples) if lat_samples else None
+        out["latency_ms_by_bucket"] = (
+            {b: pct(s) for b, s in sorted(bucket_samples.items())}
+            if bucket_samples else None)
+        return out

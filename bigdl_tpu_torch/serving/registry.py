@@ -71,11 +71,11 @@ class ModelRegistry:
     # -- deployment --------------------------------------------------------
     def deploy(self, name: str, model=None, *, path: Optional[str] = None,
                format: Optional[str] = None, version: Optional[int] = None,
-               quantize=False, prototxt: Optional[str] = None,
-               weights=None,
+               params=None, state=None, quantize=False,
+               prototxt: Optional[str] = None, weights=None,
                tf_inputs: Optional[List[str]] = None,
                tf_outputs: Optional[List[str]] = None,
-               **service_kw) -> InferenceService:
+               service=None, **service_kw) -> InferenceService:
         """Deploy ``model`` (or one loaded from ``path`` in ``format``:
         ``bigdl``, ``caffe`` with ``prototxt=``, ``torch``, ``tensorflow``
         with ``tf_inputs=``/``tf_outputs=``, ``keras`` (a Keras-1.2 JSON
@@ -85,12 +85,28 @@ class ModelRegistry:
         for deploy-time warmup, batching/backpressure knobs,
         ``start=False``...).
 
+        ``params=``/``state=``: weights in the reference's tree layout
+        (nested dicts of arrays, ``interop.load_jax_params``), loaded into
+        a copy of ``model`` so the caller's module is left as it was.
+
+        ``service=``: register an already-built ``submit()``-shaped
+        backend (a :class:`~bigdl_tpu_torch.serving.DecodeService`)
+        under latest-wins and breaker routing instead of building an
+        :class:`InferenceService`; hot cutover and undeploy work
+        unchanged (they only need ``stop(drain=)``).  It excludes
+        ``model``/``path``/``service_kw``.
+
         ``quantize``: False (default) deploys as-is; True int8-quantizes
         on the way in with the ``Config.int8_activation_mode`` default; a
         mode string (``"weight_only"`` / ``"dynamic"``) pins the mode.
         The quantized deploy is a distinct version with its own breaker
         and a ``weights_dtype`` stats tag."""
-        if model is None:
+        if service is not None:
+            if model is not None or path is not None or service_kw:
+                raise ValueError(
+                    "deploy(service=) takes a prebuilt backend — "
+                    "model/path/service_kw don't apply")
+        elif model is None:
             if path is None or format is None:
                 raise ValueError("deploy() needs model= or path=+format=")
             from bigdl_tpu_torch.interop.convert_model import load_model
@@ -98,7 +114,15 @@ class ModelRegistry:
             model = load_model(format, path, prototxt=prototxt,
                                tf_inputs=tf_inputs, tf_outputs=tf_outputs,
                                weights=weights)
-        if quantize:
+        if service is None and (params is not None or state is not None):
+            import copy
+
+            from bigdl_tpu_torch.interop.jax_weights import (load_jax_params,
+                                                          to_jax_params)
+            model = load_jax_params(copy.deepcopy(model).cpu(),
+                                    params if params is not None
+                                    else to_jax_params(model)[0], state)
+        if service is None and quantize:
             from bigdl_tpu_torch.nn.quantized import quantize as _quantize
             model = _quantize(
                 model, mode=quantize if isinstance(quantize, str) else None)
@@ -114,14 +138,15 @@ class ModelRegistry:
                     f"model {name!r} version {version} already deployed; "
                     "undeploy it first or bump the version")
             self._pending.add(key)  # acquires: deploy_reservation
-        try:
-            service = InferenceService(
-                model, name=f"{name}:v{version}", device=self.device,
-                **service_kw)
-        except BaseException:
-            with self._lock:
-                self._pending.discard(key)  # releases: deploy_reservation
-            raise
+        if service is None:
+            try:
+                service = InferenceService(
+                    model, name=f"{name}:v{version}", device=self.device,
+                    **service_kw)
+            except BaseException:
+                with self._lock:
+                    self._pending.discard(key)  # releases: deploy_reservation
+                raise
         with self._lock:
             self._pending.discard(key)  # releases: deploy_reservation
             self._services[key] = service
@@ -189,6 +214,13 @@ class ModelRegistry:
             brk.record_success()
         elif not isinstance(exc, (ServiceOverloaded, ServiceClosed)):
             brk.record_failure()
+
+    def latest_version(self, name: str) -> Optional[int]:
+        """Newest deployed version of ``name`` (no breaker consult), or
+        None when the name has no deployments: what a hot cutover reads
+        before deploying, to know which version it must drain."""
+        with self._lock:
+            return self._latest.get(name)
 
     def get(self, name: str,
             version: Optional[int] = None) -> InferenceService:

@@ -26,13 +26,17 @@ one dispatch span per coalesced batch, with a flow arrow from each
 request into its dispatch; a ``fault_injector`` is consulted once per
 dispatch (an injected error fails that batch's requests, a replica death
 kills the batcher thread, which :meth:`InferenceService.revive` brings
-back); the admin plane (``Config.admin_port``) serves the metrics.  The
-replica set's failover across replicas comes with the rest of serving,
-so a lone service's fault clauses see ``replica=None``.
+back); the admin plane (``Config.admin_port``) serves the metrics.  A
+lone service's fault clauses see ``replica=None``; a
+:class:`~bigdl_tpu_torch.resilience.ReplicaSet` stamps each replica's
+index.  ``submit(deadline=)`` carries a monotonic deadline with the
+request: the dispatch refuses expired work with ``DeadlineExceeded``
+before the device call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -45,8 +49,8 @@ import torch
 
 from bigdl_tpu_torch.engine import resolve_device
 from bigdl_tpu_torch.serving.batcher import (
-    RequestBatcher, RequestSpecError, ServiceClosed, ServiceOverloaded,
-    _Request, settle_future,
+    DeadlineExceeded, RequestBatcher, RequestSpecError, ServiceClosed,
+    ServiceOverloaded, _Request, settle_future,
 )
 from bigdl_tpu_torch.serving.metrics import ServingMetrics
 
@@ -190,6 +194,15 @@ def pad_rows(x, target: int):
     return _tree_map(pad, x)
 
 
+def device_scope(device: torch.device):
+    """``torch.cuda.device(device)`` for a CUDA device, else a no-op: the
+    current device of the calling thread (batcher, supervisor and decode
+    threads alike) becomes the service's."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 def _weights_dtype(model: torch.nn.Module) -> str:
     from bigdl_tpu_torch.nn.quantized import is_quantized
     if is_quantized(model):
@@ -231,6 +244,12 @@ class InferenceService:
         submit and dispatch spans; ``request_tracing`` (None =
         ``Config.request_tracing``) mints a ``RequestContext`` per submit
         when none is passed.  Off, no context is ever allocated.
+    priority_fn:
+        Optional QoS preemption hook handed to the batcher: maps a queued
+        request (it carries ``.ctx`` with the tenant tag) to an int rank,
+        lower dispatching first, engaged only when the queue holds more
+        rows than one dispatch carries.  The front end's
+        :class:`~bigdl_tpu_torch.frontend.QosAdmission` supplies it.
     """
 
     def __init__(self, model: torch.nn.Module, *, input_spec=None,
@@ -239,7 +258,8 @@ class InferenceService:
                  queue_capacity: Optional[int] = None, buckets=None,
                  name: str = "model", start: bool = True, device="cuda",
                  fault_injector=None, tracer=None,
-                 request_tracing: Optional[bool] = None):
+                 request_tracing: Optional[bool] = None,
+                 priority_fn=None):
         from bigdl_tpu_torch.engine import Engine
         defaults = Engine.serving_defaults()
         self.device = resolve_device(device)
@@ -281,6 +301,7 @@ class InferenceService:
         self._faults = fault_injector
         self._fault_replica: Optional[int] = None
         self._dispatch_index = 0
+        self._priority_fn = priority_fn
         # request-scoped observability, resolved once here: the hot
         # paths only test these attributes
         self.tracer = tracer
@@ -327,13 +348,16 @@ class InferenceService:
         return RequestBatcher(
             dispatch, max_batch_size=self.max_batch_size,
             batch_timeout_ms=self.batch_timeout_ms,
-            queue_capacity=self.queue_capacity, name=self.name)
+            queue_capacity=self.queue_capacity, name=self.name,
+            priority_fn=self._priority_fn)
 
     # -- forward -----------------------------------------------------------
     def _forward(self, x):
         """One forward of a padded batch (pytree of numpy arrays) on the
-        device; returns numpy outputs (the copy back synchronizes)."""
-        with torch.inference_mode():
+        device; returns numpy outputs (the copy back synchronizes).  The
+        device is named on this thread too, so every launch from a
+        batcher thread lands on the service's card."""
+        with torch.inference_mode(), device_scope(self.device):
             xt = _tree_map(lambda a: torch.tensor(a, device=self.device), x)
             out = self.model(xt)
             return _tree_map(lambda t: t.cpu().numpy(), out)
@@ -400,6 +424,26 @@ class InferenceService:
         probes when they are not buckets).  Frozen after warmup."""
         return self._warm_forwards
 
+    @property
+    def warmed_up(self) -> bool:
+        return self._warmed
+
+    @property
+    def row_spec(self):
+        """The warmed per-row input spec (pytree of :class:`RowSpec`), or
+        None before warmup: reusable as another service's
+        ``input_spec`` (a replica set's grow and a hot cutover warm new
+        services off it)."""
+        return self._row_spec
+
+    @property
+    def drain_ewma_s(self) -> Optional[float]:
+        """The batcher's observed seconds-per-request EWMA (None before
+        its first dispatch): the drain-rate signal of ``retry_after_ms``
+        and the front end's autoscaler.  A racy single read of a
+        single-writer float, by design."""
+        return self._batcher._spr_ewma
+
     # -- request path ------------------------------------------------------
     def _normalize_input(self, x):
         xs = _tree_map(np.asarray, x)
@@ -429,13 +473,18 @@ class InferenceService:
                 f"input_spec dtypes of {self.name!r}: {e}") from None
         return _unflatten(req_def, conformed)
 
-    def submit(self, x, *, ctx=None) -> Future:
+    def submit(self, x, *, deadline: Optional[float] = None,
+               ctx=None) -> Future:
         """Enqueue one request (pytree of arrays, shared leading batch dim
         ``1 <= n <= max_batch_size``) and return the Future of its
         outputs.  Raises :class:`ServiceOverloaded` when the bounded queue
-        is full and :class:`ServiceClosed` after :meth:`stop`.  ``ctx``:
-        an optional ``RequestContext`` (minted here when request tracing
-        is on), which rides the queue with the request."""
+        is full and :class:`ServiceClosed` after :meth:`stop`.
+        ``deadline`` (absolute ``time.monotonic()`` seconds, or None)
+        travels with the request: the dispatch refuses expired work with
+        :class:`DeadlineExceeded` instead of spending device time on a
+        caller that has given up.  ``ctx``: an optional
+        ``RequestContext`` (minted here when request tracing is on),
+        which rides the queue with the request."""
         xs, n = self._normalize_input(x)
         if n == 0:
             f: Future = Future()
@@ -445,6 +494,13 @@ class InferenceService:
             raise RequestSpecError(
                 f"request of {n} rows exceeds max_batch_size="
                 f"{self.max_batch_size}; use predict() which chunks")
+        if deadline is not None and time.monotonic() >= deadline:
+            # already expired: resolve without touching the queue
+            f = Future()
+            f.set_exception(DeadlineExceeded(
+                f"request deadline passed before submit to "
+                f"{self.name!r}"))
+            return f
         if not self._warmed:
             # deferred-spec path: capture the row spec from live traffic
             self.warmup(_tree_map(
@@ -452,8 +508,8 @@ class InferenceService:
         xs = self._conform_request(xs)
         if ctx is None and self._request_tracing:
             from bigdl_tpu_torch.telemetry.context import RequestContext
-            ctx = RequestContext()
-        req = _Request(xs, n, ctx=ctx)
+            ctx = RequestContext(deadline=deadline)
+        req = _Request(xs, n, deadline=deadline, ctx=ctx)
         tracer = self.tracer
         if ctx is not None and tracer is not None and tracer.enabled:
             # the request's submit span, with the outbound half of the
@@ -528,10 +584,33 @@ class InferenceService:
     def _dispatch(self, requests: List[_Request]) -> None:
         """Runs on the batcher thread: coalesce → pad to bucket → one
         forward → slice per-request outputs → resolve futures."""
-        live = [r for r in requests
-                if r.future.set_running_or_notify_cancel()]
+        live = []
+        for r in requests:
+            try:
+                if r.future.set_running_or_notify_cancel():
+                    live.append(r)
+            except Exception:
+                # already settled from outside the batcher (a replica
+                # set's supervisor timing out or failing over a stuck
+                # request): nothing left to serve here
+                pass
         if not live:
             return
+        now = time.monotonic()
+        expired = [r for r in live
+                   if r.deadline is not None and now >= r.deadline]
+        if expired:
+            # refuse expired work BEFORE the device call: inference is
+            # idempotent, so a router may already have retried it
+            for r in expired:
+                if settle_future(r.future, exc=DeadlineExceeded(
+                        f"request expired in {self.name!r} queue after "
+                        f"{(now - r.t_enqueue) * 1e3:.1f} ms")):
+                    self.metrics.record_failure(r.n_rows)
+            live = [r for r in live
+                    if r.deadline is None or now < r.deadline]
+            if not live:
+                return
         rows = sum(r.n_rows for r in live)
         tracer = self.tracer
         ctxs = ([r.ctx for r in live if r.ctx is not None]
@@ -582,7 +661,7 @@ class InferenceService:
                 off = hi
         except Exception as e:  # resolve, never strand, the waiters
             for r in live:
-                if settle_future(r.future, exc=e):
+                if not r.future.done() and settle_future(r.future, exc=e):
                     self.metrics.record_failure(r.n_rows)
 
     # -- stats / lifecycle -------------------------------------------------
@@ -612,6 +691,16 @@ class InferenceService:
                 self, RequestBatcher.close, self._batcher, True, 5.0)
             self._batcher.start()
             return True
+
+    @property
+    def last_progress(self) -> Optional[float]:
+        """Monotonic time of the batcher's last completed dispatch (or its
+        start; None before either): how a replica set's supervisor tells
+        a WEDGED replica from a congested one."""
+        return self._batcher.last_progress
+
+    def queue_depth(self) -> int:
+        return self._batcher.depth()
 
     def stats(self) -> dict:
         """Snapshot dict — the reference's ``stats()`` schema."""
@@ -665,6 +754,7 @@ class InferenceService:
         self.stop(drain=True)
 
 
-__all__ = ["InferenceService", "RowSpec", "ServiceClosed",
+__all__ = ["DeadlineExceeded", "InferenceService", "RowSpec",
+           "ServiceClosed",
            "ServiceOverloaded", "RequestSpecError", "leading_rows",
            "pad_rows", "parse_row_buckets", "row_buckets", "resolve_device"]

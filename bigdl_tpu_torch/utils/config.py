@@ -11,10 +11,10 @@ records where each field's value came from (:meth:`Config.source`).
 A field comes with the module that reads it: the reference's fields that
 no code reads (``prefetch_batches``, ``loader_workers``,
 ``compute_dtype``, ``matmul_precision``, ``log_every_n_iterations``,
-``summary_flush_secs``) are left out, and ``serving_deadline_ms`` waits
-for the replica set, as the TPU's ``kernel_impl`` and the front end and
-mesh-axis fields wait for their modules.  ``BIGDL_TPU_TELEMETRY`` is the
-short alias of ``BIGDL_TPU_TELEMETRY_ENABLED``, as in the reference.
+``summary_flush_secs``) are left out, as are the TPU's ``kernel_impl``
+and ``int8_block_rows``, and the mesh-axis fields wait for their modules.
+``BIGDL_TPU_TELEMETRY`` is the short alias of
+``BIGDL_TPU_TELEMETRY_ENABLED``, as in the reference.
 """
 
 from __future__ import annotations
@@ -38,6 +38,11 @@ class Config:
     serving_batch_timeout_ms: float = 2.0
     serving_queue_capacity: int = 256
     serving_row_buckets: str = ""
+    # default per-request deadline a ReplicaSet stamps on submissions
+    # (0 = none): it travels with the request, expired work is refused
+    # before the device call, and the supervisor fails work stuck on a
+    # dead replica so the router can retry it elsewhere
+    serving_deadline_ms: float = 0.0
     # default activation mode quantize(model) stamps on converted layers:
     # "weight_only" (int8 weights, f32/bf16 activations, f32 accumulate)
     # or "dynamic" (per-tensor int8 activations, exact integer sum)
@@ -102,6 +107,21 @@ class Config:
     # in-memory ring's bound
     flight_recorder_path: str = ""
     flight_recorder_capacity: int = 4096
+    # wire front end (frontend/server.py): the port FrontendServer(
+    # port=None) binds (0 = config-driven construction is refused;
+    # nothing auto-starts either way); a bearer token every request must
+    # carry when set (a non-loopback bind needs one); the connection
+    # core, "eventloop" (selector loops, no thread per connection) or
+    # "threaded" (a thread per connection); the loop count; the cap on
+    # open connections (0 = none); the idle keep-alive reap timeout
+    # (0 = never); whether each loop thread is pinned to one CPU
+    frontend_port: int = 0
+    frontend_auth_token: str = ""
+    frontend_core: str = "eventloop"
+    frontend_shards: int = 1
+    frontend_max_connections: int = 10000
+    frontend_idle_timeout_s: float = 120.0
+    frontend_pin_cpus: bool = False
     # lockdep (utils/lockdep.py): the lock-order sanitizer of the
     # threaded host plane (off = nothing patched); lockdep_hold_ms also
     # records holds longer than it (0 = no wall-clock check)

@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (``bigdl_tpu_torch``) on one NVIDIA card.
 
-Drives the port's sixteen main paths and holds every kernel of them against
+Drives the port's seventeen main paths and holds every kernel of them against
 its plain PyTorch version.  Serving: an int8-quantized ResNet-50 (1000
 classes, 224x224, NCHW, random weights from a seed) served by
 ``ModelRegistry`` with ``quantize=True`` (weight_only) and
@@ -49,7 +49,12 @@ prediction, evaluation and the estimator (``Predictor``, ``Evaluator``,
 ``PredictionService``, ``NNClassifier``, the image chain), with the int8
 ResNet-50 on B4 and LeNet-5's pools on B1; and the Keras surface (the
 Keras LeNet on B1, Keras text classifiers with a bidirectional LSTM on
-B2f/B2b, a Keras JSON deployed, ``TFSession``).
+B2f/B2b, a Keras JSON deployed, ``TFSession``); and the rest of serving
+over the wire: the front end (``FrontendServer``, both connection cores)
+before the int8 ResNet-50's two registry versions and a 2-replica
+``ReplicaSet`` on the one card (B4), a replica death failed over, the
+status taxonomy, and ``transformer_lm`` at its defaults decoding streams
+through ``DecodeService`` with a hot cutover.
 Phases, each printing its seconds:
 
 1. the card: name, count, ``nvidia-smi`` name and power limit;
@@ -260,8 +265,8 @@ Phases, each printing its seconds:
    against the CPU (counts equal, hits equal but at near ties, the
    log-probabilities within ``PREDICT_TOL``, a limit two planted faults
    must exceed); the int8 ResNet-50 in both modes through ``Predictor``
-   over 100 images at batch 32 (a 4-row tail padded to 32; B4 54
-   launches a forward, the row probe's included) and ``PredictionService``
+   over one batch of 32 images (B4 54 launches a forward) and
+   ``PredictionService``
    (8 threads x 4 requests of 1-4 rows), every row against the CPU;
    Inception v1 over 64 PNGs (280x320) read by ``ImageFrame.read``
    through the image-classification example's chain; ``NNClassifier``
@@ -277,7 +282,26 @@ Phases, each printing its seconds:
    and B2b 400 launches an LSTM step, one step of each against the CPU;
    B2f/B2b at (128, 128) against their plain versions and timed;
    ``TFSession`` training a re-imported GraphDef and a queue-fed one
-   over a TFRecord file.
+   over a TFRecord file;
+30. frontend: ``FrontendServer`` on both cores (``eventloop``,
+   ``threaded``) before the registry's int8 ResNet-50 v1 (weight_only)
+   and v2 (dynamic) and a 2-replica ``ReplicaSet`` on ``cuda:0``: 8
+   clients x 4 requests of 1-4 rows, JSON and npy bodies, every row
+   within ``SERVE_TOL`` of the CPU (a dynamic request goes alone: its
+   activation scale is its batch's), B4 54 launches a dispatch, rows/s
+   and latency p50/p99 a core; a second set under
+   ``replica_death@target=0,after=5,count=1`` (every request answered,
+   the flight recorder's death, failover and revival against the
+   counters, the failed-over requests' latency); 504 past a queued
+   ``X-Deadline-Ms``, 429 with ``Retry-After`` on a full queue, 404;
+   ``transformer_lm()`` at its defaults in ``DecodeService(slots=8,
+   max_seq_len=512)``, prompt buckets ``pow2@8`` to 256: 16 concurrent
+   streams over both cores, each in order and closed by its trailer,
+   the served tokens fed through the card's decode carry within
+   ``GEN_TOL`` of the CPU's and the card's full-context forwards (three
+   planted faults must exceed it), tokens/s, step ms, time to first
+   token p50/p99, the KV bytes, one step alone; a ``HotCutover`` of the
+   decode backend under 8 streaming clients with no stream dropped.
 
 The last lines are the card, the kernel table and the result as JSON; any
 failed check raises and the script exits non-zero.  Without a CUDA card it
@@ -287,7 +311,7 @@ fails at once.  Run from the repository root:
                           [--phases resnet,lstm,resnet-train,wide-deep,lenet,
                                     distri,cifar,inception,autoencoder,remat,
                                     text,nn-core,resilience,interop,
-                                    predict,keras]
+                                    predict,keras,frontend]
 
 ``--phases resnet-conditioning`` adds a diagnostic that is not run by
 default: the check phase's path reading at residual gammas 0 to 1, beside
@@ -6739,7 +6763,7 @@ def interop_phase(seed, device, card, report):
     return launches
 
 
-PREDICT = {"lenet_batch": 128, "resnet_images": 100, "resnet_batch": 32,
+PREDICT = {"lenet_batch": 128, "resnet_images": 32, "resnet_batch": 32,
            "service_threads": 8, "service_requests": 4, "images": 64,
            "image_hw": (280, 320), "image_batch": 32, "fit_images": 4096,
            "fit_epochs": 3, "lr_points": 512, "lr_epochs": 20,
@@ -6747,7 +6771,7 @@ PREDICT = {"lenet_batch": 128, "resnet_images": 100, "resnet_batch": 32,
 # card against CPU, each output as a share of the CPU's max|y|: LeNet's
 # log-probabilities and the image chain's Inception logits (f32; sound
 # readings ~1.4e-7 to 1.9e-7), the int8 ResNet-50 at the served limit
-# (SERVE_TOL; weight_only reads 6.9e-6 over 100 images); each limit
+# (SERVE_TOL; weight_only read 6.9e-6 over 100 images); each limit
 # between the sound reading and the two planted faults every run measures
 # and requires to exceed it (the seeded Inception's logits barely move
 # with their input: its faults read ~2e-4)
@@ -6875,10 +6899,11 @@ def predict_lenet(seed, device, card, report, tmp):
 
 
 def predict_int8_resnet(seed, device, card, report):
-    """The int8 ResNet-50 (both modes) predicted by ``Predictor`` over 100
-    images at batch 32 (three batches and a 4-row tail padded to 32),
-    every row against the CPU; B4 launches 54 a forward, the probe's
-    forwards included.  Then ``PredictionService`` (weight_only) with 8
+    """The int8 ResNet-50 (both modes) predicted by ``Predictor`` over one
+    batch of 32 images (``PREDICT["resnet_images"]``: the CPU's reference
+    forwards are most of the phase's time), every row against the CPU;
+    B4 launches 54 a forward (the row probe's too, when a short batch
+    runs it).  Then ``PredictionService`` (weight_only) with 8
     threads x 4 requests of 1-4 rows, each against the CPU.  Returns
     {mode: B4 launches}."""
     from bigdl_tpu_torch.optim import PredictionService, Predictor
@@ -6911,7 +6936,7 @@ def predict_int8_resnet(seed, device, card, report):
                 scaled_int8_copy(cpu_model), batch_size=B,
                 device=device).predict(x)}
         print(f"predict int8 resnet50 {mode}: {n} images at batch {B} "
-              f"({n // B} batches, a {n % B}-row tail padded to {B}) in "
+              f"({n // B} batches, a {n % B}-row tail) in "
               f"{wall:.2f} s, {forwards[0]} forwards (the row probe's "
               f"included), B4 {launches[mode]} launches "
               f"({ {v: c for v, c in int8_gemm.variant_launches.items() if c} }) "
@@ -7570,9 +7595,691 @@ def keras_phase(seed, device, card, report):
     return {"maxpool_bwd": b1, **b2}
 
 
+# the rest of serving over the wire: the front end on both connection
+# cores before the registry's two int8 ResNet-50 versions (weight_only
+# v1, dynamic v2) and a 2-replica ReplicaSet on cuda:0 (8 clients x 4
+# requests of 1-4 rows drawn from a pool of 16 seeded images, JSON and
+# npy bodies); a second ReplicaSet under a replica death (8 clients x 6
+# requests); the status taxonomy; transformer_lm at its defaults (vocab
+# 32000, embed 512, 8 heads, 6 layers, MLP 2048, max_len 2048) decoding
+# 16 concurrent streams (prompts 8-200 tokens, 4-64 new ones) in 8 slots
+# of max_seq_len 512, prompt buckets pow2@8 up to 256; a hot cutover of
+# the decode backend under 8 streaming clients
+FRONTEND = {"clients": 8, "requests": 4, "max_rows": 4, "pool_rows": 16,
+            "fail_plan": "replica_death@target=0,after=5,count=1",
+            "fail_requests": 6, "gen_streams": 16, "prompt": (8, 200),
+            "new_tokens": (4, 64), "slots": 8, "max_seq_len": 512,
+            "max_prompt_len": 256, "buckets": "pow2@8",
+            "cutover_clients": 8, "cutover_tokens": 16}
+# the card's decode log-probs (every vocabulary entry at every generated
+# position, fed the served tokens) against the CPU's full-context forward
+# over the same tokens, and against the card's own full-context forward:
+# absolute, f32 through 6 layers in another order on each side (sound
+# readings ~1e-5 predicted); three planted faults (wq transposed, the
+# write position off by one, the causal cut at < for <=) must exceed it
+GEN_TOL = 1e-3
+
+
+def http_call(port, path, body=None, headers=None, timeout=300):
+    """One request to 127.0.0.1:``port`` → (status, headers, raw body)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST" if body is not None else "GET", path,
+                     body=body, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def wire_predict(port, target, x, as_json, headers=None):
+    """POST ``x`` to ``target``'s predict route as JSON or npy (npy back
+    as well) → (status, headers, outputs or the error body)."""
+    from io import BytesIO
+    hdrs = dict(headers or {})
+    if as_json:
+        body = json.dumps({"inputs": x.tolist()})
+        hdrs["Content-Type"] = "application/json"
+    else:
+        buf = BytesIO()
+        np.save(buf, x)
+        body = buf.getvalue()
+        hdrs.update({"Content-Type": "application/x-npy",
+                     "Accept": "application/x-npy"})
+    st, h, raw = http_call(port, f"/v1/models/{target}/predict", body, hdrs)
+    if st != 200:
+        return st, h, raw
+    if "x-npy" in h.get("Content-Type", ""):
+        return st, h, np.load(BytesIO(raw))
+    return st, h, np.asarray(json.loads(raw)["outputs"], np.float32)
+
+
+def wire_generate(port, prompt, max_new, timeout=300):
+    """POST a generate and read its ndjson stream line by line → (status,
+    lines, seconds to the first line, seconds to the end, version)."""
+    import http.client
+    t0 = time.monotonic()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", "/v1/models/lm/generate",
+                     body=json.dumps({"prompt": [int(t) for t in prompt],
+                                      "max_new_tokens": int(max_new)}),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            return resp.status, [resp.read()], None, None, None
+        lines, ttft = [], None
+        while True:
+            ln = resp.readline()
+            if not ln:
+                break
+            if ttft is None:
+                ttft = time.monotonic() - t0
+            lines.append(json.loads(ln))
+        return (resp.status, lines, ttft, time.monotonic() - t0,
+                int(resp.getheader("X-Model-Version")))
+    finally:
+        conn.close()
+
+
+def stream_tokens(lines, max_new):
+    """The tokens of one generate stream, or an AssertionError: lines
+    0..n-1 in order, closed by a {"done": true} trailer repeating them."""
+    if not lines or not lines[-1].get("done"):
+        raise AssertionError(f"stream not closed by its trailer: "
+                             f"{lines[-1:]}")
+    body, trailer = lines[:-1], lines[-1]
+    if [ln.get("index") for ln in body] != list(range(len(body))):
+        raise AssertionError("stream out of order")
+    toks = [ln["token"] for ln in body]
+    if toks != trailer["tokens"] or len(toks) != max_new:
+        raise AssertionError(f"stream of {len(toks)} tokens, trailer "
+                             f"{trailer.get('n')}, asked {max_new}")
+    return toks
+
+
+def pct_ms(xs, q):
+    return round(float(np.percentile(np.asarray(xs) * 1e3, q)), 3)
+
+
+class BlockingNet(torch.nn.Module):
+    """A forward that waits for ``release``: holds one dispatch on the
+    card so the queue behind it fills (the 429 check)."""
+
+    def __init__(self):
+        super().__init__()
+        self.entered, self.release = threading.Event(), threading.Event()
+        self.release.set()
+
+    def forward(self, x):
+        self.entered.set()
+        if not self.release.wait(120):
+            raise RuntimeError("BlockingNet was never released")
+        return x * 1.0
+
+
+def teacher_forced(model, prompt, toks, device):
+    """Log-prob rows (n, V) of the decode carry on ``device`` fed the
+    served tokens: the prefill's last row, then one step a token."""
+    from bigdl_tpu_torch.models.transformer import (
+        init_kv_cache, transformer_lm_decode_step, transformer_lm_prefill)
+    p = torch.tensor(prompt, device=device)[None]
+    n0 = p.shape[1]
+    with torch.inference_mode():
+        lp, kp, vp = transformer_lm_prefill(model, p)
+        k, v = init_kv_cache(model, 1, n0 + len(toks), device=device)
+        k[:, :, :, :n0], v[:, :, :, :n0] = kp, vp
+        rows = [lp[0, -1]]
+        for i, t in enumerate(toks[:-1]):
+            lp1, k, v = transformer_lm_decode_step(
+                model, torch.tensor([t], device=device),
+                torch.tensor([n0 + i], device=device), k, v)
+            rows.append(lp1[0])
+        return torch.stack(rows).float().cpu()
+
+
+def full_context(model, prompt, toks, device):
+    """Log-prob rows (n, V) of one full-context forward over prompt +
+    tokens, at the positions that predicted each token."""
+    seq = torch.tensor(list(prompt) + list(toks), device=device)[None]
+    with torch.inference_mode():
+        lp = model(seq)[0]
+    n0 = len(prompt)
+    return lp[n0 - 1:n0 - 1 + len(toks)].float().cpu()
+
+
+def planted_decode_faults(model, prompt, toks, want, device):
+    """{fault: the teacher-forced reading against ``want`` with that fault
+    planted in the card's decode carry}."""
+    from bigdl_tpu_torch.models import transformer as tr
+    out = {}
+    write, softmax = tr.write_kv, tr.masked_softmax
+    mha = model[2][0][0][0][1]
+    for fault in ("wq_transposed", "position_off_by_one", "causal_strict"):
+        try:
+            if fault == "wq_transposed":
+                with torch.no_grad():
+                    mha.wq.copy_(mha.wq.T.clone())
+            elif fault == "position_off_by_one":
+                tr.write_kv = lambda c, n, s: write(c, n, s + 1)
+            else:  # ki < p for ki <= p: each row loses its last key
+                tr.masked_softmax = lambda s, keep: softmax(
+                    s, keep & torch.roll(keep, -1, -1))
+            got = teacher_forced(model, prompt, toks, device)
+            out[fault] = float((got - want).abs().max())
+        finally:
+            tr.write_kv, tr.masked_softmax = write, softmax
+            if fault == "wq_transposed":
+                with torch.no_grad():
+                    mha.wq.copy_(mha.wq.T.clone())
+    return out
+
+
+def frontend_predict_check(fe_ports, services, pool, want_wo, dyn_want,
+                           seed, card, report):
+    """Check 1: the wire predict on both cores.  Returns the B4 launches
+    by mode."""
+    wo_svcs, dyn_svc = services
+    targets = ("resnet50:1", "resnet50:2", "rs")
+    out = {"weight_only": 0, "dynamic": 0}
+    for core, port in fe_ports.items():
+        before = {id(s): s.stats()["dispatch_count"]
+                  for s in wo_svcs + [dyn_svc]}
+        int8_gemm.reset_counts()
+        results, errors, lat = [], [], []
+        dyn_lock = threading.Lock()  # a dynamic request goes alone
+
+        def client(tid):
+            rng = np.random.default_rng(seed * 1000 + tid)
+            try:
+                for r in range(FRONTEND["requests"]):
+                    target = targets[(tid + r) % 3]
+                    n = int(rng.integers(1, FRONTEND["max_rows"] + 1))
+                    idx = tuple(int(i) for i in rng.choice(
+                        FRONTEND["pool_rows"], n, replace=False))
+                    as_json = r == 0 and tid % 2 == 0
+                    gate = dyn_lock if target.endswith(":2") \
+                        else contextlib.nullcontext()
+                    with gate:
+                        t0 = time.monotonic()
+                        st, _h, y = wire_predict(port, target, pool[list(idx)],
+                                                 as_json)
+                        lat.append((time.monotonic() - t0, as_json))
+                    results.append((target, idx, st, y, as_json))
+            except Exception as e:  # re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(FRONTEND["clients"])]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.monotonic() - t0
+        if errors or any(t.is_alive() for t in threads):
+            raise RuntimeError(f"wire predict {core}: {errors[:3]}")
+        bad = [(tg, st) for tg, _i, st, _y, _j in results if st != 200]
+        if bad or len(results) != FRONTEND["clients"] * FRONTEND["requests"]:
+            raise AssertionError(f"wire predict {core}: {bad[:4]}")
+        launches = {m: sum(n for v, n in int8_gemm.variant_launches.items()
+                           if v.endswith(m)) for m in out}
+        disp = {"weight_only": sum(s.stats()["dispatch_count"] - before[id(s)]
+                                   for s in wo_svcs),
+                "dynamic": dyn_svc.stats()["dispatch_count"]
+                - before[id(dyn_svc)]}
+        worst = {"weight_only": 0.0, "dynamic": 0.0}
+        for target, idx, _st, y, _j in results:
+            mode = "dynamic" if target.endswith(":2") else "weight_only"
+            want = dyn_want(idx) if mode == "dynamic" else want_wo[list(idx)]
+            worst[mode] = max(worst[mode], rel_err(y, want))
+        rows = sum(len(i) for _t, i, *_ in results)
+        npy = [t for t, j in lat if not j]
+        lat = [t for t, _j in lat]
+        print(f"frontend wire predict {core}: {len(results)} requests "
+              f"({rows} rows; {sum(j for *_, j in results)} JSON, the rest "
+              f"npy) from {FRONTEND['clients']} clients to v1 weight_only, "
+              f"v2 dynamic and a 2-replica set on cuda:0 in {wall:.2f} s: "
+              f"{rows / wall:.1f} rows/s, p50 {pct_ms(lat, 50)} ms, p99 "
+              f"{pct_ms(lat, 99)} ms (npy bodies alone p50 "
+              f"{pct_ms(npy, 50)} ms, p99 {pct_ms(npy, 99)} ms); every row "
+              f"against the CPU: "
+              f"weight_only {worst['weight_only']:.3e}, dynamic "
+              f"{worst['dynamic']:.3e} of max|y| (limit "
+              f"{SERVE_TOL['weight_only']}); B4 {launches} launches for "
+              f"{disp} dispatches [{card}]")
+        for mode in out:
+            if launches[mode] != INTEROP["gemms"] * disp[mode] \
+                    or not disp[mode]:
+                raise AssertionError(f"wire {core} {mode}: B4 "
+                                     f"{launches[mode]} launches for "
+                                     f"{disp[mode]} dispatches")
+            if not worst[mode] <= SERVE_TOL[mode]:
+                raise AssertionError(f"wire {core} {mode}: rows "
+                                     f"{worst[mode]:.3e} from the CPU")
+            out[mode] += launches[mode]
+        report["frontend"][f"predict_{core}"] = {
+            "requests": len(results), "rows": rows, "wall_s": wall,
+            "rows_per_s": rows / wall, "p50_ms": pct_ms(lat, 50),
+            "p99_ms": pct_ms(lat, 99), "npy_p50_ms": pct_ms(npy, 50),
+            "npy_p99_ms": pct_ms(npy, 99), "reading": worst,
+            "launches": launches, "dispatches": disp}
+    return out
+
+
+def frontend_failover_check(port, rs_f, flight, pool, want_wo, seed, card,
+                            report):
+    """Check 2: a replica death under wire load.  Returns B4 launches."""
+    before = [r.stats()["dispatch_count"] for r in rs_f._replicas]
+    int8_gemm.reset_counts()
+    results, errors = [], []
+
+    def client(tid):
+        rng = np.random.default_rng(seed * 2000 + tid)
+        try:
+            for _ in range(FRONTEND["fail_requests"]):
+                n = int(rng.integers(1, FRONTEND["max_rows"] + 1))
+                idx = [int(i) for i in rng.choice(FRONTEND["pool_rows"], n,
+                                                  replace=False)]
+                t0 = time.monotonic()
+                st, h, y = wire_predict(port, "failover", pool[idx], False)
+                results.append((st, h.get("X-Trace-Id"), idx, y,
+                                time.monotonic() - t0))
+        except Exception as e:  # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(FRONTEND["clients"])]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"failover clients: {errors[:3]}")
+    want_n = FRONTEND["clients"] * FRONTEND["fail_requests"]
+    if len(results) != want_n or any(r[0] != 200 for r in results):
+        raise AssertionError(f"failover: {len(results)} of {want_n} "
+                             f"answered, statuses "
+                             f"{sorted({r[0] for r in results})}")
+    worst = max(rel_err(y, want_wo[idx]) for _s, _t, idx, y, _l in results)
+    counts, res = flight.counts(), rs_f.stats()["resilience"]
+    events = flight.events()
+    victims = {e.get("trace_id") for e in events
+               if e["event"] == "failover"}
+    death = next(e for e in events if e["event"] == "replica_death")
+    revival = next(e for e in events if e["event"] == "revival")
+    victim_lat = [lat for _s, t, _i, _y, lat in results if t in victims]
+    all_lat = [r[4] for r in results]
+    launches = int8_gemm.launches
+    disp = sum(r.stats()["dispatch_count"] - b
+               for r, b in zip(rs_f._replicas, before))
+    print(f"frontend failover ({FRONTEND['fail_plan']}): {len(results)} "
+          f"requests, all 200, rows {worst:.3e} of max|y| from the CPU; "
+          f"flight {dict(counts)}; counters deaths "
+          f"{res['resilience/replica_deaths']}, failovers "
+          f"{res['resilience/failovers']}, revivals "
+          f"{res['resilience/revivals']}, quarantines "
+          f"{res['resilience/quarantines']}; death to revival "
+          f"{(revival['t_unix'] - death['t_unix']) * 1e3:.3f} ms; "
+          f"{len(victim_lat)} failed-over request(s) answered in "
+          f"{[round(x * 1e3, 3) for x in victim_lat]} ms against p50 "
+          f"{pct_ms(all_lat, 50)} ms; B4 {launches} launches for {disp} "
+          f"dispatches [{card}]")
+    if not (counts.get("replica_death") == 1 == counts.get("revival")
+            and counts.get("failover", 0) >= 1
+            and res["resilience/replica_deaths"] == 1
+            and res["resilience/revivals"] == 1
+            and res["resilience/failovers"] == counts["failover"]
+            and victim_lat and worst <= SERVE_TOL["weight_only"]
+            and launches == INTEROP["gemms"] * disp):
+        raise AssertionError(f"failover story: flight {counts}, counters "
+                             f"{res}, rows {worst}")
+    report["frontend"]["failover"] = {
+        "flight": dict(counts), "counters": res, "reading": worst,
+        "death_to_revival_ms": (revival["t_unix"] - death["t_unix"]) * 1e3,
+        "victim_ms": [x * 1e3 for x in victim_lat],
+        "p50_ms": pct_ms(all_lat, 50), "launches": launches}
+    return launches
+
+
+def frontend_taxonomy_check(port, slow, slow_net, card, report):
+    """Check 3: 504 past a queued deadline, 429 with Retry-After on a
+    full queue, 404 for an unknown model."""
+    row = np.ones((1, 4), np.float32)
+    st504, _h, _b = wire_predict(port, "parked", row, True,
+                                 {"X-Deadline-Ms": "100"})
+    slow.predict(row, timeout=60)  # a dispatch: the drain rate is known
+    slow_net.release.clear()
+    slow_net.entered.clear()
+    held = slow.submit(row)  # dispatched, waits in the forward
+    if not slow_net.entered.wait(60):
+        raise AssertionError("the held dispatch never started")
+    queued = slow.submit(row)  # fills the one-request queue
+    try:
+        st429, h429, b429 = wire_predict(port, "slow", row, True)
+    finally:
+        slow_net.release.set()
+    held.result(60), queued.result(60)
+    st404, _h, _b = wire_predict(port, "nope", row, True)
+    print(f"frontend taxonomy: deadline 100 ms while queued -> {st504}; "
+          f"full queue -> {st429} Retry-After {h429.get('Retry-After')} "
+          f"X-Retry-After-Ms {h429.get('X-Retry-After-Ms')}; unknown model "
+          f"-> {st404} [{card}]")
+    if (st504, st429, st404) != (504, 429, 404) \
+            or "Retry-After" not in h429:
+        raise AssertionError(f"taxonomy {(st504, st429, st404)} {h429}")
+    report["frontend"]["taxonomy"] = {"deadline": st504, "full": st429,
+                                      "retry_after": h429["Retry-After"],
+                                      "unknown": st404}
+
+
+def decode_step_alone(model, dec, card):
+    """One decode step over the service's slot batch, alone on an idle
+    card (a fresh cache, every slot at position 300): event-timed ms a
+    step, and the device ms of its kernels (torch.profiler)."""
+    from bigdl_tpu_torch.models.transformer import (
+        init_kv_cache, transformer_lm_decode_step)
+    k, v = init_kv_cache(model, dec.slots, dec.max_seq_len, dec.device)
+    toks = torch.zeros(dec.slots, dtype=torch.int64, device=dec.device)
+    lens = torch.full((dec.slots,), 300, dtype=torch.int64,
+                      device=dec.device)
+
+    def step():
+        with torch.inference_mode():
+            transformer_lm_decode_step(model, toks, lens, k, v)
+
+    out = {"event_ms": cuda_ms(step), "device_ms": device_ms(step, 20)}
+    print(f"frontend decode step alone ({dec.slots} slots at position "
+          f"300 of {dec.max_seq_len}): {out['event_ms']:.3f} ms a step "
+          f"(events), {out['device_ms']:.3f} ms of device work [{card}]")
+    del k, v
+    return out
+
+
+def frontend_generate_check(fe_ports, dec, lm_cpu, seed, card, report):
+    """Check 4: 16 concurrent streams over both cores, each in order and
+    closed by its trailer; the served tokens teacher-forced through the
+    card's decode carry against the CPU's full-context forward and the
+    card's own, within GEN_TOL; three planted faults above it."""
+    rng = np.random.default_rng(seed + 77)
+    V = lm_cpu[0].n_index
+    jobs = [(rng.integers(0, V, int(rng.integers(FRONTEND["prompt"][0],
+                                                 FRONTEND["prompt"][1] + 1)))
+             .tolist(), int(rng.integers(FRONTEND["new_tokens"][0],
+                                         FRONTEND["new_tokens"][1] + 1)))
+            for _ in range(FRONTEND["gen_streams"])]
+    ports = list(fe_ports.values())
+    warm, steps0 = dec.compile_count, dec.steps_done
+    results, errors = {}, []
+    start = threading.Barrier(len(jobs))
+
+    def client(i):
+        try:
+            start.wait(60)
+            results[i] = wire_generate(ports[i % len(ports)], *jobs[i])
+        except Exception as e:  # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(jobs))]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.monotonic() - t0
+    if errors or len(results) != len(jobs):
+        raise RuntimeError(f"generate clients: {errors[:3]}")
+    served = []
+    for i, (prompt, max_new) in enumerate(jobs):
+        st, lines, _tt, _w, _v = results[i]
+        if st != 200:
+            raise AssertionError(f"generate {i}: {st} {lines}")
+        served.append(stream_tokens(lines, max_new))
+    steps = dec.steps_done - steps0
+    stats = dec.stats()
+    if dec.compile_count != warm:
+        raise AssertionError("the decode service warmed again")
+    n_tok = sum(len(t) for t in served)
+    ttft = [results[i][2] for i in range(len(jobs))]
+    model = dec._model
+    reading = {"vs_cpu": 0.0, "vs_card_full": 0.0}
+    ties = 0
+    for (prompt, _m), toks in zip(jobs, served):
+        inc = teacher_forced(model, prompt, toks, dec.device)
+        cpu = full_context(lm_cpu, prompt, toks, "cpu")
+        card_full = full_context(model, prompt, toks, dec.device)
+        reading["vs_cpu"] = max(reading["vs_cpu"],
+                                float((inc - cpu).abs().max()))
+        reading["vs_card_full"] = max(reading["vs_card_full"],
+                                      float((inc - card_full).abs().max()))
+        top2 = cpu.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * GEN_TOL
+        ties += int((~clear).sum())
+        if not torch.equal(cpu.argmax(-1)[clear],
+                           torch.tensor(toks)[clear]):
+            raise AssertionError("a served token is not the CPU's argmax "
+                                 "at a clear margin")
+    alone = decode_step_alone(model, dec, card)
+    prompt, _m = jobs[0]
+    want = full_context(lm_cpu, prompt, served[0], "cpu")
+    faults = planted_decode_faults(model, prompt, served[0], want,
+                                   dec.device)
+    d = stats["decode"]
+    print(f"frontend generate: {len(jobs)} concurrent streams (prompts "
+          f"{min(len(j[0]) for j in jobs)}-{max(len(j[0]) for j in jobs)} "
+          f"tokens, {n_tok} new) over both cores in {wall:.2f} s: "
+          f"{n_tok / wall:.1f} tokens/s, {steps} steps, "
+          f"{wall / max(steps, 1) * 1e3:.3f} ms a step of wall "
+          f"(step_ms_ewma {d['step_ms_ewma']}), occupancy "
+          f"{d['step_occupancy']}; time to first token p50 "
+          f"{pct_ms(ttft, 50)} ms p99 {pct_ms(ttft, 99)} ms; KV cache "
+          f"{dec.kv_bytes} bytes ({dec.slots} slots x {dec.max_seq_len}); "
+          f"compile_count {dec.compile_count} [{card}]")
+    print(f"frontend generate check: the card's decode log-probs vs the "
+          f"CPU's full context {reading['vs_cpu']:.3e}, vs the card's full "
+          f"context {reading['vs_card_full']:.3e} (limit {GEN_TOL}); every "
+          f"token the CPU's argmax but at {ties} near ties; planted faults "
+          + ", ".join(f"{k} {v:.3e}" for k, v in faults.items())
+          + f" [{card}]")
+    if not (max(reading.values()) <= GEN_TOL
+            and min(faults.values()) > GEN_TOL):
+        raise AssertionError(f"generate check {reading} {faults}")
+    report["frontend"]["generate"] = {
+        "streams": len(jobs), "tokens": n_tok, "wall_s": wall,
+        "tokens_per_s": n_tok / wall, "steps": steps,
+        "step_ms_wall": wall / max(steps, 1) * 1e3,
+        "step_ms_ewma": d["step_ms_ewma"], "occupancy": d["step_occupancy"],
+        "ttft_p50_ms": pct_ms(ttft, 50), "ttft_p99_ms": pct_ms(ttft, 99),
+        "kv_bytes": dec.kv_bytes, "reading": reading, "near_ties": ties,
+        "faults": faults, "step_alone": alone}
+
+
+def frontend_cutover_check(port, reg, fe, lm_gpu, seed, device, card,
+                           report):
+    """Check 5: a hot cutover of the decode backend under 8 streaming
+    clients: no stream dropped, both versions served."""
+    from bigdl_tpu_torch.frontend import HotCutover
+    from bigdl_tpu_torch.serving import DecodeService
+    stop, done, errors = threading.Event(), [], []
+    n_new = FRONTEND["cutover_tokens"]
+
+    def client(tid):
+        rng = np.random.default_rng(seed * 3000 + tid)
+        try:
+            while not stop.is_set():
+                prompt = rng.integers(0, lm_gpu[0].n_index,
+                                      int(rng.integers(8, 64)))
+                st, lines, _t, _w, ver = wire_generate(port, prompt, n_new)
+                if st != 200:
+                    raise AssertionError(f"cutover stream {st} {lines}")
+                stream_tokens(lines, n_new)
+                done.append(ver)
+        except Exception as e:  # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(FRONTEND["cutover_clients"])]
+    for t in threads:
+        t.start()
+    try:
+        deadline = time.monotonic() + 120
+        while len(done) < 8 and time.monotonic() < deadline and not errors:
+            time.sleep(0.01)
+        t0 = time.monotonic()
+        rep = HotCutover(reg, fe, drain_timeout_s=120).deploy(
+            "lm", service=DecodeService(
+                lm_gpu, slots=FRONTEND["slots"],
+                max_seq_len=FRONTEND["max_seq_len"],
+                max_prompt_len=FRONTEND["max_prompt_len"],
+                prefill_buckets=FRONTEND["buckets"], device=device,
+                name="lm-v2"))
+        cut_s = time.monotonic() - t0
+        n = len(done)
+        while len(done) < n + 8 and time.monotonic() < deadline + 120 \
+                and not errors:
+            time.sleep(0.01)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(300)
+    versions = sorted(set(done))
+    print(f"frontend hot cutover under {FRONTEND['cutover_clients']} "
+          f"streaming clients: v{rep['old_version']} -> "
+          f"v{rep['new_version']} in {cut_s:.2f} s (warmup "
+          f"{rep['warmup_s']} s, wire drain {rep['wire_drain_s']} s), "
+          f"{len(done)} streams of {n_new} tokens, versions {versions}, "
+          f"{len(errors)} dropped [{card}]")
+    if errors or versions != [1, 2] or not rep["old_undeployed"]:
+        raise AssertionError(f"cutover: {errors[:3]} {versions} {rep}")
+    report["frontend"]["cutover"] = {"streams": len(done),
+                                     "versions": versions,
+                                     "cut_s": cut_s, **rep}
+
+
+def frontend_phase(seed, device, card, report):
+    """The wire front end, the replica set and the decode engine on the
+    card (FRONTEND).  Returns {mode: B4 launches}."""
+    from bigdl_tpu_torch.frontend import FrontendServer
+    from bigdl_tpu_torch.models import transformer_lm
+    from bigdl_tpu_torch.resilience import FaultInjector, ReplicaSet
+    from bigdl_tpu_torch.serving import DecodeService, InferenceService
+    from bigdl_tpu_torch.telemetry.flight import FlightRecorder
+    report["frontend"] = {}
+    # both replica sets put their two replicas on the one card
+    card0 = torch.device("cuda", 0) if device.type == "cuda" else device
+    model = resnet50().initialize(torch.Generator().manual_seed(seed))
+    qwo = quantize(model, mode="weight_only")
+    qdyn_cpu = quantize(model, mode="dynamic")
+    gen = torch.Generator().manual_seed(seed + 31)
+    pool = torch.randn((FRONTEND["pool_rows"],) + SPEC[0],
+                       generator=gen).numpy()
+    t0 = time.monotonic()
+    with torch.inference_mode():
+        want_wo = np.concatenate([qwo(torch.from_numpy(pool[i:i + 4]))
+                                  .numpy() for i in range(0, len(pool), 4)])
+    dyn_cache = {}
+
+    def dyn_want(idx):  # a lone dynamic request's CPU twin
+        if idx not in dyn_cache:
+            with torch.inference_mode():
+                dyn_cache[idx] = qdyn_cpu(torch.from_numpy(
+                    pool[list(idx)])).numpy()
+        return dyn_cache[idx]
+
+    print(f"frontend cpu references: the {len(pool)} pool images "
+          f"(weight_only) in {time.monotonic() - t0:.1f} s")
+    tmp = tempfile.mkdtemp(prefix="frontend-")
+    flight = FlightRecorder(os.path.join(tmp, "flight.jsonl"))
+    reg = ModelRegistry(device=device)
+    owned, servers = [], {}
+    try:
+        v1 = reg.deploy("resnet50", model, input_spec=SPEC,
+                        max_batch_size=BATCH, quantize=True)
+        v2 = reg.deploy("resnet50", model, input_spec=SPEC,
+                        max_batch_size=BATCH, quantize="dynamic")
+        rs = ReplicaSet(qwo, n_replicas=2, devices=[card0], input_spec=SPEC,
+                        max_batch_size=BATCH, name="rs")
+        owned.append(rs)
+        rs_f = ReplicaSet(qwo, n_replicas=2, devices=[card0],
+                          input_spec=SPEC, max_batch_size=BATCH,
+                          name="failover", flight=flight,
+                          request_tracing=True, fault_injector=FaultInjector(
+                              FRONTEND["fail_plan"], seed=seed))
+        owned.append(rs_f)
+        parked = InferenceService(BlockingNet(), input_spec=((4,),
+                                                             np.float32),
+                                  max_batch_size=1, buckets="1",
+                                  start=False, device=device, name="parked")
+        slow_net = BlockingNet()
+        slow = InferenceService(slow_net, input_spec=((4,), np.float32),
+                                max_batch_size=1, buckets="1",
+                                queue_capacity=1, device=device, name="slow")
+        owned += [parked, slow]
+        lm = transformer_lm().initialize(seed).eval()
+        lm_cpu = copy.deepcopy(lm)
+        t0 = time.monotonic()
+        dec = DecodeService(lm, slots=FRONTEND["slots"],
+                            max_seq_len=FRONTEND["max_seq_len"],
+                            max_prompt_len=FRONTEND["max_prompt_len"],
+                            prefill_buckets=FRONTEND["buckets"],
+                            device=device, name="lm")
+        n_params = sum(p.numel() for p in lm.parameters())
+        print(f"frontend decode service: transformer_lm {n_params} "
+              f"parameters, slots {dec.slots}, max_seq_len "
+              f"{dec.max_seq_len}, prompt buckets {list(dec.buckets)}, "
+              f"KV cache {dec.kv_bytes} bytes, warmup "
+              f"{time.monotonic() - t0:.2f} s ({dec.compile_count} runs) "
+              f"[{card}]")
+        reg.deploy("lm", service=dec)
+        backends = {"rs": rs, "failover": rs_f, "parked": parked,
+                    "slow": slow}
+        for core in ("eventloop", "threaded"):
+            servers[core] = FrontendServer(reg, backends=backends, port=0,
+                                           core=core)
+            servers[core].start()
+        ports = {c: s.port for c, s in servers.items()}
+
+        t0 = time.monotonic()
+        launches = frontend_predict_check(
+            ports, ([v1, *rs._replicas], v2), pool, want_wo, dyn_want,
+            seed, card, report)
+        print(f"phase frontend-predict: {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        launches["weight_only"] += frontend_failover_check(
+            ports["eventloop"], rs_f, flight, pool, want_wo, seed, card,
+            report)
+        print(f"phase frontend-failover: {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        frontend_taxonomy_check(ports["threaded"], slow, slow_net, card,
+                                report)
+        print(f"phase frontend-taxonomy: {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        frontend_generate_check(ports, dec, lm_cpu, seed, card, report)
+        print(f"phase frontend-generate: {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        frontend_cutover_check(ports["eventloop"], reg,
+                               servers["eventloop"], lm, seed, device, card,
+                               report)
+        print(f"phase frontend-cutover: {time.monotonic() - t0:.1f} s")
+    finally:
+        for s in servers.values():
+            s.stop()
+        for b in owned:
+            b.stop(drain=False)
+        reg.stop_all(drain=False)
+        flight.close()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["frontend"]["launches"] = launches
+    return launches
+
+
 PHASES = ("resnet", "lstm", "resnet-train", "wide-deep", "lenet",
           "distri", "cifar", "inception", "autoencoder", "remat", "text",
-          "nn-core", "resilience", "interop", "predict", "keras")
+          "nn-core", "resilience", "interop", "predict", "keras",
+          "frontend")
 EXTRA_PHASES = ("resnet-conditioning",)  # run only when named
 
 
@@ -7990,6 +8697,36 @@ def main(argv=None) -> int:
             kernels.append(by_name["maxpool_bwd"])
         by_name["maxpool_bwd"]["keras"] = {
             "launches": launches["maxpool_bwd"]}
+    if "frontend" in phases:
+        t0 = time.monotonic()
+        launches = frontend_phase(args.seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase frontend: {time.monotonic() - t0:.1f} s")
+        by_name = {k["name"]: k for k in kernels}
+        missing = [m for m in ("weight_only", "dynamic")
+                   if f"int8_gemm[{m}]" not in by_name]
+        if missing:
+            # no earlier phase timed B4: time the served forward's GEMMs
+            t0 = time.monotonic()
+            probe = quantize(resnet50().initialize(args.seed)).to(device)
+            shapes = gemm_shapes(probe, device)
+            del probe
+            totals = kernel_phase(shapes, device, card, report)
+            for mode in missing:
+                t = totals[mode]
+                by_name[f"int8_gemm[{mode}]"] = {
+                    "name": f"int8_gemm[{mode}]", **KERNEL,
+                    "launches": launches[mode],
+                    **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "library_ms")},
+                    "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
+                    else "operations"}
+                kernels.append(by_name[f"int8_gemm[{mode}]"])
+            print(f"phase int8-kernels-frontend: "
+                  f"{time.monotonic() - t0:.1f} s")
+        for mode in ("weight_only", "dynamic"):
+            by_name[f"int8_gemm[{mode}]"]["frontend"] = {
+                "launches": launches[mode]}
     if "resnet-conditioning" in phases:
         t0 = time.monotonic()
         resnet_conditioning_phase(args.seed, device, card, report)

@@ -19,7 +19,11 @@ memory watermark against the allocator's counters, a poisoned staged
 block written on the card with no copy to the host, a profiler
 window holding another thread's kernels; a quantized LeNet served from a
 ``.bigdl`` file bitwise to the in-memory quantized deploy, and a
-hand-built TF while loop on the card bitwise to the CPU.  Every
+hand-built TF while loop on the card bitwise to the CPU; a
+``ReplicaSet`` of two quantized replicas on ``cuda:0`` through a replica
+death, a small ``DecodeService`` against its CPU run (tokens equal, the
+incremental decode within 1e-4 of the full-context forward) and the wire
+front end's predict over both connection cores.  Every
 test
 here needs a CUDA card and skips without one; on the card run ``python -m pytest -m gpu tests/test_torch_*.py``.  This file imports
 no JAX, so it runs where the reference package is not installed.
@@ -1321,3 +1325,124 @@ def test_keras_bidirectional_lstm_step_on_card(cuda):
     for k, g in want.items():
         torch.testing.assert_close(grads[k], g, rtol=1e-4,
                                    atol=1e-4 * g.abs().max().item())
+
+
+# --- the rest of serving: replica sets, decode, the wire front end -------
+def _served_model(quantize="weight_only"):
+    model = resnet_cifar(8).initialize(0)
+    return model, nn.quantize(copy.deepcopy(model), mode=quantize)
+
+
+def test_replica_set_of_two_on_one_card_survives_a_death(cuda):
+    """Two replicas share ``cuda:0``, each with its own batcher thread;
+    replica 0 dies mid-load.  Every accepted request settles with the
+    CPU's rows (weight_only: 1e-4 of max|y|), the counters tell death,
+    failover and revival, and every dispatch launched B4 10 times."""
+    import threading
+    from bigdl_tpu_torch.resilience import FaultInjector, ReplicaSet
+    model, qmodel = _served_model()
+    x = np.random.default_rng(3).normal(0, 1, (3, 3, 32, 32)).astype(
+        np.float32)
+    with torch.inference_mode():
+        want = qmodel(torch.from_numpy(x)).numpy()
+    rs = ReplicaSet(qmodel, n_replicas=2, devices=[torch.device("cuda", 0)],
+                    input_spec=((3, 32, 32), np.float32), max_batch_size=8,
+                    fault_injector=FaultInjector(
+                        "replica_death@target=0,after=3,count=1"))
+    outs, errs = [], []
+
+    def client():
+        for _ in range(5):
+            try:
+                outs.append(rs.predict(x, timeout=60))
+            except Exception as e:  # noqa: BLE001 - collected and failed
+                errs.append(e)
+
+    int8_gemm.launches = 0
+    threads = [threading.Thread(target=client) for _ in range(4)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        stats = rs.stats()
+    finally:
+        rs.stop()
+    assert errs == [] and len(outs) == 20
+    for got in outs:
+        np.testing.assert_allclose(got, want, rtol=1e-4,
+                                   atol=1e-4 * np.abs(want).max())
+    res = stats["resilience"]
+    assert res["resilience/replica_deaths"] == 1
+    assert res["resilience/revivals"] == 1
+    assert res["resilience/failovers"] >= 1
+    assert [r.device for r in rs._replicas] == [torch.device("cuda", 0)] * 2
+    # the death strikes before the forward: a dispatch that launched
+    # ran all ten GEMMs
+    assert int8_gemm.launches % 10 == 0 and int8_gemm.launches >= 10
+
+
+def test_decode_service_on_card_matches_cpu(cuda):
+    """A small ``transformer_lm`` decoding on the card against the same
+    service on the CPU: greedy tokens equal, and the card's incremental
+    decode within 1e-4 of its own full-context forward at every step."""
+    from bigdl_tpu_torch.models.transformer import (
+        init_kv_cache, transformer_lm, transformer_lm_decode_step,
+        transformer_lm_prefill)
+    from bigdl_tpu_torch.serving import DecodeService
+    lm = transformer_lm(128, 64, 4, 2, max_len=128).initialize(0).eval()
+    prompts = [list(range(1, n + 1)) for n in (3, 9, 17, 30)]
+    results = {}
+    for device in ("cpu", cuda):
+        with DecodeService(copy.deepcopy(lm), slots=3, max_seq_len=64,
+                           max_prompt_len=32, device=device) as dec:
+            futs = [dec.submit(p, max_new_tokens=12) for p in prompts]
+            results[str(device)] = [list(f.result(timeout=120).tokens)
+                                    for f in futs]
+    assert results["cuda"] == results["cpu"]
+    m = copy.deepcopy(lm).to(cuda)
+    seq = torch.tensor(prompts[2] + results["cuda"][2], device=cuda)
+    with torch.inference_mode():
+        k, v = init_kv_cache(m, 1, 64)
+        _, kp, vp = transformer_lm_prefill(m, seq[None, :17])
+        k[:, :, :, :17], v[:, :, :, :17] = kp, vp
+        for t in range(17, len(seq)):
+            lp, k, v = transformer_lm_decode_step(
+                m, seq[t:t + 1], torch.tensor([t], device=cuda), k, v)
+            full = m(seq[None, :t + 1])[0, -1]
+            torch.testing.assert_close(lp[0], full, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("core", ["eventloop", "threaded"])
+def test_wire_predict_on_card(cuda, core):
+    """The wire front end over a registry on the card: JSON rows within
+    1e-4 of max|y| of the CPU, B4 at 10 launches a dispatch."""
+    import http.client
+    import json
+    from bigdl_tpu_torch.frontend import FrontendServer
+    model, qmodel = _served_model()
+    x = np.random.default_rng(4).normal(0, 1, (2, 3, 32, 32)).astype(
+        np.float32)
+    with torch.inference_mode():
+        want = qmodel(torch.from_numpy(x)).numpy()
+    with ModelRegistry(device=cuda) as reg:
+        svc = reg.deploy("r", model, input_spec=((3, 32, 32), np.float32),
+                         quantize=True, max_batch_size=8)
+        fe = FrontendServer(reg, port=0, core=core)
+        port = fe.start()
+        try:
+            int8_gemm.launches = 0
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            conn.request("POST", "/v1/models/r/predict",
+                         body=json.dumps({"inputs": x.tolist()}),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+            conn.close()
+        finally:
+            fe.stop()
+        assert resp.status == 200, body
+        assert int8_gemm.launches == 10 * (svc.stats()["dispatch_count"])
+    got = np.asarray(body["outputs"], np.float32)
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-4 * np.abs(want).max())

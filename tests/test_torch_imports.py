@@ -30,7 +30,14 @@ launched.  So are the prediction and Keras slice's (``optim/predictor.py``,
 ``estimator.py``, ``keras/*``, ``interop/{keras_format,session,
 tf_queues}.py``, ``dataset/{news20,tfrecord}.py``, ``nn/{spatial_extras,
 tensor_extras}.py``): a ``Predictor`` over a quantized LeNet, a Keras
-LeNet step and a ``TFSession`` step launch no kernel."""
+LeNet step and a ``TFSession`` step launch no kernel.  And so are the
+serving slice's (``frontend/*``, ``resilience/replica_set.py``,
+``serving/decode.py``, ``nn/attention.py``, ``models/transformer.py``):
+the wire front end over both connection cores answers predict on a
+registry version and on a ``ReplicaSet`` through a replica death,
+generate on a ``DecodeService`` and 404, and hot-cuts the decode
+version over, with no kernel launched.  No import statement anywhere
+in the port, function bodies included, names JAX or the reference."""
 
 import json
 import os
@@ -318,6 +325,50 @@ with tempfile.TemporaryDirectory() as d:
                              * 4) >> SampleToMiniBatch(4),
                nn.ClassNLLCriterion(), end_when=optim.max_iteration(1))
 assert int8_gemm.launches == maxpool.launches == 0
+import http.client, threading
+from bigdl_tpu_torch.frontend import FrontendServer, HotCutover
+from bigdl_tpu_torch.models import transformer_lm
+from bigdl_tpu_torch.resilience import FaultInjector, ReplicaSet
+from bigdl_tpu_torch.serving import DecodeService, ModelRegistry
+reg = ModelRegistry(device="cpu")
+reg.deploy("q", qnet, input_spec=((1, 28, 28), np.float32), max_batch_size=4)
+rset = ReplicaSet(qnet, n_replicas=2, devices=[torch.device("cpu")],
+                  input_spec=((1, 28, 28), np.float32), max_batch_size=4,
+                  fault_injector=FaultInjector(
+                      "replica_death@target=0,after=1,count=1"))
+lm = transformer_lm(32, 16, 2, 1, max_len=32).initialize(0)
+reg.deploy("lm", service=DecodeService(lm, slots=2, max_seq_len=16,
+                                       prefill_buckets="top", device="cpu"))
+for core in ("eventloop", "threaded"):
+    fe = FrontendServer(reg, backends={"rs": rset}, port=0, core=core)
+    port = fe.start()
+    for path, body in [("/v1/models/q/predict", {"inputs": np.zeros(
+            (2, 1, 28, 28)).tolist()}), ("/v1/models/rs/predict", {
+            "inputs": np.zeros((1, 1, 28, 28)).tolist()}),
+            ("/v1/models/rs/predict", {"inputs": np.zeros(
+                (1, 1, 28, 28)).tolist()}),
+            ("/v1/models/lm/generate", {"prompt": [1, 2],
+                                        "max_new_tokens": 3}),
+            ("/v1/models/nope/predict", {"inputs": [[0.0]]})]:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("POST", path, body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        assert resp.status == (404 if "nope" in path else 200), resp.status
+        resp.read()
+        conn.close()
+    HotCutover(reg, fe).deploy("lm", service=DecodeService(
+        lm, slots=1, max_seq_len=16, prefill_buckets="top", device="cpu"))
+    fe.stop()
+assert rset.stats()["resilience"]["resilience/replica_deaths"] == 1
+rset.stop()
+reg.stop_all()
+assert int8_gemm.launches == maxpool.launches == 0
+assert {"bigdl_tpu_torch." + m for m in (
+    "frontend.server", "frontend.eventloop", "frontend.http1",
+    "frontend.qos", "frontend.cutover", "frontend.autoscale",
+    "resilience.replica_set", "serving.decode", "nn.attention",
+    "models.transformer")} <= set(names)
 assert {"bigdl_tpu_torch." + m for m in (
     "optim.predictor", "estimator", "keras.backend", "keras.layers",
     "keras.topology", "interop.keras_format", "interop.session",
@@ -342,6 +393,33 @@ def test_port_and_chip_smoke_import_no_jax():
     expected = len(list(pkgutil.walk_packages(bigdl_tpu_torch.__path__,
                                               "bigdl_tpu_torch.")))
     assert got["modules"] == expected >= 20
+
+
+def _imported_modules(path):
+    """Every module an ``import`` statement in ``path`` names, at any
+    depth: module level, function and method bodies, branches."""
+    import ast
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_import_anywhere_names_the_reference_or_jax():
+    """A lazy ``from bigdl_tpu.`` inside a method passes an import-time
+    check and fails only when its route runs (the front end's copied
+    request paths import inside methods), so every import statement of
+    the port and of ``chip_smoke.py`` is read, function bodies too."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for d, _, fs in os.walk(os.path.join(REPO, "bigdl_tpu_torch")):
+        files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
+    bad = [(os.path.relpath(f, REPO), m) for f in files
+           for m in _imported_modules(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "bigdl_tpu")]
+    assert bad == []
+    assert len(files) > 100
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

@@ -1,6 +1,7 @@
 """The concurrency lint (graftlint GL2xx/GL3xx) over the port's threaded
-modules: the serving batcher and service, the breaker, the fault injector
-and the membership ledger, the telemetry plane (registry, tracer, flight
+modules: the serving batcher and service, the decode engine, the breaker
+and the replica set with its health ledgers, the wire front end, the fault
+injector and the membership ledger, the telemetry plane (registry, tracer, flight
 recorder, admin server), the block prefetchers, the snapshot writer
 thread, the checkpoint manager's GC pin, the preemption handler, the
 summary writer, the two sanitizers (lockdep, spmdcheck) and
@@ -9,7 +10,7 @@ summary writer, the two sanitizers (lockdep, spmdcheck) and
 The reference's own gate (``tests/test_graftlint.py``) lints
 ``bigdl_tpu/``; the port lies outside its default paths, so this file
 holds the port's copies of the reference's threaded code to the same
-rules.  The only suppressions allowed are the three the reference makes
+rules.  The only suppressions allowed are the ones the reference makes
 for the same code, with its reasons.
 """
 
@@ -29,7 +30,10 @@ THREADED = ["bigdl_tpu_torch/serving", "bigdl_tpu_torch/resilience",
             "bigdl_tpu_torch/utils/summary.py",
             "bigdl_tpu_torch/utils/lockdep.py",
             "bigdl_tpu_torch/utils/spmdcheck.py",
-            "bigdl_tpu_torch/optim/predictor.py"]
+            "bigdl_tpu_torch/optim/predictor.py",
+            "bigdl_tpu_torch/frontend",
+            "bigdl_tpu_torch/resilience/replica_set.py",
+            "bigdl_tpu_torch/serving/decode.py"]
 
 
 def _lint(*args):
@@ -83,8 +87,9 @@ def test_only_the_references_suppressions():
                 ref = _suppressions(twin)
                 assert all(n <= ref.get(r, 0) for r, n in mine.items()), \
                     (rel, mine, ref)
-    # the batcher's liveness read, the metrics' fast-path read and the
-    # prefetcher's two shutdown drains
-    assert seen == {"bigdl_tpu_torch/serving/batcher.py": {"GL201": 1},
+    # the batcher's liveness read, pre-start write and retry-hint depth
+    # sample, the metrics' fast-path read and the prefetcher's two
+    # shutdown drains
+    assert seen == {"bigdl_tpu_torch/serving/batcher.py": {"GL201": 3},
                     "bigdl_tpu_torch/serving/metrics.py": {"GL201": 1},
                     "bigdl_tpu_torch/dataset/prefetch.py": {"GL203": 2}}

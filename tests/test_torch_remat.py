@@ -338,8 +338,7 @@ def test_config_fields_match_reference(fresh, monkeypatch):
     with pytest.raises(AttributeError):
         config.configure(_sources={})
     # a field comes with the code that reads it
-    for f in ("prefetch_batches", "loader_workers", "serving_deadline_ms",
-              "compute_dtype", "matmul_precision", "log_every_n_iterations",
+    for f in ("prefetch_batches", "loader_workers", "compute_dtype", "matmul_precision", "log_every_n_iterations",
               "summary_flush_secs"):
         assert hasattr(ref, f) and not hasattr(port, f), f
         with pytest.raises(AttributeError):

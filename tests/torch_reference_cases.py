@@ -37,3 +37,38 @@ def load_reference_cases(name, ported, drop=()):
         j = src.find("\nclass ", i + 1)
         src = src[:i] + (src[j + 1:] if j >= 0 else "")
     return compile(src, os.path.join(HERE, name), "exec")
+
+
+def reference_classes(name, keep, drop=(), subs=()):
+    """The top-level classes and functions ``keep`` of ``tests/<name>``
+    (with their decorators), the methods ``drop`` cut out (with theirs)
+    and ``subs`` applied (each must apply once), compiled for a port test
+    module to exec in its own namespace, where the reference's names are
+    bound to the port's.  No name of the reference package may be left."""
+    src = open(os.path.join(HERE, name), encoding="utf-8").read()
+    out, take = [], False
+    for ln in src.split("\n"):
+        if ln and not ln[0].isspace() and not ln.startswith(")"):
+            take = any(ln.startswith(f"class {c}") or
+                       ln.startswith(f"def {c}(") for c in keep) \
+                or (take and ln.startswith("@"))
+        if take:
+            out.append(ln)
+    body = "\n".join(out)
+    for m in drop:
+        i = body.index(f"    def {m}(")
+        while True:  # the method's own decorators go with it
+            j = body.rfind("\n", 0, i - 1) + 1
+            if not body[j:i].startswith("    @"):
+                break
+            i = j
+        k = body.index(f"    def {m}(", i)
+        ends = [e for e in (body.find("\n    def ", k + 1),
+                            body.find("\n    @", k + 1),
+                            body.find("\nclass ", k + 1)) if e >= 0]
+        body = body[:i] + (body[min(ends) + 1:] if ends else "")
+    for a, b in subs:
+        assert body.count(a) == 1, a
+        body = body.replace(a, b)
+    assert "bigdl_tpu." not in body.replace("bigdl_tpu_torch.", "")
+    return compile(body, os.path.join(HERE, name), "exec")
