@@ -144,7 +144,8 @@ class Engine:
         """The mesh distributed optimizers shard over: the one
         :meth:`set_mesh` gave, else a data mesh over every process
         (``parallel.create_mesh``, which starts a world-1 group on
-        ``backend`` when there is none)."""
+        ``backend`` when there is none; with no backend and no group, a
+        local mesh that joined none)."""
         if cls._mesh is None:
             from bigdl_tpu_torch.parallel.mesh import create_mesh
             cls._mesh = create_mesh(backend=backend)

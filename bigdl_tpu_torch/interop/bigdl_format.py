@@ -311,10 +311,6 @@ def _construct(node: dict) -> Module:
         b = np.asarray(ps[2], np.float32) if len(ps) > 2 else None
         if t == "QuantizedLinear":
             return nn.QuantizedLinear(wq, ws, b, name=name, mode=qmode)
-        if a.get("format", "NCHW") != "NCHW":
-            raise NotImplementedError(
-                f"quantized NHWC convolution {node['name']!r}: the port's "
-                "int8 convolution is NCHW only")
         return nn.QuantizedSpatialConvolution(_conv(a), wq, ws, b,
                                               name=name, mode=qmode)
     if t in _SIMPLE:
@@ -576,7 +572,7 @@ class _Exporter:
         if t == "QuantizedSpatialConvolution":
             o, i = m.weight_q.shape[:2]
             return {**out, **_conv_attrs(m, i * m.n_group, o,
-                                         m.bias is not None, "NCHW"),
+                                         m.bias is not None, m.format),
                     "quantMode": _enc_attr_str_array([m.mode])}
         return out
 

@@ -19,6 +19,10 @@ A ``transformer_lm`` keeps the reference's tree too: ``MultiHeadAttention``'s
 under ``params["0"]`` (the embedding), ``["1"]["weight"]`` (positions),
 ``[str(2 + i)]["0"]["0"]["0"]`` (block i's attention) and so on, the head's
 ``TimeDistributed`` skipped as above.
+A model placed for tensor parallelism (``parallel.shard_module``) keeps
+the unsharded tree: a parameter split into ``Shards`` answers under its
+unsharded name, reassembled on the way out and cut into its slices on the
+way in.
 The dicts hold numpy arrays (convert JAX arrays with ``np.asarray``) or
 CPU tensors (bf16 ones too): this module imports neither JAX nor the
 reference package.  :func:`jax_tree` and :func:`from_jax_tree` carry any
@@ -66,9 +70,15 @@ def _wrapped(m):
     return None
 
 
+def _is_shards(m) -> bool:
+    from bigdl_tpu_torch.parallel.tensor_parallel import Shards
+    return isinstance(m, Shards)
+
+
 def _jax_names(model: torch.nn.Module, kind: str) -> Dict[str, str]:
     """{dotted reference path: port name} of ``model``'s parameters
-    (``kind="params"``) or buffers (``"state"``)."""
+    (``kind="params"``) or buffers (``"state"``); a sharded parameter by
+    its unsharded name."""
     out = {}
 
     def walk(m, tprefix, jprefix):
@@ -81,6 +91,10 @@ def _jax_names(model: torch.nn.Module, kind: str) -> Dict[str, str]:
         for k, _ in own:
             out[f"{jprefix}{k}"] = f"{tprefix}{k}"
         for k, c in m.named_children():
+            if _is_shards(c):
+                if kind == "params":
+                    out[f"{jprefix}{k}"] = f"{tprefix}{k}"
+                continue
             walk(c, f"{tprefix}{k}.", f"{jprefix}{k}.")
 
     walk(model, "", "")
@@ -93,7 +107,9 @@ def load_jax_params(model: torch.nn.Module, params: dict,
     buffers, in place.  Every parameter of ``model`` must be covered and
     every array must land on a tensor of the same shape; raises
     ``KeyError``/``ValueError`` otherwise.  Returns ``model``."""
-    targets = {"params": dict(model.named_parameters()),
+    from bigdl_tpu_torch.parallel.tensor_parallel import _shard_paths
+    targets = {"params": {**dict(model.named_parameters()),
+                          **_shard_paths(model)},
                "state": dict(model.named_buffers())}
     sources = {"params": _flatten(params), "state": _flatten(state or {})}
     covered = set()
@@ -109,10 +125,15 @@ def load_jax_params(model: torch.nn.Module, params: dict,
                                  f"fit {tuple(dst.shape)}")
             src = arr if isinstance(arr, torch.Tensor) \
                 else torch.from_numpy(np.array(arr))
-            with torch.no_grad():
-                dst.copy_(src)
+            if _is_shards(dst):
+                dst.load_(src)
+                covered.update(f"{names[key]}.{r}" for r in range(len(dst)))
+            else:
+                with torch.no_grad():
+                    dst.copy_(src)
             covered.add(names[key])
-    missing = sorted(set(targets["params"]) - covered)
+    missing = sorted(k for k, v in targets["params"].items()
+                     if k not in covered and not _is_shards(v))
     if missing:
         raise KeyError(f"params missing for {missing}")
     return model
@@ -141,8 +162,13 @@ def jax_tree(model: torch.nn.Module, named: Dict[str, object],
         own = m.named_parameters(recurse=False) if kind == "params" \
             else m.named_buffers(recurse=False)
         out = {k: named[f"{prefix}{k}"] for k, _ in own}
-        # a model with named parts (WideAndDeep: wide, embed{i}, deep)
+        # a model with named parts (WideAndDeep: wide, embed{i}, deep); a
+        # sharded parameter is a leaf under its unsharded name
         for k, c in m.named_children():
+            if _is_shards(c):
+                if kind == "params":
+                    out[k] = named[f"{prefix}{k}"]
+                continue
             out[k] = walk(c, f"{prefix}{k}.")
         return out
 
@@ -175,9 +201,12 @@ def to_jax_params(model: torch.nn.Module):
     dicts of numpy arrays in the reference's layout — containers keyed by
     child index, a layer's own parameters in ``params`` and its buffers in
     ``state``, ``{}`` for a layer without them."""
+    from bigdl_tpu_torch.parallel.tensor_parallel import logical_parameters
+
     # copies: the arrays must not alias weights trained in place later
     def host(named):
         return {k: v.detach().cpu().numpy().copy() for k, v in named}
 
-    return (jax_tree(model, host(model.named_parameters()), "params"),
+    return (jax_tree(model, host(logical_parameters(model).items()),
+                     "params"),
             jax_tree(model, host(model.named_buffers()), "state"))

@@ -20,20 +20,20 @@ from bigdl_tpu_torch.nn.attention import (LayerNorm, MultiHeadAttention,
 def transformer_block(embed_dim: int, num_heads: int, mlp_dim: int,
                       dropout: float = 0.0, causal: bool = True,
                       shard: bool = False) -> nn.Sequential:
-    """Pre-norm block: x + MHA(LN(x)); x + MLP(LN(x))."""
-    if shard:
-        raise NotImplementedError(
-            "transformer_block(shard=True) needs tensor parallelism, which "
-            "the port has not ported yet (parallel/tensor_parallel.py)")
+    """Pre-norm block: x + MHA(LN(x)); x + MLP(LN(x)).  With ``shard``,
+    the heads split over the ``model`` axis and the MLP is column- then
+    row-parallel (one partial sum a block, Megatron)."""
     attn = (nn.Sequential()
             .add(LayerNorm(embed_dim))
             .add(MultiHeadAttention(embed_dim, num_heads, causal=causal,
-                                    dropout=dropout)))
+                                    dropout=dropout, shard=shard)))
     mlp = (nn.Sequential()
            .add(LayerNorm(embed_dim))
-           .add(nn.Linear(embed_dim, mlp_dim))
+           .add(nn.Linear(embed_dim, mlp_dim,
+                          shard="column" if shard else None))
            .add(nn.GELU())
-           .add(nn.Linear(mlp_dim, embed_dim)))
+           .add(nn.Linear(mlp_dim, embed_dim,
+                          shard="row" if shard else None)))
     return (nn.Sequential()
             .add(nn.Sequential()
                  .add(nn.ConcatTable().add(attn).add(nn.Identity()))
@@ -93,7 +93,11 @@ def transformer_lm(vocab_size: int = 32000, embed_dim: int = 512,
 # Cache layout: k/v each ``(L, S, H, T_max, Dh)`` f32 — L layers, S slots,
 # H heads.  ``lengths[s]`` tokens are valid in slot ``s``; positions at or
 # past ``lengths[s]`` hold leftovers and are never attended, because the
-# causal mask cuts at the query's absolute position.
+# causal mask cuts at the query's absolute position.  A model placed on a
+# model group whose size m divides the heads keeps each cache split on its
+# heads (:class:`ShardedKV`: part r, (L, S, H/m, T_max, Dh), on device r,
+# beside the heads' weights); under any other placement the cache is one
+# tensor on the home device, where the heads are gathered.
 #
 # Index clamping, as the reference's XLA ops clamp: a K/V write of T
 # tokens starts at ``min(max(pos, 0), T_max - T)`` (``dynamic_update_
@@ -130,14 +134,67 @@ def kv_cache_spec(model, slots: int, max_len: int):
             torch.float32)
 
 
+class ShardedKV:
+    """A k or v cache (L, S, H, T_max, Dh) split on its heads over a
+    model group: ``parts[r]`` holds heads ``r*H/m .. (r+1)*H/m - 1`` on
+    device r.  Indexing takes a layer (views: writes land in the
+    cache)."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+
+    @property
+    def shape(self):
+        L, S, h, T, Dh = self.parts[0].shape
+        return (L, S, h * len(self.parts), T, Dh)
+
+    @property
+    def part_nbytes(self) -> int:
+        """Bytes of one part (one device's share)."""
+        p = self.parts[0]
+        return p.numel() * p.element_size()
+
+    def __getitem__(self, i):
+        return ShardedKV([p[i] for p in self.parts])
+
+    def zero_(self):
+        for p in self.parts:
+            p.zero_()
+        return self
+
+
 def init_kv_cache(model, slots: int, max_len: int, device=None):
-    """Zeroed (k, v) cache pair sized by :func:`kv_cache_spec`, on
-    ``device`` (default: the model's)."""
+    """Zeroed (k, v) cache pair sized by :func:`kv_cache_spec`: on
+    ``device`` (default: the model's home), or, for a model whose heads
+    are split over its model group, :class:`ShardedKV` pairs on the
+    group."""
     shape, dtype = kv_cache_spec(model, slots, max_len)
+    mha = lm_layout(model)[5]
+    if mha.heads_split:
+        devs = mha.model_devices
+        L, S, H, T, Dh = shape
+        part = (L, S, H // len(devs), T, Dh)
+        return tuple(ShardedKV(torch.zeros(part, dtype=dtype, device=d)
+                               for d in devs) for _ in range(2))
     if device is None:
         device = next(model.parameters()).device
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
+
+
+def splice_kv(cache, src, slot: int) -> None:
+    """Write a one-slot prefill cache ``src`` (L, 1, H, Tb, Dh) into
+    ``cache``'s ``slot`` at positions 0..Tb-1, in place; both plain
+    tensors or both :class:`ShardedKV` of the same group."""
+    dst = cache.parts if isinstance(cache, ShardedKV) else [cache]
+    new = src.parts if isinstance(src, ShardedKV) else [src]
+    if len(dst) != len(new):
+        raise ValueError(f"a cache of {len(dst)} parts and a prefill of "
+                         f"{len(new)}: the layouts differ")
+    for d, n in zip(dst, new):
+        d[:, slot, :, :n.shape[3]] = n[:, 0]
 
 
 def write_kv(cache: torch.Tensor, new: torch.Tensor,
@@ -152,16 +209,11 @@ def write_kv(cache: torch.Tensor, new: torch.Tensor,
     cache.scatter_(2, idx[:, None, :, None].expand(S, H, T, Dh), new)
 
 
-def _block_attn(mha: MultiHeadAttention, h, k_cache, v_cache, pos_ids):
-    """Cached multi-head attention for one block.  ``h`` (S, T, D) are
-    the post-LN hiddens of the T NEW tokens at absolute positions
-    ``pos_ids`` (S, T); their k/v are written into the (S, H, Tmax, Dh)
-    caches in place, and the queries attend over the caches with a
-    causal cut at each query's absolute position."""
-    q = mha.split_heads(mha.project(h, "q"))
-    k = mha.split_heads(mha.project(h, "k"))
-    v = mha.split_heads(mha.project(h, "v"))
-    S, H, T, Dh = q.shape
+def _cached_attention(q, k, v, k_cache, v_cache, pos_ids):
+    """Write the new tokens' ``k``/``v`` (S, h, T, Dh) into the (S, h,
+    Tmax, Dh) caches in place and attend the queries over the caches with
+    a causal cut at each query's absolute position."""
+    Dh = q.shape[-1]
     # positions within one call are consecutive by construction
     write_kv(k_cache, k, pos_ids[:, 0])
     write_kv(v_cache, v, pos_ids[:, 0])
@@ -169,11 +221,31 @@ def _block_attn(mha: MultiHeadAttention, h, k_cache, v_cache, pos_ids):
         * (1.0 / Dh ** 0.5)
     # causal over ABSOLUTE positions: a query at position p sees cache
     # positions <= p; everything past the write head is masked
-    ki = torch.arange(k_cache.shape[2], device=h.device)
+    ki = torch.arange(k_cache.shape[2], device=q.device)
     keep = ki[None, None, None, :] <= pos_ids[:, None, :, None]
     w = masked_softmax(scores, keep.expand(scores.shape)).to(v_cache.dtype)
-    o = torch.einsum("shqk,shkd->shqd", w, v_cache)
-    return mha.project(o.transpose(1, 2).reshape(S, T, H * Dh), "o")
+    return torch.einsum("shqk,shkd->shqd", w, v_cache)
+
+
+def _block_attn(mha: MultiHeadAttention, h, k_cache, v_cache, pos_ids):
+    """Cached multi-head attention for one block.  ``h`` (S, T, D) are
+    the post-LN hiddens of the T NEW tokens at absolute positions
+    ``pos_ids`` (S, T); their k/v are written into the (S, H, Tmax, Dh)
+    caches in place (a head-split layer's into its :class:`ShardedKV`
+    parts, each on its device), and the queries attend over the caches
+    with a causal cut at each query's absolute position."""
+    parts = mha.qkv(h, h)
+    kc = k_cache.parts if isinstance(k_cache, ShardedKV) else [k_cache]
+    vc = v_cache.parts if isinstance(v_cache, ShardedKV) else [v_cache]
+    if len(kc) != len(parts):
+        raise ValueError(f"a KV cache of {len(kc)} parts for attention "
+                         f"computed in {len(parts)}: the cache layout "
+                         f"does not match the model's placement")
+    os = []
+    for (q, k, v), kr, vr in zip(parts, kc, vc):
+        os.append(_cached_attention(q, k, v, kr, vr,
+                                    pos_ids.to(q.device)))
+    return mha.out_proj(os, h.device)
 
 
 def decode_forward(model, tokens, pos_ids, k_caches, v_caches):
@@ -228,7 +300,8 @@ def transformer_lm_decode_step(model, tokens, lengths, k_caches, v_caches):
     return lp[:, 0], nk, nv
 
 
-__all__ = ["LearnedPositionalEmbedding", "decode_forward", "init_kv_cache",
-           "kv_cache_spec", "lm_layout", "transformer_block",
-           "transformer_lm", "transformer_lm_decode_step",
-           "transformer_lm_prefill", "write_kv"]
+__all__ = ["LearnedPositionalEmbedding", "ShardedKV", "decode_forward",
+           "init_kv_cache", "kv_cache_spec", "lm_layout", "splice_kv",
+           "transformer_block", "transformer_lm",
+           "transformer_lm_decode_step", "transformer_lm_prefill",
+           "write_kv"]

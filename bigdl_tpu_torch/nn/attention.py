@@ -90,8 +90,18 @@ class MultiHeadAttention(Module):
     biases ``bq``, ``bk``, ``bv``, ``bo``.  Attention dropout in training
     mode draws from ``self.generator`` (a ``torch.Generator`` the caller
     sets) and raises without one, as the reference raises without an
-    rng.  ``shard=True`` (tensor-parallel heads) waits for the port's
-    ``parallel/tensor_parallel.py`` and raises."""
+    rng.
+
+    ``shard=True`` (tensor parallelism, the Megatron split): ``wq``,
+    ``wk``, ``wv`` and their biases are split on the output dim, which is
+    contiguous blocks of heads, ``wo`` on its input dim; ``bo`` stays
+    whole.  Placed by ``parallel.shard_module`` on a model group of m
+    devices, device r computes the queries, keys and values of its H/m
+    heads, their attention and its partial product with ``wo``, and the
+    partial sums are added at home in rank order.  Where m does not
+    divide the heads, the projections are still computed by slices, but
+    gathered at home, where attention runs over all heads before the
+    row-split ``wo``."""
 
     def __init__(self, embed_dim: int, num_heads: int,
                  causal: bool = False, with_bias: bool = True,
@@ -101,11 +111,6 @@ class MultiHeadAttention(Module):
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
                              f"num_heads {num_heads}")
-        if shard:
-            raise NotImplementedError(
-                "MultiHeadAttention(shard=True) needs tensor parallelism, "
-                "which the port has not ported yet (parallel/"
-                "tensor_parallel.py)")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
@@ -123,6 +128,20 @@ class MultiHeadAttention(Module):
                                                 requires_grad=False)
                     if with_bias else None)
 
+    def param_specs(self):
+        """The weights are stored (in, out) and used as ``x @ W``, so the
+        output-dim split is dim 1 (dim 0 for Linear's (out, in))."""
+        if not self.shard:
+            return None
+        from bigdl_tpu_torch.parallel.tensor_parallel import (REPLICATED,
+                                                              Spec)
+        sp = {"wq": Spec(None, "model"), "wk": Spec(None, "model"),
+              "wv": Spec(None, "model"), "wo": Spec("model", None)}
+        if self.with_bias:
+            sp.update({"bq": Spec("model"), "bk": Spec("model"),
+                       "bv": Spec("model"), "bo": REPLICATED})
+        return sp
+
     def reset_parameters(self, generator):
         D = self.embed_dim
         xav = Xavier()
@@ -132,10 +151,28 @@ class MultiHeadAttention(Module):
             for n in ("bq", "bk", "bv", "bo"):
                 getattr(self, n).data.zero_()
 
-    def split_heads(self, x):
+    @property
+    def model_devices(self) -> Optional[tuple]:
+        """The model group the layer is placed on, or None."""
+        return None if isinstance(self.wq, torch.Tensor) \
+            else self.wq.devices
+
+    @property
+    def heads_split(self) -> bool:
+        """Whether each device of the group holds whole heads (placed, and
+        the group's size divides the heads)."""
+        devs = self.model_devices
+        return devs is not None and self.num_heads % len(devs) == 0
+
+    def split_heads(self, x, heads: Optional[int] = None):
         N, T, _ = x.shape
-        return x.reshape(N, T, self.num_heads, self.head_dim) \
-                .transpose(1, 2)
+        heads = heads or self.num_heads
+        return x.reshape(N, T, heads, self.head_dim).transpose(1, 2)
+
+    @staticmethod
+    def merge_heads(o):
+        N, H, T, Dh = o.shape
+        return o.transpose(1, 2).reshape(N, T, H * Dh)
 
     def project(self, x, name: str):
         y = x @ getattr(self, "w" + name)
@@ -143,24 +180,73 @@ class MultiHeadAttention(Module):
             y = y + getattr(self, "b" + name)
         return y
 
+    def _project_slice(self, x, name: str, r: int):
+        """Slice r of the q/k/v projection, on device r."""
+        y = x.to(getattr(self, "w" + name).devices[r]) \
+            @ getattr(self, "w" + name)[r]
+        if self.with_bias:
+            y = y + getattr(self, "b" + name)[r]
+        return y
+
+    def qkv(self, xq, xkv):
+        """The queries, keys and values split into heads, as a list of
+        ``(q, k, v)`` triples (N, h, T, Dh): one on the input's device
+        unplaced or with the heads gathered home; one a device, its H/m
+        heads, when the heads are split."""
+        devs = self.model_devices
+        if devs is None:
+            return [tuple(self.split_heads(self.project(x, n))
+                          for x, n in ((xq, "q"), (xkv, "k"), (xkv, "v")))]
+        m = len(devs)
+        if self.heads_split:
+            h = self.num_heads // m
+            return [tuple(self.split_heads(self._project_slice(x, n, r), h)
+                          for x, n in ((xq, "q"), (xkv, "k"), (xkv, "v")))
+                    for r in range(m)]
+        home = xq.device
+        return [tuple(self.split_heads(torch.cat(
+            [self._project_slice(x, n, r).to(home) for r in range(m)], -1))
+            for x, n in ((xq, "q"), (xkv, "k"), (xkv, "v")))]
+
+    def out_proj(self, os, home):
+        """The attention outputs ``os`` (the :meth:`qkv` split) through
+        ``wo`` and ``bo``, the result on ``home``."""
+        devs = self.model_devices
+        if devs is None:
+            return self.project(self.merge_heads(os[0]), "o")
+        from bigdl_tpu_torch.parallel.tensor_parallel import row_sum
+        if self.heads_split:
+            merged = [self.merge_heads(o) for o in os]
+        else:
+            merged = self.merge_heads(os[0]).chunk(len(devs), -1)
+        y = row_sum((merged[r].to(dev) @ self.wo[r]
+                     for r, dev in enumerate(devs)), home)
+        return y + self.bo if self.with_bias else y
+
+    def _dropout(self, os):
+        """One mask over all heads, drawn at home as the unsharded layer
+        draws it, cut to each part's heads."""
+        if self.generator is None:
+            raise ValueError("attention dropout needs a generator")
+        keep = 1.0 - self.dropout
+        N, _, T, Dh = os[0].shape
+        full = torch.rand((N, self.num_heads, T, Dh),
+                          generator=self.generator,
+                          device=self.generator.device) < keep
+        masks = full.chunk(len(os), 1)
+        return [torch.where(mk.to(o.device), o / keep, torch.zeros_like(o))
+                for o, mk in zip(os, masks)]
+
     def forward(self, x):
         if isinstance(x, (tuple, list)):
             xq, xkv = x
         else:
             xq = xkv = x
-        q = self.split_heads(self.project(xq, "q"))
-        k = self.split_heads(self.project(xkv, "k"))
-        v = self.split_heads(self.project(xkv, "v"))
-        o = dot_product_attention(q, k, v, causal=self.causal)
+        os = [dot_product_attention(q, k, v, causal=self.causal)
+              for q, k, v in self.qkv(xq, xkv)]
         if self.dropout > 0 and self.training:
-            if self.generator is None:
-                raise ValueError("attention dropout needs a generator")
-            keep = 1.0 - self.dropout
-            m = torch.rand(o.shape, generator=self.generator,
-                           device=o.device) < keep
-            o = torch.where(m, o / keep, torch.zeros_like(o))
-        N, H, T, Dh = o.shape
-        return self.project(o.transpose(1, 2).reshape(N, T, H * Dh), "o")
+            os = self._dropout(os)
+        return self.out_proj(os, xq.device)
 
 
 __all__ = ["LayerNorm", "MultiHeadAttention", "dot_product_attention",

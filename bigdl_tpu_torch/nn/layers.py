@@ -44,15 +44,23 @@ def from_nchw_view(y, fmt: str):
 
 
 class Linear(Module):
-    """Affine layer ``y = x W^T + b``; weight (out, in)."""
+    """Affine layer ``y = x W^T + b``; weight (out, in).
+
+    ``shard``: tensor parallelism over a mesh's ``model`` axis
+    (``parallel/tensor_parallel.py``): ``"column"`` splits the output
+    features (weight and bias), ``"row"`` the input features (the bias
+    stays whole).  Unplaced, the layer computes as an unsharded one;
+    placed by ``shard_module``, on its shards."""
 
     def __init__(self, input_size: int, output_size: int,
                  with_bias: bool = True,
                  weight_init: Optional[InitializationMethod] = None,
                  bias_init: Optional[InitializationMethod] = None,
+                 shard: Optional[str] = None,
                  w_regularizer=None, b_regularizer=None,
                  name: Optional[str] = None):
         super().__init__(name)
+        self.shard = shard
         # per-layer penalties, summed by nn.regularizers.regularization_loss
         self.w_regularizer = w_regularizer
         self.b_regularizer = b_regularizer
@@ -67,6 +75,19 @@ class Linear(Module):
                                        requires_grad=False) \
             if with_bias else None
 
+    def param_specs(self):
+        """The layer's split (``shard``), or None; an unknown mode raises
+        ``ValueError``."""
+        if self.shard is None:
+            return None
+        from bigdl_tpu_torch.parallel.tensor_parallel import (
+            column_parallel_linear_specs, row_parallel_linear_specs)
+        if self.shard == "column":
+            return column_parallel_linear_specs(self.with_bias)
+        if self.shard == "row":
+            return row_parallel_linear_specs(self.with_bias)
+        raise ValueError(f"unknown shard mode {self.shard!r}")
+
     def reset_parameters(self, generator):
         fan_in, fan_out = self.input_size, self.output_size
         self.weight.data.copy_(self.weight_init.init(
@@ -76,6 +97,12 @@ class Linear(Module):
                 generator, self.bias.shape, fan_in, fan_out))
 
     def forward(self, x):
+        if not isinstance(self.weight, torch.Tensor):  # placed shards
+            from bigdl_tpu_torch.parallel.tensor_parallel import (
+                column_linear, row_linear)
+            if self.shard == "column":
+                return column_linear(x, self.weight, self.bias)
+            return row_linear(x, self.weight, self.bias)
         y = x @ self.weight.T
         if self.bias is not None:
             y = y + self.bias

@@ -12,7 +12,11 @@ Scheme, as in the reference:
 - f32 bias added after dequantization, in the same rounding as the scale.
 
 Every ``n_group == 1`` convolution reduces onto the int8 GEMM on both
-devices through im2col.  In dynamic mode the activation scale is taken over the conv's
+devices through im2col, in either format: an NHWC convolution keeps its
+``weight_q`` OIHW and builds the same channel-major patch rows, in (n, ho,
+wo) order, from the NCHW-indexed view of its input, so B4 gets the
+operands the NCHW twin gives it and the rows come out NHWC as they are.
+In dynamic mode the activation scale is taken over the conv's
 whole input before im2col, as the reference's direct conv simulation
 (``_apply_sim``) takes it.  Grouped convolutions keep that simulation.
 The recurrent cells' quantized twins wait for their slice.
@@ -27,7 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from bigdl_tpu_torch.nn.layers import Linear, SpatialConvolution, conv_pads
+from bigdl_tpu_torch.nn.layers import (Linear, SpatialConvolution,
+                                       conv_pads, from_nchw_view, nchw_view)
 from bigdl_tpu_torch.nn.module import Container, Module
 from bigdl_tpu_torch.ops.int8_gemm import (MODES, fma_f32, int8_gemm,
                                            int8_matmul, prepare_operands)
@@ -54,10 +59,12 @@ def _quantize_symmetric(w: np.ndarray, axis=None):
 
 
 def _tensor(v, dtype, device) -> torch.Tensor:
-    """A copy of ``v`` (numpy array or tensor) as ``dtype`` on ``device``."""
+    """A contiguous copy of ``v`` (numpy array or tensor) as ``dtype`` on
+    ``device`` (an NHWC layer's ``channels_last`` weight gives an OIHW
+    panel in OIHW memory order)."""
     t = v.detach() if isinstance(v, torch.Tensor) \
         else torch.from_numpy(np.array(v))
-    return t.to(device=device, dtype=dtype, copy=True)
+    return t.to(device=device, dtype=dtype, copy=True).contiguous()
 
 
 def _register_quantized(mod: Module, wq, ws, bias, device) -> None:
@@ -110,9 +117,10 @@ def _im2col(x: torch.Tensor, kernel, stride, dilation) -> torch.Tensor:
 
 
 class QuantizedSpatialConvolution(Module):
-    """int8 conv: buffers ``weight_q`` OIHW int8, ``weight_scale``
-    (O, 1, 1, 1) f32 and an optional f32 ``bias`` (numpy arrays or
-    tensors), the geometry taken from the float ``conv``."""
+    """int8 conv: buffers ``weight_q`` OIHW int8 (in both formats),
+    ``weight_scale`` (O, 1, 1, 1) f32 and an optional f32 ``bias`` (numpy
+    arrays or tensors), the geometry and the format taken from the float
+    ``conv``."""
 
     def __init__(self, conv: SpatialConvolution, weight_q, weight_scale,
                  bias, name: Optional[str] = None,
@@ -123,24 +131,22 @@ class QuantizedSpatialConvolution(Module):
         self.pad = conv.pad
         self.dilation = conv.dilation
         self.n_group = conv.n_group
+        self.format = conv.format
         _register_quantized(self, weight_q, weight_scale, bias, device)
         self.mode = _default_mode(mode)
 
     @staticmethod
     def from_conv(m: SpatialConvolution, mode: Optional[str] = None
                   ) -> "QuantizedSpatialConvolution":
-        if m.format != "NCHW":
-            raise NotImplementedError(
-                "quantizing an NHWC SpatialConvolution is not ported; "
-                "quantize the NCHW model")
         w = m.weight.detach()
         wq, ws = _quantize_symmetric(w.cpu().numpy(), axis=(1, 2, 3))
         return QuantizedSpatialConvolution(m, wq, ws, m.bias, mode=mode,
                                            device=w.device)
 
     def forward(self, x):
+        x = nchw_view(x, self.format)
         if self.n_group != 1:
-            return self._apply_sim(x)
+            return from_nchw_view(self._apply_sim(x), self.format)
         O = self.weight_q.shape[0]
         xin, scale_row = prepare_operands(x, self.weight_scale, self.mode)
         t, b, l, r = conv_pads(self, x.shape[2:])
@@ -148,18 +154,21 @@ class QuantizedSpatialConvolution(Module):
             xin = F.pad(xin, (l, r, t, b))
         rows, ho, wo = _im2col(xin, self.kernel, self.stride, self.dilation)
         y = int8_gemm(rows, self.weight_q.reshape(O, -1), scale_row,
-                      self.bias)
-        return y.reshape(x.shape[0], ho, wo, O).permute(0, 3, 1, 2)
+                      self.bias).reshape(x.shape[0], ho, wo, O)
+        return y if self.format == "NHWC" else y.permute(0, 3, 1, 2)
 
     def _apply_sim(self, x):
-        """Grouped conv: the reference's direct-conv simulation of the same
-        quantized math.  The integer sum of dynamic mode is exact in
-        float64; weight_only accumulates in f32."""
+        """Grouped conv on the NCHW view ``x``: the reference's direct-conv
+        simulation of the same quantized math.  The integer sum of dynamic
+        mode is exact in float64; weight_only accumulates in f32, on an
+        NCHW-contiguous input in both formats (a ``channels_last`` input
+        would take another convolution algorithm, another sum order)."""
         xin, scale_row = prepare_operands(x, self.weight_scale, self.mode)
         t, b, l, r = conv_pads(self, x.shape[2:])
         xin = F.pad(xin, (l, r, t, b))
         dt = torch.float64 if self.mode == "dynamic" else torch.float32
-        acc = F.conv2d(xin.to(dt), self.weight_q.to(dt), stride=self.stride,
+        acc = F.conv2d(xin.to(dt).contiguous(), self.weight_q.to(dt),
+                       stride=self.stride,
                        dilation=self.dilation, groups=self.n_group).float()
         bias = None if self.bias is None else self.bias[None, :, None, None]
         return fma_f32(acc, scale_row[None, :, None, None], bias)

@@ -34,8 +34,20 @@ the grad_sync state's owned slices into full buckets, process 0 writes,
 every process records the step.  The state
 keeps the reference's layout ``{"master": [bucket, ...], "opt": {...}}``
 with the reference's leaf order and padding, so a snapshot resumes across
-packages at the same world size.  Tensor parallelism (``param_specs``) is
-not ported.
+packages at the same world size.
+
+Tensor parallelism (``param_specs``, a tree of ``parallel.Spec`` from
+``parallel.build_param_specs``) over a ``data x model`` mesh: the training
+copy is placed on the process's model device group
+(``parallel.shard_module``: the opted-in layers' shards on the group, the
+rest on the home device); as in the reference, such a run takes the
+all-reduce path whatever ``parameter_sharding`` says (the flat ZeRO-1
+buckets do not apply to parameters that are themselves split): each
+device's shard gradients are averaged over the ``data`` group as one
+bucket staged through the home device, the norm clip counts every shard
+and every replicated parameter once, and the optimizer's state lives
+beside each shard.  Snapshots, summaries and the weights written back
+hold the unsharded tensors, so an unsharded model loads them.
 
 Elastic training (``set_elastic``, or ``resize``/``host_loss``/
 ``device_loss`` clauses in ``Config.fault_plan``): a membership epoch
@@ -56,6 +68,7 @@ the trained parameters and the driver counters from rank 0).
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 import time
@@ -74,6 +87,7 @@ from bigdl_tpu_torch.optim.optimizer import (Optimizer, _Run, step_finite,
                                              stream_seed)
 from bigdl_tpu_torch.parallel import grad_sync
 from bigdl_tpu_torch.parallel.mesh import Mesh
+from bigdl_tpu_torch.parallel.tensor_parallel import logical_tensors
 from bigdl_tpu_torch.resilience.membership import (ClusterMembership,
                                                    MembershipChanged)
 from bigdl_tpu_torch.resilience.numeric import NonFiniteStepError
@@ -119,10 +133,13 @@ class DistriOptimizer(Optimizer):
         ``SampleToMiniBatch`` sets the local batch."""
         super().__init__(model, dataset, criterion)
         if param_specs is not None:
-            raise NotImplementedError(
-                "param_specs (tensor parallelism) is not ported to "
-                "bigdl_tpu_torch yet (ROADMAP queue A, slice 10)")
-        if grad_sync is not None and bool(grad_sync) != parameter_sharding:
+            if grad_sync:
+                raise ValueError(
+                    "grad_sync=True requires a pure data-parallel run (no "
+                    "param_specs): tensor parallelism shards the "
+                    "parameters themselves, so the flat-bucket ZeRO-1 "
+                    "protocol does not apply")
+        elif grad_sync is not None and bool(grad_sync) != parameter_sharding:
             raise ValueError(
                 f"grad_sync={grad_sync!r} disagrees with parameter_sharding="
                 f"{parameter_sharding!r}: the port has one path for each "
@@ -209,7 +226,7 @@ class DistriOptimizer(Optimizer):
         if dist.get_rank() not in roster:
             return None
         return Mesh(dict(launch.shape, data=len(roster)), group,
-                    launch.backend)
+                    launch.backend, launch.devices)
 
     _REASONS = ("resize", "host_loss", "device_loss")
 
@@ -336,15 +353,28 @@ class DistriOptimizer(Optimizer):
             raise ValueError("the nccl backend moves CUDA tensors; a CPU "
                              "run takes backend='gloo'")
         mesh = self.mesh or Engine.get_mesh(backend=want)
+        if mesh.backend is None:  # a local mesh: start its world-1 group
+            from bigdl_tpu_torch.parallel.mesh import init_process_group
+            mesh.backend = init_process_group(want)
+            if dist.get_world_size() != mesh.size:
+                raise ValueError(f"a local mesh of one process in a world "
+                                 f"of {dist.get_world_size()}: build the "
+                                 f"mesh with create_mesh(backend=...)")
         if mesh.backend != want:
             raise ValueError(f"the mesh's group runs {mesh.backend!r}, "
                              f"this run asked for {want!r}")
         return mesh
 
     def _place(self) -> None:
-        """One device a process: under NCCL, ``cuda`` means this process's
-        local rank's card."""
+        """One device a process (its model group's first under tensor
+        parallelism): under NCCL, ``cuda`` means this process's local
+        rank's card."""
         dev = self.device
+        if self.mesh.devices is not None:
+            dev = self.mesh.home
+            if dev.type != self.device.type:
+                raise ValueError(f"the mesh's model group starts on {dev}, "
+                                 f"this run's device is {self.device}")
         if dev.type == "cuda" and self.mesh.backend == "nccl":
             if dev.index is None:
                 dev = torch.device(
@@ -356,7 +386,8 @@ class DistriOptimizer(Optimizer):
         """Whether this run takes the bucketed path, and its plan:
         constructor > ``configure()``/env > the workload's tuned entry >
         default."""
-        self._use_grad_sync = use = self.parameter_sharding
+        self._use_grad_sync = use = self.parameter_sharding \
+            and self.param_specs is None
         if not use:
             self._gs_plan = None
             return
@@ -398,6 +429,18 @@ class DistriOptimizer(Optimizer):
 
     def _records_scale(self) -> int:
         return self._world
+
+    def _placed_copy(self, device) -> torch.nn.Module:
+        """Under ``param_specs``, a copy placed on the mesh's model group
+        (its shards there, the rest on ``device``, the home device)."""
+        if self.param_specs is None:
+            return super()._placed_copy(device)
+        from bigdl_tpu_torch.parallel.mesh import Mesh
+        from bigdl_tpu_torch.parallel.tensor_parallel import shard_module
+        mesh = self.mesh if self.mesh.devices is not None \
+            else Mesh(self.mesh.shape, devices=[device])
+        return shard_module(copy.deepcopy(self.model), mesh,
+                            self.param_specs)
 
     def _note_staged(self, staged) -> None:
         # spmdcheck: the reference assembles the global block from every
@@ -456,8 +499,9 @@ class DistriOptimizer(Optimizer):
         if trig is None or not trig(self.state) \
                 or not self._writes_summaries():
             return
+        full = logical_tensors(run.net, run.params)
         for tag, name in self._param_tags:
-            self.train_summary.add_histogram(tag, run.params[name],
+            self.train_summary.add_histogram(tag, full[name],
                                              self.state["neval"])
 
     def _reduce_validation(self, sums: dict, counts: dict):
@@ -544,17 +588,20 @@ class DistriOptimizer(Optimizer):
         self._check_rollback()
         seed = self._resolved_seed()
         net, params, stochastic = self._training_copy(device)
+        logical = logical_tensors(net, params)
         # parameter names in the reference's leaf order, the walk that
-        # orders the bucket plan; tags as the reference writes them
+        # orders the bucket plan; tags as the reference writes them (a
+        # tensor-parallel shard's under its unsharded name)
         leaves = list(leaves_with_path(
-            jax_tree(net, {k: k for k in params}, "params"), keys=True))
-        names = self._gs_names = [name for _, name in leaves]
+            jax_tree(net, {k: k for k in logical}, "params"), keys=True))
         self._param_tags = [("Parameters/" + "/".join(
             k if isinstance(k, str) else f"[{k}]" for k in path), name)
             for path, name in leaves]
-        params_tree = jax_tree(net, params, "params")
+        params_tree = jax_tree(net, logical, "params")
         self._resolve_grad_sync(params_tree)
         self._validate_resume_schema(params_tree)
+        names = self._gs_names = [name for _, name in leaves] \
+            if self._use_grad_sync else list(params)
         plist = [params[k] for k in names]
         saved, self._resume_opt_state = self._resume_opt_state, None
         if saved is not None:
@@ -574,6 +621,7 @@ class DistriOptimizer(Optimizer):
         floats = [b for _, b in buffers if b.is_floating_point()]
         optim, clip = self.optim_method, self.grad_clip
         n, use_gs, wire = self._world, self._use_grad_sync, self._gs_wire
+        tensor_parallel = self.param_specs is not None
         clip_spec = self.grad_clip_spec
         gen = None
         if use_gs and wire != torch.float32:
@@ -607,8 +655,12 @@ class DistriOptimizer(Optimizer):
                         p.copy_(v)
             else:
                 mean = {k: g / n for k, g in zip(names, grads)}
-                for g in mean.values():
-                    grad_sync.all_reduce_sum_(g, group)
+                if tensor_parallel:
+                    grad_sync.all_reduce_staged_(list(mean.values()), group,
+                                                 device)
+                else:
+                    for g in mean.values():
+                        grad_sync.all_reduce_sum_(g, group)
                 if clip is not None:
                     mean = clip(mean)
                 optim.update(mean, params, ostate, lr, step)
@@ -627,8 +679,10 @@ class DistriOptimizer(Optimizer):
 
         logger.info(
             "DistriOptimizer: %d samples/epoch, world=%d (%s), device=%s, "
-            "grad_sync=%s%s", self.dataset.size(), n, self.mesh.backend,
-            device, use_gs,
+            "model group=%s, grad_sync=%s%s", self.dataset.size(), n,
+            self.mesh.backend, device,
+            None if self.mesh.devices is None
+            else [str(d) for d in self.mesh.devices], use_gs,
             f" (wire={grad_sync.wire_dtype_name(wire)}, buckets="
             f"{plan.num_buckets})" if use_gs else "")
         self._train_driver(step_fn, device, _Run(net, params, ostate))

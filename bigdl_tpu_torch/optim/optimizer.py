@@ -116,6 +116,9 @@ from bigdl_tpu_torch.optim.validation import (ValidationMethod,
                                               ValidationResult,
                                               validation_sums)
 from bigdl_tpu_torch.parallel.grad_sync import state_leaves
+from bigdl_tpu_torch.parallel.tensor_parallel import (logical_parameters,
+                                                      logical_tensors,
+                                                      split_tensors)
 from bigdl_tpu_torch.resilience.faults import FaultInjector, InjectedFault
 from bigdl_tpu_torch.resilience.membership import (ClusterMembership,
                                                    MembershipChanged)
@@ -140,23 +143,27 @@ def clip_by_value(grads: Tensors, min_v: float, max_v: float) -> Tensors:
 
 
 def global_norm(grads: Tensors) -> torch.Tensor:
-    """L2 norm over every gradient, as a 0-d tensor on their device."""
-    return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values()))
+    """L2 norm over every gradient (each tensor once: a tensor-parallel
+    shard is a gradient of its own), as a 0-d tensor on the first
+    gradient's device."""
+    dev = next(iter(grads.values())).device
+    return torch.sqrt(sum(torch.sum(g.float() ** 2).to(dev)
+                          for g in grads.values()))
 
 
 def clip_by_global_norm(grads: Tensors, max_norm: float) -> Tensors:
     """Scale every gradient by ``min(1, max_norm / norm)``; no host sync."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
-    return {k: g * scale for k, g in grads.items()}
+    return {k: g * scale.to(g.device) for k, g in grads.items()}
 
 
 def step_finite(loss, grads: Tensors) -> torch.Tensor:
     """0-d bool on the card: the loss and every floating gradient are
     finite.  Computed inside the step, so the flag rides the loss fetch."""
     flags = [torch.isfinite(loss).all()]
-    flags += [torch.isfinite(g).all() for g in grads.values()
-              if g.is_floating_point()]
+    flags += [torch.isfinite(g).all().to(loss.device)
+              for g in grads.values() if g.is_floating_point()]
     return torch.stack(flags).all()
 
 
@@ -611,7 +618,8 @@ class Optimizer:
                             f"{tuple(tensors.shape)}")
                     tensors.copy_(src)
                     continue
-                got = from_jax_tree(net, saved[key], "params")
+                got = split_tensors(net, from_jax_tree(net, saved[key],
+                                                       "params"))
                 if set(got) != set(tensors):
                     raise ValueError(f"resumed optimizer state {key!r} "
                                      f"does not cover the parameters")
@@ -639,11 +647,12 @@ class Optimizer:
         parameters' tree, any other (LBFGS's flat history and counters)
         as it is."""
         net = run.net
-        params = jax_tree(net, {k: p.detach()
-                                for k, p in run.params.items()}, "params")
+        params = jax_tree(net, logical_tensors(
+            net, {k: p.detach() for k, p in run.params.items()}), "params")
         state = jax_tree(net, dict(net.named_buffers()), "state")
-        ostate = {k: jax_tree(net, v, "params") if isinstance(v, dict)
-                  else v for k, v in run.ostate.items()}
+        ostate = {k: jax_tree(net, logical_tensors(net, v), "params")
+                  if isinstance(v, dict) else v
+                  for k, v in run.ostate.items()}
         return params, state, ostate
 
     def _maybe_checkpoint(self, run: _Run) -> None:
@@ -717,11 +726,15 @@ class Optimizer:
         return sums, counts
 
     # ------------------------------------------------------ training copy
+    def _placed_copy(self, device) -> torch.nn.Module:
+        """A copy of the model on ``device``."""
+        return copy.deepcopy(self.model).to(device)
+
     def _training_copy(self, device):
         """The run's training copy of the model on ``device``: (net, its
         parameters by name, requiring gradients, and its stochastic layers,
         each drawing from a generator of its own)."""
-        net = copy.deepcopy(self.model).to(device).train()
+        net = self._placed_copy(device).train()
         stochastic = [m for m in walk(net)
                       if isinstance(m, (Dropout, RReLU))]
         for m in stochastic:
@@ -768,7 +781,7 @@ class Optimizer:
     def _write_back(self, net) -> None:
         """The trained weights and buffers into the user's model."""
         with torch.no_grad():
-            trained = dict(net.named_parameters())
+            trained = logical_parameters(net)
             for k, p in self.model.named_parameters():
                 p.copy_(trained[k])
             trained = dict(net.named_buffers())

@@ -1,8 +1,9 @@
 """Distributed substrate of the port (``bigdl_tpu.parallel`` twins): the
-mesh over the ``torch.distributed`` process group and the bucketed ZeRO-1
-gradient sync (the reference's ``AllReduceParameter``).  Tensor, sequence
-and pipeline parallelism are not ported yet (ROADMAP queue A, slice
-10)."""
+mesh over the ``torch.distributed`` process group and this process's model
+device group, the bucketed ZeRO-1 gradient sync (the reference's
+``AllReduceParameter``) and tensor parallelism over the ``model`` axis.
+Sequence and pipeline parallelism (ring attention, GPipe) are not ported
+yet: they come with the port's next slice (ROADMAP queue A)."""
 
 from bigdl_tpu_torch.parallel import grad_sync
 from bigdl_tpu_torch.parallel.grad_sync import (BucketPlan, build_plan,
@@ -10,7 +11,12 @@ from bigdl_tpu_torch.parallel.grad_sync import (BucketPlan, build_plan,
 from bigdl_tpu_torch.parallel.mesh import (Mesh, create_mesh, data_sharding,
                                            init_process_group, mesh_shape,
                                            replicated)
+from bigdl_tpu_torch.parallel.tensor_parallel import (
+    REPLICATED, Shards, Spec, build_param_specs, column_parallel_linear_specs,
+    row_parallel_linear_specs, shard_module)
 
-__all__ = ["BucketPlan", "Mesh", "build_plan", "create_mesh",
-           "data_sharding", "grad_sync", "init_process_group", "mesh_shape",
-           "replicated", "resolve_wire_dtype"]
+__all__ = ["BucketPlan", "Mesh", "REPLICATED", "Shards", "Spec",
+           "build_param_specs", "build_plan", "column_parallel_linear_specs",
+           "create_mesh", "data_sharding", "grad_sync", "init_process_group",
+           "mesh_shape", "replicated", "resolve_wire_dtype",
+           "row_parallel_linear_specs", "shard_module"]

@@ -404,6 +404,29 @@ def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
     return t
 
 
+def all_reduce_staged_(tensors: Sequence[torch.Tensor], group=None,
+                       home: Optional[torch.device] = None) -> None:
+    """Sum ``tensors`` over the processes, in place, one all-reduce a
+    device: the tensors that lie on one device (a tensor-parallel run's
+    shards on each device of its model group) are flattened into one
+    bucket, which a device other than ``home`` stages through ``home``
+    (a process's collectives run on its home device)."""
+    by_device: dict = {}
+    for t in tensors:
+        by_device.setdefault(t.device, []).append(t)
+    with torch.no_grad():
+        for dev, ts in by_device.items():
+            flat = torch.cat([t.reshape(-1) for t in ts])
+            staged = flat if home is None or dev == home else flat.to(home)
+            with record_function("grad_sync.all_reduce"):
+                all_reduce_sum_(staged, group)
+            flat = staged.to(dev)
+            off = 0
+            for t in ts:
+                t.copy_(flat[off:off + t.numel()].view(t.shape))
+                off += t.numel()
+
+
 def sync_model_state(tensors: Sequence[torch.Tensor], group=None) -> None:
     """Average the floating tensors of ``tensors`` over the processes, in
     place, with one all-reduce (BatchNorm's running statistics become the

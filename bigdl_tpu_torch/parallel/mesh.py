@@ -2,11 +2,16 @@
 ``bigdl_tpu/parallel/mesh.py``).
 
 The reference names its devices' axes (``data``, ``model``, ``seq``,
-``pipe``) over one ``jax.sharding.Mesh``.  Here one process drives one
-device and the processes form a ``torch.distributed`` group, so a
-:class:`Mesh` is the axes' sizes and the ``data`` axis's process group.
-Only data parallelism is ported: a ``model``, ``seq`` or ``pipe`` axis
-larger than 1 raises ``NotImplementedError``.
+``pipe``) over one ``jax.sharding.Mesh`` that one process drives.  Here
+the processes form a ``torch.distributed`` group, the ``data`` axis, and
+each process drives the devices of its own ``model`` axis: a
+:class:`Mesh` is the axes' sizes, the ``data`` axis's process group and
+this process's model device group (``devices``, e.g. ``[cuda:0,
+cuda:1]``, ``[cuda:0, cuda:0]`` on one card or ``["cpu"] * 4``), whose
+first device is the process's home device
+(``parallel/tensor_parallel.py`` places a model's shards on the group).
+A ``seq`` or ``pipe`` axis larger than 1 raises ``NotImplementedError``:
+sequence and pipeline parallelism come with the port's next slice.
 
 A job of several processes starts under ``torchrun`` (or any launcher that
 sets ``MASTER_ADDR``/``WORLD_SIZE``/``RANK``) or calls
@@ -51,15 +56,28 @@ def init_process_group(backend: Optional[str] = None) -> str:
 
 
 class Mesh:
-    """Axis sizes of a run and the process group of its ``data`` axis
-    (``None``: the default group, every process)."""
+    """Axis sizes of a run, the process group of its ``data`` axis
+    (``None``: the default group, every process; ``backend`` None: a local
+    mesh that joined no group) and this process's ``model`` device group
+    (``devices``; None for a data-only mesh, whose process places its
+    model on the device its trainer names)."""
 
-    __slots__ = ("shape", "group", "backend")
+    __slots__ = ("shape", "group", "backend", "devices")
 
-    def __init__(self, shape: dict, group=None, backend: str = "nccl"):
+    def __init__(self, shape: dict, group=None, backend: Optional[str] = "nccl",
+                 devices=None):
         self.shape = dict(shape)
         self.group = group
         self.backend = backend
+        self.devices = None if devices is None \
+            else tuple(torch.device(d) for d in devices)
+
+    @property
+    def home(self) -> Optional[torch.device]:
+        """The first device of the model group: where the replicated
+        parameters, the activations between layers and the row-parallel
+        sums live."""
+        return None if self.devices is None else self.devices[0]
 
     @property
     def axis_names(self):
@@ -73,31 +91,80 @@ class Mesh:
     @property
     def rank(self) -> int:
         """This process's index on the ``data`` axis."""
+        if self.backend is None and not dist.is_initialized():
+            return 0
         return dist.get_rank(self.group)
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, backend={self.backend!r})"
+        devs = "" if self.devices is None \
+            else f", devices={[str(d) for d in self.devices]}"
+        return f"Mesh({self.shape}, backend={self.backend!r}{devs})"
+
+
+def _launched() -> bool:
+    return "MASTER_ADDR" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def model_group(model: int, devices=None) -> Optional[tuple]:
+    """This process's ``model`` device group: ``devices`` (``model`` of
+    them), or by default, on CUDA, the ``model`` cards from ``LOCAL_RANK *
+    model`` on; None for ``model=1`` without ``devices``."""
+    if devices is not None:
+        devices = [torch.device(d) for d in devices]
+        if len(devices) != model:
+            raise ValueError(f"a model axis of {model} over {len(devices)} "
+                             f"devices: the axis is this process's device "
+                             f"group, one device a shard")
+        return tuple(devices)
+    if model == 1:
+        return None
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"a model axis of {model} places its shards on CUDA devices by "
+            f"default but CUDA is not available; pass devices=['cpu'] * "
+            f"{model} to run it on the CPU")
+    first = int(os.environ.get("LOCAL_RANK", 0)) * model
+    if first + model > torch.cuda.device_count():
+        raise ValueError(
+            f"a model axis of {model} from cuda:{first} needs "
+            f"{first + model} devices, this machine has "
+            f"{torch.cuda.device_count()}; pass devices= (the same card "
+            f"may appear more than once)")
+    return tuple(torch.device("cuda", first + r) for r in range(model))
 
 
 def create_mesh(data: int = -1, model: int = 1, seq: int = 1,
-                pipe: int = 1, backend: Optional[str] = None) -> Mesh:
-    """A data mesh over every process of the group (joined or started by
-    :func:`init_process_group`).  ``data=-1`` takes them all; another
-    value must equal the world size."""
-    for name, n in (("model", model), ("seq", seq), ("pipe", pipe)):
+                pipe: int = 1, backend: Optional[str] = None,
+                devices=None) -> Mesh:
+    """A mesh: a ``data`` axis over every process of the group (joined or
+    started by :func:`init_process_group`; ``data=-1`` takes them all,
+    another value must equal the world size) and a ``model`` axis over
+    this process's device group (:func:`model_group`).  With no
+    ``backend`` named, no group joined and no launcher's, a mesh whose
+    data axis is this one process (``data`` 1 or -1) is local: it joins no
+    group (``backend`` None); a ``DistriOptimizer`` given it starts its
+    world-1 group when it runs."""
+    for name, n in (("seq", seq), ("pipe", pipe)):
         if n != 1:
             raise NotImplementedError(
-                f"a {name!r} mesh axis of {n} (tensor, sequence or pipeline "
-                f"parallelism) is not ported to bigdl_tpu_torch yet "
-                f"(ROADMAP queue A, slice 10)")
+                f"a {name!r} mesh axis of {n} (sequence or pipeline "
+                f"parallelism) is not ported to bigdl_tpu_torch yet: it "
+                f"comes with port slice 18, after the 'model' axis of "
+                f"slice 17 (ROADMAP queue A)")
+    if model < 1:
+        raise ValueError(f"a model axis of {model}")
+    group_devices = model_group(model, devices)
+    shape = {"data": 1, "model": model, "seq": 1, "pipe": 1}
+    if backend is None and not dist.is_initialized() and not _launched() \
+            and data in (-1, 1):
+        return Mesh(shape, None, None, group_devices)
     backend = init_process_group(backend)
     world = dist.get_world_size()
     if data not in (-1, world):
         raise ValueError(f"a data axis of {data} over {world} processes: "
-                         f"one process drives one device, so the data "
-                         f"axis spans the world")
-    return Mesh({"data": world, "model": 1, "seq": 1, "pipe": 1},
-                None, backend)
+                         f"one process drives one model device group, so "
+                         f"the data axis spans the world")
+    return Mesh(dict(shape, data=world), None, backend, group_devices)
 
 
 class Placement(NamedTuple):

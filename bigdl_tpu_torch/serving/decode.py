@@ -145,15 +145,21 @@ class DecodeService:
       stopping); ``default_max_new_tokens`` caps generation when the
       caller doesn't.
     - ``deadline_ms``: default per-request deadline (0/None = none).
-    - ``mesh``: a sharded-decode backend needs tensor parallelism, which
-      the port has not ported yet: anything but None raises
-      ``NotImplementedError``.
+    - ``mesh``: optional :class:`~bigdl_tpu_torch.parallel.Mesh` with a
+      model device group: a copy of the model is placed on the group
+      with the splits its layers declare (``parallel.shard_module``, the
+      ``ShardedReplicaSet`` discipline), making this a sharded-decode
+      backend; the KV cache is split on its heads over the group
+      (``models.transformer.ShardedKV``, ``kv_bytes_per_shard`` a
+      device) when the group's size divides the heads, and lies whole on
+      the home device otherwise, as the reference's cache is replicated.
     - ``device``: where the model and the caches live, ``"cuda"`` (the
-      default; raises without CUDA) or ``"cpu"``.  The model is moved
-      there and switched to eval mode in place, as
+      default, or the mesh's home device with a mesh; raises without
+      CUDA) or ``"cpu"``.  The model is moved there and switched to eval
+      mode in place, as
       :class:`~bigdl_tpu_torch.serving.InferenceService` does;
       ``params``/``state`` (the reference's tree layout,
-      ``interop.load_jax_params``) load into a copy instead.
+      ``interop.load_jax_params``) or a ``mesh`` place a copy instead.
     - ``priority_fn``: the batcher's QoS contract — maps a queued
       ``_Request`` to an int rank (lower admits first), engaged only
       under pressure (more queued than free slots).
@@ -178,28 +184,40 @@ class DecodeService:
                  deadline_ms: Optional[float] = None,
                  name: str = "decode", mesh=None,
                  registry=None, priority_fn=None, start: bool = True,
-                 device="cuda"):
+                 device=None):
+        import copy
+
         from bigdl_tpu_torch.engine import resolve_device
-        from bigdl_tpu_torch.models.transformer import (kv_cache_spec,
+        from bigdl_tpu_torch.models.transformer import (ShardedKV,
+                                                        init_kv_cache,
+                                                        kv_cache_spec,
                                                         lm_layout)
-        if mesh is not None:
-            raise NotImplementedError(
-                "DecodeService(mesh=) needs tensor parallelism "
-                "(parallel/tensor_parallel.py), which the port has not "
-                "ported yet (ROADMAP queue A item 2)")
         self.name = name
-        self.device = resolve_device(device)
+        if mesh is not None and getattr(mesh, "devices", None) is None:
+            raise ValueError("DecodeService(mesh=) needs a mesh with a "
+                             "model device group (create_mesh(model=n, "
+                             "devices=...))")
+        self.device = resolve_device(
+            device if device is not None
+            else mesh.home if mesh is not None else "cuda")
+        if mesh is not None and self.device != mesh.home:
+            raise ValueError(f"the mesh's home device is {mesh.home}, the "
+                             f"service's {self.device}")
         embed, pos_mod, blocks, _, _, mha = lm_layout(model)  # validates
         self.vocab_size = int(embed.n_index)
         if params is not None or state is not None:
-            import copy
-
             from bigdl_tpu_torch.interop.jax_weights import (load_jax_params,
                                                              to_jax_params)
             model = load_jax_params(copy.deepcopy(model).cpu(),
                                     params if params is not None
                                     else to_jax_params(model)[0], state)
-        self._model = model.to(self.device).eval()
+        if mesh is not None:
+            from bigdl_tpu_torch.parallel.tensor_parallel import shard_module
+            model = shard_module(copy.deepcopy(model).cpu(), mesh)
+        else:
+            model = model.to(self.device)
+        self._model = model.eval()
+        self._mesh = mesh
         self.max_seq_len = int(min(max_seq_len, pos_mod.max_len))
         if self.max_seq_len < 2:
             raise ValueError(f"max_seq_len must be >= 2: {self.max_seq_len}")
@@ -265,9 +283,12 @@ class DecodeService:
         self._seqs: List[Optional[_Sequence]] = [None] * slots
         self._lengths = np.zeros((slots,), np.int64)  # cached positions
         self._last_tok = np.zeros((slots,), np.int64)
-        full, fdtype = kv_cache_spec(self._model, slots, self.max_seq_len)
-        self._k = torch.zeros(full, dtype=fdtype, device=self.device)
-        self._v = torch.zeros(full, dtype=fdtype, device=self.device)
+        self._k, self._v = init_kv_cache(self._model, slots,
+                                         self.max_seq_len, self.device)
+        # one device's share of the cache: the whole under a head split
+        # the group's size does not divide, or without a mesh
+        self.kv_bytes_per_shard = 2 * self._k.part_nbytes \
+            if isinstance(self._k, ShardedKV) else self.kv_bytes
 
         # ---- warmup ----------------------------------------------------
         # one decode step and every bucket's prefill and splice run HERE
@@ -310,10 +331,11 @@ class DecodeService:
     def _splice(self, kp, vp, slot: int) -> None:
         """Write a (L, 1, H, Tb, Dh) prefill cache into ``slot`` at
         positions 0..Tb-1 (the slot index is always in range, and a
-        bucket never exceeds ``max_prompt_len < max_seq_len``)."""
-        tb = kp.shape[3]
-        self._k[:, slot, :, :tb] = kp[:, 0]
-        self._v[:, slot, :, :tb] = vp[:, 0]
+        bucket never exceeds ``max_prompt_len < max_seq_len``); a split
+        cache part by part, each on its device."""
+        from bigdl_tpu_torch.models.transformer import splice_kv
+        splice_kv(self._k, kp, slot)
+        splice_kv(self._v, vp, slot)
 
     @property
     def compile_count(self) -> int:
@@ -701,5 +723,6 @@ class DecodeService:
             "prefill_buckets": list(self.buckets),
             "max_seq_len": self.max_seq_len,
             "kv_bytes": self.kv_bytes,
+            "kv_bytes_per_shard": self.kv_bytes_per_shard,
         }
         return snap

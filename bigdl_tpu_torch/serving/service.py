@@ -219,7 +219,9 @@ class InferenceService:
     ----------
     model:
         A ``torch.nn.Module`` (including the ``nn.quantized`` int8 twins).
-        It is moved to ``device`` and switched to eval mode in place.
+        It is moved to ``device`` and switched to eval mode in place; a
+        model placed on a model device group (``parallel.shard_module``)
+        stays where it lies, ``device`` being the group's home.
     input_spec:
         Pytree of per-ROW ``(shape, dtype)`` pairs (no batch dim) — or
         numpy arrays — describing one request row.  When given, every
@@ -262,8 +264,11 @@ class InferenceService:
                  priority_fn=None):
         from bigdl_tpu_torch.engine import Engine
         defaults = Engine.serving_defaults()
+        from bigdl_tpu_torch.parallel.tensor_parallel import placed_devices
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        if placed_devices(model) is None:
+            model = model.to(self.device)
+        self.model = model.eval()
         self.name = name
         # `is not None` throughout: an explicit 0 must reach the
         # batcher's >= 1 validation, not silently become the default

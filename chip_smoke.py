@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (``bigdl_tpu_torch``) on one NVIDIA card.
 
-Drives the port's seventeen main paths and holds every kernel of them against
+Drives the port's eighteen main paths and holds every kernel of them against
 its plain PyTorch version.  Serving: an int8-quantized ResNet-50 (1000
 classes, 224x224, NCHW, random weights from a seed) served by
 ``ModelRegistry`` with ``quantize=True`` (weight_only) and
@@ -54,7 +54,12 @@ over the wire: the front end (``FrontendServer``, both connection cores)
 before the int8 ResNet-50's two registry versions and a 2-replica
 ``ReplicaSet`` on the one card (B4), a replica death failed over, the
 status taxonomy, and ``transformer_lm`` at its defaults decoding streams
-through ``DecodeService`` with a hot cutover.
+through ``DecodeService`` with a hot cutover; and tensor parallelism on a
+model group of the one card twice (``[cuda:0, cuda:0]``):
+``transformer_lm(shard=True)`` at its defaults forward, trained through
+``DistriOptimizer(param_specs=)``, served by a ``ShardedReplicaSet`` behind
+the front end and decoded by ``DecodeService(mesh=)`` with its KV cache
+split on the heads, and the int8 ResNet-50 in NHWC on B4.
 Phases, each printing its seconds:
 
 1. the card: name, count, ``nvidia-smi`` name and power limit;
@@ -301,7 +306,30 @@ Phases, each printing its seconds:
    ``GEN_TOL`` of the CPU's and the card's full-context forwards (three
    planted faults must exceed it), tokens/s, step ms, time to first
    token p50/p99, the KV bytes, one step alone; a ``HotCutover`` of the
-   decode backend under 8 streaming clients with no stream dropped.
+   decode backend under 8 streaming clients with no stream dropped;
+31. parallel (``PARALLEL``): ``transformer_lm(shard=True)`` at its
+   defaults (52,763,904 parameters) on the model group ``[cuda:0,
+   cuda:0]`` (the copies between its devices are then no-ops): its
+   log-probs of 4 x 256 tokens against the unsharded model on the card
+   within ``TP_TOL`` of max|logp|, two halves of a split ``wq`` swapped
+   above ``TP_FAULT_FLOOR``; ``DistriOptimizer(param_specs=)`` at world 1
+   over NCCL (data=1, model=2), Adam, batch 8 x 256, 4 steps, each step's
+   loss and gradients redone by the unsharded model from the step's own
+   weights within ``TP_TRAIN_TOL`` (a row sum that drops its last partial
+   above it), ms a step beside the unsharded run's; a
+   ``ShardedReplicaSet`` (``[cuda:0] * 4`` in groups of two) behind the
+   front end, 8 clients x 4 requests of 1-4 rows of 128 tokens, every row
+   within ``TP_TOL`` of the unsharded model, grown to 3 slots that answer
+   again; ``DecodeService(mesh=)`` (slots 8, max_seq_len 512) decoding 16
+   streams, teacher-forced within ``GEN_TOL`` of the unsharded full
+   context with three planted faults above it, near ties counted, the KV
+   bytes a shard (half the cache); and the int8 ResNet-50 in NHWC, both
+   modes through ``ModelRegistry.deploy(quantize=...)``, its rows bitwise
+   its NCHW twin's, B4 54 launches a dispatch; B4 is checked and timed
+   at the NHWC path's GEMMs (batch 8, the NCHW twin's shapes) beside the
+   bound, the plain version and the library call early in the run, after
+   the int8 kernel phase (``int8-kernels-nhwc``: late in a long run the
+   profiler loses whole sessions).
 
 The last lines are the card, the kernel table and the result as JSON; any
 failed check raises and the script exits non-zero.  Without a CUDA card it
@@ -311,7 +339,7 @@ fails at once.  Run from the repository root:
                           [--phases resnet,lstm,resnet-train,wide-deep,lenet,
                                     distri,cifar,inception,autoencoder,remat,
                                     text,nn-core,resilience,interop,
-                                    predict,keras,frontend]
+                                    predict,keras,frontend,parallel]
 
 ``--phases resnet-conditioning`` adds a diagnostic that is not run by
 default: the check phase's path reading at residual gammas 0 to 1, beside
@@ -440,24 +468,26 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def gemm_shapes(model, device, batch=BATCH):
+def gemm_shapes(model, device, batch=BATCH, spec=None):
     """[(M, K, O, has_bias)] of one forward of ``batch`` rows (32 by
-    default) of the quantized ``model``, in launch order, read from the
-    layers' output shapes."""
+    default) of the quantized ``model`` on inputs of ``spec`` (default
+    ``SPEC``, NCHW), in launch order, read from the layers' output shapes
+    (an NHWC convolution's rows are its output's N x H x W too)."""
     rec = []
 
     def hook(m, inp, out):
         O = m.weight_q.shape[0]
         K = m.weight_q[0].numel()
-        M = out.shape[0] * (out.shape[2] * out.shape[3]
-                            if out.dim() == 4 else 1)
-        rec.append((M, K, O, m.bias is not None))
+        hw = (1 if out.dim() != 4 else out.shape[1] * out.shape[2]
+              if getattr(m, "format", "NCHW") == "NHWC"
+              else out.shape[2] * out.shape[3])
+        rec.append((out.shape[0] * hw, K, O, m.bias is not None))
 
     handles = [m.register_forward_hook(hook) for m in model.modules()
                if isinstance(m, (QuantizedSpatialConvolution,
                                  QuantizedLinear))]
     with torch.inference_mode():
-        model(torch.zeros((batch,) + SPEC[0], device=device))
+        model(torch.zeros((batch,) + (spec or SPEC)[0], device=device))
     torch.cuda.synchronize()
     for h in handles:
         h.remove()
@@ -653,7 +683,7 @@ def library_call(xin, wq, scale, b, xdtype):
     return lambda: torch._int_mm(xp, wt)
 
 
-def kernel_phase(shapes, device, card, report):
+def kernel_phase(shapes, device, card, report, batch=BATCH):
     gen = torch.Generator(device=device).manual_seed(1234)
     counts = {}
     for s in shapes:
@@ -752,7 +782,7 @@ def kernel_phase(shapes, device, card, report):
         lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
         cores = (f" (CUDA cores alone {t['bound_cuda_cores_ms']:.4f})"
                  if mode == "weight_only" else "")
-        print(f"gemm {mode} per batch-{BATCH} forward ({sum(counts.values())} "
+        print(f"gemm {mode} per batch-{batch} forward ({sum(counts.values())} "
               f"launches: {t['variants']}): device ms kernel={t['ms']:.4f} "
               f"library={lib} bound={t['bound_ms']:.4f}{cores}; event-timed "
               f"kernel={t['event_ms']:.4f} plain={t['plain_ms']:.4f} "
@@ -7723,13 +7753,15 @@ def teacher_forced(model, prompt, toks, device):
     """Log-prob rows (n, V) of the decode carry on ``device`` fed the
     served tokens: the prefill's last row, then one step a token."""
     from bigdl_tpu_torch.models.transformer import (
-        init_kv_cache, transformer_lm_decode_step, transformer_lm_prefill)
+        init_kv_cache, splice_kv, transformer_lm_decode_step,
+        transformer_lm_prefill)
     p = torch.tensor(prompt, device=device)[None]
     n0 = p.shape[1]
     with torch.inference_mode():
         lp, kp, vp = transformer_lm_prefill(model, p)
         k, v = init_kv_cache(model, 1, n0 + len(toks), device=device)
-        k[:, :, :, :n0], v[:, :, :, :n0] = kp, vp
+        splice_kv(k, kp, 0)  # a head-split model's cache part by part
+        splice_kv(v, vp, 0)
         rows = [lp[0, -1]]
         for i, t in enumerate(toks[:-1]):
             lp1, k, v = transformer_lm_decode_step(
@@ -7749,16 +7781,31 @@ def full_context(model, prompt, toks, device):
     return lp[n0 - 1:n0 - 1 + len(toks)].float().cpu()
 
 
+def swap_shard_halves(shards):
+    """Slices 0 and 1 of a tensor-parallel weight exchanged (a planted
+    fault; a second call undoes it)."""
+    with torch.no_grad():
+        a = shards[0].detach().clone()
+        shards[0].copy_(shards[1])
+        shards[1].copy_(a)
+
+
 def planted_decode_faults(model, prompt, toks, want, device):
     """{fault: the teacher-forced reading against ``want`` with that fault
-    planted in the card's decode carry}."""
+    planted in the card's decode carry}; a sharded model's weight fault
+    swaps two slices of ``wq`` where an unsharded one's transposes it."""
     from bigdl_tpu_torch.models import transformer as tr
+    from bigdl_tpu_torch.parallel.tensor_parallel import Shards
     out = {}
     write, softmax = tr.write_kv, tr.masked_softmax
     mha = model[2][0][0][0][1]
-    for fault in ("wq_transposed", "position_off_by_one", "causal_strict"):
+    sharded = isinstance(mha.wq, Shards)
+    w_fault = "wq_halves_swapped" if sharded else "wq_transposed"
+    for fault in (w_fault, "position_off_by_one", "causal_strict"):
         try:
-            if fault == "wq_transposed":
+            if fault == "wq_halves_swapped":
+                swap_shard_halves(mha.wq)
+            elif fault == "wq_transposed":
                 with torch.no_grad():
                     mha.wq.copy_(mha.wq.T.clone())
             elif fault == "position_off_by_one":
@@ -7770,7 +7817,9 @@ def planted_decode_faults(model, prompt, toks, want, device):
             out[fault] = float((got - want).abs().max())
         finally:
             tr.write_kv, tr.masked_softmax = write, softmax
-            if fault == "wq_transposed":
+            if fault == "wq_halves_swapped":
+                swap_shard_halves(mha.wq)
+            elif fault == "wq_transposed":
                 with torch.no_grad():
                     mha.wq.copy_(mha.wq.T.clone())
     return out
@@ -8276,10 +8325,507 @@ def frontend_phase(seed, device, card, report):
     return launches
 
 
+PARALLEL = {"model": 2, "fwd_rows": 4, "fwd_T": 256, "train_batch": 8,
+            "train_T": 256, "train_steps": 4, "lr": 1e-3,
+            "serve_clients": 8, "serve_requests": 4, "serve_rows": (1, 4),
+            "serve_T": 128, "serve_batch": 4, "grow_to": 3,
+            "gen_streams": 16, "slots": 8, "max_seq_len": 512,
+            "max_prompt_len": 256, "buckets": "pow2@8", "prompt": (8, 200),
+            "new_tokens": (4, 64), "int8_batch": 8, "int8_requests": 6}
+NHWC_SPEC = ((224, 224, 3), np.float32)
+# the sharded forward and the served rows against the unsharded model on
+# the card, of max|logp| (one GEMM against slices of it and a row-split
+# partial sum added in another order: sound readings ~1e-7 predicted); the
+# swapped-halves fault must read above TP_FAULT_FLOOR
+TP_TOL, TP_FAULT_FLOOR = 1e-5, 1e-2
+# a training step's gradients against the unsharded model's from the same
+# weights on the same batch: each leaf's ||g - g_ref|| over ||g_ref|| (over
+# 1e-3 of the largest leaf's norm where a leaf's gradient is zero but for
+# rounding, the key biases'); a row-parallel sum that drops its last
+# partial must exceed it
+TP_TRAIN_TOL = 1e-4
+
+
+def card0(device):
+    return torch.device("cuda", 0) if device.type == "cuda" else device
+
+
+def tp_mesh(device, backend=None):
+    """The phase's model group: the one card twice."""
+    from bigdl_tpu_torch.parallel import create_mesh
+    return create_mesh(model=PARALLEL["model"],
+                       devices=[card0(device)] * PARALLEL["model"],
+                       backend=backend)
+
+
+def tp_forward_check(lm, device, card, report):
+    """1. ``transformer_lm(shard=True)`` placed on the model group against
+    the unsharded model on the card: log-probs of PARALLEL["fwd_rows"] x
+    ``fwd_T`` tokens within TP_TOL of max|logp|; two halves of block 0's
+    ``wq`` swapped above TP_FAULT_FLOOR.  Returns the unsharded twin."""
+    from bigdl_tpu_torch.parallel import shard_module
+    plain = copy.deepcopy(lm).to(device).eval()
+    placed = shard_module(copy.deepcopy(lm), tp_mesh(device)).eval()
+    gen = torch.Generator().manual_seed(PARALLEL["fwd_T"])
+    tokens = torch.randint(0, lm[0].n_index, (PARALLEL["fwd_rows"],
+                                              PARALLEL["fwd_T"]),
+                           generator=gen).to(device)
+    with torch.inference_mode():
+        want, got = plain(tokens), placed(tokens)
+        scale = float(want.abs().max())
+        reading = float((got - want).abs().max()) / scale
+        wq = placed[2][0][0][0][1].wq
+        swap_shard_halves(wq)
+        fault = float((placed(tokens) - want).abs().max()) / scale
+        swap_shard_halves(wq)
+
+    def timed(model):
+        def run():
+            with torch.inference_mode():
+                model(tokens)
+        return cuda_ms(run, budget_ms=200.0)
+    ms = {"unsharded": timed(plain), "sharded": timed(placed)}
+    shards = [tuple(p.shape) for p in wq.parts]
+    print(f"parallel forward: transformer_lm(shard=True) on "
+          f"{[str(d) for d in wq.devices]} ({len(shards)} shards of wq "
+          f"{shards}), {tuple(tokens.shape)} tokens: max|dlogp| / max|logp| "
+          f"{reading:.3e} (limit {TP_TOL}), swapped-halves fault "
+          f"{fault:.3e} (floor {TP_FAULT_FLOOR}); ms a forward unsharded "
+          f"{ms['unsharded']:.3f} sharded {ms['sharded']:.3f} [{card}]")
+    if not (reading <= TP_TOL and fault > TP_FAULT_FLOOR):
+        raise AssertionError(f"sharded forward {reading} fault {fault}")
+    report["parallel"]["forward"] = {"reading": reading, "fault": fault,
+                                     "ms": ms, "shards": shards}
+    del placed
+    return plain
+
+
+def lm_samples(vocab, n, T, seed):
+    """n (tokens, next tokens) windows of T random ids."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (n, T + 1)).astype(np.int64)
+    return [Sample(r[:-1], r[1:]) for r in ids]
+
+
+class TPTracing:
+    """Mixin for a DistriOptimizer: each step's parameters before it
+    (under their unsharded names, on the card), its batch, its loss and
+    its gradients (unsharded names) in ``self.trace``."""
+
+    def _train_driver(self, step_fn, device, run):
+        from bigdl_tpu_torch.parallel.tensor_parallel import logical_tensors
+        self.trace = []
+        method = self.optim_method
+        update = method.update
+
+        def recorded(grads, params, state, lr, step):
+            self.trace[-1]["grads"] = {
+                k: g.detach().clone()
+                for k, g in logical_tensors(run.net, grads).items()}
+            return update(grads, params, state, lr, step)
+        method.update = recorded
+
+        def traced(x, y, lr, step):
+            self.trace.append({
+                "before": {k: v.detach().clone() for k, v in
+                           logical_tensors(run.net, run.params).items()},
+                "x": x.clone(), "y": y.clone()})
+            loss = step_fn(x, y, lr, step)
+            self.trace[-1]["loss"] = loss
+            return loss
+        try:
+            return super()._train_driver(traced, device, run)
+        finally:
+            method.update = update
+
+
+def tp_train(lm, samples, device, sharded, trace=False):
+    """PARALLEL["train_steps"] steps of Adam through a world-1 NCCL
+    DistriOptimizer: sharded (``param_specs`` over the model group) or
+    not; (losses, step clock, optimizer)."""
+    from bigdl_tpu_torch.parallel import build_param_specs
+    model = copy.deepcopy(lm)
+    cls = type("TPTraced", (TPTracing, optim.DistriOptimizer), {}) \
+        if trace else optim.DistriOptimizer
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    kw = {"mesh": tp_mesh(device, backend=backend),
+          "param_specs": build_param_specs(model)} if sharded else {}
+    opt = (cls(model, DataSet.array(samples, distributed=True)
+               >> SampleToMiniBatch(PARALLEL["train_batch"]),
+               nn.TimeDistributedCriterion(nn.ClassNLLCriterion()),
+               device=device, **kw)
+           .set_optim_method(optim.Adam(PARALLEL["lr"])).set_seed(11)
+           .set_end_when(optim.max_iteration(PARALLEL["train_steps"])))
+    opt.losses, opt.clock = [], []
+
+    def log(lr):
+        opt.losses.append(opt.state["loss"])
+        opt.clock.append(time.perf_counter())
+    opt._log_train_iteration = log
+    opt.optimize()
+    return opt
+
+
+def tp_step_reading(lm, trace, device):
+    """Each traced step redone by the unsharded model on the card from the
+    step's own weights: (worst loss share, worst gradient share)."""
+    ref = copy.deepcopy(lm).to(device).train()
+    crit = nn.TimeDistributedCriterion(nn.ClassNLLCriterion())
+    params = dict(ref.named_parameters())
+    worst_loss = worst_grad = 0.0
+    for rec in trace:
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(rec["before"][k])
+                p.requires_grad_(True)
+                p.grad = None
+        loss = crit.apply(ref(rec["x"]), rec["y"])
+        loss.backward()
+        got = float(loss.detach())
+        worst_loss = max(worst_loss,
+                         abs(got - float(rec["loss"])) / abs(got))
+        norms = {k: float(p.grad.norm()) for k, p in params.items()}
+        floor = 1e-3 * max(norms.values())
+        for k, p in params.items():
+            d = float((rec["grads"][k] - p.grad).norm())
+            worst_grad = max(worst_grad, d / max(norms[k], floor))
+    del ref
+    return worst_loss, worst_grad
+
+
+def tp_train_check(lm, device, card, report):
+    """2. ``DistriOptimizer(param_specs=)`` at world 1 over NCCL (data=1,
+    model=2) against the unsharded DistriOptimizer: every step's loss and
+    gradients redone by the unsharded model from the sharded run's own
+    weights (TP_TRAIN_TOL), a row-parallel sum that drops its last partial
+    above it; then both runs timed, ms a step."""
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.parallel import tensor_parallel as tp
+    samples = lm_samples(lm[0].n_index, PARALLEL["train_batch"]
+                         * PARALLEL["train_steps"], PARALLEL["train_T"], 5)
+    try:
+        opt = tp_train(lm, samples, device, True, trace=True)
+        loss_r, grad_r = tp_step_reading(lm, opt.trace, device)
+        del opt
+        real = tp.row_sum
+        tp.row_sum = lambda parts, home: real(list(parts)[:-1], home)
+        try:
+            bad = tp_train(lm, samples, device, True, trace=True)
+        finally:
+            tp.row_sum = real
+        fault = tp_step_reading(lm, bad.trace, device)
+        del bad
+        torch.cuda.empty_cache()
+        runs = {name: tp_train(lm, samples, device, name == "sharded")
+                for name in ("unsharded", "sharded")}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        Engine.set_mesh(None)
+    ms = {n: float(np.mean(np.diff(o.clock)) * 1e3) for n, o in runs.items()}
+    gap = max(abs(a - b) / abs(b) for a, b in zip(runs["sharded"].losses,
+                                                   runs["unsharded"].losses))
+    print(f"parallel train: DistriOptimizer(param_specs=) data=1 model=2 "
+          f"over {'NCCL' if device.type == 'cuda' else 'gloo'}, Adam "
+          f"{PARALLEL['lr']}, batch "
+          f"{PARALLEL['train_batch']} x T {PARALLEL['train_T']}, "
+          f"{PARALLEL['train_steps']} steps: each step redone unsharded "
+          f"from its own weights: loss share {loss_r:.3e}, gradient share "
+          f"{grad_r:.3e} (limit {TP_TRAIN_TOL}); dropped-partial fault "
+          f"loss {fault[0]:.3e} gradient {fault[1]:.3e}; losses sharded "
+          f"{[round(v, 6) for v in runs['sharded'].losses]} unsharded "
+          f"{[round(v, 6) for v in runs['unsharded'].losses]} (largest "
+          f"share apart {gap:.3e}); ms a step sharded {ms['sharded']:.3f} "
+          f"unsharded {ms['unsharded']:.3f} [{card}]")
+    if not (max(loss_r, grad_r) <= TP_TRAIN_TOL
+            and fault[1] > TP_TRAIN_TOL):
+        raise AssertionError(f"sharded training {loss_r} {grad_r} {fault}")
+    if not runs["sharded"].losses[-1] < runs["sharded"].losses[0]:
+        raise AssertionError("the sharded run's loss did not fall")
+    report["parallel"]["train"] = {
+        "loss_share": loss_r, "grad_share": grad_r, "fault": list(fault),
+        "losses": {n: o.losses for n, o in runs.items()},
+        "loss_gap": gap, "ms_a_step": ms}
+
+
+def tp_serve_check(lm, plain, device, card, report):
+    """3. ``ShardedReplicaSet`` over ``[cuda:0] * 4`` in groups of two (2
+    slots) behind the front end: 8 clients x 4 requests of 1-4 rows of
+    ``serve_T`` tokens (npy), every row within TP_TOL of the unsharded
+    model on the card; grown to 3 slots (slot 2 takes group 0), each slot
+    answers again."""
+    from bigdl_tpu_torch.frontend import FrontendServer
+    from bigdl_tpu_torch.serving import ShardedReplicaSet
+    T, V = PARALLEL["serve_T"], lm[0].n_index
+    rs = ShardedReplicaSet(lm, devices=[card0(device)] * 4,
+                           devices_per_replica=2,
+                           input_spec=((T,), np.int64),
+                           max_batch_size=PARALLEL["serve_batch"],
+                           name="tp")
+    fe = FrontendServer(ModelRegistry(device=device), backends={"tp": rs},
+                        port=0)
+    fe.start()
+    rng = np.random.default_rng(31)
+    jobs = [rng.integers(0, V, (int(rng.integers(
+        PARALLEL["serve_rows"][0], PARALLEL["serve_rows"][1] + 1)), T))
+        for _ in range(PARALLEL["serve_clients"]
+                       * PARALLEL["serve_requests"])]
+    got, errors, lat = {}, [], []
+
+    def client(c):
+        try:
+            for i in range(c, len(jobs), PARALLEL["serve_clients"]):
+                t0 = time.monotonic()
+                st, _h, y = wire_predict(fe.port, "tp", jobs[i], False)
+                lat.append(time.monotonic() - t0)
+                if st != 200:
+                    raise AssertionError(f"predict {i}: {st} {y[:200]}")
+                got[i] = y
+        except Exception as e:  # re-raised below
+            errors.append(e)
+
+    def worst(items):
+        out = 0.0
+        with torch.inference_mode():
+            for x, y in items:
+                want = plain(torch.from_numpy(x).to(device)).cpu().numpy()
+                out = max(out, float(np.abs(y - want).max())
+                          / float(np.abs(want).max()))
+        return out
+
+    try:
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(PARALLEL["serve_clients"])]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.monotonic() - t0
+        if errors or len(got) != len(jobs):
+            raise RuntimeError(f"sharded serve clients: {errors[:3]}")
+        rows = sum(len(j) for j in jobs)
+        reading = worst((jobs[i], got[i]) for i in range(len(jobs)))
+        dispatches = [r.stats()["dispatch_count"] for r in rs._replicas]
+        rs.set_replica_count(PARALLEL["grow_to"])
+        groups = [rs.group_index(i) for i in range(rs.n_replicas)]
+        again = []
+        for i, svc in enumerate(rs._replicas):
+            x = jobs[i]
+            again.append((x, svc.predict(x)))
+        st, _h, y = wire_predict(fe.port, "tp", jobs[0], False)
+        if st != 200:
+            raise AssertionError(f"predict after the grow: {st}")
+        again.append((jobs[0], y))
+        reading_grown = worst(again)
+    finally:
+        fe.stop()
+        rs.stop(drain=False)
+    print(f"parallel serve: ShardedReplicaSet 2 slots of [cuda:0, cuda:0] "
+          f"behind the front end: {len(jobs)} requests ({rows} rows of {T} "
+          f"tokens, npy) from {PARALLEL['serve_clients']} clients in "
+          f"{wall:.2f} s ({rows / wall:.1f} rows/s, latency p50 "
+          f"{pct_ms(lat, 50)} ms p99 {pct_ms(lat, 99)} ms), dispatches a "
+          f"slot {dispatches}; rows vs the unsharded model {reading:.3e} "
+          f"(limit {TP_TOL}); grown to {rs.n_replicas} slots on groups "
+          f"{groups}, each slot and the wire again {reading_grown:.3e} "
+          f"[{card}]")
+    if not (reading <= TP_TOL and reading_grown <= TP_TOL
+            and groups == [0, 1, 0]):
+        raise AssertionError(f"sharded serving {reading} {reading_grown} "
+                             f"{groups}")
+    report["parallel"]["serve"] = {
+        "requests": len(jobs), "rows": rows, "wall_s": wall,
+        "rows_per_s": rows / wall, "p50_ms": pct_ms(lat, 50),
+        "p99_ms": pct_ms(lat, 99), "dispatches": dispatches,
+        "reading": reading, "reading_grown": reading_grown,
+        "groups": groups}
+
+
+def tp_decode_check(lm, plain, device, card, report):
+    """4. ``DecodeService(mesh=)`` (model=2 on the card, its KV cache in
+    two head halves) decoding ``gen_streams`` streams: every token's
+    teacher-forced log-probs through the sharded carry within GEN_TOL of
+    the unsharded model's full context on the card, tokens its argmax but
+    at near ties (counted), three planted faults above GEN_TOL; the KV
+    bytes of one shard."""
+    from bigdl_tpu_torch.serving import DecodeService
+    rng = np.random.default_rng(97)
+    V = lm[0].n_index
+    jobs = [(rng.integers(0, V, int(rng.integers(
+        PARALLEL["prompt"][0], PARALLEL["prompt"][1] + 1))).tolist(),
+        int(rng.integers(PARALLEL["new_tokens"][0],
+                         PARALLEL["new_tokens"][1] + 1)))
+        for _ in range(PARALLEL["gen_streams"])]
+    t0 = time.monotonic()
+    dec = DecodeService(lm, mesh=tp_mesh(device), slots=PARALLEL["slots"],
+                        max_seq_len=PARALLEL["max_seq_len"],
+                        max_prompt_len=PARALLEL["max_prompt_len"],
+                        prefill_buckets=PARALLEL["buckets"], name="lm_tp")
+    warm = time.monotonic() - t0
+    try:
+        t0 = time.monotonic()
+        futs = [dec.submit(p, max_new_tokens=n) for p, n in jobs]
+        served = [list(f.result(timeout=600).tokens) for f in futs]
+        wall = time.monotonic() - t0
+        steps = dec.steps_done
+        model = dec._model
+        reading, ties = 0.0, 0
+        for (prompt, _n), toks in zip(jobs, served):
+            inc = teacher_forced(model, prompt, toks, device)
+            full = full_context(plain, prompt, toks, device)
+            reading = max(reading, float((inc - full).abs().max()))
+            top2 = full.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * GEN_TOL
+            ties += int((~clear).sum())
+            if not torch.equal(full.argmax(-1)[clear],
+                               torch.tensor(toks)[clear]):
+                raise AssertionError("a sharded token is not the unsharded "
+                                     "model's argmax at a clear margin")
+        prompt, _n = jobs[0]
+        faults = planted_decode_faults(
+            model, prompt, served[0],
+            full_context(plain, prompt, served[0], device), device)
+        per_shard, kv = dec.kv_bytes_per_shard, dec.kv_bytes
+        parts = [str(p.device) for p in dec._k.parts]
+    finally:
+        dec.stop(drain=False)
+    n_tok = sum(len(t) for t in served)
+    print(f"parallel decode: DecodeService(mesh=model 2) slots "
+          f"{PARALLEL['slots']}, max_seq_len {PARALLEL['max_seq_len']}, "
+          f"warmup {warm:.2f} s; {len(jobs)} streams, {n_tok} tokens in "
+          f"{wall:.2f} s ({n_tok / wall:.1f} tokens/s, {steps} steps); KV "
+          f"cache {kv} bytes, {per_shard} bytes a shard on {parts}; "
+          f"teacher-forced vs the unsharded full context {reading:.3e} "
+          f"(limit {GEN_TOL}), {ties} near ties; planted faults "
+          + ", ".join(f"{k} {v:.3e}" for k, v in faults.items())
+          + f" [{card}]")
+    if not (reading <= GEN_TOL and min(faults.values()) > GEN_TOL
+            and per_shard * PARALLEL["model"] == kv):
+        raise AssertionError(f"sharded decode {reading} {faults} "
+                             f"{per_shard} {kv}")
+    report["parallel"]["decode"] = {
+        "streams": len(jobs), "tokens": n_tok, "wall_s": wall,
+        "tokens_per_s": n_tok / wall, "steps": steps, "reading": reading,
+        "near_ties": ties, "faults": faults, "kv_bytes": kv,
+        "kv_bytes_per_shard": per_shard}
+
+
+def nhwc_twins(seed):
+    """The ResNet-50 in NHWC (seeded weights) and its NCHW twin."""
+    from bigdl_tpu_torch.interop import load_jax_params, to_jax_params
+    nhwc = resnet50(format="NHWC").initialize(
+        torch.Generator().manual_seed(seed))
+    return nhwc, load_jax_params(resnet50(), *to_jax_params(nhwc))
+
+
+def nhwc_kernel_phase(seed, device, card, report):
+    """B4 at the GEMMs of the NHWC int8 ResNet-50's forward of
+    ``int8_batch`` rows (the parallel phase's path), which must be the
+    NCHW twin's, through the kernel phase: checked against the plain
+    version and timed.  Run while the process is young: late in a long
+    run the profiler loses a session's first launches, then whole
+    sessions (PERF.md section 7).  Returns the kernel phase's totals."""
+    nhwc, nchw = nhwc_twins(seed)
+    probe = quantize(nhwc).to(device)
+    shapes = gemm_shapes(probe, device, PARALLEL["int8_batch"], NHWC_SPEC)
+    del probe
+    twin = quantize(nchw).to(device)
+    if shapes != gemm_shapes(twin, device, PARALLEL["int8_batch"]):
+        raise AssertionError("the NHWC path's GEMMs are not the NCHW twin's")
+    del twin
+    torch.cuda.empty_cache()
+    print(f"nhwc int8 resnet50 batch {PARALLEL['int8_batch']}: "
+          f"{len(shapes)} GEMM launches per forward, {len(set(shapes))} "
+          f"distinct shapes, the NCHW twin's")
+    return kernel_phase(shapes, device, card, report,
+                        PARALLEL["int8_batch"])
+
+
+def nhwc_int8_check(seed, device, card, report):
+    """5. The int8 ResNet-50 in NHWC, both modes, deployed through
+    ``ModelRegistry.deploy(quantize=...)`` beside its NCHW twin (the same
+    weights): ``int8_requests`` requests of 1-4 rows, each alone (a
+    dynamic request's scale is its batch's), the NHWC rows bitwise the
+    NCHW twin's, transposed; B4's launches a dispatch on the NHWC path
+    (54, ``INTEROP["gemms"]``: the counts set to 0 just before it).
+    Returns {mode: launches}."""
+    nhwc, nchw = nhwc_twins(seed)
+    gen = torch.Generator().manual_seed(seed + 5)
+    pool = torch.randn((8,) + SPEC[0], generator=gen).numpy()
+    rng = np.random.default_rng(seed + 6)
+    jobs = [rng.integers(0, len(pool), int(rng.integers(1, 5)))
+            for _ in range(PARALLEL["int8_requests"])]
+    launches = {}
+    with ModelRegistry(device=device) as reg:
+        for mode in ("weight_only", "dynamic"):
+            q = True if mode == "weight_only" else "dynamic"
+            kw = {"max_batch_size": PARALLEL["int8_batch"], "quantize": q}
+            v_h = reg.deploy(f"nhwc_{mode}", nhwc, input_spec=NHWC_SPEC, **kw)
+            v_c = reg.deploy(f"nchw_{mode}", nchw, input_spec=SPEC, **kw)
+            int8_gemm.reset_counts()
+            d0 = v_h.stats()["dispatch_count"]
+            ys = [v_h.predict(pool[idx].transpose(0, 2, 3, 1).copy())
+                  for idx in jobs]
+            n = int8_gemm.launches
+            dispatches = v_h.stats()["dispatch_count"] - d0
+            same = all(np.array_equal(y, v_c.predict(pool[idx]))
+                       for y, idx in zip(ys, jobs))
+            launches[mode] = n
+            print(f"parallel nhwc int8 {mode}: {len(jobs)} requests alone, "
+                  f"{dispatches} dispatches, B4 {n} launches "
+                  f"({n / max(dispatches, 1):.1f} a dispatch, "
+                  f"{dict(int8_gemm.variant_launches)}); rows bitwise the "
+                  f"NCHW twin's: {same} [{card}]")
+            if not same or n != INTEROP["gemms"] * dispatches:
+                raise AssertionError(f"nhwc int8 {mode}: bitwise {same}, "
+                                     f"{n} launches, {dispatches} "
+                                     f"dispatches")
+            reg.undeploy(f"nhwc_{mode}")
+            reg.undeploy(f"nchw_{mode}")
+    report["parallel"]["nhwc_int8"] = {"launches": launches,
+                                       "requests": len(jobs)}
+    return launches
+
+
+def parallel_phase(seed, device, card, report):
+    """Tensor parallelism and sharded serving on the card (PARALLEL), and
+    the NHWC int8 ResNet-50 on B4.  Returns B4's launches by mode on the
+    NHWC path."""
+    from bigdl_tpu_torch.models import transformer_lm
+    report["parallel"] = {}
+    lm = transformer_lm(shard=True).initialize(seed).eval()
+    n_params = sum(p.numel() for p in lm.parameters())
+    print(f"parallel: transformer_lm(shard=True) at its defaults, "
+          f"{n_params} parameters, model group of {PARALLEL['model']} on "
+          f"{device}")
+    t0 = time.monotonic()
+    plain = tp_forward_check(lm, device, card, report)
+    print(f"phase parallel-forward: {time.monotonic() - t0:.1f} s")
+    for name, fn in (
+            ("train", lambda: tp_train_check(lm, device, card, report)),
+            ("serve", lambda: tp_serve_check(lm, plain, device, card,
+                                             report)),
+            ("decode", lambda: tp_decode_check(lm, plain, device, card,
+                                               report))):
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.empty_cache()
+        print(f"phase parallel-{name}: {time.monotonic() - t0:.1f} s")
+    del plain
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    out = nhwc_int8_check(seed, device, card, report)
+    torch.cuda.empty_cache()
+    print(f"phase parallel-nhwc-int8: {time.monotonic() - t0:.1f} s")
+    return out
+
+
 PHASES = ("resnet", "lstm", "resnet-train", "wide-deep", "lenet",
           "distri", "cifar", "inception", "autoencoder", "remat", "text",
           "nn-core", "resilience", "interop", "predict", "keras",
-          "frontend")
+          "frontend", "parallel")
 EXTRA_PHASES = ("resnet-conditioning",)  # run only when named
 
 
@@ -8367,6 +8913,14 @@ def main(argv=None) -> int:
                     "variant_launches"],
                 "event_ms": t["event_ms"],
                 "library_event_ms": t["library_event_ms"]})
+
+    nhwc_totals = None
+    if "parallel" in phases:
+        # B4 at the NHWC int8 path's GEMMs while the process is young
+        t0 = time.monotonic()
+        nhwc_totals = nhwc_kernel_phase(args.seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase int8-kernels-nhwc: {time.monotonic() - t0:.1f} s")
 
     if "lstm" in phases:
         t0 = time.monotonic()
@@ -8727,6 +9281,26 @@ def main(argv=None) -> int:
         for mode in ("weight_only", "dynamic"):
             by_name[f"int8_gemm[{mode}]"]["frontend"] = {
                 "launches": launches[mode]}
+    if "parallel" in phases:
+        t0 = time.monotonic()
+        launches = parallel_phase(args.seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase parallel: {time.monotonic() - t0:.1f} s")
+        by_name = {k["name"]: k for k in kernels}
+        for mode in ("weight_only", "dynamic"):
+            t = nhwc_totals[mode]
+            row = {**{k: t[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "library_ms")},
+                   "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
+                   else "operations"}
+            entry = by_name.get(f"int8_gemm[{mode}]")
+            if entry is None:  # no earlier phase timed B4: NHWC leads
+                entry = {"name": f"int8_gemm[{mode}]", **KERNEL,
+                         "launches": launches[mode], **row}
+                kernels.append(entry)
+            entry["parallel"] = {"launches": launches[mode],
+                                 "nhwc": {**row, "rows_a_forward":
+                                          PARALLEL["int8_batch"]}}
     if "resnet-conditioning" in phases:
         t0 = time.monotonic()
         resnet_conditioning_phase(args.seed, device, card, report)

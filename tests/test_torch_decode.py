@@ -384,7 +384,8 @@ def test_device_mesh_and_params(lm):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             DecodeService(lm, slots=1, max_seq_len=16, start=False)
-    with pytest.raises(NotImplementedError, match="tensor parallel"):
+    # a sharded decode backend needs a mesh with a model device group
+    with pytest.raises(ValueError, match="model device group"):
         svc(lm, slots=1, max_seq_len=16, mesh=object(), start=False)
     # params= in the reference's layout load into a copy: the caller's
     # module keeps its weights

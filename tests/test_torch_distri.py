@@ -457,16 +457,19 @@ def test_snapshot_of_the_other_sync_path_is_refused(tmp_path):
 
 def test_unported_distributed_features_raise():
     ds = lenet_pipeline()
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    # tensor parallelism is ported (slice 17): param_specs takes the
+    # all-reduce path, and refuses the ZeRO-1 one as the reference does
+    with pytest.raises(ValueError, match="pure data-parallel"):
         optim.DistriOptimizer(lenet5(10), ds, nn.ClassNLLCriterion(),
-                              device="cpu", param_specs={})
+                              device="cpu", param_specs={}, grad_sync=True)
     opt = optim.DistriOptimizer(lenet5(10), ds, nn.ClassNLLCriterion(),
                                 device="cpu")
     # elastic training is ported: set_elastic arms the membership ledger
     assert opt._membership is None
     assert opt.set_elastic() is opt and opt._membership.epoch() == 1
-    for axis in ("model", "seq", "pipe"):
-        with pytest.raises(NotImplementedError, match="slice 10"):
+    assert create_mesh(model=2, devices=["cpu"] * 2).shape["model"] == 2
+    for axis in ("seq", "pipe"):
+        with pytest.raises(NotImplementedError, match="slice 18"):
             create_mesh(**{axis: 2}, backend="gloo")
 
 

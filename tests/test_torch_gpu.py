@@ -23,7 +23,13 @@ hand-built TF while loop on the card bitwise to the CPU; a
 ``ReplicaSet`` of two quantized replicas on ``cuda:0`` through a replica
 death, a small ``DecodeService`` against its CPU run (tokens equal, the
 incremental decode within 1e-4 of the full-context forward) and the wire
-front end's predict over both connection cores.  Every
+front end's predict over both connection cores; a small
+``transformer_lm(shard=True)`` placed on the model group ``[cuda:0,
+cuda:0]`` against the unsharded forward on the card (1e-5 of max|logp|,
+the swapped-halves fault above 1e-2), one sharded ``DecodeService`` with
+its KV cache split on the heads against the unsharded service (tokens
+equal), and a quantized NHWC ResNet-8 on B4 bitwise the NCHW twin's
+output, transposed, in both modes.  Every
 test
 here needs a CUDA card and skips without one; on the card run ``python -m pytest -m gpu tests/test_torch_*.py``.  This file imports
 no JAX, so it runs where the reference package is not installed.
@@ -1446,3 +1452,74 @@ def test_wire_predict_on_card(cuda, core):
     got = np.asarray(body["outputs"], np.float32)
     np.testing.assert_allclose(got, want, rtol=1e-4,
                                atol=1e-4 * np.abs(want).max())
+
+
+def test_sharded_forward_on_card_matches_unsharded(cuda):
+    """``transformer_lm(shard=True)`` on ``[cuda:0, cuda:0]``: the same
+    log-probs as the unsharded model on the card within 1e-5 of
+    max|logp|; two halves of one split weight swapped read above 1e-2."""
+    from bigdl_tpu_torch.models.transformer import transformer_lm
+    from bigdl_tpu_torch.parallel import create_mesh, shard_module
+    lm = transformer_lm(256, 64, 4, 2, max_len=64, shard=True) \
+        .initialize(0).eval()
+    plain = copy.deepcopy(lm).to(cuda)
+    placed = shard_module(copy.deepcopy(lm),
+                          create_mesh(model=2, devices=[cuda, cuda]))
+    tokens = torch.randint(0, 256, (4, 48),
+                           generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        want = plain(tokens.to(cuda))
+        got = placed(tokens.to(cuda))
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+        wq = placed[2][0][0][0][1].wq
+        a = wq[0].clone()
+        wq[0].copy_(wq[1])
+        wq[1].copy_(a)
+        assert float((placed(tokens.to(cuda)) - want).abs().max()) \
+            > 1e-2 * scale
+
+
+def test_sharded_decode_service_on_card(cuda):
+    """``DecodeService(mesh=)`` over ``[cuda:0, cuda:0]``: the KV cache in
+    two head halves on the card, the greedy tokens the unsharded
+    service's on the card."""
+    from bigdl_tpu_torch.models.transformer import ShardedKV, transformer_lm
+    from bigdl_tpu_torch.parallel import create_mesh
+    from bigdl_tpu_torch.serving import DecodeService
+    lm = transformer_lm(128, 64, 4, 2, max_len=128, shard=True) \
+        .initialize(0).eval()
+    prompts = [list(range(1, n + 1)) for n in (3, 9, 17)]
+    mesh = create_mesh(model=2, devices=[cuda, cuda])
+    results = {}
+    for name, kw in (("plain", {"device": cuda}), ("sharded", {"mesh": mesh})):
+        with DecodeService(copy.deepcopy(lm), slots=3, max_seq_len=64,
+                           max_prompt_len=32, **kw) as dec:
+            futs = [dec.submit(p, max_new_tokens=10) for p in prompts]
+            results[name] = [list(f.result(timeout=120).tokens)
+                             for f in futs]
+            if name == "sharded":
+                assert isinstance(dec._k, ShardedKV)
+                assert all(p.device.type == "cuda" for p in dec._k.parts)
+                assert 2 * dec.kv_bytes_per_shard == dec.kv_bytes
+    assert results["sharded"] == results["plain"]
+
+
+@pytest.mark.parametrize("mode", ["weight_only", "dynamic"])
+def test_quantized_nhwc_resnet_on_card_bitwise_nchw(cuda, mode):
+    """A quantized NHWC ResNet-8 on the card: its convolutions run B4 on
+    the same rows the NCHW twin's give it, so the outputs agree bit for
+    bit, transposed; 10 GEMM launches a forward in each."""
+    from bigdl_tpu_torch.interop import load_jax_params
+    nhwc = resnet_cifar(8, format="NHWC").initialize(2)
+    twin = load_jax_params(resnet_cifar(8), *to_jax_params(nhwc))
+    x = torch.randn(4, 32, 32, 3, generator=torch.Generator().manual_seed(3))
+    outs = {}
+    for name, model, inp in (("nhwc", nhwc, x),
+                             ("nchw", twin, x.permute(0, 3, 1, 2))):
+        q = nn.quantize(model, mode=mode).to(cuda)
+        int8_gemm.launches = 0
+        with torch.inference_mode():
+            outs[name] = q(inp.contiguous().to(cuda)).cpu()
+        assert int8_gemm.launches == 10
+    assert torch.equal(outs["nhwc"], outs["nchw"])

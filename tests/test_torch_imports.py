@@ -36,7 +36,11 @@ serving slice's (``frontend/*``, ``resilience/replica_set.py``,
 the wire front end over both connection cores answers predict on a
 registry version and on a ``ReplicaSet`` through a replica death,
 generate on a ``DecodeService`` and 404, and hot-cuts the decode
-version over, with no kernel launched.  No import statement anywhere
+version over, with no kernel launched.  So are the tensor-parallel
+slice's (``parallel/tensor_parallel.py``, ``serving/sharded.py``): a
+sharded ``DecodeService`` and a ``ShardedReplicaSet`` on model groups of
+``["cpu"] * 2``, two steps of ``DistriOptimizer(param_specs=)`` and a
+quantized NHWC ResNet-8 run with no kernel launched.  No import statement anywhere
 in the port, function bodies included, names JAX or the reference."""
 
 import json
@@ -369,6 +373,30 @@ assert {"bigdl_tpu_torch." + m for m in (
     "frontend.qos", "frontend.cutover", "frontend.autoscale",
     "resilience.replica_set", "serving.decode", "nn.attention",
     "models.transformer")} <= set(names)
+from bigdl_tpu_torch.parallel import (build_param_specs, create_mesh,
+                                      shard_module)
+from bigdl_tpu_torch.serving import ShardedReplicaSet
+cpu2 = create_mesh(model=2, devices=["cpu"] * 2)
+tp_lm = transformer_lm(32, 16, 2, 1, max_len=32, shard=True).initialize(0)
+with DecodeService(tp_lm, slots=2, max_seq_len=16, prefill_buckets="top",
+                   mesh=cpu2) as tp_dec:
+    assert len(tp_dec.generate([1, 2], max_new_tokens=3).tokens) == 3
+tp_mlp = nn.Sequential(nn.Linear(4, 8, shard="column"), nn.ReLU(),
+                       nn.Linear(8, 2, shard="row"), nn.LogSoftMax())
+srs = ShardedReplicaSet(tp_mlp.initialize(0), devices=["cpu"] * 2,
+                        input_spec=((4,), np.float32))
+assert srs.predict(np.ones((2, 4), np.float32)).shape == (2, 2)
+srs.stop()
+(optim.DistriOptimizer(tp_mlp, DataSet.array(
+    [Sample(np.ones(4, np.float32), np.int64(1))] * 4)
+    >> SampleToMiniBatch(2), nn.ClassNLLCriterion(), device="cpu",
+    mesh=cpu2, param_specs=build_param_specs(tp_mlp))
+ .set_end_when(optim.max_iteration(2)).optimize())
+assert nn.quantize(resnet_cifar(8, format="NHWC").initialize(0),
+                   mode="dynamic")(torch.rand(1, 32, 32, 3)).shape == (1, 10)
+assert int8_gemm.launches == maxpool.launches == 0
+assert {"bigdl_tpu_torch." + m for m in (
+    "parallel.tensor_parallel", "serving.sharded")} <= set(names)
 assert {"bigdl_tpu_torch." + m for m in (
     "optim.predictor", "estimator", "keras.backend", "keras.layers",
     "keras.topology", "interop.keras_format", "interop.session",

@@ -140,3 +140,129 @@ def test_default_mode_follows_config(monkeypatch):
     finally:
         monkeypatch.delenv("BIGDL_TPU_INT8_ACTIVATION_MODE")
         reset_config()
+
+
+# ------------------------------------------------------- NHWC int8 convs
+# The NHWC convolution keeps weight_q OIHW and builds the NCHW twin's
+# channel-major patch rows from its input's NCHW view: the same operands
+# reach B4 (here its plain version), so its output is the NCHW twin's,
+# transposed, bit for bit; against the reference's NHWC ``_apply_sim``
+# the limits are the NCHW cases' above.
+def _nhwc_pair(args, kw, params):
+    return [nn.QuantizedSpatialConvolution.from_conv(
+        load_jax_params(nn.SpatialConvolution(*args, format=fmt, **kw),
+                        params), mode=mode)
+        for fmt, mode in (("NHWC", None), ("NCHW", None))]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name,args,kw,shape", CONVS,
+                         ids=[c[0] for c in CONVS])
+def test_quantized_conv_nhwc_matches_apply_sim_and_nchw_twin(name, args, kw,
+                                                            shape, mode):
+    jconv = jnn.SpatialConvolution(*args, format="NHWC", **kw)
+    params, _ = _np_tree(jconv.init(jax.random.PRNGKey(0)))
+    jq = JaxQuantizedConv.from_conv(jconv, params, mode=mode)
+    x = _x(shape).transpose(0, 2, 3, 1).copy()
+    want = np.asarray(jax.jit(jq._apply_sim)(x))
+    nhwc, nchw = (nn.QuantizedSpatialConvolution.from_conv(
+        load_jax_params(nn.SpatialConvolution(*args, format=fmt, **kw),
+                        params), mode=mode) for fmt in ("NHWC", "NCHW"))
+    assert nhwc.format == "NHWC" and nhwc.weight_q.shape == \
+        nchw.weight_q.shape
+    np.testing.assert_array_equal(nhwc.weight_q.numpy(),
+                                  np.asarray(jq.weight_q))
+    got = nhwc(torch.from_numpy(x)).numpy()
+    _check(got, want, mode)
+    twin = nchw(torch.from_numpy(x.transpose(0, 3, 1, 2).copy())).numpy()
+    np.testing.assert_array_equal(got, twin.transpose(0, 2, 3, 1))
+
+
+def _nhwc_resnet_twins(seed=2):
+    """(NHWC ResNet-8, its NCHW twin, the reference's NHWC ResNet-8) on
+    the same weights, BatchNorm running statistics drawn from the seed."""
+    port = resnet_cifar(8, format="NHWC").initialize(seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    for m in port.modules():
+        if isinstance(m, nn.SpatialBatchNormalization):
+            m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape,
+                                                   generator=gen))
+            m.running_var.copy_(torch.rand(m.running_var.shape,
+                                           generator=gen) + 0.5)
+    params, state = to_jax_params(port)
+    twin = load_jax_params(resnet_cifar(8), params, state)
+    ref = jax_resnet_cifar(8, format="NHWC")
+    ref._params, ref._state = (jax.tree_util.tree_map(jax.numpy.asarray, t)
+                               for t in (params, state))
+    return port, twin, ref
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_quantized_nhwc_resnet_matches_reference_and_nchw_twin(mode):
+    """A small NHWC ResNet quantized in each mode: within the NCHW limits
+    of the reference's quantized NHWC ResNet (the float layers between
+    the int8 ones round in their own order, so the whole model is held by
+    the weight_only limit in both modes), and BITWISE the NCHW twin's
+    output."""
+    port, twin, ref = _nhwc_resnet_twins()
+    x = _x((2, 32, 32, 3))
+    qport = nn.quantize(port, mode=mode)
+    convs = [m for m in qport.modules()
+             if isinstance(m, nn.QuantizedSpatialConvolution)]
+    assert len(convs) == 9 and {m.format for m in convs} == {"NHWC"}
+    with torch.no_grad():
+        got = qport(torch.from_numpy(x)).numpy()
+        want_twin = nn.quantize(twin, mode=mode)(
+            torch.from_numpy(x.transpose(0, 3, 1, 2).copy())).numpy()
+    np.testing.assert_array_equal(got, want_twin)
+    jq = jax_quantize(ref, mode=mode)
+    jq.evaluate()
+    want = np.asarray(jq.forward(x))
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def _nhwc_convnet(module):
+    return (module.Sequential()
+            .add(module.SpatialConvolution(3, 8, 3, 3, 1, 1, 1, 1,
+                                           format="NHWC"))
+            .add(module.ReLU())
+            .add(module.SpatialConvolution(8, 4, 3, 3, 2, 2, -1, -1,
+                                           format="NHWC"))
+            .add(module.SpatialConvolution(4, 6, 1, 1, with_bias=False,
+                                           format="NHWC")))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_quantized_nhwc_bigdl_file_loads_and_writes_the_same_bytes(
+        mode, tmp_path):
+    """A ``.bigdl`` file of a quantized NHWC network written by the
+    reference loads in the port (format and mode kept) and runs bitwise
+    as the port's in-memory quantized twin; the port's writer gives back
+    the file's bytes, from the loaded module and from its own quantized
+    model."""
+    from bigdl_tpu import interop as jinterop
+    from bigdl_tpu_torch import interop
+    port = _nhwc_convnet(nn).initialize(4)
+    ref = _nhwc_convnet(jnn)
+    params, state = to_jax_params(port)
+    ref._params, ref._state = (jax.tree_util.tree_map(jax.numpy.asarray, t)
+                               for t in (params, state))
+    ref_path, back_path, own_path = (str(tmp_path / f"{n}.bigdl")
+                                     for n in ("ref", "back", "own"))
+    jinterop.save_bigdl_module(jax_quantize(ref, mode=mode), ref_path)
+    back = interop.load_bigdl_module(ref_path)
+    convs = [m for m in back.modules()
+             if isinstance(m, nn.QuantizedSpatialConvolution)]
+    assert len(convs) == 3
+    assert {(m.format, m.mode) for m in convs} == {("NHWC", mode)}
+    x = torch.from_numpy(_x((2, 9, 9, 3)))
+    qport = nn.quantize(port, mode=mode)
+    with torch.no_grad():
+        np.testing.assert_array_equal(back.eval()(x).numpy(),
+                                      qport(x).numpy())
+    interop.save_bigdl_module(back, back_path)
+    interop.save_bigdl_module(qport, own_path)
+    want = open(ref_path, "rb").read()
+    assert open(back_path, "rb").read() == want
+    assert open(own_path, "rb").read() == want

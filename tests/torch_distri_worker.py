@@ -435,6 +435,61 @@ def train_elastic(world, rank, start, *, plan=None, ckpt=None, iters=8,
             spmdcheck.uninstall()
 
 
+def flat_params(tree, prefix=""):
+    """A parameter tree (either package's arrays) as ``{dotted path:
+    numpy array}``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_params(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def rows_as_samples(x, y):
+    return [Sample(a, b) for a, b in zip(x, y)]
+
+
+def train_tp(world, rank, start, *, global_batch=32, iters=8):
+    """``tests/test_torch_parallel.py``'s tensor-parallel run: the
+    reference test's MLP (16 -> 64 column-parallel, ReLU, 64 -> 4
+    row-parallel, LogSoftMax) through the port's ``DistriOptimizer`` with
+    ``param_specs`` over a ``data=world, model=2`` mesh, this process's
+    model group ``["cpu", "cpu"]``, Adam 5e-3, on the test's rows in the
+    reference mesh's order: the losses and the final parameters."""
+    from bigdl_tpu_torch.parallel import build_param_specs, create_mesh
+    # the rows of the test's tp_samples (this module imports no JAX)
+    rng = np.random.default_rng(0)
+    w = rng.normal(0, 1, (16, 4)).astype(np.float32)
+    x = rng.normal(0, 1, (256, 16)).astype(np.float32)
+    y = (x @ w).argmax(-1).astype(np.int32)
+    model = (nn.Sequential().add(nn.Linear(16, 64, shard="column"))
+             .add(nn.ReLU()).add(nn.Linear(64, 4, shard="row"))
+             .add(nn.LogSoftMax()))
+    load_jax_params(model, start)
+    losses = []
+
+    class Recording(optim.DistriOptimizer):
+        def _log_train_iteration(self, lr):
+            losses.append(self.state["loss"])
+
+    mesh = create_mesh(model=2, devices=["cpu", "cpu"])
+    ds = (DistributedDataSet(mesh_order(rows_as_samples(x, y), global_batch,
+                                        world),
+                             process_index=rank, process_count=world)
+          >> SampleToMiniBatch(global_batch // world))
+    opt = (Recording(model, ds, nn.ClassNLLCriterion(), device="cpu",
+                     mesh=mesh, param_specs=build_param_specs(model))
+           .set_optim_method(optim.Adam(5e-3)).set_seed(5)
+           .set_end_when(optim.max_iteration(iters)))
+    opt.optimize()
+    return {"losses": losses, "world": mesh.size,
+            "model": mesh.shape["model"],
+            "params": {k: v.detach().numpy().copy()
+                       for k, v in model.named_parameters()}}
+
+
 def _worker(rank, world, store_dir, runs, fn=None):
     warnings.simplefilter("ignore", FutureWarning)
     torch.set_num_threads(1)
