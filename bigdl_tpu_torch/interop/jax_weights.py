@@ -19,6 +19,14 @@ A ``transformer_lm`` keeps the reference's tree too: ``MultiHeadAttention``'s
 under ``params["0"]`` (the embedding), ``["1"]["weight"]`` (positions),
 ``[str(2 + i)]["0"]["0"]["0"]`` (block i's attention) and so on, the head's
 ``TimeDistributed`` skipped as above.
+A ``GPipe`` of S stages keeps the reference's stacked tree: its stage's
+tree with every leaf stacked on a leading (S, ...) axis, slice s its
+child ``"s"`` (``to_jax_params`` stacks the stages' tensors,
+``load_jax_params`` and ``from_jax_tree`` unstack them); a
+``MicrobatchedSequential`` is a container like ``Sequential``.  A
+quantized recurrent cell's int8 panels, scales and biases are buffers of
+the cell, so they cross as the state of its ``Recurrent``
+(``state["1"]["fwd"]["wq"]``), bitwise, its params empty.
 A model placed for tensor parallelism (``parallel.shard_module``) keeps
 the unsharded tree: a parameter split into ``Shards`` answers under its
 unsharded name, reassembled on the way out and cut into its slices on the
@@ -62,12 +70,76 @@ def _flatten(tree, prefix="") -> Dict[str, object]:
 def _wrapped(m):
     """The inner module whose tree a reference wrapper holds as its own,
     or None."""
-    from bigdl_tpu_torch.nn.recurrent import Recurrent, TimeDistributed
-    if isinstance(m, Recurrent):
+    from bigdl_tpu_torch.nn.recurrent import (Recurrent, RecurrentDecoder,
+                                              TimeDistributed)
+    if isinstance(m, (Recurrent, RecurrentDecoder)):
         return m.cell
     if isinstance(m, TimeDistributed):
         return m.layer
     return None
+
+
+def _is_gpipe(m) -> bool:
+    from bigdl_tpu_torch.parallel.pipeline import GPipe
+    return isinstance(m, GPipe)
+
+
+def _gpipe_prefixes(model: torch.nn.Module) -> Dict[str, int]:
+    """{dotted reference path of each ``GPipe`` in ``model``: its stage
+    count}, with the path walk of :func:`_jax_names`."""
+    out = {}
+
+    def walk(m, jprefix):
+        inner = _wrapped(m)
+        if inner is not None:
+            return walk(inner, jprefix)
+        if _is_gpipe(m):
+            out[jprefix] = m.num_stages
+            return
+        for k, c in m.named_children():
+            if not _is_shards(c):
+                walk(c, f"{jprefix}{k}.")
+
+    walk(model, "")
+    return out
+
+
+def _unstacked(model: torch.nn.Module, flat: Dict[str, object]
+               ) -> Dict[str, object]:
+    """``flat`` (dotted reference paths) with every ``GPipe`` leaf, (S,
+    ...) stacked, cut into its S slices under ``<path>.<s>.``."""
+    pipes = _gpipe_prefixes(model)
+    if not pipes:
+        return flat
+    out = {}
+    for key, v in flat.items():
+        pre = next((p for p in pipes if key.startswith(p)), None)
+        if pre is None:
+            out[key] = v
+            continue
+        if v.shape[0] != pipes[pre]:
+            raise ValueError(f"{key}: {tuple(v.shape)} is no stack of "
+                             f"{pipes[pre]} stages")
+        for s in range(pipes[pre]):
+            out[f"{pre}{s}.{key[len(pre):]}"] = v[s]
+    return out
+
+
+def _stacked(trees):
+    """The stages' trees as one, each leaf stacked on a new axis 0; ``{}``
+    where no leaf is (the reference's state of a stateless stage)."""
+    def stack(ts):
+        if isinstance(ts[0], dict):
+            return {k: stack([t[k] for t in ts]) for k in ts[0]}
+        if isinstance(ts[0], torch.Tensor):
+            return torch.stack(ts)
+        return np.stack(ts)
+
+    def has_leaf(t):
+        return any(has_leaf(v) for v in t.values()) \
+            if isinstance(t, dict) else True
+
+    return stack(trees) if has_leaf(trees[0]) else {}
 
 
 def _is_shards(m) -> bool:
@@ -111,7 +183,8 @@ def load_jax_params(model: torch.nn.Module, params: dict,
     targets = {"params": {**dict(model.named_parameters()),
                           **_shard_paths(model)},
                "state": dict(model.named_buffers())}
-    sources = {"params": _flatten(params), "state": _flatten(state or {})}
+    sources = {"params": _unstacked(model, _flatten(params)),
+               "state": _unstacked(model, _flatten(state or {}))}
     covered = set()
     for kind in ("params", "state"):
         names = _jax_names(model, kind)
@@ -154,6 +227,9 @@ def jax_tree(model: torch.nn.Module, named: Dict[str, object],
         if inner is not None:
             name = next(k for k, c in m.named_children() if c is inner)
             return walk(inner, f"{prefix}{name}.")
+        if _is_gpipe(m):
+            return _stacked([walk(c, f"{prefix}{k}.")
+                             for k, c in m.named_children()])
         if isinstance(m, (Container, MultiRNNCell)):
             if isinstance(m, MultiRNNCell) and kind == "state":
                 return {}
@@ -181,7 +257,7 @@ def from_jax_tree(model: torch.nn.Module, tree: dict,
     ``KeyError`` for a path ``model`` does not have."""
     names = _jax_names(model, kind)
     out = {}
-    for key, leaf in _flatten(tree).items():
+    for key, leaf in _unstacked(model, _flatten(tree)).items():
         if key not in names:
             raise KeyError(f"{kind} key {key!r} has no counterpart in "
                            f"{type(model).__name__}")

@@ -1,5 +1,13 @@
-"""Wide&Deep (port of ``bigdl_tpu/models/recommender.py``, its
-``WideAndDeep``; ``NeuralCF`` is not ported yet).
+"""Recommender models: NeuralCF and Wide&Deep (port of
+``bigdl_tpu/models/recommender.py``).
+
+NeuralCF (He et al. 2017): user and item ids through two embedding pairs;
+the GMF branch multiplies one pair, the MLP branch runs the concatenated
+other pair through ``Linear``/``ReLU`` layers; a ``Linear`` head over
+both and a sigmoid give the (N, 1) score.  Parameter names follow the
+reference's tree: ``user_gmf.weight``, ``item_gmf.weight``,
+``user_mlp.weight``, ``item_mlp.weight``, ``mlp.{j}.weight|bias``,
+``head.weight|bias``.
 
 Wide&Deep (Cheng et al. 2016): the wide part is a :class:`SparseLinear`
 over crossed-feature ids, as a batch-COO :class:`COOBatch` (kernel B3 on
@@ -21,6 +29,37 @@ from bigdl_tpu_torch.nn.activations import ReLU
 from bigdl_tpu_torch.nn.layers import Linear, LookupTable
 from bigdl_tpu_torch.nn.module import Module, Sequential
 from bigdl_tpu_torch.nn.sparse import SparseLinear
+
+
+class NeuralCF(Module):
+    """Input ``(user_ids, item_ids)``, each (N,) integer; output the
+    sigmoid score (N, 1).  ``mlp_dims`` are the MLP branch's widths."""
+
+    def __init__(self, user_count: int, item_count: int,
+                 embed_dim: int = 16, mlp_dims: Sequence[int] = (64, 32, 16),
+                 name: Optional[str] = None):
+        super().__init__(name or "NeuralCF")
+        self.user_count, self.item_count = user_count, item_count
+        self.embed_dim = embed_dim
+        # registration order is the reference's init order
+        self.user_gmf = LookupTable(user_count, embed_dim)
+        self.item_gmf = LookupTable(item_count, embed_dim)
+        self.user_mlp = LookupTable(user_count, embed_dim)
+        self.item_mlp = LookupTable(item_count, embed_dim)
+        mlp = Sequential()
+        prev = 2 * embed_dim
+        for d in mlp_dims:
+            mlp.add(Linear(prev, d)).add(ReLU())
+            prev = d
+        self.mlp = mlp
+        self.head = Linear(embed_dim + prev, 1)
+
+    def forward(self, x):
+        users, items = x
+        gmf = self.user_gmf(users) * self.item_gmf(items)
+        mlp = self.mlp(torch.cat([self.user_mlp(users),
+                                  self.item_mlp(items)], dim=-1))
+        return torch.sigmoid(self.head(torch.cat([gmf, mlp], dim=-1)))
 
 
 class WideAndDeep(Module):

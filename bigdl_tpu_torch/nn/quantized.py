@@ -19,7 +19,16 @@ operands the NCHW twin gives it and the rows come out NHWC as they are.
 In dynamic mode the activation scale is taken over the conv's
 whole input before im2col, as the reference's direct conv simulation
 (``_apply_sim``) takes it.  Grouped convolutions keep that simulation.
-The recurrent cells' quantized twins wait for their slice.
+
+The cells of ``Recurrent``/``BiRecurrent`` layers quantize too, where
+their type is exactly ``LSTM``, ``GRU`` or ``RnnCell`` (a ``MultiRNNCell``
+stack stays float, as in the reference): :class:`QuantizedLSTM`,
+:class:`QuantizedGRU` and :class:`QuantizedRnnCell` keep int8 panels over
+the concatenated ``[x_t, h]`` (the GRU two: gates, and the candidate,
+whose ``h`` is reset before the product) and run every step's projection
+through the int8 GEMM (kernel B4 on the card).  They have no hoisted
+form, so ``Recurrent`` takes their ``step``; in dynamic mode each step's
+activation scale is taken over its whole ``[x_t, h]``.
 """
 
 from __future__ import annotations
@@ -34,6 +43,8 @@ import torch.nn.functional as F
 from bigdl_tpu_torch.nn.layers import (Linear, SpatialConvolution,
                                        conv_pads, from_nchw_view, nchw_view)
 from bigdl_tpu_torch.nn.module import Container, Module
+from bigdl_tpu_torch.nn.recurrent import (GRU, LSTM, BiRecurrent, Cell,
+                                          Recurrent, RnnCell, _zeros)
 from bigdl_tpu_torch.ops.int8_gemm import (MODES, fma_f32, int8_gemm,
                                            int8_matmul, prepare_operands)
 
@@ -174,18 +185,128 @@ class QuantizedSpatialConvolution(Module):
         return fma_f32(acc, scale_row[None, :, None, None], bias)
 
 
+# ------------------------------------------------------ quantized recurrent
+class _QuantizedCellBase(Cell):
+    """An int8 twin of a float cell: its int8 panels and f32 scales and
+    biases are buffers (the reference keeps them on the object, its params
+    empty), its projections go through :func:`int8_matmul`."""
+
+    def __init__(self, cell: Cell, mode: Optional[str] = None):
+        super().__init__(f"Quantized{type(cell).__name__}")
+        self.input_size = cell.input_size
+        self.hidden_size = cell.hidden_size
+        self.mode = _default_mode(mode)
+
+    def _panel(self, q: str, s: str, w: torch.Tensor) -> None:
+        """Buffers ``q`` (int8) and ``s`` (its (out, 1) scales) from the
+        float weight ``w``, on ``w``'s device."""
+        wq, ws = _quantize_symmetric(w.detach().cpu().numpy(), axis=1)
+        self.register_buffer(q, _tensor(wq, torch.int8, w.device))
+        self.register_buffer(s, _tensor(ws, torch.float32, w.device))
+
+    def _bias(self, name: str, b: torch.Tensor) -> None:
+        self.register_buffer(name, _tensor(b, torch.float32, b.device))
+
+    def _proj(self, x, wq, ws, bias):
+        return int8_matmul(x, wq, ws, bias, mode=self.mode)
+
+    def initial_hidden(self, batch_size, like):
+        return _zeros(batch_size, self.hidden_size, like)
+
+
+class QuantizedLSTM(_QuantizedCellBase):
+    """int8 LSTM cell: one (4H, D+H) panel ``wq``/``ws`` and the f32
+    ``bias``; gates i|f|g|o, the float cell's ``forget_bias`` kept."""
+
+    def __init__(self, cell: LSTM, mode: Optional[str] = None):
+        super().__init__(cell, mode)
+        self.forget_bias = cell.forget_bias
+        self._panel("wq", "ws", cell.weight)
+        self._bias("bias", cell.bias)
+
+    def initial_hidden(self, batch_size, like):
+        return (super().initial_hidden(batch_size, like),
+                super().initial_hidden(batch_size, like))
+
+    def step(self, x_t, hidden):
+        h, c = hidden
+        z = self._proj(torch.cat([x_t, h], dim=-1), self.wq, self.ws,
+                       self.bias)
+        i, f, g, o = z.chunk(4, dim=-1)
+        i = torch.sigmoid(i)
+        f = torch.sigmoid(f + self.forget_bias)
+        g = torch.tanh(g)
+        o = torch.sigmoid(o)
+        c_new = f * c + i * g
+        h_new = o * torch.tanh(c_new)
+        return h_new, (h_new, c_new)
+
+
+class QuantizedGRU(_QuantizedCellBase):
+    """int8 GRU cell: the gates' (2H, D+H) panel ``gq``/``gs`` with
+    ``b_gates``, the candidate's (H, D+H) panel ``cq``/``cs`` with
+    ``b_cand``; the reset applied to h before the candidate projection."""
+
+    def __init__(self, cell: GRU, mode: Optional[str] = None):
+        super().__init__(cell, mode)
+        self._panel("gq", "gs", cell.w_gates)
+        self._panel("cq", "cs", cell.w_cand)
+        self._bias("b_gates", cell.b_gates)
+        self._bias("b_cand", cell.b_cand)
+
+    def step(self, x_t, h):
+        z = self._proj(torch.cat([x_t, h], dim=-1), self.gq, self.gs,
+                       self.b_gates)
+        r, u = torch.sigmoid(z).chunk(2, dim=-1)
+        cand = torch.tanh(self._proj(torch.cat([x_t, r * h], dim=-1),
+                                     self.cq, self.cs, self.b_cand))
+        h_new = u * h + (1 - u) * cand
+        return h_new, h_new
+
+
+class QuantizedRnnCell(_QuantizedCellBase):
+    """int8 Elman cell: one (H, D+H) panel of ``[w_ih, w_hh]`` and the
+    f32 ``bias``, the float cell's activation."""
+
+    def __init__(self, cell: RnnCell, mode: Optional[str] = None):
+        super().__init__(cell, mode)
+        self.activation = cell.activation
+        self._panel("wq", "ws", torch.cat([cell.w_ih, cell.w_hh], dim=1))
+        self._bias("bias", cell.bias)
+
+    def step(self, x_t, h):
+        h_new = self.activation(self._proj(torch.cat([x_t, h], dim=-1),
+                                           self.wq, self.ws, self.bias))
+        return h_new, h_new
+
+
+_QUANTIZED_CELLS = {LSTM: QuantizedLSTM, GRU: QuantizedGRU,
+                    RnnCell: QuantizedRnnCell}
+
+
 def quantize(model: Module, mode: Optional[str] = None) -> Module:
     """Post-training quantization: returns a NEW module tree in eval mode
-    in which every Linear and SpatialConvolution is its int8 twin and
-    every other layer a copy; the original is untouched.  ``mode`` is
-    stamped on every converted layer (None = the config default).
-    Idempotent: already-quantized layers are copied as they are."""
+    in which every Linear and SpatialConvolution is its int8 twin, so is
+    the cell of every ``Recurrent`` (a ``BiRecurrent``'s two included)
+    whose type is exactly ``LSTM``, ``GRU`` or ``RnnCell``, and every
+    other layer a copy (a ``MultiRNNCell`` and the inside of a
+    ``TimeDistributed`` stay float, as in the reference); the original is
+    untouched.  ``mode`` is stamped on every converted layer and cell
+    (None = the config default).  Idempotent: already-quantized layers are
+    copied as they are."""
     mode = _default_mode(mode)
 
     def convert(m: Module) -> Module:
-        if isinstance(m, Container):
+        if isinstance(m, (Container, BiRecurrent)):
             out = copy.copy(m)
             out._modules = {k: convert(c) for k, c in m._modules.items()}
+            return out
+        if isinstance(m, Recurrent):
+            make = _QUANTIZED_CELLS.get(type(m.cell))
+            if make is None:
+                return copy.deepcopy(m)
+            out = copy.copy(m)
+            out._modules = {"cell": make(m.cell, mode)}
             return out
         if isinstance(m, Linear):
             return QuantizedLinear.from_linear(m, mode)
@@ -197,6 +318,8 @@ def quantize(model: Module, mode: Optional[str] = None) -> Module:
 
 
 def is_quantized(model: torch.nn.Module) -> bool:
-    """Whether any int8 twin is in the tree (the ``weights_dtype`` tag)."""
-    return any(isinstance(m, (QuantizedLinear, QuantizedSpatialConvolution))
+    """Whether any int8 twin, layer or cell, is in the tree (the
+    ``weights_dtype`` tag)."""
+    return any(isinstance(m, (QuantizedLinear, QuantizedSpatialConvolution,
+                              _QuantizedCellBase))
                for m in model.modules())

@@ -1,6 +1,8 @@
-"""Recurrent stack (port of ``bigdl_tpu/nn/recurrent.py``, these parts:
-``RnnCell``, ``LSTM``, ``GRU``, ``MultiRNNCell``, ``Recurrent``,
-``BiRecurrent``, ``TimeDistributed``).
+"""Recurrent stack (port of ``bigdl_tpu/nn/recurrent.py``): the cells
+``RnnCell``, ``LSTM``, ``LSTMPeephole``, ``GRU``, ``ConvLSTMPeephole``,
+``ConvLSTMPeephole3D`` and ``MultiRNNCell``, and the wrappers
+``Recurrent``, ``BiRecurrent``, ``RecurrentDecoder`` and
+``TimeDistributed``.
 
 Layout is batch-major ``(N, T, features)`` at every public face, as in the
 reference.  Where the reference scans a step body with ``lax.scan``,
@@ -27,6 +29,7 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.initialization import RandomUniform
 from bigdl_tpu_torch.nn.module import Module
@@ -169,6 +172,44 @@ class LSTM(Cell):
         return h_new, (h_new, c_new)
 
 
+class LSTMPeephole(Cell):
+    """LSTM with peephole connections: ``weight`` (4H, D+H), ``bias``
+    (4H) and ``peep`` (3, H), whose rows add ``c`` into the input and
+    forget gates and the new ``c`` into the output gate."""
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 name: Optional[str] = None):
+        super().__init__(name)
+        self.input_size, self.hidden_size = input_size, hidden_size
+        H, D = hidden_size, input_size
+        self.weight = _param(4 * H, D + H)
+        self.bias = _param(4 * H)
+        self.peep = _param(3, H)
+
+    def reset_parameters(self, generator):
+        fan = self.input_size + self.hidden_size
+        for p in (self.weight, self.bias, self.peep):
+            p.data.copy_(_uniform(generator, p.shape, fan))
+
+    def initial_hidden(self, batch_size, like):
+        return (_zeros(batch_size, self.hidden_size, like),
+                _zeros(batch_size, self.hidden_size, like))
+
+    def step(self, x_t, hidden):
+        h, c = hidden
+        z = torch.addmm(self.bias, torch.cat([x_t, h], dim=-1),
+                        self.weight.T)
+        i, f, g, o = z.chunk(4, dim=-1)
+        p = self.peep
+        i = torch.sigmoid(i + p[0] * c)
+        f = torch.sigmoid(f + p[1] * c)
+        g = torch.tanh(g)
+        c_new = f * c + i * g
+        o = torch.sigmoid(o + p[2] * c_new)
+        h_new = o * torch.tanh(c_new)
+        return h_new, (h_new, c_new)
+
+
 class GRU(Cell):
     """GRU cell, the reset gate applied to h before the candidate
     projection: ``w_gates`` (2H, D+H) and ``b_gates`` (2H) give r|u,
@@ -215,6 +256,80 @@ class GRU(Cell):
         cand = torch.tanh(zc + (r * h) @ self.w_cand[:, D:].T)
         h_new = u * h + (1 - u) * cand
         return h_new, h_new
+
+
+class ConvLSTMPeephole(Cell):
+    """Convolutional LSTM over NCHW feature maps: a stride-1 SAME
+    convolution of ``[x_t, h]`` (``weight`` (4 C_out, C_in + C_out, K, K),
+    ``bias`` (4 C_out)) gives the i|f|g|o gate maps; with ``with_peephole``
+    (the default, the reference's) ``peep`` (3, C_out) adds ``c``
+    per channel into the input and forget gates and the new ``c`` into the
+    output gate.  ``spatial`` (H, W) sizes the initial state.  Weights are
+    drawn weight, bias, then peep."""
+
+    dims = 2
+
+    def __init__(self, input_size: int, output_size: int, kernel: int = 3,
+                 spatial: Optional[Sequence[int]] = None,
+                 with_peephole: bool = True, name: Optional[str] = None):
+        super().__init__(name)
+        self.input_size, self.output_size = input_size, output_size
+        self.kernel = kernel
+        self.spatial = None if spatial is None else tuple(spatial)
+        self.hidden_size = output_size
+        self.with_peephole = with_peephole
+        taps = (kernel,) * self.dims
+        self.weight = _param(4 * output_size, input_size + output_size, *taps)
+        self.bias = _param(4 * output_size)
+        if with_peephole:
+            self.peep = _param(3, output_size)
+
+    def reset_parameters(self, generator):
+        fan = (self.input_size + self.output_size) * self.kernel ** self.dims
+        ps = [self.weight, self.bias]
+        if self.with_peephole:
+            ps.append(self.peep)
+        for p in ps:
+            p.data.copy_(_uniform(generator, p.shape, fan))
+
+    def initial_hidden(self, batch_size, like):
+        if self.spatial is None:
+            raise ValueError(f"{type(self).__name__} needs spatial= (its "
+                             f"{self.dims} map sizes) for its initial state")
+        dtype = like.dtype if like.is_floating_point() else torch.float32
+        shape = (batch_size, self.output_size) + self.spatial
+        return (torch.zeros(shape, dtype=dtype, device=like.device),
+                torch.zeros(shape, dtype=dtype, device=like.device))
+
+    def _conv(self, x):
+        """Stride-1 SAME: (K-1)//2 before, the rest after, as XLA pads."""
+        conv = F.conv2d if self.dims == 2 else F.conv3d
+        lo = (self.kernel - 1) // 2
+        hi = self.kernel - 1 - lo
+        if hi != lo:
+            x, lo = F.pad(x, (lo, hi) * self.dims), 0
+        return conv(x, self.weight, self.bias, padding=lo)
+
+    def step(self, x_t, hidden):
+        h, c = hidden
+        z = self._conv(torch.cat([x_t, h], dim=1))
+        i, f, g, o = z.chunk(4, dim=1)
+        if self.with_peephole:
+            p = self.peep.reshape((3, 1, -1) + (1,) * self.dims)
+            i = i + p[0] * c
+            f = f + p[1] * c
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        if self.with_peephole:
+            o = o + p[2] * c_new
+        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        return h_new, (h_new, c_new)
+
+
+class ConvLSTMPeephole3D(ConvLSTMPeephole):
+    """The volumetric twin of :class:`ConvLSTMPeephole` over NCDHW maps:
+    ``weight`` (4 C_out, C_in + C_out, K, K, K), ``spatial`` (D, H, W)."""
+
+    dims = 3
 
 
 class MultiRNNCell(Cell):
@@ -312,6 +427,26 @@ class BiRecurrent(Module):
         if self.merge == "concat":
             return torch.cat([yf, yb], dim=-1)
         return yf + yb
+
+
+class RecurrentDecoder(Module):
+    """Decode ``seq_length`` steps, each step's output the next step's
+    input: (N, features) in, (N, seq_length, features) out.  The cell's
+    ``step`` runs every step (its output size must be its input size)."""
+
+    def __init__(self, cell: Cell, seq_length: int,
+                 name: Optional[str] = None):
+        super().__init__(name)
+        self.cell = cell
+        self.seq_length = seq_length
+
+    def forward(self, x):
+        hidden = self.cell.initial_hidden(x.shape[0], x)
+        ys = []
+        for _ in range(self.seq_length):
+            x, hidden = self.cell.step(x, hidden)
+            ys.append(x)
+        return torch.stack(ys, dim=1)
 
 
 class TimeDistributed(Module):

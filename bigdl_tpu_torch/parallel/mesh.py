@@ -4,14 +4,16 @@
 The reference names its devices' axes (``data``, ``model``, ``seq``,
 ``pipe``) over one ``jax.sharding.Mesh`` that one process drives.  Here
 the processes form a ``torch.distributed`` group, the ``data`` axis, and
-each process drives the devices of its own ``model`` axis: a
-:class:`Mesh` is the axes' sizes, the ``data`` axis's process group and
-this process's model device group (``devices``, e.g. ``[cuda:0,
-cuda:1]``, ``[cuda:0, cuda:0]`` on one card or ``["cpu"] * 4``), whose
-first device is the process's home device
-(``parallel/tensor_parallel.py`` places a model's shards on the group).
-A ``seq`` or ``pipe`` axis larger than 1 raises ``NotImplementedError``:
-sequence and pipeline parallelism come with the port's next slice.
+each process drives a device group of its own, ``model * seq * pipe``
+devices laid out as the reference's ``(data, model, seq, pipe)`` reshape
+gives one data index (``devices``, e.g. ``[cuda:0, cuda:1]``, ``[cuda:0,
+cuda:0]`` on one card or ``["cpu"] * 4``): a :class:`Mesh` is the axes'
+sizes, the ``data`` axis's process group and that group, whose first
+device is the process's home device.  :meth:`Mesh.axis_devices` gives the
+devices along one axis: ``parallel/tensor_parallel.py`` places a model's
+shards on the ``model`` group, ``parallel/ring_attention.py`` splits a
+sequence over the ``seq`` group and ``parallel/pipeline.py`` puts a
+pipeline's stages on the ``pipe`` group.
 
 A job of several processes starts under ``torchrun`` (or any launcher that
 sets ``MASTER_ADDR``/``WORLD_SIZE``/``RANK``) or calls
@@ -58,9 +60,10 @@ def init_process_group(backend: Optional[str] = None) -> str:
 class Mesh:
     """Axis sizes of a run, the process group of its ``data`` axis
     (``None``: the default group, every process; ``backend`` None: a local
-    mesh that joined no group) and this process's ``model`` device group
-    (``devices``; None for a data-only mesh, whose process places its
-    model on the device its trainer names)."""
+    mesh that joined no group) and this process's device group
+    (``devices``: ``model * seq * pipe`` of them in the reference's
+    C-order layout of those axes; None for a data-only mesh, whose
+    process places its model on the device its trainer names)."""
 
     __slots__ = ("shape", "group", "backend", "devices")
 
@@ -82,6 +85,22 @@ class Mesh:
     @property
     def axis_names(self):
         return tuple(self.shape)
+
+    def axis_devices(self, axis: str) -> Optional[tuple]:
+        """The devices along ``axis`` of this process's group, the other
+        axes at index 0 (the reference's ``mesh.devices[0, :, 0, 0]`` for
+        ``model``); None for a data-only mesh."""
+        if axis not in AXES[1:]:
+            raise ValueError(f"{axis!r} is not a device axis of "
+                             f"{AXES[1:]}")
+        if self.devices is None:
+            return None
+        sizes = [self.shape[a] for a in AXES[1:]]
+        k = AXES[1:].index(axis)
+        stride = 1
+        for n in sizes[k + 1:]:
+            stride *= n
+        return tuple(self.devices[i * stride] for i in range(sizes[k]))
 
     @property
     def size(self) -> int:
@@ -105,32 +124,34 @@ def _launched() -> bool:
     return "MASTER_ADDR" in os.environ and "WORLD_SIZE" in os.environ
 
 
-def model_group(model: int, devices=None) -> Optional[tuple]:
-    """This process's ``model`` device group: ``devices`` (``model`` of
-    them), or by default, on CUDA, the ``model`` cards from ``LOCAL_RANK *
-    model`` on; None for ``model=1`` without ``devices``."""
+def device_group(model: int, devices=None, seq: int = 1,
+                pipe: int = 1) -> Optional[tuple]:
+    """This process's device group of ``model * seq * pipe`` devices:
+    ``devices``, or by default, on CUDA, that many cards from ``LOCAL_RANK
+    * n`` on; None for a group of one without ``devices``."""
+    n = model * seq * pipe
     if devices is not None:
         devices = [torch.device(d) for d in devices]
-        if len(devices) != model:
-            raise ValueError(f"a model axis of {model} over {len(devices)} "
-                             f"devices: the axis is this process's device "
-                             f"group, one device a shard")
+        if len(devices) != n:
+            raise ValueError(f"a device group of model {model} x seq {seq} "
+                             f"x pipe {pipe} over {len(devices)} devices: "
+                             f"the group is this process's, one device a "
+                             f"position")
         return tuple(devices)
-    if model == 1:
+    if n == 1:
         return None
     if not torch.cuda.is_available():
         raise RuntimeError(
-            f"a model axis of {model} places its shards on CUDA devices by "
-            f"default but CUDA is not available; pass devices=['cpu'] * "
-            f"{model} to run it on the CPU")
-    first = int(os.environ.get("LOCAL_RANK", 0)) * model
-    if first + model > torch.cuda.device_count():
+            f"a device group of {n} (model {model}, seq {seq}, pipe {pipe}) "
+            f"lies on CUDA devices by default but CUDA is not available; "
+            f"pass devices=['cpu'] * {n} to run it on the CPU")
+    first = int(os.environ.get("LOCAL_RANK", 0)) * n
+    if first + n > torch.cuda.device_count():
         raise ValueError(
-            f"a model axis of {model} from cuda:{first} needs "
-            f"{first + model} devices, this machine has "
-            f"{torch.cuda.device_count()}; pass devices= (the same card "
-            f"may appear more than once)")
-    return tuple(torch.device("cuda", first + r) for r in range(model))
+            f"a device group of {n} from cuda:{first} needs {first + n} "
+            f"devices, this machine has {torch.cuda.device_count()}; pass "
+            f"devices= (the same card may appear more than once)")
+    return tuple(torch.device("cuda", first + r) for r in range(n))
 
 
 def create_mesh(data: int = -1, model: int = 1, seq: int = 1,
@@ -138,23 +159,18 @@ def create_mesh(data: int = -1, model: int = 1, seq: int = 1,
                 devices=None) -> Mesh:
     """A mesh: a ``data`` axis over every process of the group (joined or
     started by :func:`init_process_group`; ``data=-1`` takes them all,
-    another value must equal the world size) and a ``model`` axis over
-    this process's device group (:func:`model_group`).  With no
+    another value must equal the world size) and the ``model``, ``seq``
+    and ``pipe`` axes over this process's device group
+    (:func:`device_group`).  With no
     ``backend`` named, no group joined and no launcher's, a mesh whose
     data axis is this one process (``data`` 1 or -1) is local: it joins no
     group (``backend`` None); a ``DistriOptimizer`` given it starts its
     world-1 group when it runs."""
-    for name, n in (("seq", seq), ("pipe", pipe)):
-        if n != 1:
-            raise NotImplementedError(
-                f"a {name!r} mesh axis of {n} (sequence or pipeline "
-                f"parallelism) is not ported to bigdl_tpu_torch yet: it "
-                f"comes with port slice 18, after the 'model' axis of "
-                f"slice 17 (ROADMAP queue A)")
-    if model < 1:
-        raise ValueError(f"a model axis of {model}")
-    group_devices = model_group(model, devices)
-    shape = {"data": 1, "model": model, "seq": 1, "pipe": 1}
+    for name, n in (("model", model), ("seq", seq), ("pipe", pipe)):
+        if n < 1:
+            raise ValueError(f"a {name} axis of {n}")
+    group_devices = device_group(model, devices, seq, pipe)
+    shape = {"data": 1, "model": model, "seq": seq, "pipe": pipe}
     if backend is None and not dist.is_initialized() and not _launched() \
             and data in (-1, 1):
         return Mesh(shape, None, None, group_devices)

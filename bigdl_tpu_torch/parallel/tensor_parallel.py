@@ -212,7 +212,8 @@ def shard_module(model: torch.nn.Module, mesh, specs=None
     the split it declares; a split must divide its dim into equal shards.
     Raises ``ValueError`` otherwise.  A group of one device moves the
     model there whole."""
-    devices = getattr(mesh, "devices", None)
+    devices = mesh.axis_devices("model") if hasattr(mesh, "axis_devices") \
+        else getattr(mesh, "devices", None)
     if not devices:
         raise ValueError("shard_module needs a mesh with a model device "
                          "group (create_mesh(model=n, devices=...))")

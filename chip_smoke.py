@@ -24,7 +24,7 @@ through ``Optimizer.create(..., distributed=True)``: the data-parallel
 ``DistriOptimizer`` with the bucketed ZeRO-1 gradient sync at world 1 over
 NCCL, the stem pool's backward on B1; and the CIFAR-10 recipes of
 ``examples/vgg/train.py`` and ``examples/resnet/train_cifar10.py`` (VGG
-for CIFAR-10 and ResNet-20, NCHW f32, batch 128, on 50,000 synthetic
+for CIFAR-10 and ResNet-20, NCHW f32, batch 128, on 25,000 synthetic
 images through the recipe's pad/crop/flip pipeline, Top-1 over 10,000),
 VGG's five pools on B1; and Inception v1 at ``bench.py``'s configuration
 (NHWC, bf16 compute, batch 256, 224x224, 1000 classes) with the recipe of
@@ -100,7 +100,7 @@ Phases, each printing its seconds:
    the variant ``TILED_CASES`` says, then at the ResNet-50 stem in bf16 and
    f32 its error on the timed inputs and its time beside the bound, the
    plain version and PyTorch's ``max_pool2d_with_indices_backward``;
-9. resnet-train timed phase: the recipe twice, 16 steps each, through its
+9. resnet-train timed phase: the recipe twice, 12 steps each, through its
    own pipeline (8 worker threads) and over batches augmented beforehand
    (images/s, ms per step, block losses that must be finite and fall,
    peak memory, B1 launches that must equal the steps, all bf16 and all
@@ -150,7 +150,7 @@ Phases, each printing its seconds:
    losses and weights; at K=4 the preemption's snapshot is truncated on
    disk first and ``latest_valid`` must skip it;
 18. distri phase, ResNet-50 through ``DistriOptimizer`` at world 1 over
-   NCCL with the f32 wire, then the bf16 wire: a warm-up and three timed
+   NCCL with the f32 wire, then the bf16 wire: a warm-up and two timed
    K=4 blocks over pre-augmented images, a warm-up and one timed block
    through the recipe's pipeline (images/s, ms per step, peak memory, the
    bucket count, block losses that must fall, B1 launches that must equal
@@ -186,7 +186,7 @@ Phases, each printing its seconds:
    batch 256 (``tiled_nhwc``) and 3 NCHW f32 ones at batch 4
    (``two_pass``: a 3x3/2 ceil-mode pool, 3x3/1 pad 1 pools), bitwise and
    timed; two timed runs of the recipe (pre-augmented and through its
-   pipeline, 16 timed steps each, four blocks an epoch: images/s, ms a
+   pipeline, 8 timed steps each, two blocks an epoch: images/s, ms a
    step, peak memory, a profiled K=4 block's idle share and top
    operations, B1 13 launches a step, all bf16
    ``tiled_nhwc``); then an NCHW f32 Inception v1 (its LRNs at an even
@@ -329,7 +329,38 @@ Phases, each printing its seconds:
    at the NHWC path's GEMMs (batch 8, the NCHW twin's shapes) beside the
    bound, the plain version and the library call early in the run, after
    the int8 kernel phase (``int8-kernels-nhwc``: late in a long run the
-   profiler loses whole sessions).
+   profiler loses whole sessions);
+32. quantized-rnn (``QRNN``): the two Keras text classifiers of the keras
+   phase (``Embedding(vocab, 100) >> Bidirectional(LSTM(128) | GRU(128))
+   >> Dense(20)``, seeded) deployed through ``ModelRegistry.deploy`` with
+   ``quantize=True`` and ``"dynamic"``, their recurrent cells int8
+   (``QuantizedLSTM``/``QuantizedGRU``, every step's projection of
+   ``[x_t, h]`` one B4 launch): requests of 128 rows of 200 tokens, each
+   alone, every row within ``QRNN_TOL`` of max|y| of the same quantized
+   model on the CPU, two planted faults (the LSTM's i and f gates
+   swapped, a GRU candidate panel x127/128) above it; B4 401 launches an
+   LSTM forward and 801 a GRU forward, the fused LSTM cell (B2f/B2b)
+   none; B4 checked and timed at the cells' GEMMs (M 128, K 228: SIMT)
+   and the head's early in the run, after the int8 kernel phase
+   (``int8-kernels-qrnn``), the dequantized-f32 ``addmm`` the library
+   call in both modes;
+33. seq-pipe (``SEQPIPE``): ``ring_attention`` at ``transformer_lm()``'s
+   head geometry (B 2, H 8, D 64, T 8192) on ``seq`` groups ``[cuda:0] *
+   2`` and ``* 4``, causal and not, f32 and bf16, the output and the
+   gradients of ``sum(out**2)`` against the full ``dot_product_attention``
+   on the card within ``RING_TOL`` (the source rank's offset dropped from
+   the causal mask above it), peak memory of each; ``GPipe`` of four
+   ``transformer_block(512, 8, 2048)`` stages on ``[cuda:0] * 4``, 8
+   microbatches of 4 x 256 tokens, against ``apply_reference`` within
+   ``PIPE_TOL``, then 4 SGD steps of a mean-square loss each redone
+   through ``apply_reference`` from the step's own weights (microbatch
+   order shifted by one above the limit); ``MicrobatchedSequential`` of
+   ``partition_sequential(transformer_lm(), 4)`` over 4 microbatches of 4
+   x 256 tokens, forward and gradients against the unpipelined model;
+   ``NeuralCF`` at MovieLens-1M's counts (6,040 users, 3,706 items)
+   trained 8 steps through ``LocalOptimizer`` (Adam, BCE, batch 256), each
+   step redone on the CPU from the card's weights; the peephole cells and
+   ``RecurrentDecoder``, one forward each against the CPU.
 
 The last lines are the card, the kernel table and the result as JSON; any
 failed check raises and the script exits non-zero.  Without a CUDA card it
@@ -339,7 +370,8 @@ fails at once.  Run from the repository root:
                           [--phases resnet,lstm,resnet-train,wide-deep,lenet,
                                     distri,cifar,inception,autoencoder,remat,
                                     text,nn-core,resilience,interop,
-                                    predict,keras,frontend,parallel]
+                                    predict,keras,frontend,parallel,
+                                    quantized-rnn,seq-pipe]
 
 ``--phases resnet-conditioning`` adds a diagnostic that is not run by
 default: the check phase's path reading at residual gammas 0 to 1, beside
@@ -372,7 +404,8 @@ from bigdl_tpu_torch import nn, optim  # noqa: E402
 from bigdl_tpu_torch.checkpoint import load_snapshot  # noqa: E402
 from bigdl_tpu_torch.checkpoint import manager as ckpt_manager  # noqa: E402
 from bigdl_tpu_torch.dataset import (  # noqa: E402
-    DataSet, MTSampleToMiniBatch, Sample, SampleToMiniBatch, SparseMiniBatch,
+    DataSet, MiniBatch, MTSampleToMiniBatch, Sample, SampleToMiniBatch,
+    SparseMiniBatch,
     SparseSample, Transformer, batch_samples, batch_sparse_samples)
 from bigdl_tpu_torch.dataset import cifar, image, mnist, text  # noqa: E402
 from bigdl_tpu_torch.dataset.text import Dictionary  # noqa: E402
@@ -383,7 +416,8 @@ from bigdl_tpu_torch.models import (WideAndDeep, autoencoder,  # noqa: E402
                                     vgg16, vgg_for_cifar10)
 from bigdl_tpu_torch.nn import quantize, recurrent  # noqa: E402
 from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,  # noqa: E402
-                                          QuantizedSpatialConvolution)
+                                          QuantizedSpatialConvolution,
+                                          _QuantizedCellBase)
 from bigdl_tpu_torch.ops import (  # noqa: E402
     _build, embed_bag, int8_gemm, lstm_cell, maxpool)
 from bigdl_tpu_torch.ops.int8_gemm import (  # noqa: E402
@@ -470,9 +504,11 @@ def card_line() -> str:
 
 def gemm_shapes(model, device, batch=BATCH, spec=None):
     """[(M, K, O, has_bias)] of one forward of ``batch`` rows (32 by
-    default) of the quantized ``model`` on inputs of ``spec`` (default
-    ``SPEC``, NCHW), in launch order, read from the layers' output shapes
-    (an NHWC convolution's rows are its output's N x H x W too)."""
+    default) of the quantized ``model`` on zero inputs of ``spec`` (default
+    ``SPEC``, NCHW; an integer spec gives token ids), in launch order, read
+    from the layers' output shapes (an NHWC convolution's rows are its
+    output's N x H x W too) and from each quantized recurrent cell's
+    projections, one a step."""
     rec = []
 
     def hook(m, inp, out):
@@ -483,14 +519,26 @@ def gemm_shapes(model, device, batch=BATCH, spec=None):
               else out.shape[2] * out.shape[3])
         rec.append((out.shape[0] * hw, K, O, m.bias is not None))
 
+    sound_proj = _QuantizedCellBase._proj
+
+    def proj(self, x, wq, ws, bias):
+        rec.append((x.shape[0], wq.shape[1], wq.shape[0], bias is not None))
+        return sound_proj(self, x, wq, ws, bias)
+
     handles = [m.register_forward_hook(hook) for m in model.modules()
                if isinstance(m, (QuantizedSpatialConvolution,
                                  QuantizedLinear))]
-    with torch.inference_mode():
-        model(torch.zeros((batch,) + (spec or SPEC)[0], device=device))
-    torch.cuda.synchronize()
-    for h in handles:
-        h.remove()
+    shape, dtype = spec or SPEC
+    _QuantizedCellBase._proj = proj
+    try:
+        with torch.inference_mode():
+            model(torch.from_numpy(np.zeros((batch,) + shape, dtype))
+                  .to(device))
+        torch.cuda.synchronize()
+    finally:
+        _QuantizedCellBase._proj = sound_proj
+        for h in handles:
+            h.remove()
     return rec
 
 
@@ -658,14 +706,16 @@ def bound(M, K, O, bias, xdtype, cuda_cores=False):
             else "operations", peak)
 
 
-def library_call(xin, wq, scale, b, xdtype):
+def library_call(xin, wq, scale, b, xdtype, dequantized=False):
     """One PyTorch call for the same product, or None where its shape
-    rules refuse: addmm/mm on dequantized weights (weight_only), _int_mm
-    (dynamic, int32 product only).  _int_mm wants K a multiple of 8, so a
+    rules refuse: addmm/mm on dequantized weights (weight_only, and
+    dynamic too with ``dequantized``: its int8 rows as f32, the scale row
+    folded into the weights), _int_mm (dynamic, int32 product only).
+    _int_mm wants K a multiple of 8, so a
     ragged K (the stem's 147) is padded with zero columns on both sides,
     outside the timed call: they leave the integer product unchanged.  A
     yardstick; the port never calls it."""
-    if xdtype != "int8":
+    if xdtype != "int8" or dequantized:
         w = (wq.float() * scale[:, None]).T
         x = xin.float()
         return (lambda: torch.addmm(b, x, w)) if b is not None \
@@ -683,7 +733,8 @@ def library_call(xin, wq, scale, b, xdtype):
     return lambda: torch._int_mm(xp, wt)
 
 
-def kernel_phase(shapes, device, card, report, batch=BATCH):
+def kernel_phase(shapes, device, card, report, batch=BATCH,
+                 dequantized_library=False):
     gen = torch.Generator(device=device).manual_seed(1234)
     counts = {}
     for s in shapes:
@@ -731,7 +782,8 @@ def kernel_phase(shapes, device, card, report, batch=BATCH):
             mode = "dynamic" if xdtype == "int8" else "weight_only"
             xin, wq, scale, b = operands(M, K, O, xdtype, bias, gen, device)
             k_fn = lambda: int8_gemm.launch(xin, wq, scale, b)  # noqa: E731
-            lib = library_call(xin, wq, scale, b, xdtype)
+            lib = library_call(xin, wq, scale, b, xdtype,
+                               dequantized_library)
             # device time (torch.profiler): the kernel and the library call
             # in one session, told apart by the kernels' names
             k_ms, l_ms = gemm_device_ms(k_fn, lib)
@@ -1641,7 +1693,7 @@ def pool_row(case, gen, device, card):
 # The recipe's synthetic stand-in images, 1024 of them (4 steps an epoch, so
 # a K=4 block is an epoch).
 RESNET = {"batch": 256, "K": 4, "size": 224, "classes": 1000,
-          "samples": 1024, "workers": 8, "timed_blocks": 3, "max_lr": 0.1,
+          "samples": 1024, "workers": 8, "timed_blocks": 2, "max_lr": 0.1,
           "warmup_epochs": 5, "check_batch": 8, "check_steps": 2}
 # the card against the CPU (grad_reading: the losses and the first step's
 # per-layer gradients; unit_reading: each conv+BN unit's per-layer
@@ -3384,7 +3436,7 @@ def distri_profile_step(init, augmented, device, card, wire):
 def distri_resnet_phase(seed, device, card, report):
     """ResNet-50's ImageNet recipe through Optimizer.create(...,
     distributed=True) at world 1 over NCCL, with the f32 wire, then the
-    bf16 wire: each a warm-up block and three timed K=4 blocks over the
+    bf16 wire: each a warm-up block and two timed K=4 blocks over the
     pre-augmented images, then a warm-up and DISTRI["pipeline_blocks"]
     timed blocks through the recipe's pipeline (images/s, ms a step from the
     host clock at each block's replay), block losses that must be finite
@@ -3816,21 +3868,22 @@ def distri_phase(seed, device, card, report):
 
 # ------------------------------------------------- CIFAR-10: VGG, ResNet-20
 # The recipes of examples/vgg/train.py and examples/resnet/train_cifar10.py
-# on synthetic CIFAR-10 at the real split's sizes (50,000 training and
-# 10,000 validation images): batch 128, normalize, pad-4 crop, flip and
-# CHW through MTSampleToMiniBatch (8 workers), Top-1 over the validation
+# on synthetic CIFAR-10 (25,000 training images, half the real split's,
+# cut for the script's time limit, and its 10,000 validation images):
+# batch 128, normalize, pad-4 crop, flip and CHW through
+# MTSampleToMiniBatch (8 workers), Top-1 over the validation
 # images after every epoch.  HFlip turns two pairs of synthetic classes
 # (0/3 and 4/7: the same square and channel, mirrored) into the same
 # images, so Top-1 tops out near 0.8 on this data; "min_top1" is the bar.
 # The per-sample pipeline holds a step to ~100 ms on the card's host
-# (PERF.md section 5), ~40 s an epoch: VGG's LocalOptimizer run takes one
+# (PERF.md section 5), ~20 s an epoch: VGG's LocalOptimizer run takes one
 # epoch, ResNet-20's (which launches no kernel) and VGG's DistriOptimizer
 # run the "steps" they name, Top-1 at their end; each profiles the block
 # (one step, K=1) at "profile_at".
-CIFAR = {"train": 50_000, "val": 10_000, "batch": 128, "workers": 8,
+CIFAR = {"train": 25_000, "val": 10_000, "batch": 128, "workers": 8,
          "epochs": 1, "steps": {"resnet20": 150, "vgg_distri": 100},
          "warmup_steps": 20,
-         "profile_at": {"vgg": 200, "resnet20": 60, "vgg_distri": 60},
+         "profile_at": {"vgg": 150, "resnet20": 60, "vgg_distri": 60},
          "check_K": 4, "min_top1": 0.5}
 _CIFAR_DATA = {}
 
@@ -4080,12 +4133,13 @@ def cifar_phase(seed, device, card, report):
 # compute, batch 256, 224x224, 1000 classes, with the recipe's SGD
 # (examples/inception/train.py: lr 0.0898, momentum 0.9, dampening 0,
 # weight decay 1e-4, Poly(0.5, 62000)) and augmentation, K=4.  The example's
-# synthetic images, 1024 of them, each "repeat" times an epoch: 16 steps,
-# four blocks an epoch, so one block in four ends an epoch and has the
-# next block staged after it rather than beside it.  Each run times 16
-# steps (four blocks, one epoch's end among them).
+# synthetic images, 1024 of them, each "repeat" times an epoch: 8 steps,
+# two blocks an epoch, so one block in two ends an epoch and has the next
+# block staged after it rather than beside it.  Each run times 8 steps
+# (two blocks, one epoch's end among them; 16 steps over four blocks
+# before the script's time limit asked for a cut).
 INCEPTION = {"batch": 256, "K": 4, "size": 224, "classes": 1000,
-             "samples": 1024, "repeat": 4, "workers": 8, "timed_blocks": 4,
+             "samples": 1024, "repeat": 2, "workers": 8, "timed_blocks": 2,
              "check_batch": 4, "check_K": 4,
              # the check's LRN: an even size (where torch's window differs
              # from the reference's) and alpha 1 (the model's 1e-4 leaves
@@ -4757,7 +4811,7 @@ def autoencoder_phase(seed, device, card, report):
 
 
 # --------------------------------------- ResNet-50 rematerialization, B1
-REMAT = {"check_batch": 32, "K": 4, "timed_blocks": 2}
+REMAT = {"check_batch": 32, "K": 4, "timed_blocks": 1}
 REMAT_MODES = {  # name: (resnet50's remat, the activation-memory policy)
     "none": (False, None), "remat_true": (True, None),
     "remat_tails": ("tails", None), "policy_dots": (False, "dots"),
@@ -4893,7 +4947,7 @@ def remat_check_phase(seed, device, card, report):
 def remat_timed_phase(seed, device, card, report):
     """``bench.py``'s ResNet-50 configuration (NHWC, bf16, batch 256, the
     recipe's SGD, 1,024 pre-augmented images) in each mode of
-    ``REMAT_TIMED``: a warm-up block and two timed K=4 blocks (ms a step,
+    ``REMAT_TIMED``: a warm-up block and one timed K=4 block (ms a step,
     images/s, peak memory, B1's launches: one a step), then a second run
     of two steps whose first runs under torch.profiler (its device time
     and idle share; kept apart, as reading the trace takes the host
@@ -8822,10 +8876,515 @@ def parallel_phase(seed, device, card, report):
     return out
 
 
+# ------------------------------------------------- quantized recurrent cells
+# the keras phase's text classifiers (KERAS: the synthetic news corpus's
+# vocabulary, embed 100, hidden 128, 200 tokens, 20 classes), seeded, their
+# LSTM/GRU cells int8 through ModelRegistry.deploy(quantize=...): requests
+# of 128 rows, each alone (a dynamic step's activation scale is taken over
+# its whole batch's [x_t, h])
+QRNN = {"rows": 128, "requests": 2}
+# B4 launches a forward: one a step and direction for the LSTM's single
+# panel, two for the GRU's (gates, candidate), and the Dense head
+QRNN_FORWARD = {"lstm": 2 * KERAS["seq"] + 1, "gru": 4 * KERAS["seq"] + 1}
+# served rows against the same quantized model on the CPU, as a share of
+# max|y|: between the sound reading (the same models on the CPU with one
+# ulp of noise on the gates read 1.6e-7 in both modes) and the two planted
+# faults every run measures and requires to exceed it (2.0e-3 to 4.0e-2
+# in that CPU run)
+QRNN_TOL = 1e-4
+_NEWS = {}
+
+
+def news_cached(seed):
+    if seed not in _NEWS:
+        _NEWS[seed] = news_corpus(seed)
+    return _NEWS[seed]
+
+
+def qrnn_model(cell, vocab, seed):
+    """The Keras text classifier's module with seeded weights."""
+    return keras_text(cell, vocab).core_module().initialize(seed)
+
+
+def qrnn_fault(q, cell):
+    """A planted fault, in place in the quantized model ``q``: the LSTM's
+    forward cell with its i and f gate rows swapped (panel, scales and
+    bias), the GRU's forward candidate scales x127/128."""
+    c = next(m for m in q.modules() if isinstance(m, _QuantizedCellBase))
+    with torch.no_grad():
+        if cell == "lstm":
+            H = c.hidden_size
+            for name in ("wq", "ws", "bias"):
+                t = getattr(c, name)
+                t[:2 * H] = torch.cat([t[H:2 * H], t[:H]])
+        else:
+            c.cs.mul_(127 / 128)
+    return q
+
+
+def qrnn_kernel_phase(seed, device, card, report):
+    """B4 at the GEMMs of one quantized forward of each text classifier
+    (``QRNN["rows"]`` rows): the cells' projections of [x_t, h] (M 128, K
+    228) and the head's, through the kernel phase, with the dequantized
+    f32 ``addmm`` as the library call in both modes.  Run while the process
+    is young (PERF.md section 7).  Returns {cell: the phase's totals}."""
+    _, _, vocab = news_cached(seed)
+    out = {}
+    for cell in ("lstm", "gru"):
+        probe = quantize(qrnn_model(cell, vocab, seed)).to(device)
+        shapes = gemm_shapes(probe, device, QRNN["rows"],
+                             ((KERAS["seq"],), np.int32))
+        del probe
+        if len(shapes) != QRNN_FORWARD[cell]:
+            raise AssertionError(f"quantized {cell} forward ran "
+                                 f"{len(shapes)} GEMMs, want "
+                                 f"{QRNN_FORWARD[cell]}")
+        print(f"quantized text {cell} batch {QRNN['rows']}: {len(shapes)} "
+              f"GEMM launches per forward, shapes "
+              f"{sorted(set(shapes))}")
+        out[cell] = kernel_phase(shapes, device, card, report, QRNN["rows"],
+                                 dequantized_library=True)
+    return out
+
+
+def qrnn_phase(seed, device, card, report):
+    """The two quantized text classifiers served in both modes (module
+    docstring, 32).  Returns ({mode: B4 launches}, {mode: variants})."""
+    ids, _, vocab = news_cached(seed)
+    B = QRNN["rows"]
+    requests = [ids[r * B:(r + 1) * B] for r in range(QRNN["requests"])]
+    spec = ((KERAS["seq"],), np.int32)
+    report["quantized_rnn"] = {}
+    launches = dict.fromkeys(("weight_only", "dynamic"), 0)
+    variants = {}
+    with ModelRegistry(device=device) as reg:
+        for cell in ("lstm", "gru"):
+            model = qrnn_model(cell, vocab, seed)
+            for mode in ("weight_only", "dynamic"):
+                name = f"text_{cell}_{mode}"
+                t0 = time.monotonic()
+                svc = reg.deploy(name, model, input_spec=spec,
+                                 quantize=True if mode == "weight_only"
+                                 else mode, max_batch_size=B, buckets=(B,))
+                deploy_s = time.monotonic() - t0
+                n_cells = sum(isinstance(m, _QuantizedCellBase)
+                              for m in svc.model.modules())
+                int8_gemm.reset_counts()
+                lstm_cell.fwd_launches = lstm_cell.bwd_launches = 0
+                d0 = svc.stats()["dispatch_count"]
+                t0 = time.monotonic()
+                served = [reg.predict(name, x, timeout=600)
+                          for x in requests]
+                wall = time.monotonic() - t0
+                n = int8_gemm.launches
+                var = {k: v for k, v in int8_gemm.variant_launches.items()
+                       if v}
+                b2 = lstm_cell.fwd_launches + lstm_cell.bwd_launches
+                dispatches = svc.stats()["dispatch_count"] - d0
+                reg.undeploy(name)
+                cpu_q = quantize(model, mode=mode)
+                with torch.inference_mode():
+                    wants = [cpu_q(torch.from_numpy(x)).numpy()
+                             for x in requests]
+                reading = max(rel_err(y, w) for y, w in zip(served, wants))
+                fq = qrnn_fault(quantize(model, mode=mode), cell).to(device)
+                with torch.inference_mode():
+                    fault = rel_err(fq(torch.from_numpy(requests[0])
+                                       .to(device)).cpu().numpy(), wants[0])
+                del fq
+                fault_name = ("lstm_i_f_gates_swapped" if cell == "lstm"
+                              else "gru_candidate_scales_127_128")
+                cells = QRNN_FORWARD[cell] - 1
+                print(f"quantized-rnn {cell} {mode}: {len(requests)} "
+                      f"requests of {B} x {KERAS['seq']} tokens alone, "
+                      f"{dispatches} dispatches, {n_cells} int8 cells; B4 "
+                      f"{n} launches ({n / max(dispatches, 1):.0f} a "
+                      f"dispatch, {var}), B2f+B2b {b2}; rows vs the CPU "
+                      f"{reading:.3e} (tol {QRNN_TOL}), planted fault "
+                      f"{fault_name} {fault:.3e}; "
+                      f"{wall / len(requests) * 1e3:.1f} ms a request, "
+                      f"deploy {deploy_s:.2f} s [{card}]")
+                report["quantized_rnn"][f"{cell}_{mode}"] = {
+                    "requests": len(requests), "dispatches": dispatches,
+                    "launches": n, "variant_launches": var, "b2": b2,
+                    "reading": reading, "fault": {fault_name: fault},
+                    "ms_per_request": wall / len(requests) * 1e3,
+                    "deploy_s": deploy_s}
+                if not (n_cells == 2 and dispatches == len(requests)
+                        and n == QRNN_FORWARD[cell] * dispatches
+                        and var.get(f"simt_{mode}", 0)
+                        in (cells * dispatches, (cells + 1) * dispatches)
+                        and b2 == 0):
+                    raise AssertionError(
+                        f"quantized {cell} {mode}: {n_cells} cells, "
+                        f"{dispatches} dispatches, B4 {n} {var}, B2 {b2}")
+                if not (reading <= QRNN_TOL < fault):
+                    raise AssertionError(
+                        f"quantized {cell} {mode}: reading {reading:.3e}, "
+                        f"fault {fault:.3e}, limit {QRNN_TOL}")
+                launches[mode] += n
+                for k, v in var.items():
+                    variants.setdefault(mode, {})
+                    variants[mode][k] = variants[mode].get(k, 0) + v
+    return launches, variants
+
+
+# ----------------------------------------- sequence and pipeline parallelism
+# ring attention at transformer_lm()'s head geometry over a long sequence;
+# GPipe of four of its blocks; its whole model through
+# MicrobatchedSequential; NeuralCF at the NCF paper's MovieLens-1M counts
+SEQPIPE = {"B": 2, "H": 8, "D": 64, "T": 8192, "groups": (2, 4),
+           "stages": 4, "embed": 512, "heads": 8, "mlp": 2048,
+           "microbatches": 8, "mb_rows": 4, "tokens": 256, "sgd_steps": 4,
+           "lr": 0.05, "ms_microbatches": 4, "ncf_users": 6040,
+           "ncf_items": 3706, "ncf_batch": 256, "ncf_steps": 8,
+           "ncf_lr": 1e-3}
+# ring against full attention on the card, forward and each gradient of
+# sum(out**2), as a share of max|y|: f32 sums of 8192 keys in another
+# order (the CPU at T 2048 reads 9.0e-7), bf16 outputs and
+# gradients one bf16 ulp apart (1.2e-2 there); the planted fault reads O(1)
+RING_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# GPipe and MicrobatchedSequential against their unpipelined oracle: the
+# forward as a share of max|y|; a training step's loss (relative) and each
+# gradient (a share of the model's largest), the products at microbatch
+# rows instead of the whole batch's
+PIPE_TOL, PIPE_TRAIN_TOL = 1e-5, 1e-4
+# NeuralCF's steps on the card redone on the CPU (wd_step_reading), and
+# the peephole cells' and RecurrentDecoder's forwards against the CPU
+NCF_TRAIN_TOL = 1e-4
+
+
+def ring_check(device, card, report):
+    """Ring attention on ``[cuda:0] * p`` against full attention on the
+    card (module docstring, 33).  Returns the readings."""
+    import sys as _sys
+    from bigdl_tpu_torch.parallel import create_mesh, ring_attention
+    ring_mod = _sys.modules["bigdl_tpu_torch.parallel.ring_attention"]
+    dev = card0(device)
+    c = SEQPIPE
+    gen = torch.Generator(device=dev).manual_seed(77)
+    base = [torch.randn(c["B"], c["H"], c["T"], c["D"], generator=gen,
+                        device=dev) for _ in range(3)]
+    sound_mask = ring_mod._mask
+    rows = {}
+
+    def run(fn, qs):
+        """(output, gradients, peak bytes and seconds of fn and the
+        backward of sum(out**2), the forward's peak under no_grad); the
+        no_grad forward first, which also warms fn up."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            fn(*qs)
+        torch.cuda.synchronize()
+        fwd_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        out = fn(*qs)
+        grads = torch.autograd.grad(out.float().square().sum(), qs)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        return (out.detach(), grads, torch.cuda.max_memory_allocated(),
+                fwd_peak, secs)
+
+    def share(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for causal in (False, True):
+            qs = [t.to(dtype).requires_grad_(True) for t in base]
+            full, g_full, f_peak, f_fwd, f_s = run(
+                lambda q, k, v: nn.dot_product_attention(
+                    q, k, v, causal=causal), qs)
+            for p in c["groups"]:
+                mesh = create_mesh(seq=p, devices=[dev] * p)
+                ring = lambda q, k, v: ring_attention(  # noqa: E731
+                    q, k, v, mesh, causal=causal)
+                out, g, peak, fwd, secs = run(ring, qs)
+                reading = max([share(out, full)]
+                              + [share(a, b) for a, b in zip(g, g_full)])
+                fault = None
+                if causal:
+                    ring_mod._mask = (lambda r, src, tl, cz, d:
+                                      sound_mask(r, r, tl, cz, d))
+                    try:
+                        with torch.no_grad():
+                            fault = share(ring(*qs), full)
+                    finally:
+                        ring_mod._mask = sound_mask
+                key = f"{dname}_{'causal' if causal else 'full'}_p{p}"
+                rows[key] = {"reading": reading, "fault": fault,
+                             "peak_bytes": peak, "fwd_peak_bytes": fwd,
+                             "s": secs, "full_peak_bytes": f_peak,
+                             "full_fwd_peak_bytes": f_fwd, "full_s": f_s}
+                print(f"ring attention {key}: B {c['B']} H {c['H']} T "
+                      f"{c['T']} D {c['D']} on [cuda:0] x {p}: vs full "
+                      f"attention (forward, 3 gradients) {reading:.3e} "
+                      f"(tol {RING_TOL[dname]})"
+                      + (f", mask offset dropped {fault:.3e}"
+                         if fault is not None else "")
+                      + f"; peak fwd+bwd ring {peak / 2**30:.2f} GiB, full "
+                      f"{f_peak / 2**30:.2f} GiB; forward alone ring "
+                      f"{fwd / 2**30:.2f} GiB, full {f_fwd / 2**30:.2f} "
+                      f"GiB; {secs:.3f} s vs {f_s:.3f} s [{card}]")
+                if not (reading <= RING_TOL[dname]
+                        and (fault is None or fault > RING_TOL[dname])):
+                    raise AssertionError(f"ring attention {key}: reading "
+                                         f"{reading}, fault {fault}")
+                del out, g
+            del full, g_full, qs
+    report["seq_pipe"]["ring"] = rows
+    return rows
+
+
+def pipe_share(got, want):
+    return max(float((a - b).abs().max()) for a, b in zip(got, want)) \
+        / max(float(b.abs().max()) for b in want)
+
+
+def gpipe_check(seed, device, card, report):
+    """GPipe of four transformer blocks on ``[cuda:0] * 4`` against its
+    sequential oracle: the forward, then SGD steps each redone by the
+    oracle from the step's own weights; a microbatch-order fault."""
+    from bigdl_tpu_torch.models import transformer_block
+    from bigdl_tpu_torch.parallel import GPipe, create_mesh
+    c, dev = SEQPIPE, card0(device)
+    S = c["stages"]
+    gp = GPipe(transformer_block(c["embed"], c["heads"], c["mlp"]), S,
+               mesh=create_mesh(pipe=S, devices=[dev] * S)).initialize(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 41)
+    shape = (c["microbatches"], c["mb_rows"], c["tokens"], c["embed"])
+    x = torch.randn(shape, generator=gen, device=dev)
+    target = 0.5 * torch.randn(shape, generator=gen, device=dev)
+    with torch.no_grad():
+        gp(x), gp.apply_reference(x)  # warm both up
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = gp(x)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        ref = gp.apply_reference(x)
+        torch.cuda.synchronize()
+        t2 = time.monotonic()
+    fwd = pipe_share([out], [ref])
+    params = list(gp.parameters())
+    for p in params:
+        p.requires_grad_(True)
+
+    def step(fwd_fn):
+        loss = (fwd_fn(x) - target).square().mean()
+        return loss.item(), torch.autograd.grad(loss, params)
+
+    readings, losses, fault = [], [], None
+    for j in range(c["sgd_steps"]):
+        lp, gpipe_g = step(gp)
+        lr_, ref_g = step(gp.apply_reference)
+        readings.append(max(abs(lp - lr_) / abs(lr_),
+                            pipe_share(gpipe_g, ref_g)))
+        losses.append(lp)
+        if j == 0:  # the planted fault: microbatch order shifted by one
+            lf, gf = step(lambda v: gp(v.roll(1, 0)))
+            fault = max(abs(lf - lr_) / abs(lr_), pipe_share(gf, ref_g))
+        with torch.no_grad():
+            for p, g in zip(params, gpipe_g):
+                p.sub_(c["lr"] * g)
+    train = max(readings)
+    print(f"gpipe: {S} x transformer_block({c['embed']}, {c['heads']}, "
+          f"{c['mlp']}) on [cuda:0] x {S}, {c['microbatches']} microbatches "
+          f"of {c['mb_rows']} x {c['tokens']} tokens: forward vs "
+          f"apply_reference {fwd:.3e} (tol {PIPE_TOL}); {c['sgd_steps']} "
+          f"SGD steps each vs the oracle {train:.3e} (tol {PIPE_TRAIN_TOL}), "
+          f"microbatch order shifted {fault:.3e}; losses "
+          + ", ".join(f"{v:.6f}" for v in losses)
+          + f"; forward {(t1 - t0) * 1e3:.1f} ms pipelined, "
+          f"{(t2 - t1) * 1e3:.1f} ms oracle [{card}]")
+    report["seq_pipe"]["gpipe"] = {"forward": fwd, "train": train,
+                                   "fault": fault, "losses": losses,
+                                   "forward_ms": (t1 - t0) * 1e3,
+                                   "oracle_ms": (t2 - t1) * 1e3}
+    if not (fwd <= PIPE_TOL and train <= PIPE_TRAIN_TOL
+            and fault > PIPE_TRAIN_TOL and losses[-1] < losses[0]):
+        raise AssertionError(f"gpipe: forward {fwd}, train {train}, fault "
+                             f"{fault}, losses {losses}")
+
+
+def microbatched_check(seed, device, card, report):
+    """``partition_sequential(transformer_lm(), 4)`` through
+    ``MicrobatchedSequential`` against the unpipelined model: the NLL of
+    16 x 256 tokens and its gradients."""
+    from bigdl_tpu_torch.models import transformer_lm
+    from bigdl_tpu_torch.parallel import (MicrobatchedSequential,
+                                          partition_sequential)
+    c, dev = SEQPIPE, card0(device)
+    lm = transformer_lm().initialize(seed).to(dev)
+    stages = partition_sequential(lm, c["stages"])
+    ms = MicrobatchedSequential(stages, c["ms_microbatches"])
+    gen = torch.Generator(device=dev).manual_seed(seed + 43)
+    n = c["ms_microbatches"] * c["mb_rows"]
+    vocab = lm[0].n_index
+    tokens = torch.randint(0, vocab, (n, c["tokens"]), generator=gen,
+                           device=dev)
+    targets = torch.randint(0, vocab, (n, c["tokens"]), generator=gen,
+                            device=dev)
+    params = list(lm.parameters())
+    for p in params:
+        p.requires_grad_(True)
+    got = {}
+    for name, fn in (("microbatched", ms), ("whole", lm)):
+        t0 = time.monotonic()
+        logp = fn(tokens)
+        loss = -logp.gather(-1, targets[..., None]).mean()
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        got[name] = (logp.detach(), loss.item(), grads,
+                     time.monotonic() - t0)
+        del logp
+    (y, l_ms, g_ms, s_ms), (want, l_lm, g_lm, s_lm) = \
+        got["microbatched"], got["whole"]
+    fwd = pipe_share([y], [want])
+    train = max(abs(l_ms - l_lm) / abs(l_lm), pipe_share(g_ms, g_lm))
+    print(f"microbatched transformer_lm: stages "
+          f"{[len(s) for s in stages]}, {c['ms_microbatches']} microbatches "
+          f"of {c['mb_rows']} x {c['tokens']} tokens: log-probs vs the "
+          f"unpipelined model {fwd:.3e} (tol {PIPE_TOL}), loss and "
+          f"gradients {train:.3e} (tol {PIPE_TRAIN_TOL}); {s_ms:.3f} s vs "
+          f"{s_lm:.3f} s a forward and backward [{card}]")
+    report["seq_pipe"]["microbatched"] = {"forward": fwd, "train": train,
+                                          "s": s_ms, "whole_s": s_lm}
+    if not (fwd <= PIPE_TOL and train <= PIPE_TRAIN_TOL):
+        raise AssertionError(f"microbatched: forward {fwd}, train {train}")
+    for p in params:
+        p.requires_grad_(False)
+
+
+def ncf_check(seed, device, card, report):
+    """NeuralCF at MovieLens-1M's counts through LocalOptimizer (Adam,
+    BCE) on the card, each step redone on the CPU from the card's weights
+    (:func:`wd_step_reading`); the head weight x127/128 at init must read
+    above the limit."""
+    from bigdl_tpu_torch.dataset import movielens
+    from bigdl_tpu_torch.models import NeuralCF
+    c = SEQPIPE
+    B, K = c["ncf_batch"], c["ncf_steps"]
+    r = movielens.synthetic_ratings(c["ncf_users"], c["ncf_items"], B * K,
+                                    seed=seed)
+    users, items = r[:, 0] - 1, r[:, 1] - 1
+    y = (r[:, 2] >= 4).astype(np.float32)
+    batches = [MiniBatch((users[s:s + B], items[s:s + B]), y[s:s + B])
+               for s in range(0, B * K, B)]
+    init = NeuralCF(c["ncf_users"], c["ncf_items"]).initialize(seed)
+
+    def run(model):
+        adam = RecordingAdam(learning_rate=c["ncf_lr"])
+        losses = []
+
+        class Recording(LocalOptimizer):
+            def _log_train_iteration(self, lr):
+                losses.append(self.state["loss"])
+
+        t0 = time.monotonic()
+        (Recording(model, DataSet.array(np.zeros(B * K))
+                   >> Prebuilt(batches, per=B), SqueezedBCE(),
+                   device=device)
+         .set_optim_method(adam).set_end_when(optim.max_iteration(K))
+         .optimize())
+        return losses, adam.steps, time.monotonic() - t0
+
+    def cpu_step(init, params, batch):
+        m = copy.deepcopy(init)
+        with torch.no_grad():
+            for k, p in m.named_parameters():
+                p.copy_(params[k])
+                p.requires_grad_(True)
+        u, i = batch.input
+        loss = SqueezedBCE().apply(m((torch.from_numpy(u),
+                                      torch.from_numpy(i))),
+                                   torch.from_numpy(batch.target))
+        loss.backward()
+        return loss.item(), {k: p.grad.double()
+                             for k, p in m.named_parameters()}
+
+    losses, steps, wall = run(copy.deepcopy(init))
+    sound, worst = wd_step_reading(losses, steps, init, batches, cpu_step)
+    bad = copy.deepcopy(init)
+    with torch.no_grad():
+        bad.head.weight.mul_(127 / 128)
+    fault = wd_step_reading(*run(bad)[:2], init, batches, cpu_step)[0]
+    print(f"neural cf: {c['ncf_users']} users x {c['ncf_items']} items, "
+          f"embed 16, MLP (64, 32, 16), {K} Adam steps of batch {B} in "
+          f"{wall:.2f} s: card vs CPU step by step {sound:.3e} (tol "
+          f"{NCF_TRAIN_TOL}; largest {worst[:2]}), head weight x127/128 "
+          f"{fault:.3e}; losses " + ", ".join(f"{v:.6f}" for v in losses)
+          + f" [{card}]")
+    report["seq_pipe"]["neural_cf"] = {"reading": sound, "fault": fault,
+                                       "losses": losses, "wall_s": wall}
+    if not (sound <= NCF_TRAIN_TOL < fault):
+        raise AssertionError(f"neural cf: reading {sound}, fault {fault}")
+
+
+def peephole_check(seed, device, card, report):
+    """The peephole cells and RecurrentDecoder: one forward each on the
+    card against the CPU within NCF_TRAIN_TOL of max|y|; the LSTM
+    peephole's output-gate row zeroed must read above it."""
+    dev = card0(device)
+    cases = {
+        "lstm_peephole": (lambda: nn.Recurrent(nn.LSTMPeephole(100, 128)),
+                          (32, 50, 100)),
+        "conv_lstm_peephole": (lambda: nn.Recurrent(nn.ConvLSTMPeephole(
+            8, 16, 3, spatial=(32, 32))), (8, 10, 8, 32, 32)),
+        "conv_lstm_peephole_3d": (lambda: nn.Recurrent(
+            nn.ConvLSTMPeephole3D(4, 8, 3, spatial=(8, 16, 16))),
+            (4, 6, 4, 8, 16, 16)),
+        "recurrent_decoder": (lambda: nn.RecurrentDecoder(
+            nn.LSTMPeephole(64, 64), 30), (32, 64)),
+    }
+    gen = torch.Generator().manual_seed(seed + 47)
+    rows = {}
+    for name, (make, shape) in cases.items():
+        m = make().initialize(seed)
+        x = torch.randn(shape, generator=gen)
+        with torch.inference_mode():
+            want = m(x)
+            on_card = copy.deepcopy(m).to(dev)
+            rows[name] = tensor_rel(on_card(x.to(dev)).cpu(), want)
+            if name == "lstm_peephole":
+                on_card.cell.peep[2].zero_()
+                fault = tensor_rel(on_card(x.to(dev)).cpu(), want)
+    print("peephole cells and decoder vs the CPU: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rows.items())
+          + f" (tol {NCF_TRAIN_TOL}), output peephole zeroed {fault:.3e} "
+          f"[{card}]")
+    report["seq_pipe"]["recurrent"] = {**rows, "fault": fault}
+    if not (max(rows.values()) <= NCF_TRAIN_TOL < fault):
+        raise AssertionError(f"peephole cells: {rows}, fault {fault}")
+
+
+def seq_pipe_phase(seed, device, card, report):
+    """Ring attention, GPipe, MicrobatchedSequential, NeuralCF and the
+    rest of the recurrent cells on the card (module docstring, 33)."""
+    report["seq_pipe"] = {}
+    for name, fn in (
+            ("ring", lambda: ring_check(device, card, report)),
+            ("gpipe", lambda: gpipe_check(seed, device, card, report)),
+            ("microbatched", lambda: microbatched_check(seed, device, card,
+                                                        report)),
+            ("neural-cf", lambda: ncf_check(seed, device, card, report)),
+            ("recurrent", lambda: peephole_check(seed, device, card,
+                                                 report))):
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.empty_cache()
+        print(f"phase seq-pipe-{name}: {time.monotonic() - t0:.1f} s")
+
+
 PHASES = ("resnet", "lstm", "resnet-train", "wide-deep", "lenet",
           "distri", "cifar", "inception", "autoencoder", "remat", "text",
           "nn-core", "resilience", "interop", "predict", "keras",
-          "frontend", "parallel")
+          "frontend", "parallel", "quantized-rnn", "seq-pipe")
 EXTRA_PHASES = ("resnet-conditioning",)  # run only when named
 
 
@@ -8921,6 +9480,13 @@ def main(argv=None) -> int:
         nhwc_totals = nhwc_kernel_phase(args.seed, device, card, report)
         torch.cuda.empty_cache()
         print(f"phase int8-kernels-nhwc: {time.monotonic() - t0:.1f} s")
+    qrnn_totals = None
+    if "quantized-rnn" in phases:
+        # B4 at the quantized cells' GEMMs while the process is young
+        t0 = time.monotonic()
+        qrnn_totals = qrnn_kernel_phase(args.seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase int8-kernels-qrnn: {time.monotonic() - t0:.1f} s")
 
     if "lstm" in phases:
         t0 = time.monotonic()
@@ -9301,6 +9867,37 @@ def main(argv=None) -> int:
             entry["parallel"] = {"launches": launches[mode],
                                  "nhwc": {**row, "rows_a_forward":
                                           PARALLEL["int8_batch"]}}
+    if "quantized-rnn" in phases:
+        t0 = time.monotonic()
+        launches, variants = qrnn_phase(args.seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase quantized-rnn: {time.monotonic() - t0:.1f} s")
+        by_name = {k["name"]: k for k in kernels}
+        for mode in ("weight_only", "dynamic"):
+            rows = {}
+            for cell, totals in qrnn_totals.items():
+                t = totals[mode]
+                rows[cell] = {
+                    **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "library_ms",
+                                         "variants")},
+                    "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
+                    else "operations", "rows_a_forward": QRNN["rows"]}
+            entry = by_name.get(f"int8_gemm[{mode}]")
+            if entry is None:  # no earlier phase timed B4: the LSTM leads
+                entry = {"name": f"int8_gemm[{mode}]", **KERNEL,
+                         "launches": launches[mode],
+                         **{k: v for k, v in rows["lstm"].items()
+                            if k not in ("variants", "rows_a_forward")}}
+                kernels.append(entry)
+            entry["quantized_rnn"] = {"launches": launches[mode],
+                                      "variant_launches": variants[mode],
+                                      **rows}
+    if "seq-pipe" in phases:
+        t0 = time.monotonic()
+        seq_pipe_phase(args.seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase seq-pipe: {time.monotonic() - t0:.1f} s")
     if "resnet-conditioning" in phases:
         t0 = time.monotonic()
         resnet_conditioning_phase(args.seed, device, card, report)

@@ -468,9 +468,9 @@ def test_unported_distributed_features_raise():
     assert opt._membership is None
     assert opt.set_elastic() is opt and opt._membership.epoch() == 1
     assert create_mesh(model=2, devices=["cpu"] * 2).shape["model"] == 2
-    for axis in ("seq", "pipe"):
-        with pytest.raises(NotImplementedError, match="slice 18"):
-            create_mesh(**{axis: 2}, backend="gloo")
+    for axis in ("seq", "pipe"):  # ported too: a device group each
+        mesh = create_mesh(**{axis: 2}, devices=["cpu"] * 2)
+        assert mesh.shape[axis] == 2 and len(mesh.axis_devices(axis)) == 2
 
 
 def test_grad_sync_keyword_must_agree_with_parameter_sharding():

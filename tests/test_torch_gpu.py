@@ -29,7 +29,12 @@ cuda:0]`` against the unsharded forward on the card (1e-5 of max|logp|,
 the swapped-halves fault above 1e-2), one sharded ``DecodeService`` with
 its KV cache split on the heads against the unsharded service (tokens
 equal), and a quantized NHWC ResNet-8 on B4 bitwise the NCHW twin's
-output, transposed, in both modes.  Every
+output, transposed, in both modes; the quantized recurrent cells on B4
+(one launch a step and direction, two for the GRU; no fused LSTM cell)
+against the CPU, ring attention on ``[cuda:0] * 4`` against full
+attention (forward and gradients within 1e-5 of the largest value) and
+GPipe of four transformer blocks on ``[cuda:0] * 4`` against its
+sequential oracle.  Every
 test
 here needs a CUDA card and skips without one; on the card run ``python -m pytest -m gpu tests/test_torch_*.py``.  This file imports
 no JAX, so it runs where the reference package is not installed.
@@ -87,7 +92,11 @@ SHAPES = [(1, 147, 64), (3, 147, 64), (37, 147, 64), (5, 64, 1000),
           (32, 2048, 1000), (300, 64, 256), (1001, 1152, 200),
           (1, 64, 1000), (32, 64, 1000), (37, 64, 1000), (1, 4608, 1000),
           (32, 4608, 1000), (37, 4608, 1000), (12544, 576, 128),
-          (12544, 256, 64)]
+          (12544, 256, 64),
+          # the quantized Keras text classifiers' at batch 128: the LSTM's
+          # and the GRU's gates and candidate over [x_t, h] (K = 100 + 128,
+          # SIMT: not a multiple of 16), the Dense head
+          (128, 228, 512), (128, 228, 256), (128, 228, 128), (128, 256, 20)]
 
 
 def _variant(K, xdtype):
@@ -1523,3 +1532,74 @@ def test_quantized_nhwc_resnet_on_card_bitwise_nchw(cuda, mode):
             outs[name] = q(inp.contiguous().to(cuda)).cpu()
         assert int8_gemm.launches == 10
     assert torch.equal(outs["nhwc"], outs["nchw"])
+
+
+def _rnn_classifier():
+    """A bidirectional LSTM, a GRU and an Elman layer over per-step
+    inputs, the last step through a Linear: every quantized cell."""
+    return (nn.Sequential().add(nn.TimeDistributed(nn.Linear(12, 20)))
+            .add(nn.BiRecurrent(nn.LSTM(20, 24, forget_bias=1.0),
+                                nn.LSTM(20, 24)))
+            .add(nn.Recurrent(nn.GRU(48, 16)))
+            .add(nn.Recurrent(nn.RnnCell(16, 16)))
+            .add(nn.Select(1, -1)).add(nn.Linear(16, 5)))
+
+
+@pytest.mark.parametrize("mode", ["weight_only", "dynamic"])
+def test_quantized_cells_on_card_match_cpu(cuda, mode):
+    """Every projection of the quantized cells is one B4 launch (T steps:
+    2 T for the LSTM's two directions, 2 T for the GRU, T for the Elman
+    cell, 1 for the head), the fused LSTM cell never runs; the rows
+    within 1e-5 (weight_only) / 1e-3 (dynamic: a step's scale over a
+    hidden state that differs by ulps can move one rounding) of max|y|
+    of the CPU's."""
+    T = 9
+    q = nn.quantize(_rnn_classifier().initialize(1), mode=mode)
+    x = torch.randn(6, T, 12, generator=torch.Generator().manual_seed(2))
+    with torch.inference_mode():
+        want = q(x)
+        qc = copy.deepcopy(q).to(cuda)
+        int8_gemm.launches = lstm_cell.fwd_launches = 0
+        got = qc(x.to(cuda)).cpu()
+    assert int8_gemm.launches == 5 * T + 1 and lstm_cell.fwd_launches == 0
+    tol = 1e-5 if mode == "weight_only" else 1e-3
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+def test_ring_attention_on_card_matches_full_attention(cuda):
+    from bigdl_tpu_torch.parallel import create_mesh, ring_attention
+    gen = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(2, 4, 256, 32, generator=gen).to(cuda)
+               .requires_grad_(True) for _ in range(3))
+    mesh = create_mesh(seq=4, devices=[cuda] * 4)
+    for causal in (False, True):
+        out = ring_attention(q, k, v, mesh, causal=causal)
+        g = torch.autograd.grad((out ** 2).sum(), (q, k, v))
+        ref = nn.dot_product_attention(q, k, v, causal=causal)
+        g_ref = torch.autograd.grad((ref ** 2).sum(), (q, k, v))
+        for a, b in [(out, ref)] + list(zip(g, g_ref)):
+            assert a.device == q.device
+            assert float((a - b).detach().abs().max()) \
+                <= 1e-5 * float(b.detach().abs().max())
+
+
+def test_gpipe_on_card_matches_apply_reference(cuda):
+    from bigdl_tpu_torch.models import transformer_block
+    from bigdl_tpu_torch.parallel import GPipe, create_mesh
+    gp = GPipe(transformer_block(64, 4, 128), 4,
+               mesh=create_mesh(pipe=4, devices=[cuda] * 4)).initialize(0)
+    for p in gp.parameters():  # the port's layers start frozen
+        p.requires_grad_(True)
+    x = torch.randn(8, 2, 16, 64, generator=torch.Generator().manual_seed(5))
+    x = x.to(cuda)
+    out = gp(x)
+    grads = torch.autograd.grad(out.square().mean(), list(gp.parameters()))
+    ref = gp.apply_reference(x)
+    g_ref = torch.autograd.grad(ref.square().mean(), list(gp.parameters()))
+    assert float((out - ref).detach().abs().max()) \
+        <= 1e-5 * float(ref.detach().abs().max())
+    # against the model's largest gradient: a key bias's is zero but for
+    # rounding
+    largest = max(float(b.abs().max()) for b in g_ref)
+    for a, b in zip(grads, g_ref):
+        assert float((a - b).abs().max()) <= 1e-4 * largest

@@ -414,6 +414,16 @@ NEW_LAYER_FIXTURES = {
                                 "gate_bias")}, False),
     "batch_norm_1d_eval": (lambda: nn.BatchNormalization(6),
                            {"weight": "weight", "bias": "bias"}, True),
+    "recurrent_lstm_peephole": (
+        lambda: nn.Recurrent(nn.LSTMPeephole(3, 5)),
+        {k: f"cell.{k}" for k in ("weight", "bias", "peep")}, False),
+    "conv_lstm_peephole": (
+        lambda: nn.Recurrent(nn.ConvLSTMPeephole(2, 4, 3, spatial=(5, 5),
+                                                 with_peephole=False)),
+        {k: f"cell.{k}" for k in ("weight", "bias")}, False),
+    "conv_lstm_with_peephole": (
+        lambda: nn.Recurrent(nn.ConvLSTMPeephole(2, 4, 3, spatial=(5, 5))),
+        {k: f"cell.{k}" for k in ("weight", "bias", "peep")}, False),
 }
 
 
@@ -445,8 +455,9 @@ def test_golden_fixture_new_layers(name):
                                    z[f"dp_{k}"], **tol, err_msg=k)
 
 
-# the nine layers the Keras wrappers build, against the reference's
-# modules: forward and the gradients of sum(y * cotangent) (input and every
+# the nine layers the Keras wrappers build and the rest of the recurrent
+# cells and wrappers (peepholes, ConvLSTM in 2-D and 3-D, RecurrentDecoder),
+# against the reference's modules: forward and the gradients of sum(y * cotangent) (input and every
 # parameter) from the same weights, rtol=1e-5 / 1e-4 of each array's
 # largest value (recurrences of a few f32 steps in another order)
 EXTRAS = {
@@ -465,6 +476,22 @@ EXTRAS = {
     "TemporalMaxPooling": (lambda m: m.TemporalMaxPooling(3, 2), (2, 9, 4)),
     "Maxout": (lambda m: m.Maxout(6, 4, 3), (5, 6)),
     "Highway": (lambda m: m.Highway(6), (4, 6)),
+    "LSTMPeephole": (lambda m: m.Recurrent(m.LSTMPeephole(3, 4)), (2, 5, 3)),
+    "ConvLSTMPeephole-even-kernel": (
+        lambda m: m.Recurrent(m.ConvLSTMPeephole(2, 3, 2, spatial=(4, 5))),
+        (2, 3, 2, 4, 5)),
+    "ConvLSTMPeephole3D": (
+        lambda m: m.Recurrent(m.ConvLSTMPeephole3D(2, 3, 3,
+                                                   spatial=(3, 4, 4))),
+        (2, 3, 2, 3, 4, 4)),
+    "ConvLSTMPeephole3D-no-peephole": (
+        lambda m: m.Recurrent(m.ConvLSTMPeephole3D(2, 3, 3, spatial=(3, 3, 3),
+                                                   with_peephole=False)),
+        (2, 2, 2, 3, 3, 3)),
+    "RecurrentDecoder-LSTM": (lambda m: m.RecurrentDecoder(m.LSTM(4, 4), 5),
+                              (3, 4)),
+    "RecurrentDecoder-GRU": (lambda m: m.RecurrentDecoder(m.GRU(3, 3), 4),
+                             (2, 3)),
 }
 
 

@@ -131,9 +131,10 @@ def test_mesh_model_axis_and_unported_axes():
         assert (mesh.backend is None) == local and mesh.rank == 0
     with pytest.raises(ValueError, match="device group"):
         create_mesh(model=2, devices=["cpu"] * 3)
-    for axis in ("seq", "pipe"):
-        with pytest.raises(NotImplementedError, match="slice 18"):
-            create_mesh(**{axis: 2})
+    for axis in ("seq", "pipe"):  # ported since: a device group each
+        mesh = create_mesh(**{axis: 2}, devices=["cpu"] * 2)
+        assert mesh_shape(mesh)[axis] == 2 and mesh.axis_devices("model") \
+            == (torch.device("cpu"),)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             create_mesh(model=2)

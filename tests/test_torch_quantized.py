@@ -6,6 +6,13 @@
   BITWISE (exact integer sums, a per-tensor scale taken over the whole
   input, one-rounding epilogue); weight_only is held to
   ``rtol=1e-5, atol=1e-5*max|y|`` (f32 sums in another order).
+- The quantized recurrent cells (``QuantizedLSTM``, ``QuantizedGRU``,
+  ``QuantizedRnnCell``) through ``Recurrent`` and ``BiRecurrent`` against
+  the reference's quantized models from the same weights, both modes:
+  ``CELL_TOL`` of max|y| (sound readings ~2e-7: the gates' sigmoid and
+  tanh round in their own order, and in dynamic mode each step's scale is
+  taken over an ``[x_t, h]`` that carries them; a GRU candidate panel
+  scaled x127/128 must read above it).
 """
 
 import numpy as np
@@ -22,7 +29,7 @@ from bigdl_tpu.nn.quantized import \
 from bigdl_tpu.nn.quantized import quantize as jax_quantize
 from bigdl_tpu_torch import nn
 from bigdl_tpu_torch.interop import load_jax_params, to_jax_params
-from bigdl_tpu_torch.models import resnet_cifar
+from bigdl_tpu_torch.models import ptb_model, resnet_cifar
 from bigdl_tpu_torch.utils.config import reset_config
 
 MODES = ["dynamic", "weight_only"]
@@ -266,3 +273,178 @@ def test_quantized_nhwc_bigdl_file_loads_and_writes_the_same_bytes(
     want = open(ref_path, "rb").read()
     assert open(back_path, "rb").read() == want
     assert open(own_path, "rb").read() == want
+
+
+# --------------------------------------------------- quantized recurrent
+CELL_TOL = 1e-5
+CELL_KINDS = {"lstm": lambda m: m.LSTM(6, 8, forget_bias=1.0),
+              "gru": lambda m: m.GRU(6, 8), "rnn": lambda m: m.RnnCell(6, 8)}
+CELL_TYPES = {"lstm": (nn.QuantizedLSTM, "QuantizedLSTM"),
+              "gru": (nn.QuantizedGRU, "QuantizedGRU"),
+              "rnn": (nn.QuantizedRnnCell, "QuantizedRnnCell")}
+
+
+def _rnn_net(m, kind, bi):
+    """Per-step float projection, the recurrent layer, the last step, a
+    classifier: the shape of the Keras text classifiers."""
+    cell = CELL_KINDS[kind]
+    rec = m.BiRecurrent(cell(m), cell(m)) if bi else m.Recurrent(cell(m))
+    return (m.Sequential().add(m.TimeDistributed(m.Linear(5, 6))).add(rec)
+            .add(m.Select(1, -1)).add(m.Linear(16 if bi else 8, 3)))
+
+
+def _rnn_twins(kind, bi, seed=3):
+    port = _rnn_net(nn, kind, bi).initialize(seed)
+    ref = _rnn_net(jnn, kind, bi)
+    ref._params, ref._state = to_jax_params(port)
+    return port, ref
+
+
+def _ref_quantized(ref, mode, x):
+    jq = jax_quantize(ref, mode=mode)
+    return jq, np.asarray(jax.jit(
+        lambda x: jq.apply(jq._params, jq._state, x)[0])(x))
+
+
+def _quantized_cells(model):
+    return [m for m in model.modules() if isinstance(
+        m, (nn.QuantizedLSTM, nn.QuantizedGRU, nn.QuantizedRnnCell))]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("bi", [False, True], ids=["recurrent", "bi"])
+@pytest.mark.parametrize("kind", sorted(CELL_KINDS))
+def test_quantized_cells_match_reference(kind, bi, mode):
+    port, ref = _rnn_twins(kind, bi)
+    x = _x((4, 7, 5))
+    jq, want = _ref_quantized(ref, mode, x)
+    tq = nn.quantize(port, mode=mode)
+    cells = _quantized_cells(tq)
+    cls, jname = CELL_TYPES[kind]
+    assert len(cells) == (2 if bi else 1)
+    assert all(type(c) is cls and c.mode == mode for c in cells)
+    jrec = jq.modules[1]
+    jcells = [jrec.fwd.cell, jrec.bwd.cell] if bi else [jrec.cell]
+    assert [type(c).__name__ for c in jcells] == [jname] * len(cells)
+    panels = {"lstm": ("wq", "ws"), "gru": ("gq", "gs", "cq", "cs"),
+              "rnn": ("wq", "ws")}[kind]
+    for c, jc in zip(cells, jcells):  # the same numpy quantization
+        for k in panels:
+            np.testing.assert_array_equal(getattr(c, k).numpy(),
+                                          np.asarray(getattr(jc, k)))
+    with torch.no_grad():
+        got = tq(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32
+    assert np.abs(got - want).max() <= CELL_TOL * np.abs(want).max()
+
+
+def test_quantized_gru_planted_fault_exceeds_the_limit():
+    port, ref = _rnn_twins("gru", True)
+    x = _x((4, 7, 5))
+    _, want = _ref_quantized(ref, "dynamic", x)
+    tq = nn.quantize(port, mode="dynamic")
+    cell = _quantized_cells(tq)[0]
+    cell.cs.mul_(127 / 128)
+    with torch.no_grad():
+        got = tq(torch.from_numpy(x)).numpy()
+    assert np.abs(got - want).max() > CELL_TOL * np.abs(want).max()
+
+
+def test_quantized_lstm_keeps_forget_bias_and_takes_the_step_path(
+        monkeypatch):
+    """No hoisted form: ``Recurrent`` runs ``step`` (one int8 product a
+    step), never the fused float cell (B2f on the card)."""
+    from bigdl_tpu_torch.nn import quantized as qmod
+    from bigdl_tpu_torch.ops import lstm_cell
+    port, _ = _rnn_twins("lstm", False)
+    tq = nn.quantize(port)
+    cell = _quantized_cells(tq)[0]
+    assert cell.forget_bias == 1.0 and cell.hoist(torch.zeros(7, 4, 6)) is None
+    calls = []
+    real = qmod.int8_matmul
+    monkeypatch.setattr(qmod, "int8_matmul",
+                        lambda *a, **k: calls.append(a[0].shape) or real(*a, **k))
+    monkeypatch.setattr(lstm_cell, "lstm_cell", None)  # would raise if run
+    with torch.no_grad():
+        tq(torch.from_numpy(_x((4, 7, 5))))
+    assert calls == [(4, 14)] * 7 + [(4, 8)]  # 7 steps of [x_t, h], the head
+
+
+def test_quantize_leaves_multirnn_and_time_distributed_float():
+    """PTB's model: its ``Recurrent(MultiRNNCell)`` and its
+    ``TimeDistributed(Linear)`` head stay float in both packages, so its
+    quantized forward is its float forward, bit for bit."""
+    from bigdl_tpu.models.rnn import ptb_model as jptb_model
+    port = ptb_model(50, 8, 8, 2).initialize(1)
+    ref = jptb_model(50, 8, 8, 2)
+    ref._params, ref._state = to_jax_params(port)
+    jq = jax_quantize(ref, mode="dynamic")
+    q = nn.quantize(port, mode="dynamic")
+    assert not nn.quantized.is_quantized(q)
+    assert not any(isinstance(m, (nn.QuantizedLinear, nn.QuantizedLSTM))
+                   for m in q.modules())
+    assert type(jq.modules[1].cell).__name__ == "MultiRNNCell"
+    assert type(jq.modules[-2].layer).__name__ == "Linear"
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 50, (3, 6)).astype(np.int64))
+    with torch.no_grad():
+        assert torch.equal(q(ids), port.eval()(ids))
+
+
+def test_quantize_stamps_mode_on_every_leaf_and_cell():
+    m = (nn.Sequential().add(nn.TimeDistributed(nn.Linear(5, 6)))
+         .add(nn.BiRecurrent(nn.GRU(6, 4), nn.LSTM(6, 4)))
+         .add(nn.Recurrent(nn.RnnCell(8, 4)))
+         .add(nn.Select(1, -1)).add(nn.Linear(4, 2))).initialize(0)
+    for mode in MODES:
+        q = nn.quantize(m, mode=mode)
+        leaves = [x for x in q.modules() if hasattr(x, "mode")]
+        assert [type(x).__name__ for x in leaves] == [
+            "QuantizedGRU", "QuantizedLSTM", "QuantizedRnnCell",
+            "QuantizedLinear"]
+        assert {x.mode for x in leaves} == {mode}
+        assert nn.quantized.is_quantized(q)
+        assert type(q[0].layer) is nn.Linear  # TimeDistributed stays
+    assert nn.quantized.is_quantized(
+        nn.quantize(nn.Recurrent(nn.LSTM(3, 4)).initialize(0)))
+
+
+@pytest.mark.parametrize("kind", sorted(CELL_KINDS))
+def test_quantized_cell_panels_cross_through_jax_params(kind):
+    """``to_jax_params`` carries a quantized cell's int8 panels, scales and
+    biases (the layer's state; its params are empty, as the reference's
+    quantized tree is) and ``load_jax_params`` puts them back bitwise."""
+    port, _ = _rnn_twins(kind, True)
+    q1 = nn.quantize(port, mode="dynamic")
+    params, state = to_jax_params(q1)
+    assert params["1"] == {"fwd": {}, "bwd": {}}
+    assert state["1"]["fwd"]["ws" if kind != "gru" else "gs"].dtype \
+        == np.float32
+    q2 = nn.quantize(_rnn_net(nn, kind, True).initialize(9), mode="dynamic")
+    load_jax_params(q2, params, state)
+    x = torch.from_numpy(_x((2, 5, 5)))
+    with torch.no_grad():
+        assert torch.equal(q1(x), q2(x))
+
+
+def test_registry_deploys_a_quantized_keras_bilstm():
+    """``ModelRegistry.deploy(quantize=True)`` of a small Keras
+    bidirectional LSTM classifier: int8 weights and cells, the served rows
+    the in-memory quantized model's, bit for bit."""
+    from bigdl_tpu_torch import keras as K
+    from bigdl_tpu_torch.serving import ModelRegistry
+    model = K.Sequential([K.Embedding(30, 6, input_length=9),
+                          K.Bidirectional(K.LSTM(5)),
+                          K.Dense(4, activation="softmax")])
+    core = model.core_module()
+    ids = np.random.default_rng(2).integers(1, 30, (3, 9)).astype(np.int32)
+    with ModelRegistry(device="cpu") as reg:
+        v = reg.deploy("text", core, input_spec=((9,), np.int32),
+                       quantize=True)
+        got = v.predict(ids)
+        assert v.stats()["weights_dtype"] == "int8"
+    q = nn.quantize(core)
+    assert len(_quantized_cells(q)) == 2
+    with torch.no_grad():
+        want = q(torch.from_numpy(ids)).numpy()
+    np.testing.assert_array_equal(got, want)

@@ -35,13 +35,16 @@ from bigdl_tpu.dataset import DataSet as JDataSet  # noqa: E402
 from bigdl_tpu.dataset import SparseSample as JSparseSample  # noqa: E402
 from bigdl_tpu.dataset import batch_sparse_samples as jbatch  # noqa: E402
 from bigdl_tpu.dataset.prefetch import DeviceBlockStager as JStager  # noqa: E402
+from bigdl_tpu.dataset import MiniBatch as JMiniBatch  # noqa: E402
+from bigdl_tpu.models.recommender import NeuralCF as JNeuralCF  # noqa: E402
 from bigdl_tpu.models.recommender import WideAndDeep as JWideAndDeep  # noqa: E402
 from bigdl_tpu_torch import nn, optim  # noqa: E402
-from bigdl_tpu_torch.dataset import (DataSet, SparseSample,  # noqa: E402
-                                     Transformer, batch_sparse_samples)
+from bigdl_tpu_torch.dataset import (DataSet, MiniBatch,  # noqa: E402
+                                     SparseSample, Transformer,
+                                     batch_sparse_samples)
 from bigdl_tpu_torch.dataset.prefetch import DeviceBlockStager  # noqa: E402
 from bigdl_tpu_torch.interop import to_jax_params  # noqa: E402
-from bigdl_tpu_torch.models import WideAndDeep  # noqa: E402
+from bigdl_tpu_torch.models import NeuralCF, WideAndDeep  # noqa: E402
 from bigdl_tpu_torch.ops import embed_bag  # noqa: E402
 
 WIDE, FIELDS, DENSE, EMBED, HIDDEN = 60, [7, 5, 3], 4, 4, (8, 6)
@@ -348,3 +351,96 @@ def test_criteria_match_reference(name):
     np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-6)
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jg), rtol=1e-5,
                                atol=1e-6)
+
+
+# ---------------------------------------------------------------- NeuralCF
+# the reference's NeuralCF at small counts (its default widths): forward
+# and gradients from the same weights within rtol 1e-5 (f32 sums in
+# another order), a LocalOptimizer run (Adam, BCE) within the Wide&Deep
+# run's limits
+NCF_USERS, NCF_ITEMS = 30, 20
+
+
+def _ncf_ratings(seed):
+    from bigdl_tpu_torch.dataset import movielens
+    r = movielens.synthetic_ratings(NCF_USERS, NCF_ITEMS, 64, seed=seed)
+    return r[:, 0] - 1, r[:, 1] - 1, (r[:, 2] >= 4).astype(np.float32)
+
+
+class _PairsToMiniBatch(Transformer):
+    """(user, item, clicked) triples in batches of ``BATCH``: input the
+    (users, items) pair, as NeuralCF takes it."""
+
+    def __init__(self, make):
+        self.make = make
+
+    def __call__(self, it):
+        buf = []
+        for s in it:
+            buf.append(s)
+            if len(buf) == BATCH:
+                u, i, y = (np.asarray([b[k] for b in buf]) for k in range(3))
+                yield self.make((u.astype(np.int32), i.astype(np.int32)), y)
+                buf = []
+
+
+def test_neural_cf_forward_and_gradients_match_reference():
+    tmodel = NeuralCF(NCF_USERS, NCF_ITEMS).initialize(4)
+    params, state = to_jax_params(tmodel)
+    assert sorted(params) == ["head", "item_gmf", "item_mlp", "mlp",
+                              "user_gmf", "user_mlp"]
+    jmodel = JNeuralCF(NCF_USERS, NCF_ITEMS)
+    users, items, y = _ncf_ratings(1)
+
+    def jloss(p):
+        out, _ = jmodel.apply(p, state, (jnp.asarray(users),
+                                         jnp.asarray(items)))
+        return jnn.BCECriterion().apply(out[:, 0], jnp.asarray(y)), out
+
+    (jl, jout), jg = jax.value_and_grad(jloss, has_aux=True)(
+        jax.tree_util.tree_map(jnp.asarray, params))
+    for p in tmodel.parameters():
+        p.requires_grad_(True)
+    tout = tmodel((torch.from_numpy(users), torch.from_numpy(items)))
+    tl = nn.BCECriterion().apply(tout[:, 0], torch.from_numpy(y))
+    tl.backward()
+    assert tout.shape == (64, 1)
+    np.testing.assert_allclose(tout.detach().numpy(), np.asarray(jout),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-5)
+    tgrads = {k: p.grad.numpy() for k, p in tmodel.named_parameters()}
+    jflat = _flat(jg)
+    assert tgrads.keys() == jflat.keys()
+    for k, want in jflat.items():
+        np.testing.assert_allclose(tgrads[k], want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max(), err_msg=k)
+
+
+def test_neural_cf_local_optimizer_matches_reference():
+    users, items, y = _ncf_ratings(2)
+    triples = list(zip(users, items, y))
+    model = NeuralCF(NCF_USERS, NCF_ITEMS).initialize(5)
+    start = to_jax_params(model)
+    topt = (_recording(optim.LocalOptimizer)(
+        model, DataSet.array(triples, seed=3) >> _PairsToMiniBatch(MiniBatch),
+        _SqueezedBCE(nn.BCECriterion()), device="cpu")
+        .set_optim_method(optim.Adam(learning_rate=0.01))
+        .set_end_when(optim.max_iteration(STEPS)))
+    topt.optimize()
+    jmodel = JNeuralCF(NCF_USERS, NCF_ITEMS)
+    jmodel._params = jax.tree_util.tree_map(jnp.asarray, start[0])
+    jmodel._state = start[1]
+    jopt = (_recording(joptim.LocalOptimizer)(
+        jmodel, JDataSet.array(triples, seed=3)
+        >> _PairsToMiniBatch(JMiniBatch), _SqueezedBCE(jnn.BCECriterion()))
+        .set_optim_method(joptim.Adam(learning_rate=0.01))
+        .set_end_when(joptim.max_iteration(STEPS)))
+    jopt.optimize()
+    assert len(topt.losses) == len(jopt.losses) == STEPS
+    np.testing.assert_allclose(topt.losses, jopt.losses, rtol=1e-5)
+    tflat = _flat(to_jax_params(model)[0])
+    jflat = _flat(jax.tree_util.tree_map(np.asarray, jmodel._params))
+    for key, want in jflat.items():
+        np.testing.assert_allclose(tflat[key], want, rtol=1e-4,
+                                   atol=1e-4 * np.abs(want).max(),
+                                   err_msg=key)
