@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import hashlib
 import json
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -123,6 +123,19 @@ def diff_schemas(saved: dict, current: dict,
         _diff_section(lines, f"params{key}", sp.get(key, "<absent>"),
                       cp.get(key, "<absent>"))
     return lines
+
+
+def elastic_compatible(saved: Optional[dict],
+                       current: dict) -> Tuple[bool, List[str]]:
+    """Would an elastic resume accept this snapshot?  ``(verdict,
+    diff_lines)``, the operator's form of :func:`validate_schema` with
+    ``elastic=True``.  A legacy snapshot without a schema is compatible
+    with a caveat line: the structural checks apply at restore time."""
+    if saved is None:
+        return True, ["(legacy snapshot: no schema — structural "
+                      "checks apply at restore time)"]
+    lines = diff_schemas(saved, current, elastic=True)
+    return not lines, lines
 
 
 def validate_schema(saved: Optional[dict], current: dict,

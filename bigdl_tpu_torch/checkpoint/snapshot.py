@@ -110,6 +110,17 @@ def capture_to_host(tree):
     return _map_leaves(_host_copy, tree)
 
 
+def to_host(tree):
+    """Every leaf of ``tree`` as a numpy array (blocking; the reference's
+    ``to_host``); a bf16 tensor as f32, which numpy lacks."""
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu()
+            return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+        return np.asarray(x)
+    return _map_leaves(host, tree)
+
+
 def _as_numpy(leaf):
     """(numpy array, wire dtype tag or None) of a leaf."""
     if isinstance(leaf, torch.Tensor):

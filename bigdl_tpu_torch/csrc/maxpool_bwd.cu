@@ -16,26 +16,23 @@
 // offset compares, the ordered adds of one 2- or 4-byte element a thread) held the first,
 // two-pass form to several times that, as slow in bf16 as in f32.
 //
-// Variant tiled_nhwc (maxpool_bwd_tiled), for channels-innermost tensors whose channel
-// rows split into 16-byte vectors (C * element size a multiple of 16, every stride but
-// the channels' a multiple of the vector, 16-byte-aligned bases, 32-bit offsets) and
-// windows of fewer than 255 positions.  One launch, no global scratch: a block owns an
-// 8x16 (rows x columns) spatial tile of gi for a slice of up to 16 channel vectors (a
-// power of two) of one image, and each thread works on whole 16-byte vectors (8 bf16 or
-// 4 f32 channels), so the index arithmetic is paid once a vector.  The block (1) stages
-// into shared memory, with 16-byte loads (eight in flight a thread, each thread's first
-// window vectors of y and g asked
-// for before them), the x rows under every window that covers the tile (a halo window on
-// each side, recomputed by the neighbouring block), (2) finds each such window's first
-// match per channel once, into shared memory as a byte (255 where nothing matches, as for
-// a NaN maximum), beside the window's g vector, then (3) writes each gi vector of its
-// tile once, adding the covering windows' g in (dh, dw) order and rounding to x's dtype
-// after each add: four channels' bytes are compared at once (__vcmpeq4) and turned into
-// masks of g, and bf16 sums are kept as pairs added with add.rn.bf16x2, which rounds as
-// the f32 add followed by the round to bf16 does.  Shared-memory pitches follow the
-// launch's capacity, so task indices split by shifts and precomputed divisors.  At the
-// stem the 8x16 tile measured fastest of 8x8, 16x8, 8x16 and 16x16 on an H100
-// (probes/b1_tiles.py).
+// Variant tiled_nhwc (maxpool_bwd_tiled), for channels-innermost tensors whose channel rows split
+// into 16-byte vectors (C * element size a multiple of 16, every stride but the channels' a
+// multiple of the vector, 16-byte-aligned bases, 32-bit offsets) and windows of fewer than 255
+// positions.  One launch, no global scratch: a block owns an 8x16 (rows x columns) spatial tile of
+// gi for a slice of up to 16 channel vectors (a power of two) of one image, and each thread works
+// on whole 16-byte vectors (8 bf16 or f16, or 4 f32 channels), so the index arithmetic is paid once
+// a vector.  The block (1) stages into shared memory, with 16-byte loads (eight in flight a thread,
+// each thread's first window vectors of y and g asked for before them), the x rows under every
+// window that covers the tile (a halo window on each side, recomputed by the neighbouring block),
+// (2) finds each such window's first match per channel once, into shared memory as a byte (255
+// where nothing matches, as for a NaN maximum), beside the window's g vector, then (3) writes each
+// gi vector of its tile once, adding the covering windows' g in (dh, dw) order and rounding to x's
+// dtype after each add: four channels' bytes are compared at once (__vcmpeq4) and turned into masks
+// of g, and bf16 (f16) sums are kept as pairs added with add.rn.bf16x2 (add.rn.f16x2), which rounds
+// as the f32 add followed by the round to bf16 (f16) does. Shared-memory pitches follow the
+// launch's capacity, so task indices split by shifts and precomputed divisors.  At the stem the
+// 8x16 tile measured fastest of 8x8, 16x8, 8x16 and 16x16 on an H100 (probes/b1_tiles.py).
 //
 // Variant two_pass (first_match + scatter_first): every other geometry (NCHW, ragged C,
 // unaligned views, 64-bit offsets, windows of 255 positions or more).  No atomics, no
@@ -58,6 +55,7 @@
 // report it.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -99,13 +97,18 @@ struct Geom {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 // one add rounded to T, as PyTorch adds two tensors of T
 __device__ __forceinline__ float add_in(float acc, float v, float*) { return acc + v; }
 __device__ __forceinline__ float add_in(float acc, float v, __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(acc + v));
 }
+__device__ __forceinline__ float add_in(float acc, float v, __half*) {
+  return __half2float(__float2half_rn(acc + v));
+}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store(__half* p, float v) { *p = __float2half_rn(v); }
 
 // linear index -> (n, c, h, w) of an (N, C, H, W) grid walked in memory order
 template <typename I>
@@ -323,11 +326,11 @@ struct TileGeom {
 __host__ __device__ inline int cover(int t, int k, int s) { return (t + k - 2) / s + 1; }
 
 // x's dtype as f32 values of one 16-byte vector
-__device__ __forceinline__ void unpack(uint4 v, float (&f)[4]) {
+__device__ __forceinline__ void unpack(uint4 v, float (&f)[4], float*) {
   f[0] = __uint_as_float(v.x); f[1] = __uint_as_float(v.y);
   f[2] = __uint_as_float(v.z); f[3] = __uint_as_float(v.w);
 }
-__device__ __forceinline__ void unpack(uint4 v, float (&f)[8]) {
+__device__ __forceinline__ void unpack(uint4 v, float (&f)[8], __nv_bfloat16*) {
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -335,13 +338,29 @@ __device__ __forceinline__ void unpack(uint4 v, float (&f)[8]) {
     f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
+__device__ __forceinline__ void unpack(uint4 v, float (&f)[8], __half*) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+    f[2 * i] = p.x;  // the low half is the first channel
+    f[2 * i + 1] = p.y;
+  }
+}
 
 // two bf16 adds, each rounded to nearest even once: what rounding the f32 sum of two
 // bf16 values to bf16 gives (that f32 sum cannot land on a bf16 halfway point unless it
 // is exact), so the reference's f32-add-then-round order agrees bitwise
-__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+__device__ __forceinline__ uint32_t add_pair(uint32_t a, uint32_t b, __nv_bfloat16*) {
   uint32_t r;
   asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+// f16 the same way: two f16 values' f32 sum rounded to f16 is their f16 sum rounded
+// once (f32's 24 bits are at least 2 * 11 + 2, so the double rounding is innocuous)
+__device__ __forceinline__ uint32_t add_pair(uint32_t a, uint32_t b, __half*) {
+  uint32_t r;
+  asm("add.rn.f16x2 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(b));
   return r;
 }
 
@@ -380,11 +399,12 @@ __device__ __forceinline__ uint4 gather_gi(const uint4* gsm, const uint32_t* fir
   return make_uint4(__float_as_uint(acc[0]), __float_as_uint(acc[1]), __float_as_uint(acc[2]),
                     __float_as_uint(acc[3]));
 }
-// bf16: 8 channels, two first-match words, the sums kept as bf16 pairs
-__device__ __forceinline__ uint4 gather_gi(const uint4* gsm, const uint32_t* first,
-                                           const TileGeom& q, int hp, int wp, int a_lo,
-                                           int a_hi, int b_lo, int b_hi, int oh_lo, int ow_lo,
-                                           int v, __nv_bfloat16*) {
+// bf16 and f16: 8 channels, two first-match words, the sums kept as pairs of T
+template <typename T>
+__device__ __forceinline__ uint4 gather_pairs(const uint4* gsm, const uint32_t* first,
+                                              const TileGeom& q, int hp, int wp, int a_lo,
+                                              int a_hi, int b_lo, int b_hi, int oh_lo,
+                                              int ow_lo, int v) {
   uint32_t acc[4] = {0u, 0u, 0u, 0u};
   for (int oh = a_hi; oh >= a_lo; --oh) {
     const int dh = hp - oh * q.sh;
@@ -395,13 +415,27 @@ __device__ __forceinline__ uint4 gather_gi(const uint4* gsm, const uint32_t* fir
       const uint32_t h0 = __vcmpeq4(f.x, off), h1 = __vcmpeq4(f.y, off);
       const uint4 gv = gsm[wi];
       // channel pairs (0,1), (2,3) from h0's bytes, (4,5), (6,7) from h1's
-      acc[0] = add_bf16x2(acc[0], gv.x & __byte_perm(h0, 0, 0x1100));
-      acc[1] = add_bf16x2(acc[1], gv.y & __byte_perm(h0, 0, 0x3322));
-      acc[2] = add_bf16x2(acc[2], gv.z & __byte_perm(h1, 0, 0x1100));
-      acc[3] = add_bf16x2(acc[3], gv.w & __byte_perm(h1, 0, 0x3322));
+      acc[0] = add_pair(acc[0], gv.x & __byte_perm(h0, 0, 0x1100), (T*)nullptr);
+      acc[1] = add_pair(acc[1], gv.y & __byte_perm(h0, 0, 0x3322), (T*)nullptr);
+      acc[2] = add_pair(acc[2], gv.z & __byte_perm(h1, 0, 0x1100), (T*)nullptr);
+      acc[3] = add_pair(acc[3], gv.w & __byte_perm(h1, 0, 0x3322), (T*)nullptr);
     }
   }
   return make_uint4(acc[0], acc[1], acc[2], acc[3]);
+}
+__device__ __forceinline__ uint4 gather_gi(const uint4* gsm, const uint32_t* first,
+                                           const TileGeom& q, int hp, int wp, int a_lo,
+                                           int a_hi, int b_lo, int b_hi, int oh_lo, int ow_lo,
+                                           int v, __nv_bfloat16*) {
+  return gather_pairs<__nv_bfloat16>(gsm, first, q, hp, wp, a_lo, a_hi, b_lo, b_hi, oh_lo,
+                                     ow_lo, v);
+}
+__device__ __forceinline__ uint4 gather_gi(const uint4* gsm, const uint32_t* first,
+                                           const TileGeom& q, int hp, int wp, int a_lo,
+                                           int a_hi, int b_lo, int b_hi, int oh_lo, int ow_lo,
+                                           int v, __half*) {
+  return gather_pairs<__half>(gsm, first, q, hp, wp, a_lo, a_hi, b_lo, b_hi, oh_lo, ow_lo,
+                              v);
 }
 
 // Block (blockIdx.x = (n, tile row, tile column), blockIdx.y = channel slice) as the
@@ -488,7 +522,7 @@ __global__ void __launch_bounds__(TILE_THREADS, 4)
     unpack(first_task ? y0
                       : *reinterpret_cast<const uint4*>(y + n * q.ys[0] + oh * q.ys[1] +
                                                         ow * q.ys[2] + c),
-           yf);
+           yf, (T*)nullptr);
     gsm[i] = first_task ? g0
                         : *reinterpret_cast<const uint4*>(g + n * q.gs[0] + oh * q.gs[1] +
                                                           ow * q.gs[2] + c);
@@ -503,7 +537,7 @@ __global__ void __launch_bounds__(TILE_THREADS, 4)
       const uint4* xr = xsm + (((wr * q.sh + dh) * q.xw + wc * q.sw) << q.lvb) + v;
       for (int dw = dw1 - 1; dw >= dw0; --dw) {
         float xf[VEC];
-        unpack(xr[dw << q.lvb], xf);
+        unpack(xr[dw << q.lvb], xf, (T*)nullptr);
 #pragma unroll
         for (int e = 0; e < VEC; ++e)
           if (xf[e] == yf[e]) found[e] = dh * q.kw + dw;
@@ -637,14 +671,15 @@ bool parse(const long long* dims, const long long* strides, int channels_last, G
 
 bool tiled_applies(int dtype, const void* x, const void* y, const void* g, const void* gi,
                    const Geom& q, TileGeom* t) {
-  return dtype == 0 ? plan_tiled<float>(x, y, g, gi, q, t)
-                    : plan_tiled<__nv_bfloat16>(x, y, g, gi, q, t);
+  return dtype == 0   ? plan_tiled<float>(x, y, g, gi, q, t)
+         : dtype == 1 ? plan_tiled<__nv_bfloat16>(x, y, g, gi, q, t)
+                      : plan_tiled<__half>(x, y, g, gi, q, t);
 }
 
 }  // namespace
 
-// dtype: 0 f32, 1 bf16 (x, y, g, gi all of it).  dims: N, C, H, W, OH, OW, kh, kw, sh, sw,
-// ph, pw (ph, pw the lo padding).  strides: 16 element strides, (n, c, h, w) of x, y, g and
+// dtype: 0 f32, 1 bf16, 2 f16 (x, y, g, gi all of it).  dims: N, C, H, W, OH, OW, kh, kw,
+// sh, sw, ph, pw (ph, pw the lo padding).  strides: 16 element strides, (n, c, h, w) of x, y, g and
 // gi in that order.  Returns the variant these tensors take: 1 tiled_nhwc, 0 two_pass (it
 // needs the idx scratch below), -1 a bad dtype or geometry.
 extern "C" int bigdl_maxpool_bwd_variant(int dtype, const void* x, const void* y, const void* g,
@@ -652,7 +687,7 @@ extern "C" int bigdl_maxpool_bwd_variant(int dtype, const void* x, const void* y
                                          const long long* strides, int channels_last) {
   Geom q;
   TileGeom t;
-  if ((dtype != 0 && dtype != 1) || !parse(dims, strides, channels_last, &q)) return -1;
+  if (dtype < 0 || dtype > 2 || !parse(dims, strides, channels_last, &q)) return -1;
   return tiled_applies(dtype, x, y, g, gi, q, &t) ? 1 : 0;
 }
 
@@ -669,12 +704,14 @@ extern "C" int bigdl_maxpool_bwd(int dtype, const void* x, const void* y, const 
                                  int* info) {
   Geom q;
   TileGeom t;
-  if ((dtype != 0 && dtype != 1) || !parse(dims, strides, channels_last, &q))
+  if (dtype < 0 || dtype > 2 || !parse(dims, strides, channels_last, &q))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tiled_applies(dtype, x, y, g, gi, q, &t))
-    return (int)(dtype == 0 ? launch_tiled<float>(x, y, g, gi, t, s, info)
-                            : launch_tiled<__nv_bfloat16>(x, y, g, gi, t, s, info));
-  return (int)(dtype == 0 ? launch_two_pass<float>(x, y, g, gi, idx, q, s, info)
-                          : launch_two_pass<__nv_bfloat16>(x, y, g, gi, idx, q, s, info));
+    return (int)(dtype == 0   ? launch_tiled<float>(x, y, g, gi, t, s, info)
+                 : dtype == 1 ? launch_tiled<__nv_bfloat16>(x, y, g, gi, t, s, info)
+                              : launch_tiled<__half>(x, y, g, gi, t, s, info));
+  return (int)(dtype == 0   ? launch_two_pass<float>(x, y, g, gi, idx, q, s, info)
+               : dtype == 1 ? launch_two_pass<__nv_bfloat16>(x, y, g, gi, idx, q, s, info)
+                            : launch_two_pass<__half>(x, y, g, gi, idx, q, s, info));
 }

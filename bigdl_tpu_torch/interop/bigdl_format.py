@@ -25,8 +25,8 @@ of ``utils/protowire``:
   then ``weight_scale`` and the bias, with their mode in ``quantMode``.
 
 The loader builds port modules on the CPU with the file's weights; move
-the model to its device afterwards.  ``DynamicGraph`` loads as a plain
-``Graph``.
+the model to its device afterwards.  A ``DynamicGraph`` loads as a
+``DynamicGraph`` (``nn/graph.py``).
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch import nn
-from bigdl_tpu_torch.nn.graph import Graph, Input
+from bigdl_tpu_torch.nn.graph import DynamicGraph, Graph, Input
 from bigdl_tpu_torch.nn.module import Module, Remat
 from bigdl_tpu_torch.utils import protowire as pw
 
@@ -192,11 +192,11 @@ def _conv(a, name=None) -> "nn.SpatialConvolution":
         format=a.get("format", "NCHW"), name=name)
 
 
-def _build_graph(node: dict, name) -> Graph:
+def _build_graph(node: dict, name, cls=Graph) -> Graph:
     """The reference's GraphSerializable: sub-modules with preModules
-    edges, inputNames/outputNames attributes.  Shared instances are tied by
-    the proto ``id`` field; a repeated NAME (writers without ids) ties
-    too."""
+    edges, inputNames/outputNames attributes, built as ``cls``.  Shared
+    instances are tied by the proto ``id`` field; a repeated NAME (writers
+    without ids) ties too."""
     a = node["attrs"]
     in_names = list(a.get("inputNames", []))
     out_names = list(a.get("outputNames", []))
@@ -232,7 +232,7 @@ def _build_graph(node: dict, name) -> Graph:
                              else pres_nodes[0])
     inputs = [inputs_by_name[n] for n in in_names]
     outputs = [occurrence[n] for n in out_names]
-    return Graph(inputs, outputs, name=name)
+    return cls(inputs, outputs, name=name)
 
 
 _SIMPLE = {"ReLU": nn.ReLU, "Tanh": nn.Tanh, "Sigmoid": nn.Sigmoid,
@@ -248,7 +248,8 @@ def _construct(node: dict) -> Module:
     a = node["attrs"]
     name = node["name"] or None
     if t in ("StaticGraph", "Graph", "DynamicGraph"):
-        return _build_graph(node, name)
+        return _build_graph(node, name,
+                            DynamicGraph if t == "DynamicGraph" else Graph)
     if t in _CONTAINERS:
         m = (nn.Concat(dim=int(a.get("dimension", 2)) - 1, name=name)
              if t == "Concat" else getattr(nn, t)(name=name))

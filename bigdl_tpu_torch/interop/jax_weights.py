@@ -27,6 +27,12 @@ child ``"s"`` (``to_jax_params`` stacks the stages' tensors,
 quantized recurrent cell's int8 panels, scales and biases are buffers of
 the cell, so they cross as the state of its ``Recurrent``
 (``state["1"]["fwd"]["wq"]``), bitwise, its params empty.
+The last layers keep the reference's trees as they are: a ``While``'s
+children under ``body`` (and ``cond``), a ``Cond``'s under ``true``,
+``false`` (and ``pred``), ``BinaryTreeLSTM``'s ``leaf_c``, ``leaf_o`` and
+``comp_{i,lf,rf,u,o}_{l,r}`` each ``{w, b}``, a ``DynamicGraph``'s by
+node index as a ``Graph``'s; ``Bottle`` and ``MapTable`` hold their inner
+module's tree as their own (``nn.module.Wrapper``, as ``Remat``).
 A model placed for tensor parallelism (``parallel.shard_module``) keeps
 the unsharded tree: a parameter split into ``Shards`` answers under its
 unsharded name, reassembled on the way out and cut into its slices on the

@@ -124,8 +124,10 @@ class TFSession:
                         p.grad = None
                     loss = torch.mean(m(feeds))
                     loss.backward()
-                    method.update({k: p.grad for k, p in params.items()},
-                                  params, ostate, lr, it)
+                    method.update(
+                        {k: p.grad if p.grad is not None
+                         else torch.zeros_like(p) for k, p in params.items()},
+                        params, ostate, lr, it)
                     losses.append(float(loss.detach()))
                     it += 1
                 if stop:

@@ -14,7 +14,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.nn.module import Module, Stochastic
 
 
 class ReLU(Module):
@@ -129,7 +129,7 @@ class PReLU(Module):
         return torch.where(x >= 0, x, w * x)
 
 
-class RReLU(Module):
+class RReLU(Stochastic):
     """Randomized leaky ReLU: slope ~ U(lower, upper) in training, drawn
     from ``self.generator`` (a ``torch.Generator`` on the input's device;
     training without one raises), the mean slope in eval mode."""
@@ -138,7 +138,6 @@ class RReLU(Module):
                  name=None):
         super().__init__(name)
         self.lower, self.upper = lower, upper
-        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x):
         if self.training:

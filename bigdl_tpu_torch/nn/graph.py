@@ -18,8 +18,10 @@ the reference's parameter key), so ``state_dict()`` keys,
 ``parameters()`` and ``interop.to_jax_params`` follow the reference's
 ``params[key]`` tree and a shared module's weights appear once.
 
-The reference's ``DynamicGraph`` (control-flow nodes) waits for the
-control-flow modules; files that name it load as a plain ``Graph``.
+:class:`DynamicGraph` is a ``Graph`` whose nodes may be the control-flow
+modules of ``nn/control_flow.py`` (``While``, ``Cond``, ``Switch``,
+``Merge``); data-dependent control flow lives inside those nodes, so it
+runs in the same topological order.  Files that name it load as one.
 """
 
 from __future__ import annotations
@@ -136,3 +138,13 @@ class Graph(Module):
                 args[0] if len(args) == 1 else tuple(args))
         outs = [values[id(n)] for n in self.output_nodes]
         return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+class DynamicGraph(Graph):
+    """A graph whose nodes may be control-flow modules (``While``,
+    ``Cond``, ``Switch``/``Merge``): the reference's dynamic graph, whose
+    scheduler interprets loop frames and dead tokens node by node.  Here
+    a loop frame is one ``While`` node and a Switch/Merge pair a select,
+    so the graph runs in ``Graph``'s topological order, and a loop trained
+    through ``While`` gets its gradients, which the reference's dynamic
+    graphs cannot give."""

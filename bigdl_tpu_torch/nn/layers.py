@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.initialization import (InitializationMethod,
                                                RandomNormal, RandomUniform)
-from bigdl_tpu_torch.nn.module import Module, recomputing
+from bigdl_tpu_torch.nn.module import Module, Stochastic, recomputing
 from bigdl_tpu_torch.ops.maxpool import maxpool2d
 
 FORMATS = ("NCHW", "NHWC")
@@ -354,7 +354,7 @@ class BatchNormalization(SpatialBatchNormalization):
     """1-D BatchNorm over ``(N, C)``."""
 
 
-class Dropout(Module):
+class Dropout(Stochastic):
     """Inverted dropout: scales kept values by 1/(1-p) in training mode,
     identity in eval mode or at ``p == 0``.  The mask is drawn from
     ``self.generator``, a ``torch.Generator`` on the input's device that
@@ -365,7 +365,6 @@ class Dropout(Module):
     def __init__(self, init_p: float = 0.5, name: Optional[str] = None):
         super().__init__(name)
         self.p = init_p
-        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x):
         if not self.training or self.p <= 0.0:

@@ -61,6 +61,17 @@ class Module(torch.nn.Module):
         return self
 
 
+class Stochastic(Module):
+    """A layer that draws random numbers in training mode from
+    ``self.generator``, a ``torch.Generator`` on the input's device that
+    the caller sets (``LocalOptimizer`` gives each such layer of its
+    training copy one of its own)."""
+
+    def __init__(self, name: Optional[str] = None):
+        super().__init__(name)
+        self.generator: Optional[torch.Generator] = None
+
+
 class Container(Module):
     """Composite module; children are named by their index."""
 
@@ -165,10 +176,12 @@ def recomputing() -> bool:
 
 def walk(root: torch.nn.Module):
     """Every module of ``root``'s tree, the inner module of each
-    :class:`Remat` included (``modules()`` reaches only its children)."""
+    :class:`Wrapper` (a :class:`Remat`) included (``modules()`` reaches
+    only its children)."""
     for m in root.modules():
         yield m
-        inner = getattr(m, "inner", None) if isinstance(m, Remat) else None
+        inner = getattr(m, "inner", None) if isinstance(m, Wrapper) \
+            else None
         if inner is not None:
             yield inner
 
@@ -270,29 +283,21 @@ def checkpointed(fn: Callable, module: torch.nn.Module,
     return run
 
 
-class Remat(Module):
-    """Rematerialization: ``inner``'s activations are not kept for the
-    backward but recomputed there.  ``policy`` None recomputes everything,
-    ``"tails"`` keeps the convolutions' outputs and recomputes the
-    BatchNorm and ReLU tails, ``"dots"`` keeps every product's output.
+class Wrapper(Module):
+    """A module transparent in the tree: it shares its inner module's
+    parameters, buffers and children (no key level), so ``state_dict()``
+    keys, snapshots and interop paths are those of the inner module, as
+    the reference's wrappers hold their inner module's tree as their own
+    (``Remat``, ``Bottle``, ``MapTable``).  ``walk`` reaches the inner
+    module itself."""
 
-    Transparent in the tree: a ``Remat`` shares its inner module's
-    parameters, buffers and children, so ``state_dict()`` keys, snapshots
-    and interop paths are those of the model without it (the reference's
-    ``spec_children`` returns the inner module).  The region's parameters
-    enter the checkpoint as inputs, so a recomputation under
-    ``functional_call`` (mixed precision) uses the casts the first forward
-    used."""
-
-    def __init__(self, inner: Module, policy: Optional[str] = None,
-                 name: Optional[str] = None):
-        super().__init__(name or f"Remat[{getattr(inner, 'name', '')}]")
+    def __init__(self, inner: Module, name: Optional[str] = None):
+        super().__init__(name)
         object.__setattr__(self, "inner", inner)  # not a child: no key level
         self._parameters = inner._parameters
         self._buffers = inner._buffers
         self._modules = inner._modules
         self._non_persistent_buffers_set = inner._non_persistent_buffers_set
-        self.policy = policy
 
     def reset_parameters(self, generator):
         if isinstance(self.inner, Module):
@@ -302,6 +307,25 @@ class Remat(Module):
         super().train(mode)
         self.inner.training = mode
         return self
+
+
+class Remat(Wrapper):
+    """Rematerialization: ``inner``'s activations are not kept for the
+    backward but recomputed there.  ``policy`` None recomputes everything,
+    ``"tails"`` keeps the convolutions' outputs and recomputes the
+    BatchNorm and ReLU tails, ``"dots"`` keeps every product's output.
+
+    Transparent in the tree (a :class:`Wrapper`; the reference's
+    ``spec_children`` returns the inner module).  The region's parameters
+    enter the checkpoint as inputs, so a recomputation under
+    ``functional_call`` (mixed precision) uses the casts the first forward
+    used."""
+
+    def __init__(self, inner: Module, policy: Optional[str] = None,
+                 name: Optional[str] = None):
+        super().__init__(inner,
+                         name or f"Remat[{getattr(inner, 'name', '')}]")
+        self.policy = policy
 
     def forward(self, x):
         from torch.func import functional_call

@@ -219,8 +219,9 @@ def launch(rows, cols, values, table, n_rows: int):
         raise TypeError(f"rows and cols must be int32, got {rows.dtype} and "
                         f"{cols.dtype}")
     if values.dtype not in _DTYPE_CODE or table.dtype not in _DTYPE_CODE:
-        raise TypeError(f"values and table must be f32 or bf16, got "
-                        f"{values.dtype} and {table.dtype}")
+        raise TypeError(f"kernel B3 (the embedding bag) has no form for "
+                        f"{values.dtype} values and a {table.dtype} table: "
+                        f"values and table must be f32 or bf16")
     if table.dim() != 2 or not table.is_contiguous():
         raise ValueError(f"the table must be a contiguous (V, D), got "
                          f"{tuple(table.shape)} strides {table.stride()}")

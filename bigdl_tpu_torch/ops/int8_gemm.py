@@ -156,8 +156,8 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
         raise ValueError(f"int8_matmul wants x (N, K) and wq (O, K); got "
                          f"{tuple(x.shape)} and {tuple(wq.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"int8_matmul takes f32/bf16 activations, got "
-                        f"{x.dtype}")
+        raise TypeError(f"kernel B4 (the int8 GEMM) has no {x.dtype} form: "
+                        f"int8_matmul takes f32/bf16 activations")
     xin, scale_row = prepare_operands(x, wscale, mode)
     bias_row = None if bias is None else bias.float().reshape(-1).contiguous()
     return int8_gemm(xin, wq, scale_row, bias_row)

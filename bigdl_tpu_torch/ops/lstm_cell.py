@@ -121,7 +121,8 @@ def launch_fwd(zx, h, c, w_t, forget_bias: float = 0.0):
     if dev.type != "cuda":
         raise RuntimeError(f"the LSTM cell kernel runs on CUDA, not {dev}")
     if zx.dtype not in _DTYPE_CODE:
-        raise TypeError(f"the LSTM cell takes f32 or bf16, got {zx.dtype}")
+        raise TypeError(f"kernel B2f (the LSTM cell forward) has no "
+                        f"{zx.dtype} form: the LSTM cell takes f32 or bf16")
     N, H = h.shape
     _check((("zx", zx), ("h", h), ("c", c), ("w_t", w_t)),
            ((N, 4 * H), (N, H), (N, H), (H, 4 * H)), (zx.dtype,) * 4, dev)
@@ -142,7 +143,8 @@ def _bwd_args(z, c, dh, dc):
     if dev.type != "cuda":
         raise RuntimeError(f"the LSTM cell kernel runs on CUDA, not {dev}")
     if c.dtype not in _DTYPE_CODE:
-        raise TypeError(f"the LSTM cell takes f32 or bf16, got {c.dtype}")
+        raise TypeError(f"kernel B2b (the LSTM cell backward) has no "
+                        f"{c.dtype} form: the LSTM cell takes f32 or bf16")
     N, H = c.shape
     _check((("z", z), ("c", c), ("dh", dh), ("dc", dc)),
            ((N, 4 * H), (N, H), (N, H), (N, H)),

@@ -14,7 +14,7 @@ hand-written Hopper kernel (``csrc/maxpool_bwd.cu``, :func:`launch`) or
 raises; a CPU tensor runs the plain version :func:`maxpool_bwd_reference`.
 There is no ``impl`` knob, no ``supported()`` gate and no fallback: the
 kernel takes any N, C, H, W, stride, padding and ceil-mode geometry, in
-NCHW or NHWC (four strides per tensor), in f32 or bf16.
+NCHW or NHWC (four strides per tensor), in f32, bf16 or f16.
 
 Tensors here are indexed ``(N, C, H, W)``; an NHWC layer passes its
 ``x.permute(0, 3, 1, 2)`` view, which is ``channels_last`` in memory, and
@@ -55,7 +55,7 @@ last_variant = None
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]  # ((h_lo, h_hi), (w_lo, w_hi))
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _fns = None  # the C entry points, see _kernel_fns
 
 
@@ -131,8 +131,8 @@ def launch(x, y, g, kernel, stride, pads: Pads):
         raise RuntimeError(f"the max-pool backward kernel runs on CUDA, not "
                            f"{dev}")
     if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"the max-pool backward takes f32 or bf16, got "
-                        f"{x.dtype}")
+        raise TypeError(f"the max-pool backward takes f32, bf16 or f16, "
+                        f"got {x.dtype}")
     if x.dim() != 4 or y.dim() != 4 or tuple(g.shape) != tuple(y.shape) \
             or y.shape[:2] != x.shape[:2]:
         raise ValueError(f"x (N, C, H, W) and y, g (N, C, OH, OW) expected, "

@@ -45,9 +45,10 @@ Around the loop, as in the reference:
 
 The trigger probe covers the validation and checkpoint triggers, so the
 iteration where one fires ends a block: validation and the snapshot see
-that iteration's parameters.  Dropout and RReLU draw from generators
-seeded by (run seed, layer, iteration), so a resumed run draws what the
-uninterrupted one drew.
+that iteration's parameters.  The stochastic layers (each a
+:class:`~bigdl_tpu_torch.nn.module.Stochastic`: ``Dropout``, ``RReLU``,
+...) draw from generators seeded by (run seed, layer, iteration), so a
+resumed run draws what the uninterrupted one drew.
 
 The step's loss is the criterion's plus every layer's regularizer penalty
 (``nn/regularizers.py``).  ``set_activation_memory`` picks what the
@@ -104,10 +105,8 @@ from bigdl_tpu_torch.dataset.prefetch import (DeviceBlockStager, StagedBlock,
 from bigdl_tpu_torch.engine import Engine, resolve_device
 from bigdl_tpu_torch.interop.jax_weights import (from_jax_tree, jax_tree,
                                                  load_jax_params)
-from bigdl_tpu_torch.nn.activations import RReLU
 from bigdl_tpu_torch.nn.criterion import Criterion
-from bigdl_tpu_torch.nn.layers import Dropout
-from bigdl_tpu_torch.nn.module import checkpointed, walk
+from bigdl_tpu_torch.nn.module import Stochastic, checkpointed, walk
 from bigdl_tpu_torch.nn.regularizers import (has_regularizers,
                                              regularization_loss)
 from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
@@ -165,6 +164,18 @@ def step_finite(loss, grads: Tensors) -> torch.Tensor:
     flags += [torch.isfinite(g).all().to(loss.device)
               for g in grads.values() if g.is_floating_point()]
     return torch.stack(flags).all()
+
+
+def select_step(finite: torch.Tensor, new, old):
+    """``new`` where the step was finite, ``old`` otherwise, leaf by leaf
+    of a tensor or a dict, list or tuple of them (the skip guard's select:
+    a skipped step leaves parameters, model state and optimizer state as
+    if it never ran)."""
+    if isinstance(new, dict):
+        return {k: select_step(finite, new[k], old[k]) for k in new}
+    if isinstance(new, (list, tuple)):
+        return type(new)(select_step(finite, a, b) for a, b in zip(new, old))
+    return torch.where(finite, new, old)
 
 
 def stream_seed(seed: int, layer: int, step: int) -> int:
@@ -458,12 +469,17 @@ class Optimizer:
         return self
 
     def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> "Optimizer":
-        """Mixed precision: forward and backward in ``dtype`` (bf16 for
-        the tensor cores); parameters, gradients, optimizer state and the
-        update stay f32.  ``None`` and ``torch.float32`` compute in f32."""
-        if dtype not in (None, torch.float32, torch.bfloat16):
+        """Mixed precision: forward and backward in ``dtype`` (bf16 or
+        f16 for the tensor cores); parameters, gradients, optimizer state
+        and the update stay f32.  ``None`` and ``torch.float32`` compute in
+        f32.  f16, like the reference's, runs without loss scaling; a
+        kernel with no f16 form (the LSTM cell, the embedding bag, the
+        int8 GEMM) raises when an f16 run reaches it on the card."""
+        if dtype not in (None, torch.float32, torch.bfloat16,
+                         torch.float16):
             _not_ported(f"compute dtype {dtype} (set_compute_dtype takes "
-                        f"None, torch.float32 or torch.bfloat16)")
+                        f"None, torch.float32, torch.bfloat16 or "
+                        f"torch.float16)")
         self.compute_dtype = dtype
         return self
 
@@ -735,8 +751,7 @@ class Optimizer:
         parameters by name, requiring gradients, and its stochastic layers,
         each drawing from a generator of its own)."""
         net = self._placed_copy(device).train()
-        stochastic = [m for m in walk(net)
-                      if isinstance(m, (Dropout, RReLU))]
+        stochastic = [m for m in walk(net) if isinstance(m, Stochastic)]
         for m in stochastic:
             m.generator = torch.Generator(device=device)
         params = dict(net.named_parameters())
@@ -1289,7 +1304,10 @@ class LocalOptimizer(Optimizer):
                            *state_leaves(ostate)]]
             loss = loss_fn(x, y)
             loss.backward()
-            grads = {k: p.grad for k, p in params.items()}
+            # a parameter the step did not reach (a Cond's other branch)
+            # has no gradient: the reference's zero
+            grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                     for k, p in params.items()}
             if clip is not None:
                 grads = clip(grads)
             if guard == "off":
@@ -1300,7 +1318,7 @@ class LocalOptimizer(Optimizer):
             if guard == "skip":
                 with torch.no_grad():
                     for t, old in before:
-                        t.copy_(torch.where(finite, t, old))
+                        t.copy_(select_step(finite, t, old))
             return loss.detach(), finite
 
         logger.info("LocalOptimizer: %d samples/epoch, device=%s",

@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (``bigdl_tpu_torch``) on one NVIDIA card.
 
-Drives the port's eighteen main paths and holds every kernel of them against
+Drives the port's nineteen main paths and holds every kernel of them against
 its plain PyTorch version.  Serving: an int8-quantized ResNet-50 (1000
 classes, 224x224, NCHW, random weights from a seed) served by
 ``ModelRegistry`` with ``quantize=True`` (weight_only) and
@@ -59,7 +59,14 @@ model group of the one card twice (``[cuda:0, cuda:0]``):
 ``transformer_lm(shard=True)`` at its defaults forward, trained through
 ``DistriOptimizer(param_specs=)``, served by a ``ShardedReplicaSet`` behind
 the front end and decoded by ``DecodeService(mesh=)`` with its KV cache
-split on the heads, and the int8 ResNet-50 in NHWC on B4.
+split on the heads, and the int8 ResNet-50 in NHWC on B4; and the
+ImageNet recipe of ``examples/resnet/train_imagenet.py --seqfiles`` fed
+from Hadoop SequenceFiles (ResNet-50, NHWC, bf16, batch 256, B1 at the
+stem), with the rest of ``nn/`` at the sizes its users run it: SSD300's
+priors and output head, Faster R-CNN VGG16's proposals, RoI pooling and
+output head, the Tree-LSTM sentiment recipe, a ``BinaryTreeLSTM`` at SST
+widths, a trained ``While``, the volumetric and extras layers, and LeNet-5
+in f16 with B1 in f16.
 Phases, each printing its seconds:
 
 1. the card: name, count, ``nvidia-smi`` name and power limit;
@@ -100,7 +107,7 @@ Phases, each printing its seconds:
    the variant ``TILED_CASES`` says, then at the ResNet-50 stem in bf16 and
    f32 its error on the timed inputs and its time beside the bound, the
    plain version and PyTorch's ``max_pool2d_with_indices_backward``;
-9. resnet-train timed phase: the recipe twice, 12 steps each, through its
+9. resnet-train timed phase: the recipe twice, 8 steps each, through its
    own pipeline (8 worker threads) and over batches augmented beforehand
    (images/s, ms per step, block losses that must be finite and fall,
    peak memory, B1 launches that must equal the steps, all bf16 and all
@@ -135,7 +142,7 @@ Phases, each printing its seconds:
    24) and (128, 12, 8, 8), 2x2/2, NCHW f32), bitwise against its plain
    version in ``two_pass``, then on tanh outputs its device time beside
    the bound, the plain version and ``max_pool2d_with_indices_backward``;
-15. lenet timed phase: the recipe for two epochs (samples/s, ms per step,
+15. lenet timed phase: the recipe for one epoch (samples/s, ms per step,
    peak memory, Top-1/Top-5 after each epoch over the 10,000 validation
    images, each snapshot's commit ms and bytes); Top-1 after the last
    epoch must exceed 0.9, the loss must fall and B1 must launch 2 a step
@@ -150,9 +157,10 @@ Phases, each printing its seconds:
    losses and weights; at K=4 the preemption's snapshot is truncated on
    disk first and ``latest_valid`` must skip it;
 18. distri phase, ResNet-50 through ``DistriOptimizer`` at world 1 over
-   NCCL with the f32 wire, then the bf16 wire: a warm-up and two timed
-   K=4 blocks over pre-augmented images, a warm-up and one timed block
-   through the recipe's pipeline (images/s, ms per step, peak memory, the
+   NCCL with the f32 wire, then the bf16 wire: a warm-up and a timed
+   K=4 block over pre-augmented images, and with the f32 wire a warm-up
+   and one timed block through the recipe's pipeline (the pipeline bounds
+   both wires alike) (images/s, ms per step, peak memory, the
    bucket count, block losses that must fall, B1 launches that must equal
    the steps), then one profiled step a wire with the sync's device ms by
    phase (the kernels of the ``grad_sync.<phase>`` ranges);
@@ -186,7 +194,7 @@ Phases, each printing its seconds:
    batch 256 (``tiled_nhwc``) and 3 NCHW f32 ones at batch 4
    (``two_pass``: a 3x3/2 ceil-mode pool, 3x3/1 pad 1 pools), bitwise and
    timed; two timed runs of the recipe (pre-augmented and through its
-   pipeline, 8 timed steps each, two blocks an epoch: images/s, ms a
+   pipeline, 4 timed steps each, two blocks an epoch: images/s, ms a
    step, peak memory, a profiled K=4 block's idle share and top
    operations, B1 13 launches a step, all bf16
    ``tiled_nhwc``); then an NCHW f32 Inception v1 (its LRNs at an even
@@ -360,7 +368,46 @@ Phases, each printing its seconds:
    ``NeuralCF`` at MovieLens-1M's counts (6,040 users, 3,706 items)
    trained 8 steps through ``LocalOptimizer`` (Adam, BCE, batch 256), each
    step redone on the CPU from the card's weights; the peephole cells and
-   ``RecurrentDecoder``, one forward each against the CPU.
+   ``RecurrentDecoder``, one forward each against the CPU;
+34. seqfile (after resnet-train, on its 1,024 recipe samples): the samples
+   written as the reference's ImageNet sequence files (keys
+   ``"<name>\n<label>"``, 1-based labels, raw HWC uint8 values; two plain
+   files, one record-compressed, one block-compressed) and read back
+   through ``dataset.seqfile.image_samples`` (``label - 1``): every record
+   bitwise the written sample; the recipe pipeline's first batch from the
+   files bitwise the in-memory one's; one K=4 block of the recipe
+   (``resnet50(format="NHWC")``, bf16, batch 256, ``MTSampleToMiniBatch``
+   at 8 workers, cuDNN's deterministic algorithms) fed from the files
+   bitwise the memory-fed block (losses and weights), B1 4 ``tiled_nhwc``
+   bf16 launches in it; planted faults (labels kept 1-based, one byte
+   flipped, the records reversed: a one-step block for the losses) must
+   break each check; write and read seconds, images/s;
+35. tail: B1 in f16 at every case of ``F16_POOL_CASES``, bitwise, and timed
+   at the stem and LeNet's pools beside the bound, the plain version and
+   the library (early, after the seqfile phase); SSD300's 8732 priors
+   over its six maps and ``DetectionOutputSSD`` at 21 classes, batch 8,
+   ``nms_topk`` 400, ``keep_topk`` 200; Faster R-CNN VGG16 at test time
+   (``Proposal`` pre-NMS 6000, post-NMS 300 over a 38x50 map,
+   ``RoiPooling`` 7x7 at 1/16 over (1, 512, 38, 50), peak memory,
+   ``DetectionOutputFrcnn`` at 21 classes and 100 detections): each
+   decode within ``TAIL_TOL`` of the CPU, each selection (batched NMS,
+   the cuts) on the card's decoded boxes bitwise the CPU's, RoI pooling
+   bitwise, each with a planted fault, times a call; the Tree-LSTM
+   sentiment recipe (``examples/treeLSTMSentiment/train.py``: 256 trees
+   of 6 leaves, embed 16, hidden 32, Adam 0.02, 60 steps) on the card
+   step by step against the CPU (every step read against step 0's loss
+   and gradients, a scale that does not vanish as the recipe fits its
+   trees; two planted faults over the whole run), accuracy above 0.9, a
+   ``BinaryTreeLSTM`` at embed 300, hidden 150 over 25 random trees of
+   5-50 leaves, forward and backward against the CPU and timed; a
+   ``DynamicGraph`` ``While`` (``max_trip_count`` 8, exit after 4, a body
+   that is inf on a dead trip) trained 20 Adam steps, gradients finite
+   and step by step against the CPU, its masked twin's NaN gradients the
+   planted fault; each volumetric and extras layer of ``TAIL_LAYERS``
+   forward and backward against the CPU; f16 refused by B2f, B2b, B3 and
+   B4 with a TypeError naming the kernel (the wrappers and an f16 PTB
+   step); LeNet-5 300 steps in f16, B1 2 f16 ``two_pass`` launches a
+   step, the loss falling.
 
 The last lines are the card, the kernel table and the result as JSON; any
 failed check raises and the script exits non-zero.  Without a CUDA card it
@@ -371,7 +418,7 @@ fails at once.  Run from the repository root:
                                     distri,cifar,inception,autoencoder,remat,
                                     text,nn-core,resilience,interop,
                                     predict,keras,frontend,parallel,
-                                    quantized-rnn,seq-pipe]
+                                    quantized-rnn,seq-pipe,seqfile,tail]
 
 ``--phases resnet-conditioning`` adds a diagnostic that is not run by
 default: the check phase's path reading at residual gammas 0 to 1, beside
@@ -418,6 +465,7 @@ from bigdl_tpu_torch.nn import quantize, recurrent  # noqa: E402
 from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,  # noqa: E402
                                           QuantizedSpatialConvolution,
                                           _QuantizedCellBase)
+from bigdl_tpu_torch.nn.tree import tree_plan  # noqa: E402
 from bigdl_tpu_torch.ops import (  # noqa: E402
     _build, embed_bag, int8_gemm, lstm_cell, maxpool)
 from bigdl_tpu_torch.ops.int8_gemm import (  # noqa: E402
@@ -671,12 +719,17 @@ def gemm_device_ms(k_fn, l_fn, calls=20):
     def ours(name):
         return "gemm_dynamic" in name or "gemm_weight_only" in name
 
-    for _ in range(3):  # a trace that lost the kernel's launches: again
+    # a trace that lost the kernel's launches (a session can lose its
+    # head, the kernel's calls come first) is taken again, each time with
+    # twice the calls, so that a lost head weighs less (as device_ms does)
+    for _ in range(6):
         per_call = per_call_ms(profiled_kernels(run), calls)
         mine = sum(ms for name, ms in per_call.items() if ours(name))
         if mine > 0:
             break
-        print("profiler: a trace lost the kernel's launches; taken again")
+        print(f"profiler: a trace lost the kernel's launches; taken again "
+              f"with {2 * calls} calls")
+        calls *= 2
     else:
         raise AssertionError("the profiler saw no device time of the kernel")
     lib = sum(per_call.values()) - mine
@@ -1496,12 +1549,35 @@ POOL_CASES = [
      "NCHW", torch.float32, "ints"),
     ("inception_check_5a_nchw_f32", (4, 832, 7, 7), 3, 1, 1, False, "NCHW",
      torch.float32, "ints"),
+    # f16 (set_compute_dtype(torch.float16)): the stem, LeNet's two pools
+    # at batch 128 (the tail phase's f16 LeNet run) and the kernel's other
+    # branches in f16: a 3x3/1 pad 1 tile, ragged C, the 5x3 loops, a
+    # 16x16 window (int32 offsets), a 2^31-element view (64-bit indices)
+    ("stem_nhwc_f16", (256, 64, 112, 112), 3, 2, 1, False, "NHWC",
+     torch.float16, "ints"),
+    ("stem_nhwc_f16_relu", (256, 64, 112, 112), 3, 2, 1, False, "NHWC",
+     torch.float16, "relu"),
+    ("lenet_pool1_nchw_f16", (128, 6, 24, 24), 2, 2, 0, False, "NCHW",
+     torch.float16, "ints"),
+    ("lenet_pool2_nchw_f16", (128, 12, 8, 8), 2, 2, 0, False, "NCHW",
+     torch.float16, "ints"),
+    ("3x3s1p1_nhwc_f16", (32, 192, 28, 28), 3, 1, 1, False, "NHWC",
+     torch.float16, "ints"),
+    ("3x3s2p1_c3_nhwc_f16", (8, 3, 33, 33), 3, 2, 1, False, "NHWC",
+     torch.float16, "ints"),
+    ("5x3s2p2x1_nchw_f16", (8, 64, 29, 30), (5, 3), 2, (2, 1), False,
+     "NCHW", torch.float16, "ints"),
+    ("16x16s8_nhwc_f16", (4, 64, 64, 64), 16, 8, 0, False, "NHWC",
+     torch.float16, "ints"),
+    ("3x3s2p1_wide_nhwc_f16", (2, 64, 28, 28), 3, 2, 1, False, "NHWC",
+     torch.float16, "wide"),
 ]
 LENET_POOL_CASES = ("lenet_pool1_nchw_f32", "lenet_pool2_nchw_f32")
 DISTRI_POOL_CASES = ("lenet_b64_pool1_nchw_f32", "lenet_b64_pool2_nchw_f32")
 VGG_POOL_CASES = tuple(f"vgg_pool{i}_nchw_f32" for i in range(1, 6))
 INCEPTION_POOL_CASES = tuple(c[0] for c in POOL_CASES
                              if c[0].startswith("inception_"))
+F16_POOL_CASES = tuple(c[0] for c in POOL_CASES if c[7] == torch.float16)
 # the cases that take B1's tiled_nhwc variant: NHWC, C a whole number of
 # 16-byte vectors, 16-byte-aligned bases, 32-bit offsets and windows of
 # fewer than 255 positions; the others (NCHW, C=3, the 16x16 windows, the
@@ -1509,7 +1585,8 @@ INCEPTION_POOL_CASES = tuple(c[0] for c in POOL_CASES
 TILED_CASES = {"stem_nhwc_f32", "stem_nhwc_bf16", "stem_nhwc_bf16_relu",
                "3x3s1p1_nhwc_bf16", "3x3s2_ceil_odd_nhwc_f32",
                "3x3s2p1_c160_nhwc_bf16", "5x3s2p2x1_nhwc_f32",
-               "1x1s2_nhwc_bf16",
+               "1x1s2_nhwc_bf16", "stem_nhwc_f16", "stem_nhwc_f16_relu",
+               "3x3s1p1_nhwc_f16",
                *(c for c in INCEPTION_POOL_CASES if c.endswith("_nhwc_bf16"))}
 
 
@@ -1599,15 +1676,16 @@ def pool_case_check(case, gen, device):
 
 
 def pool_kernel_phase(device, card, report):
-    """B1 against its plain version at every case of POOL_CASES but VGG's
-    and Inception's (their phases check those), bitwise (both add the
+    """B1 against its plain version at every case of POOL_CASES but VGG's,
+    Inception's and the f16 ones (their phases check those), bitwise (both add the
     same terms in the same order and dtype), each in the variant that
     TILED_CASES names, then, at the ResNet-50 stem (NHWC, batch 256) in
     bf16 (the training path's type) and f32: kernel, plain and library
     times beside the bound."""
     gen = torch.Generator(device=device).manual_seed(2718)
     for case in POOL_CASES:
-        if case[0] not in VGG_POOL_CASES + INCEPTION_POOL_CASES:
+        if case[0] not in (VGG_POOL_CASES + INCEPTION_POOL_CASES
+                           + F16_POOL_CASES):
             pool_case_check(case, gen, device)
     rows = {name: pool_row(pool_case(name), gen, device, card)
             for name in ("stem_nhwc_bf16", "stem_nhwc_f32")}
@@ -1655,7 +1733,8 @@ def pool_row(case, gen, device, card):
     # a partial sum (at most n max|g|) for each of the n adds
     lib = fns[2]()
     n = -(-kk[0] // ss[0]) * -(-kk[1] // ss[1])
-    ulp = 2.0 ** -23 if dtype == torch.float32 else 2.0 ** -7
+    ulp = {torch.float32: 2.0 ** -23, torch.float16: 2.0 ** -10}.get(
+        dtype, 2.0 ** -7)
     torch.testing.assert_close(lib.float(), got.float(), rtol=0,
                                atol=n * n * ulp * g.abs().max().item())
     del got, want
@@ -1693,7 +1772,7 @@ def pool_row(case, gen, device, card):
 # The recipe's synthetic stand-in images, 1024 of them (4 steps an epoch, so
 # a K=4 block is an epoch).
 RESNET = {"batch": 256, "K": 4, "size": 224, "classes": 1000,
-          "samples": 1024, "workers": 8, "timed_blocks": 2, "max_lr": 0.1,
+          "samples": 1024, "workers": 8, "timed_blocks": 1, "max_lr": 0.1,
           "warmup_epochs": 5, "check_batch": 8, "check_steps": 2}
 # the card against the CPU (grad_reading: the losses and the first step's
 # per-layer gradients; unit_reading: each conv+BN unit's per-layer
@@ -2637,18 +2716,22 @@ def wd_cpu_step(init, params, batch):
     return loss.item(), {k: p.grad.double() for k, p in m.named_parameters()}
 
 
-def max_share(got, want):
-    """The largest difference as a share of ``want``'s largest value."""
-    return ((got - want).abs().max() / want.abs().max()).item()
+def max_share(got, want, ref=None):
+    """The largest difference as a share of the largest value of ``ref``
+    (default ``want``)."""
+    ref = want if ref is None else ref
+    return (got - want).abs().max().item() / max(ref.abs().max().item(),
+                                                 1e-300)
 
 
-def norm_share(got, want):
-    """``||got - want|| / ||want||``."""
-    return (got - want).norm().item() / max(want.norm().item(), 1e-300)
+def norm_share(got, want, ref=None):
+    """``||got - want|| / ||ref||`` (``ref`` default ``want``)."""
+    ref = want if ref is None else ref
+    return (got - want).norm().item() / max(ref.norm().item(), 1e-300)
 
 
 def wd_step_reading(losses, steps, init, batches, cpu_step=wd_cpu_step,
-                    share=max_share):
+                    share=max_share, first_scale=False):
     """How far a K-step card run is from the CPU, step by step: the weights
     the card started from against ``init`` (per array, the largest
     difference as a share of its largest value), and for each step j the
@@ -2656,6 +2739,11 @@ def wd_step_reading(losses, steps, init, batches, cpu_step=wd_cpu_step,
     share of the array's largest gradient on the CPU; Inception's check
     passes ``norm_share``) from the same step on the CPU from the card's
     own weights of step j.  (reading, its four largest (share, what)).
+    ``first_scale`` reads every step's differences against step 0's CPU
+    loss and gradients, a scale that does not vanish as a run fits its
+    data (the Tree-LSTM recipe's loss falls to 1e-6, where log-softmax's
+    gradient 1 - p of a p within ulps of 1 is f32 cancellation on both
+    devices).
     Per array, not per layer as in :func:`grad_reading`: no gradient here
     is a sum that nearly cancels (the sound readings of the card runs are
     a few 1e-7), and the wide weight's own gradient is held apart from
@@ -2673,8 +2761,11 @@ def wd_step_reading(losses, steps, init, batches, cpu_step=wd_cpu_step,
             for k, w in start.items()]
     for j, (params, grads) in enumerate(steps):
         loss, want = cpu_step(init, params, batches[j])
-        rows.append((abs(losses[j] - loss) / abs(loss), f"step {j} loss"))
-        rows += [(share(grads[k], w), f"step {j} {k}")
+        if j == 0 or not first_scale:
+            ref_loss, ref = loss, want
+        rows.append((abs(losses[j] - loss) / abs(ref_loss),
+                     f"step {j} loss"))
+        rows += [(share(grads[k], w, ref[k]), f"step {j} {k}")
                  for k, w in want.items()]
     rows.sort(reverse=True)
     return rows[0][0], rows[:4]
@@ -2849,10 +2940,10 @@ def wd_timed_phase(seed, device, card, report):
 # pools' backward on B1's two_pass variant) on synthetic MNIST at MNIST's
 # own counts (60,000 training images, 10,000 validation images: a ragged
 # last validation batch of 16), batch 128, the recipe's SGD (lr 0.05,
-# momentum 0.9, no decay), K from Engine.steps_per_dispatch(), two epochs,
+# momentum 0.9, no decay), K from Engine.steps_per_dispatch(), one epoch,
 # Top-1/Top-5 every epoch, a snapshot every epoch, both summaries.
 LENET = {"train": 60_000, "val": 10_000, "batch": 128, "lr": 0.05,
-         "momentum": 0.9, "epochs": 2, "warmup_steps": 20, "check_K": 4,
+         "momentum": 0.9, "epochs": 1, "warmup_steps": 20, "check_K": 4,
          "resume_iters": 160, "resume_every": 50, "preempt_at": 120,
          "min_top1": 0.9}
 # the card against the CPU, step by step (wd_step_reading) and on the
@@ -2986,7 +3077,7 @@ def timed_commits(sound):
 
 
 def lenet_timed_phase(seed, device, card, report):
-    """The LeNet recipe on the card: two epochs of synthetic MNIST through
+    """The LeNet recipe on the card: an epoch of synthetic MNIST through
     LocalOptimizer with validation, snapshots and both summaries.  Prints
     samples/s and ms a step (host clock at replay, epoch 1 after its first
     steps, validation and snapshots left out), peak memory, Top-1/Top-5
@@ -3436,9 +3527,10 @@ def distri_profile_step(init, augmented, device, card, wire):
 def distri_resnet_phase(seed, device, card, report):
     """ResNet-50's ImageNet recipe through Optimizer.create(...,
     distributed=True) at world 1 over NCCL, with the f32 wire, then the
-    bf16 wire: each a warm-up block and two timed K=4 blocks over the
-    pre-augmented images, then a warm-up and DISTRI["pipeline_blocks"]
-    timed blocks through the recipe's pipeline (images/s, ms a step from the
+    bf16 wire: each a warm-up block and RESNET["timed_blocks"] timed K=4
+    blocks over the pre-augmented images, then with the f32 wire a warm-up
+    and DISTRI["pipeline_blocks"] timed blocks through the recipe's
+    pipeline, which bounds both wires alike (images/s, ms a step from the
     host clock at each block's replay), block losses that must be finite
     and fall, peak memory, the bucket count, B1's launches (one a step,
     bf16, tiled_nhwc); then one profiled step a wire.  Returns B1's
@@ -3458,6 +3550,8 @@ def distri_resnet_phase(seed, device, card, report):
     out, main_launches = {}, None
     for wire in ("f32", "bf16"):
         for name, (make, steps) in runs.items():
+            if wire == "bf16" and name == "pipeline":
+                continue
             t0 = time.monotonic()
             opt = distri_optimizer(copy.deepcopy(init), make(), device, wire,
                                    K, steps, recipe_sgd(per_epoch),
@@ -4139,7 +4233,7 @@ def cifar_phase(seed, device, card, report):
 # (two blocks, one epoch's end among them; 16 steps over four blocks
 # before the script's time limit asked for a cut).
 INCEPTION = {"batch": 256, "K": 4, "size": 224, "classes": 1000,
-             "samples": 1024, "repeat": 2, "workers": 8, "timed_blocks": 2,
+             "samples": 1024, "repeat": 2, "workers": 8, "timed_blocks": 1,
              "check_batch": 4, "check_K": 4,
              # the check's LRN: an even size (where torch's window differs
              # from the reference's) and alpha 1 (the model's 1e-4 leaves
@@ -5713,7 +5807,7 @@ def nn_core_phase(seed, device, card, report):
 # ------------------------------------------------------------ resilience
 # the resilience and telemetry slice (resilience/, telemetry/,
 # utils/{lockdep,spmdcheck,profiling,metrics}.py) on the main paths
-RESIL = {"ptb_steps": 32, "profile_steps": 400, "profile_tries": 4,
+RESIL = {"ptb_steps": 32, "profile_steps": 400, "profile_tries": 8,
          "validate_every": 16,
          "val_batches": 1, "lenet_K": 4, "lenet_steps": 24,
          "lenet_every": 4, "elastic_steps": 8, "elastic_batch": 64,
@@ -9381,10 +9475,905 @@ def seq_pipe_phase(seed, device, card, report):
         print(f"phase seq-pipe-{name}: {time.monotonic() - t0:.1f} s")
 
 
-PHASES = ("resnet", "lstm", "resnet-train", "wide-deep", "lenet",
+# ------------------------------------------ the seqfile path of ResNet-50
+# examples/resnet/train_imagenet.py --seqfiles: the recipe's 1024 samples
+# (resnet_data) written as the reference's ImageNet sequence files (keys
+# "<name>\n<label>" with 1-based labels, raw HWC uint8 values), two plain,
+# one record-compressed, one block-compressed, read back through
+# dataset.seqfile.image_samples, and one K=4 block of the recipe fed from
+# them against one fed from memory
+SEQFILE_FORMATS = (("plain", {}), ("plain", {}),
+                   ("record", {"compressed": True}),
+                   ("block", {"block_compressed": True}))
+
+
+def write_recipe_seqfiles(samples, folder):
+    """``samples`` as sequence files of the reference's ImageNet layout, a
+    quarter of them a file, in order: (paths, bytes, seconds)."""
+    from bigdl_tpu_torch.dataset import seqfile
+    t0 = time.monotonic()
+    n = -(-len(samples) // len(SEQFILE_FORMATS))
+    paths, nbytes = [], 0
+    for k, (fmt, kw) in enumerate(SEQFILE_FORMATS):
+        recs = [(f"n{k * n + i:07d}.JPEG\n{int(s.label) + 1}".encode(),
+                 np.ascontiguousarray(s.feature).tobytes())
+                for i, s in enumerate(samples[k * n:(k + 1) * n])]
+        path = os.path.join(folder, f"part-{k:05d}-{fmt}.seq")
+        seqfile.write_seqfile(path, recs, **kw)
+        paths.append(path)
+        nbytes += os.path.getsize(path)
+    return paths, nbytes, time.monotonic() - t0
+
+
+def record_mismatches(got, want):
+    """Records of ``got`` whose image bytes, shape, dtype or label differ
+    from ``want``'s (a count; a length mismatch counts as all)."""
+    if len(got) != len(want):
+        return max(len(got), len(want))
+    return sum(not (a.feature.dtype == b.feature.dtype
+                    and np.array_equal(a.feature, b.feature)
+                    and a.label.dtype == np.asarray(b.label).dtype
+                    and a.label == b.label) for a, b in zip(got, want))
+
+
+def recipe_pipeline(samples):
+    B, size = RESNET["batch"], RESNET["size"]
+    return DataSet.array(samples) >> MTSampleToMiniBatch(
+        B, recipe_augment(size), workers=RESNET["workers"])
+
+
+def first_batch(samples):
+    """The first training batch of the recipe's pipeline over
+    ``samples``."""
+    it = recipe_pipeline(samples).data(train=True)
+    try:
+        b = next(it)
+    finally:
+        it.close()
+    return torch.as_tensor(b.input), torch.as_tensor(b.target)
+
+
+def seqfile_block(init, samples, device, K=RESNET["K"]):
+    """One K-step block (K=4) of the recipe (bf16, batch 256) from ``init``
+    fed from ``samples`` through the pipeline, under cuDNN's deterministic
+    algorithms: (losses, trained model, B1 launches, variant counts, B1
+    dtypes, wall seconds)."""
+    per_epoch = RESNET["samples"] // RESNET["batch"]
+    model = copy.deepcopy(init)
+    sound_launch, dtypes = maxpool.launch, []
+
+    def launch(x, *a):
+        dtypes.append(x.dtype)
+        return sound_launch(x, *a)
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    maxpool.launch = launch
+    maxpool.reset_counts()
+    try:
+        losses, _, opt, wall = resnet_train(
+            model, recipe_pipeline(samples), device, K, K, torch.bfloat16,
+            per_epoch)
+    finally:
+        maxpool.launch = sound_launch
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = cudnn
+    launches, variants = maxpool.launches, dict(maxpool.variant_launches)
+    if opt.state["neval"] != K:
+        raise AssertionError(f"the seqfile block ran {opt.state['neval']} "
+                             f"steps, not {K}")
+    return losses, model, launches, variants, dtypes, wall
+
+
+def seqfile_phase(seed, device, card, report):
+    """The ResNet-50 recipe fed from Hadoop SequenceFiles (module
+    docstring, 34).  Returns B1's launches in the file-fed block."""
+    from bigdl_tpu_torch.dataset import seqfile
+    B, K = RESNET["batch"], RESNET["K"]
+    samples, _ = resnet_data()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, nbytes, write_s = write_recipe_seqfiles(samples, tmp)
+        sizes = {os.path.basename(p): os.path.getsize(p) for p in paths}
+        t0 = time.monotonic()
+        read = seqfile.image_samples(paths)
+        read_s = time.monotonic() - t0
+        # planted faults: the labels kept 1-based (the recipe's "- 1"
+        # dropped), and one byte of one record changed
+        one_based = [Sample(np.frombuffer(v, np.uint8).reshape(
+            s.feature.shape), np.int32(label)) for s, (label, v) in
+            zip(samples, seqfile.seqfiles_to_byte_records(paths))]
+    flipped = list(read)
+    k = len(flipped) // 2
+    img = flipped[k].feature.copy()
+    img[img.shape[0] // 2, img.shape[1] // 2, 1] ^= 1
+    flipped[k] = Sample(img, flipped[k].label)
+    bad = record_mismatches(read, samples)
+    faults = {"labels_1_based": record_mismatches(one_based, samples),
+              "one_byte_flipped": record_mismatches(flipped, samples)}
+    raw_mb = sum(s.feature.nbytes for s in samples) / 1e6
+    print(f"seqfile: {len(samples)} recipe samples ({raw_mb:.1f} MB raw) "
+          f"written as {len(paths)} files ("
+          + ", ".join(f"{k} {v}" for k, v in sizes.items())
+          + f" bytes) in {write_s:.2f} s; read and decoded by image_samples"
+          f" in {read_s:.2f} s ({len(read) / read_s:.1f} images/s, "
+          f"{raw_mb / read_s:.1f} MB/s); records differing from the "
+          f"written samples {bad} (planted faults: labels kept 1-based "
+          f"{faults['labels_1_based']}, one byte flipped "
+          f"{faults['one_byte_flipped']}) [{card}]")
+    out.update(files=sizes, bytes=nbytes, write_s=write_s, read_s=read_s,
+               read_images_per_s=len(read) / read_s,
+               read_mb_per_s=raw_mb / read_s, record_mismatches=bad,
+               record_faults=faults)
+    if bad or not all(faults.values()):
+        raise AssertionError(f"seqfile records: {bad} differ from the "
+                             f"written samples; faults {faults}")
+    # the recipe's first training batch, from the files and from memory
+    fx, fy = first_batch(read)
+    mx, my = first_batch(samples)
+    # planted fault of the batch and block checks: the records read in
+    # the reverse order
+    fault_x, _ = first_batch(read[::-1])
+    same = torch.equal(fx, mx) and torch.equal(fy, my)
+    fault_same = torch.equal(fault_x, mx)
+    print(f"seqfile: the pipeline's first batch ({tuple(fx.shape)} "
+          f"{fx.dtype}) from the files bitwise the in-memory one: {same} "
+          f"(the planted fault, records reversed: {fault_same}) [{card}]")
+    out.update(first_batch_bitwise=same, first_batch_fault_bitwise=fault_same)
+    if not same or fault_same:
+        raise AssertionError(f"seqfile first batch: bitwise {same}, planted "
+                             f"fault bitwise {fault_same}")
+    # one K=4 block from the files and from memory, bitwise; B1 counted in
+    # the file-fed block (the path) only
+    init = resnet50(RESNET["classes"], format="NHWC").initialize(seed)
+    runs = {name: seqfile_block(init, data, device)
+            for name, data in (("files", read), ("memory", samples))}
+    # the planted fault's block is one step: its first loss must differ
+    runs["fault"] = seqfile_block(init, read[::-1], device, K=1)
+    (flosses, fmodel, launches, variants, dtypes, fwall), \
+        (mlosses, mmodel, _, _, _, mwall) = runs["files"], runs["memory"]
+    same = flosses == mlosses and params_equal(fmodel, mmodel)
+    fault_same = runs["fault"][0] == mlosses[:1]
+    print(f"seqfile: one K={K} block of resnet50 NHWC bf16 batch {B} fed "
+          f"from the files: losses "
+          + ", ".join(f"{v:.6f}" for v in flosses)
+          + f", bitwise the memory-fed block's (losses and weights) {same} "
+          f"(the planted fault's losses bitwise {fault_same}); B1 "
+          f"launches {launches} ({variants}), dtypes {sorted(set(map(str, dtypes)))}"
+          f"; block wall {fwall:.2f} s from the files, {mwall:.2f} s from "
+          f"memory ({K * B / fwall:.1f} / {K * B / mwall:.1f} images/s, a "
+          f"warm process, pipeline and steps) [{card}]")
+    out.update(losses=flosses, memory_losses=mlosses, bitwise=same,
+               fault_bitwise=fault_same, launches=launches,
+               variant_launches=variants, block_wall_s=fwall,
+               memory_block_wall_s=mwall,
+               block_images_per_s=K * B / fwall,
+               memory_block_images_per_s=K * B / mwall)
+    report["seqfile"] = out
+    if not same or fault_same:
+        raise AssertionError(f"seqfile block: bitwise {same}, planted fault "
+                             f"bitwise {fault_same}")
+    if launches != K or variants["tiled_nhwc"] != K \
+            or set(dtypes) != {torch.bfloat16}:
+        raise AssertionError(f"seqfile block: B1 launched {launches} times "
+                             f"({variants}, {set(dtypes)}), want {K} bf16 "
+                             f"tiled_nhwc")
+    del runs, fmodel, mmodel
+    return launches
+
+
+# ------------------------------------------------------ the rest of nn/
+# Detection at the sizes its users run: SSD300's six prior maps (Liu et al.
+# 2016: 38^2, 19^2, 10^2, 5^2, 3^2, 1^2 cells, 4/6/6/6/4/4 priors, 8732 in
+# all) and its output head at VOC's 21 classes; Faster R-CNN VGG16 at test
+# time (Ren et al. 2015: RPN pre-NMS 6000, post-NMS 300, ratios (0.5, 1, 2),
+# scales (8, 16, 32), stride 16, conv5 (1, 512, 38, 50) for a 600x800
+# image, RoI pooling 7x7 at 1/16, 100 detections an image); the Tree-LSTM
+# sentiment recipe (examples/treeLSTMSentiment/train.py) and a
+# BinaryTreeLSTM at Tai et al.'s SST widths (embed 300, hidden 150)
+TAIL = {"ssd_batch": 8, "classes": 21, "nms_topk": 400, "keep_topk": 200,
+        "frcnn_map": (38, 50), "frcnn_channels": 512, "im_info": (600.0,
+        800.0), "pre_nms": 6000, "post_nms": 300, "frcnn_dets": 100,
+        "roi_cpu": 64, "trees": 256, "tree_leaves": 6, "tree_vocab": 40,
+        "tree_embed": 16, "tree_hidden": 32, "tree_lr": 0.02,
+        "tree_steps": 60, "sst_trees": 25, "sst_leaves": (5, 50),
+        "sst_embed": 300, "sst_hidden": 150, "loop_steps": 20,
+        "lenet_f16_steps": 300}
+# (feature map side, min size, max size, aspect ratios, step) of SSD300
+SSD300_MAPS = ((38, 30, 60, (2,), 8), (19, 60, 111, (2, 3), 16),
+               (10, 111, 162, (2, 3), 32), (5, 162, 213, (2, 3), 64),
+               (3, 213, 264, (2,), 100), (1, 264, 315, (2,), 300))
+# the card against the CPU: decoded boxes (a share of their largest
+# coordinate), the layers and the loop step by step (losses and
+# gradients as a share of each array's largest), the tree recipe step by
+# step against step 0's loss and gradient norms; above the sound readings
+# (f32 on both, TF32 off) and below the planted faults every run measures
+TAIL_TOL = 1e-4
+
+
+def tail_reading(label, sound, faults, card, report, tol=TAIL_TOL,
+                 what="max|d|/max|ref|"):
+    """Print and record a card-vs-CPU reading and its planted faults;
+    fail unless the reading is within ``tol`` and every fault above it."""
+    print(f"tail {label}: {what} {sound:.3e} (limit {tol:g}); planted "
+          f"faults " + ", ".join(f"{k} {v:.3e}" for k, v in faults.items())
+          + f" [{card}]")
+    report.setdefault("tail", {}).setdefault("readings", {})[label] = {
+        "reading": sound, "limit": tol, "planted_faults": faults}
+    if not (np.isfinite(sound) and sound <= tol):
+        raise AssertionError(f"tail {label}: reading {sound} over {tol}")
+    low = {k: v for k, v in faults.items() if not v > tol}
+    if low:
+        raise AssertionError(f"tail {label}: planted faults {low} within "
+                             f"{tol}")
+
+
+def same_selection(label, got, want, fault, card, report):
+    """The selection stage on the card against the CPU on the same decoded
+    boxes: bitwise, while a planted fault is not."""
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    fault_same = all(torch.equal(a.cpu(), b) for a, b in zip(fault, want))
+    print(f"tail {label} selection on the card's decoded boxes, card vs "
+          f"CPU: bitwise {same} (planted fault bitwise {fault_same}); "
+          f"valid {int(got[1].sum())} of {got[1].numel()} [{card}]")
+    report.setdefault("tail", {}).setdefault("selections", {})[label] = {
+        "bitwise": same, "fault_bitwise": fault_same,
+        "valid": int(got[1].sum())}
+    if not same or fault_same:
+        raise AssertionError(f"tail {label}: selection bitwise {same}, "
+                             f"planted fault bitwise {fault_same}")
+
+
+def ssd300_priors(device, offset=0.5):
+    priors = []
+    for side, mn, mx, ars, step in SSD300_MAPS:
+        pb = nn.PriorBox([float(mn)], [float(mx)], [float(a) for a in ars],
+                         variances=[0.1, 0.1, 0.2, 0.2], offset=offset,
+                         img_size=300, step=float(step))
+        priors.append(pb(torch.empty((1, 1, side, side), device=device)))
+    return torch.cat(priors, 2)
+
+
+def timed(fn):
+    """(milliseconds of one call on the card, event-timed, after a
+    warm-up call; its result)."""
+    y = fn()
+    torch.cuda.synchronize()
+    return cuda_ms(fn, budget_ms=200.0), y
+
+
+def detection_checks(seed, device, card, report):
+    """SSD300 priors and output head, Faster R-CNN VGG16's proposals, RoI
+    pooling and output head on the card against the CPU (module
+    docstring, 35)."""
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(seed + 35)
+    out = {}
+    # SSD300 priors: every coordinate against the CPU's
+    priors = ssd300_priors(device)
+    P = priors.shape[2] // 4
+    if P != 8732:
+        raise AssertionError(f"SSD300 has {P} priors, not 8732")
+    want = ssd300_priors(cpu)
+    tail_reading("ssd300 priors", max_share(priors.cpu(), want),
+                 {"offset_0": max_share(ssd300_priors(cpu, 0.0), want)},
+                 card, report)
+    prior_ms, _ = timed(lambda: ssd300_priors(device))
+    # SSD300's head at VOC's classes: the decode within rounding of the
+    # CPU's, then the selection (batched NMS, the global cut) on the card's
+    # decoded boxes bitwise the CPU's
+    N, C = TAIL["ssd_batch"], TAIL["classes"]
+    loc = torch.randn(N, P * 4, generator=gen) * 0.5
+    conf = torch.softmax(torch.randn(N, P, C, generator=gen) * 2.0,
+                         -1).reshape(N, -1)
+    det = nn.DetectionOutputSSD(C, nms_topk=TAIL["nms_topk"],
+                                keep_topk=TAIL["keep_topk"])
+    loc_d, conf_d = loc.to(device), conf.to(device)
+    boxes = det.decode(loc_d, priors)
+    swapped = torch.cat([want[:, :1], want[:, 1:].reshape(1, 1, -1, 4)
+                         .flip(-1).reshape(1, 1, -1)], 1)
+    want_boxes = det.decode(loc, want)
+    tail_reading("ssd decode", max_share(boxes.cpu(), want_boxes),
+                 {"variances_reversed": max_share(det.decode(loc, swapped),
+                                                  want_boxes)}, card, report)
+    got = det.select(boxes, conf_d)
+    # planted fault: class 1 taken for the background, class 0 kept
+    fault = nn.DetectionOutputSSD(C, bg_label=1, nms_topk=TAIL["nms_topk"],
+                                  keep_topk=TAIL["keep_topk"]).select(
+        boxes, conf_d)
+    same_selection("ssd", got, det.select(boxes.cpu(), conf), fault, card,
+                   report)
+    ssd_ms, _ = timed(lambda: det((loc_d, conf_d, priors)))
+    ssd_cpu_s = time.monotonic()
+    det((loc, conf, want))
+    ssd_cpu_s = time.monotonic() - ssd_cpu_s
+    out["ssd"] = {"priors": P, "priors_ms": prior_ms, "ms": ssd_ms,
+                  "cpu_s": ssd_cpu_s, "valid": int(got[1].sum())}
+    print(f"tail ssd300: {P} priors in {prior_ms:.3f} ms, the output head "
+          f"(batch {N}, {C} classes, nms_topk {TAIL['nms_topk']}, keep_topk "
+          f"{TAIL['keep_topk']}) {ssd_ms:.3f} ms a call on the card, "
+          f"{ssd_cpu_s:.2f} s on the CPU [{card}]")
+    # Faster R-CNN VGG16 at test time
+    H, W = TAIL["frcnn_map"]
+    ratios, scales = (0.5, 1.0, 2.0), (8.0, 16.0, 32.0)
+    A = len(ratios) * len(scales)
+    scores = torch.rand(1, 2 * A, H, W, generator=gen)
+    deltas = torch.randn(1, 4 * A, H, W, generator=gen) * 0.1
+    im_info = torch.tensor([[*TAIL["im_info"], 1.0, 1.0]])
+    prop = nn.Proposal(TAIL["pre_nms"], TAIL["post_nms"], ratios, scales,
+                       feat_stride=16.0)
+    x_d = (scores.to(device), deltas.to(device), im_info.to(device))
+    proposals, fg = prop.decode(x_d)
+    want_p, _ = prop.decode((scores, deltas, im_info))
+    off_anchor = nn.Proposal(TAIL["pre_nms"], TAIL["post_nms"], ratios,
+                             scales, feat_stride=8.0)
+    tail_reading("proposal decode", max_share(proposals.cpu(), want_p),
+                 {"stride_8": max_share(off_anchor.decode(
+                     (scores, deltas, im_info))[0], want_p)}, card, report)
+    got = prop.select(proposals, fg)
+    fault = nn.Proposal(TAIL["pre_nms"], TAIL["post_nms"], ratios, scales,
+                        nms_thresh=0.5).select(proposals, fg)
+    same_selection("proposal", got, prop.select(proposals.cpu(), fg.cpu()),
+                   fault, card, report)
+    prop_ms, _ = timed(lambda: prop(x_d))
+    rois = got[0]
+    # RoI pooling over conv5: bitwise the CPU's on the first RoIs
+    feat = torch.randn(1, TAIL["frcnn_channels"], H, W, generator=gen)
+    feat_d = feat.to(device)
+    pool = nn.RoiPooling(7, 7, 1.0 / 16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pooled = pool((feat_d, rois))
+    torch.cuda.synchronize()
+    roi_peak = torch.cuda.max_memory_allocated() - base
+    k = TAIL["roi_cpu"]
+    want_pool = pool((feat, rois[:k].cpu()))
+    same = torch.equal(pooled[:k].cpu(), want_pool)
+    fault_same = torch.equal(nn.RoiPooling(7, 7, 1.0 / 8)(
+        (feat_d, rois[:k])).cpu(), want_pool)
+    roi_ms, _ = timed(lambda: pool((feat_d, rois)))
+    print(f"tail roi pooling 7x7 at 1/16 over {tuple(feat.shape)}, "
+          f"{rois.shape[0]} RoIs: {tuple(pooled.shape)}, the first {k} "
+          f"bitwise the CPU's {same} (planted fault, scale 1/8: {fault_same}"
+          f"); {roi_ms:.3f} ms a call, peak {roi_peak / 2 ** 30:.3f} GiB "
+          f"above its inputs (chunks of at most "
+          f"{pool.chunk_bytes / 2 ** 30:.0f} GiB) [{card}]")
+    if not same or fault_same or not torch.isfinite(pooled).all():
+        raise AssertionError(f"roi pooling: bitwise {same}, fault "
+                             f"{fault_same}")
+    if roi_peak > 3 * 2 ** 30:
+        raise AssertionError(f"roi pooling peaked at {roi_peak} bytes")
+    # the Faster R-CNN head over the proposals
+    R = rois.shape[0]
+    fdeltas = torch.randn(R, 4 * C, generator=gen) * 0.1
+    fscores = torch.softmax(torch.randn(R, C, generator=gen) * 2.0, -1)
+    head = nn.DetectionOutputFrcnn(n_classes=C,
+                                   max_per_image=TAIL["frcnn_dets"])
+    fd_d, fs_d, info_d = fdeltas.to(device), fscores.to(device), x_d[2]
+    decoded = head.decode(info_d, rois, fd_d)
+    want_dec = head.decode(im_info, rois.cpu(), fdeltas)
+    tail_reading("frcnn decode", max_share(decoded.cpu(), want_dec),
+                 {"deltas_x_y_swapped": max_share(head.decode(
+                     im_info, rois.cpu(), fdeltas.reshape(R, C, 4)[
+                         ..., [1, 0, 3, 2]].reshape(R, -1)), want_dec)},
+                 card, report)
+    got = head.select(decoded, fs_d)
+    # planted fault: each class scored by its neighbour's column
+    fault = head.select(decoded, fs_d.roll(1, 1))
+    same_selection("frcnn", got, head.select(decoded.cpu(), fscores), fault,
+                   card, report)
+    frcnn_ms, _ = timed(lambda: head((info_d, rois, fd_d, fs_d)))
+    out["frcnn"] = {"proposal_ms": prop_ms, "roi_pool_ms": roi_ms,
+                    "roi_pool_peak_bytes": roi_peak, "head_ms": frcnn_ms,
+                    "proposals_valid": int(got[1].sum())}
+    print(f"tail faster r-cnn vgg16: proposal (pre {TAIL['pre_nms']}, post "
+          f"{TAIL['post_nms']}, {H}x{W}x{A} anchors) {prop_ms:.3f} ms, RoI "
+          f"pooling {roi_ms:.3f} ms, the output head ({C} classes, "
+          f"{TAIL['frcnn_dets']} an image) {frcnn_ms:.3f} ms a call [{card}]")
+    return out
+
+
+def tree_sentiment_data(n, n_leaves, vocab, seed=0):
+    """The recipe's synthetic right-leaning trees
+    (examples/treeLSTMSentiment/train.py): tokens (n, n_leaves), trees
+    (n, 2 n_leaves - 1, 3), labels the majority leaf polarity."""
+    rng = np.random.default_rng(seed)
+    n_nodes = 2 * n_leaves - 1
+    tree = np.zeros((n_nodes, 3), np.float32)
+    for i in range(n_leaves):
+        tree[i] = [0, 0, i + 1]
+    nxt, prev = n_leaves, n_leaves
+    for k in range(n_leaves - 1):
+        tree[nxt] = [n_leaves - 1 - k, prev, 0]
+        prev = nxt + 1
+        nxt += 1
+    tokens = rng.integers(0, vocab, (n, n_leaves))
+    labels = (np.where(tokens < vocab // 2, 1, -1).sum(1) > 0).astype(
+        np.int64)
+    return tokens, np.tile(tree[None], (n, 1, 1)), labels
+
+
+class TreeSentiment(nn.Module):
+    """The recipe's model: embedding, BinaryTreeLSTM, a Linear on the root
+    state, log-softmax."""
+
+    def __init__(self, vocab, embed, hidden):
+        super().__init__("TreeSentiment")
+        self.embed = nn.LookupTable(vocab, embed)
+        self.tree = nn.BinaryTreeLSTM(embed, hidden)
+        self.head = nn.Linear(hidden, 2)
+
+    def forward(self, x):
+        tokens, trees = x
+        states = self.tree((self.embed(tokens), trees))
+        return torch.log_softmax(self.head(states[:, -1]), -1)
+
+
+def nll(logp, y):
+    return -logp.gather(1, y[:, None]).mean()
+
+
+def full_batch_adam(model, batch, steps, lr):
+    """Full-batch Adam with nll on ``batch``'s device, ``model`` trained in
+    place: (each step's loss, :func:`recording`'s steps)."""
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    x, y = batch
+    adam = RecordingAdam(learning_rate=lr)
+    state = adam.init_state(params)
+    losses = []
+    for i in range(steps):
+        loss = nll(model(x), y)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        losses.append(loss.item())
+        adam.update(dict(zip(params, grads)), params, state, lr, i)
+    return losses, adam.steps
+
+
+def nll_cpu_step(init, params, batch):
+    """``cpu_step`` of :func:`wd_step_reading` for :func:`full_batch_adam`:
+    the loss and gradients of one step on the CPU from ``params``."""
+    m = copy.deepcopy(init)
+    with torch.no_grad():
+        for k, p in m.named_parameters():
+            p.copy_(params[k])
+            p.requires_grad_(True)
+    loss = nll(m(batch[0]), batch[1])
+    loss.backward()
+    return loss.item(), {k: p.grad.double() for k, p in m.named_parameters()}
+
+
+class SwappedComposer(nn.BinaryTreeLSTM):
+    """A planted fault: the composer's left and right children swapped."""
+
+    def _compose(self, lc, lh, rc, rh):
+        return super()._compose(rc, rh, lc, lh)
+
+
+def tree_checks(seed, device, card, report):
+    """The Tree-LSTM sentiment recipe on the card step by step against the
+    CPU, and a BinaryTreeLSTM at SST widths (module docstring, 35)."""
+    cpu = torch.device("cpu")
+    t = TAIL
+    tokens, trees, labels = tree_sentiment_data(
+        t["trees"], t["tree_leaves"], t["tree_vocab"])
+    batch = ((torch.from_numpy(tokens), torch.from_numpy(trees)),
+             torch.from_numpy(labels))
+    batch_d = ((batch[0][0].to(device), batch[0][1].to(device)),
+               batch[1].to(device))
+
+    init = TreeSentiment(t["tree_vocab"], t["tree_embed"],
+                         t["tree_hidden"]).initialize(seed)
+    batches = [batch] * t["tree_steps"]
+
+    def card_run(tree=None):
+        model = copy.deepcopy(init)
+        if tree is not None:
+            tree.load_state_dict(init.tree.state_dict())
+            model.tree = tree
+        model.to(device)
+        return (model, *full_batch_adam(model, batch_d, t["tree_steps"],
+                                        t["tree_lr"]))
+
+    t0 = time.monotonic()
+    model, losses, steps = card_run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    with torch.no_grad():
+        acc = (model(batch_d[0]).argmax(-1) == batch_d[1]).float().mean()
+
+    def reading(losses, steps):
+        return wd_step_reading(losses, steps, init, batches, nll_cpu_step,
+                               norm_share, first_scale=True)
+    sound, worst = reading(losses, steps)
+    faults = {name: reading(*card_run(tree)[1:])[0] for name, tree in (
+        ("composer_sides_swapped", SwappedComposer(t["tree_embed"],
+                                                   t["tree_hidden"])),
+        ("no_output_gate", nn.BinaryTreeLSTM(
+            t["tree_embed"], t["tree_hidden"], gate_output=False)))}
+    print(f"tail tree-lstm recipe, the largest shares (share, what): "
+          f"{worst} [{card}]")
+    tail_reading(f"tree-lstm recipe, step by step ({len(steps)} steps)",
+                 sound, faults, card, report,
+                 what="||d|| / ||step 0's ref||")
+    print(f"tail tree-lstm sentiment recipe: {t['trees']} trees of "
+          f"{t['tree_leaves']} leaves, embed {t['tree_embed']}, hidden "
+          f"{t['tree_hidden']}, Adam {t['tree_lr']}, {t['tree_steps']} "
+          f"full-batch steps in {wall:.2f} s ({wall / t['tree_steps'] * 1e3:.2f}"
+          f" ms a step); loss {losses[0]:.4f} -> {losses[-1]:.4f}, train "
+          f"accuracy {float(acc):.4f} [{card}]")
+    out = {"recipe": {"losses": losses, "accuracy": float(acc),
+                      "ms_per_step": wall / t["tree_steps"] * 1e3}}
+    if not (losses[-1] < 0.5 * losses[0] and float(acc) > 0.9):
+        raise AssertionError(f"tree recipe did not learn: {losses[-1]}, "
+                             f"{float(acc)}")
+    # SST widths: random binary trees of 5-50 leaves, padded
+    rng = np.random.default_rng(seed + 36)
+    lens = rng.integers(*t["sst_leaves"], t["sst_trees"])
+    L = int(lens.max())
+    sst = np.zeros((t["sst_trees"], 2 * L - 1, 3), np.float32)
+    for b, n in enumerate(lens):
+        rows = [[0, 0, i + 1] for i in range(n)]
+        live = list(range(1, n + 1))
+        while len(live) > 1:
+            i = int(rng.integers(0, len(live) - 1))
+            rows.append([live[i], live[i + 1], 0])
+            live[i:i + 2] = [len(rows)]
+        sst[b, :len(rows)] = rows
+    emb = torch.randn(t["sst_trees"], L, t["sst_embed"],
+                      generator=torch.Generator().manual_seed(seed))
+    cot = torch.randn(t["sst_trees"], 2 * L - 1, t["sst_hidden"],
+                      generator=torch.Generator().manual_seed(seed + 1))
+    sst_t = torch.from_numpy(sst)
+    levels = len(tree_plan(sst, L)[2])
+
+    def grads_of(m, dev):
+        m = m.to(dev)
+        for p in m.parameters():
+            p.requires_grad_(True)
+        e = emb.to(dev).requires_grad_(True)
+        y = m((e, sst_t.to(dev)))
+        gs = torch.autograd.grad((y * cot.to(dev)).sum(),
+                                 [e, *m.parameters()])
+        return [y.detach().cpu()] + [g.cpu() for g in gs]
+
+    base = nn.BinaryTreeLSTM(t["sst_embed"], t["sst_hidden"]).initialize(
+        seed)
+    want = grads_of(copy.deepcopy(base), cpu)
+    got = grads_of(copy.deepcopy(base), device)
+    swapped = SwappedComposer(t["sst_embed"], t["sst_hidden"])
+    swapped.load_state_dict(base.state_dict())
+    fault = grads_of(swapped, device)
+    tail_reading("binary tree-lstm at sst widths",
+                 max(max_share(a, b) for a, b in zip(got, want)),
+                 {"composer_sides_swapped": max(
+                     max_share(a, b) for a, b in zip(fault, want))},
+                 card, report)
+    m_d = copy.deepcopy(base).to(device)
+    for p in m_d.parameters():
+        p.requires_grad_(True)
+    e_d, s_d, c_d = emb.to(device).requires_grad_(True), sst_t.to(device), \
+        cot.to(device)
+    fwd_ms, _ = timed(lambda: m_d((e_d, s_d)))
+    both_ms, _ = timed(lambda: torch.autograd.grad(
+        (m_d((e_d, s_d)) * c_d).sum(), [e_d, *m_d.parameters()]))
+    print(f"tail binary tree-lstm at sst widths: {t['sst_trees']} trees of "
+          f"{int(lens.min())}-{L} leaves ({2 * L - 1} rows), embed "
+          f"{t['sst_embed']}, hidden {t['sst_hidden']}: forward "
+          f"{fwd_ms:.3f} ms, forward and backward {both_ms:.3f} ms on the "
+          f"card ({levels} composer levels) [{card}]")
+    out["sst"] = {"forward_ms": fwd_ms, "forward_backward_ms": both_ms,
+                  "levels": levels, "max_leaves": L}
+    return out
+
+
+class LoopStep(nn.Module):
+    """``(i, h) -> (i + 1, tanh(lin(h)) * exp(1000 relu(i - 3.5)))``: the
+    identity gain while the loop lives (i < 4), inf on a dead trip."""
+
+    def __init__(self, width):
+        super().__init__("LoopStep")
+        self.lin = nn.Linear(width, width)
+
+    def forward(self, c):
+        i, h = c
+        grow = torch.exp(1000.0 * torch.relu(i.float() - 3.5))
+        return i + 1, torch.tanh(self.lin(h)) * grow
+
+
+def loop_model(width=16, trips=4, max_trip=8):
+    inp = nn.Input()
+    carry = nn.Lambda(lambda x: (torch.zeros((), dtype=torch.long,
+                                             device=x.device), x))(inp)
+    looped = nn.While(lambda c: c[0] < trips, LoopStep(width),
+                      max_trip_count=max_trip)(carry)
+    head = nn.Linear(width, 2)(nn.Lambda(lambda c: c[1])(looped))
+    return nn.DynamicGraph([inp], [nn.LogSoftMax()(head)])
+
+
+class MaskedLoop(nn.While):
+    """A planted fault: every trip up to max_trip_count runs, the dead
+    trips' results masked by a select."""
+
+    def forward(self, x):
+        for _ in range(self.max_trip_count):
+            live = self.cond(x)
+            out = self.body(x)
+            x = tuple(torch.where(live, o, c) for o, c in zip(out, x))
+        return x
+
+
+def loop_checks(seed, device, card, report):
+    """A While trained on the card whose body diverges after its exit
+    (module docstring, 35)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(0, 1, (256, 16)).astype(np.float32))
+    y = (x.sum(1) > 0).long()
+    batch_d = (x.to(device), y.to(device))
+
+    init = loop_model().initialize(seed)
+    losses, steps = full_batch_adam(copy.deepcopy(init).to(device), batch_d,
+                                    TAIL["loop_steps"], 0.01)
+    finite = all(bool(torch.isfinite(g).all()) for _, grads in steps
+                 for g in grads.values())
+    masked = copy.deepcopy(init)
+    next(m for m in masked.modules()
+         if isinstance(m, nn.While)).__class__ = MaskedLoop
+    _, fault = full_batch_adam(masked.to(device), batch_d, 1, 0.01)
+    fault_finite = all(bool(torch.isfinite(g).all())
+                       for g in fault[0][1].values())
+    print(f"tail while loop (max_trip_count 8, exit after 4 trips, a body "
+          f"that is inf on a dead trip) trained {TAIL['loop_steps']} Adam "
+          f"steps on the card: gradients finite {finite}, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (the planted fault, dead "
+          f"trips masked: gradients finite {fault_finite}) [{card}]")
+    tail_reading("while loop, step by step", wd_step_reading(
+        losses, steps, init, [(x, y)] * len(steps), nll_cpu_step)[0],
+        {"dead_trips_masked": float("inf") if not fault_finite else 0.0},
+        card, report)
+    if not finite or fault_finite or not losses[-1] < losses[0]:
+        raise AssertionError(f"while loop: gradients finite {finite}, fault "
+                             f"finite {fault_finite}, losses {losses}")
+    return {"losses": losses}
+
+
+def _t(gen, *shape):
+    return torch.randn(*shape, generator=gen)
+
+
+# the volumetric and extras layers at small sizes: (factory, input maker)
+TAIL_LAYERS = {
+    "VolumetricConvolution": (lambda: nn.VolumetricConvolution(
+        3, 8, 3, 3, 3, 1, 1, 1, 1, 1, 1), lambda g: _t(g, 2, 3, 8, 16, 16)),
+    "VolumetricMaxPooling": (lambda: nn.VolumetricMaxPooling(
+        2, 3, 3, 2, 2, 2, 1, 1, 1), lambda g: _t(g, 2, 4, 8, 15, 15)),
+    "VolumetricAveragePooling": (lambda: nn.VolumetricAveragePooling(
+        3, 3, 3, 2, 2, 2, 1, 1, 1, count_include_pad=False),
+        lambda g: _t(g, 2, 4, 8, 15, 15)),
+    "VolumetricFullConvolution": (lambda: nn.VolumetricFullConvolution(
+        4, 3, 2, 3, 3, 2, 2, 2, 0, 1, 1, 1, 0, 0),
+        lambda g: _t(g, 2, 4, 4, 8, 8)),
+    "LocallyConnected2D": (lambda: nn.LocallyConnected2D(
+        3, 12, 12, 8, 3, 3, 1, 1, 1, 1), lambda g: _t(g, 4, 3, 12, 12)),
+    "LocallyConnected1D": (lambda: nn.LocallyConnected1D(20, 8, 6, 3, 2),
+                           lambda g: _t(g, 4, 20, 8)),
+    "SpatialConvolutionMap": (lambda: nn.SpatialConvolutionMap(
+        [[0, 0], [1, 0], [1, 1], [2, 1], [0, 2], [2, 2]], 5, 5),
+        lambda g: _t(g, 4, 3, 16, 16)),
+    "SpatialDilatedConvolution": (lambda: nn.SpatialDilatedConvolution(
+        4, 8, 3, 3, 1, 1, 2, 2, 2, 2), lambda g: _t(g, 4, 4, 16, 16)),
+    "SpatialContrastiveNormalization": (
+        lambda: nn.SpatialContrastiveNormalization(3),
+        lambda g: _t(g, 2, 3, 20, 20)),
+    "SpatialWithinChannelLRN": (lambda: nn.SpatialWithinChannelLRN(5),
+                                lambda g: _t(g, 2, 3, 16, 16)),
+    "ResizeBilinear": (lambda: nn.ResizeBilinear(23, 17),
+                       lambda g: _t(g, 2, 3, 10, 12)),
+    "UpSampling3D": (lambda: nn.UpSampling3D((2, 2, 2)),
+                     lambda g: _t(g, 2, 2, 3, 4, 4)),
+    "Bilinear": (lambda: nn.Bilinear(16, 12, 8),
+                 lambda g: (_t(g, 32, 16), _t(g, 32, 12))),
+    "Cosine": (lambda: nn.Cosine(16, 8), lambda g: _t(g, 32, 16)),
+    "Euclidean": (lambda: nn.Euclidean(16, 8), lambda g: _t(g, 32, 16)),
+    "CosineDistance": (lambda: nn.CosineDistance(),
+                       lambda g: (_t(g, 32, 16), _t(g, 32, 16))),
+    "MM": (lambda: nn.MM(False, True),
+           lambda g: (_t(g, 4, 8, 16), _t(g, 4, 12, 16))),
+    "MixtureTable": (lambda: nn.MixtureTable(),
+                     lambda g: (torch.softmax(_t(g, 8, 4), -1),
+                                _t(g, 8, 4, 16))),
+    "Bottle": (lambda: nn.Bottle(nn.Linear(16, 8)),
+               lambda g: _t(g, 4, 10, 16)),
+    "MapTable": (lambda: nn.MapTable(nn.Linear(16, 8)),
+                 lambda g: (_t(g, 4, 16), _t(g, 4, 16))),
+}
+
+
+class HalfPixelResize(nn.ResizeBilinear):
+    """A planted fault: torch's half-pixel bilinear resize."""
+
+    def forward(self, x):
+        return torch.nn.functional.interpolate(
+            x, self.out_hw, mode="bilinear", align_corners=False)
+
+
+def layer_grads(m, x, dev, seed):
+    """The layer's output and the gradients of ``sum(out * cot)`` with
+    respect to its float inputs and weights, on ``dev``, on the host."""
+    m = copy.deepcopy(m).to(dev).eval()
+    for p in m.parameters():
+        p.requires_grad_(True)
+    xs = tuple(a.to(dev).requires_grad_(True) for a in x) \
+        if isinstance(x, tuple) else x.to(dev).requires_grad_(True)
+    y = m(xs)
+    y = torch.stack(y) if isinstance(y, tuple) else y
+    cot = torch.randn(y.shape, generator=torch.Generator().manual_seed(
+        seed)).to(dev)
+    leaves = [*(xs if isinstance(xs, tuple) else (xs,)), *m.parameters()]
+    gs = torch.autograd.grad((y * cot).sum(), leaves)
+    return [y.detach().cpu()] + [g.cpu() for g in gs]
+
+
+def layer_checks(seed, device, card, report):
+    """Each volumetric and extras layer of TAIL_LAYERS on the card against
+    the CPU, forward and backward, same weights and inputs."""
+    cpu = torch.device("cpu")
+    worst, rows = 0.0, {}
+    for name, (make, inputs) in TAIL_LAYERS.items():
+        gen = torch.Generator().manual_seed(seed + len(rows))
+        m, x = make().initialize(seed), inputs(gen)
+        got, want = layer_grads(m, x, device, seed), layer_grads(m, x, cpu,
+                                                                 seed)
+        rows[name] = max(max_share(a, b) for a, b in zip(got, want))
+        worst = max(worst, rows[name])
+    x = TAIL_LAYERS["ResizeBilinear"][1](torch.Generator().manual_seed(0))
+    want = layer_grads(nn.ResizeBilinear(23, 17), x, cpu, seed)
+    fault = layer_grads(HalfPixelResize(23, 17), x, device, seed)
+    print("tail layers card vs CPU (forward and gradients, a share of "
+          "the largest): " + ", ".join(f"{k} {v:.1e}" for k, v in
+                                       rows.items()) + f" [{card}]")
+    tail_reading(f"{len(rows)} volumetric and extras layers", worst,
+                 {"half_pixel_resize": max_share(fault[0], want[0])}, card,
+                 report)
+    return rows
+
+
+def f16_refusals(device, card, report):
+    """An f16 run that reaches B2f, B2b, B3 or B4 on the card raises a
+    TypeError that names the kernel: the wrappers, and an f16 PTB step
+    through LocalOptimizer (B2f)."""
+    h = torch.float16
+
+    def z(*shape, dtype=h):
+        return torch.zeros(*shape, dtype=dtype, device=device)
+    calls = {
+        "B2f": lambda: lstm_cell.launch_fwd(z(2, 32), z(2, 8), z(2, 8),
+                                            z(8, 32)),
+        "B2b": lambda: lstm_cell.launch_bwd(z(2, 32, dtype=torch.float32),
+                                            z(2, 8), z(2, 8), z(2, 8)),
+        "B3": lambda: embed_bag.launch(z(4, dtype=torch.int32),
+                                       z(4, dtype=torch.int32), z(4),
+                                       z(10, 3), 2),
+        "B4": lambda: int8_gemm.int8_matmul(
+            z(2, 16), z(4, 16, dtype=torch.int8), z(4, dtype=torch.float32)),
+    }
+
+    def ptb_step():
+        model = ptb_model(50, 8, 8, 1).initialize(0)
+        rng = np.random.default_rng(0)
+        samples = [Sample(rng.integers(0, 50, 5), rng.integers(0, 50, 5))
+                   for _ in range(4)]
+        (LocalOptimizer(model, DataSet.array(samples) >> SampleToMiniBatch(4),
+                        nn.TimeDistributedCriterion(nn.ClassNLLCriterion()),
+                        device=device)
+         .set_compute_dtype(h).set_end_when(optim.max_iteration(1))
+         .optimize())
+    calls["B2f (an f16 PTB step)"] = ptb_step
+    msgs = {}
+    for kernel, call in calls.items():
+        try:
+            call()
+        except TypeError as e:
+            msgs[kernel] = str(e)
+        else:
+            msgs[kernel] = None
+    ok = all(m is not None and k.split()[0] in m for k, m in msgs.items())
+    print("tail f16 refusals: " + "; ".join(
+        f"{k}: {m!r}" for k, m in msgs.items()) + f" [{card}]")
+    report.setdefault("tail", {})["f16_refusals"] = msgs
+    if not ok:
+        raise AssertionError(f"f16 refusals: {msgs}")
+
+
+def lenet_f16_run(seed, device, card, report):
+    """LeNet-5 trained in f16 (``set_compute_dtype(torch.float16)``) on the
+    card: TAIL["lenet_f16_steps"] steps of the recipe's pipeline; its
+    pools on B1 in f16, two_pass, 2 launches a step.  Returns B1's
+    launches."""
+    train, _ = lenet_data()
+    steps, B = TAIL["lenet_f16_steps"], LENET["batch"]
+    model = lenet5(10).initialize(seed)
+    losses, clock, dtypes = [], [], []
+    sound = maxpool.launch
+
+    def launch(x, *a):
+        dtypes.append(x.dtype)
+        return sound(x, *a)
+
+    class Recording(LocalOptimizer):
+        def _log_train_iteration(self, lr):
+            losses.append(self.state["loss"])
+            clock.append(time.perf_counter())
+
+    maxpool.launch = launch
+    maxpool.reset_counts()
+    try:
+        (Recording(model, lenet_pipeline(train, True, steps * B),
+                   nn.ClassNLLCriterion(), device=device)
+         .set_optim_method(lenet_sgd()).set_compute_dtype(torch.float16)
+         .set_end_when(optim.max_iteration(steps)).optimize())
+    finally:
+        maxpool.launch = sound
+    launches, variants = maxpool.launches, dict(maxpool.variant_launches)
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    ms = (clock[-1] - clock[10]) / (len(clock) - 11) * 1e3
+    print(f"tail lenet5 f16: {steps} steps of batch {B}, loss {first:.4f} "
+          f"-> {last:.4f} (means of the first and last 10), {ms:.3f} ms a "
+          f"step; B1 launches {launches} ({variants}), dtypes "
+          f"{sorted(set(map(str, dtypes)))} [{card}]")
+    report.setdefault("tail", {})["lenet_f16"] = {
+        "losses": losses, "ms_per_step": ms, "launches": launches,
+        "variant_launches": variants}
+    if not (np.isfinite(losses).all() and last < 0.5 * first):
+        raise AssertionError(f"lenet f16 did not learn: {first} -> {last}")
+    if launches != 2 * steps or variants["two_pass"] != 2 * steps \
+            or set(dtypes) != {torch.float16}:
+        raise AssertionError(f"lenet f16: B1 {launches} launches "
+                             f"({variants}, {set(dtypes)}) in {steps} steps")
+    return launches
+
+
+def f16_pool_phase(device, card, report):
+    """B1 in f16 at every case of F16_POOL_CASES, bitwise against its plain
+    version, then at the stem and LeNet's pools: its time beside the
+    bound, the plain version and the library (module docstring, 35; run
+    early, while the profiler keeps its sessions).  Returns the rows."""
+    gen = torch.Generator(device=device).manual_seed(2718)
+    for name in F16_POOL_CASES:
+        pool_case_check(pool_case(name), gen, device)
+    rows = {name: pool_row(pool_case(name), gen, device, card)
+            for name in ("stem_nhwc_f16", "lenet_pool1_nchw_f16",
+                         "lenet_pool2_nchw_f16")}
+    report["f16_pool"] = rows
+    return rows
+
+
+def tail_phase(seed, device, card, report):
+    """The rest of nn/ on the card (module docstring, 35).  Returns B1's
+    launches in the f16 LeNet run."""
+    out = {}
+    for label, check in (("detection", detection_checks),
+                         ("tree", tree_checks), ("loop", loop_checks),
+                         ("layers", layer_checks)):
+        t0 = time.monotonic()
+        out[label] = check(seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase tail-{label}: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    f16_refusals(device, card, report)
+    launches = lenet_f16_run(seed, device, card, report)
+    print(f"phase tail-f16: {time.monotonic() - t0:.1f} s")
+    report.setdefault("tail", {}).update(out)
+    return launches
+
+
+PHASES = ("resnet", "lstm", "resnet-train", "seqfile", "wide-deep", "lenet",
           "distri", "cifar", "inception", "autoencoder", "remat", "text",
           "nn-core", "resilience", "interop", "predict", "keras",
-          "frontend", "parallel", "quantized-rnn", "seq-pipe")
+          "frontend", "parallel", "quantized-rnn", "seq-pipe", "tail")
 EXTRA_PHASES = ("resnet-conditioning",)  # run only when named
 
 
@@ -9519,6 +10508,30 @@ def main(argv=None) -> int:
                         "f32": {k: report["pool_kernel"]["stem_nhwc_f32"][k]
                                 for k in ("ms", "plain_ms", "bound_ms",
                                           "library_ms")}})
+    if "seqfile" in phases:
+        t0 = time.monotonic()
+        launches = seqfile_phase(args.seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase seqfile: {time.monotonic() - t0:.1f} s")
+        entry = next((k for k in kernels if k["name"] == "maxpool_bwd"),
+                     None)
+        if entry is None:  # the stem was not timed: check and time it
+            gen = torch.Generator(device=device).manual_seed(2718)
+            row = pool_row(pool_case("stem_nhwc_bf16"), gen, device, card)
+            entry = {"name": "maxpool_bwd", **POOL_KERNEL,
+                     "launches": launches,
+                     **{k: row[k] for k in (
+                         "max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms", "variant")}}
+            kernels.append(entry)
+        entry["seqfile"] = {"launches": launches}
+    f16_rows = None
+    if "tail" in phases:
+        # B1 in f16, checked and timed while the process is young
+        t0 = time.monotonic()
+        f16_rows = f16_pool_phase(device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase f16-pool: {time.monotonic() - t0:.1f} s")
     if "wide-deep" in phases:
         t0 = time.monotonic()
         row = bag_kernel_phase(device, card, report)
@@ -9898,6 +10911,23 @@ def main(argv=None) -> int:
         seq_pipe_phase(args.seed, device, card, report)
         torch.cuda.empty_cache()
         print(f"phase seq-pipe: {time.monotonic() - t0:.1f} s")
+    if "tail" in phases:
+        t0 = time.monotonic()
+        launches = tail_phase(args.seed, device, card, report)
+        torch.cuda.empty_cache()
+        print(f"phase tail: {time.monotonic() - t0:.1f} s")
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "variant")
+        entry = next((k for k in kernels if k["name"] == "maxpool_bwd"),
+                     None)
+        if entry is None:  # no earlier path ran B1: the f16 stem leads
+            entry = {"name": "maxpool_bwd", **POOL_KERNEL,
+                     "launches": launches,
+                     **{k: f16_rows["stem_nhwc_f16"][k] for k in keys}}
+            kernels.append(entry)
+        entry["f16"] = {"launches": launches, "cases": list(F16_POOL_CASES),
+                        **{name: {k: row[k] for k in keys}
+                           for name, row in f16_rows.items()}}
     if "resnet-conditioning" in phases:
         t0 = time.monotonic()
         resnet_conditioning_phase(args.seed, device, card, report)

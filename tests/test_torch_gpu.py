@@ -34,7 +34,13 @@ output, transposed, in both modes; the quantized recurrent cells on B4
 against the CPU, ring attention on ``[cuda:0] * 4`` against full
 attention (forward and gradients within 1e-5 of the largest value) and
 GPipe of four transformer blocks on ``[cuda:0] * 4`` against its
-sequential oracle.  Every
+sequential oracle; B1 in f16 (the tiled cases above, LeNet's pools and
+the generic cases, bitwise), f16 refused by B2f, B2b, B3 and B4 with a
+TypeError naming the kernel, the detection heads (each decode within
+1e-5 of its largest coordinate, each selection on the card's decoded
+boxes bitwise the CPU's, RoI pooling bitwise), ``BinaryTreeLSTM`` forward
+and gradients within 1e-5 of the largest value, and a ``While`` trained
+through a body that diverges after its exit with finite gradients.  Every
 test
 here needs a CUDA card and skips without one; on the card run ``python -m pytest -m gpu tests/test_torch_*.py``.  This file imports
 no JAX, so it runs where the reference package is not installed.
@@ -478,8 +484,8 @@ TILED_POOLS = [((8, 64, 112, 112), 3, 2, 1, False, "NHWC"),
 
 
 @pytest.mark.parametrize("relu", [False, True], ids=["ints", "relu"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("case", TILED_POOLS, ids=lambda c: _pool_id(
     c + (torch.float32,))[:-8])
 def test_maxpool_bwd_tiled_variant_matches_plain(cuda, case, dtype, relu):
@@ -534,7 +540,7 @@ def test_maxpool_bwd_kernel_64bit_indices(cuda, case):
 def test_maxpool_bwd_kernel_refuses_what_it_does_not_take(cuda):
     x = torch.zeros(1, 2, 6, 6, device=cuda)
     y = torch.zeros(1, 2, 3, 3, device=cuda)
-    with pytest.raises(TypeError, match="f32 or bf16"):
+    with pytest.raises(TypeError, match="f32, bf16 or f16"):
         maxpool.launch(x.double(), y.double(), y.double(), (2, 2), (2, 2),
                        ((0, 0), (0, 0)))
     with pytest.raises(TypeError, match="is torch.float32 on cpu"):
@@ -1603,3 +1609,140 @@ def test_gpipe_on_card_matches_apply_reference(cuda):
     largest = max(float(b.abs().max()) for b in g_ref)
     for a, b in zip(grads, g_ref):
         assert float((a - b).abs().max()) <= 1e-4 * largest
+
+
+@pytest.mark.parametrize("case", [
+    ((128, 6, 24, 24), 2, 2, 0, False, "NCHW", torch.float16),
+    ((128, 12, 8, 8), 2, 2, 0, False, "NCHW", torch.float16),
+    ((2, 3, 33, 33), 3, 2, 1, False, "NHWC", torch.float16),
+    ((2, 8, 64, 64), 16, 8, 0, False, "NHWC", torch.float16)],
+    ids=_pool_id)
+def test_maxpool_bwd_f16_two_pass_matches_plain(cuda, case):
+    """f16 through two_pass: LeNet-5's two pools at batch 128, a ragged
+    channel row, a 256-position window; bitwise."""
+    x, y, g, k, s, pads = _pool_operands(case, False, cuda)
+    got = maxpool.launch(x, y, g, k, s, pads)
+    want = maxpool.maxpool_bwd_reference(x, y, g, k, s, pads)
+    torch.cuda.synchronize()
+    assert maxpool.last_variant[0] == "two_pass"
+    assert got.dtype == torch.float16 and torch.equal(got, want)
+
+
+def test_f16_refusals_name_the_kernel(cuda):
+    def z(*shape, dtype=torch.float16):
+        return torch.zeros(*shape, dtype=dtype, device=cuda)
+    with pytest.raises(TypeError, match="B2f"):
+        lstm_cell.launch_fwd(z(2, 32), z(2, 8), z(2, 8), z(8, 32))
+    with pytest.raises(TypeError, match="B2b"):
+        lstm_cell.launch_bwd(z(2, 32, dtype=torch.float32), z(2, 8),
+                             z(2, 8), z(2, 8))
+    with pytest.raises(TypeError, match="B3"):
+        embed_bag.launch(z(4, dtype=torch.int32), z(4, dtype=torch.int32),
+                         z(4), z(10, 3), 2)
+    with pytest.raises(TypeError, match="B4"):
+        int8_gemm.int8_matmul(z(2, 16), z(4, 16, dtype=torch.int8),
+                              z(4, dtype=torch.float32))
+    model = ptb_model(50, 8, 8, 1).initialize(0)
+    rng = np.random.default_rng(0)
+    samples = [Sample(rng.integers(0, 50, 5), rng.integers(0, 50, 5))
+               for _ in range(4)]
+    opt = (optim.LocalOptimizer(
+        model, DataSet.array(samples) >> SampleToMiniBatch(4),
+        nn.TimeDistributedCriterion(nn.ClassNLLCriterion()), device=cuda)
+        .set_compute_dtype(torch.float16)
+        .set_end_when(optim.max_iteration(1)))
+    with pytest.raises(TypeError, match="B2f"):
+        opt.optimize()
+
+
+def _share(a, b):
+    return float((a.cpu() - b).abs().max() / b.abs().max())
+
+
+def test_detection_heads_on_card_match_cpu(cuda):
+    gen = torch.Generator().manual_seed(3)
+    # SSD: a decode within rounding, the selection bitwise on its boxes
+    P, C = 600, 5
+    c = torch.rand(P, 2, generator=gen) * 0.8 + 0.1
+    wh = torch.rand(P, 2, generator=gen) * 0.25 + 0.05
+    priors = torch.stack([torch.cat([c - wh / 2, c + wh / 2], 1).reshape(-1),
+                          torch.tensor([0.1, 0.1, 0.2, 0.2]).repeat(P)])[None]
+    loc = torch.randn(2, P * 4, generator=gen) * 0.5
+    conf = torch.softmax(torch.randn(2, P, C, generator=gen) * 2, -1)
+    conf = conf.reshape(2, -1)
+    det = nn.DetectionOutputSSD(C, nms_topk=40, keep_topk=30)
+    boxes = det.decode(loc.to(cuda), priors.to(cuda))
+    assert _share(boxes, det.decode(loc, priors)) <= 1e-5
+    got = det.select(boxes, conf.to(cuda))
+    want = det.select(boxes.cpu(), conf)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    # Faster R-CNN: proposals, RoI pooling, the output head
+    A, H, W = 9, 12, 16
+    x = (torch.rand(1, 2 * A, H, W, generator=gen),
+         torch.randn(1, 4 * A, H, W, generator=gen) * 0.1,
+         torch.tensor([[192.0, 256.0, 1.0, 1.0]]))
+    prop = nn.Proposal(600, 50, (0.5, 1, 2), (8, 16, 32))
+    xd = tuple(t.to(cuda) for t in x)
+    proposals, fg = prop.decode(xd)
+    assert _share(proposals, prop.decode(x)[0]) <= 1e-5
+    got = prop.select(proposals, fg)
+    want = prop.select(proposals.cpu(), fg.cpu())
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    rois = got[0]
+    feat = torch.randn(1, 8, H, W, generator=gen)
+    pool = nn.RoiPooling(7, 7, 1.0 / 16)
+    assert torch.equal(pool((feat.to(cuda), rois)).cpu(),
+                       pool((feat, rois.cpu())))
+    head = nn.DetectionOutputFrcnn(n_classes=C, max_per_image=20)
+    deltas = torch.randn(50, 4 * C, generator=gen) * 0.1
+    scores = torch.softmax(torch.randn(50, C, generator=gen), -1)
+    dec = head.decode(xd[2], rois, deltas.to(cuda))
+    assert _share(dec, head.decode(x[2], rois.cpu(), deltas)) <= 1e-5
+    got = head.select(dec, scores.to(cuda))
+    want = head.select(dec.cpu(), scores)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+def test_binary_tree_lstm_on_card_matches_cpu(cuda):
+    trees = torch.tensor([[[0, 0, 1], [0, 0, 2], [0, 0, 3], [2, 3, 0],
+                           [1, 4, 0], [0, 0, 0]],
+                          [[0, 0, 1], [0, 0, 2], [1, 2, 0], [0, 0, 3],
+                           [3, 4, 0], [0, 0, 0]]], dtype=torch.float32)
+    emb = torch.randn(2, 3, 12, generator=torch.Generator().manual_seed(1))
+    cot = torch.randn(2, 6, 10, generator=torch.Generator().manual_seed(2))
+    base = nn.BinaryTreeLSTM(12, 10).initialize(0)
+    outs = []
+    for dev in ("cpu", cuda):
+        m = copy.deepcopy(base).to(dev)
+        for p in m.parameters():
+            p.requires_grad_(True)
+        e = emb.to(dev).requires_grad_(True)
+        y = m((e, trees.to(dev)))
+        gs = torch.autograd.grad((y * cot.to(dev)).sum(),
+                                 [e, *m.parameters()])
+        outs.append([y.detach().cpu()] + [g.cpu() for g in gs])
+    assert (outs[0][0][:, -1] == 0).all()  # the padding row
+    for a, b in zip(outs[1], outs[0]):
+        assert _share(a, b) <= 1e-5
+
+
+def test_while_trains_on_card_through_a_diverging_dead_body(cuda):
+    class Step(nn.Module):
+        def __init__(self):
+            super().__init__("Step")
+            self.lin = nn.Linear(6, 6)
+
+        def forward(self, c):
+            i, h = c
+            grow = torch.exp(1000.0 * torch.relu(i.float() - 3.5))
+            return i + 1, torch.tanh(self.lin(h)) * grow
+
+    w = nn.While(lambda c: c[0] < 4, Step(), max_trip_count=8)
+    w = w.initialize(0).to(cuda)
+    for p in w.parameters():
+        p.requires_grad_(True)
+    x = torch.randn(16, 6, device=cuda)
+    i, h = w((torch.zeros((), dtype=torch.long, device=cuda), x))
+    grads = torch.autograd.grad(h.square().sum(), list(w.parameters()))
+    assert int(i) == 4 and w.trips == 4
+    assert all(bool(torch.isfinite(g).all()) for g in grads)

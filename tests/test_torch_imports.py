@@ -40,7 +40,11 @@ version over, with no kernel launched.  So are the tensor-parallel
 slice's (``parallel/tensor_parallel.py``, ``serving/sharded.py``): a
 sharded ``DecodeService`` and a ``ShardedReplicaSet`` on model groups of
 ``["cpu"] * 2``, two steps of ``DistriOptimizer(param_specs=)`` and a
-quantized NHWC ResNet-8 run with no kernel launched.  No import statement anywhere
+quantized NHWC ResNet-8 run with no kernel launched.  So are the last
+slice's (``dataset/seqfile.py``, ``nn/{control_flow,detection,tree,
+volumetric}.py``): a block-compressed sequence file read back, a tree LSTM
+forward, NMS, a 3-D convolution and a bounded ``While`` run with no kernel
+launched.  No import statement anywhere
 in the port, function bodies included, names JAX or the reference."""
 
 import json
@@ -402,6 +406,26 @@ assert {"bigdl_tpu_torch." + m for m in (
     "keras.topology", "interop.keras_format", "interop.session",
     "interop.tf_queues", "dataset.news20", "dataset.tfrecord",
     "nn.spatial_extras", "nn.tensor_extras")} <= set(names)
+assert {"bigdl_tpu_torch." + m for m in (
+    "dataset.seqfile", "nn.control_flow", "nn.detection", "nn.tree",
+    "nn.volumetric")} <= set(names)
+import os, tempfile
+from bigdl_tpu_torch.dataset import seqfile
+with tempfile.TemporaryDirectory() as d:
+    seqfile.write_seqfile(os.path.join(d, "a.seq"),
+                          [(b"n0\\n1", bytes(12))], block_compressed=True)
+    assert seqfile.image_samples([os.path.join(d, "a.seq")])[0].label == 0
+assert nn.BinaryTreeLSTM(4, 3).initialize(0)((
+    torch.ones(1, 2, 4), torch.tensor([[[0., 0, 1], [0, 0, 2],
+                                        [1, 2, 0]]]))).shape == (1, 3, 3)
+assert nn.nms(torch.tensor([[0., 0, 4, 4], [0, 0, 4, 4]]),
+              torch.tensor([1., 2.]), 0.5, 2)[0].tolist() == [1, -1]
+assert nn.VolumetricConvolution(1, 2, 2, 2, 2).initialize(0)(
+    torch.ones(1, 1, 3, 3, 3)).shape == (1, 2, 2, 2, 2)
+loop = nn.While(lambda c: c[0] < 3, nn.Lambda(lambda c: (c[0] + 1, c[1])),
+                max_trip_count=5)
+assert int(loop((torch.tensor(0), torch.ones(2)))[0]) == 3
+assert int8_gemm.launches == maxpool.launches == 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("jaxlib") or m == "bigdl_tpu"
              or m.startswith("bigdl_tpu.") or m.startswith("h5py"))

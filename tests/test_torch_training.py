@@ -176,8 +176,11 @@ def test_unported_driver_features_raise(setter):
         with pytest.raises(ValueError, match="set_checkpoint"):
             opt.resume()
     else:
-        # set_compute_dtype is ported for None, f32 and bf16; f16 is not
-        arg = torch.float16 if setter == "set_compute_dtype" else None
+        # set_compute_dtype takes None, f32, bf16 and f16 (the reference's
+        # mixed precision); any other dtype is not ported
+        if setter == "set_compute_dtype":
+            assert opt.set_compute_dtype(torch.float16) is opt
+        arg = torch.float64 if setter == "set_compute_dtype" else None
         with pytest.raises(NotImplementedError, match="not ported"):
             getattr(opt, setter)(arg)
 
