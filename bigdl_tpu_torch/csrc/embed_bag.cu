@@ -6,7 +6,7 @@
 //   out[rows[k], :] += f32(values[k]) * f32(table[cols[k], :])
 //
 // accumulated in f32 and written once in the promoted type of (table, values): bf16 when
-// both are bf16, else f32.  Empty rows come out as an exact 0; padding entries
+// both are bf16, f16 when both are f16, else f32 (PyTorch's promotion).  Empty rows come out as an exact 0; padding entries
 // (row 0, col 0, value 0) add 0 * table[0]; duplicate (row, col) pairs each add.
 //
 // Order and rounding.  The TPU kernel walks the stream in nnz order on one core and adds
@@ -60,7 +60,10 @@
 // costs three dependent loads.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -393,8 +396,10 @@ __global__ void __launch_bounds__(FINE_THREADS)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store(__half* p, float v) { *p = __float2half_rn(v); }
 
 // Pass 4.  T table type, V values type, O output type, I index type of the output and
 // table (unsigned or unsigned long long), P index type of perm and offsets.
@@ -461,6 +466,31 @@ cudaError_t walk(int wide, const void* offsets, const void* perm, const void* co
                                                     n_rows, n_table, D, s);
   return launch_walk<T, V, O, unsigned>(offsets, perm, cols, values, table, out, n_rows,
                                         n_table, D, s);
+}
+
+// the walk for table type T and values type V: the output is T when both are one
+// type, else f32
+template <typename T, typename V>
+cudaError_t walk_promoted(int wide, const void* offsets, const void* perm, const void* cols,
+                          const void* values, const void* table, void* out, long long n_rows,
+                          long long n_table, long long D, cudaStream_t s) {
+  using O = typename std::conditional<std::is_same<T, V>::value, T, float>::type;
+  return walk<T, V, O>(wide, offsets, perm, cols, values, table, out, n_rows, n_table, D, s);
+}
+
+// values dtype code: 0 f32, 1 bf16, 2 f16
+template <typename T>
+cudaError_t walk_values(int values_dtype, int wide, const void* offsets, const void* perm,
+                        const void* cols, const void* values, const void* table, void* out,
+                        long long n_rows, long long n_table, long long D, cudaStream_t s) {
+  switch (values_dtype) {
+    case 0: return walk_promoted<T, float>(wide, offsets, perm, cols, values, table, out,
+                                           n_rows, n_table, D, s);
+    case 1: return walk_promoted<T, __nv_bfloat16>(wide, offsets, perm, cols, values, table,
+                                                   out, n_rows, n_table, D, s);
+    default: return walk_promoted<T, __half>(wide, offsets, perm, cols, values, table, out,
+                                             n_rows, n_table, D, s);
+  }
 }
 
 long long align256(long long n) { return (n + 255) / 256 * 256; }
@@ -531,8 +561,8 @@ extern "C" int bigdl_embed_bag_group(int wide, const void* keys, long long nnz,
                               static_cast<unsigned*>(perm), static_cast<unsigned*>(offsets), s);
 }
 
-// Pass 4.  table_dtype, values_dtype: 0 f32, 1 bf16; the output is bf16 when both are,
-// else f32.  offsets: n_rows + 1 CSR bounds into perm; perm: the stable row-sorted order of
+// Pass 4.  table_dtype, values_dtype: 0 f32, 1 bf16, 2 f16; the output is of their
+// type when they are one, else f32.  offsets: n_rows + 1 CSR bounds into perm; perm: the stable row-sorted order of
 // the nnz entries; both int32 (wide = 0) or int64 (wide = 1), from bigdl_embed_bag_group;
 // cols: int32 (nnz,); values: (nnz,); table: (n_table, D) row-major; out: (n_rows, D)
 // row-major.  Launches on `stream` and returns cudaGetLastError() (0 on success); a bad
@@ -541,20 +571,16 @@ extern "C" int bigdl_embed_bag(int table_dtype, int values_dtype, int wide, cons
                                const void* perm, const void* cols, const void* values,
                                const void* table, void* out, long long n_rows,
                                long long n_table, long long D, void* stream) {
-  if (n_rows <= 0 || n_table < 0 || D <= 0 || table_dtype < 0 || table_dtype > 1 ||
-      values_dtype < 0 || values_dtype > 1)
+  if (n_rows <= 0 || n_table < 0 || D <= 0 || table_dtype < 0 || table_dtype > 2 ||
+      values_dtype < 0 || values_dtype > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using bf16 = __nv_bfloat16;
-  switch (table_dtype * 2 + values_dtype) {
-    case 0: return (int)walk<float, float, float>(wide, offsets, perm, cols, values, table,
-                                                  out, n_rows, n_table, D, s);
-    case 1: return (int)walk<float, bf16, float>(wide, offsets, perm, cols, values, table,
-                                                 out, n_rows, n_table, D, s);
-    case 2: return (int)walk<bf16, float, float>(wide, offsets, perm, cols, values, table,
-                                                 out, n_rows, n_table, D, s);
-    case 3: return (int)walk<bf16, bf16, bf16>(wide, offsets, perm, cols, values, table, out,
-                                               n_rows, n_table, D, s);
-    default: return (int)cudaErrorInvalidValue;
+  switch (table_dtype) {
+    case 0: return (int)walk_values<float>(values_dtype, wide, offsets, perm, cols, values,
+                                           table, out, n_rows, n_table, D, s);
+    case 1: return (int)walk_values<__nv_bfloat16>(values_dtype, wide, offsets, perm, cols,
+                                                   values, table, out, n_rows, n_table, D, s);
+    default: return (int)walk_values<__half>(values_dtype, wide, offsets, perm, cols, values,
+                                             table, out, n_rows, n_table, D, s);
   }
 }

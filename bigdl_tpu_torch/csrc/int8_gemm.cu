@@ -6,7 +6,7 @@
 //
 //   y[m, o] = acc[m, o] * scale[o] (+ bias[o])          (f32 out, (M, O))
 //   weight_only: acc = sum_k f32(x[m, k]) * f32(wq[o, k])  f32 accumulate,
-//                x f32 or bf16
+//                x f32, bf16 or f16
 //   dynamic:     acc = f32(sum_k x[m, k] * wq[o, k])       int32 accumulate,
 //                x already int8 (per-tensor dyn_quantize in the wrapper)
 //
@@ -26,7 +26,8 @@
 // three bf16 terms (below), each of whose products with a weight is exact in
 // f32.  Three bf16 passes then bound the large-K shapes, the f32 bytes the
 // others; on the CUDA cores' f32 FMAs (67 TFLOP/s) the large-K shapes would be
-// bound three times higher.
+// bound three times higher.  f16 x needs one pass: an int8 weight is an f16
+// value too, and the product of an f16 value and an int8 one is exact in f32.
 //
 // Design of the two tensor-core variants (gemm_dynamic_wgmma,
 // gemm_weight_only_wgmma): one block computes a BM x BN output tile (128x128,
@@ -66,7 +67,10 @@
 // slice k16.  The tensor cores' f32 accumulation is not an IEEE add per
 // product, so each stage's 12 (or 4) products go into a fresh accumulator that
 // is then added into the tile's running sum with IEEE adds, which bounds the
-// tensor cores' share of the error to one stage's partial sum.  (Were every
+// tensor cores' share of the error to one stage's partial sum.  f16 x takes
+// the same path with the weight tile upcast to f16 (the byte added to 1024 +
+// 128 in an f16 pattern, less 1152: exact, an f16 subtract, no conversion
+// unit) and one wgmma.m64nBNk16.f32.f16.f16 pass a slice.  (Were every
 // k16 add truncated, one accumulator over K=4608 would reach the kernel
 // check's limit, while the stage sums stay under a tenth of it:
 // tests/test_torch_int8_gemm.py emulates both.)
@@ -81,8 +85,11 @@
 
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is reached at run time
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -96,6 +103,7 @@ __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
+__device__ __forceinline__ float load_f32(const __half* p) { return __half2float(*p); }
 
 template <bool HAS_BIAS>
 __device__ __forceinline__ void store_tile(float (&acc)[TM][TN], const float* __restrict__ scale,
@@ -118,7 +126,7 @@ __device__ __forceinline__ void store_tile(float (&acc)[TM][TN], const float* __
   }
 }
 
-// weight_only: f32 or bf16 activations against the int8 panel, f32 accumulate.
+// weight_only: f32, bf16 or f16 activations against the int8 panel, f32 accumulate.
 template <typename XT, bool HAS_BIAS>
 __global__ void __launch_bounds__(THREADS)
     gemm_weight_only(const XT* __restrict__ x, const int8_t* __restrict__ wq,
@@ -556,64 +564,65 @@ __global__ void __launch_bounds__(NWG * 128 + 32)
 
 constexpr int WO_BK = 64;  // K values per stage: one 128-byte row of bf16 weights
 
-// d[0..31] (+)= A(64x16 bf16, registers a[0..3]) * B(64x16 bf16, smem desc b)^T,
-// f32 accumulate; scale_d == 0 overwrites d
-__device__ __forceinline__ void wgmma_bf16_m64n64k16(float (&d)[32], const uint32_t* a,
-                                                      uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
+// d[0..31] (+)= A(64x16, registers a[0..3]) * B(64x16, smem desc b)^T, A and B
+// both bf16 or both f16 (TY), f32 accumulate; scale_d == 0 overwrites d
+#define WGMMA_RS_M64N64K16(TY)                                                               \
+  asm volatile(                                                                             \
+      "{\n"                                                                                 \
+      ".reg .pred p;\n"                                                                     \
+      "setp.ne.b32 p, %37, 0;\n"                                                            \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                           \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"              \
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "  \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"                                            \
+      "}\n"                                                                                 \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),          \
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),       \
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+        "+f"(d[31])                                                                         \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d))
 
-// d[0..63] (+)= A(64x16 bf16, registers a[0..3]) * B(128x16 bf16, smem desc b)^T,
-// f32 accumulate; scale_d == 0 overwrites d
-__device__ __forceinline__ void wgmma_bf16_m64n128k16(float (&d)[64], const uint32_t* a,
-                                                      uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
+// d[0..63] (+)= A(64x16, registers a[0..3]) * B(128x16, smem desc b)^T, as above
+#define WGMMA_RS_M64N128K16(TY)                                                              \
+  asm volatile(                                                                             \
+      "{\n"                                                                                 \
+      ".reg .pred p;\n"                                                                     \
+      "setp.ne.b32 p, %69, 0;\n"                                                            \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "                          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"              \
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"    \
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"    \
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "  \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"                                            \
+      "}\n"                                                                                 \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),          \
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),       \
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),       \
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),       \
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),       \
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),       \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),       \
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                                               \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d))
 
-template <int N>
-__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], const uint32_t* a, uint64_t b,
-                                           int scale_d);
-template <>
-__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], const uint32_t* a, uint64_t b,
-                                               int scale_d) {
-  wgmma_bf16_m64n64k16(d, a, b, scale_d);
-}
-template <>
-__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], const uint32_t* a, uint64_t b,
-                                                int scale_d) {
-  wgmma_bf16_m64n128k16(d, a, b, scale_d);
+// one k16 slice of 16-bit A (registers) and B (smem desc) into d; F16 picks f16
+// operands over bf16
+template <int N, bool F16>
+__device__ __forceinline__ void wgmma_16bit(float (&d)[N / 2], const uint32_t* a, uint64_t b,
+                                            int scale_d) {
+  if constexpr (N == 64) {
+    if constexpr (F16) WGMMA_RS_M64N64K16("f16");
+    else WGMMA_RS_M64N64K16("bf16");
+  } else {
+    static_assert(N == 128, "the tiles are 64 or 128 columns wide");
+    if constexpr (F16) WGMMA_RS_M64N128K16("f16");
+    else WGMMA_RS_M64N128K16("bf16");
+  }
 }
 
 // The high halves of two f32 patterns as a bf16x2 (x0 in the low half):
@@ -652,6 +661,22 @@ __device__ __forceinline__ uint2 bf16x4_of_s8(uint32_t w) {
   return make_uint2(high_halves(f[0], f[1]), high_halves(f[2], f[3]));
 }
 
+// Four int8 values (one word) as two f16x2, exactly, without the conversion
+// unit: each byte with its sign bit flipped (v + 128) becomes the low byte of
+// the mantissa of the f16 1024 (pattern 0x64), and 1024 + 128 + v less 1152
+// (0x6480) is v, an f16 subtract of two exact values.
+__device__ __forceinline__ uint2 f16x4_of_s8(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  uint32_t lo, hi;
+  asm("sub.rn.f16x2 %0, %1, %2;\n"
+      : "=r"(lo)
+      : "r"(__byte_perm(u, 0x64u, 0x4140)), "r"(0x64806480u));
+  asm("sub.rn.f16x2 %0, %1, %2;\n"
+      : "=r"(hi)
+      : "r"(__byte_perm(u, 0x64u, 0x4342)), "r"(0x64806480u));
+  return make_uint2(lo, hi);
+}
+
 // Byte offset of element `col` (of `bytes` bytes each) of row `row` in a tile
 // of 128-byte rows in the 128-byte swizzle (16-byte chunks XORed with row % 8;
 // the tile is 1024-byte aligned, as TMA and wgmma lay it out).
@@ -680,7 +705,8 @@ __host__ __device__ inline int wo_smem_bytes(int nwg, int bn, int stages) {
 
 // A fragments of k16 slice kk of a stage's x tile (BM rows): registers
 // (ra, c), (ra + 8, c), (ra, c + 8), (ra + 8, c + 8), c = 16 kk + t2, two
-// values each; f32 x split into the hi, mid and lo passes, bf16 x as it is.
+// values each; f32 x split into the hi, mid and lo passes, bf16 or f16 x as
+// it is.
 template <bool F32, int PASSES, int BM>
 __device__ __forceinline__ void load_fragments(const uint8_t* xs, int kk, int ra, int t2,
                                                uint32_t* f) {
@@ -721,6 +747,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32)
                            float* __restrict__ y, int M, int K, int O, int stages, int tiles_o,
                            int vec) {
   constexpr bool F32 = sizeof(XT) == 4;
+  constexpr bool F16 = std::is_same<XT, __half>::value;
   constexpr int PASSES = F32 ? 3 : 1;
   constexpr int BM = 64 * NWG;
   constexpr int X_BYTES = BM * WO_BK * static_cast<int>(sizeof(XT));
@@ -784,12 +811,14 @@ __global__ void __launch_bounds__(NWG * 128 + 32)
     const uint8_t* xs = smem + s * STAGE_BYTES;
     const uint8_t* w8 = xs + X_BYTES;
     uint8_t* wbf = wbf0 + (kt & 1) * WBF_BYTES;
-    // wq's int8 rows (64 bytes) -> bf16 rows (128 bytes, swizzled); every
-    // warpgroup is past the wgmmas that last read this tile (two stages ago)
+    // wq's int8 rows (64 bytes) -> bf16 (f16 for f16 x) rows (128 bytes,
+    // swizzled); every warpgroup is past the wgmmas that last read this tile
+    // (two stages ago)
     for (int i = threadIdx.x; i < BN * 8; i += CONSUMERS) {
       const int r = i >> 3, c = i & 7;
       const uint2 v = *reinterpret_cast<const uint2*>(w8 + r * WO_BK + c * 8);
-      const uint2 lo = bf16x4_of_s8(v.x), hi = bf16x4_of_s8(v.y);
+      const uint2 lo = F16 ? f16x4_of_s8(v.x) : bf16x4_of_s8(v.x);
+      const uint2 hi = F16 ? f16x4_of_s8(v.y) : bf16x4_of_s8(v.y);
       *reinterpret_cast<uint4*>(wbf + sw128_offset(r, 8 * c, 2)) =
           make_uint4(lo.x, lo.y, hi.x, hi.y);
     }
@@ -808,7 +837,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32)
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int p = 0; p < PASSES; ++p)
-        wgmma_bf16<BN>(acc, cur + 4 * p, desc_b + 2 * kk, kk + p > 0);
+        wgmma_16bit<BN, F16>(acc, cur + 4 * p, desc_b + 2 * kk, kk + p > 0);
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       if (kk < 3) {
         // slice kk-1's products are done: its registers take slice kk+1
@@ -956,11 +985,13 @@ int launch_weight_only(const void* x, const void* wq, const float* sc, const flo
     ++stages;
   const int smem = wo_smem_bytes<XT>(NWG, BN, stages);
   CUtensorMap map_x, map_w;
+  constexpr CUtensorMapDataType X16 = std::is_same<XT, __half>::value
+                                          ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const bool ok =
       F32 ? encode_2d(&map_x, x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, M, K, 32, BM,
                       CU_TENSOR_MAP_SWIZZLE_128B)
-          : encode_2d(&map_x, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, 64, BM,
-                      CU_TENSOR_MAP_SWIZZLE_128B);
+          : encode_2d(&map_x, x, X16, 2, M, K, 64, BM, CU_TENSOR_MAP_SWIZZLE_128B);
   if (!ok || !encode_2d(&map_w, wq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, O, K, WO_BK, BN,
                         CU_TENSOR_MAP_SWIZZLE_NONE))
     return (int)cudaErrorInvalidValue;
@@ -1035,7 +1066,7 @@ int dispatch_weight_only(const void* x, const void* wq, const float* sc, const f
 
 }  // namespace
 
-// mode: 0 weight_only, 1 dynamic.  x_dtype: 0 f32, 1 bf16, 2 int8.
+// mode: 0 weight_only, 1 dynamic.  x_dtype: 0 f32, 1 bf16, 2 int8, 3 f16.
 // Launches on `stream` and returns cudaGetLastError() (0 on success); an
 // unsupported mode/dtype pair returns cudaErrorInvalidValue without launching.
 // info (5 ints) receives the variant that ran: {0 SIMT weight_only | 1 SIMT
@@ -1072,6 +1103,10 @@ extern "C" int bigdl_int8_gemm(int mode, int x_dtype, int has_bias, const void* 
                ? dispatch_weight_only<__nv_bfloat16, true>(x, wq, sc, b, out, M, K, O, s, info)
                : dispatch_weight_only<__nv_bfloat16, false>(x, wq, sc, b, out, M, K, O, s, info);
   }
+  if (mode == 0 && x_dtype == 3 && tma_ok(x, wq, K)) {
+    return has_bias ? dispatch_weight_only<__half, true>(x, wq, sc, b, out, M, K, O, s, info)
+                    : dispatch_weight_only<__half, false>(x, wq, sc, b, out, M, K, O, s, info);
+  }
   if (mode == 0 && x_dtype == 0) {
     const float* xp = static_cast<const float*>(x);
     if (has_bias)
@@ -1084,6 +1119,12 @@ extern "C" int bigdl_int8_gemm(int mode, int x_dtype, int has_bias, const void* 
       gemm_weight_only<__nv_bfloat16, true><<<grid, block, 0, s>>>(xp, w, sc, b, out, M, K, O);
     else
       gemm_weight_only<__nv_bfloat16, false><<<grid, block, 0, s>>>(xp, w, sc, b, out, M, K, O);
+  } else if (mode == 0 && x_dtype == 3) {
+    const __half* xp = static_cast<const __half*>(x);
+    if (has_bias)
+      gemm_weight_only<__half, true><<<grid, block, 0, s>>>(xp, w, sc, b, out, M, K, O);
+    else
+      gemm_weight_only<__half, false><<<grid, block, 0, s>>>(xp, w, sc, b, out, M, K, O);
   } else if (mode == 1 && x_dtype == 2) {
     const int8_t* xp = static_cast<const int8_t*>(x);
     const bool aligned = (K % 4 == 0) && ((reinterpret_cast<uintptr_t>(x) & 3) == 0) &&

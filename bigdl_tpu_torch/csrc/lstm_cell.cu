@@ -7,6 +7,11 @@
 //   forward:  z = f32(zx) + h @ W_t                     (f32 accumulate; z is (N, 4H))
 //             i, f, g, o = sig(z_i), sig(z_f + forget_bias), tanh(z_g), sig(z_o)
 //             c' = f * c + i * g;  h' = o * tanh(c')    (h', c' in zx's type; z kept in f32)
+//
+// zx, h, c, W_t (and dh, dc) come in f32, bf16 or f16, all four alike; a 16-bit value is
+// widened to f32 as it is read and every result rounded once to its type as it is
+// written (__float2bfloat16, __float2half_rn), so both 16-bit forms compute what the
+// f32 form computes on the widened inputs.
 //   backward: the gates recomputed from the f32 z, then with tc = tanh(c'),
 //             dct = dc + dh * o * (1 - tc^2)
 //             dz = [dct*g*i*(1-i) | dct*c*f*(1-f) | dct*i*(1-g^2) | dh*tc*o*(1-o)]  (f32)
@@ -34,7 +39,7 @@
 // A CTA streams its slice in chunks of 32 rows of W_t (32 x 64) and of h (rows x 32)
 // with cp.async into a ring of 3 stages: 16-byte copies where the row strides allow it,
 // 8 or 4 bytes otherwise (H=650 f32 gate blocks start on 8-byte boundaries), plain loads
-// for bf16 at an odd H; out-of-range rows and columns are zero-filled, so ragged H and N
+// for bf16 or f16 at an odd H; out-of-range rows and columns are zero-filled, so ragged H and N
 // need no padding.  The block is 64 x ceil(rows / 4) threads, so the batch tile is sized
 // to N (N=20: 320 threads, 20 rows).  A thread sums a quarter of each chunk's k for 4
 // columns x 4 rows: per 4 k, four 4-wide loads of W_t and four of h (a broadcast) feed
@@ -55,6 +60,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -80,10 +86,12 @@ __host__ __device__ constexpr int ring_bytes() {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store(__half* p, float v) { *p = __float2half_rn(v); }
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
-// four neighbouring values from shared memory, one 16- (f32) or 8-byte (bf16) load
+// four neighbouring values from shared memory, one 16- (f32) or 8-byte (bf16, f16) load
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
@@ -93,9 +101,15 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
   v[0] = __uint_as_float(q.x << 16), v[1] = __uint_as_float(q.x & 0xffff0000u);
   v[2] = __uint_as_float(q.y << 16), v[3] = __uint_as_float(q.y & 0xffff0000u);
 }
+__device__ __forceinline__ void load4(const __half* p, float (&v)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&q.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&q.y));
+  v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+}
 
 // CW bytes from global to shared, or zeros when !valid: cp.async for CW >= 4
-// (the 16-byte form bypasses L1), a plain load for CW = 2 (one bf16).
+// (the 16-byte form bypasses L1), a plain load for CW = 2 (one bf16 or f16).
 template <int CW>
 __device__ __forceinline__ void copy(void* dst, const void* src, bool valid) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -274,6 +288,7 @@ __device__ __forceinline__ float load_ro(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_ro(const __nv_bfloat16* p) {
   return __bfloat162float(__ldg(p));
 }
+__device__ __forceinline__ float load_ro(const __half* p) { return __half2float(__ldg(p)); }
 
 template <typename T>
 __global__ void __launch_bounds__(BWD_THREADS)
@@ -311,7 +326,7 @@ __global__ void __launch_bounds__(BWD_THREADS) lstm_cell_bwd_empty() {}
 
 namespace {
 
-// The widest copy (16, 8, 4 bytes; 2 = plain bf16 loads) that every row start
+// The widest copy (16, 8, 4 bytes; 2 = plain 16-bit loads) that every row start
 // of h and every gate block of W_t allows: H * sizeof(T) and the bases.
 int copy_width(int H, int es, const void* h, const void* w_t) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(w_t);
@@ -332,16 +347,29 @@ int launch_fwd(const void* zx, const void* h, const void* c, const void* w_t, vo
   return (int)cudaGetLastError();
 }
 
+// a 16-bit type's forward at the copy width cw (16, 8, 4; 2 = plain loads)
+template <typename B>
+int launch_fwd16(int cw, const void* zx, const void* h, const void* c, const void* w_t,
+                 void* h_out, void* c_out, float* z, int N, int H, float forget_bias,
+                 cudaStream_t s) {
+  switch (cw) {
+    case 16: return launch_fwd<B, 16>(zx, h, c, w_t, h_out, c_out, z, N, H, forget_bias, s);
+    case 8: return launch_fwd<B, 8>(zx, h, c, w_t, h_out, c_out, z, N, H, forget_bias, s);
+    case 4: return launch_fwd<B, 4>(zx, h, c, w_t, h_out, c_out, z, N, H, forget_bias, s);
+    default: return launch_fwd<B, 2>(zx, h, c, w_t, h_out, c_out, z, N, H, forget_bias, s);
+  }
+}
+
 }  // namespace
 
-// dtype: 0 f32, 1 bf16 (zx, h, c, w_t, h_out, c_out); z_out is f32.  Launches on
+// dtype: 0 f32, 1 bf16, 2 f16 (zx, h, c, w_t, h_out, c_out); z_out is f32.  Launches on
 // `stream` and returns cudaGetLastError() (0 on success); a bad dtype or size returns
 // cudaErrorInvalidValue without launching.  info (4 ints) receives the launch's shape:
 // {CTAs, cluster size, copy width in bytes (2: plain loads), batch rows a cluster}.
 extern "C" int bigdl_lstm_cell_fwd(int dtype, const void* zx, const void* h, const void* c,
                                    const void* w_t, void* h_out, void* c_out, void* z_out, int N,
                                    int H, float forget_bias, void* stream, int* info) {
-  if (N <= 0 || H <= 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (N <= 0 || H <= 0 || dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* z = static_cast<float*>(z_out);
   const int cw = copy_width(H, dtype == 0 ? 4 : 2, h, w_t);
@@ -349,7 +377,6 @@ extern "C" int bigdl_lstm_cell_fwd(int dtype, const void* zx, const void* h, con
   info[1] = S;
   info[2] = cw;
   info[3] = NT;
-  using B = __nv_bfloat16;
   if (dtype == 0) {
     switch (cw) {
       case 16: return launch_fwd<float, 16>(zx, h, c, w_t, h_out, c_out, z, N, H, forget_bias, s);
@@ -358,12 +385,10 @@ extern "C" int bigdl_lstm_cell_fwd(int dtype, const void* zx, const void* h, con
       default: return (int)cudaErrorInvalidValue;  // an f32 base off a 4-byte boundary
     }
   }
-  switch (cw) {
-    case 16: return launch_fwd<B, 16>(zx, h, c, w_t, h_out, c_out, z, N, H, forget_bias, s);
-    case 8: return launch_fwd<B, 8>(zx, h, c, w_t, h_out, c_out, z, N, H, forget_bias, s);
-    case 4: return launch_fwd<B, 4>(zx, h, c, w_t, h_out, c_out, z, N, H, forget_bias, s);
-    default: return launch_fwd<B, 2>(zx, h, c, w_t, h_out, c_out, z, N, H, forget_bias, s);
-  }
+  return dtype == 1 ? launch_fwd16<__nv_bfloat16>(cw, zx, h, c, w_t, h_out, c_out, z, N, H,
+                                                  forget_bias, s)
+                    : launch_fwd16<__half>(cw, zx, h, c, w_t, h_out, c_out, z, N, H,
+                                           forget_bias, s);
 }
 
 namespace {
@@ -377,31 +402,34 @@ dim3 bwd_grid(int N, int H, int* info) {
   return grid;
 }
 
+template <typename T>
+void launch_bwd(dim3 grid, const void* z, const void* c, const void* dh, const void* dc,
+                void* dz, void* dc_prev, int N, int H, float forget_bias, cudaStream_t s) {
+  lstm_cell_bwd<T><<<grid, BWD_THREADS, 0, s>>>(
+      static_cast<const float*>(z), static_cast<const T*>(c), static_cast<const T*>(dh),
+      static_cast<const T*>(dc), static_cast<float*>(dz), static_cast<T*>(dc_prev), N, H,
+      forget_bias);
+}
+
 }  // namespace
 
-// dtype: 0 f32, 1 bf16 (c, dh, dc, dc_prev); z and dz are f32.  Launches on `stream` and
+// dtype: 0 f32, 1 bf16, 2 f16 (c, dh, dc, dc_prev); z and dz are f32.  Launches on `stream` and
 // returns cudaGetLastError() (0 on success); a bad dtype or size returns
 // cudaErrorInvalidValue without launching.  info (2 ints) receives the launch's shape:
 // {blocks, threads a block}.
 extern "C" int bigdl_lstm_cell_bwd(int dtype, const void* z, const void* c, const void* dh,
                                    const void* dc, void* dz, void* dc_prev, int N, int H,
                                    float forget_bias, void* stream, int* info) {
-  if (N <= 0 || H <= 0 || H > (1 << 28) || (dtype != 0 && dtype != 1))
+  if (N <= 0 || H <= 0 || H > (1 << 28) || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid = bwd_grid(N, H, info);
   if (dtype == 0)
-    lstm_cell_bwd<float><<<grid, BWD_THREADS, 0, s>>>(
-        static_cast<const float*>(z), static_cast<const float*>(c),
-        static_cast<const float*>(dh), static_cast<const float*>(dc), static_cast<float*>(dz),
-        static_cast<float*>(dc_prev), N, H, forget_bias);
-  else {
-    using B = __nv_bfloat16;
-    lstm_cell_bwd<B><<<grid, BWD_THREADS, 0, s>>>(
-        static_cast<const float*>(z), static_cast<const B*>(c), static_cast<const B*>(dh),
-        static_cast<const B*>(dc), static_cast<float*>(dz), static_cast<B*>(dc_prev), N, H,
-        forget_bias);
-  }
+    launch_bwd<float>(grid, z, c, dh, dc, dz, dc_prev, N, H, forget_bias, s);
+  else if (dtype == 1)
+    launch_bwd<__nv_bfloat16>(grid, z, c, dh, dc, dz, dc_prev, N, H, forget_bias, s);
+  else
+    launch_bwd<__half>(grid, z, c, dh, dc, dz, dc_prev, N, H, forget_bias, s);
   return (int)cudaGetLastError();
 }
 
@@ -412,7 +440,7 @@ extern "C" int bigdl_lstm_cell_bwd_empty(int dtype, const void* z, const void* c
                                          void* dc_prev, int N, int H, float forget_bias,
                                          void* stream, int* info) {
   (void)z, (void)c, (void)dh, (void)dc, (void)dz, (void)dc_prev, (void)forget_bias;
-  if (N <= 0 || H <= 0 || H > (1 << 28) || (dtype != 0 && dtype != 1))
+  if (N <= 0 || H <= 0 || H > (1 << 28) || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   lstm_cell_bwd_empty<<<bwd_grid(N, H, info), BWD_THREADS, 0,
                         static_cast<cudaStream_t>(stream)>>>();

@@ -125,15 +125,16 @@ def nms_rows(boxes: torch.Tensor, scores: torch.Tensor, thresh: float,
 def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
         max_output: int, iou: Optional[torch.Tensor] = None):
     """Greedy NMS with a static output: ``(indices (max_output,), valid
-    (max_output,))``, ``indices`` -1 where a slot is unused.  ``iou``
-    passes a precomputed pairwise IoU of ``boxes``."""
+    (max_output,))``, ``indices`` int32 as the reference's, -1 where a
+    slot is unused.  ``iou`` passes a precomputed pairwise IoU of
+    ``boxes``."""
     if iou is None:
         idx, valid = nms_rows(boxes, scores[None], iou_threshold,
                               max_output)
     else:
         idx, valid = _greedy(scores[None], iou_threshold, max_output,
                              lambda best: iou[best])
-    return idx[0], valid[0]
+    return idx[0].to(torch.int32), valid[0]
 
 
 class Nms:

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from bigdl_tpu_torch.nn.initialization import (InitializationMethod,
                                                RandomNormal, RandomUniform)
 from bigdl_tpu_torch.nn.module import Module, Stochastic, recomputing
+from bigdl_tpu_torch.nn.shape_ops import wrap_negative
 from bigdl_tpu_torch.ops.maxpool import maxpool2d
 
 FORMATS = ("NCHW", "NHWC")
@@ -411,7 +412,8 @@ class SpatialCrossMapLRN(Module):
 class LookupTable(Module):
     """Embedding lookup; weight (n_index, n_output).  Indices are 0-based
     (the Torch original is 1-based); ``padding_value``'s row is zeroed at
-    initialization; ``max_norm`` renormalizes rows in the forward."""
+    initialization; ``max_norm`` renormalizes rows in the forward.  An
+    id in [-n_index, 0) counts from the end, as ``jnp.take`` reads it."""
 
     def __init__(self, n_index: int, n_output: int,
                  padding_value: Optional[int] = None,
@@ -440,7 +442,7 @@ class LookupTable(Module):
             norms = torch.linalg.vector_norm(w, dim=1, keepdim=True)
             w = w * torch.clamp(self.max_norm / torch.clamp(norms, min=1e-7),
                                 max=1.0)
-        return F.embedding(x.long(), w)
+        return F.embedding(wrap_negative(x.long(), self.n_index), w)
 
 
 class SpatialFullConvolution(Module):

@@ -7,7 +7,7 @@ Scheme, as in the reference:
   are bitwise-equal to JAX's;
 - activations, per layer ``mode`` (``Config.int8_activation_mode``
   default, ``quantize(model, mode=...)`` override): ``"weight_only"``
-  keeps f32/bf16 activations; ``"dynamic"`` quantizes them per tensor on
+  keeps f32/bf16/f16 activations; ``"dynamic"`` quantizes them per tensor on
   the fly (``ops.int8_gemm.dyn_quantize``);
 - f32 bias added after dequantization, in the same rounding as the scale.
 

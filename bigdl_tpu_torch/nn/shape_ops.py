@@ -124,9 +124,15 @@ class Select(Module):
         return x.select(self.dim, self.index)
 
 
+def wrap_negative(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``idx`` with each id in [-n, 0) moved up by n, numpy-style."""
+    return torch.where(idx < 0, idx + n, idx)
+
+
 class Index(Module):
     """Gather along ``dim`` by an index tensor: input ``(x, indices)``;
-    the indices' shape replaces axis ``dim``."""
+    the indices' shape replaces axis ``dim``.  An index in [-n, 0) counts
+    from the end, as ``jnp.take`` reads it; one at or above n raises."""
 
     def __init__(self, dim: int, name=None):
         super().__init__(name)
@@ -135,7 +141,8 @@ class Index(Module):
     def forward(self, xs):
         x, idx = xs
         dim = self.dim % x.dim()
-        idx = torch.as_tensor(idx, device=x.device).long()
+        idx = wrap_negative(torch.as_tensor(idx, device=x.device).long(),
+                            x.shape[dim])
         out = x.index_select(dim, idx.reshape(-1))
         return out.reshape(x.shape[:dim] + idx.shape + x.shape[dim + 1:])
 

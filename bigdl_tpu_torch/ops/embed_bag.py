@@ -30,7 +30,7 @@ hand-written Hopper kernel (``csrc/embed_bag.cu``, :func:`launch`) or
 raises; a CPU tensor runs the plain version
 :func:`embedding_bag_coo_reference`.  There is no ``impl`` knob, no
 ``supported()`` gate and no fallback: the kernel takes any D (ragged
-included), f32 and bf16 tables and values, and 64-bit offsets where
+included), f32, bf16 and f16 tables and values, and 64-bit offsets where
 ``V * D`` or ``n_rows * D`` reaches 2^31.  The reference's 128-lane and
 VMEM-budget limits are TPU facts and are not copied.
 
@@ -52,7 +52,7 @@ from bigdl_tpu_torch.ops.int8_gemm import fma_f32
 #: kernel calls since the last reset (a plain int; reset by assigning 0)
 launches = 0
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _fns = {}  # the C entry points, see _kernel_fn
 
 # the grouping passes' sizes, as csrc/embed_bag.cu has them
@@ -201,7 +201,7 @@ def launch(rows, cols, values, table, n_rows: int):
     """Launch the kernel: the grouping passes, then the bag walk (what
     :func:`embedding_bag_coo_reference` takes and returns).  Raises on
     anything the kernel does not take: tensors off CUDA or on different
-    cards, rows or cols not int32, values or table not f32/bf16, a table
+    cards, rows or cols not int32, values or table not f32/bf16/f16, a table
     that is not a contiguous (V, D), streams of unequal length or not
     contiguous."""
     global launches
@@ -221,7 +221,7 @@ def launch(rows, cols, values, table, n_rows: int):
     if values.dtype not in _DTYPE_CODE or table.dtype not in _DTYPE_CODE:
         raise TypeError(f"kernel B3 (the embedding bag) has no form for "
                         f"{values.dtype} values and a {table.dtype} table: "
-                        f"values and table must be f32 or bf16")
+                        f"values and table must be f32, bf16 or f16")
     if table.dim() != 2 or not table.is_contiguous():
         raise ValueError(f"the table must be a contiguous (V, D), got "
                          f"{tuple(table.shape)} strides {table.stride()}")
@@ -282,8 +282,8 @@ class _EmbeddingBagCOO(torch.autograd.Function):
 def embedding_bag_coo(rows, cols, values, table, n_rows: int):
     """Differentiable COO embedding-bag, the twin of the reference's
     ``embedding_bag_coo``: ``rows``, ``cols`` (nnz,) integer, ``values``
-    (nnz,) f32/bf16, ``table`` (V, D) f32/bf16; returns ``(n_rows, D)`` in
-    ``result_type(table, values)``."""
+    (nnz,) f32/bf16/f16, ``table`` (V, D) f32/bf16/f16; returns
+    ``(n_rows, D)`` in ``result_type(table, values)``."""
     return _EmbeddingBagCOO.apply(rows.to(torch.int32).contiguous(),
                                   cols.to(torch.int32).contiguous(),
                                   values.contiguous(), table.contiguous(),

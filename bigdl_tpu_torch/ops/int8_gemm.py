@@ -3,8 +3,8 @@
 Port of ``bigdl_tpu/ops/pallas_int8_gemm.py``: ``y = (x @ wq.T) * scale_o
 (+ bias)`` in two modes that share one definition of the math.
 
-- ``weight_only``: f32/bf16 activations against the int8 (O, K) panel,
-  f32 accumulate;
+- ``weight_only``: f32/bf16/f16 activations against the int8 (O, K)
+  panel, f32 accumulate;
 - ``dynamic``: activations quantized per tensor by :func:`dyn_quantize`
   (amax * f32(1/127), round half to even, clip +-127), int8 x int8 with
   an exact integer sum, dequantized by ``x_scale * w_scale_o``.
@@ -27,7 +27,8 @@ can show that its main path went through the kernel.  The C entry point
 picks one of four variants and says which: ``wgmma_dynamic`` (s8 ``wgmma``
 fed by TMA) and ``wgmma_weight_only`` (bf16 ``wgmma`` over the exact
 three-way split of f32 activations, :func:`split_bf16x3`; one pass for
-bf16 activations) wherever TMA can describe the operands, else
+bf16 activations, one f16 pass for f16 ones) wherever TMA can describe
+the operands, else
 ``simt_dynamic`` and ``simt_weight_only`` (K not a multiple of 16, as at
 ResNet-50's stem, or an unaligned base).  ``variant_launches`` counts each
 beside ``launches``, and ``last_variant`` holds the last launch's
@@ -57,7 +58,8 @@ last_variant = None
 
 # int32 accumulator: K * 127 * 127 must stay below 2**31
 _MAX_K_DYNAMIC = (2 ** 31 - 1) // (127 * 127)
-_X_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_X_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+                 torch.float16: 3}
 _fn = None  # the C entry point, see _kernel_fn
 
 
@@ -74,11 +76,14 @@ def dyn_quantize(x: torch.Tensor):
     """Per-tensor dynamic symmetric int8 quantization: ``(int8 values,
     scale)`` with ``scale = max(amax, 1e-8) * f32(1/127)`` in ``x``'s
     dtype, then a true division and rounding half to even (the jitted
-    reference's ``dyn_quantize``, bit for bit)."""
+    reference's ``dyn_quantize``, bit for bit).  In f16, 1e-8 and the
+    scale of an amax below about 2^-18 are 0: ``x / scale`` is then NaN
+    where x is 0, which becomes 0 as XLA's float-to-int conversion makes
+    it (a C cast of NaN is undefined), and +-inf elsewhere, +-127."""
     amax = torch.clamp(x.abs().max(), min=1e-8)
     scale = amax * _INV_127
-    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
-    return q, scale
+    q = torch.clamp(torch.round(x / scale), -127, 127)
+    return torch.nan_to_num(q, nan=0.0).to(torch.int8), scale
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor,
@@ -126,7 +131,7 @@ def int8_matmul_reference(xin: torch.Tensor, wq: torch.Tensor,
                           scale_row: torch.Tensor,
                           bias_row: Optional[torch.Tensor]) -> torch.Tensor:
     """The plain version of the kernel on already-prepared operands:
-    ``xin`` (N, K) f32/bf16 or int8, ``wq`` (O, K) int8, ``scale_row`` and
+    ``xin`` (N, K) f32/bf16/f16 or int8, ``wq`` (O, K) int8, ``scale_row`` and
     ``bias_row`` (O,) f32.  float64 product, accumulator rounded to f32,
     then a single-rounding ``acc * scale + bias``."""
     acc = (xin.double() @ wq.double().T).float()
@@ -140,7 +145,7 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
     ``nn/quantized.py``.
 
     Args:
-      x: (N, K) f32/bf16 activations.
+      x: (N, K) f32/bf16/f16 activations.
       wq: (O, K) int8 weights (symmetric per output channel).
       wscale: (O,) or (O, 1) f32 per-output-channel scales.
       bias: optional (O,) f32.
@@ -155,9 +160,9 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
     if x.dim() != 2 or wq.dim() != 2 or x.shape[1] != wq.shape[1]:
         raise ValueError(f"int8_matmul wants x (N, K) and wq (O, K); got "
                          f"{tuple(x.shape)} and {tuple(wq.shape)}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise TypeError(f"kernel B4 (the int8 GEMM) has no {x.dtype} form: "
-                        f"int8_matmul takes f32/bf16 activations")
+                        f"int8_matmul takes f32/bf16/f16 activations")
     xin, scale_row = prepare_operands(x, wscale, mode)
     bias_row = None if bias is None else bias.float().reshape(-1).contiguous()
     return int8_gemm(xin, wq, scale_row, bias_row)
@@ -217,8 +222,8 @@ def launch(xin: torch.Tensor, wq: torch.Tensor, scale_row: torch.Tensor,
     if dev.type != "cuda":
         raise RuntimeError(f"the int8 GEMM kernel runs on CUDA, not {dev}")
     if xin.dtype not in _X_DTYPE_CODE:
-        raise TypeError(f"kernel activations must be f32, bf16 or int8, "
-                        f"got {xin.dtype}")
+        raise TypeError(f"kernel activations must be f32, bf16, f16 or "
+                        f"int8, got {xin.dtype}")
     mode = 1 if xin.dtype == torch.int8 else 0
     M, K = xin.shape
     O = wq.shape[0]

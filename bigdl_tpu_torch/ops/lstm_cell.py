@@ -43,7 +43,7 @@ last_fwd_shape = None
 #: (blocks, threads a block) of the last backward launch
 last_bwd_shape = None
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _fns = {}  # C entry points, see _kernel_fn
 
 
@@ -122,7 +122,8 @@ def launch_fwd(zx, h, c, w_t, forget_bias: float = 0.0):
         raise RuntimeError(f"the LSTM cell kernel runs on CUDA, not {dev}")
     if zx.dtype not in _DTYPE_CODE:
         raise TypeError(f"kernel B2f (the LSTM cell forward) has no "
-                        f"{zx.dtype} form: the LSTM cell takes f32 or bf16")
+                        f"{zx.dtype} form: the LSTM cell takes f32, bf16 "
+                        f"or f16")
     N, H = h.shape
     _check((("zx", zx), ("h", h), ("c", c), ("w_t", w_t)),
            ((N, 4 * H), (N, H), (N, H), (H, 4 * H)), (zx.dtype,) * 4, dev)
@@ -144,7 +145,8 @@ def _bwd_args(z, c, dh, dc):
         raise RuntimeError(f"the LSTM cell kernel runs on CUDA, not {dev}")
     if c.dtype not in _DTYPE_CODE:
         raise TypeError(f"kernel B2b (the LSTM cell backward) has no "
-                        f"{c.dtype} form: the LSTM cell takes f32 or bf16")
+                        f"{c.dtype} form: the LSTM cell takes f32, bf16 "
+                        f"or f16")
     N, H = c.shape
     _check((("z", z), ("c", c), ("dh", dh), ("dc", dc)),
            ((N, 4 * H), (N, H), (N, H), (N, H)),
@@ -219,7 +221,7 @@ def lstm_cell(zx, h, c, w_t, *, forget_bias: float = 0.0):
 
     Args mirror ``nn.recurrent.LSTM.step_hoisted``: ``zx`` (N, 4H) is the
     hoisted input projection plus bias, ``h``/``c`` (N, H) the carried
-    state, ``w_t`` (H, 4H) the transposed recurrent weight slice, all f32
-    or all bf16 and contiguous.  Returns ``(h_new, c_new)`` in ``zx``'s
+    state, ``w_t`` (H, 4H) the transposed recurrent weight slice, all f32,
+    all bf16 or all f16 and contiguous.  Returns ``(h_new, c_new)`` in ``zx``'s
     dtype; differentiable in all four inputs."""
     return _LSTMCell.apply(zx, h, c, w_t, float(forget_bias))

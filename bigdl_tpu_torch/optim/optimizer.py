@@ -472,9 +472,9 @@ class Optimizer:
         """Mixed precision: forward and backward in ``dtype`` (bf16 or
         f16 for the tensor cores); parameters, gradients, optimizer state
         and the update stay f32.  ``None`` and ``torch.float32`` compute in
-        f32.  f16, like the reference's, runs without loss scaling; a
-        kernel with no f16 form (the LSTM cell, the embedding bag, the
-        int8 GEMM) raises when an f16 run reaches it on the card."""
+        f32.  f16, like the reference's, runs without loss scaling, and
+        every hand-written kernel (the max-pool backward, the LSTM cell,
+        the embedding bag, the int8 GEMM) has an f16 form on the card."""
         if dtype not in (None, torch.float32, torch.bfloat16,
                          torch.float16):
             _not_ported(f"compute dtype {dtype} (set_compute_dtype takes "

@@ -74,7 +74,10 @@ class Top5Accuracy(ValidationMethod):
     name = "Top5Accuracy"
 
     def batch_stats(self, output, target):
-        top5 = torch.topk(output, 5, dim=-1).indices
+        # a stable descending sort: ties go to the lower index, as
+        # lax.top_k gives them (torch.topk leaves their order open)
+        top5 = torch.sort(output, dim=-1, descending=True,
+                          stable=True).indices[..., :5]
         target = _as_class_indices(target, output)
         hit = torch.any(top5 == target.to(top5.dtype)[..., None], dim=-1)
         return torch.sum(hit), target.shape[0]

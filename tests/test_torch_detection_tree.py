@@ -84,6 +84,11 @@ def test_nms_contract():
     assert idx.tolist() == [7, -1, -1, -1]
     idx, valid = nn.Nms()(t([0.9, 0.8, 0.7]), boxes, 0.5, 3)
     assert idx.tolist() == [0, 2, -1]
+    # the reference's indices are int32, from nms and Nms alike
+    want = _jnms(jnp.asarray(boxes.numpy()), jnp.asarray([0.9, 0.8, 0.7]),
+                 0.5, 3)[0]
+    assert idx.dtype == torch.int32 and str(want.dtype) == "int32"
+    assert nn.nms(boxes, t([0.9, 0.8, 0.7]), 0.5, 3)[0].dtype == torch.int32
 
 
 def test_prior_box_caffe_layout():

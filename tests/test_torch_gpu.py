@@ -35,8 +35,9 @@ against the CPU, ring attention on ``[cuda:0] * 4`` against full
 attention (forward and gradients within 1e-5 of the largest value) and
 GPipe of four transformer blocks on ``[cuda:0] * 4`` against its
 sequential oracle; B1 in f16 (the tiled cases above, LeNet's pools and
-the generic cases, bitwise), f16 refused by B2f, B2b, B3 and B4 with a
-TypeError naming the kernel, the detection heads (each decode within
+the generic cases, bitwise), the f16 forms of B2f, B2b, B3 and B4 (f16
+among the dtypes of their kernel tests above) and an f16 run through each
+of them from its public entry point against the CPU, the detection heads (each decode within
 1e-5 of its largest coordinate, each selection on the card's decoded
 boxes bitwise the CPU's, RoI pooling bitwise), ``BinaryTreeLSTM`` forward
 and gradients within 1e-5 of the largest value, and a ``While`` trained
@@ -53,7 +54,7 @@ weight_only ``1e-4`` and dynamic ``1e-3`` of ``max|y|`` — see
 ``test_torch_serving.py`` for why dynamic mode needs more.  LSTM cell, f32:
 ``rtol=atol=1e-5`` (the recurrent product summed in another order; the
 gates' expf/tanhf within ulps of PyTorch's); bf16 outputs within one bf16
-ulp (``rtol=atol=8e-3``).  Training on the card against the CPU: losses
+ulp (``rtol=atol=8e-3``), f16 within one f16 ulp (``1e-3``).  Training on the card against the CPU: losses
 ``rtol=1e-4``, parameters ``1e-4`` of each array's largest value.  The
 max-pool backward is BITWISE against its plain version (the same terms
 added in the same order and dtype), and so is the embedding bag, forward
@@ -135,7 +136,8 @@ def _operands(M, K, O, xdtype, bias, device, seed=5):
     return xin, wq, scale, b if bias else None
 
 
-@pytest.mark.parametrize("xdtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("xdtype", ["float32", "bfloat16", "float16",
+                                    "int8"])
 @pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_kernel_matches_plain(cuda, shape, bias, xdtype):
@@ -169,7 +171,7 @@ def test_unaligned_base_takes_simt(cuda):
     assert torch.equal(got, int8_matmul_reference(xin, wq, scale, b))
 
 
-@pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("xdtype", ["float32", "bfloat16", "float16"])
 def test_unaligned_weight_only_base_takes_simt(cuda, xdtype):
     """weight_only activations off a 16-byte boundary go to the SIMT
     variant, within the same tolerance."""
@@ -187,7 +189,7 @@ def test_unaligned_weight_only_base_takes_simt(cuda, xdtype):
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
     xin, wq, scale, b = _operands(4, 16, 8, "float32", True, cuda)
-    with pytest.raises(TypeError, match="f32, bf16 or int8"):
+    with pytest.raises(TypeError, match="f32, bf16, f16 or int8"):
         int8_gemm.launch(xin.double(), wq, scale, b)
     with pytest.raises(TypeError, match="wq must be int8"):
         int8_gemm.launch(xin, wq.float(), scale, b)
@@ -225,7 +227,7 @@ CELL_SHAPES = [(20, 650), (20, 200), (1, 64), (5, 130), (37, 650), (64, 650),
 
 
 @pytest.mark.parametrize("fb", [0.0, 1.0], ids=["fb0", "fb1"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("shape", CELL_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
 def test_lstm_cell_kernels_match_plain(cuda, shape, dtype, fb):
@@ -253,11 +255,14 @@ def test_lstm_cell_kernels_match_plain(cuda, shape, dtype, fb):
     assert lstm_cell.last_bwd_shape == (-(-H // 128) * N, 128)
     # f32 results within 1e-5, the forward's at H=650 within 1e-4 (its
     # recurrent product sums 650 terms in another order than cuBLAS; the
-    # JAX cell test's forward tolerance at that shape); bf16 within 8e-3
+    # JAX cell test's forward tolerance at that shape); bf16 within 8e-3,
+    # f16 within 1e-3 (one ulp of each where an f32 result near a rounding
+    # boundary of the type rounds the other way)
     for i, (g, w) in enumerate(zip(got + got_b, want + want_b)):
         assert g.dtype == w.dtype
         fwd = i < len(got)
         t = 8e-3 if g.dtype == torch.bfloat16 else \
+            1e-3 if g.dtype == torch.float16 else \
             1e-4 if fwd and H > 130 else 1e-5
         torch.testing.assert_close(g.float(), w.float(), rtol=t, atol=t)
 
@@ -299,7 +304,7 @@ def test_lstm_cell_kernel_refuses_what_it_does_not_take(cuda):
     w_t = torch.zeros(32, 8, device=cuda).T
     with pytest.raises(TypeError, match="strided"):
         lstm_cell.launch_fwd(zx, h, c, w_t)
-    with pytest.raises(TypeError, match="f32 or bf16"):
+    with pytest.raises(TypeError, match="f32, bf16 or f16"):
         lstm_cell.launch_fwd(zx.double(), h, c, w_t.contiguous())
     with pytest.raises(ValueError, match="is on cpu"):
         lstm_cell.launch_fwd(zx, h.cpu(), c, w_t.contiguous())
@@ -606,14 +611,16 @@ def test_resnet_training_on_card_matches_cpu(cuda):
 
 # -------------------------------------------------------- embedding bag B3
 # (name, N, V, D, nnz, table dtype, values dtype): the census wide path
-# (8 ids a sample), D 16, 128 and a ragged 129, bf16 tables with bf16 and
-# f32 values, a single row
+# (8 ids a sample), D 16, 128 and a ragged 129, bf16 and f16 tables with
+# values of their type and f32 values, a single row
 BAGS = [("census", 8192, 100_000, 1, 65_536, "float32", "float32"),
         ("d16", 512, 1000, 16, 4096, "float32", "float32"),
         ("d128", 256, 500, 128, 2048, "float32", "float32"),
         ("d129", 100, 300, 129, 800, "float32", "float32"),
         ("bf16", 300, 2000, 16, 2400, "bfloat16", "bfloat16"),
         ("bf16_table", 300, 2000, 16, 2400, "bfloat16", "float32"),
+        ("f16", 300, 2000, 16, 2400, "float16", "float16"),
+        ("f16_table", 300, 2000, 16, 2400, "float16", "float32"),
         ("single_row", 1, 50, 8, 20, "float32", "float32"),
         ("one_key", 512, 1000, 1, 4096, "float32", "float32")]
 
@@ -758,7 +765,7 @@ def test_embed_bag_kernel_refuses_what_it_does_not_take(cuda):
         embed_bag.launch(rows.cpu(), rows, vals, table, 2)
     with pytest.raises(TypeError, match="int32"):
         embed_bag.launch(rows.long(), rows, vals, table, 2)
-    with pytest.raises(TypeError, match="f32 or bf16"):
+    with pytest.raises(TypeError, match="f32, bf16 or f16"):
         embed_bag.launch(rows, rows, vals, table.double(), 2)
     with pytest.raises(ValueError, match="contiguous"):
         embed_bag.launch(rows, rows, vals, table.T, 2)
@@ -1628,31 +1635,91 @@ def test_maxpool_bwd_f16_two_pass_matches_plain(cuda, case):
     assert got.dtype == torch.float16 and torch.equal(got, want)
 
 
-def test_f16_refusals_name_the_kernel(cuda):
-    def z(*shape, dtype=torch.float16):
-        return torch.zeros(*shape, dtype=dtype, device=cuda)
-    with pytest.raises(TypeError, match="B2f"):
-        lstm_cell.launch_fwd(z(2, 32), z(2, 8), z(2, 8), z(8, 32))
-    with pytest.raises(TypeError, match="B2b"):
-        lstm_cell.launch_bwd(z(2, 32, dtype=torch.float32), z(2, 8),
-                             z(2, 8), z(2, 8))
-    with pytest.raises(TypeError, match="B3"):
-        embed_bag.launch(z(4, dtype=torch.int32), z(4, dtype=torch.int32),
-                         z(4), z(10, 3), 2)
-    with pytest.raises(TypeError, match="B4"):
-        int8_gemm.int8_matmul(z(2, 16), z(4, 16, dtype=torch.int8),
-                              z(4, dtype=torch.float32))
-    model = ptb_model(50, 8, 8, 1).initialize(0)
+@pytest.mark.parametrize("mode", ["weight_only", "dynamic"])
+def test_int8_matmul_f16_rows_on_card_match_cpu(cuda, mode):
+    """f16 rows through ``int8_matmul`` at the stem's K=147 (SIMT) and an
+    aligned K (``wgmma``), and all-zero rows (an f16 scale of 0): the CPU's
+    result, dynamic bitwise, weight_only within ``rtol=1e-5, atol=1e-5 *
+    max|y|``."""
+    for M, K, O, zero in ((37, 147, 64, False), (37, 256, 128, False),
+                          (8, 256, 128, True)):
+        xin, wq, scale, b = _operands(M, K, O, "float16", True, "cpu")
+        if zero:
+            xin.zero_()
+        want = int8_gemm.int8_matmul(xin, wq, scale, b, mode=mode)
+        got = int8_gemm.int8_matmul(xin.to(cuda), wq.to(cuda),
+                                    scale.to(cuda), b.to(cuda), mode=mode)
+        torch.cuda.synchronize()
+        variant = ("wgmma_" if K % 16 == 0 else "simt_") + mode
+        assert int8_gemm.last_variant[0] == variant
+        if mode == "dynamic":
+            assert torch.equal(got.cpu(), want)
+        else:
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                                       atol=1e-5 * want.abs().max().item())
+
+
+def test_f16_ptb_step_on_card_matches_cpu(cuda):
+    """One f16 step of a small PTB model through ``LocalOptimizer`` on the
+    card (B2f and B2b in f16, 5 launches each) against the same step on
+    the CPU: the loss within ``rtol=1e-3`` and each array's change within
+    5e-2 of the CPU's change (L2; f16 results that round the other way on
+    the card move the gradients by about an f16 ulp of their terms)."""
     rng = np.random.default_rng(0)
     samples = [Sample(rng.integers(0, 50, 5), rng.integers(0, 50, 5))
                for _ in range(4)]
-    opt = (optim.LocalOptimizer(
-        model, DataSet.array(samples) >> SampleToMiniBatch(4),
-        nn.TimeDistributedCriterion(nn.ClassNLLCriterion()), device=cuda)
-        .set_compute_dtype(torch.float16)
-        .set_end_when(optim.max_iteration(1)))
-    with pytest.raises(TypeError, match="B2f"):
-        opt.optimize()
+    out = {}
+    start = ptb_model(50, 8, 8, 1).initialize(0).state_dict()
+    for dev in ("cpu", cuda):
+        model = ptb_model(50, 8, 8, 1).initialize(0)
+        losses, dtypes = [], []
+        sound = lstm_cell.launch_fwd
+
+        def launch(zx, *a):
+            dtypes.append(zx.dtype)
+            return sound(zx, *a)
+        opt = (optim.LocalOptimizer(
+            model, DataSet.array(samples) >> SampleToMiniBatch(4),
+            nn.TimeDistributedCriterion(nn.ClassNLLCriterion()), device=dev)
+            .set_compute_dtype(torch.float16)
+            .set_end_when(optim.max_iteration(1)))
+        opt._log_train_iteration = lambda lr: losses.append(opt.state["loss"])
+        before = (lstm_cell.fwd_launches, lstm_cell.bwd_launches)
+        lstm_cell.launch_fwd = launch
+        try:
+            opt.optimize()
+        finally:
+            lstm_cell.launch_fwd = sound
+        out[str(dev)] = (losses, model.state_dict(), dtypes,
+                         (lstm_cell.fwd_launches - before[0],
+                          lstm_cell.bwd_launches - before[1]))
+    lc, sc, dc, nc = out["cpu"]
+    lg, sg, dg, ng = out[str(cuda)]
+    assert nc == (0, 0) and ng == (5, 5) and set(dg) == {torch.float16}
+    np.testing.assert_allclose(lg, lc, rtol=1e-3)
+    for k, w0 in start.items():
+        step_cpu, step_card = sc[k] - w0, sg[k].cpu() - w0
+        assert float((step_card - step_cpu).norm()) <= \
+            5e-2 * float(step_cpu.norm()), k
+
+
+def test_embed_bag_f16_autograd_on_card_matches_cpu(cuda):
+    """``embedding_bag_coo`` with an f16 table and f16 values on the card:
+    the forward (f16 out) and the table's gradient (f32 cotangent, f16
+    values) on B3, bitwise the CPU's."""
+    rows, cols, vals, table, g, N = _bag_operands(BAGS[0], "cpu")
+    vals, table = vals.half(), table.half()
+    out = {}
+    for dev in ("cpu", cuda):
+        t = table.to(dev, copy=True).requires_grad_(True)
+        before = embed_bag.launches
+        y = embed_bag.embedding_bag_coo(rows.to(dev), cols.to(dev),
+                                        vals.to(dev), t, N)
+        y.backward(g.to(dev).half())
+        out[str(dev)] = (y.cpu(), t.grad.cpu(), embed_bag.launches - before)
+    (y0, dt0, n0), (y1, dt1, n1) = out["cpu"], out[str(cuda)]
+    assert (n0, n1) == (0, 2) and y1.dtype == torch.float16
+    assert torch.equal(y0, y1) and torch.equal(dt0, dt1)
 
 
 def _share(a, b):

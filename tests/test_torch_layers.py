@@ -17,6 +17,8 @@ import torch
 
 jax = pytest.importorskip("jax")  # the reference; absent on the card
 
+import jax.numpy as jnp  # noqa: E402
+
 from bigdl_tpu import nn as jnn
 from bigdl_tpu.models.resnet import resnet50 as jax_resnet50
 from bigdl_tpu.models.resnet import resnet_cifar as jax_resnet_cifar
@@ -535,3 +537,30 @@ def test_extra_layer_forward_and_gradients_match_reference(name):
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), rtol=1e-4,
                                atol=1e-4 * np.abs(np.asarray(gx)).max())
     assert got.keys() == params.keys()
+
+
+def test_lookup_table_negative_ids_match_reference():
+    """Ids in [-n, 0) count from the end, as the reference's ``jnp.take``
+    reads them: the same rows forward and the weight gradient on the same
+    rows (rtol=1e-6: one f32 sum of cotangents a row); an id at n is
+    refused."""
+    tm = nn.LookupTable(5, 3).initialize(4)
+    params, state = to_jax_params(tm)
+    jm = jnn.LookupTable(5, 3)
+    ids = np.array([[-1, 0, -5], [4, -1, 2]], np.int32)
+    cot = np.random.default_rng(9).normal(0, 1, (2, 3, 3)).astype(np.float32)
+
+    def jloss(p):
+        y, _ = jm.apply(p, state, jnp.asarray(ids))
+        return (y * cot).sum(), y
+
+    (_, yj), gp = jax.value_and_grad(jloss, has_aux=True)(params)
+    tm.weight.requires_grad_(True)
+    yt = tm(torch.from_numpy(ids))
+    (yt * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(yt.detach().numpy(), np.asarray(yj),
+                               rtol=1e-6)
+    np.testing.assert_allclose(tm.weight.grad.numpy(),
+                               np.asarray(gp["weight"]), rtol=1e-6)
+    with pytest.raises(IndexError):
+        tm(torch.tensor([5]))

@@ -101,6 +101,10 @@ CASES = {
     "Select_negative": ((2, -1), lambda: _normal(2, 4, 3)),
     "Index": ((1,), lambda: (_normal(2, 5, 3),
                              _rng(1).integers(0, 5, (2, 3)).astype(np.int32))),
+    # ids in [-5, 0) count from the end, as jnp.take reads them
+    "Index_negative": ((1,), lambda: (_normal(2, 5, 3),
+                                      _rng(1).integers(-5, 5, (2, 3)).astype(
+                                          np.int32))),
     "Padding": ((1, 2, 0.5), lambda: _normal(2, 3, 4)),
     "Padding_leading": ((2, -1), lambda: _normal(2, 3, 4)),
     "SpatialZeroPadding": ((1, 2, 0, 1), lambda: _normal(2, 3, 4, 5)),

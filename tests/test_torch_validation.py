@@ -45,6 +45,10 @@ CASES = {
     "Top5Accuracy/indices": ((), LOGITS, LABELS),
     "Top5Accuracy/one_hot": ((), LOGITS,
                              np.eye(10, dtype=np.float32)[LABELS]),
+    # outputs from {0, 1, 2}: most rows tie across the fifth place, where
+    # lax.top_k keeps the lower index
+    "Top5Accuracy/ties": ((), np.random.default_rng(0).integers(
+        0, 3, (13, 10)).astype(np.float32), LABELS),
     "Loss/indices": ((), LOGITS, LABELS),
     "MAE/dense": ((), LOGITS, rng.normal(size=(13, 10)).astype(np.float32)),
     "HitRatio/k3": ((3,), LOGITS, None),
