@@ -31,6 +31,7 @@ from bigdl_tpu_torch.checkpoint.snapshot import (AsyncSnapshotWriter,
                                                  SnapshotError,
                                                  capture_to_host,
                                                  load_snapshot,
+                                                 read_manifest,
                                                  verify_snapshot,
                                                  write_snapshot)
 
@@ -125,6 +126,19 @@ class CheckpointManager:
         """Release the :meth:`latest_valid` GC pin (idempotent)."""
         with self._pin_lock:
             self._pinned_step = None  # releases: snapshot_pin
+
+    def manifest(self, path: Optional[str] = None) -> Optional[dict]:
+        """The manifest of ``path``, or of the newest valid snapshot (None
+        when there is none); inspecting holds no pin afterwards."""
+        if path is None:
+            try:
+                path = self.latest_valid()
+                if path is None:
+                    return None
+                return read_manifest(path)
+            finally:
+                self.unpin()
+        return read_manifest(path)
 
     # -------------------------------------------------------------- save
     def mark_run_start(self) -> None:

@@ -437,6 +437,10 @@ class AsyncSnapshotWriter:
         self._ensure_thread()
         self._q.put((job, context))  # blocks while the queue is full
 
+    def pending(self) -> int:
+        """Jobs submitted and not yet committed."""
+        return self._q.unfinished_tasks
+
     def drain(self) -> None:
         """Block until every submitted job has committed; raise a
         deferred write error."""

@@ -77,11 +77,29 @@
 //
 // TMA needs 16-byte global row strides and bases.  wq's int8 rows need K % 16
 // == 0 (x's f32 or bf16 rows need less), so a K that is not a multiple of 16
-// (ResNet-50's stem, K=147) or an unaligned view goes to the SIMT kernels:
-// gemm_weight_only (64x64 tiles, 4x4 results per thread, f32 FMAs on the CUDA
-// cores) and gemm_dynamic (__dp4a), both with bounds-checked loads and zero
-// fill.  The C entry point chooses by stride and alignment alone and reports
-// its choice.
+// (ResNet-50's stem, K=147; the quantized recurrent cells' projections of
+// [x_t, h], K=228) or an unaligned view goes to the mma variants
+// (gemm_weight_only_mma, gemm_dynamic_mma).  The C entry point chooses by
+// stride and alignment alone and reports its choice.  Their products run on
+// the tensor cores too, through warp-level mma.sync (m16n8k16 bf16 or f16,
+// m16n8k32 s8), with the wgmma variants' arithmetic: f32 x split into three
+// bf16 terms in registers, the int8 panel upcast by the mantissa trick, each
+// 64-wide K stage into a fresh accumulator added into the tile's sum with IEEE
+// adds in K order; dynamic's int32 sums are exact in any order.  Loads: the
+// 1-D bulk copy (cp.async.bulk: the TMA unit without a tensor map, which
+// wants only 16-byte aligned spans) of each operand's rows as they lie in
+// device memory, one copy for a tile whose rows hold all of K (they are one
+// contiguous span), else one a row; fragments are read from those raw rows
+// at any alignment and zeroed past K to the next k16 (k32 for dynamic), which
+// adds exactly; the panel is repacked (or upcast) into a padded tile for
+// ldmatrix.  No operand is copied or padded in device memory.  Per-thread
+// cp.async or loads of the same rows measured 2-3x slower on an H100: L1
+// serves their misses one after another (PERF.md §6).  What bounds them:
+// the cells' GEMMs (M=128) are latency, so a 16x32 tile (128 blocks at
+// O=512) takes four groups of four warps, one 64-wide stage each, and group
+// 0 adds the stage sums in K order.  The stem (M=401408, O=64) is bound by
+// its bytes: 64x64 tiles, as many blocks as the SMs hold, each staging the
+// 64x147 panel once and walking M tiles.
 
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is reached at run time
 #include <cuda_bf16.h>
@@ -92,157 +110,6 @@
 #include <type_traits>
 
 namespace {
-
-constexpr int BM = 64;        // output rows per block
-constexpr int BN = 64;        // output columns per block
-constexpr int TM = 4;         // rows per thread
-constexpr int TN = 4;         // columns per thread
-constexpr int THREADS = 256;  // (BM / TM) * (BN / TN)
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ float load_f32(const __half* p) { return __half2float(*p); }
-
-template <bool HAS_BIAS>
-__device__ __forceinline__ void store_tile(float (&acc)[TM][TN], const float* __restrict__ scale,
-                                           const float* __restrict__ bias, float* __restrict__ y,
-                                           int row0, int col0, int M, int O) {
-  const int tx = threadIdx.x % (BN / TN);
-  const int ty = threadIdx.x / (BN / TN);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty * TM + i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tx * TN + j;
-      if (c >= O) continue;
-      const float v = HAS_BIAS ? __fmaf_rn(acc[i][j], scale[c], bias[c])
-                               : __fmul_rn(acc[i][j], scale[c]);
-      y[(size_t)r * O + c] = v;
-    }
-  }
-}
-
-// weight_only: f32, bf16 or f16 activations against the int8 panel, f32 accumulate.
-template <typename XT, bool HAS_BIAS>
-__global__ void __launch_bounds__(THREADS)
-    gemm_weight_only(const XT* __restrict__ x, const int8_t* __restrict__ wq,
-                     const float* __restrict__ scale, const float* __restrict__ bias,
-                     float* __restrict__ y, int M, int K, int O) {
-  constexpr int BK = 16;
-  __shared__ float xs[BK][BM + 4];  // k-major, so a thread's 4 rows are adjacent
-  __shared__ float ws[BK][BN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int row0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += THREADS) {
-      const int r = e / BK, kk = e % BK;
-      const int gr = row0 + r, gk = k0 + kk;
-      xs[kk][r] = (gr < M && gk < K) ? load_f32(x + (size_t)gr * K + gk) : 0.f;
-    }
-    for (int e = tid; e < BN * BK; e += THREADS) {
-      const int c = e / BK, kk = e % BK;
-      const int gc = col0 + c, gk = k0 + kk;
-      ws[kk][c] = (gc < O && gk < K) ? (float)wq[(size_t)gc * K + gk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = ws[kk][tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  store_tile<HAS_BIAS>(acc, scale, bias, y, row0, col0, M, O);
-}
-
-// Four int8 values of row `row` starting at column k, packed little-endian into
-// one word, zero past K.  `aligned` says every row starts on a 4-byte boundary
-// (K % 4 == 0 and an aligned base), so a full group is one 32-bit load.
-__device__ __forceinline__ int load_s8x4(const int8_t* __restrict__ p, int row, int k, int K,
-                                         bool aligned) {
-  const int8_t* q = p + (size_t)row * K + k;
-  if (aligned && k + 3 < K) return *reinterpret_cast<const int*>(q);
-  int v = 0;
-#pragma unroll
-  for (int b = 0; b < 4; ++b)
-    if (k + b < K) v |= (int)(uint8_t)q[b] << (8 * b);
-  return v;
-}
-
-// dynamic: int8 x int8, int32 accumulate with __dp4a.
-template <bool HAS_BIAS>
-__global__ void __launch_bounds__(THREADS)
-    gemm_dynamic(const int8_t* __restrict__ x, const int8_t* __restrict__ wq,
-                 const float* __restrict__ scale, const float* __restrict__ bias,
-                 float* __restrict__ y, int M, int K, int O, bool aligned) {
-  constexpr int BKW = 16;  // packed words per row per tile = 64 int8 values
-  __shared__ int xs[BKW][BM + 4];
-  __shared__ int ws[BKW][BN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int row0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-  int acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += 4 * BKW) {
-    for (int e = tid; e < BM * BKW; e += THREADS) {
-      const int r = e / BKW, w = e % BKW;
-      const int gr = row0 + r;
-      xs[w][r] = gr < M ? load_s8x4(x, gr, k0 + 4 * w, K, aligned) : 0;
-    }
-    for (int e = tid; e < BN * BKW; e += THREADS) {
-      const int c = e / BKW, w = e % BKW;
-      const int gc = col0 + c;
-      ws[w][c] = gc < O ? load_s8x4(wq, gc, k0 + 4 * w, K, aligned) : 0;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int w = 0; w < BKW; ++w) {
-      int a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = xs[w][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = ws[w][tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float accf[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) accf[i][j] = __int2float_rn(acc[i][j]);
-  store_tile<HAS_BIAS>(accf, scale, bias, y, row0, col0, M, O);
-}
-
 
 // ---------------------------------------------------------------------------
 // dynamic: s8 wgmma fed by TMA.
@@ -865,6 +732,535 @@ __global__ void __launch_bounds__(NWG * 128 + 32)
   store_wgmma_tile<NWG, BN, HAS_BIAS>(sum, smem, scale, bias, y, M, O, m0, n0, vec);
 }
 
+// ---------------------------------------------------------------------------
+// The mma variants: every case TMA cannot describe (module head), on the
+// tensor cores through warp-level mma.sync.
+
+constexpr int MMA_THREADS = 128;  // four warps a K group, 16 output rows each
+constexpr int MMA_SMEM_CAP = 113 * 1024;      // so that two blocks always share an SM
+
+__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// Row pitches (bytes).  x's rows and wq's rows land as they lie in device
+// memory, each row's 16-byte aligned span of nb bytes (its first byte `off`
+// = its address % 16 bytes in; at most nb + 30 bytes) in a raw row of
+// raw_pitch(nb) bytes.  Fragment reads up to the next k16 or k32 may run
+// past a row's span into the next row or region of shared memory; what
+// they read there is masked.  The panel then goes to a padded tile of kp
+// values a row for ldmatrix, whose eight 16-byte row reads meet no bank
+// twice at an odd multiple of 16 bytes: pitch_b16 for weight_only's 16-bit
+// upcast, pitch_s8 for dynamic's int8.
+__host__ __device__ constexpr int raw_pitch(int nb) { return round_up(nb + 30, 16); }
+__host__ __device__ constexpr int pitch_b16(int kp) { return kp * 2 + 16; }
+__host__ __device__ constexpr int pitch_s8(int kp) { return round_up(kp, 32) + 16; }
+
+// Shared bytes of a block whose K chunks hold kn values at most: x's raw
+// rows, wq's raw rows and the padded panel, then one mbarrier.
+template <typename XT>
+__host__ __device__ constexpr int wo_mma_smem(int bm, int bn, int kn) {
+  return bm * raw_pitch(kn * static_cast<int>(sizeof(XT))) + bn * raw_pitch(kn) +
+         bn * pitch_b16(round_up(kn, 16)) + 8;
+}
+__host__ __device__ constexpr int dyn_mma_smem(int bm, int bn, int kn) {
+  return (bm + bn) * raw_pitch(kn) + bn * pitch_s8(round_up(kn, 32)) + 8;
+}
+
+// One operand's rows: bytes [c0, c0 + nb) of rows r0 .. r0 + R - 1 (those
+// below `rows`) of a row-major matrix of `ld` bytes a row.
+struct Rows {
+  const uint8_t* src;
+  size_t ld;
+  int r0, R, rows;
+  size_t c0;
+  int nb;
+};
+
+__device__ __forceinline__ const uint8_t* row_start(const Rows& t, int r) {
+  return t.src + static_cast<size_t>(t.r0 + r) * t.ld + t.c0;
+}
+
+// Where row r of t landed in its raw rows.  A chunk that is all of K
+// (`whole`) makes a tile's rows one contiguous span: one copy, row r at
+// ld * r bytes past the first row's first byte.  Otherwise each row is a
+// span of its own, `pitch` bytes a raw row.
+__device__ __forceinline__ const uint8_t* raw_row(const uint8_t* raw, int pitch, const Rows& t,
+                                                  int r, bool whole) {
+  return whole ? raw + (reinterpret_cast<uintptr_t>(row_start(t, 0)) & 15) +
+                     static_cast<size_t>(r) * t.ld
+               : raw + r * pitch + (reinterpret_cast<uintptr_t>(row_start(t, r)) & 15);
+}
+
+// One bulk copy (cp.async.bulk: the TMA unit, no tensor map) of the 16-byte
+// aligned span of bytes [s, s + n) to dst, completing on bar.
+__device__ __forceinline__ void bulk_copy(uint8_t* dst, const uint8_t* s, size_t n, uint64_t* bar) {
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(s) & ~static_cast<uintptr_t>(15);
+  const uint32_t bytes = static_cast<uint32_t>(
+      ((reinterpret_cast<uintptr_t>(s) + n + 15) & ~static_cast<uintptr_t>(15)) - lo);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(lo), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t span_of(const uint8_t* s, size_t n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(s);
+  return static_cast<uint32_t>(((a + n + 15) & ~static_cast<uintptr_t>(15)) -
+                               (a & ~static_cast<uintptr_t>(15)));
+}
+
+// Warp 0 copies a's and b's rows (those below `rows`; b may have none) into their raw rows
+// (raw_a, raw_b), all completing on `bar`, whose phase lane 0 first arms
+// with their bytes: one copy an operand when `whole`, else one a row.  The
+// TMA unit takes a bulk copy in some 70-120 cycles, so one a row costs a
+// 64-row tile thousands; per-thread cp.async or loads of the same rows wait
+// on L1's misses one after another (PERF.md §6).
+__device__ __forceinline__ void copy_rows(uint8_t* raw_a, int pitch_a, const Rows& a,
+                                          uint8_t* raw_b, int pitch_b, const Rows& b, bool whole,
+                                          uint64_t* bar) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  const int na = min(a.R, a.rows - a.r0), nb = min(b.R, b.rows - b.r0);  // rows to copy
+  uint32_t bytes = 0;
+  if (whole) {
+    if (lane == 0)
+      bytes = span_of(row_start(a, 0), static_cast<size_t>(na) * a.ld) +
+              (nb > 0 ? span_of(row_start(b, 0), static_cast<size_t>(nb) * b.ld) : 0u);
+  } else {
+    for (int r = lane; r < na; r += 32) bytes += span_of(row_start(a, r), a.nb);
+    for (int r = lane; r < nb; r += 32) bytes += span_of(row_start(b, r), b.nb);
+    bytes = __reduce_add_sync(0xffffffffu, bytes);
+  }
+  if (lane == 0) mbar_expect_tx(bar, bytes);
+  __syncwarp();
+  // shared memory the generic proxy read before is rewritten by the async one
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (whole) {
+    if (lane == 0) {
+      bulk_copy(raw_a, row_start(a, 0), static_cast<size_t>(na) * a.ld, bar);
+      if (nb > 0) bulk_copy(raw_b, row_start(b, 0), static_cast<size_t>(nb) * b.ld, bar);
+    }
+    return;
+  }
+  for (int r = lane; r < na; r += 32) bulk_copy(raw_a + r * pitch_a, row_start(a, r), a.nb, bar);
+  for (int r = lane; r < nb; r += 32) bulk_copy(raw_b + r * pitch_b, row_start(b, r), b.nb, bar);
+}
+
+// The 4 bytes at p (any alignment) of a shared raw row.
+__device__ __forceinline__ uint32_t raw_word(const uint8_t* p) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(a & ~static_cast<uintptr_t>(3));
+  return __funnelshift_r(w[0], w[1], 8 * static_cast<uint32_t>(a & 3));
+}
+
+// The bytes of v below byte n (all of them from n = 4 on, none at n <= 0).
+__device__ __forceinline__ uint32_t bytes_below(uint32_t v, int n) {
+  return n >= 4 ? v : n <= 0 ? 0u : v & ((1u << (8 * n)) - 1u);
+}
+
+// wq's raw rows (row n's first byte off_n in) to the padded panel: 8 values
+// a thread a step, zero from value kn (to kp) and in rows past O, as int8
+// (dynamic) or upcast to bf16 or f16 (weight_only, UP16 with F16).
+template <int BN, bool UP16, bool F16>
+__device__ __forceinline__ void panel_from_raw(uint8_t* panel, int pitch, const uint8_t* raw,
+                                               int raw_pitch_w, const Rows& w, bool whole, int kn,
+                                               int kp) {
+  // thread i takes row i % BN of 8-value group i / BN: independent jobs,
+  // consecutive threads on consecutive panel rows (an odd multiple of 16
+  // bytes apart: no bank met twice by a quarter warp's 16-byte stores)
+#pragma unroll 4
+  for (int i = threadIdx.x; i < BN * (kp / 8); i += blockDim.x) {
+    const int r = i % BN, c = i / BN;
+    uint32_t lo = 0, hi = 0;
+    if (w.r0 + r < w.rows) {
+      const uint8_t* p = raw_row(raw, raw_pitch_w, w, r, whole) + 8 * c;
+      lo = bytes_below(raw_word(p), kn - 8 * c);
+      hi = bytes_below(raw_word(p + 4), kn - 8 * c - 4);
+    }
+    if constexpr (UP16) {
+      const uint2 a = F16 ? f16x4_of_s8(lo) : bf16x4_of_s8(lo);
+      const uint2 b = F16 ? f16x4_of_s8(hi) : bf16x4_of_s8(hi);
+      *reinterpret_cast<uint4*>(panel + r * pitch + 16 * c) = make_uint4(a.x, a.y, b.x, b.y);
+    } else {
+      *reinterpret_cast<uint2*>(panel + r * pitch + 8 * c) = make_uint2(lo, hi);
+    }
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const uint8_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t* r, const uint8_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// B fragments (b0, b1) of NF n8 fragments from n row nb (K-major rows: wq's
+// layout), 32 bytes from byte kb: one ldmatrix.x4 for two fragments (lanes
+// 0-7 and 8-15 address the first's two halves, 16-31 the second's), x2 for
+// an odd last one.
+template <int NF>
+__device__ __forceinline__ void load_b(uint32_t (&b)[NF][2], const uint8_t* tile, int pitch,
+                                       int nb, int kb) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int f = 0; f + 1 < NF; f += 2) {
+    uint32_t t[4];
+    ldsm_x4(t, tile + (nb + 8 * f + (lane & 7) + 8 * (lane >> 4)) * pitch + kb +
+                   16 * ((lane >> 3) & 1));
+    b[f][0] = t[0];
+    b[f][1] = t[1];
+    b[f + 1][0] = t[2];
+    b[f + 1][1] = t[3];
+  }
+  if constexpr (NF % 2 == 1) {
+    uint32_t t[2];
+    ldsm_x2(t, tile + (nb + 8 * (NF - 1) + (lane & 7)) * pitch + kb + 16 * ((lane >> 3) & 1));
+    b[NF - 1][0] = t[0];
+    b[NF - 1][1] = t[1];
+  }
+}
+
+// d += A(16x16) * B(16x8), bf16 or f16 (F16) operands, f32 accumulate
+template <bool F16>
+__device__ __forceinline__ void mma_16bit(float (&d)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  if constexpr (F16)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+        "{%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+        "{%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += A(16x32) * B(32x8), int8 operands, int32 accumulate (exact)
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The scale (and bias) of a warp's NF n8 fragments' columns from col0:
+// thread (lane l) holds columns 2(l%4) (+1) of each, read once a block.
+template <int NF, bool HAS_BIAS>
+__device__ __forceinline__ void load_scale_bias(float (&sc)[NF][2], float (&bi)[NF][2],
+                                                const float* __restrict__ scale,
+                                                const float* __restrict__ bias, int O, int col0) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = col0 + 8 * f + 2 * (lane & 3) + e;
+      sc[f][e] = c < O ? scale[c] : 0.f;
+      bi[f][e] = HAS_BIAS && c < O ? bias[c] : 0.f;
+    }
+}
+
+// y = acc * scale (+ bias) for a warp's 16 x 8 NF results: thread (lane l)
+// holds rows row0 + l/4 (+8) and columns 2(l%4) (+1) of each n8 fragment.
+template <int NF, bool HAS_BIAS, typename AT>
+__device__ __forceinline__ void store_mma_tile(const AT (&acc)[NF][4], const float (&sc)[NF][2],
+                                               const float (&bi)[NF][2], float* __restrict__ y,
+                                               int M, int O, int row0, int col0, int vec) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    const int c = col0 + 8 * f + 2 * (lane & 3);
+    if (c >= O) continue;
+    const bool two = c + 1 < O;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + (lane >> 2) + 8 * h;
+      if (r >= M) continue;
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float a;
+        if constexpr (std::is_same<AT, int>::value) a = __int2float_rn(acc[f][2 * h + e]);
+        else a = acc[f][2 * h + e];
+        v[e] = HAS_BIAS ? __fmaf_rn(a, sc[f][e], bi[f][e]) : __fmul_rn(a, sc[f][e]);
+      }
+      float* out = y + static_cast<size_t>(r) * O + c;
+      if (vec && two) {
+        *reinterpret_cast<float2*>(out) = make_float2(v[0], v[1]);
+      } else {
+        out[0] = v[0];
+        if (two) out[1] = v[1];
+      }
+    }
+  }
+}
+
+// A fragment values of a raw x row (`row`: its first value) at k + 2t
+// (+1) and k + 8 + 2t (+1) for weight_only, zero from value kn on: f32 as
+// two float2, 16-bit as two packed pairs.
+__device__ __forceinline__ void f32_pairs(const uint8_t* row, int k, int t2, int kn, float2& lo,
+                                          float2& hi) {
+  const float* p = reinterpret_cast<const float*>(row);
+  lo = make_float2(p[k + t2], p[k + t2 + 1]);
+  hi = make_float2(p[k + t2 + 8], p[k + t2 + 9]);
+  if (k + 16 > kn) {
+    lo.x = k + t2 < kn ? lo.x : 0.f;
+    lo.y = k + t2 + 1 < kn ? lo.y : 0.f;
+    hi.x = k + t2 + 8 < kn ? hi.x : 0.f;
+    hi.y = k + t2 + 9 < kn ? hi.y : 0.f;
+  }
+}
+__device__ __forceinline__ void b16_pairs(const uint8_t* row, int k, int t2, int kn, uint32_t& lo,
+                                          uint32_t& hi) {
+  const uint16_t* p = reinterpret_cast<const uint16_t*>(row);
+  uint32_t e[4] = {p[k + t2], p[k + t2 + 1], p[k + t2 + 8], p[k + t2 + 9]};
+  if (k + 16 > kn) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[i] = k + t2 + (i & 1) + 8 * (i >> 1) < kn ? e[i] : 0u;
+  }
+  lo = e[0] | e[1] << 16;
+  hi = e[2] | e[3] << 16;
+}
+
+// The stage sums of K groups 1 .. KS-1 pass to group 0 through xbuf: their
+// warps' accumulators, 128 threads a group.
+template <int NF, typename AT>
+__device__ __forceinline__ void put_partial(AT* xbuf, const AT (&acc)[NF][4]) {
+  const int g = threadIdx.x / MMA_THREADS, t = threadIdx.x % MMA_THREADS;
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) xbuf[((g - 1) * NF * 4 + f * 4 + e) * MMA_THREADS + t] = acc[f][e];
+}
+template <int NF, typename AT>
+__device__ __forceinline__ AT get_partial(const AT* xbuf, int g, int f, int e) {
+  return xbuf[((g - 1) * NF * 4 + f * 4 + e) * MMA_THREADS + threadIdx.x % MMA_THREADS];
+}
+
+// weight_only: a BM x BN tile a block of KS groups of four warps, WM of
+// them along M (16 rows each) and 4 / WM along N.  Per K chunk (kc values;
+// at the cells' and the stem's K, all of K): warp 0 bulk-copies x's and
+// wq's rows into raw rows, one wait on the mbarrier; the panel goes from its
+// raw rows to a padded tile upcast to bf16 (f16 for f16 x) by the mantissa
+// trick, zero past K to the next k16; then every k16 slice: A from x's raw
+// rows, zero past K (f32: split into hi, mid and lo in registers), B from
+// the panel (ldmatrix), the passes on the tensor cores into the 64-wide
+// stage's fresh accumulator, which is added into the tile's sum with IEEE
+// adds, in K order.  The KS groups take one stage each of every round of KS
+// stages and group 0 adds their sums (KS 4 at the cells' 16x32 tiles: a warp
+// of one n8 fragment alone would wait on each stage's chain of dependent
+// mma.sync in turn).  With a whole-K panel a block stages the panel once and
+// walks M tiles (mma_grid).
+template <typename XT, int BM, int BN, int WM, int KS, bool HAS_BIAS>
+__global__ void __launch_bounds__(MMA_THREADS * KS)
+    gemm_weight_only_mma(const XT* __restrict__ x, const int8_t* __restrict__ wq,
+                         const float* __restrict__ scale, const float* __restrict__ bias,
+                         float* __restrict__ y, int M, int K, int O, int kc, int tiles_o,
+                         int vec) {
+  constexpr int WN = 4 / WM;
+  constexpr int NF = BN / WN / 8;  // n8 fragments a warp
+  static_assert(BM == 16 * WM && NF >= 1, "a warp holds 16 rows and 8 columns or more");
+  constexpr bool F32 = sizeof(XT) == 4;
+  constexpr bool F16 = std::is_same<XT, __half>::value;
+  constexpr int PASSES = F32 ? 3 : 1;
+  constexpr int XB = sizeof(XT);
+  extern __shared__ __align__(16) uint8_t smem_mma[];
+  const int kmax = min(kc, K);  // values of a K chunk at most
+  const bool whole = kc >= K;   // one chunk: a tile's rows are one span
+  const int px = raw_pitch(kmax * XB), pw = raw_pitch(kmax), pb = pitch_b16(round_up(kmax, 16));
+  uint8_t* rx = smem_mma;
+  uint8_t* rw = rx + BM * px;
+  uint8_t* wb = rw + BN * pw;
+  float* xbuf = reinterpret_cast<float*>(wb + BN * pb);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(xbuf + (KS - 1) * NF * 4 * MMA_THREADS);
+  const int n0 = (blockIdx.x % tiles_o) * BN;
+  const int mt0 = blockIdx.x / tiles_o, tiles_m = (M + BM - 1) / BM;
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int group = threadIdx.x / MMA_THREADS;  // the K group
+  const int ra = (warp % WM) * 16 + lane / 4;  // the thread's rows ra, ra + 8 of the tile
+  const int na = (warp / WM) * (BN / WN);      // the warp's columns
+  const int t2 = 2 * (lane & 3);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  float sc[NF][2], bi[NF][2];
+  load_scale_bias<NF, HAS_BIAS>(sc, bi, scale, bias, O, n0 + na);
+  __syncthreads();
+
+  int phase = 0;
+  for (int mt = mt0; mt < tiles_m; mt += gridDim.x / tiles_o) {
+    const int m0 = mt * BM;
+    float sum[NF][4];
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[f][e] = 0.f;
+    for (int k0 = 0; k0 < K; k0 += kc, phase ^= 1) {
+      const int kn = min(kc, K - k0), kp = round_up(kn, 16);
+      const bool panel = !whole || mt == mt0;  // a whole-K panel is staged once a block
+      if (mt > mt0 || k0 > 0) __syncthreads();  // every warp is done with the last tiles
+      const Rows xr = {reinterpret_cast<const uint8_t*>(x), static_cast<size_t>(K) * XB, m0, BM, M,
+                       static_cast<size_t>(k0) * XB, kn * XB};
+      const Rows wr = {reinterpret_cast<const uint8_t*>(wq), static_cast<size_t>(K), n0,
+                       panel ? BN : 0, O, static_cast<size_t>(k0), kn};
+      copy_rows(rx, px, xr, rw, pw, wr, whole, bar);
+      mbar_wait(bar, phase);
+      if (panel) {
+        panel_from_raw<BN, true, F16>(wb, pb, rw, pw, wr, whole, kn, kp);
+        __syncthreads();
+      }
+      const uint8_t* row0 = raw_row(rx, px, xr, ra, whole);
+      const uint8_t* row1 = raw_row(rx, px, xr, ra + 8, whole);
+      // a round of KS stages: group g takes stage s0 + 64 g
+      for (int s0 = 0; s0 < kp; s0 += 64 * KS) {
+        float acc[NF][4];
+#pragma unroll
+        for (int f = 0; f < NF; ++f)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[f][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < 64; kk += 16) {
+          const int k = s0 + 64 * group + kk;
+          if (k >= kp) break;
+          uint32_t a[PASSES][4];
+          if constexpr (F32) {
+            float2 v[4];
+            f32_pairs(row0, k, t2, kn, v[0], v[2]);
+            f32_pairs(row1, k, t2, kn, v[1], v[3]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) split3(v[j], a[0][j], a[1][j], a[2][j]);
+          } else {
+            b16_pairs(row0, k, t2, kn, a[0][0], a[0][2]);
+            b16_pairs(row1, k, t2, kn, a[0][1], a[0][3]);
+          }
+          uint32_t b[NF][2];
+          load_b<NF>(b, wb, pb, na, 2 * k);
+#pragma unroll
+          for (int p = 0; p < PASSES; ++p)
+#pragma unroll
+            for (int f = 0; f < NF; ++f) mma_16bit<F16>(acc[f], a[p], b[f]);
+        }
+        if constexpr (KS > 1) {
+          if (group > 0) put_partial<NF>(xbuf, acc);
+          __syncthreads();
+        }
+        if (group == 0) {
+#pragma unroll
+          for (int f = 0; f < NF; ++f)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float v = __fadd_rn(sum[f][e], acc[f][e]);
+              for (int g = 1; g < KS && s0 + 64 * g < kp; ++g)
+                v = __fadd_rn(v, get_partial<NF>(xbuf, g, f, e));
+              sum[f][e] = v;
+            }
+        }
+        if constexpr (KS > 1) __syncthreads();
+      }
+    }
+    if (group == 0)
+      store_mma_tile<NF, HAS_BIAS>(sum, sc, bi, y, M, O, m0 + ra - lane / 4, n0 + na, vec);
+  }
+}
+
+// dynamic: the same blocks and copies, int8 x from its raw rows (4 bytes a
+// register, zero past K to the next k32), wq's panel from its raw rows to a
+// padded int8 tile (ldmatrix), mma.m16n8k32 into int32 sums.
+template <int BM, int BN, int WM, int KS, bool HAS_BIAS>
+__global__ void __launch_bounds__(MMA_THREADS * KS)
+    gemm_dynamic_mma(const int8_t* __restrict__ x, const int8_t* __restrict__ wq,
+                     const float* __restrict__ scale, const float* __restrict__ bias,
+                     float* __restrict__ y, int M, int K, int O, int kc, int tiles_o, int vec) {
+  constexpr int WN = 4 / WM;
+  constexpr int NF = BN / WN / 8;
+  static_assert(BM == 16 * WM && NF >= 1, "a warp holds 16 rows and 8 columns or more");
+  extern __shared__ __align__(16) uint8_t smem_mma[];
+  const int kmax = min(kc, K);
+  const bool whole = kc >= K;
+  const int pr = raw_pitch(kmax), p8 = pitch_s8(round_up(kmax, 32));
+  uint8_t* rx = smem_mma;
+  uint8_t* rw = rx + BM * pr;
+  uint8_t* w8 = rw + BN * pr;
+  int* xbuf = reinterpret_cast<int*>(w8 + BN * p8);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(xbuf + (KS - 1) * NF * 4 * MMA_THREADS);
+  const int n0 = (blockIdx.x % tiles_o) * BN;
+  const int mt0 = blockIdx.x / tiles_o, tiles_m = (M + BM - 1) / BM;
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int group = threadIdx.x / MMA_THREADS;  // the K group: k32 slices group, + KS, ...
+  const int ra = (warp % WM) * 16 + lane / 4;
+  const int na = (warp / WM) * (BN / WN);
+  const int t4 = 4 * (lane & 3);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  float sc[NF][2], bi[NF][2];
+  load_scale_bias<NF, HAS_BIAS>(sc, bi, scale, bias, O, n0 + na);
+  __syncthreads();
+
+  int phase = 0;
+  for (int mt = mt0; mt < tiles_m; mt += gridDim.x / tiles_o) {
+    const int m0 = mt * BM;
+    int acc[NF][4];
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[f][e] = 0;
+    for (int k0 = 0; k0 < K; k0 += kc, phase ^= 1) {
+      const int kn = min(kc, K - k0), kp = round_up(kn, 32);
+      const bool panel = !whole || mt == mt0;
+      if (mt > mt0 || k0 > 0) __syncthreads();
+      const Rows xr = {reinterpret_cast<const uint8_t*>(x), static_cast<size_t>(K), m0, BM, M,
+                       static_cast<size_t>(k0), kn};
+      const Rows wr = {reinterpret_cast<const uint8_t*>(wq), static_cast<size_t>(K), n0,
+                       panel ? BN : 0, O, static_cast<size_t>(k0), kn};
+      copy_rows(rx, pr, xr, rw, pr, wr, whole, bar);
+      mbar_wait(bar, phase);
+      if (panel) {
+        panel_from_raw<BN, false, false>(w8, p8, rw, pr, wr, whole, kn, kp);
+        __syncthreads();
+      }
+      const uint8_t* row0 = raw_row(rx, pr, xr, ra, whole);
+      const uint8_t* row1 = raw_row(rx, pr, xr, ra + 8, whole);
+#pragma unroll 2
+      for (int k = 32 * group; k < kp; k += 32 * KS) {
+        uint32_t a[4] = {raw_word(row0 + k + t4), raw_word(row1 + k + t4),
+                         raw_word(row0 + k + t4 + 16), raw_word(row1 + k + t4 + 16)};
+        if (k + 32 > kn) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) a[j] = bytes_below(a[j], kn - (k + t4 + 16 * (j >> 1)));
+        }
+        uint32_t b[NF][2];
+        load_b<NF>(b, w8, p8, na, k);
+#pragma unroll
+        for (int f = 0; f < NF; ++f) mma_s8(acc[f], a, b[f]);
+      }
+    }
+    if constexpr (KS > 1) {  // int32 sums: exact in any order
+      if (group > 0) put_partial<NF>(xbuf, acc);
+      __syncthreads();
+      if (group == 0)
+#pragma unroll
+        for (int f = 0; f < NF; ++f)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            for (int g = 1; g < KS; ++g) acc[f][e] += get_partial<NF>(xbuf, g, f, e);
+    }
+    if (group == 0)
+      store_mma_tile<NF, HAS_BIAS>(acc, sc, bi, y, M, O, m0 + ra - lane / 4, n0 + na, vec);
+  }
+}
+
 }  // namespace
 
 namespace {
@@ -1064,77 +1460,173 @@ int dispatch_weight_only(const void* x, const void* wq, const float* sc, const f
   }
 }
 
+// The tile of an mma variant: 64x64 (four warps of 16 rows by 64 columns)
+// when its blocks give every SM one (the stem), else 16x32 (four K groups of
+// four warps of 16 rows by 8), the most blocks (the cells' M=128: 128, 64
+// and 32 blocks at O 512, 256 and 128).
+bool mma_large_tile(int M, int O) {
+  return static_cast<long>((M + 63) / 64) * ((O + 63) / 64) >= sm_count();
+}
+
+// The K chunk: all of K up to 512 values, less by 64s until the block's
+// shared memory fits MMA_SMEM_CAP (the stem's K=147 and the cells' 228 fit
+// whole: one wave of copies, one wait, then every product).
+template <typename SmemFn>
+int mma_chunk(int K, SmemFn smem) {
+  int kc = K < 512 ? round_up(K, 64) : 512;
+  while (kc > 64 && smem(kc < K ? kc : K) > MMA_SMEM_CAP) kc -= 64;
+  return kc;
+}
+
+int vec2_ok(const float* y, int O) {
+  return O % 2 == 0 && (reinterpret_cast<uintptr_t>(y) & 7) == 0;
+}
+
+// The grid of an mma variant: every tile, or, when one K chunk holds all
+// of K and the tiles outnumber what the SMs hold at once (ResNet-50's stem:
+// 6272), that many blocks (a multiple of tiles_o), each walking its
+// column's M tiles against a panel it stages once.  (cached_smem, per_sm):
+// the caller's cache of the blocks an SM holds.
+template <typename Kernel>
+int mma_grid(Kernel kernel, int threads, int smem, bool whole, int tiles_o, int tiles_m,
+             int& cached_smem, int& per_sm) {
+  if (!whole) return tiles_o * tiles_m;
+  if (smem != cached_smem) {
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem) != cudaSuccess ||
+        n < 1)
+      n = 1;
+    per_sm = n;
+    cached_smem = smem;
+  }
+  const long rows = static_cast<long>(per_sm) * sm_count() / tiles_o;
+  return tiles_o * static_cast<int>(rows < 1 ? 1 : rows < tiles_m ? rows : tiles_m);
+}
+
+// Shared bytes that K groups 1 .. KS-1 pass their stage sums through.
+__host__ __device__ constexpr int partial_bytes(int ks, int nf) {
+  return (ks - 1) * nf * 4 * MMA_THREADS * 4;
+}
+
+template <typename XT, int BM, int BN, int WM, int KS, bool HAS_BIAS>
+int launch_weight_only_mma(const void* x, const void* wq, const float* sc, const float* b, float* y,
+                           int M, int K, int O, cudaStream_t s, int* info) {
+  constexpr int NF = BN / (4 / WM) / 8;
+  const auto smem_of = [](int kn) {
+    return wo_mma_smem<XT>(BM, BN, kn) + partial_bytes(KS, NF);
+  };
+  const int kc = mma_chunk(K, smem_of);
+  const int smem = smem_of(kc < K ? kc : K);
+  auto kernel = gemm_weight_only_mma<XT, BM, BN, WM, KS, HAS_BIAS>;
+  static unsigned long long sized = 0;
+  const cudaError_t e = allow_smem(kernel, MMA_SMEM_CAP, sized);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles_o = (O + BN - 1) / BN;
+  static int cached_smem = -1, per_sm = 1;
+  const int blocks =
+      mma_grid(kernel, MMA_THREADS * KS, smem, kc >= K, tiles_o, (M + BM - 1) / BM, cached_smem,
+               per_sm);
+  kernel<<<blocks, MMA_THREADS * KS, smem, s>>>(
+      static_cast<const XT*>(x), static_cast<const int8_t*>(wq), sc, b, y, M, K, O, kc, tiles_o,
+      vec2_ok(y, O));
+  info[0] = 0;
+  info[1] = BM;
+  info[2] = BN;
+  info[3] = (K + kc - 1) / kc;
+  info[4] = blocks;
+  return (int)cudaGetLastError();
+}
+
+template <int BM, int BN, int WM, int KS, bool HAS_BIAS>
+int launch_dynamic_mma(const void* x, const void* wq, const float* sc, const float* b, float* y,
+                       int M, int K, int O, cudaStream_t s, int* info) {
+  constexpr int NF = BN / (4 / WM) / 8;
+  const auto smem_of = [](int kn) { return dyn_mma_smem(BM, BN, kn) + partial_bytes(KS, NF); };
+  const int kc = mma_chunk(K, smem_of);
+  const int smem = smem_of(kc < K ? kc : K);
+  auto kernel = gemm_dynamic_mma<BM, BN, WM, KS, HAS_BIAS>;
+  static unsigned long long sized = 0;
+  const cudaError_t e = allow_smem(kernel, MMA_SMEM_CAP, sized);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles_o = (O + BN - 1) / BN;
+  static int cached_smem = -1, per_sm = 1;
+  const int blocks =
+      mma_grid(kernel, MMA_THREADS * KS, smem, kc >= K, tiles_o, (M + BM - 1) / BM, cached_smem,
+               per_sm);
+  kernel<<<blocks, MMA_THREADS * KS, smem, s>>>(static_cast<const int8_t*>(x),
+                                           static_cast<const int8_t*>(wq), sc, b, y, M, K, O, kc,
+                                           tiles_o, vec2_ok(y, O));
+  info[0] = 1;
+  info[1] = BM;
+  info[2] = BN;
+  info[3] = (K + kc - 1) / kc;
+  info[4] = blocks;
+  return (int)cudaGetLastError();
+}
+
+template <typename XT, bool HAS_BIAS>
+int dispatch_weight_only_mma(const void* x, const void* wq, const float* sc, const float* b,
+                             float* y, int M, int K, int O, cudaStream_t s, int* info) {
+  if (mma_large_tile(M, O))
+    return launch_weight_only_mma<XT, 64, 64, 4, 1, HAS_BIAS>(x, wq, sc, b, y, M, K, O, s, info);
+  return launch_weight_only_mma<XT, 16, 32, 1, 4, HAS_BIAS>(x, wq, sc, b, y, M, K, O, s, info);
+}
+
+template <bool HAS_BIAS>
+int dispatch_dynamic_mma(const void* x, const void* wq, const float* sc, const float* b, float* y,
+                         int M, int K, int O, cudaStream_t s, int* info) {
+  if (mma_large_tile(M, O))
+    return launch_dynamic_mma<64, 64, 4, 1, HAS_BIAS>(x, wq, sc, b, y, M, K, O, s, info);
+  return launch_dynamic_mma<16, 32, 1, 4, HAS_BIAS>(x, wq, sc, b, y, M, K, O, s, info);
+}
+
+// weight_only on x of type XT: the wgmma variant where TMA can describe the
+// operands, the mma one otherwise
+template <typename XT, bool HAS_BIAS>
+int weight_only(const void* x, const void* wq, const float* sc, const float* b, float* y, int M,
+                int K, int O, cudaStream_t s, int* info) {
+  if (tma_ok(x, wq, K))
+    return dispatch_weight_only<XT, HAS_BIAS>(x, wq, sc, b, y, M, K, O, s, info);
+  return dispatch_weight_only_mma<XT, HAS_BIAS>(x, wq, sc, b, y, M, K, O, s, info);
+}
+
+template <bool HAS_BIAS>
+int dynamic(const void* x, const void* wq, const float* sc, const float* b, float* y, int M, int K,
+            int O, cudaStream_t s, int* info) {
+  if (tma_ok(x, wq, K)) return dispatch_wgmma<HAS_BIAS>(x, wq, sc, b, y, M, K, O, s, info);
+  return dispatch_dynamic_mma<HAS_BIAS>(x, wq, sc, b, y, M, K, O, s, info);
+}
+
 }  // namespace
 
 // mode: 0 weight_only, 1 dynamic.  x_dtype: 0 f32, 1 bf16, 2 int8, 3 f16.
 // Launches on `stream` and returns cudaGetLastError() (0 on success); an
 // unsupported mode/dtype pair returns cudaErrorInvalidValue without launching.
-// info (5 ints) receives the variant that ran: {0 SIMT weight_only | 1 SIMT
+// info (5 ints) receives the variant that ran: {0 mma weight_only | 1 mma
 // dynamic | 2 wgmma dynamic | 3 wgmma weight_only, tile rows, tile columns,
-// stages (0 for SIMT), blocks}.  Either mode takes its wgmma variant whenever
-// TMA can describe the operands (K a multiple of 16, 16-byte-aligned bases),
-// its SIMT one otherwise.
+// stages (mma: the K chunks taken through shared memory one after another),
+// blocks}.  Either mode takes its wgmma variant whenever TMA can describe the
+// operands (K a multiple of 16, 16-byte-aligned bases), its mma one
+// otherwise.
 extern "C" int bigdl_int8_gemm(int mode, int x_dtype, int has_bias, const void* x, const void* wq,
                                const void* scale, const void* bias, void* y, int M, int K, int O,
                                void* stream, int* info) {
   if (M <= 0 || K <= 0 || O <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((M + BM - 1) / BM, (O + BN - 1) / BN);
-  const dim3 block(THREADS);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* w = static_cast<const int8_t*>(wq);
   const float* sc = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
   float* out = static_cast<float*>(y);
-  info[0] = mode == 0 ? 0 : 1;
-  info[1] = BM;
-  info[2] = BN;
-  info[3] = 0;
-  info[4] = (int)(grid.x * grid.y);
-  if (mode == 1 && x_dtype == 2 && tma_ok(x, wq, K)) {
-    return has_bias ? dispatch_wgmma<true>(x, wq, sc, b, out, M, K, O, s, info)
-                    : dispatch_wgmma<false>(x, wq, sc, b, out, M, K, O, s, info);
-  }
-  if (mode == 0 && x_dtype == 0 && tma_ok(x, wq, K)) {
-    return has_bias ? dispatch_weight_only<float, true>(x, wq, sc, b, out, M, K, O, s, info)
-                    : dispatch_weight_only<float, false>(x, wq, sc, b, out, M, K, O, s, info);
-  }
-  if (mode == 0 && x_dtype == 1 && tma_ok(x, wq, K)) {
-    return has_bias
-               ? dispatch_weight_only<__nv_bfloat16, true>(x, wq, sc, b, out, M, K, O, s, info)
-               : dispatch_weight_only<__nv_bfloat16, false>(x, wq, sc, b, out, M, K, O, s, info);
-  }
-  if (mode == 0 && x_dtype == 3 && tma_ok(x, wq, K)) {
-    return has_bias ? dispatch_weight_only<__half, true>(x, wq, sc, b, out, M, K, O, s, info)
-                    : dispatch_weight_only<__half, false>(x, wq, sc, b, out, M, K, O, s, info);
-  }
-  if (mode == 0 && x_dtype == 0) {
-    const float* xp = static_cast<const float*>(x);
-    if (has_bias)
-      gemm_weight_only<float, true><<<grid, block, 0, s>>>(xp, w, sc, b, out, M, K, O);
-    else
-      gemm_weight_only<float, false><<<grid, block, 0, s>>>(xp, w, sc, b, out, M, K, O);
-  } else if (mode == 0 && x_dtype == 1) {
-    const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
-    if (has_bias)
-      gemm_weight_only<__nv_bfloat16, true><<<grid, block, 0, s>>>(xp, w, sc, b, out, M, K, O);
-    else
-      gemm_weight_only<__nv_bfloat16, false><<<grid, block, 0, s>>>(xp, w, sc, b, out, M, K, O);
-  } else if (mode == 0 && x_dtype == 3) {
-    const __half* xp = static_cast<const __half*>(x);
-    if (has_bias)
-      gemm_weight_only<__half, true><<<grid, block, 0, s>>>(xp, w, sc, b, out, M, K, O);
-    else
-      gemm_weight_only<__half, false><<<grid, block, 0, s>>>(xp, w, sc, b, out, M, K, O);
-  } else if (mode == 1 && x_dtype == 2) {
-    const int8_t* xp = static_cast<const int8_t*>(x);
-    const bool aligned = (K % 4 == 0) && ((reinterpret_cast<uintptr_t>(x) & 3) == 0) &&
-                         ((reinterpret_cast<uintptr_t>(wq) & 3) == 0);
-    if (has_bias)
-      gemm_dynamic<true><<<grid, block, 0, s>>>(xp, w, sc, b, out, M, K, O, aligned);
-    else
-      gemm_dynamic<false><<<grid, block, 0, s>>>(xp, w, sc, b, out, M, K, O, aligned);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (mode == 1 && x_dtype == 2)
+    return has_bias ? dynamic<true>(x, wq, sc, b, out, M, K, O, s, info)
+                    : dynamic<false>(x, wq, sc, b, out, M, K, O, s, info);
+  if (mode == 0 && x_dtype == 0)
+    return has_bias ? weight_only<float, true>(x, wq, sc, b, out, M, K, O, s, info)
+                    : weight_only<float, false>(x, wq, sc, b, out, M, K, O, s, info);
+  if (mode == 0 && x_dtype == 1)
+    return has_bias ? weight_only<__nv_bfloat16, true>(x, wq, sc, b, out, M, K, O, s, info)
+                    : weight_only<__nv_bfloat16, false>(x, wq, sc, b, out, M, K, O, s, info);
+  if (mode == 0 && x_dtype == 3)
+    return has_bias ? weight_only<__half, true>(x, wq, sc, b, out, M, K, O, s, info)
+                    : weight_only<__half, false>(x, wq, sc, b, out, M, K, O, s, info);
+  return (int)cudaErrorInvalidValue;
 }

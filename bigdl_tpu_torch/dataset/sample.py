@@ -22,6 +22,18 @@ class Sample:
         self.feature = feature
         self.label = label
 
+    @staticmethod
+    def from_ndarray(feature, label=None) -> "Sample":
+        """A sample of numpy arrays (``np.asarray`` of each)."""
+        return Sample(np.asarray(feature),
+                      None if label is None else np.asarray(label))
+
+    def feature_size(self):
+        return np.shape(self.feature)
+
+    def label_size(self):
+        return None if self.label is None else np.shape(self.label)
+
     def __repr__(self):
         ls = None if self.label is None else np.shape(self.label)
         return f"Sample(feature={np.shape(self.feature)}, label={ls})"

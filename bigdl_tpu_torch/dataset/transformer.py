@@ -18,6 +18,9 @@ class Transformer:
     def __rshift__(self, other: "Transformer") -> "ChainedTransformer":
         return ChainedTransformer(self, other)
 
+    def chain(self, other: "Transformer") -> "ChainedTransformer":
+        return self >> other
+
     def rescale(self, old_count: int, new_count: int) -> None:
         """The dataset under this stage went from ``old_count`` to
         ``new_count`` shards (an elastic resize); a batching stage keeps

@@ -60,6 +60,43 @@ class Module(torch.nn.Module):
                 m.reset_parameters(gen)
         return self
 
+    # the reference's eager conveniences, on torch's own mechanisms
+    def predict(self, data, batch_size: int = 128, device="cuda"):
+        """Batched inference through
+        :class:`~bigdl_tpu_torch.optim.predictor.Predictor`."""
+        from bigdl_tpu_torch.optim.predictor import Predictor
+        return Predictor(self, batch_size=batch_size,
+                         device=device).predict(data)
+
+    def predict_class(self, data, batch_size: int = 128, device="cuda"):
+        from bigdl_tpu_torch.optim.predictor import Predictor
+        return Predictor(self, batch_size=batch_size,
+                         device=device).predict_class(data)
+
+    def evaluate_on(self, dataset, methods, device="cuda"):
+        """``{method name: ValidationResult}`` through
+        :class:`~bigdl_tpu_torch.optim.predictor.Evaluator`."""
+        from bigdl_tpu_torch.optim.predictor import Evaluator
+        return Evaluator(self, device=device).evaluate(dataset, methods)
+
+    def evaluate(self) -> "Module":
+        """Inference mode (torch's ``eval``)."""
+        return self.eval()
+
+    def training_mode(self) -> "Module":
+        return self.train()
+
+    def zero_grad_parameters(self) -> None:
+        """Zero every accumulated gradient in place."""
+        self.zero_grad(set_to_none=False)
+
+    def set_name(self, name: str) -> "Module":
+        self.name = name
+        return self
+
+    def get_name(self) -> str:
+        return self.name
+
 
 class Stochastic(Module):
     """A layer that draws random numbers in training mode from

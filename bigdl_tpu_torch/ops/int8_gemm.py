@@ -28,11 +28,14 @@ picks one of four variants and says which: ``wgmma_dynamic`` (s8 ``wgmma``
 fed by TMA) and ``wgmma_weight_only`` (bf16 ``wgmma`` over the exact
 three-way split of f32 activations, :func:`split_bf16x3`; one pass for
 bf16 activations, one f16 pass for f16 ones) wherever TMA can describe
-the operands, else
-``simt_dynamic`` and ``simt_weight_only`` (K not a multiple of 16, as at
-ResNet-50's stem, or an unaligned base).  ``variant_launches`` counts each
-beside ``launches``, and ``last_variant`` holds the last launch's
-``(variant, tile rows, tile columns, stages, blocks)``.
+the operands, else ``mma_dynamic`` and ``mma_weight_only`` (the same
+arithmetic through warp-level ``mma.sync``, K zero-filled to the next k32
+or k16: K not a multiple of 16, as at ResNet-50's stem and the quantized
+recurrent cells, or an unaligned base).
+``variant_launches`` counts each beside ``launches``, and ``last_variant``
+holds the last launch's ``(variant, tile rows, tile columns, stages,
+blocks)``; an ``mma_*`` variant's stages are the K chunks it takes through
+shared memory one after another (1: all of K at once).
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ MODES = ("weight_only", "dynamic")
 
 #: kernel launches since the last reset (plain int; reset by assigning 0)
 launches = 0
-VARIANTS = ("simt_weight_only", "simt_dynamic", "wgmma_dynamic",
+VARIANTS = ("mma_weight_only", "mma_dynamic", "wgmma_dynamic",
             "wgmma_weight_only")
 #: launches of each variant since the last reset (reset with
 #: :func:`reset_counts`)
@@ -108,7 +111,7 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor,
 
 def split_bf16x3(x: torch.Tensor):
     """``(hi, mid, lo)`` bf16 tensors whose sum is the f32 ``x``: the
-    per-element arithmetic of the ``wgmma_weight_only`` kernel, kept here so
+    per-element arithmetic of the weight_only kernels, kept here so
     that the CPU can test it (no main path calls it).  ``hi`` is ``x`` with
     the low 16 bits of its pattern cleared (truncation, so ``hi`` never
     overflows near f32's largest value), ``r = x - hi`` (0 where ``x`` is

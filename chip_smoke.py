@@ -76,21 +76,24 @@ Phases, each printing its seconds:
    source, in parallel; build seconds and the ``-Xptxas -v`` report);
 3. int8 kernel phase: every distinct GEMM of a batch-32 ResNet-50 forward
    (and the same K, O at 1 and 37 rows), in both modes, with and without
-   bias, weight_only in f32 and bf16, against ``int8_matmul_reference``
-   on the card (dynamic bitwise, weight_only within ``rtol=1e-5,
-   atol=1e-5*max|y|``) and the variant each GEMM took in each mode (the
-   SIMT kernel where TMA cannot describe the rows, the wgmma one
-   elsewhere), then per shape and summed per forward the kernel's and the
-   library call's device time (torch.profiler), event-timed loops of
-   kernel, plain version and library call, and the least time the card
-   could take (the bound; weight_only's also on the CUDA cores alone);
+   bias, weight_only in f32, bf16 and f16, against
+   ``int8_matmul_reference`` on the card (dynamic bitwise, weight_only
+   within ``rtol=1e-5, atol=1e-5*max|y|``), at 37 rows also from a base one
+   element off its boundary (the mma variant), and the variant each GEMM
+   took in each mode (the ``mma.sync`` kernel where TMA cannot describe
+   the rows, the wgmma one elsewhere), then per shape and summed per
+   forward the kernel's and the library call's device time
+   (torch.profiler), event-timed loops of kernel, plain version and
+   library call, and the least time the card could take (the bound;
+   weight_only's also on the CUDA cores alone); at a K that is no multiple
+   of 16 (the stem) bf16 rows are timed too, beside a bf16 ``addmm``;
 4. int8 profile phase, per mode: device time by kernel of one batch-32
    forward (torch.profiler) against its wall time;
 5. serving phase, per mode: 8 client threads x 16 requests of 1-4 rows,
    then 4 sampled requests served alone that must agree with the same
    model run on the CPU through the plain versions within 1e-5 of
    max|y|, a limit that two planted faults must exceed; the kernel's launch
-   count must equal 54 x dispatches (in both modes 1 SIMT, the stem, and
+   count must equal 54 x dispatches (in both modes 1 mma, the stem, and
    53 wgmma) and warmup must not grow;
 6. LSTM kernel phase: B2f and B2b against their plain versions at the
    seven (N, H) shapes of ``CELL_SHAPES``, f32 and bf16, forget_bias 0 and
@@ -350,10 +353,11 @@ Phases, each printing its seconds:
    model on the CPU, two planted faults (the LSTM's i and f gates
    swapped, a GRU candidate panel x127/128) above it; B4 401 launches an
    LSTM forward and 801 a GRU forward, the fused LSTM cell (B2f/B2b)
-   none; B4 checked and timed at the cells' GEMMs (M 128, K 228: SIMT)
+   none; B4 checked and timed at the cells' GEMMs (M 128, K 228: mma)
    and the head's early in the run, after the int8 kernel phase
    (``int8-kernels-qrnn``), the dequantized-f32 ``addmm`` the library
-   call in both modes;
+   call in both modes, and for dynamic also ``_int_mm`` (K zero-padded to
+   232 outside the timed call);
 33. seq-pipe (``SEQPIPE``): ``ring_attention`` at ``transformer_lm()``'s
    head geometry (B 2, H 8, D 64, T 8192) on ``seq`` groups ``[cuda:0] *
    2`` and ``* 4``, causal and not, f32 and bf16, the output and the
@@ -415,7 +419,7 @@ Phases, each printing its seconds:
    cell; B3 bitwise at ``F16_BAG_CASES`` (an f16 table with f16 and f32
    values), timed at the census forward and table gradient; B4 on f16 rows
    at every distinct GEMM of the batch-32 ResNet-50 forward in both modes
-   (weight_only's f16 SIMT form at the stem and its one-pass f16 ``wgmma``
+   (weight_only's f16 mma form at the stem and its one-pass f16 ``wgmma``
    form elsewhere; dynamic bitwise), timed a forward.  Then (at the end)
    PTB-medium at full width trained with ``set_compute_dtype(float16)``
    for one K=8 block, B2f and B2b 35 f16 launches a step each, and the
@@ -428,7 +432,7 @@ Phases, each printing its seconds:
    fault; ``probes/f16_ptb_reading.py`` shows it), Wide&Deep against the
    CPU in f16; the int8 ResNet-50 deployed with an f16
    input spec, four lone requests a mode: 54 B4 launches a dispatch, the
-   stem on the f16 rows (1 SIMT launch), the rest on f32 as in the
+   stem on the f16 rows (1 mma launch), the rest on f32 as in the
    reference, within ``SERVE_TOL`` of the CPU with the serving phase's
    planted faults.  The kernels line gives each of the four kernels an
    ``f16`` entry with its f16 launches and times.
@@ -787,20 +791,12 @@ def bound(M, K, O, bias, xdtype, cuda_cores=False):
             else "operations", peak)
 
 
-def library_call(xin, wq, scale, b, xdtype, dequantized=False):
-    """One PyTorch call for the same product, or None where its shape
-    rules refuse: addmm/mm on dequantized weights (weight_only, and
-    dynamic too with ``dequantized``: its int8 rows as f32, the scale row
-    folded into the weights), _int_mm (dynamic, int32 product only).
-    _int_mm wants K a multiple of 8, so a
-    ragged K (the stem's 147) is padded with zero columns on both sides,
-    outside the timed call: they leave the integer product unchanged.  A
-    yardstick; the port never calls it."""
-    if xdtype != "int8" or dequantized:
-        w = (wq.float() * scale[:, None]).T
-        x = xin.float()
-        return (lambda: torch.addmm(b, x, w)) if b is not None \
-            else (lambda: torch.mm(x, w))
+def int_mm_call(xin, wq):
+    """``torch._int_mm`` on the int8 rows and panel (the int32 product
+    alone), or None where its shape rules refuse (M of 16 rows or fewer, O
+    not a multiple of 8).  It wants K a multiple of 8, so a ragged K (the
+    stem's 147, the cells' 228) is padded with zero columns on both sides,
+    outside the timed call: they leave the integer product unchanged."""
     M, K = xin.shape
     if M <= 16 or wq.shape[0] % 8:
         return None
@@ -814,18 +810,37 @@ def library_call(xin, wq, scale, b, xdtype, dequantized=False):
     return lambda: torch._int_mm(xp, wt)
 
 
+def library_call(xin, wq, scale, b, xdtype, dequantized=False):
+    """One PyTorch call for the same product: addmm/mm on dequantized
+    weights (weight_only, in x's dtype; dynamic too with ``dequantized``:
+    its int8 rows as f32, the scale row folded into the weights), else
+    :func:`int_mm_call` (dynamic), and the dequantized f32 ``addmm`` where
+    ``_int_mm`` refuses the shape.  A yardstick; the port never calls
+    it."""
+    if xdtype == "int8" and not dequantized:
+        lib = int_mm_call(xin, wq)
+        if lib is not None:
+            return lib
+    dt = xin.dtype if xdtype in ("bfloat16", "float16") else torch.float32
+    w = (wq.float() * scale[:, None]).T.to(dt)
+    x = xin.to(dt)
+    bb = None if b is None else b.to(dt)
+    return (lambda: torch.addmm(bb, x, w)) if b is not None \
+        else (lambda: torch.mm(x, w))
+
+
 def kernel_phase(shapes, device, card, report, batch=BATCH,
                  dequantized_library=False):
     gen = torch.Generator(device=device).manual_seed(1234)
     counts = {}
     for s in shapes:
         counts[s] = counts.get(s, 0) + 1
-    errs = {"float32": 0.0, "bfloat16": 0.0, "int8": 0.0}
+    errs = {"float32": 0.0, "bfloat16": 0.0, "float16": 0.0, "int8": 0.0}
     n_checked = 0
     variants = {}  # (m, K, O, xdtype) -> the variant the C entry point took
     for (M, K, O, _) in counts:
         for m in (M, 1, 37):
-            for xdtype in ("float32", "bfloat16", "int8"):
+            for xdtype in errs:
                 for bias in (False, True):
                     xin, wq, scale, b = operands(m, K, O, xdtype, bias, gen,
                                                  device)
@@ -847,9 +862,38 @@ def kernel_phase(shapes, device, card, report, batch=BATCH,
                             atol=1e-5 * want.abs().max().item(),
                             msg=lambda e: f"{xdtype} M={m} K={K} O={O}: {e}")
                     del xin, wq, scale, b, got, want
-    print(f"kernel check: {n_checked} GEMMs vs int8_matmul_reference; "
-          f"dynamic bitwise; max abs err f32 {errs['float32']:.3e} "
-          f"bf16 {errs['bfloat16']:.3e} int8 {errs['int8']:.3e}")
+    # x from a base one element off its boundary: TMA cannot take it, so
+    # every shape goes to the mma variant, with narrower loads
+    n_shifted = 0
+    for (M, K, O, _) in counts:
+        for xdtype in errs:
+            mode = "dynamic" if xdtype == "int8" else "weight_only"
+            xin, wq, scale, b = operands(37, K, O, xdtype, True, gen, device)
+            buf = torch.empty(xin.numel() + 1, dtype=xin.dtype, device=device)
+            shifted = buf[1:].view(xin.shape)
+            shifted.copy_(xin)
+            got = int8_gemm.launch(shifted, wq, scale, b)
+            variant = int8_gemm.last_variant[0]
+            want = int8_matmul_reference(xin, wq, scale, b)
+            torch.cuda.synchronize()
+            if variant != f"mma_{mode}":
+                raise AssertionError(f"an unaligned base at K={K} O={O} x "
+                                     f"{xdtype} took {variant}")
+            err = (got - want).abs().max().item()
+            errs[xdtype] = max(errs[xdtype], err)
+            if xdtype == "int8" and not torch.equal(got, want):
+                raise AssertionError(f"dynamic kernel not bitwise from an "
+                                     f"unaligned base at K={K} O={O}: {err}")
+            if xdtype != "int8":
+                torch.testing.assert_close(
+                    got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item(),
+                    msg=lambda e: f"{xdtype} unaligned K={K} O={O}: {e}")
+            n_shifted += 1
+            del xin, buf, shifted, wq, scale, b, got, want
+    print(f"kernel check: {n_checked} GEMMs vs int8_matmul_reference and "
+          f"{n_shifted} from an unaligned base (mma); dynamic bitwise; max "
+          f"abs err f32 {errs['float32']:.3e} bf16 {errs['bfloat16']:.3e} "
+          f"f16 {errs['float16']:.3e} int8 {errs['int8']:.3e}")
     taken = {}
     for (m, K, O, xdtype), v in variants.items():
         taken.setdefault((xdtype, v[0]), []).append(f"{m}x{K}x{O}")
@@ -859,7 +903,9 @@ def kernel_phase(shapes, device, card, report, batch=BATCH,
 
     totals = {}
     for (M, K, O, bias), n in counts.items():
-        for xdtype in ("float32", "int8"):
+        # bf16 rows too where the mma variant takes the shape (its row
+        # stands beside the forward's, outside the totals)
+        for xdtype in ("float32", "int8") + (("bfloat16",) if K % 16 else ()):
             mode = "dynamic" if xdtype == "int8" else "weight_only"
             xin, wq, scale, b = operands(M, K, O, xdtype, bias, gen, device)
             k_fn = lambda: int8_gemm.launch(xin, wq, scale, b)  # noqa: E731
@@ -868,6 +914,11 @@ def kernel_phase(shapes, device, card, report, batch=BATCH,
             # device time (torch.profiler): the kernel and the library call
             # in one session, told apart by the kernels' names
             k_ms, l_ms = gemm_device_ms(k_fn, lib)
+            # dynamic against the dequantized addmm: _int_mm beside it
+            i_fn = int_mm_call(xin, wq) if mode == "dynamic" and \
+                dequantized_library else None
+            i_ms = gemm_device_ms(k_fn, i_fn)[1] if i_fn is not None else None
+            i_ev = cuda_ms(i_fn) if i_fn is not None else None
             variant = int8_gemm.last_variant
             # event-timed loops, the host's launch gaps included
             k_ev = cuda_ms(k_fn)
@@ -876,31 +927,45 @@ def kernel_phase(shapes, device, card, report, batch=BATCH,
             l_ev = cuda_ms(lib) if lib is not None else None
             b_ms, b_by, peak = bound(M, K, O, bias, xdtype)
             c_ms = bound(M, K, O, bias, xdtype, cuda_cores=True)[0]
-            row = {"mode": mode, "M": M, "K": K, "O": O, "bias": bias,
-                   "launches_per_forward": n, "variant": list(variant),
-                   "kernel_ms": k_ms, "library_ms": l_ms,
-                   "kernel_event_ms": k_ev, "plain_event_ms": p_ev,
-                   "library_event_ms": l_ev, "bound_ms": b_ms,
-                   "bound_by": b_by, "peak": peak}
+            row = {"mode": mode, "x": xdtype, "M": M, "K": K, "O": O,
+                   "bias": bias, "launches_per_forward": n,
+                   "variant": list(variant), "kernel_ms": k_ms,
+                   "library_ms": l_ms, "kernel_event_ms": k_ev,
+                   "plain_event_ms": p_ev, "library_event_ms": l_ev,
+                   "bound_ms": b_ms, "bound_by": b_by, "peak": peak}
             if mode == "weight_only":
                 row["bound_cuda_cores_ms"] = c_ms
+            if i_fn is not None:
+                row["int_mm_ms"], row["int_mm_event_ms"] = i_ms, i_ev
             report["shapes"].append(row)
             fmt = lambda v: "n/a" if v is None else f"{v:.4f}"  # noqa: E731
             cores = (f", CUDA cores {c_ms:.4f}" if mode == "weight_only"
                      else "")
-            print(f"gemm {mode:11s} M={M:6d} K={K:4d} O={O:4d} "
+            int_mm = (f" _int_mm={i_ms:.4f} [{i_ev:.4f}]" if i_fn is not None
+                      else "")
+            print(f"gemm {mode:11s}{' bf16 rows' if xdtype == 'bfloat16' else ''}"
+                  f" M={M:6d} K={K:4d} O={O:4d} "
                   f"bias={int(bias)} x{n} {variant[0]} tile {variant[1]}x"
                   f"{variant[2]} stages {variant[3]} blocks {variant[4]}: "
-                  f"device ms kernel={k_ms:.4f} library={fmt(l_ms)} "
+                  f"device ms kernel={k_ms:.4f} library={fmt(l_ms)}{int_mm} "
                   f"bound={b_ms:.4f} ({b_by}, peak {peak / 1e12:.0f}T"
                   f"{cores}); event-timed kernel={k_ev:.4f} "
                   f"plain={p_ev:.4f} library={fmt(l_ev)} [{card}]")
+            if xdtype == "bfloat16":
+                del xin, wq, scale, b
+                continue
             t = totals.setdefault(mode, {
                 "ms": 0.0, "event_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                 "bound_cuda_cores_ms": 0.0, "library_ms": 0.0,
                 "library_event_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-                "variants": {}})
+                "int_mm_ms": 0.0, "variants": {}})
             t["ms"] += n * k_ms
+            # where _int_mm refuses a shape (the Dense head's O=20), its
+            # dequantized addmm stands in the forward's sum
+            alt = i_ms if i_ms is not None else l_ms
+            t["int_mm_ms"] = None if not (dequantized_library and mode ==
+                                          "dynamic") or alt is None \
+                or t["int_mm_ms"] is None else t["int_mm_ms"] + n * alt
             t["event_ms"] += n * k_ev
             t["plain_ms"] += n * p_ev
             t["bound_ms"] += n * b_ms
@@ -913,6 +978,9 @@ def kernel_phase(shapes, device, card, report, batch=BATCH,
             del xin, wq, scale, b
     for mode, t in totals.items():
         lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+        if t["int_mm_ms"] is not None and dequantized_library \
+                and mode == "dynamic":
+            lib += f" _int_mm={t['int_mm_ms']:.4f}"
         cores = (f" (CUDA cores alone {t['bound_cuda_cores_ms']:.4f})"
                  if mode == "weight_only" else "")
         print(f"gemm {mode} per batch-{batch} forward ({sum(counts.values())} "
@@ -1077,8 +1145,8 @@ def serving_phase(mode, seed, device, card, report):
         raise AssertionError(f"{mode}: {launches} kernel launches for "
                              f"{dispatches} dispatches (want 54 each)")
     # the stem's K=147 int8 weight rows are no 16-byte multiple, so it takes
-    # the SIMT variant; the 53 others the wgmma one
-    want = {f"simt_{mode}": dispatches, f"wgmma_{mode}": 53 * dispatches}
+    # the mma variant; the 53 others the wgmma one
+    want = {f"mma_{mode}": dispatches, f"wgmma_{mode}": 53 * dispatches}
     if variants != want:
         raise AssertionError(f"{mode}: variant launches {variants}, want "
                              f"{want}")
@@ -9063,7 +9131,8 @@ def qrnn_kernel_phase(seed, device, card, report):
     """B4 at the GEMMs of one quantized forward of each text classifier
     (``QRNN["rows"]`` rows): the cells' projections of [x_t, h] (M 128, K
     228) and the head's, through the kernel phase, with the dequantized
-    f32 ``addmm`` as the library call in both modes.  Run while the process
+    f32 ``addmm`` as the library call in both modes and, for dynamic,
+    ``_int_mm`` beside it (K zero-padded to 232).  Run while the process
     is young (PERF.md section 7).  Returns {cell: the phase's totals}."""
     _, _, vocab = news_cached(seed)
     out = {}
@@ -9149,7 +9218,7 @@ def qrnn_phase(seed, device, card, report):
                     "deploy_s": deploy_s}
                 if not (n_cells == 2 and dispatches == len(requests)
                         and n == QRNN_FORWARD[cell] * dispatches
-                        and var.get(f"simt_{mode}", 0)
+                        and var.get(f"mma_{mode}", 0)
                         in (cells * dispatches, (cells + 1) * dispatches)
                         and b2 == 0):
                     raise AssertionError(
@@ -10412,7 +10481,7 @@ def dtype_spy(module, name, record):
 
 def f16_gemm_phase(shapes, device, card):
     """B4 with f16 rows at every distinct GEMM of the batch-32 ResNet-50
-    forward, both modes (weight_only: the f16 rows as they are, the SIMT
+    forward, both modes (weight_only: the f16 rows as they are, the mma
     form at the stem's K=147 and the one-pass f16 ``wgmma`` form elsewhere;
     dynamic: ``dyn_quantize`` of the f16 rows, then the s8 kernel),
     against the plain version: dynamic bitwise, weight_only ``rtol=1e-5,
@@ -10444,8 +10513,8 @@ def f16_gemm_phase(shapes, device, card):
                     got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item(),
                     msg=lambda e: f"B4 f16 M={M} K={K} O={O}: {e}")
             del x, xin, got, want
-    want_taken = {("weight_only", "simt_weight_only"), ("dynamic",
-                                                        "simt_dynamic"),
+    want_taken = {("weight_only", "mma_weight_only"), ("dynamic",
+                                                       "mma_dynamic"),
                   ("weight_only", "wgmma_weight_only"), ("dynamic",
                                                          "wgmma_dynamic")}
     if set(taken) != want_taken:
@@ -10760,7 +10829,7 @@ def f16_wd_phase(seed, device, card, report):
 
 def f16_serving_phase(mode, seed, device, card, report):
     """The int8 ResNet-50 deployed with an f16 input spec and served four
-    lone requests of 1-4 f16 rows: 54 B4 launches a dispatch, 1 SIMT (the
+    lone requests of 1-4 f16 rows: 54 B4 launches a dispatch, 1 mma (the
     stem, on f16 rows: weight_only's f16 form, or dynamic's s8 kernel after
     ``dyn_quantize`` in f16) and 53 ``wgmma`` on the stem's f32 outputs, as
     the reference computes them; each output within SERVE_TOL of the same
@@ -10795,7 +10864,7 @@ def f16_serving_phase(mode, seed, device, card, report):
         variants = {v: n for v, n in int8_gemm.variant_launches.items() if n}
     f16_rows = rows.count(torch.float16)
     f16_launches = sum(c[0] == torch.float16 for c in calls)
-    want = {f"simt_{mode}": dispatches, f"wgmma_{mode}": 53 * dispatches}
+    want = {f"mma_{mode}": dispatches, f"wgmma_{mode}": 53 * dispatches}
     if launches != 54 * dispatches or variants != want or \
             f16_rows != dispatches or rows.count(torch.float32) != \
             53 * dispatches or f16_launches != (
@@ -11406,7 +11475,7 @@ def main(argv=None) -> int:
                 rows[cell] = {
                     **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "library_ms",
-                                         "variants")},
+                                         "int_mm_ms", "variants")},
                     "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
                     else "operations", "rows_a_forward": QRNN["rows"]}
             entry = by_name.get(f"int8_gemm[{mode}]")
@@ -11414,7 +11483,8 @@ def main(argv=None) -> int:
                 entry = {"name": f"int8_gemm[{mode}]", **KERNEL,
                          "launches": launches[mode],
                          **{k: v for k, v in rows["lstm"].items()
-                            if k not in ("variants", "rows_a_forward")}}
+                            if k not in ("variants", "rows_a_forward",
+                                         "int_mm_ms")}}
                 kernels.append(entry)
             entry["quantized_rnn"] = {"launches": launches[mode],
                                       "variant_launches": variants[mode],

@@ -84,7 +84,7 @@ from bigdl_tpu_torch.serving import ModelRegistry
 
 pytestmark = pytest.mark.gpu
 
-# (M, K, O): the stem's ragged K=147/O=64 at 1, 3 and 37 rows (the SIMT
+# (M, K, O): the stem's ragged K=147/O=64 at 1, 3 and 37 rows (the mma
 # variants: TMA cannot describe a 147-byte int8 weight row), the FC's
 # O=1000, aligned shapes, and a stage-1 3x3 conv with several row blocks;
 # then, for the wgmma variants, stage 4's long K (1568, 4608, 512), the FC's
@@ -102,14 +102,23 @@ SHAPES = [(1, 147, 64), (3, 147, 64), (37, 147, 64), (5, 64, 1000),
           (12544, 256, 64),
           # the quantized Keras text classifiers' at batch 128: the LSTM's
           # and the GRU's gates and candidate over [x_t, h] (K = 100 + 128,
-          # SIMT: not a multiple of 16), the Dense head
-          (128, 228, 512), (128, 228, 256), (128, 228, 128), (128, 256, 20)]
+          # mma: not a multiple of 16), the Dense head
+          (128, 228, 512), (128, 228, 256), (128, 228, 128), (128, 256, 20),
+          # ragged K for the mma variants' zero fill (K of 1, 3, 17, 33 and
+          # 229: to the next k16 / k32, 1-byte and 4-byte int8 rows) and M
+          # across the edge of each of their tiles: 16x32 (17, 33, 65 and
+          # 2113 rows; 2113 x 64 fills 34 64x64 blocks, too few) and 64x64
+          # (8449 rows: 133 blocks, the last one row)
+          (1, 1, 8), (17, 3, 5), (33, 17, 40), (65, 33, 100), (37, 229, 130),
+          (2113, 17, 64), (8449, 229, 64),
+          # K in three chunks through shared memory (512, 512, 129)
+          (37, 1153, 72)]
 
 
 def _variant(K, xdtype):
     """The variant the C entry point takes for contiguous operands."""
     mode = "dynamic" if xdtype == "int8" else "weight_only"
-    return ("wgmma_" if K % 16 == 0 else "simt_") + mode
+    return ("wgmma_" if K % 16 == 0 else "mma_") + mode
 
 
 @pytest.fixture
@@ -160,28 +169,30 @@ def test_kernel_matches_plain(cuda, shape, bias, xdtype):
 
 def test_unaligned_base_takes_simt(cuda):
     """A K that TMA could describe but a base off a 16-byte boundary goes
-    to the SIMT variant, bitwise all the same."""
+    to the mma variant (its rows copied as one span and read in place at
+    any alignment), bitwise all the same."""
     xin, wq, scale, b = _operands(37, 256, 128, "int8", True, cuda)
     buf = torch.empty(xin.numel() + 1, dtype=torch.int8, device=cuda)
     shifted = buf[1:].view(xin.shape)
     shifted.copy_(xin)
     got = int8_gemm.launch(shifted, wq, scale, b)
     torch.cuda.synchronize()
-    assert int8_gemm.last_variant[0] == "simt_dynamic"
+    assert int8_gemm.last_variant[0] == "mma_dynamic"
     assert torch.equal(got, int8_matmul_reference(xin, wq, scale, b))
 
 
 @pytest.mark.parametrize("xdtype", ["float32", "bfloat16", "float16"])
 def test_unaligned_weight_only_base_takes_simt(cuda, xdtype):
-    """weight_only activations off a 16-byte boundary go to the SIMT
-    variant, within the same tolerance."""
+    """weight_only activations off a 16-byte boundary go to the mma
+    variant (4- or 2-byte aligned rows read in place), within the same
+    tolerance."""
     xin, wq, scale, b = _operands(37, 256, 128, xdtype, True, cuda)
     buf = torch.empty(xin.numel() + 1, dtype=xin.dtype, device=cuda)
     shifted = buf[1:].view(xin.shape)
     shifted.copy_(xin)
     got = int8_gemm.launch(shifted, wq, scale, b)
     torch.cuda.synchronize()
-    assert int8_gemm.last_variant[0] == "simt_weight_only"
+    assert int8_gemm.last_variant[0] == "mma_weight_only"
     want = int8_matmul_reference(xin, wq, scale, b)
     torch.testing.assert_close(got, want, rtol=1e-5,
                                atol=1e-5 * want.abs().max().item())
@@ -1637,7 +1648,7 @@ def test_maxpool_bwd_f16_two_pass_matches_plain(cuda, case):
 
 @pytest.mark.parametrize("mode", ["weight_only", "dynamic"])
 def test_int8_matmul_f16_rows_on_card_match_cpu(cuda, mode):
-    """f16 rows through ``int8_matmul`` at the stem's K=147 (SIMT) and an
+    """f16 rows through ``int8_matmul`` at the stem's K=147 (mma) and an
     aligned K (``wgmma``), and all-zero rows (an f16 scale of 0): the CPU's
     result, dynamic bitwise, weight_only within ``rtol=1e-5, atol=1e-5 *
     max|y|``."""
@@ -1650,7 +1661,7 @@ def test_int8_matmul_f16_rows_on_card_match_cpu(cuda, mode):
         got = int8_gemm.int8_matmul(xin.to(cuda), wq.to(cuda),
                                     scale.to(cuda), b.to(cuda), mode=mode)
         torch.cuda.synchronize()
-        variant = ("wgmma_" if K % 16 == 0 else "simt_") + mode
+        variant = ("wgmma_" if K % 16 == 0 else "mma_") + mode
         assert int8_gemm.last_variant[0] == variant
         if mode == "dynamic":
             assert torch.equal(got.cpu(), want)

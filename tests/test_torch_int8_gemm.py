@@ -243,6 +243,77 @@ def test_split_products_within_kernel_limit(bias):
     assert (lone - want).abs().max() > 1e-5 * want.abs().max()
 
 
+# The mma variants' order of summation (K not a multiple of 16: the
+# quantized recurrent cells' projections of [x_t, h], K = 100 + 128, and
+# ResNet-50's stem, K = 147): K zero-filled to the next k16 (k32 for
+# dynamic), each k16 slice's hi, mid and lo products (one for bf16 or f16
+# x) into the 64-wide stage's fresh f32 accumulator, the stages added into
+# the tile's sum in K order; dynamic an exact integer sum.
+MMA_SHAPES = [(128, 228, 512), (128, 228, 256), (128, 228, 128),
+              (37, 147, 64)]
+
+
+def _mma_weight_only(x, wq, scale, b):
+    M, K = x.shape
+    pad = -K % 16
+    xp = torch.nn.functional.pad(x.float(), (0, pad))
+    w = torch.nn.functional.pad(wq, (0, pad)).double()
+    if x.dtype == torch.float32:
+        terms = split_bf16x3(xp)
+    else:  # bf16 or f16 x: one exact pass against the upcast panel
+        terms = (xp.to(x.dtype),)
+    total = torch.zeros(M, wq.shape[0])
+    for k0 in range(0, K + pad, 64):
+        acc = torch.zeros_like(total)
+        for kk in range(k0, min(k0 + 64, K + pad), 16):
+            for t in terms:
+                acc = acc + (t[:, kk:kk + 16].double()
+                             @ w[:, kk:kk + 16].T).float()
+        total = total + acc
+    return fma_f32(total, scale, b)
+
+
+@pytest.mark.parametrize("xdtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("shape", MMA_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mma_weight_only_order_within_kernel_limit(shape, bias, xdtype):
+    """The mma_weight_only kernel's sum, emulated, within the kernel
+    check's limit (``rtol=1e-5, atol=1e-5*max|y|``) of the plain version
+    ``int8_matmul_reference`` on the same (f32, bf16 or f16) rows."""
+    x, wq, ws, b = (torch.from_numpy(a) for a in _operands(*shape, seed=9))
+    x = x.to(getattr(torch, xdtype))
+    scale = ws.reshape(-1).contiguous()
+    b = b if bias else None
+    got = _mma_weight_only(x, wq, scale, b)
+    want = int8_matmul_reference(x, wq, scale, b)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("shape", MMA_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mma_dynamic_order_is_bitwise(shape, bias):
+    """The mma_dynamic kernel's sum, emulated (int8 rows zero-filled to the
+    next k32, one int32 sum a k32 slice, the slices added in K order),
+    then the one-rounding epilogue: bitwise the plain version."""
+    x, wq, ws, b = (torch.from_numpy(a) for a in _operands(*shape, seed=10))
+    xq, xs = dyn_quantize(x)
+    scale = (xs * ws.reshape(-1)).float().contiguous()
+    b = b if bias else None
+    K = x.shape[1]
+    pad = -K % 32
+    xi = torch.nn.functional.pad(xq, (0, pad)).long()
+    wi = torch.nn.functional.pad(wq, (0, pad)).long()
+    acc = torch.zeros(x.shape[0], wq.shape[0], dtype=torch.long)
+    for k in range(0, K + pad, 32):
+        acc += xi[:, k:k + 32] @ wi[:, k:k + 32].T
+    assert acc.abs().max() < 2 ** 31
+    got = fma_f32(acc.float(), scale, b)
+    assert torch.equal(got, int8_matmul_reference(xq, wq, scale, b))
+
+
 def _round_toward_zero(d: torch.Tensor) -> torch.Tensor:
     """float64 -> f32, truncated toward zero."""
     f = d.float()
