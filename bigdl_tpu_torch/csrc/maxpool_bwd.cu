@@ -34,9 +34,31 @@
 // launch's capacity, so task indices split by shifts and precomputed divisors.  At the stem the
 // 8x16 tile measured fastest of 8x8, 16x8, 8x16 and 16x16 on an H100 (probes/b1_tiles.py).
 //
-// Variant two_pass (first_match + scatter_first): every other geometry (NCHW, ragged C,
-// unaligned views, 64-bit offsets, windows of 255 positions or more).  No atomics, no
-// memset, each output written once.
+// Variant tiled_nchw, for tensors whose rows run along W (all four with a W stride of 1, where W
+// is more than 1), 32-bit offsets and windows of fewer than 255 positions that tiled_nhwc does not
+// take: NCHW, as LeNet's, VGG's and the Inception check's pools are.  One launch, no global
+// scratch, one thread an element along W, so loads and stores are coalesced along the rows.  Two
+// forms:
+//   - registers (maxpool_bwd_pairs): 2x2 windows at stride 2, unpadded, that tile H and W exactly
+//     (every VGG and LeNet pool).  No window's g is read twice and no position has two windows,
+//     so each thread takes R (4, 2 or 1) adjacent windows of one output row: it asks for their
+//     two x rows (2R values each), R y and R g values as 4- to 16-byte vectors, all before any
+//     compare, then writes the whole 2 x 2R strip of gi, zeros included.
+//   - tile (maxpool_bwd_planes): every other such geometry (overlapping windows, padding, ceil
+//     mode, strides above or below the window, positions no window covers, unaligned rows).  A
+//     block owns a th x tw tile of gi of one (n, c) plane, or of pb whole planes where a plane
+//     is smaller than a tile.  (1) A thread a window (up to four each): it reads the window's
+//     y and g, scans x straight from global memory (the neighbours' overlapping reads hit the
+//     caches) for its first match and keeps it in shared memory beside g; (2) after one
+//     barrier, a thread a gi element writes it once, adding the covering windows' g in (dh, dw)
+//     order and rounding to x's dtype after each add, as two_pass does.  The window and the
+//     stride are read at run time (loops).  Task indices split into (plane, row, column) by
+//     divisions by precomputed multipliers.
+// Both forms compute exactly what the plain version does, bitwise.
+//
+// Variant two_pass (first_match + scatter_first): every other geometry (NHWC with a ragged
+// channel row, mixed layouts, unaligned views, 64-bit offsets, windows of 255 positions or
+// more).  No atomics, no memset, each output written once.
 //   1. One thread per window o: scans the window's real offsets in row-major order and
 //      stores the first whose x equals y[o] as a small integer (dh*kw + dw; uint8 when
 //      kh*kw < 255, else int32; the sentinel "none" only where y[o] matches nothing).
@@ -51,8 +73,8 @@
 // arithmetic is 32-bit, with divisions by precomputed multipliers, whenever the launch's
 // indices and offsets fit.
 //
-// The C entry points choose the variant by layout, alignment and window size alone and
-// report it.
+// The C entry points choose the variant (and tiled_nchw's form) by layout, alignment and
+// window size alone and report it.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -626,6 +648,340 @@ cudaError_t launch_tiled(const void* x, const void* y, const void* g, void* gi,
   info[1] = TILE_H * TILE_W;
   info[2] = vb;
   info[3] = (int)(grid.x * grid.y);
+  info[4] = 0;
+  return cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// tiled_nchw
+
+constexpr int PLANE_THREADS = 256;
+constexpr int PLANE_WINDOWS = 4;        // windows a thread in the tile form, at most
+constexpr int PLANE_POSITIONS = 2048;   // gi positions a block's tile, at most
+constexpr int PLANE_WIDTH = 64;         // gi columns a tile, at most
+constexpr int PLANE_BLOCKS_PER_SM = 4;  // blocks a multiprocessor, at least, where tiles allow
+
+struct PlaneGeom {
+  int C, H, W, OH, OW, kh, kw, sh, sw, ph, pw;
+  int xs[3], ys[3], gs[3], gis[3];  // element strides (n, c, h); w's is 1
+  int planes;                       // N * C
+  int pairs;                        // the register form's windows a thread, 0 for the tile form
+  // the tile form: th x tw gi positions of each of pb planes a block; the capacity of a
+  // plane's shared memory: nwh x nww covering windows
+  int th, tw, pb, tiles_h, tiles_w, groups;
+  int nwh, nww;
+  FastDiv C_, OH_, runs_, tw_, thw_, nww_, nwhw_, sh_, sw_;
+};
+
+// the offset of plane p (= n * C + c) in a tensor with element strides s (n, c, h)
+__device__ __forceinline__ int plane_offset(int p, const PlaneGeom& q, const int (&s)[3]) {
+  const int n = (int)div_by((unsigned)p, q.C_);
+  return n * s[0] + (p - n * q.C) * s[1];
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half_rn(v); }
+
+// E elements of T as one to two vector accesses of up to 16 bytes; p aligned to the access
+template <int BYTES>
+struct VecOf;
+template <> struct VecOf<2> { using type = unsigned short; };
+template <> struct VecOf<4> { using type = unsigned int; };
+template <> struct VecOf<8> { using type = uint2; };
+template <> struct VecOf<16> { using type = uint4; };
+
+template <typename T, int E>
+__device__ __forceinline__ void load_row(const T* __restrict__ p, T (&v)[E]) {
+  constexpr int B = E * (int)sizeof(T) < 16 ? E * (int)sizeof(T) : 16;
+  using V = typename VecOf<B>::type;
+#pragma unroll
+  for (int k = 0; k < E * (int)sizeof(T) / B; ++k)
+    reinterpret_cast<V*>(v)[k] = reinterpret_cast<const V*>(p)[k];
+}
+template <typename T, int E>
+__device__ __forceinline__ void store_row(T* __restrict__ p, const T (&v)[E]) {
+  constexpr int B = E * (int)sizeof(T) < 16 ? E * (int)sizeof(T) : 16;
+  using V = typename VecOf<B>::type;
+#pragma unroll
+  for (int k = 0; k < E * (int)sizeof(T) / B; ++k)
+    reinterpret_cast<V*>(p)[k] = reinterpret_cast<const V*>(v)[k];
+}
+
+// The register form: thread i takes windows ow0 .. ow0 + R - 1 of output row oh of one
+// plane (runs of R innermost, so a warp's accesses are consecutive along W).
+template <typename T, int R>
+__global__ void __launch_bounds__(PLANE_THREADS)
+    maxpool_bwd_pairs(const T* __restrict__ x, const T* __restrict__ y,
+                      const T* __restrict__ g, T* __restrict__ gi, PlaneGeom q, int total) {
+  const int i = blockIdx.x * PLANE_THREADS + threadIdx.x;
+  if (i >= total) return;
+  const int t = (int)div_by((unsigned)i, q.runs_);
+  const int ow0 = (i - t * (q.OW / R)) * R;
+  const int p = (int)div_by((unsigned)t, q.OH_);
+  const int oh = t - p * q.OH;
+  const int xo = plane_offset(p, q, q.xs) + 2 * oh * q.xs[2] + 2 * ow0;
+  const int yo = plane_offset(p, q, q.ys) + oh * q.ys[2] + ow0;
+  const int go = plane_offset(p, q, q.gs) + oh * q.gs[2] + ow0;
+  alignas(16) T x0[2 * R], x1[2 * R], yv[R], gv[R];
+  load_row(x + xo, x0);
+  load_row(x + xo + q.xs[2], x1);
+  load_row(y + yo, yv);
+  load_row(g + go, gv);
+  alignas(16) T o0[2 * R], o1[2 * R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float m = to_f32(yv[r]);
+    // 0 + g as the plain version adds it (a -0 gradient lands as +0)
+    const float gz = add_in(0.0f, to_f32(gv[r]), (T*)nullptr);
+    const bool a = to_f32(x0[2 * r]) == m;
+    const bool b = !a && to_f32(x0[2 * r + 1]) == m;
+    const bool c = !a && !b && to_f32(x1[2 * r]) == m;
+    const bool d = !a && !b && !c && to_f32(x1[2 * r + 1]) == m;
+    o0[2 * r] = from_f32<T>(a ? gz : 0.0f);
+    o0[2 * r + 1] = from_f32<T>(b ? gz : 0.0f);
+    o1[2 * r] = from_f32<T>(c ? gz : 0.0f);
+    o1[2 * r + 1] = from_f32<T>(d ? gz : 0.0f);
+  }
+  const int io = plane_offset(p, q, q.gis) + 2 * oh * q.gis[2] + 2 * ow0;
+  store_row(gi + io, o0);
+  store_row(gi + io + q.gis[2], o1);
+}
+
+// a window's g (as f32) and first-match offset (255: none), kept in shared memory
+struct WindowHit {
+  float g;
+  int first;
+};
+
+// Shared memory of a tile-form block: its windows' WindowHit, at the capacity pitch.
+__host__ __device__ inline int plane_smem(const PlaneGeom& q) {
+  return q.pb * q.nwh * q.nww * (int)sizeof(WindowHit);
+}
+
+// The first and the last window (window k, stride s) whose span holds padded position v >= 0,
+// before clipping to the output.
+__device__ __forceinline__ int first_window(int v, int k, int s, const FastDiv& s_) {
+  return v - k + 1 <= 0 ? 0 : (int)div_by((unsigned)(v - k + s), s_);
+}
+__device__ __forceinline__ int last_window(int v, const FastDiv& s_) {
+  return (int)div_by((unsigned)v, s_);
+}
+
+// The tile form, as the head of the file describes.  blockIdx.x = (plane group, tile row,
+// tile column); 32-bit offsets.
+template <typename T>
+__global__ void __launch_bounds__(PLANE_THREADS)
+    maxpool_bwd_planes(const T* __restrict__ x, const T* __restrict__ y,
+                       const T* __restrict__ g, T* __restrict__ gi, PlaneGeom q) {
+  const int kh = q.kh, kw = q.kw, sh = q.sh, sw = q.sw;
+  extern __shared__ uint4 smem[];
+  WindowHit* hits = reinterpret_cast<WindowHit*>(smem);
+  const int tplane = q.th * q.tw, wplane = q.nwh * q.nww;
+
+  int b = blockIdx.x;
+  const int tc = b % q.tiles_w;
+  b /= q.tiles_w;
+  const int tr = b % q.tiles_h;
+  const int p0 = (b / q.tiles_h) * q.pb;
+  const int np = min(q.pb, q.planes - p0);  // planes in this block
+  const int h0 = tr * q.th, w0 = tc * q.tw;
+  const int h1 = min(h0 + q.th, q.H), w1 = min(w0 + q.tw, q.W);
+  // the windows that cover the tile
+  const int oh_lo = first_window(h0 + q.ph, kh, sh, q.sh_);
+  const int oh_hi = min(q.OH - 1, last_window(h1 - 1 + q.ph, q.sh_));
+  const int ow_lo = first_window(w0 + q.pw, kw, sw, q.sw_);
+  const int ow_hi = min(q.OW - 1, last_window(w1 - 1 + q.pw, q.sw_));
+  const int nwh = oh_hi - oh_lo + 1, nww = ow_hi - ow_lo + 1;
+
+  // (1) each of this thread's windows (task threadIdx.x + k * PLANE_THREADS): its y and g,
+  // then its first match in row-major order, x read from global memory (a neighbour's
+  // reads of the same x hit the caches)
+#pragma unroll
+  for (int k = 0; k < PLANE_WINDOWS; ++k) {
+    const int i = threadIdx.x + k * PLANE_THREADS;
+    const int pl = (int)div_by((unsigned)i, q.nwhw_), rem = i - pl * wplane;
+    const int wr = (int)div_by((unsigned)rem, q.nww_), wc = rem - wr * q.nww;
+    if (pl >= np || wr >= nwh || wc >= nww) continue;
+    const int p = p0 + pl, oh = oh_lo + wr, ow = ow_lo + wc;
+    const float m = to_f32(y[plane_offset(p, q, q.ys) + oh * q.ys[2] + ow]);
+    const float gv = to_f32(g[plane_offset(p, q, q.gs) + oh * q.gs[2] + ow]);
+    const int hs = oh * sh - q.ph, ws = ow * sw - q.pw;  // the window's origin
+    const T* xb = x + plane_offset(p, q, q.xs) + hs * q.xs[2] + ws;
+    // the first real position equal to m (a NaN m matches nothing); no early exit, so
+    // that the window's loads need not wait on its compares
+    int found = 255;
+    const int dh0 = max(0, -hs), dh1 = min(kh, q.H - hs);
+    const int dw0 = max(0, -ws), dw1 = min(kw, q.W - ws);
+    for (int dh = dh0; dh < dh1; ++dh)
+      for (int dw = dw0; dw < dw1; ++dw) {
+        const bool hit = to_f32(xb[dh * q.xs[2] + dw]) == m;
+        found = hit && found == 255 ? dh * kw + dw : found;
+      }
+    hits[i] = WindowHit{gv, found};
+  }
+  __syncthreads();
+
+  // (2) each gi element of the tile once: the covering windows' g where their first match
+  // is this position, in (dh, dw) order (oh, ow descending), rounded to x's dtype after
+  // each add; a window that does not cover the position adds 0, which leaves the sum as it
+  // is (the sum starts at +0 and is never -0)
+  const int th1 = h1 - h0, tw1 = w1 - w0;
+  for (int i = threadIdx.x; i < q.pb * tplane; i += PLANE_THREADS) {
+    const int pl = (int)div_by((unsigned)i, q.thw_), rem = i - pl * tplane;
+    const int hr = (int)div_by((unsigned)rem, q.tw_), wr = rem - hr * q.tw;
+    if (pl >= np || hr >= th1 || wr >= tw1) continue;
+    const int hp = h0 + hr + q.ph, wp = w0 + wr + q.pw;
+    const int a_hi = min(last_window(hp, q.sh_), oh_hi), a_lo = first_window(hp, kh, sh, q.sh_);
+    const int b_hi = min(last_window(wp, q.sw_), ow_hi), b_lo = first_window(wp, kw, sw, q.sw_);
+    const int w00 = pl * wplane - oh_lo * q.nww - ow_lo;  // hits index of window (0, 0)
+    float acc = 0.0f;
+    for (int oh = a_hi; oh >= a_lo; --oh)
+      for (int ow = b_hi; ow >= b_lo; --ow) {
+        const WindowHit h = hits[w00 + oh * q.nww + ow];
+        const int off = (hp - oh * sh) * kw + wp - ow * sw;
+        acc = add_in(acc, h.first == off ? h.g : 0.0f, (T*)nullptr);
+      }
+    store(gi + plane_offset(p0 + pl, q, q.gis) + (hp - q.ph) * q.gis[2] + wp - q.pw, acc);
+  }
+}
+
+// whether every stride of a tensor's dims of size above 1 (n, c, h: the first three) is a
+// multiple of `elems`, and its base a multiple of `bytes`
+bool rows_aligned(const void* base, const long long* sizes, const long long* strides, int elems,
+                  int bytes) {
+  if ((reinterpret_cast<uintptr_t>(base) % bytes) != 0) return false;
+  for (int d = 0; d < 3; ++d)
+    if (sizes[d] > 1 && strides[d] % elems != 0) return false;
+  return true;
+}
+
+// tiled_nchw's geometry for q, or false where it does not apply.
+template <typename T>
+bool plan_planes(const void* x, const void* y, const void* g, const void* gi, const Geom& q,
+                 PlaneGeom* t) {
+  const long long xsz[4] = {q.N, q.C, q.H, q.W}, ysz[4] = {q.N, q.C, q.OH, q.OW};
+  const long long* sizes[4] = {xsz, ysz, ysz, xsz};
+  const long long* strides[4] = {q.xs, q.ys, q.gs, q.gis};
+  if (q.kh * q.kw >= 255) return false;
+  for (int k = 0; k < 4; ++k) {
+    if (sizes[k][3] > 1 && strides[k][3] != 1) return false;
+    for (int d = 0; d < 3; ++d)
+      if (strides[k][d] < 0) return false;
+    if (span(sizes[k], strides[k]) >= 0x7fffffffLL) return false;
+  }
+  *t = PlaneGeom{};
+  t->C = (int)q.C; t->H = (int)q.H; t->W = (int)q.W; t->OH = (int)q.OH; t->OW = (int)q.OW;
+  t->kh = q.kh; t->kw = q.kw; t->sh = q.sh; t->sw = q.sw; t->ph = q.ph; t->pw = q.pw;
+  for (int d = 0; d < 3; ++d) {
+    // a dim of size 1 is only ever at index 0: its stride need not fit
+    t->xs[d] = xsz[d] > 1 ? (int)q.xs[d] : 0; t->gis[d] = xsz[d] > 1 ? (int)q.gis[d] : 0;
+    t->ys[d] = ysz[d] > 1 ? (int)q.ys[d] : 0; t->gs[d] = ysz[d] > 1 ? (int)q.gs[d] : 0;
+  }
+  t->planes = (int)(q.N * q.C);
+  t->C_ = make_div(q.C);
+  t->OH_ = make_div(q.OH);
+  // the register form: exact 2x2/2 tiling, R windows a thread as vectors allow
+  if (q.kh == 2 && q.kw == 2 && q.sh == 2 && q.sw == 2 && q.ph == 0 && q.pw == 0 &&
+      q.H == 2 * q.OH && q.W == 2 * q.OW) {
+    const int es = (int)sizeof(T);
+    for (int r = 4; r >= 1; r /= 2) {
+      const int xb = 2 * r * es < 16 ? 2 * r * es : 16, yb = r * es < 16 ? r * es : 16;
+      if (q.OW % r == 0 && rows_aligned(x, xsz, q.xs, xb / es, xb) &&
+          rows_aligned(gi, xsz, q.gis, xb / es, xb) && rows_aligned(y, ysz, q.ys, yb / es, yb) &&
+          rows_aligned(g, ysz, q.gs, yb / es, yb)) {
+        t->pairs = r;
+        t->runs_ = make_div(q.OW / r);
+        return true;
+      }
+    }
+  }
+  // the tile form: up to PLANE_WIDTH columns and PLANE_POSITIONS positions a block, whole
+  // planes packed where a plane fits
+  auto shape = [&](int th, int tw, int pb) {
+    t->tiles_w = (t->W + tw - 1) / tw;
+    t->tw = (t->W + t->tiles_w - 1) / t->tiles_w;
+    t->tiles_h = (t->H + th - 1) / th;
+    t->th = (t->H + t->tiles_h - 1) / t->tiles_h;
+    t->pb = t->tiles_h == 1 && t->tiles_w == 1 ? pb : 1;
+    t->groups = (t->planes + t->pb - 1) / t->pb;
+    t->nwh = cover(t->th, q.kh, q.sh);
+    t->nww = cover(t->tw, q.kw, q.sw);
+  };
+  int tw = t->W < PLANE_WIDTH ? t->W : PLANE_WIDTH;
+  int th = PLANE_POSITIONS / tw < t->H ? PLANE_POSITIONS / tw : t->H;
+  int pb = PLANE_POSITIONS / (th * tw);
+  if (pb > t->planes) pb = t->planes;
+  if (pb < 1) pb = 1;
+  shape(th, tw, pb);
+  // blocks enough for PLANE_BLOCKS_PER_SM a multiprocessor where a smaller tile (down
+  // to a position a thread) gives them: fewer planes a block first, then rows
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  while ((long long)t->groups * t->tiles_h * t->tiles_w < (long long)PLANE_BLOCKS_PER_SM * sms &&
+         t->pb * t->th * t->tw >= 2 * PLANE_THREADS) {
+    if (t->pb > 1) pb = t->pb / 2;
+    else if (t->th > 1) th = (t->th + 1) / 2;
+    else break;
+    shape(th, tw, pb);
+  }
+  // a small stride gives a tile many windows: fewer planes, then rows, then columns a
+  // block keep them to PLANE_WINDOWS a thread
+  while (t->pb * t->nwh * t->nww > PLANE_WINDOWS * PLANE_THREADS) {
+    if (t->pb > 1) pb = t->pb / 2;
+    else if (t->th > 1) th = (t->th + 1) / 2;
+    else if (t->tw > 1) tw = (t->tw + 1) / 2;
+    else return false;
+    shape(th, tw, pb);
+  }
+  if ((long long)t->groups * t->tiles_h * t->tiles_w >= 0x7fffffffLL) return false;
+  t->tw_ = make_div(t->tw);
+  t->thw_ = make_div((long long)t->th * t->tw);
+  t->nww_ = make_div(t->nww);
+  t->nwhw_ = make_div((long long)t->nwh * t->nww);
+  t->sh_ = make_div(q.sh);
+  t->sw_ = make_div(q.sw);
+  return true;
+}
+
+template <typename T>
+cudaError_t launch_planes(const void* x, const void* y, const void* g, void* gi,
+                          const PlaneGeom& t, cudaStream_t s, int* info) {
+  const T* xt = static_cast<const T*>(x);
+  const T* yt = static_cast<const T*>(y);
+  const T* gt = static_cast<const T*>(g);
+  T* git = static_cast<T*>(gi);
+  info[0] = 2;
+  info[4] = t.pairs;
+  if (t.pairs > 0) {
+    const int total = t.planes * t.OH * (t.OW / t.pairs);
+    const int blocks = (total + PLANE_THREADS - 1) / PLANE_THREADS;
+    if (t.pairs == 4)
+      maxpool_bwd_pairs<T, 4><<<blocks, PLANE_THREADS, 0, s>>>(xt, yt, gt, git, t, total);
+    else if (t.pairs == 2)
+      maxpool_bwd_pairs<T, 2><<<blocks, PLANE_THREADS, 0, s>>>(xt, yt, gt, git, t, total);
+    else
+      maxpool_bwd_pairs<T, 1><<<blocks, PLANE_THREADS, 0, s>>>(xt, yt, gt, git, t, total);
+    info[1] = 4 * t.pairs;
+    info[2] = 0;
+    info[3] = blocks;
+    return cudaGetLastError();
+  }
+  const int smem = plane_smem(t);
+  const int blocks = t.groups * t.tiles_h * t.tiles_w;
+  maxpool_bwd_planes<T><<<blocks, PLANE_THREADS, smem, s>>>(xt, yt, gt, git, t);
+  info[1] = t.th * t.tw;
+  info[2] = t.pb;
+  info[3] = blocks;
   return cudaGetLastError();
 }
 
@@ -643,6 +999,7 @@ cudaError_t launch_two_pass(const void* x, const void* y, const void* g, void* g
   info[1] = 0;
   info[2] = 0;
   info[3] = (int)grid_for(elems, 256);
+  info[4] = 0;
   if (most < 0x7fffffffLL) return launch_typed<T, unsigned>(x, y, g, gi, idx, q, s);
   return launch_typed<T, unsigned long long>(x, y, g, gi, idx, q, s);
 }
@@ -676,34 +1033,45 @@ bool tiled_applies(int dtype, const void* x, const void* y, const void* g, const
                       : plan_tiled<__half>(x, y, g, gi, q, t);
 }
 
+bool planes_apply(int dtype, const void* x, const void* y, const void* g, const void* gi,
+                  const Geom& q, PlaneGeom* t) {
+  return dtype == 0   ? plan_planes<float>(x, y, g, gi, q, t)
+         : dtype == 1 ? plan_planes<__nv_bfloat16>(x, y, g, gi, q, t)
+                      : plan_planes<__half>(x, y, g, gi, q, t);
+}
+
 }  // namespace
 
 // dtype: 0 f32, 1 bf16, 2 f16 (x, y, g, gi all of it).  dims: N, C, H, W, OH, OW, kh, kw,
 // sh, sw, ph, pw (ph, pw the lo padding).  strides: 16 element strides, (n, c, h, w) of x, y, g and
-// gi in that order.  Returns the variant these tensors take: 1 tiled_nhwc, 0 two_pass (it
-// needs the idx scratch below), -1 a bad dtype or geometry.
+// gi in that order.  Returns the variant these tensors take: 1 tiled_nhwc, 2 tiled_nchw, 0
+// two_pass (it needs the idx scratch below), -1 a bad dtype or geometry.
 extern "C" int bigdl_maxpool_bwd_variant(int dtype, const void* x, const void* y, const void* g,
                                          const void* gi, const long long* dims,
                                          const long long* strides, int channels_last) {
   Geom q;
   TileGeom t;
+  PlaneGeom p;
   if (dtype < 0 || dtype > 2 || !parse(dims, strides, channels_last, &q)) return -1;
-  return tiled_applies(dtype, x, y, g, gi, q, &t) ? 1 : 0;
+  if (tiled_applies(dtype, x, y, g, gi, q, &t)) return 1;
+  return planes_apply(dtype, x, y, g, gi, q, &p) ? 2 : 0;
 }
 
 // Arguments as above; idx: scratch of N*C*OH*OW offsets, uint8 when kh*kw < 255, else
-// int32, for the two_pass variant (null for tiled_nhwc; the caller allocates it).
+// int32, for the two_pass variant (null for the tiled variants; the caller allocates it).
 // Launches on `stream` and returns cudaGetLastError() (0 on success); a bad dtype or
 // geometry, or a null idx where two_pass runs, returns cudaErrorInvalidValue without
-// launching.  info (4 ints) receives {variant (0 two_pass, 1 tiled_nhwc), gi positions a
-// tile (0 for two_pass), channel vectors a block (0 for two_pass), blocks of the last
-// launch}.
+// launching.  info (5 ints) receives {variant (0 two_pass, 1 tiled_nhwc, 2 tiled_nchw), gi
+// positions a tile (tiled_nchw's register form: a thread's strip; 0 for two_pass), channel
+// vectors (tiled_nhwc) or planes (tiled_nchw's tile form) a block (else 0), blocks of the
+// last launch, windows a thread in registers (tiled_nchw's register form, else 0)}.
 extern "C" int bigdl_maxpool_bwd(int dtype, const void* x, const void* y, const void* g,
                                  void* gi, void* idx, const long long* dims,
                                  const long long* strides, int channels_last, void* stream,
                                  int* info) {
   Geom q;
   TileGeom t;
+  PlaneGeom p;
   if (dtype < 0 || dtype > 2 || !parse(dims, strides, channels_last, &q))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -711,6 +1079,10 @@ extern "C" int bigdl_maxpool_bwd(int dtype, const void* x, const void* y, const 
     return (int)(dtype == 0   ? launch_tiled<float>(x, y, g, gi, t, s, info)
                  : dtype == 1 ? launch_tiled<__nv_bfloat16>(x, y, g, gi, t, s, info)
                               : launch_tiled<__half>(x, y, g, gi, t, s, info));
+  if (planes_apply(dtype, x, y, g, gi, q, &p))
+    return (int)(dtype == 0   ? launch_planes<float>(x, y, g, gi, p, s, info)
+                 : dtype == 1 ? launch_planes<__nv_bfloat16>(x, y, g, gi, p, s, info)
+                              : launch_planes<__half>(x, y, g, gi, p, s, info));
   return (int)(dtype == 0   ? launch_two_pass<float>(x, y, g, gi, idx, q, s, info)
                : dtype == 1 ? launch_two_pass<__nv_bfloat16>(x, y, g, gi, idx, q, s, info)
                             : launch_two_pass<__half>(x, y, g, gi, idx, q, s, info));

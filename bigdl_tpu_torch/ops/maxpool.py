@@ -22,15 +22,25 @@ gets its gradient back in the same layout.
 
 ``launches`` counts kernel launches (never plain-version calls), so a run
 can show that its path went through the kernel.  The C entry point picks
-one of two variants by layout, alignment and window size alone and says
-which: ``tiled_nhwc`` (one launch, no scratch, whole 16-byte channel
-vectors a thread: channels-innermost tensors whose channel rows split into
-16-byte vectors, 16-byte-aligned bases, 32-bit offsets, windows of fewer
-than 255 positions, as at ResNet's NHWC stem) and ``two_pass`` (everything
-else: NCHW, ragged C, unaligned views, 64-bit offsets).
+one of three variants by layout, alignment and window size alone and says
+which, every one a single launch but ``two_pass``:
+
+- ``tiled_nhwc``: whole 16-byte channel vectors a thread, for
+  channels-innermost tensors whose channel rows split into 16-byte
+  vectors, with 16-byte-aligned bases, as at ResNet's and Inception's NHWC
+  pools;
+- ``tiled_nchw``: one element along W a thread, for tensors whose rows run
+  along W (NCHW, as LeNet's, VGG's and the Inception check's pools); 2x2/2
+  windows that tile H and W exactly take its register form, every other
+  window its tile form;
+- ``two_pass`` (two launches and a scratch of one offset a window): what is
+  left, NHWC with a ragged channel row, mixed layouts, unaligned views.
+
+The tiled variants need 32-bit offsets and windows of fewer than 255
+positions; a 2^31-element view or a 16x16 window takes ``two_pass``.
 ``variant_launches`` counts each beside ``launches``, and ``last_variant``
-holds the last launch's ``(variant, gi positions a tile, channel vectors a
-block, blocks)``.
+holds the last launch's ``(variant, gi positions a tile, channel vectors
+or planes a block, blocks, windows a thread in registers)``.
 """
 
 from __future__ import annotations
@@ -45,12 +55,12 @@ from bigdl_tpu_torch.ops import _build
 
 #: kernel launches since the last reset (a plain int; reset by assigning 0)
 launches = 0
-VARIANTS = ("two_pass", "tiled_nhwc")
+VARIANTS = ("two_pass", "tiled_nhwc", "tiled_nchw")
 #: launches of each variant since the last reset (reset with
 #: :func:`reset_counts`)
 variant_launches = dict.fromkeys(VARIANTS, 0)
-#: (variant, gi positions a tile, channel vectors a block, blocks) of the
-#: last launch
+#: (variant, gi positions a tile, channel vectors or planes a block,
+#: blocks, windows a thread in registers) of the last launch
 last_variant = None
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]  # ((h_lo, h_hi), (w_lo, w_hi))
@@ -157,10 +167,10 @@ def launch(x, y, g, kernel, stride, pads: Pads):
     code = _DTYPE_CODE[x.dtype]
     variant = pick(code, *ptrs, dims, strides, channels_last)
     # two_pass's scratch: the first-match offset of every window
-    idx = None if variant == 1 else torch.empty(
+    idx = None if variant != 0 else torch.empty(
         y.numel(), device=dev,
         dtype=torch.uint8 if kh * kw < 255 else torch.int32)
-    info = (ctypes.c_int * 4)()
+    info = (ctypes.c_int * 5)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(code, *ptrs, None if idx is None else idx.data_ptr(), dims,

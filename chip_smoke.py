@@ -108,8 +108,8 @@ Phases, each printing its seconds:
    peak memory, the loss must fall) whose kernel launches must equal 35 x
    steps each; one step under torch.profiler (device idle share);
 8. pool-kernel phase: B1 against its plain version, bitwise, at 20
-   geometries (``POOL_CASES``: every branch of both variants), each taking
-   the variant ``TILED_CASES`` says, then at the ResNet-50 stem in bf16 and
+   geometries (``POOL_CASES``: every branch of the three variants), each
+   taking the variant ``TILED_CASES`` says, then at the ResNet-50 stem in bf16 and
    f32 its error on the timed inputs and its time beside the bound, the
    plain version and PyTorch's ``max_pool2d_with_indices_backward``;
 9. resnet-train timed phase: the recipe twice, 8 steps each, through its
@@ -145,7 +145,7 @@ Phases, each printing its seconds:
    faults must exceed;
 14. lenet pool phase: B1 at LeNet's two pools (batch 128: x (128, 6, 24,
    24) and (128, 12, 8, 8), 2x2/2, NCHW f32), bitwise against its plain
-   version in ``two_pass``, then on tanh outputs its device time beside
+   version in ``tiled_nchw``, then on tanh outputs its device time beside
    the bound, the plain version and ``max_pool2d_with_indices_backward``;
 15. lenet timed phase: the recipe for one epoch (samples/s, ms per step,
    peak memory, Top-1/Top-5 after each epoch over the 10,000 validation
@@ -185,19 +185,19 @@ Phases, each printing its seconds:
    ``{"master", "opt"}`` layout) resumed by a fresh optimizer ends
    bitwise where the uninterrupted run ends (LeNet, K=4);
 22. cifar: B1 at VGG's five pools (``VGG_POOL_CASES``, batch 128, NCHW
-   f32, ``two_pass``) bitwise against its plain version, then timed
+   f32, ``tiled_nchw``) bitwise against its plain version, then timed
    beside the bound and the library; VGG one epoch and ResNet-20
    ``CIFAR["steps"]`` steps through LocalOptimizer and VGG
    ``CIFAR["steps"]`` steps through the DistriOptimizer the recipe's
    ``--distributed`` builds (world 1, NCCL), each printing images/s, ms
    a step, peak memory, Top-1 and a profiled step; the loss must fall,
    Top-1 pass ``CIFAR["min_top1"]``, B1 launch 5 times a VGG step (all
-   ``two_pass``) and never for ResNet-20;
+   ``tiled_nchw``) and never for ResNet-20;
    then VGG's world-1 DistriOptimizer against LocalOptimizer over a K=4
    block under the deterministic algorithms: bitwise;
 23. inception: B1 at Inception v1's 10 distinct NHWC bf16 geometries at
    batch 256 (``tiled_nhwc``) and 3 NCHW f32 ones at batch 4
-   (``two_pass``: a 3x3/2 ceil-mode pool, 3x3/1 pad 1 pools), bitwise and
+   (``tiled_nchw``: a 3x3/2 ceil-mode pool, 3x3/1 pad 1 pools), bitwise and
    timed; two timed runs of the recipe (pre-augmented and through its
    pipeline, 4 timed steps each, two blocks an epoch: images/s, ms a
    step, peak memory, a profiled K=4 block's idle share and top
@@ -411,7 +411,7 @@ Phases, each printing its seconds:
    and step by step against the CPU, its masked twin's NaN gradients the
    planted fault; each volumetric and extras layer of ``TAIL_LAYERS``
    forward and backward against the CPU; LeNet-5 300 steps in f16, B1 2
-   f16 ``two_pass`` launches a step, the loss falling;
+   f16 ``tiled_nchw`` launches a step, the loss falling;
 36. f16: the f16 forms of B2f, B2b, B3 and B4 (early, after the seqfile
    phase): B2f and B2b at every ``CELL_SHAPES`` shape and forget_bias 0
    and 1 within ``CELL_TOL["float16"]`` of their plain versions, timed at
@@ -1562,7 +1562,8 @@ POOL_KERNEL = {"route": "cuda", "source": "bigdl_tpu_torch/csrc/maxpool_bwd.cu",
 # 3x3/1 pad 1, a ceil-mode odd size, ragged channel counts, and the kernel's
 # other branches: a 5x3 window with unequal pads and a 1x1/2 (the loops), a
 # 16x16 window (int32 offsets), and a view whose storage spans 2^31 elements
-# or more (64-bit indices), at the stem's window and at the loops'.  "ints":
+# or more (64-bit indices), at the stem's window in both formats and at the
+# loops'.  "ints":
 # integer values in [-4, 4], so windows hold exact ties; "relu": max(N(0,
 # 1), 0), half of it an exact 0; "wide": ints in a strided view of a 2^31 +
 # N*H*W*C element buffer.
@@ -1599,7 +1600,9 @@ POOL_CASES = [
      torch.bfloat16, "wide"),
     ("5x3s2p2x1_wide_nhwc_bf16", (2, 64, 28, 28), (5, 3), 2, (2, 1), False,
      "NHWC", torch.bfloat16, "wide"),
-    # LeNet-5's two pools at batch 128 (NCHW f32, two_pass)
+    ("3x3s2p1_wide_nchw_bf16", (2, 64, 28, 28), 3, 2, 1, False, "NCHW",
+     torch.bfloat16, "wide"),
+    # LeNet-5's two pools at batch 128 (NCHW f32, tiled_nchw)
     ("lenet_pool1_nchw_f32", (128, 6, 24, 24), 2, 2, 0, False, "NCHW",
      torch.float32, "ints"),
     ("lenet_pool2_nchw_f32", (128, 12, 8, 8), 2, 2, 0, False, "NCHW",
@@ -1610,7 +1613,8 @@ POOL_CASES = [
      torch.float32, "ints"),
     ("lenet_b64_pool2_nchw_f32", (64, 12, 8, 8), 2, 2, 0, False, "NCHW",
      torch.float32, "ints"),
-    # VGG for CIFAR-10's five 2x2/2 pools at batch 128 (NCHW f32, two_pass)
+    # VGG for CIFAR-10's five 2x2/2 pools at batch 128 (NCHW f32,
+    # tiled_nchw)
     ("vgg_pool1_nchw_f32", (128, 64, 32, 32), 2, 2, 0, False, "NCHW",
      torch.float32, "ints"),
     ("vgg_pool2_nchw_f32", (128, 128, 16, 16), 2, 2, 0, False, "NCHW",
@@ -1644,7 +1648,7 @@ POOL_CASES = [
      "NHWC", torch.bfloat16, "ints"),
     ("inception_5a_nhwc_bf16", (256, 832, 7, 7), 3, 1, 1, False, "NHWC",
      torch.bfloat16, "ints"),
-    # the card-vs-CPU check's Inception v1 (NCHW f32, batch 4, two_pass):
+    # the card-vs-CPU check's Inception v1 (NCHW f32, batch 4, tiled_nchw):
     # a 3x3/2 ceil-mode pool, and 3x3/1 pad 1 pools whose overlapping
     # windows add into one input element, at 28x28 and at the 7x7 edge
     ("inception_check_pool1_nchw_f32", (4, 64, 112, 112), 3, 2, 0, True,
@@ -1682,16 +1686,25 @@ VGG_POOL_CASES = tuple(f"vgg_pool{i}_nchw_f32" for i in range(1, 6))
 INCEPTION_POOL_CASES = tuple(c[0] for c in POOL_CASES
                              if c[0].startswith("inception_"))
 F16_POOL_CASES = tuple(c[0] for c in POOL_CASES if c[7] == torch.float16)
-# the cases that take B1's tiled_nhwc variant: NHWC, C a whole number of
-# 16-byte vectors, 16-byte-aligned bases, 32-bit offsets and windows of
-# fewer than 255 positions; the others (NCHW, C=3, the 16x16 windows, the
-# 2^31-element views) take two_pass
-TILED_CASES = {"stem_nhwc_f32", "stem_nhwc_bf16", "stem_nhwc_bf16_relu",
-               "3x3s1p1_nhwc_bf16", "3x3s2_ceil_odd_nhwc_f32",
-               "3x3s2p1_c160_nhwc_bf16", "5x3s2p2x1_nhwc_f32",
-               "1x1s2_nhwc_bf16", "stem_nhwc_f16", "stem_nhwc_f16_relu",
-               "3x3s1p1_nhwc_f16",
-               *(c for c in INCEPTION_POOL_CASES if c.endswith("_nhwc_bf16"))}
+# the variant of B1 each case takes, where it is not two_pass.  tiled_nhwc:
+# NHWC, C a whole number of 16-byte vectors, 16-byte-aligned bases;
+# tiled_nchw: rows along W (NCHW); both with 32-bit offsets and windows of
+# fewer than 255 positions.  The others (C=3, the 16x16 windows, the
+# 2^31-element views in either format) take two_pass.
+TILED_CASES = {
+    **dict.fromkeys(
+        ("stem_nhwc_f32", "stem_nhwc_bf16", "stem_nhwc_bf16_relu",
+         "3x3s1p1_nhwc_bf16", "3x3s2_ceil_odd_nhwc_f32",
+         "3x3s2p1_c160_nhwc_bf16", "5x3s2p2x1_nhwc_f32", "1x1s2_nhwc_bf16",
+         "stem_nhwc_f16", "stem_nhwc_f16_relu", "3x3s1p1_nhwc_f16",
+         *(c for c in INCEPTION_POOL_CASES if c.endswith("_nhwc_bf16"))),
+        "tiled_nhwc"),
+    **dict.fromkeys(
+        [c[0] for c in POOL_CASES
+         if c[6] == "NCHW" and c[8] != "wide"
+         and np.prod(np.broadcast_to(c[2], 2)) < 255],
+        "tiled_nchw"),
+}
 
 
 def pair(v):
@@ -1732,10 +1745,22 @@ def pool_operands(shape, k, s, p, ceil, fmt, dtype, kind, gen, device):
 
 
 def kernel_pass(name):
-    """B1's kernel (a variant's, or a pass of two_pass) that a profiled
-    kernel name belongs to."""
-    return next((p for p in ("maxpool_bwd_tiled", "first_match",
+    """B1's kernel (a variant's, a form of tiled_nchw's, or a pass of
+    two_pass) that a profiled kernel name belongs to."""
+    return next((p for p in ("maxpool_bwd_tiled", "maxpool_bwd_planes",
+                             "maxpool_bwd_pairs", "first_match",
                              "scatter_first") if p in name), name[:40])
+
+
+def variant_text(variant):
+    """``maxpool.last_variant`` in words."""
+    name, tile, per_block, blocks, registers = variant
+    if registers:
+        return (f"{name} (registers, {registers} windows a thread, blocks "
+                f"{blocks})")
+    what = {"tiled_nhwc": "vectors", "tiled_nchw": "planes"}.get(name)
+    return (f"{name} (tile of {tile}, {what} {per_block}, blocks {blocks})"
+            if what else f"{name} (blocks {blocks})")
 
 
 def pool_bound(shape, y_shape, dtype):
@@ -1755,7 +1780,7 @@ def pool_case_check(case, gen, device):
                                         kind, gen, device)
     got = maxpool.launch(x, y, g, k, s, pads)
     variant = maxpool.last_variant
-    want_variant = "tiled_nhwc" if name in TILED_CASES else "two_pass"
+    want_variant = TILED_CASES.get(name, "two_pass")
     if variant[0] != want_variant:
         raise AssertionError(f"B1 {name}: took {variant}, want "
                              f"{want_variant}")
@@ -1771,8 +1796,7 @@ def pool_case_check(case, gen, device):
     ties = (y == 0).float().mean().item() if kind == "relu" else None
     print(f"pool check {name}: x {tuple(x.shape)} strides {x.stride()} "
           f"{fmt} {dtype} kernel {k} stride {s} pads {pads}: "
-          f"{variant[0]} (tile of {variant[1]}, vectors {variant[2]}, "
-          f"blocks {variant[3]}) bitwise equal"
+          f"{variant_text(variant)} bitwise equal"
           + (f" (windows with an all-zero max: {ties:.3f})"
              if ties is not None else ""))
     del x, y, g, got, want
@@ -1823,7 +1847,7 @@ def pool_row(case, gen, device, card):
     # the timed inputs too: bitwise against the plain version
     got, want = fns[0](), fns[1]()
     variant = maxpool.last_variant
-    want_variant = "tiled_nhwc" if name in TILED_CASES else "two_pass"
+    want_variant = TILED_CASES.get(name, "two_pass")
     if variant[0] != want_variant:
         raise AssertionError(f"B1 {name}: took {variant}, want "
                              f"{want_variant}")
@@ -1854,8 +1878,7 @@ def pool_row(case, gen, device, card):
                            "(indices from max_pool2d)",
            "passes": passes, "variant": list(variant)}
     print(f"maxpool_bwd {name} x {tuple(x.shape)} {fmt} {dtype} kernel "
-          f"{kk} stride {ss} pads {pads}: {variant[0]} (tile of "
-          f"{variant[1]}, vectors {variant[2]}, blocks {variant[3]}): "
+          f"{kk} stride {ss} pads {pads}: {variant_text(variant)}: "
           f"max_abs_err={err} "
           f"against the plain version; device ms per call (torch.profiler) "
           f"kernel_ms={k_ms:.4f} library_ms={l_ms:.4f}; event-timed "
@@ -3048,7 +3071,7 @@ def wd_timed_phase(seed, device, card, report):
 
 # ---------------------------------------------------------------- LeNet-5
 # examples/lenet/train.py on one card: LeNet-5 (NCHW f32, its two 2x2/2
-# pools' backward on B1's two_pass variant) on synthetic MNIST at MNIST's
+# pools' backward on B1's tiled_nchw variant) on synthetic MNIST at MNIST's
 # own counts (60,000 training images, 10,000 validation images: a ragged
 # last validation batch of 16), batch 128, the recipe's SGD (lr 0.05,
 # momentum 0.9, no decay), K from Engine.steps_per_dispatch(), one epoch,
@@ -3087,6 +3110,15 @@ def lenet_pipeline(data, train, n=None, batch=None, distributed=False):
                                  drop_remainder=train))
 
 
+def lenet_b1_launches(what):
+    """B1's launches since the last reset, every one tiled_nchw (LeNet's
+    NCHW pools), else an AssertionError naming ``what``."""
+    if maxpool.variant_launches["tiled_nchw"] != maxpool.launches:
+        raise AssertionError(f"{what}: B1 {maxpool.variant_launches}, want "
+                             f"every launch tiled_nchw")
+    return maxpool.launches
+
+
 def lenet_sgd(cls=optim.SGD):
     return cls(learning_rate=LENET["lr"], learning_rate_decay=0.0,
                momentum=LENET["momentum"])
@@ -3094,7 +3126,7 @@ def lenet_sgd(cls=optim.SGD):
 
 def lenet_pool_phase(device, card, report):
     """B1 at LeNet's two pools: bitwise against its plain version on
-    integer inputs (ties) in two_pass, then on tanh outputs its device
+    integer inputs (ties) in tiled_nchw, then on tanh outputs its device
     time beside the bound, the plain version and the library's
     ``max_pool2d_with_indices_backward``."""
     gen = torch.Generator(device=device).manual_seed(3141)
@@ -3114,7 +3146,7 @@ def lenet_pool_phase(device, card, report):
                    g, x, [k, k], [s, s], [p, p], [1, 1], False, ind))
         got, want = fns[0](), fns[1]()
         variant = maxpool.last_variant
-        if variant[0] != "two_pass":
+        if variant[0] != "tiled_nchw":
             raise AssertionError(f"B1 {name}: took {variant}")
         err = (got.float() - want.float()).abs().max().item()
         if not torch.equal(got, want):
@@ -3194,7 +3226,7 @@ def lenet_timed_phase(seed, device, card, report):
     steps, validation and snapshots left out), peak memory, Top-1/Top-5
     after each epoch, each snapshot's commit ms and bytes; fails unless
     Top-1 after the last epoch exceeds LENET["min_top1"], the loss falls
-    and B1 launched 2 a step, all two_pass (validation runs the forward
+    and B1 launched 2 a step, all tiled_nchw (validation runs the forward
     only).  Then one profiled step."""
     t0 = time.monotonic()
     train, val = lenet_data()
@@ -3255,11 +3287,11 @@ def lenet_timed_phase(seed, device, card, report):
     launches = maxpool.launches
     per_epoch = -(-LENET["train"] // LENET["batch"])
     if steps != LENET["epochs"] * per_epoch or launches != 2 * steps \
-            or maxpool.variant_launches["two_pass"] != launches:
+            or maxpool.variant_launches["tiled_nchw"] != launches:
         raise AssertionError(f"lenet: {steps} steps, B1 launched {launches} "
                              f"times ({maxpool.variant_launches}); want "
                              f"{LENET['epochs'] * per_epoch} steps, 2 "
-                             f"two_pass launches a step")
+                             f"tiled_nchw launches a step")
     w = LENET["warmup_steps"]
     step_s = (clock[per_epoch - 1] - clock[w]) / (per_epoch - 1 - w)
     first, last = np.mean(losses[:w]), np.mean(losses[-w:])
@@ -3372,7 +3404,7 @@ def lenet_check_phase(seed, device, card, report):
     card_model = copy.deepcopy(init)
     maxpool.reset_counts()
     card_losses, card_steps = card_run(card_model)
-    if maxpool.launches != 2 * K:
+    if lenet_b1_launches("lenet check") != 2 * K:
         raise AssertionError(f"B1 launched {maxpool.launches} times in {K} "
                              f"steps (want 2 a step)")
     sound, worst = wd_step_reading(card_losses, card_steps, init, batches,
@@ -3894,7 +3926,8 @@ def distri_world2_worker(rank, world, store_dir, seed, device_type):
             with planted_wire_fault(name if name in WIRE_FAULTS else None):
                 opt.optimize()
             params = dict(model.named_parameters())
-            r = {"losses": opt.losses, "launches": maxpool.launches,
+            r = {"losses": opt.losses,
+                 "launches": lenet_b1_launches(f"world 2, {name}"),
                  "init": init,
                  "params": {k: v.detach().numpy().copy()
                             for k, v in params.items()},
@@ -4163,7 +4196,7 @@ def cifar_run(name, seed, device, card, distributed=False):
     CIFAR["warmup_steps"] steps, up to the first validation), peak
     memory, a profiled block and B1's launches; fails unless the loss
     falls, the last Top-1 passes CIFAR["min_top1"] and B1
-    launched 5 times a VGG step (two_pass) and never for ResNet-20."""
+    launched 5 times a VGG step (tiled_nchw) and never for ResNet-20."""
     key = name + ("_distri" if distributed else "")
     B, w = CIFAR["batch"], CIFAR["warmup_steps"]
     per_epoch = -(-CIFAR["train"] // B)
@@ -4206,11 +4239,11 @@ def cifar_run(name, seed, device, card, distributed=False):
     launches = maxpool.launches
     want = 5 * steps if name == "vgg" else 0
     if opt.state["neval"] != steps or launches != want \
-            or maxpool.variant_launches["two_pass"] != want:
+            or maxpool.variant_launches["tiled_nchw"] != want:
         raise AssertionError(f"{key}: {opt.state['neval']} steps, B1 "
                              f"launched {launches} times "
                              f"({maxpool.variant_launches}); want {steps} "
-                             f"steps and {want} two_pass launches")
+                             f"steps and {want} tiled_nchw launches")
     if distributed and not (opt._world == 1 and opt._use_grad_sync and
                             opt.mesh.backend == ("nccl" if device.type ==
                                                  "cuda" else "gloo")):
@@ -4221,7 +4254,7 @@ def cifar_run(name, seed, device, card, distributed=False):
     what = {"vgg": "VGG for CIFAR-10", "resnet20": "ResNet-20"}[name]
     route = "DistriOptimizer world 1 " + opt.mesh.backend if distributed \
         else "LocalOptimizer"
-    kernel = (f"B1 launches {launches}, 5 a step, all two_pass" if want
+    kernel = (f"B1 launches {launches}, 5 a step, all tiled_nchw" if want
               else "no max pool, no kernel: B1 launches 0")
     print(f"train {what} {route} NCHW f32 batch {B}: {steps} steps, "
           f"{wall:.2f} s with validation; steps {w}..{end}: ms_per_step="
@@ -4590,7 +4623,7 @@ def planted_inception_fault(kind):
 
 def inception_check_phase(seed, device, card, report):
     """Inception v1 in NCHW f32 at batch INCEPTION["check_batch"] through
-    one K=4 LocalOptimizer block on the card (B1 two_pass, 13 launches a
+    one K=4 LocalOptimizer block on the card (B1 tiled_nchw, 13 launches a
     step) against the CPU, step by step (:func:`wd_step_reading` with
     :func:`norm_share`), with
     the recipe's SGD; the two planted faults of
@@ -4621,10 +4654,10 @@ def inception_check_phase(seed, device, card, report):
     card_losses, card_steps = card_run()
     launches = maxpool.launches
     if launches != 13 * K or \
-            maxpool.variant_launches["two_pass"] != 13 * K:
+            maxpool.variant_launches["tiled_nchw"] != 13 * K:
         raise AssertionError(f"B1 launched {launches} times "
                              f"({maxpool.variant_launches}) in {K} NCHW "
-                             f"steps (want 13 two_pass a step)")
+                             f"steps (want 13 tiled_nchw a step)")
     sound, worst = wd_step_reading(card_losses, card_steps, init, batches,
                                    inception_cpu_step, norm_share)
     faults, fault_worst = {}, {}
@@ -6280,7 +6313,7 @@ def lenet_fault_run(init, data, device, policy, tmp):
             opt.state["loss"])
         maxpool.reset_counts()
         opt.optimize()
-        launches = maxpool.launches
+        launches = lenet_b1_launches(f"lenet under faults ({policy})")
     finally:
         flight.reset()
         config.reset_config()
@@ -6441,7 +6474,8 @@ def elastic_worker(rank, world, store_dir, seed, device_type):
             m = opt._membership
             snap = opt.metrics.registry.snapshot()
             results[name] = {
-                "losses": opt.losses, "launches": maxpool.launches,
+                "losses": opt.losses,
+                "launches": lenet_b1_launches(f"elastic {name}"),
                 "worlds": [e.world for e in m.history()] if m else None,
                 "neval": int(opt.state["neval"]),
                 "steps_lost": snap["counters"].get(
@@ -7389,7 +7423,7 @@ def predict_estimators(seed, device, card, report):
     fitted = clf.fit(x, y)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = maxpool.launches
+    launches = lenet_b1_launches("NNClassifier(lenet5)")
     steps = PREDICT["fit_epochs"] * (len(x) // LENET["batch"])
     after = nll_loss(model, x, y)
     classes = fitted.transform(x)
@@ -7623,7 +7657,7 @@ def keras_lenet_phase(seed, device, card, report, tmp):
               validation_data=(vx, vy))
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = maxpool.launches
+    launches = lenet_b1_launches("keras lenet")
     steps = KERAS["epochs"] * (len(x) // KERAS["batch"])
     scores = model.evaluate(vx, vy, batch_size=KERAS["batch"])
     probs = model.predict(vx, batch_size=KERAS["batch"])
@@ -10356,7 +10390,7 @@ def layer_checks(seed, device, card, report):
 def lenet_f16_run(seed, device, card, report):
     """LeNet-5 trained in f16 (``set_compute_dtype(torch.float16)``) on the
     card: TAIL["lenet_f16_steps"] steps of the recipe's pipeline; its
-    pools on B1 in f16, two_pass, 2 launches a step.  Returns B1's
+    pools on B1 in f16, tiled_nchw, 2 launches a step.  Returns B1's
     launches."""
     train, _ = lenet_data()
     steps, B = TAIL["lenet_f16_steps"], LENET["batch"]
@@ -10394,7 +10428,7 @@ def lenet_f16_run(seed, device, card, report):
         "variant_launches": variants}
     if not (np.isfinite(losses).all() and last < 0.5 * first):
         raise AssertionError(f"lenet f16 did not learn: {first} -> {last}")
-    if launches != 2 * steps or variants["two_pass"] != 2 * steps \
+    if launches != 2 * steps or variants["tiled_nchw"] != 2 * steps \
             or set(dtypes) != {torch.float16}:
         raise AssertionError(f"lenet f16: B1 {launches} launches "
                              f"({variants}, {set(dtypes)}) in {steps} steps")

@@ -438,6 +438,13 @@ def _pair(v):
     return tuple(v) if isinstance(v, tuple) else (v, v)
 
 
+def _nchw_variant(case):
+    """The variant B1 takes for ``case`` with g contiguous: tiled_nchw for
+    NCHW with a window of fewer than 255 positions, else two_pass."""
+    kh, kw = _pair(case[1])
+    return "tiled_nchw" if case[5] == "NCHW" and kh * kw < 255 else "two_pass"
+
+
 def _pool_id(c):
     part = lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v)
     return "_".join(map(part, (*c[0], c[1], c[2], c[3], c[4], c[5],
@@ -480,8 +487,10 @@ def test_maxpool_bwd_kernel_matches_plain(cuda, case, relu):
     want = maxpool.maxpool_bwd_reference(x, y, g, k, s, pads)
     torch.cuda.synchronize()
     assert maxpool.launches == before + 1
-    # g is contiguous NCHW here, so no case has every tensor channels-last
-    assert maxpool.last_variant[0] == "two_pass"
+    # g is contiguous NCHW here, so no case has every tensor channels-last:
+    # NCHW takes tiled_nchw but for its 256-position window
+    assert maxpool.last_variant[0] == _nchw_variant(case), (
+        f"took {maxpool.last_variant}, want {_nchw_variant(case)}")
     assert got.stride() == x.stride()
     assert torch.equal(got, want)
 
@@ -519,6 +528,59 @@ def test_maxpool_bwd_tiled_variant_matches_plain(cuda, case, dtype, relu):
     assert torch.equal(got, want)
 
 
+# NCHW cases of tiled_nchw: LeNet's pool 1 and VGG's pools 1 and 5 at small
+# batches (2x2/2 windows that tile H and W: the register form, 4 and 1
+# windows a thread), the Inception check's 3x3/1 pad 1, 2x2/2 on odd H and
+# W (the last row and column uncovered) and a window smaller than its
+# stride (2x2/3) (the tile form)
+NCHW_POOLS = [((2, 6, 24, 24), 2, 2, 0, False, "NCHW"),
+              ((4, 64, 32, 32), 2, 2, 0, False, "NCHW"),
+              ((4, 512, 2, 2), 2, 2, 0, False, "NCHW"),
+              ((2, 8, 28, 28), 3, 1, 1, False, "NCHW"),
+              ((2, 8, 13, 11), 2, 2, 0, False, "NCHW"),
+              ((2, 8, 12, 12), 2, 3, 0, False, "NCHW")]
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["ints", "relu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("case", NCHW_POOLS, ids=lambda c: _pool_id(
+    c + (torch.float32,))[:-8])
+def test_maxpool_bwd_nchw_variant_matches_plain(cuda, case, dtype, relu):
+    """The tiled_nchw variant, bitwise against the plain version, in the
+    form its geometry takes."""
+    x, y, g, k, s, pads = _pool_operands(case + (dtype,), relu, cuda)
+    before = maxpool.variant_launches["tiled_nchw"]
+    got = maxpool.launch(x, y, g, k, s, pads)
+    want = maxpool.maxpool_bwd_reference(x, y, g, k, s, pads)
+    torch.cuda.synchronize()
+    assert maxpool.last_variant[0] == "tiled_nchw"
+    assert maxpool.variant_launches["tiled_nchw"] == before + 1
+    exact = k == s == (2, 2) and x.shape[2] % 2 == x.shape[3] % 2 == 0
+    assert (maxpool.last_variant[4] > 0) == exact
+    assert got.stride() == x.stride()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_maxpool_bwd_nchw_unaligned_view_takes_tile_form(cuda, dtype):
+    """A 2x2/2 pool on a view one element into its rows (W stride 1, no
+    aligned vectors) takes tiled_nchw's tile form, bitwise."""
+    rng = np.random.default_rng(5)
+    big = torch.from_numpy(rng.integers(-4, 5, (2, 6, 24, 27))).to(cuda, dtype)
+    x = big[:, :, :, 1:25]
+    pads = ((0, 0), (0, 0))
+    y = maxpool.maxpool2d(x, (2, 2), (2, 2), pads)
+    g = torch.from_numpy(rng.normal(0, 1, tuple(y.shape))).to(cuda, dtype)
+    got = maxpool.launch(x, y, g, (2, 2), (2, 2), pads)
+    want = maxpool.maxpool_bwd_reference(x, y, g, (2, 2), (2, 2), pads)
+    torch.cuda.synchronize()
+    assert maxpool.last_variant[0] == "tiled_nchw"
+    assert maxpool.last_variant[4] == 0
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("case", [
     ((4, 64, 32, 32), 3, 2, 1, False, "NCHW", torch.float32),
     ((2, 3, 33, 33), 3, 2, 1, False, "NHWC", torch.float32),
@@ -526,30 +588,34 @@ def test_maxpool_bwd_tiled_variant_matches_plain(cuda, case, dtype, relu):
     ((2, 8, 64, 64), 16, 8, 0, False, "NHWC", torch.float32)],
     ids=_pool_id)
 def test_maxpool_bwd_generic_cases_take_two_pass(cuda, case):
-    """NCHW, a ragged channel row (C=3 f32, C=20 bf16: no whole 16-byte
-    vectors) and a 256-position window go to two_pass even with g
-    channels-last, bitwise all the same."""
+    """A ragged channel row (C=3 f32, C=20 bf16: no whole 16-byte vectors)
+    and a 256-position window go to two_pass even with g channels-last;
+    NCHW goes to tiled_nchw; bitwise all the same."""
     x, y, g, k, s, pads = _pool_operands(case, False, cuda,
                                          g_channels_last=case[5] == "NHWC")
     got = maxpool.launch(x, y, g, k, s, pads)
     want = maxpool.maxpool_bwd_reference(x, y, g, k, s, pads)
     torch.cuda.synchronize()
-    assert maxpool.last_variant[0] == "two_pass"
+    assert maxpool.last_variant[0] == _nchw_variant(case), (
+        f"took {maxpool.last_variant}, want {_nchw_variant(case)}")
     assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("case", [
     ((2, 16, 28, 28), 3, 2, 1, False, "NHWC", torch.bfloat16),
-    ((2, 16, 28, 28), (5, 3), 2, (2, 1), False, "NHWC", torch.bfloat16)],
+    ((2, 16, 28, 28), (5, 3), 2, (2, 1), False, "NHWC", torch.bfloat16),
+    ((2, 16, 28, 28), 3, 2, 1, False, "NCHW", torch.bfloat16)],
     ids=_pool_id)
 def test_maxpool_bwd_kernel_64bit_indices(cuda, case):
-    """A view whose storage spans 2^31 elements or more takes the kernel's
-    64-bit index arithmetic, at the stem's window and at the loops'."""
+    """A view whose storage spans 2^31 elements or more takes two_pass's
+    64-bit index arithmetic, at the stem's window in both formats (neither
+    tiled variant takes offsets past 32 bits) and at the loops'."""
     x, y, g, k, s, pads = _pool_operands(case, False, cuda, wide=True)
     got = maxpool.launch(x, y, g, k, s, pads)
     want = maxpool.maxpool_bwd_reference(x, y, g, k, s, pads)
     torch.cuda.synchronize()
     assert x.stride()[0] >= 2 ** 31
+    assert maxpool.last_variant[0] == "two_pass", maxpool.last_variant
     assert torch.equal(got, want)
 
 
@@ -844,11 +910,16 @@ LENET_POOLS = [((128, 6, 24, 24), 2, 2, 0, False, "NCHW", torch.float32),
 @pytest.mark.parametrize("relu", [False, True], ids=["ints", "relu"])
 @pytest.mark.parametrize("case", LENET_POOLS, ids=_pool_id)
 def test_maxpool_bwd_lenet_geometries_take_two_pass(cuda, case, relu):
+    """LeNet's pools, once two_pass (the name is the test's first
+    form's), take tiled_nchw's register form."""
     x, y, g, k, s, pads = _pool_operands(case, relu, cuda)
     got = maxpool.launch(x, y, g, k, s, pads)
     want = maxpool.maxpool_bwd_reference(x, y, g, k, s, pads)
     torch.cuda.synchronize()
-    assert maxpool.last_variant[0] == "two_pass"
+    assert maxpool.last_variant[0] == "tiled_nchw", (
+        f"took {maxpool.last_variant}, want tiled_nchw's register form")
+    assert maxpool.last_variant[4] > 0, (
+        f"took {maxpool.last_variant}, want tiled_nchw's register form")
     assert torch.equal(got, want)
 
 
@@ -890,7 +961,7 @@ def test_lenet_block_on_card_matches_cpu(cuda, tmp_path):
     lc, mc, nc, sc = run("cpu", tmp_path / "cpu")
     lg, mg, ng, sg = run(cuda, tmp_path / "card")
     assert (nc, ng) == (0, 8)
-    assert maxpool.variant_launches["two_pass"] == 8
+    assert maxpool.variant_launches["tiled_nchw"] == 8
     np.testing.assert_allclose(lg, lc, rtol=1e-4)
     for (k, a), (_, b) in zip(mg.state_dict().items(),
                               mc.state_dict().items()):
@@ -993,16 +1064,18 @@ def test_distri_world1_on_card_equals_local_optimizer(cuda):
 
 
 # B1 at the CIFAR and Inception paths' geometries, small batches: VGG's
-# 2x2/2 (NCHW f32), Inception's 3x3/2 ceil-mode stem pool and a 3x3/1 pad 1
-# tower pool (NHWC bf16 with g channels-last, as the training path hands
-# them over: tiled_nhwc), and the tower pool in the check's NCHW f32
+# 2x2/2 (NCHW f32: tiled_nchw), Inception's 3x3/2 ceil-mode stem pool and a
+# 3x3/1 pad 1 tower pool (NHWC bf16 with g channels-last, as the training
+# path hands them over: tiled_nhwc), and the tower pool in the check's NCHW
+# f32 (tiled_nchw)
 NEW_PATH_POOLS = [
-    (((8, 64, 32, 32), 2, 2, 0, False, "NCHW", torch.float32), "two_pass"),
+    (((8, 64, 32, 32), 2, 2, 0, False, "NCHW", torch.float32), "tiled_nchw"),
     (((4, 64, 112, 112), 3, 2, 0, True, "NHWC", torch.bfloat16),
      "tiled_nhwc"),
     (((4, 480, 14, 14), 3, 1, 1, False, "NHWC", torch.bfloat16),
      "tiled_nhwc"),
-    (((2, 192, 28, 28), 3, 1, 1, False, "NCHW", torch.float32), "two_pass")]
+    (((2, 192, 28, 28), 3, 1, 1, False, "NCHW", torch.float32),
+     "tiled_nchw")]
 
 
 @pytest.mark.parametrize("relu", [False, True], ids=["ints", "relu"])
@@ -1056,7 +1129,7 @@ def _no_dropout(model):
 
 def test_vgg_step_on_card_matches_cpu(cuda):
     """One step of VGG for CIFAR-10 (the recipe's SGD, batch 8, dropout
-    off) on the card, B1 five launches two_pass, against the CPU: the loss
+    off) on the card, B1 five launches tiled_nchw, against the CPU: the loss
     within ``rtol=1e-4``, the weights' step within 0.15 of its change (its
     training-mode gradients differ by percents between two sound devices:
     tests/test_torch_cifar.py)."""
@@ -1078,14 +1151,14 @@ def test_vgg_step_on_card_matches_cpu(cuda):
     cpu, card = copy.deepcopy(init), copy.deepcopy(init)
     lc, _ = _one_step(cpu, samples, 8, "cpu", sgd())
     lg, variants = _one_step(card, samples, 8, cuda, sgd())
-    assert variants == {"two_pass": 5, "tiled_nhwc": 0}
+    assert variants == {"two_pass": 0, "tiled_nhwc": 0, "tiled_nchw": 5}
     np.testing.assert_allclose(lg, lc, rtol=1e-4)
     assert _update_share(card, cpu, w0) < 0.15
 
 
 def test_inception_step_on_card_matches_cpu(cuda):
     """Inception v1 in NCHW f32 at batch 2, one step of the recipe's SGD
-    (dropout off) on the card (B1 13 launches, two_pass) against the CPU:
+    (dropout off) on the card (B1 13 launches, tiled_nchw) against the CPU:
     the loss within ``rtol=1e-4``, the weights' step within 0.05 of its
     change; then one NHWC bf16 step: 13 tiled_nhwc launches, a finite
     loss."""
@@ -1106,13 +1179,13 @@ def test_inception_step_on_card_matches_cpu(cuda):
     cpu, card = copy.deepcopy(init), copy.deepcopy(init)
     lc, _ = _one_step(cpu, chw, 2, "cpu", sgd())
     lg, variants = _one_step(card, chw, 2, cuda, sgd())
-    assert variants == {"two_pass": 13, "tiled_nhwc": 0}
+    assert variants == {"two_pass": 0, "tiled_nhwc": 0, "tiled_nchw": 13}
     np.testing.assert_allclose(lg, lc, rtol=1e-4)
     assert _update_share(card, cpu, w0) < 0.05
     hwc = [Sample(x[i], np.int32(7 * i)) for i in range(2)]
     lb, variants = _one_step(inception_v1(1000, format="NHWC").initialize(0),
                              hwc, 2, cuda, sgd(), torch.bfloat16)
-    assert variants == {"two_pass": 0, "tiled_nhwc": 13}
+    assert variants == {"two_pass": 0, "tiled_nhwc": 13, "tiled_nchw": 0}
     assert np.isfinite(lb)
 
 
@@ -1636,13 +1709,14 @@ def test_gpipe_on_card_matches_apply_reference(cuda):
     ((2, 8, 64, 64), 16, 8, 0, False, "NHWC", torch.float16)],
     ids=_pool_id)
 def test_maxpool_bwd_f16_two_pass_matches_plain(cuda, case):
-    """f16 through two_pass: LeNet-5's two pools at batch 128, a ragged
-    channel row, a 256-position window; bitwise."""
+    """f16 at LeNet-5's two pools at batch 128 (tiled_nchw), and through
+    two_pass at a ragged channel row and a 256-position window; bitwise."""
     x, y, g, k, s, pads = _pool_operands(case, False, cuda)
     got = maxpool.launch(x, y, g, k, s, pads)
     want = maxpool.maxpool_bwd_reference(x, y, g, k, s, pads)
     torch.cuda.synchronize()
-    assert maxpool.last_variant[0] == "two_pass"
+    assert maxpool.last_variant[0] == _nchw_variant(case), (
+        f"took {maxpool.last_variant}, want {_nchw_variant(case)}")
     assert got.dtype == torch.float16 and torch.equal(got, want)
 
 

@@ -30,9 +30,10 @@ from bigdl_tpu.ops import pallas_pool  # noqa: E402
 from bigdl_tpu_torch import nn  # noqa: E402
 from bigdl_tpu_torch.ops import maxpool  # noqa: E402
 
-# the reference test's four CASES (tests/test_round4_perf.py) and the
-# ResNet-50 stem (3x3/2 pad 1) at N=2, H=16; each with the SpatialMaxPooling
-# (pad, ceil_mode) that gives its padding
+# the reference test's four CASES (tests/test_round4_perf.py), the
+# ResNet-50 stem (3x3/2 pad 1) at N=2, H=16, LeNet's 2x2/2 at N=2 and the
+# Inception check's 3x3/1 pad 1 at 28x28 (B1's NCHW geometries); each with
+# the SpatialMaxPooling (pad, ceil_mode) that gives its padding
 CASES = {
     "3x3s2_lo0_hi1": ((2, 16, 16, 64), (3, 3), (2, 2), ((0, 1), (0, 1)),
                       (0, True)),
@@ -42,6 +43,19 @@ CASES = {
     "3x3s2_p1_c160": ((1, 14, 14, 160), (3, 3), (2, 2), ((1, 1), (1, 1)),
                       (1, False)),
     "stem": ((2, 16, 16, 64), (3, 3), (2, 2), ((1, 1), (1, 1)), (1, False)),
+    "lenet_2x2s2": ((2, 24, 24, 6), (2, 2), (2, 2), ((0, 0), (0, 0)),
+                    (0, False)),
+    "inception_3x3s1_p1": ((1, 28, 28, 8), (3, 3), (1, 1), ((1, 1), (1, 1)),
+                           (1, False)),
+}
+# geometries the reference's Pallas kernel does not take (its supported():
+# H and W multiples of the stride, windows at least the stride), held
+# against select-and-scatter: 2x2/2 on odd H and W (the last row and column
+# belong to no window) and a window smaller than its stride (2x2/3)
+SCATTER_CASES = {
+    "2x2s2_odd": ((1, 13, 11, 8), (2, 2), (2, 2), ((0, 0), (0, 0)),
+                  (0, False)),
+    "2x2s3": ((1, 12, 12, 8), (2, 2), (3, 3), ((0, 0), (0, 0)), (0, False)),
 }
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -150,6 +164,7 @@ def _overlapping(kernel, stride):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_b1_matches_pallas_kernel(interpret, case, dtype, fmt):
     shape, kernel, stride, pads, _ = CASES[case]
+    assert pallas_pool.supported(shape, kernel, stride, pads)  # no fallback
     x = _inputs(shape)
     y, g, want = _reference(x, kernel, stride, pads, DTYPES[dtype][0], True)
     got = _port_plain(x, y, g, kernel, stride, pads, DTYPES[dtype][1], fmt)
@@ -186,6 +201,35 @@ def test_plain_b1_matches_select_and_scatter(case, dtype):
     n_cover = -(-kernel[0] // stride[0]) * -(-kernel[1] // stride[1])
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=n_cover * 2.0 ** -7 * np.abs(g).max())
+
+
+@pytest.mark.parametrize("fmt", ["NHWC", "NCHW"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(SCATTER_CASES))
+def test_plain_b1_edges_match_select_and_scatter(case, dtype, fmt):
+    """No window overlaps another, so each position takes at most one
+    gradient and the two agree bitwise; uncovered positions get 0."""
+    shape, kernel, stride, pads, _ = SCATTER_CASES[case]
+    x = _inputs(shape, seed=5)
+    assert not pallas_pool.supported(shape, kernel, stride, pads)
+    y, g, want = _reference(x, kernel, stride, pads, DTYPES[dtype][0], False)
+    got = _port_plain(x, y, g, kernel, stride, pads, DTYPES[dtype][1], fmt)
+    np.testing.assert_array_equal(got, want)
+    h_used = (y.shape[1] - 1) * stride[0] + kernel[0]
+    assert h_used < shape[1] and not got[:, h_used:].any()
+
+
+@pytest.mark.parametrize("fmt", ["NHWC", "NCHW"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(SCATTER_CASES))
+def test_layer_gradient_edges_match_select_and_scatter(case, dtype, fmt):
+    shape, kernel, stride, pads, layer_args = SCATTER_CASES[case]
+    x = _inputs(shape, seed=6)
+    y, g, want = _reference(x, kernel, stride, pads, DTYPES[dtype][0], False)
+    y_port, got = _layer_grad(x, g, kernel, stride, layer_args,
+                              DTYPES[dtype][1], fmt)
+    np.testing.assert_array_equal(y_port, y)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
